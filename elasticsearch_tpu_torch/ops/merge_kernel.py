@@ -1,0 +1,314 @@
+"""The Hopper merge kernel: counterpart of the reference's
+``ops/pallas_merge.py::fused_merge_topk``.
+
+``fused_merge_topk`` computes ``sorted_merge_topk(variant="compressed")``
+on the compressed resident streams. On a CUDA tensor it launches the five
+kernels of ``csrc/merge_topk.cu`` (slot decode, row pack, row sort, run
+sum, select + rescore) on the current stream, or raises. On a CPU tensor
+it runs ``fused_merge_topk_plain``, the plain torch pipeline of
+``ops/sparse.py``, which is also what the tests and ``chip_smoke.py`` hold
+the kernel against.
+
+``LAUNCHES`` counts the launches of each kernel (a plain integer per
+kernel name, bumped where the kernel is launched and nowhere else).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from elasticsearch_tpu_torch.ops import sparse
+
+#: kernel name → launches since the last reset (see reset_launches)
+LAUNCHES: Dict[str, int] = {"slot_decode": 0, "row_pack": 0, "row_sort": 0,
+                            "run_sum": 0, "select_rescore": 0}
+_LAUNCHES_LOCK = threading.Lock()  # batcher threads of several packs launch
+
+#: widest slot window the slot-decode kernel keeps in shared memory
+MAX_LEN_LIMIT = 4096
+#: widest candidate sort the select kernel keeps in shared memory
+SORT_LIMIT = 16384
+#: largest kernel k: a row's 3k candidates sort in the next power of two
+K_LIMIT = SORT_LIMIT // 4
+#: slots per row the per-row kernels hold in shared memory
+T_LIMIT = 1024
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_STREAM_ARGS = [_P, _P, _P, _P, _L, _P, _L, _P, _L]
+_SLOT_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I]
+_SIGNATURES = {
+    "es_slot_decode": _STREAM_ARGS + _SLOT_ARGS + [_P, _L, _P, _I, _P, _P,
+                                                   _P, _P],
+    "es_row_pack": _STREAM_ARGS + _SLOT_ARGS + [_I, _I, _I, _P, _P, _P, _P,
+                                                _P, _P, _P, _P, _P, _P],
+    "es_row_sort": [_P, _P, _P, _P, _I, _I, _P],
+    "es_run_sum": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+                   _P],
+    "es_select_rescore": _STREAM_ARGS + _SLOT_ARGS + [_P, _P, _P, _P, _P,
+                                                      _I, _I, _I, _P, _P,
+                                                      _P],
+}
+
+
+def reset_launches() -> None:
+    with _LAUNCHES_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def _lib() -> ctypes.CDLL:
+    from elasticsearch_tpu_torch.ops import _build
+    lib = _build.load("merge_topk")
+    if not getattr(lib, "_es_typed", False):
+        for fn, args in _SIGNATURES.items():
+            getattr(lib, fn).argtypes = args
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.es_error_string.argtypes = [ctypes.c_int]
+        lib.es_error_string.restype = ctypes.c_char_p
+        lib._es_typed = True
+    return lib
+
+
+def _run(lib, kernel: str, events: Optional[list], fn, *args) -> None:
+    """Launch one kernel through its C entry, raise on a non-zero
+    cudaError_t, count the launch. With `events`, bracket the launch
+    with CUDA events on the current stream: (kernel, start, end)."""
+    if events is not None:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+    err = fn(*args)
+    if events is not None:
+        end.record()
+        events.append((kernel, start, end))
+    if err != 0:
+        msg = lib.es_error_string(err).decode(errors="replace")
+        raise RuntimeError(f"merge kernel {kernel} launch failed: "
+                           f"cudaError {err} ({msg})")
+    with _LAUNCHES_LOCK:
+        LAUNCHES[kernel] += 1
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _need(t: Optional[torch.Tensor], name: str, dtype: torch.dtype,
+          device: torch.device, shape=None) -> None:
+    if t is None:
+        raise ValueError(f"merge kernel needs {name}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+
+
+def fused_merge_topk_plain(flat_docs, flat_impact, starts, lengths, weights,
+                           min_count, **kw) -> Tuple[torch.Tensor, ...]:
+    """The plain torch version of the kernel (ops/sparse.merge_topk_core
+    with variant="compressed"), on whatever device the operands lie."""
+    kw.pop("stats", None)
+    kw.pop("events", None)
+    return sparse.merge_topk_core(flat_docs, flat_impact, starts, lengths,
+                                  weights, min_count, variant="compressed",
+                                  **kw)
+
+
+def fused_merge_topk(
+    flat_docs: torch.Tensor,
+    flat_impact: torch.Tensor,
+    starts: torch.Tensor,
+    lengths: torch.Tensor,
+    weights: torch.Tensor,
+    min_count: torch.Tensor,
+    *,
+    max_len: int,
+    d_pad: int,
+    k: int,
+    t_window: int,
+    with_counts: bool,
+    with_totals: bool = False,
+    flat_rank: Optional[torch.Tensor] = None,
+    res_starts: Optional[torch.Tensor] = None,
+    res_lens: Optional[torch.Tensor] = None,
+    res_vals: Optional[torch.Tensor] = None,
+    block_max: Optional[torch.Tensor] = None,
+    blk_starts: Optional[torch.Tensor] = None,
+    slot_terms: Optional[torch.Tensor] = None,
+    doc_bases: Optional[torch.Tensor] = None,
+    dbs_starts: Optional[torch.Tensor] = None,
+    dlo_starts: Optional[torch.Tensor] = None,
+    stats: Optional[Dict[str, int]] = None,
+    events: Optional[list] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """sorted_merge_topk(variant="compressed") → (scores f32[R, k'],
+    docs int32[R, k'][, totals int32[R]]). CPU operands run the plain
+    version; CUDA operands launch the kernels or raise. `stats`, when
+    given, receives the launch's lane, key and candidate counts (a host
+    sync) and, under "sort_input", copies of the row sort's unsorted
+    keys; `events` receives (kernel, start, end) CUDA events."""
+    kw = dict(max_len=max_len, d_pad=d_pad, k=k, t_window=t_window,
+              with_counts=with_counts, with_totals=with_totals,
+              flat_rank=flat_rank, res_starts=res_starts, res_lens=res_lens,
+              res_vals=res_vals, block_max=block_max, blk_starts=blk_starts,
+              slot_terms=slot_terms, doc_bases=doc_bases,
+              dbs_starts=dbs_starts, dlo_starts=dlo_starts)
+    if flat_docs.device.type == "cpu":
+        return fused_merge_topk_plain(flat_docs, flat_impact, starts,
+                                      lengths, weights, min_count, **kw)
+    if flat_docs.device.type != "cuda":
+        raise ValueError(f"merge kernel runs on cuda or cpu tensors, got "
+                         f"{flat_docs.device}")
+    return _launch(flat_docs, flat_impact, starts, lengths, weights,
+                   min_count, stats=stats, events=events, **kw)
+
+
+def _launch(flat_docs, flat_impact, starts, lengths, weights, min_count, *,
+            max_len, d_pad, k, t_window, with_counts, with_totals,
+            flat_rank, res_starts, res_lens, res_vals, block_max,
+            blk_starts, slot_terms, doc_bases, dbs_starts, dlo_starts,
+            stats, events) -> Tuple[torch.Tensor, ...]:
+    dev = flat_docs.device
+    r, t = starts.shape
+    if d_pad >= sparse.PACKED_DOC_LIMIT:
+        raise ValueError(f"merge kernel needs d_pad < "
+                         f"{sparse.PACKED_DOC_LIMIT}, got {d_pad}")
+    if not 1 <= max_len <= MAX_LEN_LIMIT:
+        raise ValueError(f"merge kernel takes max_len ≤ {MAX_LEN_LIMIT}, "
+                         f"got {max_len}")
+    if not 1 <= t <= T_LIMIT or not 1 <= r < 65536:
+        raise ValueError(f"merge kernel takes 1 ≤ T ≤ {T_LIMIT} slots and "
+                         f"R < 65536 rows, got R={r}, T={t}")
+    delta = doc_bases is not None
+    if delta and (dbs_starts is None or dlo_starts is None):
+        raise ValueError("delta doc stream needs dbs_starts/dlo_starts")
+    _need(flat_docs, "flat_docs", torch.uint8 if delta else torch.uint16,
+          dev)
+    n_post = flat_docs.shape[0]
+    if n_post < max_len:
+        raise ValueError(f"streams hold {n_post} postings, fewer than one "
+                         f"{max_len}-lane window")
+    _need(flat_impact, "flat_impact", torch.uint16, dev, (n_post,))
+    _need(flat_rank, "flat_rank", torch.uint16, dev, (n_post,))
+    _need(res_vals, "res_vals", torch.float32, dev)
+    for name, ten in (("starts", starts), ("lengths", lengths),
+                      ("res_starts", res_starts), ("res_lens", res_lens)):
+        _need(ten, name, torch.int32, dev, (r, t))
+    _need(weights, "weights", torch.float32, dev, (r, t))
+    _need(min_count, "min_count", torch.int32, dev, (r,))
+    if delta:
+        _need(doc_bases, "doc_bases", torch.uint16, dev)
+        if doc_bases.shape[0] < max_len // sparse.COMPRESSED_BLOCK + 2:
+            raise ValueError("doc_bases is shorter than one slot's bases")
+        _need(dbs_starts, "dbs_starts", torch.int32, dev, (r, t))
+        _need(dlo_starts, "dlo_starts", torch.int32, dev, (r, t))
+    kk = min(k, t * max_len)
+    do_skip = block_max is not None and blk_starts is not None \
+        and k <= max_len
+    n_grp = (max_len + sparse.COMPRESSED_BLOCK - 1) // sparse.COMPRESSED_BLOCK
+    if do_skip:
+        _need(block_max, "block_max", torch.uint16, dev)
+        _need(blk_starts, "blk_starts", torch.int32, dev, (r, t))
+        if block_max.shape[0] < n_grp + 1:
+            raise ValueError("block_max is shorter than one slot's groups")
+        if slot_terms is not None:
+            _need(slot_terms, "slot_terms", torch.int32, dev, (r, t))
+    length = t * max_len
+    kc = min(length, kk + max(2 * kk, 256))
+    sort_n = 2
+    while sort_n < max(kc, kk):
+        sort_n *= 2
+    if sort_n > SORT_LIMIT:
+        raise ValueError(f"merge kernel sorts ≤ {SORT_LIMIT} candidates "
+                         f"per row; k={k} needs {sort_n}")
+    window = 1
+    while window < t_window:
+        window *= 2
+
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    i32 = dict(dtype=torch.int32, device=dev)
+    # compacted key storage: each row gets room for its valid lanes
+    row_cap = lengths.clamp(0, max_len).sum(dim=1, dtype=torch.int64)
+    row_off = torch.zeros(r, dtype=torch.int64, device=dev)
+    if r > 1:
+        row_off[1:] = torch.cumsum(row_cap[:-1], dim=0)
+    total_cap = max(1, int(row_cap.sum().item()))
+    keys = torch.empty(total_cap, **i32)
+    alt = torch.empty(total_cap, **i32)
+    n_keys = torch.empty(r, **i32)
+    need_count = do_skip and with_totals
+    ckeys = torch.empty(total_cap, **i32) if need_count else None
+    n_ckeys = torch.empty(r, **i32) if need_count else None
+    cand_score = torch.empty(total_cap, dtype=torch.float32, device=dev)
+    cand_doc = torch.empty(total_cap, **i32)
+    cand_cnt = torch.empty(total_cap, **i32)
+    n_cand = torch.empty(r, **i32)
+    totals = torch.empty(r, **i32)
+    out_vals = torch.empty((r, kk), dtype=torch.float32, device=dev)
+    out_docs = torch.empty((r, kk), **i32)
+
+    streams = (_ptr(flat_docs) if delta else None,
+               None if delta else _ptr(flat_docs),
+               _ptr(flat_impact), _ptr(flat_rank), n_post,
+               _ptr(doc_bases), doc_bases.shape[0] if delta else 0,
+               _ptr(res_vals), res_vals.shape[0])
+    slots = (_ptr(starts), _ptr(lengths), _ptr(weights), _ptr(min_count),
+             _ptr(res_starts), _ptr(res_lens), _ptr(dbs_starts),
+             _ptr(dlo_starts), r, t, max_len, d_pad)
+    kth = grp_ub = slot_ub = None
+    if do_skip:
+        kth = torch.empty((r, t), dtype=torch.float32, device=dev)
+        grp_ub = torch.empty((r, t, n_grp), dtype=torch.float32, device=dev)
+        slot_ub = torch.empty((r, t), dtype=torch.float32, device=dev)
+        _run(lib, "slot_decode", events, lib.es_slot_decode,
+             *streams, *slots, _ptr(block_max), block_max.shape[0],
+             _ptr(blk_starts), kk, _ptr(kth), _ptr(grp_ub), _ptr(slot_ub),
+             stream)
+    _run(lib, "row_pack", events, lib.es_row_pack,
+         *streams, *slots, int(do_skip), int(with_counts), kk,
+         _ptr(slot_terms) if do_skip else None, _ptr(kth), _ptr(grp_ub),
+         _ptr(slot_ub), _ptr(row_off), _ptr(keys), _ptr(n_keys),
+         _ptr(ckeys), _ptr(n_ckeys), stream)
+    if stats is not None:
+        stats["sort_input"] = dict(
+            keys=keys.clone(), n_keys=n_keys.clone(), row_off=row_off,
+            count_keys=ckeys.clone() if need_count else None,
+            n_count_keys=n_ckeys.clone() if need_count else None)
+    _run(lib, "row_sort", events, lib.es_row_sort, _ptr(keys), _ptr(alt),
+         _ptr(row_off), _ptr(n_keys), r, 32, stream)
+    if need_count:
+        # count keys are (doc << 1 | bit): 17 significant bits
+        _run(lib, "row_sort", events, lib.es_row_sort, _ptr(ckeys),
+             _ptr(alt), _ptr(row_off), _ptr(n_ckeys), r, 17, stream)
+    _run(lib, "run_sum", events, lib.es_run_sum,
+         _ptr(keys), _ptr(n_keys), _ptr(ckeys), _ptr(n_ckeys), _ptr(row_off),
+         _ptr(min_count), r, int(with_counts), window, _ptr(cand_score),
+         _ptr(cand_doc), _ptr(cand_cnt), _ptr(n_cand), _ptr(totals), stream)
+    _run(lib, "select_rescore", events, lib.es_select_rescore,
+         *streams, *slots, _ptr(cand_score), _ptr(cand_doc), _ptr(cand_cnt),
+         _ptr(n_cand), _ptr(row_off), kc, kk, sort_n, _ptr(out_vals),
+         _ptr(out_docs), stream)
+    if stats is not None:
+        kth_lanes = (lengths * (lengths >= kk)).sum() if do_skip else 0
+        stats.update(lanes=int(row_cap.sum()), kth_lanes=int(kth_lanes),
+                     keys=int(n_keys.sum()),
+                     count_keys=int(n_ckeys.sum()) if need_count else 0,
+                     candidates=int(n_cand.sum()),
+                     picked=int(n_cand.clamp(max=kc).sum()),
+                     rows=r, slots=t, n_grp=n_grp, kk=kk, kc=kc,
+                     delta=int(delta), do_skip=int(do_skip))
+    if with_totals:
+        return out_vals, out_docs, totals
+    return out_vals, out_docs

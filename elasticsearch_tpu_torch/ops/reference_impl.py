@@ -1,0 +1,124 @@
+"""Exact scalar reference implementation of Lucene BM25 scoring (numpy).
+
+This is the parity oracle (SURVEY.md §7.2 phase 3: "Parity harness: same
+corpus through a knowledge-equivalent reimplementation of the formula —
+score-level diff") and doubles as the CPU baseline scorer for bench.py.
+It mirrors the reference hot path (§3.3) doc-at-a-time semantics:
+
+  per segment: for each query term with df>0
+      idf = ln(1 + (N - n + 0.5)/(n + 0.5))           # SHARD-level N, n
+      for (doc, tf) in postings:
+          dl = LENGTH_TABLE[norm_byte[doc]]            # lossy SmallFloat4
+          score[doc] += boost · idf · (k1+1) · tf / (tf + k1(1-b+b·dl/avgdl))
+  top-k by (score desc, doc id asc)                    # Lucene tie-break
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+
+from elasticsearch_tpu_torch.index.segment import Segment
+from elasticsearch_tpu_torch.ops.smallfloat import LENGTH_TABLE
+
+
+def shard_stats(segments: Sequence[Segment], field: str) -> Tuple[int, float]:
+    """→ (doc_count, avgdl) at shard level, as Lucene CollectionStatistics
+    computes them: docCount = docs that have the field, avgdl =
+    sumTotalTermFreq / docCount (SURVEY.md §7.3#2)."""
+    doc_count = 0
+    sum_ttf = 0
+    for seg in segments:
+        st = seg.field_stats.get(field)
+        if st:
+            doc_count += st.doc_count
+            sum_ttf += st.sum_total_term_freq
+    avgdl = (sum_ttf / doc_count) if doc_count else 1.0
+    return doc_count, avgdl
+
+
+def shard_doc_freq(segments: Sequence[Segment], field: str, term: str) -> int:
+    return sum(seg.doc_freq(field, term) for seg in segments)
+
+
+def bm25_idf(doc_count: int, doc_freq: int) -> float:
+    return math.log(1.0 + (doc_count - doc_freq + 0.5) / (doc_freq + 0.5))
+
+
+def score_segment(
+    segment: Segment,
+    field: str,
+    terms: Sequence[str],
+    *,
+    doc_count: int,
+    avgdl: float,
+    doc_freqs: Dict[str, int],
+    k1: float = 1.2,
+    b: float = 0.75,
+    boost: float = 1.0,
+) -> np.ndarray:
+    """Dense per-doc scores (f32) for an OR-of-terms (match) query over one
+    segment, using shard-level stats. Lossy norm decode included: the norm
+    byte round-trips through SmallFloat4 exactly as at index time."""
+    scores = np.zeros(segment.num_docs, dtype=np.float64)
+    norms = segment.norms.get(field)
+    if norms is None:
+        return scores.astype(np.float32)
+    dl = LENGTH_TABLE[norms.astype(np.int64)].astype(np.float64)
+    denom_add = k1 * (1.0 - b + b * dl / (avgdl if avgdl > 0 else 1.0))
+    # float32 cache like Lucene's per-norm cache
+    denom_add = denom_add.astype(np.float32).astype(np.float64)
+    for term in terms:
+        entry = segment.postings.get(field, {}).get(term)
+        if entry is None:
+            continue
+        n = doc_freqs.get(term, 0)
+        if n <= 0:
+            continue
+        idf = bm25_idf(doc_count, n)
+        docs, tfs = entry
+        tf = tfs.astype(np.float64)
+        w = boost * idf * (k1 + 1.0)
+        scores[docs] += w * tf / (tf + denom_add[docs])
+    return scores.astype(np.float32)
+
+
+def score_match_query(
+    segments: Sequence[Segment],
+    field: str,
+    terms: Sequence[str],
+    k1: float = 1.2,
+    b: float = 0.75,
+) -> List[np.ndarray]:
+    """Score a match query across all segments of a shard with shard-level
+    stats — one dense score array per segment."""
+    doc_count, avgdl = shard_stats(segments, field)
+    dfs = {t: shard_doc_freq(segments, field, t) for t in terms}
+    return [
+        score_segment(seg, field, terms, doc_count=doc_count, avgdl=avgdl,
+                      doc_freqs=dfs, k1=k1, b=b)
+        for seg in segments
+    ]
+
+
+def topk_from_scores(scores: np.ndarray, k: int,
+                     min_score: float = 0.0) -> List[Tuple[int, float]]:
+    """(doc, score) descending, ties toward smaller doc id; drops scores
+    <= min_score (non-matches)."""
+    if len(scores) == 0:
+        return []
+    k = min(k, len(scores))
+    # argsort on (-score, doc) gives Lucene order; scores are descending, so
+    # the first below-threshold entry ends the scan
+    order = np.lexsort((np.arange(len(scores)), -scores))
+    out = []
+    for doc in order:
+        s = float(scores[doc])
+        if s <= min_score:
+            break
+        out.append((int(doc), s))
+        if len(out) == k:
+            break
+    return out
