@@ -12,10 +12,15 @@ through GpuSearchService from many threads, and checks:
   device         nvidia-smi name and power limit, torch and CUDA versions
   build          kernel build seconds; corpus, shards, postings; resident
                  bytes of the compressed pack
-  kernel_parity  every launch shape the main path used (plus a u8-delta
-                 doc stream index): the kernels against their plain torch
-                 version on the card, scores as uint32, docs and totals
-                 exactly
+  kernel_parity  every launch shape the main path used, plus a u8-delta
+                 doc stream index, a match of the corpus's most frequent
+                 terms (full 4096-lane slots, T >= 16: rows past the
+                 shared-memory sort and select) and from + size 10,000
+                 (kernel k 16,384, more candidates than kk): the kernels
+                 against their plain torch version on the card, scores as
+                 uint32, docs and totals exactly, with and without
+                 totals; the rows each size class of row_sort and
+                 select_rescore took (every class must take some)
   e2e            the counted run: queries, hits, batch sizes, launches per
                  kernel (all must be > 0), compressed_exact launches, and
                  16 sampled queries against the numpy oracle (top-10 ids,
@@ -24,11 +29,15 @@ through GpuSearchService from many threads, and checks:
                  torch.profiler: each request's lowering, wait in the
                  batcher (window and queue), train execution and
                  response assembly; device time and idle share
+  kernels_extra  row_sort and select_rescore ms (median of 5) at the
+                 stop-word and from + size 10,000 launches
   kernels        one JSON line: per kernel, median ms over >= 20 timed
-                 launches (CUDA events), launches per train of the
+                 launches (CUDA events) of one fixed train (the first 128
+                 bodies, 16 shards x 128 queries), launches per train of the
                  counted run, the plain version's ms (the whole plain
                  pipeline), the bytes bound at 3.35 TB/s, torch.sort as
-                 the sort's yardstick
+                 the sort's yardstick, and the size classes the rows of
+                 the timed launch took
 
 The last line is {"ok": true, "device": {...}}; any failure exits
 non-zero without it. Without a CUDA device the script exits 2 at once.
@@ -52,12 +61,16 @@ N_QUERIES = 256
 K = 1000                # from + size: the kernel's k bucket is 1024
 WAVES = (128, 64, 64)   # concurrent client waves → 128- and 64-query trains
 ORACLE_SAMPLE = 16
+MAX_K = 10_000          # the largest from + size the service takes
 TIMED = 25              # timed kernel launches after warm-up
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 FIELD = "body"
 INDEX = "msmarco"
 PALLAS_LINE = "elasticsearch_tpu/ops/pallas_merge.py:155"
 KERNEL_SOURCE = "elasticsearch_tpu_torch/csrc/merge_topk.cu"
+#: the size-class counters (merge_kernel.SIZE_CLASSES) of each kernel
+CLASSES_OF = {"row_sort": ("row_sort",),
+              "select_rescore": ("select", "rescore", "final")}
 
 
 def log(phase: str, **fields) -> None:
@@ -166,29 +179,38 @@ def bitwise_equal(got, want):
     return same, err
 
 
-def kernel_parity(mk, shapes):
+def kernel_parity(mk, launches):
+    """The kernels against their plain version on each recorded launch
+    [(label, args, kw)], with and without totals → (entries, worst
+    error, rows per size class over all launches)."""
     import torch
     worst = 0.0
     checked = []
-    skipping = [0]
-    for key, (args, kw) in sorted(shapes.items()):
+    skipping = 0
+    classes = dict.fromkeys(mk.SIZE_CLASSES, 0)
+    for label, args, kw in launches:
         stats = {}
         got = mk.fused_merge_topk(*args, **dict(kw, stats=stats))
         want = mk.fused_merge_topk_plain(*args, **kw)
         torch.cuda.synchronize()
         same, err = bitwise_equal(got, want)
         worst = max(worst, err)
-        r, t, max_len, k, with_counts, delta = key
-        entry = dict(rows=r, slots=t, max_len=max_len, k=k,
-                     msm_rows=int((args[5] > 1).sum()), delta=delta,
+        r, t = args[2].shape
+        took = {c: n for c, n in stats["classes"].items() if n}
+        for c, n in took.items():
+            classes[c] += n
+        entry = dict(launch=label, rows=r, slots=t, max_len=kw["max_len"],
+                     k=kw["k"], msm_rows=int((args[5] > 1).sum()),
+                     delta=kw.get("doc_bases") is not None,
                      with_totals=bool(kw["with_totals"]),
                      skip=bool(stats["do_skip"]),
                      lanes=stats["lanes"], keys_after_skip=stats["keys"],
                      keys_before_skip=stats["count_keys"],
-                     candidates=stats["candidates"], bitwise=same)
+                     candidates=stats["candidates"], size_classes=took,
+                     bitwise=same)
         checked.append(entry)
         if stats["count_keys"] > stats["keys"]:
-            skipping[0] += 1
+            skipping += 1
         if not same:
             raise AssertionError(f"kernel != plain at shape {entry}, "
                                  f"max_abs_err {err}")
@@ -200,10 +222,22 @@ def kernel_parity(mk, shapes):
         if not same2:
             raise AssertionError(f"kernel != plain without totals at "
                                  f"{entry}")
-    if not skipping[0]:
+        if label == "stopwords" and not (took.get("row_sort.device")
+                                         and took.get("select.device")):
+            raise AssertionError(f"the stop-word launch stayed in shared "
+                                 f"memory: {entry}")
+        if label == "k10000" and not (kw["k"] == mk.K_LIMIT
+                                      and took.get("final.trim")):
+            raise AssertionError(f"the k = 10,000 launch did not trim "
+                                 f"past kk: {entry}")
+    if not skipping:
         raise AssertionError("no parity shape dropped lanes through the "
                              "block-max skip")
-    return checked, worst
+    missing = [c for c, n in classes.items() if not n]
+    if missing:
+        raise AssertionError(f"size classes no parity launch took: "
+                             f"{missing}")
+    return checked, worst, classes
 
 
 def oracle_check(responses, bodies, corpus, segments):
@@ -547,16 +581,45 @@ def main() -> int:
             oracle_checked=len(sample),
             oracle_tolerance="top-10 ids, scores rel=1e-5 abs=1e-6")
 
-        checked, worst = kernel_parity(mk, rec.shapes)
+        # -- launches past the main traffic: a match of the corpus's most
+        # frequent terms (the Zipf head fills 4096-lane slots: T >= 16,
+        # rows past the shared-memory sort and select) at k = 1000, and
+        # from + size = 10,000 (kernel k 16,384)
+        extra = []
+        head = corpus.vocab[:4]
+        for label, texts, size in (
+                ("stopwords", (f"{head[0]} {head[1]}", f"{head[0]} "
+                               f"{head[2]}", f"{head[1]} {head[3]}"), K),
+                ("k10000", (head[0], f"{head[0]} {head[1]}"), MAX_K)):
+            with LaunchRecorder(mk) as special:
+                answered = drive(svc, INDEX, [
+                    {"query": {"match": {FIELD: text}}, "size": size}
+                    for text in texts])
+            for resp in answered:
+                hits = resp["hits"]
+                if len(hits["hits"]) != min(size, hits["total"]["value"]):
+                    raise AssertionError(f"{label}: {len(hits['hits'])} "
+                                         f"hits of {hits['total']}")
+            extra += [(label, a, k) for a, k in special.shapes.values()]
+        # the launch the kernels line times: the first 128 bodies as one
+        # 128-query train (no batching window decides its operands, so two
+        # runs time the same launch)
+        from elasticsearch_tpu_torch.tools.kernel_ab import fixed_train
+        fixed = fixed_train(svc, mk, LaunchRecorder, INDEX, FIELD, K,
+                            bodies[:128])
+        launches_checked = [("main", a, k) for a, k in rec.shapes.values()]
+        launches_checked.append(("fixed", *fixed))
+        checked, worst, classes = kernel_parity(mk,
+                                                launches_checked + extra)
         log("kernel_parity", shapes=checked, max_abs_err=worst,
+            size_classes=classes,
             tolerance="bitwise: scores as uint32, docs and totals exact")
 
         # -- trace: a second run with stage timers and the profiler -------
         log("trace", **traced_run(svc, bodies, mk))
 
-        # -- kernels: timings on the widest main-path launch ----------------
-        main = [(key, v) for key, v in rec.shapes.items() if not key[5]]
-        key, (args, kw) = max(main, key=lambda e: e[0][0] * e[0][1])
+        # -- kernels: timings on the fixed train ----------------------------
+        args, kw = fixed
         stats = {}
         mk.fused_merge_topk(*args, **dict(kw, stats=stats))
         for _ in range(3):
@@ -584,9 +647,20 @@ def main() -> int:
                 "bound_by": "bytes",
                 "library_ms": library if name == "row_sort" else None,
                 "launches_per_batch": launches[name] / n_trains,
-                "shape": {"rows": key[0], "slots": key[1],
-                          "max_len": key[2], "k": key[3]},
-                "bytes": bounds[name]})
+                "shape": {"rows": args[2].shape[0],
+                          "slots": args[2].shape[1],
+                          "max_len": kw["max_len"], "k": kw["k"]},
+                "bytes": bounds[name],
+                "size_classes": {
+                    c: n for c, n in stats["classes"].items()
+                    if c.split(".")[0] in CLASSES_OF.get(name, ())}})
+        # the redesigned kernels at the launches past the main traffic
+        log("kernels_extra", launches=[dict(
+            launch=label, rows=a[2].shape[0], slots=a[2].shape[1],
+            k=kw["k"], ms={n: v for n, v in time_events(
+                lambda ev: mk.fused_merge_topk(*a, **dict(kw, events=ev)),
+                5).items() if n in ("row_sort", "select_rescore")})
+            for label, a, kw in extra])
         print(json.dumps({"kernels": kernels}), flush=True)
     finally:
         svc.close()

@@ -22,20 +22,19 @@
 //                      dropped before the sort (they never reach a
 //                      result). When totals are asked for with the skip
 //                      on, also the pre-skip count keys (doc << 1 | pos).
-//   3. row_sort        grid R: LSD radix sort of each row's keys, 8-bit
-//                      digits, stable scatter per pass (warp match +
-//                      per-warp digit offsets); a pass whose digit is the
-//                      same in every key of the row is skipped.
+//   3. row_sort        grid (R, key sets): LSD radix sort of each row's
+//                      keys and count keys in one launch, 8-bit digits,
+//                      stable; in shared memory when the row fits.
 //   4. run_sum         grid R: run ends of the sorted keys, each run's
 //                      quantized total with the reference's Hillis-Steele
 //                      tree, clause counts, the msm filter, TotalHits, and
 //                      the matching run ends as candidates in key order.
 //   5. select_rescore  grid R: top kc candidates by (quantized score desc,
 //                      key position asc) through a radix select, the exact
-//                      f32 rescore (binary search in each slot window, rank
-//                      into the residual table, the same tree over the
-//                      matched contributions in slot order), and a bitonic
-//                      sort on (-score, doc) in shared memory.
+//                      f32 rescore (binary search in each slot window,
+//                      staged in shared memory, rank into the residual
+//                      table, the same tree over the matched contributions
+//                      in slot order), and the top kk on (-score, doc).
 //
 // Parity: every product is __fmul_rn and every sum __fadd_rn (and the
 // build passes -fmad=false): the reference rounds w * value before it
@@ -43,23 +42,71 @@
 // anchored at the run's last lane, so a run total never depends on lanes
 // outside its run.
 //
-// What bounds it on an H100 (3.35 TB/s): bytes. Per row the kernels read
-// each valid posting lane twice (doc and value code, 3-4 B, in kernels 1
-// and 2), write and read every surviving key once per executed sort pass
-// (8 B per key per pass plus 4 B for the histogram sweep), and read the
-// keys once more for the run sums. At the chip_smoke shape (16 shards x
-// 128 queries, L_c = 4096, 2-5 query terms of a 1M-doc corpus: 3.8M
-// valid lanes, 1.7M candidates) the least traffic, each input read once
-// and each output written once, is 214 MB per batch: 0.064 ms at
-// 3.35 TB/s. chip_smoke.py computes that bound from each run's own lane
-// and key counts and prints it beside the measured time (1.89 ms per
-// batch for the five kernels on an H100 80GB HBM3 at 700 W; PERF.md).
-// The design answers the bound by moving only real lanes:
-// the gather reads just the valid part of each window, padding and
-// skipped lanes never enter the sort, and constant-digit passes are
-// skipped. What it does not do yet: one block per row leaves rows with
-// few keys latency-bound, and the rescore's binary searches are
-// dependent loads.
+// What bounds the pipeline on an H100 (3.35 TB/s): bytes. Per row the
+// kernels read each valid posting lane twice (doc and value code, 3-4 B,
+// in kernels 1 and 2), sort the surviving keys, and read them once more
+// for the run sums. At the chip_smoke shape (16 shards x 128 queries,
+// L_c = 4096, 2-5 query terms of a 1M-doc corpus: 3.4M valid lanes,
+// 1.6M candidates) the least traffic, each input read once and each
+// output written once, is under 0.1 ms per train; chip_smoke.py computes
+// that bound from each run's own counts and prints it beside each
+// kernel's measured time. The rows are small (1,643 keys, ~790
+// candidates on average) and many (2048), so what holds a kernel back is
+// latency: barriers per tile, serial scans and dependent loads from
+// device memory, with too few rows in flight per SM to hide them.
+//
+// row_sort. One launch sorts both key sets of every row: grid (R, 1 or
+// 2), the count keys in blockIdx.y = 1. A 512-thread block holds 2 x
+// kSortSmemKeys keys in shared memory (64 KB; two blocks per SM). A row
+// whose keys fit there (the size class "shared", decided per row from
+// its n_keys on the device) is loaded once, sorted between two shared
+// buffers and written once. A larger row (stop-word queries, up to T *
+// 4096 keys) takes the class "device": the same passes between its key
+// array and a scratch array in device memory. Each LSD pass (8-bit
+// digit) is reduce-then-scan inside the block: each warp counts the
+// digits of its contiguous chunk with shared atomics, one parallel scan
+// over (digit, warp) turns the counts into every warp's stable offsets,
+// and the warps scatter in order; four barriers per pass whatever the
+// row's size, and a pass whose digit is constant is skipped. In the
+// scatter a digit's lanes are found with one ballot per digit bit (not
+// __match_any_sync, whose cost grows with the distinct digits of a
+// warp), and one leader per digit takes the group's slots. What still
+// bounds it (PERF.md): a device-class row walks its keys on one block,
+// many times longer than a short row, while a short row pays four
+// barriers and a scan per pass for a few hundred keys.
+//
+// select_rescore. 512 threads per row, dynamic shared memory sized by
+// the wrapper from kk alone (32 KB, or 8 B per entry of the final sort
+// when larger), reused by its three phases:
+//   1. Selection of the top kc quantized candidates (lax.top_k's rule:
+//      all above the kc-th score, then the earliest equal ones): the
+//      scores are copied to shared memory once when they fit ("shared"
+//      class, else read from device memory, "device"), then a radix
+//      select with a parallel digit search.
+//   2. The exact rescore, slot-major: the valid doc windows of the row's
+//      slots are decoded into shared memory (u16, a u8 delta stream's
+//      base plus delta decoded once per lane) - all of them at once when
+//      they fit ("staged"), else in groups of consecutive slots,
+//      restaged for each 512-candidate chunk ("restaged"). Each
+//      candidate binary-searches the staged windows in slot order and
+//      pushes w * residual into its own TreeDown, the tree of
+//      segmented_run_sum, so the adds and their order are unchanged. The
+//      rank and residual reads stay device-memory loads, once per match.
+//   3. The final order: each rescored candidate becomes one u64 key
+//      (score order bits, then 65535 - doc; the docs of a row are
+//      unique, so the keys are). With more than kk of them ("trim") a
+//      radix select finds the kk-th and keeps exactly kk; otherwise
+//      ("all") all are kept. Only those are sorted (bitonic over the
+//      next power of two of their count) and written.
+// The candidate list and the rescored keys live in the row's slice of
+// the sort scratch, so kc has no shared-memory cap: kernel k reaches
+// 16,384 (from + size 10,000). What bounds it before: ~96 dependent
+// device-memory loads per candidate (T binary searches through the u8
+// decode) and a 78-stage bitonic sort of 4096 entries whatever the row
+// held. What bounds it now (PERF.md): barriers (the selection's block
+// scans, up to 55 bitonic stages at kk = 1024), and in the restaged
+// class the windows decoded again for every chunk of 512 candidates,
+// which makes a stop-word row at kk = 16,384 several ms.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,11 +114,22 @@
 namespace {
 
 constexpr int kLaneBlock = 128;      // COMPRESSED_BLOCK
-constexpr int kRowThreads = 1024;    // threads of the per-row kernels
-constexpr int kRowWarps = kRowThreads / 32;
+constexpr int kRowThreads = 1024;    // threads of row_pack and run_sum
 constexpr int kSlotThreads = 256;    // threads of slot_decode
 constexpr int kMaxSlotLanes = 4096;  // CHUNK_CAP: the widest slot window
 constexpr int kStack = 16;           // tree stack (windows up to 2**15)
+constexpr int kMaxSlots = 1024;      // T_LIMIT: slots per row
+constexpr int kSortThreads = 512;    // threads of row_sort
+constexpr int kSortWarps = kSortThreads / 32;
+constexpr int kSortItems = 4;        // keys per lane per round of a pass
+constexpr int kSortSmemKeys = 8192;  // the "shared" class: keys per row
+constexpr int kSelThreads = 512;     // threads of select_rescore
+
+// size classes (rows per class, when the wrapper asks for them)
+enum {
+  kSortShared = 0, kSortDevice, kSelNone, kSelShared, kSelDevice,
+  kRescoreStaged, kRescoreRestaged, kFinalAll, kFinalTrim, kNumClasses
+};
 constexpr int kNegInfBits = (int)0xff800000u;  // -inf as f32 bits
 
 struct Streams {
@@ -232,37 +290,98 @@ __device__ __forceinline__ int warp_append(bool flag, int* s_count) {
   return base + __popc(bal & ((1u << lane) - 1u));
 }
 
-// Radix select of the k-th largest u32 (1-based) among n values in
-// shared memory or device memory; every thread returns it.
-template <typename Load>
-__device__ uint32_t radix_select(int n, int k, Load load, int* s_hist,
-                                 uint32_t* s_pick) {
-  uint32_t prefix = 0, mask = 0;
+// Exclusive block scan of one int per thread (all threads call it);
+// returns the thread's prefix and writes the block total.
+__device__ __forceinline__ int block_excl_scan(int v, int* s_warp,
+                                               int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  int inc = v;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int o = __shfl_up_sync(0xffffffffu, inc, d);
+    if (lane >= d) inc += o;
+  }
+  if (lane == 31) s_warp[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    const int x = lane < nwarps ? s_warp[lane] : 0;
+    int xi = x;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int o = __shfl_up_sync(0xffffffffu, xi, d);
+      if (lane >= d) xi += o;
+    }
+    if (lane < nwarps) s_warp[lane] = xi - x;
+    if (lane == 31) s_warp[32] = xi;
+  }
+  __syncthreads();
+  const int r = s_warp[warp] + inc - v;
+  *total = s_warp[32];
+  __syncthreads();
+  return r;
+}
+
+// The digit of a 256-bin histogram that holds the `remaining`-th largest
+// value: s_pick[0] = digit, s_pick[1] = its rank among the digit's values.
+// A suffix scan by the first 256 threads (blockDim >= 256), no serial walk.
+__device__ __forceinline__ void pick_digit(const int* s_hist, int remaining,
+                                           int* s_wsum, int* s_pick) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int v = 0, inc = 0;
+  if (tid < 256) {
+    v = s_hist[255 - tid];  // thread e holds digit 255 - e
+    inc = v;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int o = __shfl_up_sync(0xffffffffu, inc, d);
+      if (lane >= d) inc += o;
+    }
+    if (lane == 31) s_wsum[warp] = inc;
+  }
+  __syncthreads();
+  if (tid < 256) {
+    for (int w = 0; w < warp; ++w) inc += s_wsum[w];
+    const int above = inc - v;  // values in larger digits
+    if (above < remaining && (remaining <= inc || tid == 255)) {
+      s_pick[0] = 255 - tid;
+      s_pick[1] = remaining - above;
+    }
+  }
+  __syncthreads();
+}
+
+// Radix select of the k-th largest value (1-based) among n values in
+// shared or device memory, over the 8-bit digits from `top` down to
+// `bottom`; every thread returns it (the low bits below `bottom` are 0)
+// and s_pick[1] holds how many values equal to it are to be taken.
+template <typename U, typename Load>
+__device__ U radix_select(int n, int k, Load load, int top, int bottom,
+                          int* s_hist, int* s_wsum, int* s_pick) {
+  U prefix = 0, mask = 0;
   int remaining = k;
-  for (int shift = 24; shift >= 0; shift -= 8) {
+  for (int shift = top; shift >= bottom; shift -= 8) {
     for (int i = threadIdx.x; i < 256; i += blockDim.x) s_hist[i] = 0;
     __syncthreads();
     for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const uint32_t v = load(i);
-      if ((v & mask) == prefix) atomicAdd(&s_hist[(v >> shift) & 0xFF], 1);
+      const U v = load(i);
+      if ((v & mask) == prefix)
+        atomicAdd(&s_hist[(int)((v >> shift) & 0xFF)], 1);
     }
     __syncthreads();
-    if (threadIdx.x == 0) {
-      int acc = 0, d = 255;
-      for (; d > 0; --d) {
-        if (acc + s_hist[d] >= remaining) break;
-        acc += s_hist[d];
-      }
-      s_pick[0] = (uint32_t)d;
-      s_pick[1] = (uint32_t)(remaining - acc);
-    }
-    __syncthreads();
-    prefix |= s_pick[0] << shift;
-    mask |= 0xFFu << shift;
-    remaining = (int)s_pick[1];
-    __syncthreads();
+    pick_digit(s_hist, remaining, s_wsum, s_pick);
+    prefix |= (U)s_pick[0] << shift;
+    mask |= (U)0xFF << shift;
+    remaining = s_pick[1];
   }
   return prefix;
+}
+
+// An f32 as a u32 whose unsigned order is the float order (-0 as +0).
+__device__ __forceinline__ uint32_t order_bits(float x) {
+  const uint32_t u = x == 0.0f ? 0u : __float_as_uint(x);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ uint32_t order_bits_inverse(uint32_t o) {
+  return (o & 0x80000000u) ? (o & 0x7FFFFFFFu) : ~o;
 }
 
 // ---------------------------------------------------------------------------
@@ -275,7 +394,8 @@ slot_decode_kernel(Streams s, Slots p, const uint16_t* block_max,
                    float* kth_out, float* grp_ub_out, float* slot_ub_out) {
   __shared__ uint32_t s_vals[kMaxSlotLanes];
   __shared__ int s_hist[256];
-  __shared__ uint32_t s_pick[2];
+  __shared__ int s_pick[2];
+  __shared__ int s_wsum[kSlotThreads / 32];
   __shared__ float s_max[kSlotThreads / 32];
   const int t = blockIdx.x, r = blockIdx.y;
   const int rt = r * p.T + t;
@@ -320,8 +440,9 @@ slot_decode_kernel(Streams s, Slots p, const uint16_t* block_max,
     s_vals[l] = __float_as_uint(v);
   }
   __syncthreads();
-  const uint32_t bits = radix_select(
-      p.max_len, kk, [&](int i) { return s_vals[i]; }, s_hist, s_pick);
+  const uint32_t bits = radix_select<uint32_t>(
+      p.max_len, kk, [&](int i) { return s_vals[i]; }, 24, 0, s_hist,
+      s_wsum, s_pick);
   if (threadIdx.x == 0) kth_out[rt] = __uint_as_float(bits);
 }
 
@@ -432,75 +553,166 @@ row_pack_kernel(Streams s, Slots p, int do_skip, int with_counts, int kk,
 }
 
 // ---------------------------------------------------------------------------
-// 3. row_sort: per-row LSD radix sort, stable scatter per pass
+// 3. row_sort: per-row LSD radix sort of both key sets, one launch
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kRowThreads)
-row_sort_kernel(uint32_t* keys, uint32_t* alt, const long long* row_off,
-                const int* n_keys, int key_bits) {
-  __shared__ int s_hist[256];
-  __shared__ int s_wcnt[kRowWarps][256];
-  __shared__ int s_skip;
-  const int r = blockIdx.x;
-  const int n = n_keys[r];
-  const long long off = row_off[r];
+// The lanes of the warp whose kBits-bit label equals this lane's, from
+// one ballot per bit (__match_any_sync serializes over distinct values).
+template <int kBits>
+__device__ __forceinline__ unsigned warp_match(unsigned label) {
+  unsigned m = 0xffffffffu;
+#pragma unroll
+  for (int b = 0; b < kBits; ++b) {
+    const bool bit = (label >> b) & 1u;
+    const unsigned v = __ballot_sync(0xffffffffu, bit);
+    m &= bit ? v : ~v;
+  }
+  return m;
+}
+
+// One stable LSD pass of the 8-bit digit at `shift` from src to dst (n
+// keys, shared or device memory), reduce-then-scan: each warp counts the
+// digits of its contiguous chunk (shared atomics), a parallel scan over
+// (digit, warp) turns the counts into each warp's first slot per digit,
+// in place, and each warp scatters its chunk in order. Returns false,
+// writing nothing, when the digit is the same in every key. s_cnt is
+// all zero on entry and on return.
+__device__ bool sort_pass(const uint32_t* src, uint32_t* dst, int n,
+                          int shift, int (*s_cnt)[256], int* s_wsum) {
+  constexpr int kRound = 32 * kSortItems;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  uint32_t* src = keys + off;
-  uint32_t* dst = alt + off;
-  for (int i = threadIdx.x; i < kRowWarps * 256; i += blockDim.x)
-    (&s_wcnt[0][0])[i] = 0;
-  bool in_alt = false;
-  for (int shift = 0; shift < key_bits; shift += 8) {
-    for (int i = threadIdx.x; i < 256; i += blockDim.x) s_hist[i] = 0;
-    __syncthreads();
-    for (int i = threadIdx.x; i < n; i += blockDim.x)
-      atomicAdd(&s_hist[(src[i] >> shift) & 0xFF], 1);
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      int skip = 0, acc = 0;
-      for (int d = 0; d < 256; ++d) {
-        const int c = s_hist[d];
-        if (c == n) skip = 1;
-        s_hist[d] = acc;  // exclusive digit base
-        acc += c;
-      }
-      s_skip = skip;
+  const unsigned below = (1u << lane) - 1u;
+  const int chunk = ((n + kSortWarps - 1) / kSortWarps + kRound - 1)
+                    / kRound * kRound;
+  const int lo = min(warp * chunk, n), hi = min(lo + chunk, n);
+  for (int base = lo; base < hi; base += kRound) {
+    uint32_t key[kSortItems];
+#pragma unroll
+    for (int i = 0; i < kSortItems; ++i) {
+      const int at = base + i * 32 + lane;
+      key[i] = at < hi ? src[at] : 0u;
     }
-    __syncthreads();
-    if (s_skip) continue;  // digit constant over the row: order unchanged
-    for (int base = 0; base < n; base += blockDim.x) {
-      const int i = base + threadIdx.x;
-      const bool in = i < n;
-      const uint32_t key = in ? src[i] : 0u;
-      const int digit = in ? (int)((key >> shift) & 0xFF) : 256 + lane;
-      const unsigned peers = __match_any_sync(0xffffffffu, digit);
-      const int rank = __popc(peers & ((1u << lane) - 1u));
-      if (in && rank == 0) s_wcnt[warp][digit] = __popc(peers);
-      __syncthreads();
-      for (int d = threadIdx.x; d < 256; d += blockDim.x) {
-        int run = s_hist[d];
-        for (int w = 0; w < kRowWarps; ++w) {
-          const int c = s_wcnt[w][d];
-          s_wcnt[w][d] = run;
-          run += c;
-        }
-        s_hist[d] = run;
-      }
-      __syncthreads();
-      if (in) dst[s_wcnt[warp][digit] + rank] = key;
-      __syncthreads();
-      for (int j = threadIdx.x; j < kRowWarps * 256; j += blockDim.x)
-        (&s_wcnt[0][0])[j] = 0;
-      __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kSortItems; ++i)  // counting needs no order
+      if (base + i * 32 + lane < hi)
+        atomicAdd(&s_cnt[warp][(key[i] >> shift) & 0xFF], 1);
+  }
+  __syncthreads();
+  // thread d < 256: digit d's counts per warp become its slots: the
+  // exclusive scan over digits, then over the warps of each digit
+  const int d = threadIdx.x;
+  int cnt[kSortWarps];
+  int tot = 0;
+  if (d < 256) {
+#pragma unroll
+    for (int w = 0; w < kSortWarps; ++w) {
+      cnt[w] = s_cnt[w][d];
+      tot += cnt[w];
     }
-    uint32_t* tmp = src;
-    src = dst;
-    dst = tmp;
-    in_alt = !in_alt;
   }
-  if (in_alt) {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) keys[off + i] = src[i];
+  int inc = tot;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc += v;
   }
+  if (d < 256 && lane == 31) s_wsum[warp] = inc;
+  const bool constant = __syncthreads_or(d < 256 && tot == n);
+  if (d < 256) {
+    int run = inc - tot;
+    for (int w = 0; w < warp; ++w) run += s_wsum[w];
+#pragma unroll
+    for (int w = 0; w < kSortWarps; ++w) {
+      s_cnt[w][d] = constant ? 0 : run;
+      run += cnt[w];
+    }
+  }
+  __syncthreads();
+  if (constant) return false;  // order unchanged
+  for (int base = lo; base < hi; base += kRound) {
+    uint32_t key[kSortItems];
+    int pos[kSortItems];
+#pragma unroll
+    for (int i = 0; i < kSortItems; ++i) {
+      const int at = base + i * 32 + lane;
+      key[i] = at < hi ? src[at] : 0u;
+    }
+    // the peers of every item first (out-of-range lanes share the label
+    // 256 and take no slot); then, item by item, the digit's leader takes
+    // the group's slots from the warp's counter and hands the first to
+    // its peers: one warp barrier per item, the stores after the round
+    int digit[kSortItems];
+    unsigned group[kSortItems];
+#pragma unroll
+    for (int i = 0; i < kSortItems; ++i) {
+      digit[i] = base + i * 32 + lane < hi ? (int)((key[i] >> shift) & 0xFF)
+                                           : 256;
+      group[i] = warp_match<9>(digit[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < kSortItems; ++i) {
+      const bool in = digit[i] < 256;
+      const unsigned peers = group[i];
+      const int leader = __ffs(peers) - 1;
+      int first = 0;
+      if (in && lane == leader) {
+        first = s_cnt[warp][digit[i]];
+        s_cnt[warp][digit[i]] = first + __popc(peers);
+      }
+      first = __shfl_sync(0xffffffffu, first, leader);
+      pos[i] = first + __popc(peers & below);
+      __syncwarp();
+    }
+#pragma unroll
+    for (int i = 0; i < kSortItems; ++i)
+      if (base + i * 32 + lane < hi) dst[pos[i]] = key[i];
+  }
+  __syncthreads();
+  if (d < 256)
+    for (int w = 0; w < kSortWarps; ++w) s_cnt[w][d] = 0;
+  __syncthreads();
+  return true;
+}
+
+// Block (r, 0) sorts row r's keys (32 bits), block (r, 1) its pre-skip
+// count keys (doc << 1 | bit: 17 bits). The size class is the row's own:
+// "shared" when its keys fit kSortSmemKeys, else "device" (passes
+// between the key array and `spare` in device memory).
+__global__ void __launch_bounds__(kSortThreads)
+row_sort_kernel(uint32_t* keys, uint32_t* alt, const int* n_keys,
+                uint32_t* ckeys, uint32_t* calt, const int* n_ckeys,
+                const long long* row_off, int* class_rows) {
+  extern __shared__ uint32_t s_keys[];  // 2 * kSortSmemKeys
+  __shared__ int s_cnt[kSortWarps][256];
+  __shared__ int s_wsum[8];
+  const int r = blockIdx.x;
+  const bool counts = blockIdx.y == 1;
+  const int n = counts ? n_ckeys[r] : n_keys[r];
+  const int bits = counts ? 17 : 32;
+  const long long off = row_off[r];
+  uint32_t* home = (counts ? ckeys : keys) + off;
+  uint32_t* spare = (counts ? calt : alt) + off;
+  for (int i = threadIdx.x; i < kSortWarps * 256; i += blockDim.x)
+    (&s_cnt[0][0])[i] = 0;
+  const bool shared = n <= kSortSmemKeys;
+  if (class_rows != nullptr && threadIdx.x == 0)
+    atomicAdd(&class_rows[shared ? kSortShared : kSortDevice], 1);
+  uint32_t* src = home;
+  uint32_t* dst = spare;
+  if (shared) {
+    src = s_keys;
+    dst = s_keys + kSortSmemKeys;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) src[i] = home[i];
+  }
+  __syncthreads();
+  for (int shift = 0; shift < bits && n > 1; shift += 8) {
+    if (sort_pass(src, dst, n, shift, s_cnt, s_wsum)) {
+      uint32_t* tmp = src;
+      src = dst;
+      dst = tmp;
+    }
+  }
+  if (src != home)
+    for (int i = threadIdx.x; i < n; i += blockDim.x) home[i] = src[i];
 }
 
 // ---------------------------------------------------------------------------
@@ -585,121 +797,225 @@ run_sum_kernel(const uint32_t* keys, const int* n_keys,
 // 5. select_rescore
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kRowThreads)
+// Row r's slot windows [t0, t1) decoded into s_docs (u16: d_pad < 2**16),
+// slot t at s_soff[t] - s_soff[t0]: exactly the docs the binary search
+// reads (jnp.take with fill, as doc_at), one decode per lane.
+__device__ __forceinline__ void stage_windows(const Streams& s,
+                                              const Slots& p, int r, int t0,
+                                              int t1, const int* s_soff,
+                                              uint16_t* s_docs) {
+  const int base0 = s_soff[t0];
+  for (int t = t0; t < t1; ++t) {
+    const int rt = r * p.T + t;
+    const int len = s_soff[t + 1] - s_soff[t];
+    const long long st = p.starts[rt];
+    uint16_t* w = s_docs + (s_soff[t] - base0);
+    for (int i = threadIdx.x; i < len; i += blockDim.x)
+      w[i] = (uint16_t)doc_at(s, p, rt, st + i);
+  }
+}
+
+__global__ void __launch_bounds__(kSelThreads)
 select_rescore_kernel(Streams s, Slots p, const float* cand_score,
                       const int* cand_doc, const int* cand_cnt,
                       const int* n_cand, const long long* row_off, int kc,
-                      int kk, int sort_n, float* out_vals, int* out_docs) {
-  extern __shared__ unsigned char s_raw[];
-  float* s_neg = reinterpret_cast<float*>(s_raw);
-  int* s_doc = reinterpret_cast<int*>(s_raw + sizeof(float) * sort_n);
+                      int kk, int smem_bytes, uint32_t* scr_hi,
+                      uint32_t* scr_lo, float* out_vals, int* out_docs,
+                      int* class_rows) {
+  extern __shared__ __align__(16) unsigned char s_raw[];
   __shared__ int s_hist[256];
-  __shared__ uint32_t s_pick[2];
+  __shared__ int s_wsum[8];
+  __shared__ int s_pick[2];
   __shared__ int s_warp[33];
   __shared__ int s_count;
+  __shared__ int s_soff[kMaxSlots + 1];
   const int r = blockIdx.x;
+  const int T = p.T;
   const long long off = row_off[r];
   const int n = n_cand[r];
   const float* sc = cand_score + off;
-  if (threadIdx.x == 0) s_count = 0;
-  __syncthreads();
+  // the row's slice of the sort scratch: the picked candidates' indices,
+  // then their final keys (high word in scr_hi, low word in scr_lo)
+  uint32_t* key_hi = scr_hi + off;
+  uint32_t* key_lo = scr_lo + off;
+  const bool count_class = class_rows != nullptr && threadIdx.x == 0;
 
-  // candidates: the top kc run ends by (score desc, key position asc) —
+  // 1. candidates: the top kc run ends by (score desc, key position asc),
   // lax.top_k's earliest-index rule; scores are positive finite f32, so
   // their bit patterns order like the values
-  uint32_t tau = 0;
-  int need = n;
-  if (n > kc) {
-    tau = radix_select(
-        n, kc, [&](int i) { return __float_as_uint(sc[i]); }, s_hist, s_pick);
-    need = (int)s_pick[1];  // ties at tau to take, in position order
-  }
-  int eq_seen = 0;
-  for (int base = 0; base < n; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    const uint32_t bits = i < n ? __float_as_uint(sc[i]) : 0u;
-    const bool gt = i < n && (n <= kc || bits > tau);
-    const bool eq = i < n && n > kc && bits == tau;
-    int tile = 0;
-    const int eq_rank = block_rank(eq, s_warp, &tile);
-    const bool take = gt || (eq && eq_seen + eq_rank < need);
-    eq_seen += tile;
-    const int at = warp_append(take, &s_count);
-    if (take) s_doc[at] = i;
-  }
-  __syncthreads();
-  const int n_pick = s_count;
-
-  // exact rescore: binary search the candidate in every slot window,
-  // rank -> residual table -> w * exact, the first m matches in slot
-  // order summed with the run-sum tree (m = the run's clause count)
-  const int T = p.T;
-  for (int j = threadIdx.x; j < sort_n; j += blockDim.x) {
-    if (j >= n_pick) {
-      s_neg[j] = __int_as_float(0x7f800000);
-      s_doc[j] = p.d_pad;
-      continue;
+  const bool select = n > kc;
+  const int n_pick = select ? kc : n;
+  uint32_t* s_sc = reinterpret_cast<uint32_t*>(s_raw);
+  const bool sel_shared = select && n <= smem_bytes / 4;
+  if (count_class)
+    atomicAdd(&class_rows[!select ? kSelNone
+                                  : (sel_shared ? kSelShared : kSelDevice)],
+              1);
+  if (select) {
+    if (threadIdx.x == 0) s_count = 0;
+    if (sel_shared)
+      for (int i = threadIdx.x; i < n; i += blockDim.x)
+        s_sc[i] = __float_as_uint(sc[i]);
+    __syncthreads();
+    auto score_bits = [&](int i) {
+      return sel_shared ? s_sc[i] : __float_as_uint(sc[i]);
+    };
+    const uint32_t tau = radix_select<uint32_t>(
+        n, kc, score_bits, 24, 0, s_hist, s_wsum, s_pick);
+    const int need = s_pick[1];  // ties at tau to take, in position order
+    int eq_seen = 0;
+    for (int base = 0; base < n; base += blockDim.x) {
+      const int i = base + threadIdx.x;
+      const uint32_t bits = i < n ? score_bits(i) : 0u;
+      const bool eq = i < n && bits == tau;
+      int tile = 0;
+      const int eq_rank = block_rank(eq, s_warp, &tile);
+      const bool take =
+          (i < n && bits > tau) || (eq && eq_seen + eq_rank < need);
+      eq_seen += tile;
+      const int at = warp_append(take, &s_count);
+      if (take) key_lo[at] = (uint32_t)i;
     }
-    const int ci = s_doc[j];
-    const int doc = cand_doc[off + ci];
-    const int m = cand_cnt[off + ci];
+  }
+
+  // 2. exact rescore, slot-major over windows staged in shared memory:
+  // binary search the candidate in every slot window, rank -> residual
+  // table -> w * exact, the first m matches in slot order summed with the
+  // run-sum tree (m = the run's clause count)
+  int carry = 0;
+  for (int base = 0; base < T; base += blockDim.x) {
+    const int t = base + threadIdx.x;
+    const int len = t < T ? max(p.lengths[r * T + t], 0) : 0;
+    int tile = 0;
+    const int x = block_excl_scan(len, s_warp, &tile);
+    if (t < T) s_soff[t] = carry + x;
+    carry += tile;
+  }
+  if (threadIdx.x == 0) s_soff[T] = carry;
+  uint16_t* s_docs = reinterpret_cast<uint16_t*>(s_raw);
+  const int stage_cap = smem_bytes / 2;
+  const bool one_group = carry <= stage_cap;
+  if (count_class && n_pick > 0)
+    atomicAdd(&class_rows[one_group ? kRescoreStaged : kRescoreRestaged], 1);
+  __syncthreads();  // s_soff, the picks; the scores' copy is read no more
+  if (one_group) {
+    stage_windows(s, p, r, 0, T, s_soff, s_docs);
+    __syncthreads();
+  }
+  for (int base = 0; base < n_pick; base += blockDim.x) {
+    const int j = base + threadIdx.x;
+    const bool live = j < n_pick;
+    int doc = 0, m = 0;
+    if (live) {
+      const int ci = select ? (int)key_lo[j] : j;
+      doc = cand_doc[off + ci];
+      m = cand_cnt[off + ci];
+    }
     TreeDown tree;
     int found = 0;
-    for (int t = 0; t < T && found < m; ++t) {
-      const int rt = r * T + t;
-      const int len = p.lengths[rt];
-      if (len <= 0) continue;
-      const long long st = p.starts[rt];
-      const long long end = st + len;
-      long long lo = st, hi = end;
-      while (lo < hi) {
-        const long long mid = (lo + hi) >> 1;
-        if (doc_at(s, p, rt, mid) < doc) lo = mid + 1;
-        else hi = mid;
+    for (int t0 = 0; t0 < T;) {
+      int t1 = T;
+      if (!one_group) {  // the next slots whose windows fit together
+        t1 = t0 + 1;
+        while (t1 < T && s_soff[t1 + 1] - s_soff[t0] <= stage_cap) ++t1;
+        __syncthreads();
+        stage_windows(s, p, r, t0, t1, s_soff, s_docs);
+        __syncthreads();
       }
-      if (lo >= end || doc_at(s, p, rt, lo) != doc || doc >= p.d_pad)
-        continue;
-      const int rank = (lo >= 0 && lo < s.n_post) ? (int)s.ranks[lo] : 0;
-      float val = 0.0f;
-      if (rank > 0 && rank <= p.res_lens[rt]) {
-        const long long at = (long long)p.res_starts[rt] + rank - 1;
-        if (at >= 0 && at < s.n_res) val = s.res_vals[at];
+      const int base0 = s_soff[t0];
+      for (int t = t0; live && t < t1 && found < m; ++t) {
+        const int len = s_soff[t + 1] - s_soff[t];
+        if (len <= 0) continue;
+        const uint16_t* w = s_docs + (s_soff[t] - base0);
+        int lo = 0, hi = len;
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if ((int)w[mid] < doc) lo = mid + 1;
+          else hi = mid;
+        }
+        if (lo >= len || (int)w[lo] != doc || doc >= p.d_pad) continue;
+        const int rt = r * T + t;
+        const long long pos = (long long)p.starts[rt] + lo;
+        const int rank = (pos >= 0 && pos < s.n_post) ? (int)s.ranks[pos] : 0;
+        float val = 0.0f;
+        if (rank > 0 && rank <= p.res_lens[rt]) {
+          const long long at = (long long)p.res_starts[rt] + rank - 1;
+          if (at >= 0 && at < s.n_res) val = s.res_vals[at];
+        }
+        tree.push(m - 1 - found, __fmul_rn(p.weights[rt], val), m);
+        ++found;
       }
-      tree.push(m - 1 - found, __fmul_rn(p.weights[rt], val), m);
-      ++found;
+      t0 = t1;
     }
-    for (; found < m; ++found) tree.push(m - 1 - found, 0.0f, m);
-    s_neg[j] = -tree.out;
-    s_doc[j] = doc;
+    if (live) {
+      for (; found < m; ++found) tree.push(m - 1 - found, 0.0f, m);
+      // the final key: score order, then the smaller doc first (docs of
+      // a row are unique, so are the keys); bit 0 keeps a -0.0's sign
+      key_hi[j] = order_bits(tree.out);
+      key_lo[j] = ((uint32_t)(65535 - doc) << 16) |
+                  (__float_as_uint(tree.out) == 0x80000000u ? 1u : 0u);
+    }
   }
   __syncthreads();
 
-  // bitonic sort ascending on (-score, doc)
+  // 3. the top kk on (-score, doc): when more than kk were rescored, a
+  // radix select of the kk-th key keeps exactly kk; only those are sorted
+  const int count = min(n_pick, kk);
+  unsigned long long* s_fin = reinterpret_cast<unsigned long long*>(s_raw);
+  auto key_at = [&](int j) {
+    return ((unsigned long long)key_hi[j] << 32) | key_lo[j];
+  };
+  if (count_class && n_pick > 0)
+    atomicAdd(&class_rows[n_pick > kk ? kFinalTrim : kFinalAll], 1);
+  if (n_pick > kk) {
+    const unsigned long long thr = radix_select<unsigned long long>(
+        n_pick, kk, key_at, 56, 16, s_hist, s_wsum, s_pick);
+    if (threadIdx.x == 0) s_count = 0;
+    __syncthreads();
+    for (int base = 0; base < n_pick; base += blockDim.x) {
+      const int j = base + threadIdx.x;
+      const unsigned long long key = j < n_pick ? key_at(j) : 0ull;
+      const bool take = j < n_pick && (key >> 16) >= (thr >> 16);
+      const int at = warp_append(take, &s_count);
+      if (take) s_fin[at] = key;
+    }
+  } else {
+    for (int j = threadIdx.x; j < n_pick; j += blockDim.x)
+      s_fin[j] = key_at(j);
+  }
+  int sort_n = 1;
+  while (sort_n < count) sort_n <<= 1;
+  for (int j = count + threadIdx.x; j < sort_n; j += blockDim.x)
+    s_fin[j] = 0ull;  // below every real key
+  __syncthreads();
+  // bitonic sort, descending
   for (int size = 2; size <= sort_n; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
       for (int i = threadIdx.x; i < sort_n / 2; i += blockDim.x) {
         const int lo = 2 * i - (i & (stride - 1));
         const int hi = lo + stride;
-        const bool up = (lo & size) == 0;
-        const float a = s_neg[lo], b = s_neg[hi];
-        const int da = s_doc[lo], db = s_doc[hi];
-        const bool gt = (a > b) || (a == b && da > db);
-        if (gt == up) {
-          s_neg[lo] = b;
-          s_neg[hi] = a;
-          s_doc[lo] = db;
-          s_doc[hi] = da;
+        const unsigned long long a = s_fin[lo], b = s_fin[hi];
+        if ((a < b) == ((lo & size) == 0)) {
+          s_fin[lo] = b;
+          s_fin[hi] = a;
         }
       }
       __syncthreads();
     }
   }
   for (int j = threadIdx.x; j < kk; j += blockDim.x) {
-    const float neg = s_neg[j];
-    const bool inf = isinf(neg);
-    const float v = inf ? __int_as_float(kNegInfBits) : -neg;
+    float v = __int_as_float(kNegInfBits);
+    int doc = p.d_pad;
+    if (j < count) {
+      const unsigned long long key = s_fin[j];
+      const uint32_t lo = (uint32_t)key;
+      uint32_t bits = order_bits_inverse((uint32_t)(key >> 32));
+      if (lo & 1u) bits = 0x80000000u;
+      v = __uint_as_float(bits);
+      doc = 65535 - (int)(lo >> 16);
+    }
     out_vals[(long long)r * kk + j] = v;
-    out_docs[(long long)r * kk + j] = inf ? p.d_pad : s_doc[j];
+    out_docs[(long long)r * kk + j] = doc;
   }
 }
 
@@ -797,12 +1113,19 @@ int es_row_pack(const void* docs8, const void* docs16, const void* codes,
   return (int)cudaGetLastError();
 }
 
-int es_row_sort(void* keys, void* alt, const void* row_off,
-                const void* n_keys, int R, int key_bits, void* stream) {
-  row_sort_kernel<<<R, kRowThreads, 0, (cudaStream_t)stream>>>(
+int es_row_sort(void* keys, void* alt, const void* n_keys, void* ckeys,
+                void* calt, const void* n_ckeys, const void* row_off, int R,
+                void* class_rows, void* stream) {
+  const int smem = 2 * kSortSmemKeys * (int)sizeof(uint32_t);
+  cudaError_t err = cudaFuncSetAttribute(
+      row_sort_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(R, ckeys != nullptr ? 2 : 1);
+  row_sort_kernel<<<grid, kSortThreads, smem, (cudaStream_t)stream>>>(
       static_cast<uint32_t*>(keys), static_cast<uint32_t*>(alt),
-      static_cast<const long long*>(row_off),
-      static_cast<const int*>(n_keys), key_bits);
+      static_cast<const int*>(n_keys), static_cast<uint32_t*>(ckeys),
+      static_cast<uint32_t*>(calt), static_cast<const int*>(n_ckeys),
+      static_cast<const long long*>(row_off), static_cast<int*>(class_rows));
   return (int)cudaGetLastError();
 }
 
@@ -833,23 +1156,26 @@ int es_select_rescore(const void* docs8, const void* docs16,
                       int max_len, int d_pad, const void* cand_score,
                       const void* cand_doc, const void* cand_cnt,
                       const void* n_cand, const void* row_off, int kc,
-                      int kk, int sort_n, void* out_vals, void* out_docs,
+                      int kk, int smem_bytes, void* scr_hi, void* scr_lo,
+                      void* out_vals, void* out_docs, void* class_rows,
                       void* stream) {
   Streams s = make_streams(docs8, docs16, codes, ranks, n_post, doc_bases,
                            n_bases, res_vals, n_res);
   Slots p = make_slots(starts, lengths, weights, min_count, res_starts,
                        res_lens, dbs, dlo, T, max_len, d_pad);
-  const size_t smem = (size_t)sort_n * (sizeof(float) + sizeof(int));
   cudaError_t err = cudaFuncSetAttribute(
       select_rescore_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  select_rescore_kernel<<<R, kRowThreads, smem, (cudaStream_t)stream>>>(
+  select_rescore_kernel<<<R, kSelThreads, smem_bytes,
+                          (cudaStream_t)stream>>>(
       s, p, static_cast<const float*>(cand_score),
       static_cast<const int*>(cand_doc), static_cast<const int*>(cand_cnt),
       static_cast<const int*>(n_cand),
-      static_cast<const long long*>(row_off), kc, kk, sort_n,
-      static_cast<float*>(out_vals), static_cast<int*>(out_docs));
+      static_cast<const long long*>(row_off), kc, kk, smem_bytes,
+      static_cast<uint32_t*>(scr_hi), static_cast<uint32_t*>(scr_lo),
+      static_cast<float*>(out_vals), static_cast<int*>(out_docs),
+      static_cast<int*>(class_rows));
   return (int)cudaGetLastError();
 }
 

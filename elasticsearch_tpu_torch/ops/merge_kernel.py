@@ -10,7 +10,8 @@ it runs ``fused_merge_topk_plain``, the plain torch pipeline of
 the kernel against.
 
 ``LAUNCHES`` counts the launches of each kernel (a plain integer per
-kernel name, bumped where the kernel is launched and nowhere else).
+kernel name, bumped where the kernel is launched and nowhere else). The
+row sort takes both key sets of a train in one launch.
 """
 
 from __future__ import annotations
@@ -30,12 +31,18 @@ _LAUNCHES_LOCK = threading.Lock()  # batcher threads of several packs launch
 
 #: widest slot window the slot-decode kernel keeps in shared memory
 MAX_LEN_LIMIT = 4096
-#: widest candidate sort the select kernel keeps in shared memory
-SORT_LIMIT = 16384
-#: largest kernel k: a row's 3k candidates sort in the next power of two
-K_LIMIT = SORT_LIMIT // 4
+#: largest kernel k (from + size 10,000 buckets to 16,384): the select
+#: kernel sorts its kk finalists, 8 B each, in shared memory
+K_LIMIT = 16384
 #: slots per row the per-row kernels hold in shared memory
 T_LIMIT = 1024
+#: the select kernel's dynamic shared memory below the finalists' need
+SELECT_BASE_SMEM = 32768
+#: size classes the row sort and select kernels report per row (the
+#: order of the kernels' class counters)
+SIZE_CLASSES = ("row_sort.shared", "row_sort.device", "select.none",
+                "select.shared", "select.device", "rescore.staged",
+                "rescore.restaged", "final.all", "final.trim")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,12 +54,12 @@ _SIGNATURES = {
                                                    _P, _P],
     "es_row_pack": _STREAM_ARGS + _SLOT_ARGS + [_I, _I, _I, _P, _P, _P, _P,
                                                 _P, _P, _P, _P, _P, _P],
-    "es_row_sort": [_P, _P, _P, _P, _I, _I, _P],
+    "es_row_sort": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P],
     "es_run_sum": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
                    _P],
     "es_select_rescore": _STREAM_ARGS + _SLOT_ARGS + [_P, _P, _P, _P, _P,
                                                       _I, _I, _I, _P, _P,
-                                                      _P],
+                                                      _P, _P, _P, _P],
 }
 
 
@@ -156,8 +163,9 @@ def fused_merge_topk(
     docs int32[R, k'][, totals int32[R]]). CPU operands run the plain
     version; CUDA operands launch the kernels or raise. `stats`, when
     given, receives the launch's lane, key and candidate counts (a host
-    sync) and, under "sort_input", copies of the row sort's unsorted
-    keys; `events` receives (kernel, start, end) CUDA events."""
+    sync), under "classes" the rows each size class of the row sort and
+    select kernels took, and under "sort_input" copies of the row sort's
+    unsorted keys; `events` receives (kernel, start, end) CUDA events."""
     kw = dict(max_len=max_len, d_pad=d_pad, k=k, t_window=t_window,
               with_counts=with_counts, with_totals=with_totals,
               flat_rank=flat_rank, res_starts=res_starts, res_lens=res_lens,
@@ -224,14 +232,14 @@ def _launch(flat_docs, flat_impact, starts, lengths, weights, min_count, *,
             raise ValueError("block_max is shorter than one slot's groups")
         if slot_terms is not None:
             _need(slot_terms, "slot_terms", torch.int32, dev, (r, t))
+    if k > K_LIMIT:
+        raise ValueError(f"merge kernel takes k ≤ {K_LIMIT}, got {k}")
     length = t * max_len
     kc = min(length, kk + max(2 * kk, 256))
-    sort_n = 2
-    while sort_n < max(kc, kk):
-        sort_n *= 2
-    if sort_n > SORT_LIMIT:
-        raise ValueError(f"merge kernel sorts ≤ {SORT_LIMIT} candidates "
-                         f"per row; k={k} needs {sort_n}")
+    final_n = 1
+    while final_n < kk:
+        final_n *= 2
+    select_smem = max(SELECT_BASE_SMEM, 8 * final_n)
     window = 1
     while window < t_window:
         window *= 2
@@ -240,11 +248,16 @@ def _launch(flat_docs, flat_impact, starts, lengths, weights, min_count, *,
     stream = torch.cuda.current_stream(dev).cuda_stream
     i32 = dict(dtype=torch.int32, device=dev)
     # compacted key storage: each row gets room for its valid lanes
-    row_cap = lengths.clamp(0, max_len).sum(dim=1, dtype=torch.int64)
+    row_cap = lengths.clamp(min=0).sum(dim=1, dtype=torch.int64)
     row_off = torch.zeros(r, dtype=torch.int64, device=dev)
     if r > 1:
         row_off[1:] = torch.cumsum(row_cap[:-1], dim=0)
-    total_cap = max(1, int(row_cap.sum().item()))
+    total_cap, longest = torch.stack(
+        [row_cap.sum(), lengths.max().to(torch.int64)]).tolist()
+    if longest > max_len:
+        raise ValueError(f"a slot holds {longest} lanes, more than "
+                         f"max_len={max_len}")
+    total_cap = max(1, total_cap)
     keys = torch.empty(total_cap, **i32)
     alt = torch.empty(total_cap, **i32)
     n_keys = torch.empty(r, **i32)
@@ -258,6 +271,8 @@ def _launch(flat_docs, flat_impact, starts, lengths, weights, min_count, *,
     totals = torch.empty(r, **i32)
     out_vals = torch.empty((r, kk), dtype=torch.float32, device=dev)
     out_docs = torch.empty((r, kk), **i32)
+    class_rows = (torch.zeros(len(SIZE_CLASSES), **i32)
+                  if stats is not None else None)
 
     streams = (_ptr(flat_docs) if delta else None,
                None if delta else _ptr(flat_docs),
@@ -286,20 +301,22 @@ def _launch(flat_docs, flat_impact, starts, lengths, weights, min_count, *,
             keys=keys.clone(), n_keys=n_keys.clone(), row_off=row_off,
             count_keys=ckeys.clone() if need_count else None,
             n_count_keys=n_ckeys.clone() if need_count else None)
+    # one launch for both key sets; the count keys' scratch is cand_score,
+    # which run_sum writes only after the sort
     _run(lib, "row_sort", events, lib.es_row_sort, _ptr(keys), _ptr(alt),
-         _ptr(row_off), _ptr(n_keys), r, 32, stream)
-    if need_count:
-        # count keys are (doc << 1 | bit): 17 significant bits
-        _run(lib, "row_sort", events, lib.es_row_sort, _ptr(ckeys),
-             _ptr(alt), _ptr(row_off), _ptr(n_ckeys), r, 17, stream)
+         _ptr(n_keys), _ptr(ckeys), _ptr(cand_score) if need_count else None,
+         _ptr(n_ckeys), _ptr(row_off), r, _ptr(class_rows), stream)
     _run(lib, "run_sum", events, lib.es_run_sum,
          _ptr(keys), _ptr(n_keys), _ptr(ckeys), _ptr(n_ckeys), _ptr(row_off),
          _ptr(min_count), r, int(with_counts), window, _ptr(cand_score),
          _ptr(cand_doc), _ptr(cand_cnt), _ptr(n_cand), _ptr(totals), stream)
+    # the keys and their sort scratch are spent: the select kernel keeps
+    # its candidate list and rescored keys in them
     _run(lib, "select_rescore", events, lib.es_select_rescore,
          *streams, *slots, _ptr(cand_score), _ptr(cand_doc), _ptr(cand_cnt),
-         _ptr(n_cand), _ptr(row_off), kc, kk, sort_n, _ptr(out_vals),
-         _ptr(out_docs), stream)
+         _ptr(n_cand), _ptr(row_off), kc, kk, select_smem, _ptr(keys),
+         _ptr(alt), _ptr(out_vals), _ptr(out_docs), _ptr(class_rows),
+         stream)
     if stats is not None:
         kth_lanes = (lengths * (lengths >= kk)).sum() if do_skip else 0
         stats.update(lanes=int(row_cap.sum()), kth_lanes=int(kth_lanes),
@@ -308,7 +325,8 @@ def _launch(flat_docs, flat_impact, starts, lengths, weights, min_count, *,
                      candidates=int(n_cand.sum()),
                      picked=int(n_cand.clamp(max=kc).sum()),
                      rows=r, slots=t, n_grp=n_grp, kk=kk, kc=kc,
-                     delta=int(delta), do_skip=int(do_skip))
+                     delta=int(delta), do_skip=int(do_skip),
+                     classes=dict(zip(SIZE_CLASSES, class_rows.tolist())))
     if with_totals:
         return out_vals, out_docs, totals
     return out_vals, out_docs

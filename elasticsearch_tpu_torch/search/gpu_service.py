@@ -204,6 +204,11 @@ def _serving_bucket(n: int, cap: int = 128) -> int:
     return _batch_bucket(n, 1024)
 
 
+#: the largest from + size the device path serves (the reference's bound,
+#: search/tpu_service.py try_search); its kernel k bucket is 16,384
+MAX_K = 10_000
+
+
 def _kernel_k(k: int) -> int:
     """k buckets of the exact kernel: 128, 1024, then powers of two."""
     return 128 if k <= 128 else (1024 if k <= 1024
@@ -564,11 +569,11 @@ class GpuSearchService:
             raise NotLowerable("_source filtering is not served by the "
                                "device path")
         k = from_ + size
-        if k <= 0 or _kernel_k(k) > merge_kernel.K_LIMIT:
-            # refused on every device alike, before it joins a train
+        if k <= 0 or k > MAX_K:
+            # refused on every device alike, before it joins a train (the
+            # reference hands such a request to its planner)
             raise NotLowerable(f"from + size = {k} is outside (0, "
-                               f"{merge_kernel.K_LIMIT}], the merge "
-                               f"kernel's k")
+                               f"{MAX_K}], the device path's window")
         flat = lower_query(query, idx.mapper)
         if flat is None:
             raise NotLowerable(f"[{query.query_name()}] query does not "

@@ -116,3 +116,91 @@ def test_sorted_merge_topk_routes_cuda_to_kernel(cuda):
                              variant="pallas", **static,
                              **cases.to_torch(extra, cuda))
     assert merge_kernel.LAUNCHES["row_sort"] > before
+
+
+def run_classes(pos, extra, static, k, device):
+    """The kernel's size classes for these operands (rows per class)."""
+    stats = {}
+    merge_kernel.fused_merge_topk(
+        *cases.to_torch(pos, device), k=k, with_totals=True, stats=stats,
+        **static, **cases.to_torch(extra, device))
+    return stats["classes"]
+
+
+@pytest.mark.parametrize("n_terms", [2, 4])
+def test_full_slot_rows_match_plain(cuda, n_terms):
+    """T = 16 / 32 rows of full 4096-lane slots: the row sort's and the
+    select's device-memory classes, the rescore restaged by slot group."""
+    rng = np.random.default_rng(300 + n_terms)
+    fd, fi, rows, mins, d_pad, ext = cases.make_full_slot_case(rng, n_terms)
+    pos, extra, static = cases.kernel_args(fd, fi, rows, mins, d_pad, ext)
+    for with_totals in (True, False):
+        got, want = run_pair(pos, extra, static, 1000, cuda, with_totals)
+        cases.assert_bitwise(got, want, f"T={pos[2].shape[1]}")
+    classes = run_classes(pos, extra, static, 1000, cuda)
+    assert classes["row_sort.device"] > 0
+    assert classes["select.device"] > 0
+    assert classes["rescore.restaged"] > 0
+
+
+@pytest.mark.parametrize("k", [4096, 10000, 16384])
+def test_tie_heavy_beyond_kc_matches_plain(cuda, k):
+    """More candidates than kc with ties at the cut, and the final top kk
+    trimmed by the 64-bit radix select (k up to the service's 16,384)."""
+    rng = np.random.default_rng(310)
+    fd, fi, rows, mins, d_pad, ext = cases.make_tie_heavy_full_case(rng)
+    pos, extra, static = cases.kernel_args(fd, fi, rows, mins, d_pad, ext)
+    for with_totals in (True, False):
+        got, want = run_pair(pos, extra, static, k, cuda, with_totals)
+        cases.assert_bitwise(got, want, f"k={k}")
+    assert run_classes(pos, extra, static, k, cuda)["final.trim"] > 0
+
+
+def test_small_rows_take_shared_classes(cuda):
+    """Rows of a few hundred keys sort and select in shared memory."""
+    rng = np.random.default_rng(7)
+    d_pad = 20000
+    fd, fi, ext = cases.make_heavy_flat(rng, d_pad, [900, 700, 500])
+    rows = [[(ext[t][0], ext[t][1], 1.0, t) for t in range(3)]]
+    pos, extra, static = cases.kernel_args(fd, fi, rows, [1], d_pad, ext)
+    got, want = run_pair(pos, extra, static, 100, cuda)
+    cases.assert_bitwise(got, want)
+    classes = run_classes(pos, extra, static, 100, cuda)
+    assert classes["row_sort.shared"] == 2   # keys and count keys
+    assert classes["select.shared"] == 1
+    assert classes["rescore.staged"] == 1
+    assert classes["final.trim"] == 1
+
+
+def test_service_on_card_matches_cpu_up_to_size_10000(cuda):
+    """The service on the card answers as on the CPU, from + size up to
+    10,000 beside a size-10 body, and refuses 10,001 alike."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from elasticsearch_tpu_torch.errors import NotLowerable
+    from elasticsearch_tpu_torch.search.gpu_service import GpuSearchService
+    rng = np.random.default_rng(20)
+    words = [f"w{i}" for i in range(12)]
+    docs = [(f"d{i}", {"body": " ".join(
+        words[min(int(z) - 1, 11)] for z in rng.zipf(1.3, 8))})
+        for i in range(3000)]
+    mapping = {"properties": {"body": {"type": "text"}}}
+    bodies = [{"query": {"match": {"body": "w0 w1"}}, "size": size}
+              for size in (10, 5000, 10000)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        svc = GpuSearchService(device=dev, window_s=0.2)
+        try:
+            svc.create_index("c", 3, mapping)
+            svc.index("c", docs)
+            svc.refresh("c")
+            with ThreadPoolExecutor(max_workers=3) as pool:
+                futs = [pool.submit(svc.search, "c", dict(b))
+                        for b in bodies]
+                out[dev] = [f.result()["hits"] for f in futs]
+            with pytest.raises(NotLowerable):
+                svc.search("c", {"query": {"match": {"body": "w0"}},
+                                 "size": 10001})
+        finally:
+            svc.close()
+    assert out["cuda"] == out["cpu"]

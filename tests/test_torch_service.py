@@ -93,14 +93,8 @@ def f32_bits(x):
     return np.float32(x).view(np.uint32)
 
 
-@pytest.mark.parametrize("body", BODIES,
-                         ids=[f"body{i}" for i in range(len(BODIES))])
-def test_search_response_matches_reference(both, body):
-    ref, tpu, port = both
-    served = tpu.served
-    want = coordinator.search(ref, "corpus", dict(body), tpu_search=tpu)
-    assert tpu.served == served + 1, "reference did not take its kernel"
-    got = port.search("corpus", dict(body))
+def assert_same_response(want, got):
+    """_id order, _score bits, TotalHits, _source and max_score equal."""
     wh, gh = want["hits"], got["hits"]
     assert gh["total"] == {"value": wh["total"]["value"],
                            "relation": wh["total"]["relation"]}
@@ -116,6 +110,21 @@ def test_search_response_matches_reference(both, body):
         assert f32_bits(gh["max_score"]) == f32_bits(wh["max_score"])
 
 
+def reference_search(ref, tpu, body):
+    served = tpu.served
+    want = coordinator.search(ref, "corpus", dict(body), tpu_search=tpu)
+    assert tpu.served == served + 1, "reference did not take its kernel"
+    return want
+
+
+@pytest.mark.parametrize("body", BODIES,
+                         ids=[f"body{i}" for i in range(len(BODIES))])
+def test_search_response_matches_reference(both, body):
+    ref, tpu, port = both
+    want = reference_search(ref, tpu, body)
+    assert_same_response(want, port.search("corpus", dict(body)))
+
+
 def test_kernel_variant_served(both):
     _, _, port = both
     port.search("corpus", {"query": {"match": {"body": "alpha"}}})
@@ -128,7 +137,8 @@ def test_kernel_variant_served(both):
     {"query": {"bool": {"must": [{"term": {"body": "alpha"}}]}}},
     {"query": {"match_all": {}}},
     {"query": {"match": {"body": "alpha"}}, "aggs": {}},
-    {"query": {"match": {"body": "alpha"}}, "size": 5000},
+    {"query": {"match": {"body": "alpha"}}, "size": 10001},
+    {"query": {"match": {"body": "alpha"}}, "size": 10, "from": 9991},
 ])
 def test_outside_lowering_subset_raises(both, body):
     _, _, port = both
@@ -137,12 +147,12 @@ def test_outside_lowering_subset_raises(both, body):
 
 
 def test_oversized_k_refused_beside_concurrent_query(both):
-    """from + size past the kernel's k is refused per request, and a
-    query sent with it is answered as if alone."""
+    """from + size past the reference's 10,000 is refused per request,
+    and a query sent with it is answered as if alone."""
     from concurrent.futures import ThreadPoolExecutor
     _, _, port = both
     small = {"query": {"match": {"body": "alpha beta"}}, "size": 10}
-    big = {"query": {"match": {"body": "alpha beta"}}, "size": 5000}
+    big = {"query": {"match": {"body": "alpha beta"}}, "size": 10001}
     alone = port.search("corpus", dict(small))
     with ThreadPoolExecutor(max_workers=2) as pool:
         f_big = pool.submit(port.search, "corpus", dict(big))
@@ -151,6 +161,36 @@ def test_oversized_k_refused_beside_concurrent_query(both):
             f_big.result()
         got = f_small.result()
     assert got["hits"] == alone["hits"]
+
+
+@pytest.mark.parametrize("big_size", [5000, 10000])
+def test_large_size_beside_small_in_one_train_matches_reference(both,
+                                                               big_size):
+    """size 5000 or 10,000 (kernel k 8192 or 16,384) and size 10 share one
+    train; each response equals the reference service's."""
+    ref, tpu, _ = both
+    small = {"query": {"match": {"body": "alpha beta"}}, "size": 10}
+    big = {"query": {"match": {"body": "gamma alpha"}}, "size": big_size}
+    want_small = reference_search(ref, tpu, small)
+    want_big = reference_search(ref, tpu, big)
+    svc = GpuSearchService(device="cpu", window_s=0.5)
+    try:
+        svc.create_index("corpus", SHARDS, MAPPING)
+        svc.index("corpus", make_docs())
+        svc.refresh("corpus")
+        svc.search("corpus", dict(small))  # resident before the train
+        svc.batcher.batch_sizes.clear()
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            f_big = pool.submit(svc.search, "corpus", dict(big))
+            f_small = pool.submit(svc.search, "corpus", dict(small))
+            got_big, got_small = f_big.result(), f_small.result()
+        assert svc.batcher.batch_sizes == {2: 1}
+    finally:
+        svc.close()
+    assert_same_response(want_big, got_big)
+    assert_same_response(want_small, got_small)
+    assert len(got_big["hits"]["hits"]) == got_big["hits"]["total"]["value"]
 
 
 def test_failed_train_fails_only_its_culprit(both):

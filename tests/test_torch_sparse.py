@@ -200,6 +200,44 @@ class TestCompressedParity:
         cases.assert_bitwise(got, want)
 
 
+class TestLargeRows:
+    """Rows at the shapes the Hopper kernels split on: full 4096-lane
+    slots at T = 16 and 32 (more keys than the row sort's shared-memory
+    class, more candidates than the select's), and a tie-heavy row with
+    more candidates than kc = 3k at k = 4096 and k = 10,000 (kernel k up
+    to the service's 16,384 bucket). The plain version must equal the
+    reference's compressed core bit for bit: the card holds the kernels
+    to it (tests/test_torch_merge_kernel.py)."""
+
+    @pytest.mark.parametrize("n_terms,t_slots", [(2, 16), (4, 32)])
+    def test_full_slots(self, n_terms, t_slots):
+        rng = np.random.default_rng(300 + n_terms)
+        fd, fi, rows, mins, d_pad, ext = cases.make_full_slot_case(
+            rng, n_terms)
+        pos, extra, static = cases.kernel_args(fd, fi, rows, mins, d_pad,
+                                               ext)
+        assert pos[2].shape == (2, t_slots)
+        assert (pos[3][0] == 4096).all()
+        got = run_port(pos, extra, static, 1000, "compressed")
+        cases.assert_bitwise(got, run_ref(pos, extra, static, 1000,
+                                          "compressed"))
+        assert int(got[2][0]) > merge_kernel.K_LIMIT
+
+    @pytest.mark.parametrize("k,beyond_kc", [(4096, True), (10000, True),
+                                             (16384, False)])
+    def test_tie_heavy_candidates_beyond_kc(self, k, beyond_kc):
+        rng = np.random.default_rng(310)
+        fd, fi, rows, mins, d_pad, ext = cases.make_tie_heavy_full_case(rng)
+        pos, extra, static = cases.kernel_args(fd, fi, rows, mins, d_pad,
+                                               ext)
+        got = run_port(pos, extra, static, k, "compressed")
+        cases.assert_bitwise(got, run_ref(pos, extra, static, k,
+                                          "compressed"))
+        n_match = int(got[2][0])  # the OR row's matching docs
+        assert (n_match > k + max(2 * k, 256)) == beyond_kc
+        assert int(torch.isfinite(got[0][0]).sum()) == min(k, n_match)
+
+
 class TestTotals:
     def test_totals_exceed_k(self):
         rng = np.random.default_rng(301)

@@ -143,3 +143,28 @@ def assert_bitwise(got, want, msg=""):
                                   want[0].view(np.uint32), err_msg=msg)
     for g, w in zip(got[1:], want[1:]):
         np.testing.assert_array_equal(g, w, err_msg=msg)
+
+
+def make_full_slot_case(rng, n_terms, df=32768, d_pad=60000, skew=1.0):
+    """n_terms long postings of df docs each: at chunk_cap 4096 every
+    slot is full and a row of all the terms fills n_terms * df / 4096
+    slots (T = 16 for two terms, 32 for four). Its keys exceed the row
+    sort's shared-memory class and its candidates the select's. Rows:
+    every term (OR), and the first two terms with min_count 2."""
+    fd, fi, ext = make_heavy_flat(rng, d_pad, [df] * n_terms, skew=skew)
+    ws = [float(w) for w in rng.uniform(0.5, 3.0, size=n_terms)]
+    rows = [[(ext[t][0], ext[t][1], ws[t], t) for t in range(n_terms)],
+            [(ext[t][0], ext[t][1], ws[t], t) for t in range(2)]]
+    return fd, fi, rows, [1, 2], d_pad, ext
+
+
+def make_tie_heavy_full_case(rng, df=32768, d_pad=60000):
+    """Two full-slot terms with impacts on an eighths grid and unit
+    weights: ~50,000 candidate docs per OR row whose quantized scores
+    tie in large groups, so the candidate cut at kc = 3k splits a tie
+    (more candidates than kc at k = 4096 and at k = 10,000)."""
+    fd, fi, ext = make_heavy_flat(rng, d_pad, [df, df], skew=1.0)
+    fi = (np.ceil(fi * 8.0) / 8.0).astype(np.float32)
+    rows = [[(ext[t][0], ext[t][1], 1.0, t) for t in range(2)],
+            [(ext[t][0], ext[t][1], 1.0, t) for t in range(2)]]
+    return fd, fi, rows, [1, 2], d_pad, ext
