@@ -19,8 +19,9 @@ through GpuSearchService from many threads, and checks:
                  (kernel k 16,384, more candidates than kk): the kernels
                  against their plain torch version on the card, scores as
                  uint32, docs and totals exactly, with and without
-                 totals; the rows each size class of row_sort and
-                 select_rescore took (every class must take some)
+                 totals; the rows each size class of row_pack, row_sort,
+                 run_sum and select_rescore took (every class must take
+                 some)
   e2e            the counted run: queries, hits, batch sizes, launches per
                  kernel (all must be > 0), compressed_exact launches, and
                  16 sampled queries against the numpy oracle (top-10 ids,
@@ -29,14 +30,21 @@ through GpuSearchService from many threads, and checks:
                  torch.profiler: each request's lowering, wait in the
                  batcher (window and queue), train execution and
                  response assembly; device time and idle share
-  kernels_extra  row_sort and select_rescore ms (median of 5) at the
-                 stop-word and from + size 10,000 launches
+  kernels_extra  row_pack, row_sort, run_sum and select_rescore ms
+                 (median of 5, CUDA events) and device ms (mean of 5,
+                 torch.profiler) at the stop-word and from + size 10,000
+                 launches
   kernels        one JSON line: per kernel, median ms over >= 20 timed
-                 launches (CUDA events) of one fixed train (the first 128
-                 bodies, 16 shards x 128 queries), launches per train of the
+                 launches (CUDA events around each launch: a launch the
+                 device waits for counts its wait) and device_ms (mean
+                 device time from torch.profiler) of one fixed train (the
+                 first 128 bodies, 16 shards x 128 queries), launches per
+                 train of the
                  counted run, the plain version's ms (the whole plain
                  pipeline), the bytes bound at 3.35 TB/s, torch.sort as
-                 the sort's yardstick, and the size classes the rows of
+                 the sort's yardstick (no single torch call computes
+                 what the other four compute: library_ms null, and
+                 library_of says why), and the size classes the rows of
                  the timed launch took
 
 The last line is {"ok": true, "device": {...}}; any failure exits
@@ -69,8 +77,24 @@ INDEX = "msmarco"
 PALLAS_LINE = "elasticsearch_tpu/ops/pallas_merge.py:155"
 KERNEL_SOURCE = "elasticsearch_tpu_torch/csrc/merge_topk.cu"
 #: the size-class counters (merge_kernel.SIZE_CLASSES) of each kernel
-CLASSES_OF = {"row_sort": ("row_sort",),
+CLASSES_OF = {"row_pack": ("row_pack",), "row_sort": ("row_sort",),
+              "run_sum": ("run_sum",),
               "select_rescore": ("select", "rescore", "final")}
+#: the one torch call that computes each kernel's function, or why none
+LIBRARY_OF = {
+    "slot_decode": "none: a per-slot k-th largest of decoded codes (no "
+                   "torch call decodes the code16 stream) plus group "
+                   "upper bounds",
+    "row_pack": "none: decode, block-max skip and compaction into packed "
+                "keys; torch.masked_select compacts but does not decode "
+                "or skip",
+    "row_sort": "torch.sort of the same keys, the row id in the high bits",
+    "run_sum": "none: segment_reduce sums runs in another order (the "
+               "reference's doubling tree is not a torch call) and has no "
+               "msm filter or count-key totals",
+    "select_rescore": "none: torch.topk breaks ties in no fixed order and "
+                      "does not rescore through the residual tables",
+}
 
 
 def log(phase: str, **fields) -> None:
@@ -223,7 +247,9 @@ def kernel_parity(mk, launches):
             raise AssertionError(f"kernel != plain without totals at "
                                  f"{entry}")
         if label == "stopwords" and not (took.get("row_sort.device")
-                                         and took.get("select.device")):
+                                         and took.get("select.device")
+                                         and took.get("row_pack.split")
+                                         and took.get("run_sum.tiled")):
             raise AssertionError(f"the stop-word launch stayed in shared "
                                  f"memory: {entry}")
         if label == "k10000" and not (kw["k"] == mk.K_LIMIT
@@ -585,16 +611,14 @@ def main() -> int:
         # frequent terms (the Zipf head fills 4096-lane slots: T >= 16,
         # rows past the shared-memory sort and select) at k = 1000, and
         # from + size = 10,000 (kernel k 16,384)
+        from elasticsearch_tpu_torch.tools.kernel_ab import (extra_bodies,
+                                                             fixed_train,
+                                                             profiled)
         extra = []
-        head = corpus.vocab[:4]
-        for label, texts, size in (
-                ("stopwords", (f"{head[0]} {head[1]}", f"{head[0]} "
-                               f"{head[2]}", f"{head[1]} {head[3]}"), K),
-                ("k10000", (head[0], f"{head[0]} {head[1]}"), MAX_K)):
+        for label, size, queries in extra_bodies(corpus.vocab, FIELD,
+                                                 K, MAX_K):
             with LaunchRecorder(mk) as special:
-                answered = drive(svc, INDEX, [
-                    {"query": {"match": {FIELD: text}}, "size": size}
-                    for text in texts])
+                answered = drive(svc, INDEX, queries)
             for resp in answered:
                 hits = resp["hits"]
                 if len(hits["hits"]) != min(size, hits["total"]["value"]):
@@ -604,7 +628,6 @@ def main() -> int:
         # the launch the kernels line times: the first 128 bodies as one
         # 128-query train (no batching window decides its operands, so two
         # runs time the same launch)
-        from elasticsearch_tpu_torch.tools.kernel_ab import fixed_train
         fixed = fixed_train(svc, mk, LaunchRecorder, INDEX, FIELD, K,
                             bodies[:128])
         launches_checked = [("main", a, k) for a, k in rec.shapes.values()]
@@ -627,6 +650,8 @@ def main() -> int:
         ms = time_events(
             lambda ev: mk.fused_merge_topk(*args, **dict(kw, events=ev)),
             TIMED)
+        device_ms = profiled(lambda: mk.fused_merge_topk(*args, **kw),
+                             TIMED)
         # the plain version is one pipeline: its time stands in each row
         plain_ms = time_cuda(
             lambda: mk.fused_merge_topk_plain(*args, **kw), 5)
@@ -641,11 +666,13 @@ def main() -> int:
                 "name": f"merge_topk.{name}", "route": "cuda",
                 "source": KERNEL_SOURCE, "replaces": PALLAS_LINE,
                 "launches": launches[name], "max_abs_err": worst,
-                "ms": ms[name], "plain_ms": plain_ms,
+                "ms": ms[name], "device_ms": device_ms.get(name),
+                "plain_ms": plain_ms,
                 "plain_of": "fused_merge_topk_plain, all five stages",
                 "bound_ms": bounds[name] / HBM_BYTES_PER_S * 1e3,
                 "bound_by": "bytes",
                 "library_ms": library if name == "row_sort" else None,
+                "library_of": LIBRARY_OF[name],
                 "launches_per_batch": launches[name] / n_trains,
                 "shape": {"rows": args[2].shape[0],
                           "slots": args[2].shape[1],
@@ -659,7 +686,10 @@ def main() -> int:
             launch=label, rows=a[2].shape[0], slots=a[2].shape[1],
             k=kw["k"], ms={n: v for n, v in time_events(
                 lambda ev: mk.fused_merge_topk(*a, **dict(kw, events=ev)),
-                5).items() if n in ("row_sort", "select_rescore")})
+                5).items() if n in CLASSES_OF},
+            device_ms={n: v for n, v in profiled(
+                lambda: mk.fused_merge_topk(*a, **kw), 5).items()
+                if n in CLASSES_OF})
             for label, a, kw in extra])
         print(json.dumps({"kernels": kernels}), flush=True)
     finally:

@@ -15,20 +15,23 @@
 //                      window's value codes, finds the slot's k-th largest
 //                      lane lower bound (radix select in shared memory)
 //                      and the per-128-lane group upper bounds.
-//   2. row_pack        grid R: row threshold and every slot's "other terms"
-//                      bound, the block-max skip, and the u32 keys
-//                      (doc << 16 | code16(w * value)) of the surviving
-//                      lanes, compacted: padding and skipped lanes are
-//                      dropped before the sort (they never reach a
-//                      result). When totals are asked for with the skip
-//                      on, also the pre-skip count keys (doc << 1 | pos).
+//   2. row_pack        grid tiles: one block per 2048 lanes of a row (a
+//                      long row split over several): row threshold and
+//                      every slot's "other terms" bound, the block-max
+//                      skip, and the u32 keys (doc << 16 | code16(w *
+//                      value)) of the surviving lanes, compacted: padding
+//                      and skipped lanes are dropped before the sort
+//                      (they never reach a result). When totals are asked
+//                      for with the skip on, also the pre-skip count keys
+//                      (doc << 1 | pos).
 //   3. row_sort        grid (R, key sets): LSD radix sort of each row's
 //                      keys and count keys in one launch, 8-bit digits,
 //                      stable; in shared memory when the row fits.
-//   4. run_sum         grid R: run ends of the sorted keys, each run's
-//                      quantized total with the reference's Hillis-Steele
-//                      tree, clause counts, the msm filter, TotalHits, and
-//                      the matching run ends as candidates in key order.
+//   4. run_sum         grid tiles (row_pack's): run ends of the sorted
+//                      keys, each run's quantized total with the
+//                      reference's Hillis-Steele tree, clause counts, the
+//                      msm filter, TotalHits, and the matching run ends
+//                      as candidates in key order.
 //   5. select_rescore  grid R: top kc candidates by (quantized score desc,
 //                      key position asc) through a radix select, the exact
 //                      f32 rescore (binary search in each slot window,
@@ -54,6 +57,35 @@
 // candidates on average) and many (2048), so what holds a kernel back is
 // latency: barriers per tile, serial scans and dependent loads from
 // device memory, with too few rows in flight per SM to hide them.
+//
+// row_pack and run_sum share one tile layout: each row's lanes in tiles
+// of kTile, block r < R the first tile of row r (no lookup), block R
+// + e the e-th further tile (tile_rq[e] = row | tile << 16), so a
+// one-tile row costs no lookup and a long row spreads over many blocks.
+// 256-thread blocks, four to five per SM: ~500 tiles in flight.
+//
+// row_pack. A row's valid lanes are its slots back to back; each block
+// stages the row's slot table (prefix of the lengths, clamped starts,
+// weights, delta bases, bounds) in shared memory with one block scan,
+// issues every lane load of its tile (8 striped lanes a thread, the slot
+// found by one binary search and a walk), computes the skip bounds while
+// the loads are in flight, and compacts the keys in lane order by one
+// warp scan over (item, warp) counts. A one-tile row writes its counts;
+// the blocks of a split row take their slots with one atomic per key
+// set (the key order within a row is free: row_sort sorts it). What
+// bounds it (PERF.md): two dependent round trips a block (the slot
+// table, then the lanes), hidden only by the tiles in flight.
+//
+// run_sum. A tile of both key sets is staged in shared memory with the
+// window - 1 keys before it, in a padded layout (one word per 32) so
+// each thread reads its 8 consecutive keys conflict-free; it runs the
+// reference's doubling steps on them in registers, and walks back in
+// shared memory (TreeUp) only for its first run when that began in an
+// earlier thread. The candidates of a tile are ordered by a scan of the
+// threads' counts, placed after the row's earlier tiles' by a decoupled
+// look-back (32 earlier tiles a round), and written out through shared
+// memory on neighbouring words. What bounds it (PERF.md): the staging
+// round trip and, in long rows, the wait for earlier tiles' counts.
 //
 // row_sort. One launch sorts both key sets of every row: grid (R, 1 or
 // 2), the count keys in blockIdx.y = 1. A 512-thread block holds 2 x
@@ -114,10 +146,17 @@
 namespace {
 
 constexpr int kLaneBlock = 128;      // COMPRESSED_BLOCK
-constexpr int kRowThreads = 1024;    // threads of row_pack and run_sum
 constexpr int kSlotThreads = 256;    // threads of slot_decode
 constexpr int kMaxSlotLanes = 4096;  // CHUNK_CAP: the widest slot window
-constexpr int kStack = 16;           // tree stack (windows up to 2**15)
+constexpr int kStack = 16;           // TreeDown stack (windows up to 2**15)
+constexpr int kTile = 2048;          // lanes of a row_pack or run_sum block
+constexpr int kPackThreads = 256;    // threads of row_pack
+constexpr int kPackWarps = kPackThreads / 32;
+constexpr int kPackItems = kTile / kPackThreads;  // striped lanes a thread
+constexpr int kRunThreads = 256;     // threads of run_sum
+constexpr int kRunWarps = kRunThreads / 32;
+constexpr int kRunItems = kTile / kRunThreads;    // consecutive keys a thread
+constexpr int kRunStack = 10;        // TreeUp stack (runs up to 2**10)
 constexpr int kMaxSlots = 1024;      // T_LIMIT: slots per row
 constexpr int kSortThreads = 512;    // threads of row_sort
 constexpr int kSortWarps = kSortThreads / 32;
@@ -128,7 +167,8 @@ constexpr int kSelThreads = 512;     // threads of select_rescore
 // size classes (rows per class, when the wrapper asks for them)
 enum {
   kSortShared = 0, kSortDevice, kSelNone, kSelShared, kSelDevice,
-  kRescoreStaged, kRescoreRestaged, kFinalAll, kFinalTrim, kNumClasses
+  kRescoreStaged, kRescoreRestaged, kFinalAll, kFinalTrim, kPackSingle,
+  kPackSplit, kRunOneTile, kRunTiled, kNumClasses
 };
 constexpr int kNegInfBits = (int)0xff800000u;  // -inf as f32 bits
 
@@ -171,19 +211,6 @@ __device__ __forceinline__ long long clampll(long long v, long long lo,
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// Lane doc of the gathered window (jax.lax.dynamic_slice clamps the start
-// into [0, n - width]); only called for valid lanes.
-__device__ __forceinline__ int lane_doc(const Streams& s, const Slots& p,
-                                        int rt, long long s_eff, int lane) {
-  if (s.docs8 != nullptr) {
-    const int nb_slice = p.max_len / kLaneBlock + 2;
-    const long long dbs = clampll(p.dbs[rt], 0, s.n_bases - nb_slice);
-    const int blk = (p.dlo[rt] + lane) / kLaneBlock;
-    return (int)s.doc_bases[dbs + blk] + (int)s.docs8[s_eff + lane];
-  }
-  return (int)s.docs16[s_eff + lane];
-}
-
 // Random-access doc of a posting position for the rescore's binary
 // search (jnp.take with fill: outside the slot window reads d_pad).
 __device__ __forceinline__ int doc_at(const Streams& s, const Slots& p,
@@ -205,22 +232,32 @@ __device__ __forceinline__ int doc_at(const Streams& s, const Slots& p,
 // segmented_run_sum's doubling tree evaluated at one run end, fed with
 // the run's lanes from the run end backwards (leaf b = b-th lane before
 // the end). Nodes pair (b, b + d) at stride d = 1, 2, 4, ...; addition is
-// commutative, so only the grouping has to match, and it does.
+// commutative, so only the grouping has to match, and it does. The stack
+// is a shift register (s[0] its top, every index a constant), so it stays
+// in registers; a run of n <= 2**kRunStack lanes holds popcount(n) nodes.
 struct TreeUp {
-  float val[kStack];
+  float s[kRunStack];
   int sp = 0;
   int n = 0;
   __device__ __forceinline__ void push(float v) {
     int q = n++;
     while (q & 1) {
-      v = __fadd_rn(val[--sp], v);
+      v = __fadd_rn(s[0], v);
+#pragma unroll
+      for (int j = 0; j + 1 < kRunStack; ++j) s[j] = s[j + 1];
+      --sp;
       q >>= 1;
     }
-    val[sp++] = v;
+#pragma unroll
+    for (int j = kRunStack - 1; j > 0; --j) s[j] = s[j - 1];
+    s[0] = v;
+    ++sp;
   }
   __device__ __forceinline__ float result() const {
-    float acc = val[sp - 1];
-    for (int j = sp - 2; j >= 0; --j) acc = __fadd_rn(val[j], acc);
+    float acc = s[0];
+#pragma unroll
+    for (int j = 1; j < kRunStack; ++j)
+      if (j < sp) acc = __fadd_rn(s[j], acc);
     return acc;
   }
 };
@@ -450,105 +487,250 @@ slot_decode_kernel(Streams s, Slots p, const uint16_t* block_max,
 // 2. row_pack
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kRowThreads)
-row_pack_kernel(Streams s, Slots p, int do_skip, int with_counts, int kk,
-                const int* slot_terms, const float* kth,
+// The (row, tile of the row) of block b: blocks 0 .. R-1 are the rows'
+// first tiles, block R + e the e-th further tile (tile_rq[e] = row |
+// tile << 16; a row's further tiles are consecutive blocks).
+__device__ __forceinline__ int2 block_tile(const int* tile_rq, int R) {
+  const int b = blockIdx.x;
+  if (b < R) return make_int2(b, 0);
+  const int rq = tile_rq[b - R];
+  return make_int2(rq & 0xFFFF, rq >> 16);
+}
+
+// One block per tile of kTile lanes of a row; a row's valid lanes are
+// its slots back to back (slot t from s_pref[t]), a row longer than one
+// tile is split over several blocks. Each block stages its row's slot
+// table in shared memory, recomputes the skip threshold and the "other
+// terms" bounds there, issues every lane load of its tile before it uses
+// one, and compacts its keys in lane order; a one-tile row writes its
+// counts, a split row's blocks take their slots with one global atomic
+// per key set.
+__global__ void __launch_bounds__(kPackThreads)
+row_pack_kernel(Streams s, Slots p, int R, int do_skip, int with_counts,
+                int kk, const int* slot_terms, const float* kth,
                 const float* grp_ub, const float* slot_ub,
-                const long long* row_off, uint32_t* keys, int* n_keys,
-                uint32_t* ckeys, int* n_ckeys) {
-  __shared__ float s_others[kRowThreads];
-  __shared__ float s_term_ub[kRowThreads];
-  __shared__ float s_thr;
-  __shared__ int s_count, s_ccount;
-  const int r = blockIdx.x;
+                const long long* row_off, const int* tile_rq,
+                uint32_t* keys, int* n_keys, uint32_t* ckeys, int* n_ckeys,
+                int* class_rows) {
+  extern __shared__ __align__(16) int s_slot[];
+  __shared__ int s_cnt[2][kPackItems * kPackWarps];
+  __shared__ int s_warp[33];
+  __shared__ float s_total, s_thr;
   const int T = p.T;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n_grp = (p.max_len + kLaneBlock - 1) / kLaneBlock;
-  if (threadIdx.x == 0) {
-    s_count = 0;
-    s_ccount = 0;
+  const bool delta = s.docs8 != nullptr;
+  const bool want_count = ckeys != nullptr;
+  // the row's slot table: prefix of the lengths, clamped starts, weights,
+  // delta bases; for the skip each slot's term bound, whether it is its
+  // term's first slot, its upper bound, term and k-th lower bound
+  int* s_pref = s_slot;                                         // T + 1
+  int* s_eff = s_pref + T + 1;
+  float* s_w = reinterpret_cast<float*>(s_eff + T);
+  int* s_dbs = reinterpret_cast<int*>(s_w + T);
+  int* s_dlo = s_dbs + T;
+  float* s_tu = reinterpret_cast<float*>(s_dlo + T);
+  int* s_first = reinterpret_cast<int*>(s_tu + T);
+  float* s_ub = reinterpret_cast<float*>(s_first + T);
+  int* s_term = reinterpret_cast<int*>(s_ub + T);
+  float* s_kth = reinterpret_cast<float*>(s_term + T);
+
+  const int2 rq = block_tile(tile_rq, R);
+  const int r = rq.x, q = rq.y;
+  const bool msm = with_counts && p.min_count[r] > 1;
+  const int nb_slice = p.max_len / kLaneBlock + 2;
+  for (int t = tid; t < T; t += kPackThreads) {
+    const int rt = r * T + t;
+    s_eff[t] = (int)clampll(p.starts[rt], 0, s.n_post - p.max_len);
+    s_w[t] = p.weights[rt];
+    if (delta) {
+      s_dbs[t] = (int)clampll(p.dbs[rt], 0, s.n_bases - nb_slice);
+      s_dlo[t] = p.dlo[rt];
+    }
+    if (do_skip) {
+      s_ub[t] = slot_ub[rt];
+      s_term[t] = slot_terms != nullptr ? slot_terms[rt] : t;
+      s_kth[t] = kth[rt];
+    }
   }
+  // lengths -> s_pref: each thread sums kMaxSlots / kPackThreads
+  // consecutive slots, one block scan
+  constexpr int kSlotsPer = kMaxSlots / kPackThreads;
+  int len[kSlotsPer];
+  int mine = 0;
+#pragma unroll
+  for (int j = 0; j < kSlotsPer; ++j) {
+    const int t = tid * kSlotsPer + j;
+    len[j] = t < T ? max(p.lengths[r * T + t], 0) : 0;
+    mine += len[j];
+  }
+  int row_lanes = 0;
+  int at = block_excl_scan(mine, s_warp, &row_lanes);
+#pragma unroll
+  for (int j = 0; j < kSlotsPer; ++j) {
+    const int t = tid * kSlotsPer + j;
+    if (t < T) s_pref[t] = at;
+    at += len[j];
+  }
+  const bool split = row_lanes > kTile;
+  if (tid == 0) {
+    s_pref[T] = row_lanes;
+    if (class_rows != nullptr && q == 0)
+      atomicAdd(&class_rows[split ? kPackSplit : kPackSingle], 1);
+  }
+  if (row_lanes == 0) return;  // the row's counts stay 0
+  __syncthreads();  // s_pref
+
+  // the tile's lanes, striped: item i of thread tid is lane
+  // q * kTile + i * kPackThreads + tid of the row; every load is
+  // issued here and used only after the skip bounds below
+  const int lane0 = q * kTile;
+  int slot[kPackItems], doc[kPackItems];
+  uint32_t code[kPackItems];
+  float gu[kPackItems];
+  int t = 0;  // the last slot starting at or before the item's lane
+  {
+    int hi = T - 1;  // binary search for the first item, then walk on
+    const int f = lane0 + tid;
+    while (t < hi) {
+      const int mid = (t + hi + 1) >> 1;
+      if (s_pref[mid] <= f) t = mid;
+      else hi = mid - 1;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kPackItems; ++i) {
+    const int f = lane0 + i * kPackThreads + tid;
+    doc[i] = p.d_pad;
+    code[i] = 0;
+    gu[i] = 0.0f;
+    if (f < row_lanes) {
+      while (s_pref[t + 1] <= f) ++t;
+      const int l = f - s_pref[t];
+      const long long pos = (long long)s_eff[t] + l;
+      code[i] = s.codes[pos];
+      if (delta)
+        doc[i] = (int)s.doc_bases[s_dbs[t] + (s_dlo[t] + l) / kLaneBlock] +
+                 (int)s.docs8[pos];
+      else
+        doc[i] = (int)s.docs16[pos];
+      if (do_skip)
+        gu[i] = grp_ub[(long long)(r * T + t) * n_grp + l / kLaneBlock];
+    }
+    slot[i] = t;
+  }
+
   if (do_skip) {
-    for (int t = threadIdx.x; t < T; t += blockDim.x) {
-      const float su = slot_ub[r * T + t];
-      float tu = su;
+    // a slot's term bound is the max over its term's slots; the first
+    // slot of each term carries it into the sum of every term's bound
+    for (int t = tid; t < T; t += kPackThreads) {
+      float tu = s_ub[t];
+      bool first = true;
       if (slot_terms != nullptr) {
-        const int term = slot_terms[r * T + t];
+        const int term = s_term[t];
         tu = 0.0f;
         for (int u = 0; u < T; ++u)
-          if (slot_terms[r * T + u] == term)
-            tu = fmaxf(tu, slot_ub[r * T + u]);
+          if (s_term[u] == term) {
+            tu = fmaxf(tu, s_ub[u]);
+            if (u < t) first = false;
+          }
       }
-      s_term_ub[t] = tu;
+      s_tu[t] = tu;
+      s_first[t] = first;
     }
     __syncthreads();
-    if (threadIdx.x == 0) {
-      // the bound of every other term: max over a term's chunks, summed
-      // over distinct terms (first chunk of each term counts)
+    if (tid == 0) {
+      // summed serially in slot order, as the reference adds them
       float total = 0.0f;
-      for (int t = 0; t < T; ++t) {
-        bool first = true;
-        if (slot_terms != nullptr) {
-          const int term = slot_terms[r * T + t];
-          for (int u = 0; u < t; ++u)
-            if (slot_terms[r * T + u] == term) {
-              first = false;
-              break;
-            }
-        }
-        total = __fadd_rn(total, first ? s_term_ub[t] : 0.0f);
-      }
       float thr = __int_as_float(kNegInfBits);
-      for (int t = 0; t < T; ++t)
-        if (p.lengths[r * T + t] >= kk) thr = fmaxf(thr, kth[r * T + t]);
-      if (with_counts && p.min_count[r] > 1) thr = __int_as_float(kNegInfBits);
-      s_thr = thr;
-      s_others[0] = total;
+#pragma unroll 4
+      for (int t = 0; t < T; ++t) {
+        total = __fadd_rn(total, s_first[t] ? s_tu[t] : 0.0f);
+        if (s_pref[t + 1] - s_pref[t] >= kk) thr = fmaxf(thr, s_kth[t]);
+      }
+      s_total = total;
+      s_thr = msm ? __int_as_float(kNegInfBits) : thr;
     }
     __syncthreads();
-    const float total = s_others[0];
-    __syncthreads();
-    for (int t = threadIdx.x; t < T; t += blockDim.x)
-      s_others[t] = __fsub_rn(total, s_term_ub[t]);
+  }
+  const float total = do_skip ? s_total : 0.0f;
+  const float thr = do_skip ? s_thr : 0.0f;
+  uint32_t key[kPackItems];
+  unsigned keep = 0, real = 0;  // bit i: item i
+  // items past the row's lanes for the whole warp take no work
+  const int live = min(kPackItems, (row_lanes - lane0 - warp * 32 +
+                                    kPackThreads - 1) / kPackThreads);
+#pragma unroll
+  for (int i = 0; i < kPackItems; ++i) {
+    if (i >= live) {
+      key[i] = 0u;
+      if (lane == 0)
+        s_cnt[0][i * kPackWarps + warp] = s_cnt[1][i * kPackWarps + warp] = 0;
+      continue;
+    }
+    const int f = lane0 + i * kPackThreads + tid;
+    const float imp = __fmul_rn(s_w[slot[i]], decode_code16(code[i]));
+    const bool is_real = f < row_lanes && doc[i] < p.d_pad;
+    bool is_kept = is_real;
+    if (do_skip && is_real &&
+        __fadd_rn(gu[i], __fsub_rn(total, s_tu[slot[i]])) < thr)
+      is_kept = false;
+    key[i] = ((uint32_t)doc[i] << 16) | code16(imp);
+    keep |= (unsigned)is_kept << i;
+    real |= (unsigned)is_real << i;
+    const unsigned kb = __ballot_sync(0xffffffffu, is_kept);
+    const unsigned cb = __ballot_sync(0xffffffffu, is_real && want_count);
+    if (lane == 0) {
+      s_cnt[0][i * kPackWarps + warp] = __popc(kb);
+      s_cnt[1][i * kPackWarps + warp] = __popc(cb);
+    }
   }
   __syncthreads();
-
+  // warp 0 (keys) and warp 1 (count keys): exclusive scan of the
+  // (item, warp) counts, i.e. in lane order, into the keys' offsets; a
+  // split row's blocks take their slots of the row with one atomic
+  constexpr int kCountsPer = kPackItems * kPackWarps / 32;
+  if (warp < 2 && (warp == 0 || want_count)) {
+    int* cnt = s_cnt[warp] + lane * kCountsPer;
+    int v[kCountsPer], sum = 0;
+#pragma unroll
+    for (int j = 0; j < kCountsPer; ++j) {
+      v[j] = cnt[j];
+      sum += v[j];
+    }
+    int inc = sum;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int o = __shfl_up_sync(0xffffffffu, inc, d);
+      if (lane >= d) inc += o;
+    }
+    const int tile_total = __shfl_sync(0xffffffffu, inc, 31);
+    int* count = warp == 0 ? &n_keys[r] : &n_ckeys[r];
+    int base = 0;
+    if (lane == 0) {
+      if (!split) *count = tile_total;
+      else if (tile_total > 0) base = atomicAdd(count, tile_total);
+    }
+    int at = __shfl_sync(0xffffffffu, base, 0) + inc - sum;
+#pragma unroll
+    for (int j = 0; j < kCountsPer; ++j) {
+      cnt[j] = at;
+      at += v[j];
+    }
+  }
+  __syncthreads();
   const long long off = row_off[r];
-  const bool want_count = ckeys != nullptr;
-  for (int t = 0; t < T; ++t) {
-    const int rt = r * T + t;
-    const int len = p.lengths[rt];
-    if (len <= 0) continue;
-    const float w = p.weights[rt];
-    const long long s_eff = clampll(p.starts[rt], 0, s.n_post - p.max_len);
-    const float oth = do_skip ? s_others[t] : 0.0f;
-    for (int base = 0; base < len; base += blockDim.x) {
-      const int l = base + threadIdx.x;
-      const bool in = l < len;
-      int doc = p.d_pad;
-      float imp = 0.0f;
-      if (in) {
-        doc = lane_doc(s, p, rt, s_eff, l);
-        imp = __fmul_rn(w, decode_code16(s.codes[s_eff + l]));
-      }
-      const bool real = in && doc < p.d_pad;
-      if (want_count) {
-        const int at = warp_append(real, &s_ccount);
-        if (real)
-          ckeys[off + at] = ((uint32_t)doc << 1) | (code16(imp) > 0 ? 1u : 0u);
-      }
-      bool keep = real;
-      if (do_skip && real) {
-        const float gu = grp_ub[(long long)rt * n_grp + l / kLaneBlock];
-        if (__fadd_rn(gu, oth) < s_thr) keep = false;
-      }
-      const int at = warp_append(keep, &s_count);
-      if (keep) keys[off + at] = ((uint32_t)doc << 16) | code16(imp);
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    n_keys[r] = s_count;
-    if (want_count) n_ckeys[r] = s_ccount;
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int i = 0; i < kPackItems; ++i) {
+    if (i >= live) break;
+    const unsigned kb = __ballot_sync(0xffffffffu, (keep >> i) & 1u);
+    const unsigned cb = __ballot_sync(0xffffffffu, (real >> i) & 1u);
+    if ((keep >> i) & 1u)
+      keys[off + s_cnt[0][i * kPackWarps + warp] + __popc(kb & below)] =
+          key[i];
+    if (want_count && ((real >> i) & 1u))
+      ckeys[off + s_cnt[1][i * kPackWarps + warp] + __popc(cb & below)] =
+          ((key[i] >> 16) << 1) | ((key[i] & 0xFFFFu) != 0u ? 1u : 0u);
   }
 }
 
@@ -719,77 +901,262 @@ row_sort_kernel(uint32_t* keys, uint32_t* alt, const int* n_keys,
 // 4. run_sum
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kRowThreads)
+// Look-back status of a run_sum tile: flag (bits 62-63: 1 = the tile's
+// own counts, 2 = the counts of its row up to and including it), the
+// matching count-key runs (bits 31-61) and the candidates (bits 0-30).
+constexpr unsigned long long kOwnCounts = 1ull << 62;
+constexpr unsigned long long kRowCounts = 2ull << 62;
+constexpr unsigned long long kCountBits = (1ull << 62) - 1;
+
+// run_sum's shared key arrays hold tile position x at pad(x): one word
+// of padding after every 32, so the eight consecutive keys each thread
+// reads are on distinct banks across a warp.
+__device__ __forceinline__ int pad(int x) { return x + (x >> 5); }
+
+// The run ending at tile position x (row index i) walked back in shared
+// memory: its sum through TreeUp (→ *n, its lanes within the window).
+__device__ __forceinline__ float run_total(const uint32_t* sk, int x, int i,
+                                           uint32_t doc, int window,
+                                           int* n) {
+  TreeUp tree;
+  for (int d = 0; d < window && i - d >= 0; ++d) {
+    const uint32_t kd = sk[pad(x - d)];
+    if ((kd >> 16) != doc) break;
+    tree.push(decode_code16(kd & 0xFFFFu));
+  }
+  *n = tree.n;
+  return tree.result();
+}
+
+// The count-key run ending at tile position x: its lanes within the
+// window, walked back in shared memory.
+__device__ __forceinline__ int run_lanes(const uint32_t* sc, int x, int i,
+                                         uint32_t cdoc, int window) {
+  int m = 0;
+  for (; m < window && i - m >= 0; ++m)
+    if ((sc[pad(x - m)] >> 1) != cdoc) break;
+  return m;
+}
+
+// One block per tile of kTile keys (of both key sets) of a row, the
+// same tiles as row_pack's (a row's keys are at most its lanes; a tile
+// past the row's keys exits). The tile is staged in shared memory with
+// the `halo` (window - 1, at least 1) keys before it and the one after
+// it; then each thread takes 8 consecutive keys into registers and runs
+// segmented_run_sum's doubling steps on them there (a key adds the key
+// `st` before it when that key is in its run: the reference's adds,
+// grouped as it groups them). Only a thread's first run, when it began
+// in an earlier thread, is walked back through TreeUp in shared memory.
+// Candidates leave in key order: a scan of the threads' counts, and a
+// decoupled look-back over the row's earlier tiles for their candidates
+// and matching count-key runs.
+__global__ void __launch_bounds__(kRunThreads)
 run_sum_kernel(const uint32_t* keys, const int* n_keys,
                const uint32_t* ckeys, const int* n_ckeys,
-               const long long* row_off, const int* min_count,
-               int with_counts, int window, float* cand_score,
-               int* cand_doc, int* cand_cnt, int* n_cand, int* totals) {
-  __shared__ int s_warp[33];
-  const int r = blockIdx.x;
+               const long long* row_off, const int* tile_rq, int R,
+               const int* min_count, int with_counts, int window, int halo,
+               unsigned long long* status, float* cand_score, int* cand_doc,
+               int* cand_cnt, int* n_cand, int* totals, int* class_rows) {
+  extern __shared__ __align__(16) uint32_t s_run[];
+  __shared__ int s_wsum[kRunWarps];
+  __shared__ int s_woff[kRunWarps];
+  __shared__ int s_first, s_tile;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int2 rq = block_tile(tile_rq, R);
+  const int r = rq.x, q = rq.y;
   const long long off = row_off[r];
   const int n = n_keys[r];
+  const int nc = ckeys != nullptr ? n_ckeys[r] : 0;
   const float mc = (float)min_count[r];
+  const int rows_keys = max(n, nc);
+  if (class_rows != nullptr && tid == 0 && q == 0)
+    atomicAdd(&class_rows[rows_keys > kTile ? kRunTiled : kRunOneTile], 1);
+  const int base = q * kTile;
+  if (base >= max(rows_keys, 1)) return;  // past the row's keys
   const uint32_t* k = keys + off;
-  int emitted = 0;
-  for (int base = 0; base < n; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    bool ok = false;
-    float total = 0.0f;
-    int doc = 0, cnt = 0;
-    if (i < n) {
-      doc = (int)(k[i] >> 16);
-      const bool end = (i == n - 1) || ((int)(k[i + 1] >> 16) != doc);
-      if (end) {
-        TreeUp tree;
-        for (int b = 0; b < window && i - b >= 0; ++b) {
-          const uint32_t kb = k[i - b];
-          if ((int)(kb >> 16) != doc) break;
-          tree.push(decode_code16(kb & 0xFFFFu));
-        }
-        cnt = tree.n;
-        total = tree.result();
-        ok = total > 0.0f && (!with_counts || (float)cnt >= mc);
+  const uint32_t* c = ckeys + off;
+  // sk[pad(x)] / sc[pad(x)]: key / count key at base + x, x in [-halo,
+  // kTile]
+  const int lead = halo + (halo >> 5) + 1;
+  const int span = lead + pad(kTile) + 1;
+  uint32_t* sk = s_run + lead;
+  uint32_t* sc = s_run + span + lead;
+  {
+    uint32_t kv[kRunItems], cv[kRunItems];  // every load before a store
+#pragma unroll
+    for (int it = 0; it < kRunItems; ++it) {
+      const int g = base + it * kRunThreads + tid;
+      kv[it] = g < n ? k[g] : 0u;
+      cv[it] = g < nc ? c[g] : 0u;
+    }
+    for (int e = tid; e <= halo; e += kRunThreads) {
+      const int x = e < halo ? e - halo : kTile;
+      const int g = base + x;
+      if (g >= 0 && g < n) sk[pad(x)] = k[g];
+      if (g >= 0 && g < nc) sc[pad(x)] = c[g];
+    }
+#pragma unroll
+    for (int it = 0; it < kRunItems; ++it) {
+      sk[pad(it * kRunThreads + tid)] = kv[it];
+      sc[pad(it * kRunThreads + tid)] = cv[it];
+    }
+  }
+  __syncthreads();
+
+  // this thread's keys: tile positions x0 .. x0 + 7, rows i0 .. i0 + 7
+  // (a thread past the row's keys takes no work)
+  const int x0 = tid * kRunItems, i0 = base + x0;
+  uint32_t key[kRunItems];
+  float y[kRunItems];
+  int st[kRunItems];  // the first of the run's keys here (-1: before)
+  unsigned take = 0;  // bit j: key j ends a run that is a candidate
+  int hits = 0;
+  if (i0 < rows_keys) {
+#pragma unroll
+    for (int j = 0; j < kRunItems; ++j) key[j] = sk[pad(x0 + j)];
+    {
+      uint32_t before = sk[pad(x0 - 1)] >> 16;
+      int start = -1;
+#pragma unroll
+      for (int j = 0; j < kRunItems; ++j) {
+        const int i = i0 + j;
+        const uint32_t doc = key[j] >> 16;
+        if (!(i > 0 && i < n && doc == before)) start = j;
+        st[j] = start;
+        y[j] = i < n ? decode_code16(key[j] & 0xFFFFu) : 0.0f;
+        before = doc;
       }
     }
-    int tile = 0;
-    const int at = block_rank(ok, s_warp, &tile);
-    if (ok) {
-      cand_score[off + emitted + at] = total;
-      cand_doc[off + emitted + at] = doc;
-      cand_cnt[off + emitted + at] = cnt;
+    // the doubling steps below the window; a step of 8 or more never
+    // reaches a key of a run that starts in this thread
+#pragma unroll
+    for (int sh = 1; sh < kRunItems; sh <<= 1)
+      if (sh < window)
+#pragma unroll
+        for (int j = kRunItems - 1; j >= sh; --j)
+          if (st[j] >= 0 && j - sh >= st[j]) y[j] = __fadd_rn(y[j], y[j - sh]);
+    {
+      const uint32_t after = sk[pad(x0 + kRunItems)] >> 16;
+#pragma unroll
+      for (int j = 0; j < kRunItems; ++j) {
+        const int i = i0 + j;
+        const uint32_t doc = key[j] >> 16;
+        const uint32_t next = j + 1 < kRunItems ? key[j + 1] >> 16 : after;
+        int m = 0;
+        if (i < n && (i == n - 1 || next != doc)) {
+          if (st[j] >= 0) m = min(j - st[j] + 1, window);
+          else y[j] = run_total(sk, x0 + j, i, doc, window, &m);
+          if (y[j] > 0.0f && (!with_counts || (float)m >= mc)) take |= 1u << j;
+        }
+        st[j] = m;  // now the run's clause count
+      }
     }
-    emitted += tile;
-  }
-  int hits = emitted;
-  if (ckeys != nullptr) {
-    // exact TotalHits from the pre-skip count keys: a run matches when
-    // its last (largest) key carries the positive-code bit
-    const uint32_t* c = ckeys + off;
-    const int nc = n_ckeys[r];
-    hits = 0;
-    for (int base = 0; base < nc; base += blockDim.x) {
-      const int i = base + threadIdx.x;
-      bool ok = false;
-      if (i < nc) {
-        const uint32_t cdoc = c[i] >> 1;
-        const bool end = (i == nc - 1) || ((c[i + 1] >> 1) != cdoc);
-        if (end && (c[i] & 1u)) {
-          int run = 0;
+    // exact TotalHits from the pre-skip count keys: a run matches when its
+    // last (largest) key carries the positive-code bit
+    {
+      uint32_t ck[kRunItems];
+#pragma unroll
+      for (int j = 0; j < kRunItems; ++j) ck[j] = sc[pad(x0 + j)];
+      uint32_t before = sc[pad(x0 - 1)] >> 1;
+      const uint32_t after = sc[pad(x0 + kRunItems)] >> 1;
+      int start = -1;
+#pragma unroll
+      for (int j = 0; j < kRunItems; ++j) {
+        const int i = i0 + j;
+        const uint32_t cdoc = ck[j] >> 1;
+        const uint32_t next = j + 1 < kRunItems ? ck[j + 1] >> 1 : after;
+        if (!(i > 0 && i < nc && cdoc == before)) start = j;
+        before = cdoc;
+        if (i < nc && (i == nc - 1 || next != cdoc) && (ck[j] & 1u)) {
+          int m = 0;
           if (with_counts)
-            for (; run < window && i - run >= 0; ++run)
-              if ((c[i - run] >> 1) != cdoc) break;
-          ok = !with_counts || (float)run >= mc;
+            m = start >= 0 ? min(j - start + 1, window)
+                           : run_lanes(sc, x0 + j, i, cdoc, window);
+          hits += (!with_counts || (float)m >= mc) ? 1 : 0;
         }
       }
-      int tile = 0;
-      block_rank(ok, s_warp, &tile);
-      hits += tile;
     }
   }
-  if (threadIdx.x == 0) {
-    n_cand[r] = emitted;
-    totals[r] = hits;
+  // candidates (low half) and hits (high half): warp scan, then warp 0
+  // over the warps' sums and the look-back
+  const int mine = __popc(take) | (hits << 16);
+  int inc = mine;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int o = __shfl_up_sync(0xffffffffu, inc, d);
+    if (lane >= d) inc += o;
+  }
+  if (lane == 31) s_wsum[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    const int ws = lane < kRunWarps ? s_wsum[lane] : 0;
+    int winc = ws;
+    for (int d = 1; d < kRunWarps; d <<= 1) {
+      const int o = __shfl_up_sync(0xffffffffu, winc, d);
+      if (lane >= d) winc += o;
+    }
+    const int tile = __shfl_sync(0xffffffffu, winc, kRunWarps - 1);
+    // this tile's counts; the row's counts before it from the earlier
+    // tiles, 32 at a time: their own counts back to the nearest tile that
+    // holds its row's counts, whose counts end the sum
+    const unsigned long long own = (unsigned long long)(tile & 0xFFFF) |
+                                   ((unsigned long long)(tile >> 16) << 31);
+    volatile unsigned long long* sts = status;
+    const long long b = blockIdx.x;
+    unsigned long long before = 0;
+    if (q > 0) {
+      if (lane == 0) sts[b] = kOwnCounts | own;
+      for (int top = q - 1;; top -= 32) {
+        const int qq = top - lane;  // this lane's earlier tile
+        unsigned long long w = kRowCounts;
+        if (qq >= 0) {
+          const long long pb = qq > 0 ? b - (q - qq) : r;
+          while ((w = sts[pb]) == 0ull) __nanosleep(32);
+        }
+        const unsigned rows = __ballot_sync(0xffffffffu,
+                                            (w & ~kCountBits) == kRowCounts);
+        const int last = rows ? __ffs(rows) - 1 : 31;  // lanes 0 .. last
+        unsigned long long v = lane <= last ? (w & kCountBits) : 0ull;
+        for (int d = 16; d > 0; d >>= 1)
+          v += __shfl_xor_sync(0xffffffffu, v, d);
+        before += v;
+        if (rows) break;
+      }
+    }
+    if (lane == 0) {
+      sts[b] = kRowCounts | (before + own);
+      if (base + kTile >= rows_keys) {  // the row's last tile
+        const int cands = (int)((before + own) & 0x7FFFFFFFull);
+        n_cand[r] = cands;
+        totals[r] = ckeys != nullptr ? (int)((before + own) >> 31) : cands;
+      }
+    }
+    if (lane < kRunWarps) s_woff[lane] = (winc - ws) & 0xFFFF;
+    if (lane == 0) {
+      s_first = (int)(before & 0x7FFFFFFFull);
+      s_tile = tile & 0xFFFF;
+    }
+  }
+  __syncthreads();
+  // the tile's candidates in key order through the spent key arrays,
+  // then out with neighbouring threads on neighbouring words
+  float* s_score = reinterpret_cast<float*>(s_run);
+  int* s_doc = reinterpret_cast<int*>(s_run) + kTile;
+  int* s_num = s_doc + kTile;
+  int at = s_woff[warp] + ((inc - mine) & 0xFFFF);
+#pragma unroll
+  for (int j = 0; j < kRunItems; ++j)
+    if ((take >> j) & 1u) {
+      s_score[at] = y[j];
+      s_doc[at] = (int)(key[j] >> 16);
+      s_num[at] = st[j];
+      ++at;
+    }
+  __syncthreads();
+  const long long out = off + s_first;
+  for (int m = tid; m < s_tile; m += kRunThreads) {
+    cand_score[out + m] = s_score[m];
+    cand_doc[out + m] = s_doc[m];
+    cand_cnt[out + m] = s_num[m];
   }
 }
 
@@ -1097,19 +1464,23 @@ int es_row_pack(const void* docs8, const void* docs16, const void* codes,
                 int R, int T, int max_len, int d_pad, int do_skip,
                 int with_counts, int kk, const void* slot_terms,
                 const void* kth, const void* grp_ub, const void* slot_ub,
-                const void* row_off, void* keys, void* n_keys, void* ckeys,
-                void* n_ckeys, void* stream) {
+                const void* row_off, const void* tile_rq, int n_tiles,
+                void* keys, void* n_keys, void* ckeys, void* n_ckeys,
+                void* class_rows, void* stream) {
   Streams s = make_streams(docs8, docs16, codes, ranks, n_post, doc_bases,
                            n_bases, res_vals, n_res);
   Slots p = make_slots(starts, lengths, weights, min_count, res_starts,
                        res_lens, dbs, dlo, T, max_len, d_pad);
-  row_pack_kernel<<<R, kRowThreads, 0, (cudaStream_t)stream>>>(
-      s, p, do_skip, with_counts, kk, static_cast<const int*>(slot_terms),
+  // the slot table: under 48 KB for T <= kMaxSlots, no opt-in needed
+  const int smem = (10 * T + 1) * (int)sizeof(int);
+  row_pack_kernel<<<n_tiles, kPackThreads, smem, (cudaStream_t)stream>>>(
+      s, p, R, do_skip, with_counts, kk, static_cast<const int*>(slot_terms),
       static_cast<const float*>(kth), static_cast<const float*>(grp_ub),
       static_cast<const float*>(slot_ub),
-      static_cast<const long long*>(row_off), static_cast<uint32_t*>(keys),
+      static_cast<const long long*>(row_off),
+      static_cast<const int*>(tile_rq), static_cast<uint32_t*>(keys),
       static_cast<int*>(n_keys), static_cast<uint32_t*>(ckeys),
-      static_cast<int*>(n_ckeys));
+      static_cast<int*>(n_ckeys), static_cast<int*>(class_rows));
   return (int)cudaGetLastError();
 }
 
@@ -1130,20 +1501,31 @@ int es_row_sort(void* keys, void* alt, const void* n_keys, void* ckeys,
 }
 
 int es_run_sum(const void* keys, const void* n_keys, const void* ckeys,
-               const void* n_ckeys, const void* row_off,
-               const void* min_count, int R, int with_counts, int window,
-               void* cand_score, void* cand_doc, void* cand_cnt,
-               void* n_cand, void* totals, void* stream) {
-  run_sum_kernel<<<R, kRowThreads, 0, (cudaStream_t)stream>>>(
+               const void* n_ckeys, const void* row_off, const void* tile_rq,
+               int R, int n_tiles, const void* min_count, int with_counts,
+               int window, void* status, void* cand_score, void* cand_doc,
+               void* cand_cnt, void* n_cand, void* totals, void* class_rows,
+               void* stream) {
+  const int halo = window > 1 ? window - 1 : 1;
+  // the two key sets, whose space then stages the candidates (< 26 KB)
+  const int span = halo + (halo >> 5) + 1 + kTile + (kTile >> 5) + 1;
+  const int words = 2 * span > 3 * kTile ? 2 * span : 3 * kTile;
+  const int smem = words * (int)sizeof(uint32_t);
+  run_sum_kernel<<<n_tiles, kRunThreads, smem, (cudaStream_t)stream>>>(
       static_cast<const uint32_t*>(keys), static_cast<const int*>(n_keys),
       static_cast<const uint32_t*>(ckeys), static_cast<const int*>(n_ckeys),
       static_cast<const long long*>(row_off),
-      static_cast<const int*>(min_count), with_counts, window,
+      static_cast<const int*>(tile_rq), R,
+      static_cast<const int*>(min_count), with_counts, window, halo,
+      static_cast<unsigned long long*>(status),
       static_cast<float*>(cand_score), static_cast<int*>(cand_doc),
       static_cast<int*>(cand_cnt), static_cast<int*>(n_cand),
-      static_cast<int*>(totals));
+      static_cast<int*>(totals), static_cast<int*>(class_rows));
   return (int)cudaGetLastError();
 }
+
+// Lanes of a row_pack or run_sum block: the wrapper's tiles.
+int es_tile() { return kTile; }
 
 int es_select_rescore(const void* docs8, const void* docs16,
                       const void* codes, const void* ranks, long long n_post,

@@ -38,11 +38,13 @@ K_LIMIT = 16384
 T_LIMIT = 1024
 #: the select kernel's dynamic shared memory below the finalists' need
 SELECT_BASE_SMEM = 32768
-#: size classes the row sort and select kernels report per row (the
-#: order of the kernels' class counters)
+#: size classes the row pack, row sort, run sum and select kernels report
+#: per row (the order of the kernels' class counters)
 SIZE_CLASSES = ("row_sort.shared", "row_sort.device", "select.none",
                 "select.shared", "select.device", "rescore.staged",
-                "rescore.restaged", "final.all", "final.trim")
+                "rescore.restaged", "final.all", "final.trim",
+                "row_pack.single", "row_pack.split", "run_sum.one_tile",
+                "run_sum.tiled")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -53,10 +55,12 @@ _SIGNATURES = {
     "es_slot_decode": _STREAM_ARGS + _SLOT_ARGS + [_P, _L, _P, _I, _P, _P,
                                                    _P, _P],
     "es_row_pack": _STREAM_ARGS + _SLOT_ARGS + [_I, _I, _I, _P, _P, _P, _P,
-                                                _P, _P, _P, _P, _P, _P],
+                                                _P, _P, _I, _P, _P, _P, _P,
+                                                _P, _P],
     "es_row_sort": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P],
-    "es_run_sum": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
-                   _P],
+    "es_run_sum": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P,
+                   _P, _P, _P, _P, _P],
+    "es_tile": [],
     "es_select_rescore": _STREAM_ARGS + _SLOT_ARGS + [_P, _P, _P, _P, _P,
                                                       _I, _I, _I, _P, _P,
                                                       _P, _P, _P, _P],
@@ -80,6 +84,12 @@ def _lib() -> ctypes.CDLL:
         lib.es_error_string.restype = ctypes.c_char_p
         lib._es_typed = True
     return lib
+
+
+def tile_lanes() -> int:
+    """Lanes of one row_pack or run_sum block (a row's keys are at most
+    its lanes): a longer row spans several blocks."""
+    return _lib().es_tile()
 
 
 def _run(lib, kernel: str, events: Optional[list], fn, *args) -> None:
@@ -163,9 +173,11 @@ def fused_merge_topk(
     docs int32[R, k'][, totals int32[R]]). CPU operands run the plain
     version; CUDA operands launch the kernels or raise. `stats`, when
     given, receives the launch's lane, key and candidate counts (a host
-    sync), under "classes" the rows each size class of the row sort and
-    select kernels took, and under "sort_input" copies of the row sort's
-    unsorted keys; `events` receives (kernel, start, end) CUDA events."""
+    sync), under "classes" the rows each size class of the row pack, row
+    sort, run sum and select kernels took, under "sort_input" copies of
+    the row sort's unsorted keys and under "run_sum_output" of the run
+    sum's candidates and totals; `events` receives (kernel, start, end)
+    CUDA events."""
     kw = dict(max_len=max_len, d_pad=d_pad, k=k, t_window=t_window,
               with_counts=with_counts, with_totals=with_totals,
               flat_rank=flat_rank, res_starts=res_starts, res_lens=res_lens,
@@ -198,6 +210,9 @@ def _launch(flat_docs, flat_impact, starts, lengths, weights, min_count, *,
     if not 1 <= t <= T_LIMIT or not 1 <= r < 65536:
         raise ValueError(f"merge kernel takes 1 ≤ T ≤ {T_LIMIT} slots and "
                          f"R < 65536 rows, got R={r}, T={t}")
+    if t_window > T_LIMIT:  # run_sum's tree holds runs of ≤ 1024 lanes
+        raise ValueError(f"merge kernel takes t_window ≤ {T_LIMIT}, got "
+                         f"{t_window}")
     delta = doc_bases is not None
     if delta and (dbs_starts is None or dlo_starts is None):
         raise ValueError("delta doc stream needs dbs_starts/dlo_starts")
@@ -247,23 +262,39 @@ def _launch(flat_docs, flat_impact, starts, lengths, weights, min_count, *,
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     i32 = dict(dtype=torch.int32, device=dev)
-    # compacted key storage: each row gets room for its valid lanes
+    # compacted key storage: each row gets room for its valid lanes. The
+    # blocks of the row pack and the run sum: each row's lanes in tiles of
+    # es_tile(); block r < R takes row r's first tile, block R + e the
+    # e-th further tile (offs[0] = rows' first keys, offs[1] = rows' first
+    # further tiles, tile_rq = each further tile's row | tile << 16)
     row_cap = lengths.clamp(min=0).sum(dim=1, dtype=torch.int64)
-    row_off = torch.zeros(r, dtype=torch.int64, device=dev)
-    if r > 1:
-        row_off[1:] = torch.cumsum(row_cap[:-1], dim=0)
-    total_cap, longest = torch.stack(
-        [row_cap.sum(), lengths.max().to(torch.int64)]).tolist()
+    offs = torch.zeros((2, r + 1), dtype=torch.int64, device=dev)
+    torch.cumsum(row_cap, dim=0, out=offs[0, 1:])
+    torch.cumsum(((row_cap - 1).clamp(min=0) // lib.es_tile()), dim=0,
+                 out=offs[1, 1:])
+    row_off, extra_off = offs[0, :r], offs[1]
+    total_cap, n_extra, longest = torch.stack(
+        [offs[0, r], offs[1, r], lengths.max().to(torch.int64)]).tolist()
     if longest > max_len:
         raise ValueError(f"a slot holds {longest} lanes, more than "
                          f"max_len={max_len}")
+    n_tiles = r + n_extra
+    extra = torch.arange(max(n_extra, 1), device=dev)
+    extra_row = torch.searchsorted(extra_off, extra, right=True) - 1
+    tile_rq = (extra_row | ((extra - extra_off[extra_row] + 1) << 16)).to(
+        torch.int32)
     total_cap = max(1, total_cap)
     keys = torch.empty(total_cap, **i32)
     alt = torch.empty(total_cap, **i32)
-    n_keys = torch.empty(r, **i32)
+    # zeroed: the row pack's key counts (its blocks append with atomics)
+    # and the run sum's look-back status, one u64 a tile
+    zeroed = torch.zeros(2 * r + 2 * n_tiles, **i32)
+    counts = zeroed[:2 * r].view(2, r)
+    status = zeroed[2 * r:].view(torch.int64)
+    n_keys = counts[0]
     need_count = do_skip and with_totals
     ckeys = torch.empty(total_cap, **i32) if need_count else None
-    n_ckeys = torch.empty(r, **i32) if need_count else None
+    n_ckeys = counts[1] if need_count else None
     cand_score = torch.empty(total_cap, dtype=torch.float32, device=dev)
     cand_doc = torch.empty(total_cap, **i32)
     cand_cnt = torch.empty(total_cap, **i32)
@@ -294,8 +325,8 @@ def _launch(flat_docs, flat_impact, starts, lengths, weights, min_count, *,
     _run(lib, "row_pack", events, lib.es_row_pack,
          *streams, *slots, int(do_skip), int(with_counts), kk,
          _ptr(slot_terms) if do_skip else None, _ptr(kth), _ptr(grp_ub),
-         _ptr(slot_ub), _ptr(row_off), _ptr(keys), _ptr(n_keys),
-         _ptr(ckeys), _ptr(n_ckeys), stream)
+         _ptr(slot_ub), _ptr(row_off), _ptr(tile_rq), n_tiles, _ptr(keys),
+         _ptr(n_keys), _ptr(ckeys), _ptr(n_ckeys), _ptr(class_rows), stream)
     if stats is not None:
         stats["sort_input"] = dict(
             keys=keys.clone(), n_keys=n_keys.clone(), row_off=row_off,
@@ -308,8 +339,15 @@ def _launch(flat_docs, flat_impact, starts, lengths, weights, min_count, *,
          _ptr(n_ckeys), _ptr(row_off), r, _ptr(class_rows), stream)
     _run(lib, "run_sum", events, lib.es_run_sum,
          _ptr(keys), _ptr(n_keys), _ptr(ckeys), _ptr(n_ckeys), _ptr(row_off),
-         _ptr(min_count), r, int(with_counts), window, _ptr(cand_score),
-         _ptr(cand_doc), _ptr(cand_cnt), _ptr(n_cand), _ptr(totals), stream)
+         _ptr(tile_rq), r, n_tiles, _ptr(min_count), int(with_counts),
+         window, _ptr(status), _ptr(cand_score),
+         _ptr(cand_doc), _ptr(cand_cnt), _ptr(n_cand), _ptr(totals),
+         _ptr(class_rows), stream)
+    if stats is not None:
+        stats["run_sum_output"] = dict(
+            score=cand_score.clone(), doc=cand_doc.clone(),
+            count=cand_cnt.clone(), n_cand=n_cand.clone(),
+            totals=totals.clone())
     # the keys and their sort scratch are spent: the select kernel keeps
     # its candidate list and rescored keys in them
     _run(lib, "select_rescore", events, lib.es_select_rescore,

@@ -13,6 +13,8 @@
 #include <vector>
 
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
+struct int2 { int x, y; };
+inline int2 make_int2(int a, int b) { return int2{a, b}; }
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
@@ -94,6 +96,8 @@ inline unsigned __ballot_sync(unsigned, int p) {
   wput<int>(p != 0); __syncwarp(); unsigned r = 0; for (int l = 0; l < 32; ++l) if (wget<int>(l)) r |= 1u << l; __syncwarp(); return r; }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline int __ffs(unsigned v) { return __builtin_ffs((int)v); }
+inline int __clz(unsigned v) { return v ? __builtin_clz(v) : 32; }
+inline void __nanosleep(unsigned) {}  // blocks run in order: no wait
 inline int atomicAdd(int* a, int v) { const int old = *a; *a = old + v; return old; }
 inline float __uint_as_float(uint32_t u) { float f; std::memcpy(&f, &u, 4); return f; }
 inline float __int_as_float(int u) { float f; std::memcpy(&f, &u, 4); return f; }

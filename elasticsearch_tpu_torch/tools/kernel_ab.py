@@ -9,7 +9,12 @@ index, lowers its first 128 bodies into one train (16 shards x 128
 queries, kernel k 1024: no batching window decides the operands), and
 prints one JSON line: the card, the launch's lane and key counts, and
 the median ms of each kernel over chip_smoke's TIMED launches (CUDA
-events).
+events around each launch, so a launch the device waits for counts its
+wait), under "device_ms" each kernel's mean device time over the same
+number of launches from torch.profiler (no wait counted); under "extra"
+the same for the launches past the main traffic
+(extra_bodies: a match of the corpus's most frequent terms at from +
+size 1000, and from + size 10,000), each lowered into one train.
 Compare two checkouts within one call, in turns: A, B, B, A.
 """
 
@@ -53,6 +58,20 @@ def main() -> int:
         ms = cs.time_events(
             lambda ev: mk.fused_merge_topk(*launch, **dict(kw, events=ev)),
             cs.TIMED)
+        device_ms = profiled(lambda: mk.fused_merge_topk(*launch, **kw),
+                             cs.TIMED)
+        extra = {}
+        for label, size, bodies in extra_bodies(corpus.vocab, cs.FIELD,
+                                                cs.K, cs.MAX_K):
+            a, akw = fixed_train(svc, mk, cs.LaunchRecorder, cs.INDEX,
+                                 cs.FIELD, size, bodies)
+            mk.fused_merge_topk(*a, **akw)
+            extra[label] = dict(
+                rows=a[2].shape[0], slots=a[2].shape[1], k=akw["k"],
+                ms=cs.time_events(lambda ev: mk.fused_merge_topk(
+                    *a, **dict(akw, events=ev)), 5),
+                device_ms=profiled(lambda: mk.fused_merge_topk(*a, **akw),
+                                   5))
     finally:
         svc.close()
     print(json.dumps({
@@ -61,8 +80,47 @@ def main() -> int:
                   "k": kw["k"]},
         "lanes": stats["lanes"], "keys": stats["keys"],
         "count_keys": stats["count_keys"],
-        "candidates": stats["candidates"], "ms": ms}), flush=True)
+        "candidates": stats["candidates"], "ms": ms,
+        "device_ms": device_ms, "extra": extra}), flush=True)
     return 0
+
+
+KERNELS = ("slot_decode", "row_pack", "row_sort", "run_sum",
+           "select_rescore")
+
+
+def profiled(fn, n):
+    """Mean device ms per call of each merge kernel over n calls of fn,
+    from torch.profiler's CUDA activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        name = next((k for k in KERNELS if f"{k}_kernel" in ev.key), None)
+        if name is not None and us > 0:
+            out[name] = out.get(name, 0.0) + us / 1e3 / n
+    return out
+
+
+def extra_bodies(vocab, field, k, max_k):
+    """[(label, from + size, bodies)] of the launches past the main
+    traffic: matches of the corpus's four most frequent terms (the Zipf
+    head fills 4096-lane slots: T >= 16, rows past every shared-memory
+    class) at k, and from + size max_k on the same terms."""
+    head = vocab[:4]
+    return [(label, size, [{"query": {"match": {field: text}}, "size": size}
+                           for text in texts])
+            for label, texts, size in (
+                ("stopwords", (f"{head[0]} {head[1]}", f"{head[0]} "
+                               f"{head[2]}", f"{head[1]} {head[3]}"), k),
+                ("k10000", (head[0], f"{head[0]} {head[1]}"), max_k))]
 
 
 def fixed_train(svc, mk, recorder, index, field, k, bodies):

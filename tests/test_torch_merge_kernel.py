@@ -141,6 +141,31 @@ def test_full_slot_rows_match_plain(cuda, n_terms):
     assert classes["row_sort.device"] > 0
     assert classes["select.device"] > 0
     assert classes["rescore.restaged"] > 0
+    assert classes["row_pack.split"] == 2   # 65,536 / 131,072 lanes
+    assert classes["run_sum.tiled"] == 2
+
+
+def test_thousand_short_slots_match_plain(cuda):
+    """T = T_LIMIT = 1024 slots of 64 lanes (16 terms of 4096 docs in
+    64-lane chunks, 64 chunks a term): row_pack's skip preamble over the
+    whole slot table (each slot's term bound, first-slot flags, the
+    serial sum) in every one of a row's 32 blocks, and an msm row."""
+    rng = np.random.default_rng(330)
+    d_pad = 60000
+    fd, fi, ext = cases.make_heavy_flat(rng, d_pad, [4096] * 16, skew=2.0)
+    ws = [float(w) for w in rng.uniform(0.5, 3.0, size=16)]
+    rows = [[(ext[t][0], ext[t][1], ws[t], t) for t in range(16)],
+            [(ext[t][0], ext[t][1], ws[t], t) for t in range(0, 16, 2)]]
+    pos, extra, static = cases.kernel_args(fd, fi, rows, [1, 3], d_pad, ext,
+                                           chunk_cap=64)
+    assert pos[2].shape[1] == merge_kernel.T_LIMIT
+    assert static["max_len"] == 64
+    for k in (10, 64, 1000):
+        for with_totals in (True, False):
+            got, want = run_pair(pos, extra, static, k, cuda, with_totals)
+            cases.assert_bitwise(got, want, f"k={k} totals={with_totals}")
+    classes = run_classes(pos, extra, static, 10, cuda)
+    assert classes["row_pack.split"] == 2 and classes["run_sum.tiled"] == 2
 
 
 @pytest.mark.parametrize("k", [4096, 10000, 16384])
@@ -170,6 +195,16 @@ def test_small_rows_take_shared_classes(cuda):
     assert classes["select.shared"] == 1
     assert classes["rescore.staged"] == 1
     assert classes["final.trim"] == 1
+    # 2,100 lanes: two row_pack blocks, two run_sum tiles of count keys
+    assert classes["row_pack.split"] == 1 and classes["row_pack.single"] == 0
+    assert classes["run_sum.tiled"] == 1 and classes["run_sum.one_tile"] == 0
+    # one term's 900 lanes: one block, one tile
+    one = [[(ext[0][0], ext[0][1], 1.0, 0)]]
+    pos, extra, static = cases.kernel_args(fd, fi, one, [1], d_pad, ext)
+    got, want = run_pair(pos, extra, static, 100, cuda)
+    cases.assert_bitwise(got, want)
+    classes = run_classes(pos, extra, static, 100, cuda)
+    assert classes["row_pack.single"] == 1 and classes["run_sum.one_tile"] == 1
 
 
 def test_service_on_card_matches_cpu_up_to_size_10000(cuda):

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from elasticsearch_tpu_torch.ops import merge_kernel
+from elasticsearch_tpu_torch.ops import merge_kernel, sparse
 
 import torch_parity_cases as cases
 
@@ -31,7 +31,8 @@ def emulated(tmp_path_factory):
 
 
 def run_pair(pos, extra, static, k, with_totals=True):
-    """(emulated kernels, plain version, size classes) on CPU operands."""
+    """(emulated kernels, plain version, the kernels' stats) on CPU
+    operands."""
     tpos = cases.to_torch(pos)
     kw = dict(static, k=k, with_totals=with_totals,
               **cases.to_torch(extra))
@@ -41,7 +42,7 @@ def run_pair(pos, extra, static, k, with_totals=True):
     stats = {}
     got = merge_kernel._launch(*tpos, stats=stats, events=None, **full)
     want = merge_kernel.fused_merge_topk_plain(*tpos, **kw)
-    return got, want, stats["classes"]
+    return got, want, stats
 
 
 @pytest.mark.parametrize("tie_heavy", [False, True])
@@ -84,16 +85,222 @@ def test_every_size_class_matches_plain(emulated):
             [(ext[t][0], ext[t][1], 1.0 + t, t) for t in range(3)]]
     pos, extra, static = cases.kernel_args(fd, fi, rows, [1, 1], d_pad,
                                            ext)
-    got, want, classes = run_pair(pos, extra, static, 40)
+    got, want, stats = run_pair(pos, extra, static, 40)
     cases.assert_bitwise(got, want)
+    classes = stats["classes"]
     assert all(classes[c] > 0 for c in merge_kernel.SIZE_CLASSES
                if c not in ("select.none", "final.all")), classes
-    got, want, classes = run_pair(pos, extra, static, 4000)
+    assert_run_sum_matches_reference(stats, static, [1, 1])
+    got, want, stats = run_pair(pos, extra, static, 4000)
     cases.assert_bitwise(got, want)
+    classes = stats["classes"]
     assert classes["select.none"] == 1 and classes["final.all"] == 1
 
 
-@pytest.mark.parametrize("fault", ["k", "length"])
+def shared_doc_flat(rng, n_terms, df, d_pad):
+    """n_terms postings over one doc set: every doc's run holds n_terms
+    lanes, so runs sit at multiples of n_terms in the sorted keys."""
+    docs = np.sort(rng.choice(d_pad, size=df, replace=False))
+    fd = np.concatenate([docs] * n_terms + [np.full(cases.SLACK, d_pad)])
+    fi = np.concatenate(
+        [rng.uniform(0.1, 1.0, size=df) for _ in range(n_terms)]
+        + [np.zeros(cases.SLACK)])
+    ext = [(t * df, df) for t in range(n_terms)]
+    return fd.astype(np.int32), fi.astype(np.float32), ext
+
+
+def sorted_row_keys(stats, name, row):
+    """Row `row`'s row_pack output of key set `name`, sorted."""
+    si = stats["sort_input"]
+    keys, n = si[name], si["n_" + name]
+    if keys is None:
+        return None
+    start = int(si["row_off"][row])
+    got = keys[start:start + int(n[row])].numpy().view(np.uint32)
+    return np.sort(got)
+
+
+def straddles(sorted_keys, shift):
+    """A run (equal key >> shift) crosses a run_sum tile boundary."""
+    tile = merge_kernel.tile_lanes()
+    return any(sorted_keys[b - 1] >> shift == sorted_keys[b] >> shift
+               for b in range(tile, len(sorted_keys), tile))
+
+
+def run_ends(sorted_keys, shift, values, t_window):
+    """The plain segmented_run_sum of `values` over the runs of equal
+    key >> shift, at each run's last lane → (run-end mask, sums, counts)."""
+    sk = torch.from_numpy(sorted_keys.astype(np.int64) >> shift)[None]
+    total = sparse.segmented_run_sum(sk, values[None], t_window)[0]
+    cnt = sparse.segmented_run_sum(sk, torch.ones_like(values)[None],
+                                   t_window)[0]
+    doc = sorted_keys >> shift
+    end = np.append(doc[:-1] != doc[1:], True) if len(doc) else \
+        np.zeros(0, bool)
+    return end, total.numpy(), cnt.numpy()
+
+
+def assert_run_sum_matches_reference(stats, static, mins):
+    """run_sum's output per row against the plain segmented_run_sum over
+    the row's sorted keys: the candidates (quantized total as uint32,
+    doc, clause count) in key order, and the totals from the count keys
+    (from the candidates when there are none)."""
+    out, with_counts = stats["run_sum_output"], static["with_counts"]
+    t_window = static["t_window"]
+    row_off = stats["sort_input"]["row_off"].numpy()
+    for row, mc in enumerate(mins):
+        keys = sorted_row_keys(stats, "keys", row).astype(np.int64)
+        end, total, cnt = run_ends(
+            keys, 16, sparse.decode_code16(torch.from_numpy(keys & 0xFFFF)),
+            t_window)
+        ok = end & (total > 0) & ((not with_counts) | (cnt >= mc))
+        start, n = int(row_off[row]), int(out["n_cand"][row])
+        assert n == int(ok.sum()), (row, n, int(ok.sum()))
+        np.testing.assert_array_equal(
+            out["score"][start:start + n].numpy().view(np.uint32),
+            total[ok].view(np.uint32))
+        np.testing.assert_array_equal(out["doc"][start:start + n].numpy(),
+                                      (keys >> 16)[ok])
+        np.testing.assert_array_equal(out["count"][start:start + n].numpy(),
+                                      cnt[ok].astype(np.int32))
+        ckeys = sorted_row_keys(stats, "count_keys", row)
+        hits = n
+        if ckeys is not None:
+            ckeys = ckeys.astype(np.int64)
+            cend, cpos, ccnt = run_ends(
+                ckeys, 1, torch.from_numpy((ckeys & 1).astype(np.float32)),
+                t_window)
+            hits = int((cend & (cpos > 0)
+                        & ((not with_counts) | (ccnt >= mc))).sum())
+        assert int(out["totals"][row]) == hits, (row, hits)
+
+
+def test_run_across_a_tile_boundary_matches_plain(emulated):
+    """One row of 3 x 1000 lanes over one doc set: row_pack splits it over
+    two blocks, run_sum loops over two tiles, and the run at keys 2046-
+    2048 crosses the boundary (the halo holds its head). k = 1100 runs
+    with the skip off (the keys straddle), k = 10 with it on (the count
+    keys straddle)."""
+    rng = np.random.default_rng(17)
+    d_pad = 5000
+    fd, fi, ext = shared_doc_flat(rng, 3, 1000, d_pad)
+    rows = [[(ext[t][0], ext[t][1], 0.5 + t, t) for t in range(3)]]
+    pos, extra, static = cases.kernel_args(fd, fi, rows, [1], d_pad, ext)
+    for k, name, shift in ((1100, "keys", 16), (10, "count_keys", 1)):
+        for with_totals in (True, False):
+            got, want, stats = run_pair(pos, extra, static, k, with_totals)
+            cases.assert_bitwise(got, want, f"k={k}")
+            assert stats["classes"]["row_pack.split"] == 1, stats
+            assert stats["classes"]["run_sum.tiled"] == 1, stats
+            assert_run_sum_matches_reference(stats, static, [1])
+            if with_totals:
+                keys = sorted_row_keys(stats, name, 0)
+                assert len(keys) == 3000 and straddles(keys, shift)
+
+
+def test_look_back_over_more_than_32_tiles_matches_plain(emulated):
+    """One row of 3 x 23,000 lanes: 34 tiles, so run_sum's last tiles look
+    back over their row's earlier tiles in two rounds of 32."""
+    rng = np.random.default_rng(71)
+    d_pad = 30000
+    fd, fi, ext = shared_doc_flat(rng, 3, 23000, d_pad)
+    rows = [[(ext[t][0], ext[t][1], 0.5 + t, t) for t in range(3)]]
+    pos, extra, static = cases.kernel_args(fd, fi, rows, [1], d_pad, ext)
+    assert -(-69000 // merge_kernel.tile_lanes()) > 33
+    for k, with_totals in ((10, True), (5000, False)):
+        got, want, stats = run_pair(pos, extra, static, k, with_totals)
+        cases.assert_bitwise(got, want, f"k={k}")
+        assert_run_sum_matches_reference(stats, static, [1])
+        assert stats["classes"]["run_sum.tiled"] == 1
+
+
+def new_class_case(rng, kind):
+    """Operands of one of the redesigned kernels' edge cases."""
+    if kind == "empty_rows_and_slots":
+        # a row of zero lanes, and empty slots between full ones
+        d_pad = 3000
+        fd, fi, ext = cases.make_flat(rng, 4, d_pad, 1500)
+        end = ext[-1][0] + ext[-1][1]
+        rows = [[(ext[0][0], ext[0][1], 1.2, 0), (end, 0, 0.7, 1),
+                 (ext[2][0], ext[2][1], 2.0, 2), (end, 0, 0.3, 3),
+                 (ext[3][0], ext[3][1], 0.9, 3)],
+                [(end, 0, 1.0, 1)],
+                [(ext[1][0], ext[1][1], 1.5, 1), (end, 0, 1.0, 2)]]
+        return fd, fi, rows, [1, 1, 2], d_pad, ext, {}
+    if kind == "msm":
+        d_pad = 4000
+        fd, fi, ext = cases.make_heavy_flat(rng, d_pad, [2500, 1800, 900],
+                                            skew=1.5)
+        rows = [[(ext[t][0], ext[t][1], 1.0 + t, t) for t in range(3)],
+                [(ext[t][0], ext[t][1], 0.8, t) for t in range(3)],
+                [(ext[t][0], ext[t][1], 2.0, t) for t in (0, 2)]]
+        return fd, fi, rows, [2, 3, 1], d_pad, ext, {}
+    if kind == "delta_split":
+        # every 128-lane block spans < 256 ids: the u8 delta stream; 24
+        # terms of ~125 docs make a row of two row_pack tiles
+        d_pad = 250
+        fd, fi, ext = cases.make_flat(rng, 24, d_pad, 249)
+        rows = [[(ext[t][0], ext[t][1], 0.5 + 0.1 * t, t)
+                 for t in range(24)],
+                [(ext[t][0], ext[t][1], 1.0, t) for t in (2, 5)]]
+        return fd, fi, rows, [1, 2], d_pad, ext, dict(chunk_cap=64)
+    if kind == "wide_weights":
+        # 5 terms over one doc set, one weighted 2**24 above the others:
+        # a run's f32 sum rounds differently under another grouping
+        d_pad = 2000
+        fd, fi, ext = shared_doc_flat(rng, 5, 500, d_pad)
+        rows = [[(ext[t][0], ext[t][1], 16777216.0 if t == 2 else 0.7, t)
+                 for t in range(5)],
+                [(ext[t][0], ext[t][1], 1.0 + 3e6 * t, t) for t in range(4)]]
+        return fd, fi, rows, [1, 4], d_pad, ext, {}
+    # many short slots: 40 terms of 1-20 docs in 8-lane chunks (T >= 64,
+    # a term's chunks share its bound), a window of 40 terms
+    d_pad = 600
+    fd, fi, ext = cases.make_flat(rng, 40, d_pad, 21)
+    rows = [[(ext[t][0], ext[t][1], 0.2 + 0.05 * t, t) for t in range(40)],
+            [(ext[t][0], ext[t][1], 1.0, t) for t in range(0, 40, 3)]]
+    return fd, fi, rows, [1, 3], d_pad, ext, dict(chunk_cap=8)
+
+
+EDGE_CASES = ["empty_rows_and_slots", "msm", "delta_split",
+              "many_short_slots", "wide_weights"]
+
+
+@pytest.mark.parametrize("kind", EDGE_CASES)
+def test_row_pack_and_run_sum_edges_match_plain(emulated, kind):
+    """The redesigned row_pack and run_sum on their edge cases, with and
+    without totals, the block-max skip on (small k) and off (k past the
+    slot window): the result against the plain version, and run_sum's
+    candidates and totals against the plain segmented_run_sum."""
+    rng = np.random.default_rng(EDGE_CASES.index(kind) + 60)
+    fd, fi, rows, mins, d_pad, ext, plan_kw = new_class_case(rng, kind)
+    pos, extra, static = cases.kernel_args(fd, fi, rows, mins, d_pad, ext,
+                                           **plan_kw)
+    assert ("doc_bases" in extra) == (kind == "delta_split")
+    if kind == "many_short_slots":
+        assert pos[2].shape[1] >= 64 and static["max_len"] == 8
+        terms = extra["slot_terms"][0][pos[3][0] > 0]
+        assert len(np.unique(terms)) < len(terms)  # split terms
+    seen = dict.fromkeys(merge_kernel.SIZE_CLASSES, 0)
+    for k in (5, 2 * static["max_len"]):
+        for with_totals in (True, False):
+            got, want, stats = run_pair(pos, extra, static, k, with_totals)
+            cases.assert_bitwise(got, want, f"{kind} k={k} "
+                                 f"totals={with_totals}")
+            assert_run_sum_matches_reference(stats, static, mins)
+            for c, n in stats["classes"].items():
+                seen[c] += n
+    lanes = pos[3].clip(min=0).sum(axis=1)
+    split = int((lanes > merge_kernel.tile_lanes()).sum())
+    assert seen["row_pack.split"] == 4 * split, seen
+    assert seen["row_pack.single"] == 4 * (len(rows) - split), seen
+    if kind == "empty_rows_and_slots":
+        assert lanes[1] == 0 and (pos[3][0] == 0).any()
+    if kind == "delta_split":
+        assert split == 1 and seen["run_sum.tiled"] > 0
+
+
+@pytest.mark.parametrize("fault", ["k", "length", "t_window"])
 def test_launch_refuses_what_the_kernels_do_not_take(emulated, fault):
     """k past K_LIMIT, or a slot longer than max_len (the lane decode and
     the staged rescore window hold max_len lanes), raise before a launch."""
@@ -103,6 +310,9 @@ def test_launch_refuses_what_the_kernels_do_not_take(emulated, fault):
                                            chunk_cap=64)
     if fault == "k":
         k, match = merge_kernel.K_LIMIT + 1, "k ≤"
+    elif fault == "t_window":
+        static = dict(static, t_window=merge_kernel.T_LIMIT + 1)
+        match = "t_window"
     else:
         pos[3] = pos[3].copy()
         pos[3][0, 0] = static["max_len"] + 1
