@@ -15,13 +15,16 @@ through GpuSearchService from many threads, and checks:
   kernel_parity  every launch shape the main path used, plus a u8-delta
                  doc stream index, a match of the corpus's most frequent
                  terms (full 4096-lane slots, T >= 16: rows past the
-                 shared-memory sort and select) and from + size 10,000
-                 (kernel k 16,384, more candidates than kk): the kernels
-                 against their plain torch version on the card, scores as
-                 uint32, docs and totals exactly, with and without
-                 totals; the rows each size class of row_pack, row_sort,
-                 run_sum and select_rescore took (every class must take
-                 some)
+                 shared-memory sort and select), from + size 10,000
+                 (kernel k 16,384, more candidates than kk) and the
+                 fixed train's bodies at size 10 (kernel k 128): the
+                 kernels against their plain torch version on the card,
+                 scores as uint32, docs and totals exactly, with and
+                 without totals; slot_decode's own outputs (kth, group
+                 and slot bounds, which the results cannot show) against
+                 the plain stages bit for bit; the rows (slots, for
+                 slot_decode) each size class took (every class must
+                 take some)
   e2e            the counted run: queries, hits, batch sizes, launches per
                  kernel (all must be > 0), compressed_exact launches, and
                  16 sampled queries against the numpy oracle (top-10 ids,
@@ -30,10 +33,10 @@ through GpuSearchService from many threads, and checks:
                  torch.profiler: each request's lowering, wait in the
                  batcher (window and queue), train execution and
                  response assembly; device time and idle share
-  kernels_extra  row_pack, row_sort, run_sum and select_rescore ms
-                 (median of 5, CUDA events) and device ms (mean of 5,
-                 torch.profiler) at the stop-word and from + size 10,000
-                 launches
+  kernels_extra  the five kernels' ms (median of 5, CUDA events) and
+                 device ms (mean of 5, torch.profiler) at the stop-word,
+                 from + size 10,000 and size-10 launches, each one train
+                 of its bodies, with the slots slot_decode selects in
   kernels        one JSON line: per kernel, median ms over >= 20 timed
                  launches (CUDA events around each launch: a launch the
                  device waits for counts its wait) and device_ms (mean
@@ -42,10 +45,12 @@ through GpuSearchService from many threads, and checks:
                  train of the
                  counted run, the plain version's ms (the whole plain
                  pipeline), the bytes bound at 3.35 TB/s, torch.sort as
-                 the sort's yardstick (no single torch call computes
-                 what the other four compute: library_ms null, and
-                 library_of says why), and the size classes the rows of
-                 the timed launch took
+                 the sort's yardstick and torch.topk as slot_decode's
+                 (of its kth alone; no single torch call computes what
+                 the other three compute: library_ms null, and
+                 library_of says why), the size classes the rows of the
+                 timed launch took, and the slots slot_decode selected
+                 in
 
 The last line is {"ok": true, "device": {...}}; any failure exits
 non-zero without it. Without a CUDA device the script exits 2 at once.
@@ -77,14 +82,16 @@ INDEX = "msmarco"
 PALLAS_LINE = "elasticsearch_tpu/ops/pallas_merge.py:155"
 KERNEL_SOURCE = "elasticsearch_tpu_torch/csrc/merge_topk.cu"
 #: the size-class counters (merge_kernel.SIZE_CLASSES) of each kernel
-CLASSES_OF = {"row_pack": ("row_pack",), "row_sort": ("row_sort",),
+CLASSES_OF = {"slot_decode": ("slot_decode",), "row_pack": ("row_pack",),
+              "row_sort": ("row_sort",),
               "run_sum": ("run_sum",),
               "select_rescore": ("select", "rescore", "final")}
 #: the one torch call that computes each kernel's function, or why none
 LIBRARY_OF = {
-    "slot_decode": "none: a per-slot k-th largest of decoded codes (no "
-                   "torch call decodes the code16 stream) plus group "
-                   "upper bounds",
+    "slot_decode": "torch.topk(imp, kk, dim=2) on the decoded [R, T, "
+                   "max_len] lane bounds of the same launch: the kth "
+                   "output only; the decode of the code16 stream and the "
+                   "group and slot upper bounds are not in it",
     "row_pack": "none: decode, block-max skip and compaction into packed "
                 "keys; torch.masked_select compacts but does not decode "
                 "or skip",
@@ -219,6 +226,13 @@ def kernel_parity(mk, launches):
         torch.cuda.synchronize()
         same, err = bitwise_equal(got, want)
         worst = max(worst, err)
+        # slot_decode's kth, grp_ub and slot_ub: a kth too low would only
+        # make the skip drop fewer lanes, which the results cannot show
+        slot_diff = None
+        if stats["do_skip"]:
+            slot_diff = mk.slot_decode_mismatches(
+                stats["slot_decode_output"], mk.slot_decode_plain(*args,
+                                                                  **kw))
         r, t = args[2].shape
         took = {c: n for c, n in stats["classes"].items() if n}
         for c, n in took.items():
@@ -230,14 +244,20 @@ def kernel_parity(mk, launches):
                      skip=bool(stats["do_skip"]),
                      lanes=stats["lanes"], keys_after_skip=stats["keys"],
                      keys_before_skip=stats["count_keys"],
-                     candidates=stats["candidates"], size_classes=took,
-                     bitwise=same)
+                     candidates=stats["candidates"],
+                     select_slots=stats["select_slots"], size_classes=took,
+                     bitwise=same,
+                     slot_decode_bitwise=None if slot_diff is None
+                     else not slot_diff)
         checked.append(entry)
         if stats["count_keys"] > stats["keys"]:
             skipping += 1
         if not same:
             raise AssertionError(f"kernel != plain at shape {entry}, "
                                  f"max_abs_err {err}")
+        if slot_diff:
+            raise AssertionError(f"slot_decode's {slot_diff} != the plain "
+                                 f"stages' at shape {entry}")
         # the same operands without totals (no pre-skip count keys)
         kw2 = dict(kw, with_totals=False)
         same2, err2 = bitwise_equal(mk.fused_merge_topk(*args, **kw2),
@@ -256,6 +276,10 @@ def kernel_parity(mk, launches):
                                       and took.get("final.trim")):
             raise AssertionError(f"the k = 10,000 launch did not trim "
                                  f"past kk: {entry}")
+        if label == "size10 train" and not (kw["k"] == 128 and took.get(
+                "slot_decode.select_warp")):
+            raise AssertionError(f"the size-10 train did not select in "
+                                 f"short slots at kernel k 128: {entry}")
     if not skipping:
         raise AssertionError("no parity shape dropped lanes through the "
                              "block-max skip")
@@ -492,7 +516,10 @@ def kernel_bounds(stats, doc_bytes):
     keys, ckeys = stats["keys"], stats["count_keys"]
     cand, picked, kk = stats["candidates"], stats["picked"], stats["kk"]
     return {
-        "slot_decode": (stats["kth_lanes"] * 2 + r * t * (g + 1) * 2
+        # the selecting slots' codes and starts, every slot's length,
+        # weight, block start and block-max window; kth, slot_ub, grp_ub
+        "slot_decode": (stats["kth_lanes"] * 2 + stats["select_slots"] * 4
+                        + r * t * 12 + r * t * (g + 1) * 2
                         + r * t * (g + 2) * 4),
         "row_pack": (stats["lanes"] * (doc_bytes + 2) + r * t * g * 4
                      + (keys + ckeys) * 4),
@@ -609,14 +636,16 @@ def main() -> int:
 
         # -- launches past the main traffic: a match of the corpus's most
         # frequent terms (the Zipf head fills 4096-lane slots: T >= 16,
-        # rows past the shared-memory sort and select) at k = 1000, and
-        # from + size = 10,000 (kernel k 16,384)
+        # rows past the shared-memory sort and select) at k = 1000 and at
+        # from + size = 10,000 (kernel k 16,384), and the first 128 bodies
+        # at size 10 (kernel k 128): every shape the service gave them,
+        # and each label's bodies as one train (timed in kernels_extra)
         from elasticsearch_tpu_torch.tools.kernel_ab import (extra_bodies,
                                                              fixed_train,
                                                              profiled)
-        extra = []
+        extra, extra_trains = [], []
         for label, size, queries in extra_bodies(corpus.vocab, FIELD,
-                                                 K, MAX_K):
+                                                 K, MAX_K, bodies[:128]):
             with LaunchRecorder(mk) as special:
                 answered = drive(svc, INDEX, queries)
             for resp in answered:
@@ -625,6 +654,8 @@ def main() -> int:
                     raise AssertionError(f"{label}: {len(hits['hits'])} "
                                          f"hits of {hits['total']}")
             extra += [(label, a, k) for a, k in special.shapes.values()]
+            extra_trains.append((label, *fixed_train(
+                svc, mk, LaunchRecorder, INDEX, FIELD, size, queries)))
         # the launch the kernels line times: the first 128 bodies as one
         # 128-query train (no batching window decides its operands, so two
         # runs time the same launch)
@@ -632,8 +663,9 @@ def main() -> int:
                             bodies[:128])
         launches_checked = [("main", a, k) for a, k in rec.shapes.values()]
         launches_checked.append(("fixed", *fixed))
-        checked, worst, classes = kernel_parity(mk,
-                                                launches_checked + extra)
+        checked, worst, classes = kernel_parity(
+            mk, launches_checked + extra
+            + [(f"{label} train", a, k) for label, a, k in extra_trains])
         log("kernel_parity", shapes=checked, max_abs_err=worst,
             size_classes=classes,
             tolerance="bitwise: scores as uint32, docs and totals exact")
@@ -656,8 +688,18 @@ def main() -> int:
         plain_ms = time_cuda(
             lambda: mk.fused_merge_topk_plain(*args, **kw), 5)
         lib_input = library_sort_input(stats.pop("sort_input"))
-        library = time_cuda(
-            lambda: [torch.sort(keys) for keys in lib_input], TIMED)
+        library = {"row_sort": time_cuda(
+            lambda: [torch.sort(keys) for keys in lib_input], TIMED)}
+        # slot_decode's yardstick: the k-th largest of the decoded lane
+        # bounds, which is its kth output alone
+        from elasticsearch_tpu_torch.ops import sparse
+        _, imp = sparse._lane_decode(
+            *args[:5], max_len=kw["max_len"], d_pad=kw["d_pad"],
+            exact=False, doc_bases=kw.get("doc_bases"),
+            dbs_starts=kw.get("dbs_starts"), dlo_starts=kw.get("dlo_starts"))
+        library["slot_decode"] = time_cuda(
+            lambda: torch.topk(imp, stats["kk"], dim=2), TIMED)
+        del imp
         bounds = kernel_bounds(stats, 2 - stats["delta"])
         kernels = []
         for name in ("slot_decode", "row_pack", "row_sort", "run_sum",
@@ -671,7 +713,7 @@ def main() -> int:
                 "plain_of": "fused_merge_topk_plain, all five stages",
                 "bound_ms": bounds[name] / HBM_BYTES_PER_S * 1e3,
                 "bound_by": "bytes",
-                "library_ms": library if name == "row_sort" else None,
+                "library_ms": library.get(name),
                 "library_of": LIBRARY_OF[name],
                 "launches_per_batch": launches[name] / n_trains,
                 "shape": {"rows": args[2].shape[0],
@@ -681,16 +723,18 @@ def main() -> int:
                 "size_classes": {
                     c: n for c, n in stats["classes"].items()
                     if c.split(".")[0] in CLASSES_OF.get(name, ())}})
-        # the redesigned kernels at the launches past the main traffic
+            if name == "slot_decode":
+                kernels[-1]["select_slots"] = stats["select_slots"]
+        # the kernels at the launches past the main traffic, each one train
         log("kernels_extra", launches=[dict(
             launch=label, rows=a[2].shape[0], slots=a[2].shape[1],
-            k=kw["k"], ms={n: v for n, v in time_events(
+            k=kw["k"], select_slots=int((a[3] >= min(
+                kw["k"], a[3].shape[1] * kw["max_len"])).sum()),
+            ms=time_events(
                 lambda ev: mk.fused_merge_topk(*a, **dict(kw, events=ev)),
-                5).items() if n in CLASSES_OF},
-            device_ms={n: v for n, v in profiled(
-                lambda: mk.fused_merge_topk(*a, **kw), 5).items()
-                if n in CLASSES_OF})
-            for label, a, kw in extra])
+                5),
+            device_ms=profiled(lambda: mk.fused_merge_topk(*a, **kw), 5))
+            for label, a, kw in extra_trains])
         print(json.dumps({"kernels": kernels}), flush=True)
     finally:
         svc.close()

@@ -11,10 +11,11 @@
 // MiB) do not fit the 227 KB of shared memory of one block. So the row
 // pipeline is five kernels with scratch in device memory:
 //
-//   1. slot_decode     grid (T, R): one slot window per block. Decodes the
-//                      window's value codes, finds the slot's k-th largest
-//                      lane lower bound (radix select in shared memory)
-//                      and the per-128-lane group upper bounds.
+//   1. slot_decode     one launch: each slot whose lanes reach kk selects
+//                      its kk-th largest lane lower bound (radix select
+//                      over the slot's own lanes, in a block past 512
+//                      lanes, else in a warp); one warp per slot takes
+//                      its per-128-lane group upper bounds and their max.
 //   2. row_pack        grid tiles: one block per 2048 lanes of a row (a
 //                      long row split over several): row threshold and
 //                      every slot's "other terms" bound, the block-max
@@ -57,6 +58,22 @@
 // candidates on average) and many (2048), so what holds a kernel back is
 // latency: barriers per tile, serial scans and dependent loads from
 // device memory, with too few rows in flight per SM to hide them.
+//
+// slot_decode. A slot's group bounds are 32 values at most, so a warp
+// takes them, with no barrier. Only a slot of at least kk lanes selects,
+// over its own len lanes (16 codes a thread, loaded at once and kept in
+// registers): a slot of up to 512 lanes in a warp with a 256-bin
+// histogram of its own (no barrier), a longer one in a block. So the
+// many short slots of a small kernel k are all in flight at once, where
+// a block a slot runs them in waves, each a chain of barriers and two
+// dependent loads. The select skips the key bits all its keys share (a
+// min/max pass) and bins the next 8 with plain shared atomics: one or
+// two passes on the 16-bit codes, where a select on the f32 bounds of
+// all max_len lanes takes four, every thread adding into the one or two
+// bins of the slot's shared exponent (warp-aggregated adds,
+// __match_any_sync, cost more than the conflicts they save: PERF.md).
+// What bounds it (PERF.md): the long slots' blocks (a load round trip,
+// then five to nine barriers) and the bounds warps' dependent loads.
 //
 // row_pack and run_sum share one tile layout: each row's lanes in tiles
 // of kTile, block r < R the first tile of row r (no lookup), block R
@@ -147,7 +164,12 @@ namespace {
 
 constexpr int kLaneBlock = 128;      // COMPRESSED_BLOCK
 constexpr int kSlotThreads = 256;    // threads of slot_decode
-constexpr int kMaxSlotLanes = 4096;  // CHUNK_CAP: the widest slot window
+constexpr int kSlotWarps = kSlotThreads / 32;  // warps of a slot_decode block
+constexpr int kSlotItems = 16;       // codes a thread of a block select:
+                                     // 4096 (CHUNK_CAP) a block
+constexpr int kWarpSelectLanes = 32 * kSlotItems;  // longest slot a warp
+                                                    // selects in
+static_assert(kSlotItems * kSlotThreads >= 4096, "a block holds a slot");
 constexpr int kStack = 16;           // TreeDown stack (windows up to 2**15)
 constexpr int kTile = 2048;          // lanes of a row_pack or run_sum block
 constexpr int kPackThreads = 256;    // threads of row_pack
@@ -168,7 +190,8 @@ constexpr int kSelThreads = 512;     // threads of select_rescore
 enum {
   kSortShared = 0, kSortDevice, kSelNone, kSelShared, kSelDevice,
   kRescoreStaged, kRescoreRestaged, kFinalAll, kFinalTrim, kPackSingle,
-  kPackSplit, kRunOneTile, kRunTiled, kNumClasses
+  kPackSplit, kRunOneTile, kRunTiled, kSlotBounds, kSlotSelectWarp,
+  kSlotSelectBlock, kNumClasses
 };
 constexpr int kNegInfBits = (int)0xff800000u;  // -inf as f32 bits
 
@@ -425,62 +448,223 @@ __device__ __forceinline__ uint32_t order_bits_inverse(uint32_t o) {
 // 1. slot_decode
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kSlotThreads)
-slot_decode_kernel(Streams s, Slots p, const uint16_t* block_max,
-                   long long n_bm, const int* blk_starts, int kk,
-                   float* kth_out, float* grp_ub_out, float* slot_ub_out) {
-  __shared__ uint32_t s_vals[kMaxSlotLanes];
-  __shared__ int s_hist[256];
-  __shared__ int s_pick[2];
-  __shared__ int s_wsum[kSlotThreads / 32];
-  __shared__ float s_max[kSlotThreads / 32];
-  const int t = blockIdx.x, r = blockIdx.y;
-  const int rt = r * p.T + t;
+// Group bounds of slot rt by one warp (lane g takes 128-lane group g;
+// max_len <= 4096, so n_grp <= 32): an unaligned group spans two aligned
+// blocks, +1 on the code is an open bound (clamped below +inf). The
+// n_grp + 1 block-max codes are read one a lane, bm[g + 1] from the next
+// lane; the group bounds leave as one line. A slot shorter than kk cannot
+// set the row threshold: its kth is -inf.
+__device__ __forceinline__ void slot_bounds(
+    int rt, const Slots& p, const uint16_t* block_max, long long n_bm,
+    const int* blk_starts, int kk, int n_grp, float* kth_out,
+    float* grp_ub_out, float* slot_ub_out, int* class_rows) {
+  const int lane = threadIdx.x & 31;
   const int len = p.lengths[rt];
   const float w = p.weights[rt];
-  const int n_grp = (p.max_len + kLaneBlock - 1) / kLaneBlock;
-
-  // group upper bounds: an unaligned 128-lane group spans two aligned
-  // blocks; +1 on the code is an open bound (clamped below +inf)
   const long long bs = clampll(blk_starts[rt], 0, n_bm - (n_grp + 1));
-  float local_max = 0.0f;
-  for (int g = threadIdx.x; g < n_grp; g += blockDim.x) {
-    uint32_t c = max((uint32_t)block_max[bs + g],
-                     (uint32_t)block_max[bs + g + 1]);
-    c = min(c + 1u, 0x7F80u);
-    const float ub = decode_code16(c);
-    const bool gv = (long long)g * kLaneBlock < (long long)len;
-    const float gu = (gv && w > 0.0f) ? __fmul_rn(w, ub) : 0.0f;
-    grp_ub_out[(long long)rt * n_grp + g] = gu;
-    local_max = fmaxf(local_max, gu);
+  const uint32_t c0 = lane <= n_grp ? (uint32_t)block_max[bs + lane] : 0u;
+  uint32_t c1 = __shfl_down_sync(0xffffffffu, c0, 1);
+  if (lane == 31 && n_grp == 32) c1 = block_max[bs + 32];
+  float gu = 0.0f;
+  if (lane < n_grp) {
+    const uint32_t c = min(max(c0, c1) + 1u, 0x7F80u);
+    const bool gv = (long long)lane * kLaneBlock < (long long)len;
+    gu = (gv && w > 0.0f) ? __fmul_rn(w, decode_code16(c)) : 0.0f;
+    grp_ub_out[(long long)rt * n_grp + lane] = gu;
   }
-  for (int o = 16; o > 0; o >>= 1)
-    local_max = fmaxf(local_max, __shfl_xor_sync(0xffffffffu, local_max, o));
-  if ((threadIdx.x & 31) == 0) s_max[threadIdx.x >> 5] = local_max;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float m = 0.0f;
-    for (int i = 0; i < kSlotThreads / 32; ++i) m = fmaxf(m, s_max[i]);
-    slot_ub_out[rt] = m;
+  // every bound is +0 or above, so its bits order like its value
+  const uint32_t m = __reduce_max_sync(0xffffffffu, __float_as_uint(gu));
+  if (lane == 0) {
+    slot_ub_out[rt] = __uint_as_float(m);
+    if (len < kk) {
+      kth_out[rt] = __int_as_float(kNegInfBits);
+      if (class_rows != nullptr) atomicAdd(&class_rows[kSlotBounds], 1);
+    }
   }
+}
 
-  if (len < kk) {  // this slot cannot set the row threshold
-    if (threadIdx.x == 0) kth_out[rt] = __int_as_float(kNegInfBits);
+// The digit of a 256-bin histogram that holds the `remaining`-th largest
+// key, by one warp over its own bins (lane l holds digits 255 - 8l down
+// to 248 - 8l): → (digit, its rank among the digit's keys).
+__device__ __forceinline__ int2 warp_pick_digit(const int* s_hist,
+                                                int remaining) {
+  const int lane = threadIdx.x & 31;
+  int cnt[8], sum = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    cnt[i] = s_hist[255 - 8 * lane - i];
+    sum += cnt[i];
+  }
+  int incl = sum;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int o = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += o;
+  }
+  const unsigned hit = __ballot_sync(
+      0xffffffffu, incl - sum < remaining && remaining <= incl);
+  const int owner = hit ? __ffs(hit) - 1 : 31;
+  int digit = 0, rank = 0, acc = incl - sum;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    if (rank == 0 && acc + cnt[i] >= remaining) {
+      digit = 255 - 8 * lane - i;
+      rank = remaining - acc;
+    }
+    acc += cnt[i];
+  }
+  return make_int2(__shfl_sync(0xffffffffu, digit, owner),
+                   __shfl_sync(0xffffffffu, rank, owner));
+}
+
+// The kk-th largest lane lower bound of slot rt (len >= kk), by one warp
+// (kBlock false: len <= kWarpSelectLanes, `s_hist` the warp's own 256
+// bins, no barrier) or by one block (up to 4096 lanes). Either way a
+// thread loads its kSlotItems codes at once (one round trip) and keeps
+// them as keys in registers; a min/max pass over the keys skips the bits
+// they all share, and each 8-bit pass bins the next digit of the keys
+// that match the prefix so far with plain shared atomics.
+template <bool kBlock>
+__device__ __forceinline__ void slot_select(int rt, const Streams& s,
+                                            const Slots& p, int kk,
+                                            int* s_hist, float* kth_out,
+                                            int* class_rows) {
+  __shared__ int s_pick[2];
+  __shared__ int s_wsum[kSlotWarps];
+  __shared__ uint32_t s_mm[2][kSlotWarps][2];
+  constexpr int kThreads = kBlock ? kSlotThreads : 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int me = kBlock ? threadIdx.x : lane;
+  const int len = p.lengths[rt];
+  const float w = p.weights[rt];
+  const uint16_t* codes =
+      s.codes + clampll(p.starts[rt], 0, s.n_post - p.max_len);
+  uint32_t key[kSlotItems];
+#pragma unroll
+  for (int j = 0; j < kSlotItems; ++j) {
+    const int l = j * kThreads + me;
+    key[j] = l < len ? (uint32_t)codes[l] : 0u;
+  }
+  auto valid = [&](int j) { return j * kThreads + me < len; };
+  uint32_t lo = 0xFFFFFFFFu, hi = 0u;
+  auto min_max = [&](int call) {
+#pragma unroll
+    for (int j = 0; j < kSlotItems; ++j) {
+      if (valid(j)) {
+        lo = min(lo, key[j]);
+        hi = max(hi, key[j]);
+      }
+    }
+    lo = __reduce_min_sync(0xffffffffu, lo);
+    hi = __reduce_max_sync(0xffffffffu, hi);
+    if constexpr (kBlock) {
+      if (lane == 0) {
+        s_mm[call][warp][0] = lo;
+        s_mm[call][warp][1] = hi;
+      }
+      __syncthreads();
+      for (int i = 0; i < kSlotWarps; ++i) {
+        lo = min(lo, s_mm[call][i][0]);
+        hi = max(hi, s_mm[call][i][1]);
+      }
+    }
+  };
+  min_max(0);
+  // For a finite w >= +0 and codes <= 0x7F7F (what compress_flat and
+  // packable() admit: finite non-negative impacts and weights) the map
+  // code -> __fmul_rn(w, decode(code)) is monotone non-decreasing, so the
+  // kk-th largest product is the product of the kk-th largest code, and
+  // the padding lanes (+0, at most every lane's bound) cannot change it:
+  // the keys are the 16-bit codes. Any other slot's keys are the
+  // products' order bits over all max_len lanes, the padding counted as
+  // max_len - len keys of order_bits(+0).
+  const bool by_code = __float_as_uint(w) < 0x7F800000u && hi <= 0x7F7Fu;
+  const int n_pad = by_code ? 0 : p.max_len - len;
+  constexpr uint32_t kPadKey = 0x80000000u;  // order_bits(+0)
+  if (!by_code) {
+#pragma unroll
+    for (int j = 0; j < kSlotItems; ++j)
+      key[j] = order_bits(__fmul_rn(w, decode_code16(key[j])));
+    lo = n_pad > 0 ? kPadKey : 0xFFFFFFFFu;
+    hi = n_pad > 0 ? kPadKey : 0u;
+    min_max(1);
+  }
+  // skip the bits all keys share: the first pass bins the highest bit
+  // they differ in and the 7 below it (none when they are all the same)
+  uint32_t prefix = hi, mask = 0xFFFFFFFFu;
+  int shift = -1;
+  if (lo != hi) {
+    const int top = 31 - __clz(lo ^ hi);
+    mask = top == 31 ? 0u : ~((2u << top) - 1u);
+    prefix = hi & mask;
+    shift = max(top - 7, 0);
+  }
+  for (int remaining = kk; shift >= 0;
+       shift = shift > 0 ? max(shift - 8, 0) : -1) {
+    if constexpr (kBlock) {
+      s_hist[threadIdx.x] = 0;  // kSlotThreads == 256 bins
+      __syncthreads();
+    } else {
+      for (int i = lane; i < 256; i += 32) s_hist[i] = 0;
+      __syncwarp();
+    }
+#pragma unroll
+    for (int j = 0; j < kSlotItems; ++j) {
+      if (valid(j) && (key[j] & mask) == prefix)
+        atomicAdd(&s_hist[(key[j] >> shift) & 0xFFu], 1);
+    }
+    if (me == 0 && n_pad > 0 && (kPadKey & mask) == prefix)
+      atomicAdd(&s_hist[(kPadKey >> shift) & 0xFFu], n_pad);
+    int2 pick;
+    if constexpr (kBlock) {
+      __syncthreads();
+      pick_digit(s_hist, remaining, s_wsum, s_pick);
+      pick = make_int2(s_pick[0], s_pick[1]);
+    } else {
+      __syncwarp();
+      pick = warp_pick_digit(s_hist, remaining);
+      __syncwarp();
+    }
+    prefix |= (uint32_t)pick.x << shift;
+    mask |= 0xFFu << shift;
+    remaining = pick.y;
+  }
+  if (me == 0) {
+    kth_out[rt] = by_code ? __fmul_rn(w, decode_code16(prefix))
+                          : __uint_as_float(order_bits_inverse(prefix));
+    if (class_rows != nullptr)
+      atomicAdd(&class_rows[kBlock ? kSlotSelectBlock : kSlotSelectWarp], 1);
+  }
+}
+
+// One launch. Blocks b < n_long each select in the long slot sel[b] (the
+// longest tasks first, so they start in the first wave); after them one
+// warp per task: warps gw < n_short select in the short slot sel[n_long
+// + gw], warp n_short + rt takes slot rt's group bounds (a block may
+// hold both kinds: neither waits at a block barrier). Six blocks an SM
+// (40 registers, a few spilled): at its natural 58 registers only four
+// fit and the launch is slower (PERF.md).
+__global__ void __launch_bounds__(kSlotThreads, 6)
+slot_decode_kernel(Streams s, Slots p, int R, const uint16_t* block_max,
+                   long long n_bm, const int* blk_starts, int kk,
+                   const int* sel, int n_long, int n_short, float* kth_out,
+                   float* grp_ub_out, float* slot_ub_out, int* class_rows) {
+  __shared__ int s_hist[kSlotWarps][256];
+  const int b = blockIdx.x, warp = threadIdx.x >> 5;
+  if (b < n_long) {
+    slot_select<true>(sel[b], s, p, kk, s_hist[0], kth_out, class_rows);
     return;
   }
-  // lane lower bounds w * decode(code) are non-negative, so their bit
-  // patterns order like the values; padding lanes hold 0
-  const long long s_eff = clampll(p.starts[rt], 0, s.n_post - p.max_len);
-  for (int l = threadIdx.x; l < p.max_len; l += blockDim.x) {
-    float v = 0.0f;
-    if (l < len) v = __fmul_rn(w, decode_code16(s.codes[s_eff + l]));
-    s_vals[l] = __float_as_uint(v);
+  const long long gw = (long long)(b - n_long) * kSlotWarps + warp;
+  if (gw < n_short) {
+    slot_select<false>(sel[n_long + gw], s, p, kk, s_hist[warp], kth_out,
+                       class_rows);
+    return;
   }
-  __syncthreads();
-  const uint32_t bits = radix_select<uint32_t>(
-      p.max_len, kk, [&](int i) { return s_vals[i]; }, 24, 0, s_hist,
-      s_wsum, s_pick);
-  if (threadIdx.x == 0) kth_out[rt] = __uint_as_float(bits);
+  const long long rt = gw - n_short;
+  if (rt >= (long long)R * p.T) return;  // whole warps
+  slot_bounds((int)rt, p, block_max, n_bm, blk_starts, kk,
+              (p.max_len + kLaneBlock - 1) / kLaneBlock, kth_out,
+              grp_ub_out, slot_ub_out, class_rows);
 }
 
 // ---------------------------------------------------------------------------
@@ -1442,18 +1626,27 @@ int es_slot_decode(const void* docs8, const void* docs16, const void* codes,
                    const void* dbs, const void* dlo, int R, int T,
                    int max_len, int d_pad, const void* block_max,
                    long long n_bm, const void* blk_starts, int kk,
-                   void* kth, void* grp_ub, void* slot_ub, void* stream) {
+                   const void* sel, int n_long, int n_short, void* kth,
+                   void* grp_ub, void* slot_ub, void* class_rows,
+                   void* stream) {
   Streams s = make_streams(docs8, docs16, codes, ranks, n_post, doc_bases,
                            n_bases, res_vals, n_res);
   Slots p = make_slots(starts, lengths, weights, min_count, res_starts,
                        res_lens, dbs, dlo, T, max_len, d_pad);
-  dim3 grid(T, R);
-  slot_decode_kernel<<<grid, kSlotThreads, 0, (cudaStream_t)stream>>>(
-      s, p, static_cast<const uint16_t*>(block_max), n_bm,
-      static_cast<const int*>(blk_starts), kk, static_cast<float*>(kth),
-      static_cast<float*>(grp_ub), static_cast<float*>(slot_ub));
+  const long long warps = n_short + (long long)R * T;
+  const int blocks =
+      n_long + (int)((warps + kSlotWarps - 1) / kSlotWarps);
+  slot_decode_kernel<<<blocks, kSlotThreads, 0, (cudaStream_t)stream>>>(
+      s, p, R, static_cast<const uint16_t*>(block_max), n_bm,
+      static_cast<const int*>(blk_starts), kk, static_cast<const int*>(sel),
+      n_long, n_short, static_cast<float*>(kth),
+      static_cast<float*>(grp_ub), static_cast<float*>(slot_ub),
+      static_cast<int*>(class_rows));
   return (int)cudaGetLastError();
 }
+
+// Longest slot a warp selects in; a longer one takes a block.
+int es_slot_warp_lanes() { return kWarpSelectLanes; }
 
 int es_row_pack(const void* docs8, const void* docs16, const void* codes,
                 const void* ranks, long long n_post, const void* doc_bases,

@@ -39,12 +39,17 @@ T_LIMIT = 1024
 #: the select kernel's dynamic shared memory below the finalists' need
 SELECT_BASE_SMEM = 32768
 #: size classes the row pack, row sort, run sum and select kernels report
-#: per row (the order of the kernels' class counters)
+#: per row, and the slot decode per slot (the order of the kernels' class
+#: counters): slot_decode.bounds for a slot shorter than kernel k (group
+#: bounds only); one that also selects its k-th lane bound does so in a
+#: warp (slot_decode.select_warp, up to es_slot_warp_lanes() lanes) or in
+#: a block (slot_decode.select_block)
 SIZE_CLASSES = ("row_sort.shared", "row_sort.device", "select.none",
                 "select.shared", "select.device", "rescore.staged",
                 "rescore.restaged", "final.all", "final.trim",
                 "row_pack.single", "row_pack.split", "run_sum.one_tile",
-                "run_sum.tiled")
+                "run_sum.tiled", "slot_decode.bounds",
+                "slot_decode.select_warp", "slot_decode.select_block")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -52,8 +57,8 @@ _L = ctypes.c_longlong
 _STREAM_ARGS = [_P, _P, _P, _P, _L, _P, _L, _P, _L]
 _SLOT_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I]
 _SIGNATURES = {
-    "es_slot_decode": _STREAM_ARGS + _SLOT_ARGS + [_P, _L, _P, _I, _P, _P,
-                                                   _P, _P],
+    "es_slot_decode": _STREAM_ARGS + _SLOT_ARGS + [_P, _L, _P, _I, _P, _I,
+                                                   _I, _P, _P, _P, _P, _P],
     "es_row_pack": _STREAM_ARGS + _SLOT_ARGS + [_I, _I, _I, _P, _P, _P, _P,
                                                 _P, _P, _I, _P, _P, _P, _P,
                                                 _P, _P],
@@ -61,6 +66,7 @@ _SIGNATURES = {
     "es_run_sum": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P,
                    _P, _P, _P, _P, _P],
     "es_tile": [],
+    "es_slot_warp_lanes": [],
     "es_select_rescore": _STREAM_ARGS + _SLOT_ARGS + [_P, _P, _P, _P, _P,
                                                       _I, _I, _I, _P, _P,
                                                       _P, _P, _P, _P],
@@ -90,6 +96,12 @@ def tile_lanes() -> int:
     """Lanes of one row_pack or run_sum block (a row's keys are at most
     its lanes): a longer row spans several blocks."""
     return _lib().es_tile()
+
+
+def slot_warp_lanes() -> int:
+    """Longest slot in which one warp of the slot decode selects its k-th
+    lane bound; a longer slot takes a block."""
+    return _lib().es_slot_warp_lanes()
 
 
 def _run(lib, kernel: str, events: Optional[list], fn, *args) -> None:
@@ -142,6 +154,35 @@ def fused_merge_topk_plain(flat_docs, flat_impact, starts, lengths, weights,
                                   **kw)
 
 
+def slot_decode_plain(flat_docs, flat_impact, starts, lengths, weights,
+                      min_count, *, max_len, d_pad, k, block_max, blk_starts,
+                      doc_bases=None, dbs_starts=None, dlo_starts=None,
+                      **_) -> Tuple[torch.Tensor, ...]:
+    """The slot decode's outputs by the plain stages of ops/sparse.py, on
+    whatever device the operands lie (fused_merge_topk's operands and
+    keywords; the block-max skip on) → (kth f32[R, T]: each slot's kk-th
+    largest lane lower bound, −inf where len < kk; grp_ub f32[R, T, G];
+    slot_ub f32[R, T])."""
+    kk = min(k, starts.shape[1] * max_len)
+    _, imp = sparse._lane_decode(
+        flat_docs, flat_impact, starts, lengths, weights, max_len=max_len,
+        d_pad=d_pad, exact=False, doc_bases=doc_bases,
+        dbs_starts=dbs_starts, dlo_starts=dlo_starts)
+    grp_ub, slot_ub = sparse.group_bounds(lengths, weights, block_max,
+                                          blk_starts, max_len=max_len)
+    return sparse.slot_kth(imp, lengths, kk), grp_ub, slot_ub
+
+
+def slot_decode_mismatches(got: Dict[str, torch.Tensor],
+                           want: Tuple[torch.Tensor, ...]) -> list:
+    """The names of the slot decode's outputs (``stats
+    ["slot_decode_output"]``) that differ from slot_decode_plain's in
+    any bit."""
+    return [name for name, w in zip(("kth", "grp_ub", "slot_ub"), want)
+            if not torch.equal(got[name].view(torch.int32),
+                               w.to(got[name].device).view(torch.int32))]
+
+
 def fused_merge_topk(
     flat_docs: torch.Tensor,
     flat_impact: torch.Tensor,
@@ -174,10 +215,11 @@ def fused_merge_topk(
     version; CUDA operands launch the kernels or raise. `stats`, when
     given, receives the launch's lane, key and candidate counts (a host
     sync), under "classes" the rows each size class of the row pack, row
-    sort, run sum and select kernels took, under "sort_input" copies of
-    the row sort's unsorted keys and under "run_sum_output" of the run
-    sum's candidates and totals; `events` receives (kernel, start, end)
-    CUDA events."""
+    sort, run sum and select kernels took (the slots, for the slot
+    decode's), under "slot_decode_output" copies of the slot decode's
+    kth, grp_ub and slot_ub, under "sort_input" of the row sort's
+    unsorted keys and under "run_sum_output" of the run sum's candidates
+    and totals; `events` receives (kernel, start, end) CUDA events."""
     kw = dict(max_len=max_len, d_pad=d_pad, k=k, t_window=t_window,
               with_counts=with_counts, with_totals=with_totals,
               flat_rank=flat_rank, res_starts=res_starts, res_lens=res_lens,
@@ -273,8 +315,18 @@ def _launch(flat_docs, flat_impact, starts, lengths, weights, min_count, *,
     torch.cumsum(((row_cap - 1).clamp(min=0) // lib.es_tile()), dim=0,
                  out=offs[1, 1:])
     row_off, extra_off = offs[0, :r], offs[1]
-    total_cap, n_extra, longest = torch.stack(
-        [offs[0, r], offs[1, r], lengths.max().to(torch.int64)]).tolist()
+    # the slots the slot decode selects in (len ≥ kk), a block each past
+    # es_slot_warp_lanes() lanes ("long"), else a warp ("short"): their
+    # counts come with the same sync, their lists are built on the device
+    counts = [offs[:, r], lengths.max().to(torch.int64).view(1)]
+    if do_skip:
+        flat_len = lengths.view(-1)
+        long_slot = (flat_len >= kk) & (flat_len > slot_warp_lanes())
+        selects = [torch.cumsum(long_slot, dim=0),
+                   torch.cumsum((flat_len >= kk) & ~long_slot, dim=0)]
+        counts += [c[-1:] for c in selects]
+    total_cap, n_extra, longest, *n_sel = torch.cat(counts).tolist()
+    n_long, n_short = n_sel if do_skip else (0, 0)
     if longest > max_len:
         raise ValueError(f"a slot holds {longest} lanes, more than "
                          f"max_len={max_len}")
@@ -318,10 +370,18 @@ def _launch(flat_docs, flat_impact, starts, lengths, weights, min_count, *,
         kth = torch.empty((r, t), dtype=torch.float32, device=dev)
         grp_ub = torch.empty((r, t, n_grp), dtype=torch.float32, device=dev)
         slot_ub = torch.empty((r, t), dtype=torch.float32, device=dev)
+        # the long slots' list, then the short slots'
+        sel = torch.cat([torch.searchsorted(
+            c, torch.arange(1, n + 1, device=dev))
+            for c, n in zip(selects, (n_long, n_short))]).to(torch.int32)
         _run(lib, "slot_decode", events, lib.es_slot_decode,
              *streams, *slots, _ptr(block_max), block_max.shape[0],
-             _ptr(blk_starts), kk, _ptr(kth), _ptr(grp_ub), _ptr(slot_ub),
-             stream)
+             _ptr(blk_starts), kk, _ptr(sel), n_long, n_short, _ptr(kth),
+             _ptr(grp_ub), _ptr(slot_ub), _ptr(class_rows), stream)
+        if stats is not None:
+            stats["slot_decode_output"] = dict(
+                kth=kth.clone(), grp_ub=grp_ub.clone(),
+                slot_ub=slot_ub.clone())
     _run(lib, "row_pack", events, lib.es_row_pack,
          *streams, *slots, int(do_skip), int(with_counts), kk,
          _ptr(slot_terms) if do_skip else None, _ptr(kth), _ptr(grp_ub),
@@ -362,7 +422,9 @@ def _launch(flat_docs, flat_impact, starts, lengths, weights, min_count, *,
                      count_keys=int(n_ckeys.sum()) if need_count else 0,
                      candidates=int(n_cand.sum()),
                      picked=int(n_cand.clamp(max=kc).sum()),
-                     rows=r, slots=t, n_grp=n_grp, kk=kk, kc=kc,
+                     select_slots=n_long + n_short, rows=r, slots=t,
+                     n_grp=n_grp,
+                     kk=kk, kc=kc,
                      delta=int(delta), do_skip=int(do_skip),
                      classes=dict(zip(SIZE_CLASSES, class_rows.tolist())))
     if with_totals:

@@ -464,14 +464,10 @@ def _lane_decode(flat_docs, flat_impact, starts, lengths, weights, *,
     return docs, imp
 
 
-def _skip_bounds(imp, lengths, weights, min_count, block_max, blk_starts,
-                 slot_terms, *, max_len: int, kk: int, with_counts: bool):
-    """Stage 2a: per-128-lane group upper bounds, the per-slot bound of
-    every OTHER term, and the row threshold (the k-th best lane lower
-    bound of a long-enough slot) → (grp_ub f32[R,T,G], others f32[R,T],
-    thr f32[R])."""
-    dev = imp.device
-    t_slots = lengths.shape[1]
+def group_bounds(lengths, weights, block_max, blk_starts, *, max_len: int):
+    """Per-128-lane group upper bounds of every slot and their max per
+    slot → (grp_ub f32[R,T,G], slot_ub f32[R,T])."""
+    dev = lengths.device
     n_grp = (max_len + COMPRESSED_BLOCK - 1) // COMPRESSED_BLOCK
     bm = _window(block_max, blk_starts, n_grp + 1).to(torch.int64)
     grp_code = torch.maximum(bm[..., :-1], bm[..., 1:])
@@ -483,7 +479,27 @@ def _skip_bounds(imp, lengths, weights, min_count, block_max, blk_starts,
     w3 = weights[:, :, None]
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     grp_ub = torch.where(g_valid & (w3 > 0), w3 * ub, zero)
-    slot_ub = grp_ub.max(dim=2).values                     # [R, T]
+    return grp_ub, grp_ub.max(dim=2).values
+
+
+def slot_kth(imp, lengths, kk: int):
+    """Each slot's kk-th largest lane lower bound, −inf for a slot of
+    fewer than kk lanes (it cannot set the row threshold) → f32[R,T]."""
+    kth = torch.topk(imp, kk, dim=2).values[..., kk - 1]
+    return torch.where(lengths >= kk, kth, torch.full_like(kth, NEG_INF))
+
+
+def _skip_bounds(imp, lengths, weights, min_count, block_max, blk_starts,
+                 slot_terms, *, max_len: int, kk: int, with_counts: bool):
+    """Stage 2a: per-128-lane group upper bounds, the per-slot bound of
+    every OTHER term, and the row threshold (the k-th best lane lower
+    bound of a long-enough slot) → (grp_ub f32[R,T,G], others f32[R,T],
+    thr f32[R])."""
+    dev = imp.device
+    t_slots = lengths.shape[1]
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    grp_ub, slot_ub = group_bounds(lengths, weights, block_max, blk_starts,
+                                   max_len=max_len)
     if slot_terms is not None:
         # a doc appears in at most ONE chunk of a term: max over a
         # term's slots, sum over distinct terms
@@ -496,10 +512,7 @@ def _skip_bounds(imp, lengths, weights, min_count, block_max, blk_starts,
                   - term_ub)
     else:
         others = slot_ub.sum(dim=1, keepdim=True) - slot_ub
-    kth = torch.topk(imp, kk, dim=2).values[..., kk - 1]   # [R, T]
-    enough = lengths >= kk
-    neg = torch.full_like(kth, NEG_INF)
-    thr = torch.where(enough, kth, neg).max(dim=1).values  # [R]
+    thr = slot_kth(imp, lengths, kk).max(dim=1).values     # [R]
     if with_counts:
         thr = torch.where(min_count <= 1, thr, torch.full_like(thr, NEG_INF))
     return grp_ub, others, thr

@@ -36,7 +36,7 @@ def translate(src: str) -> str:
     src = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?([\w ]+?) "
                  r"(\w+)\[\];",
                  r"\1* \2 = reinterpret_cast<\1*>(g_smem);", src)
-    src = re.sub(r"__launch_bounds__\(\w+\)", "", src)
+    src = re.sub(r"__launch_bounds__\([^)]*\)", "", src)
     src = src.replace("__shared__", "static").replace("__global__", "")
     src = src.replace("__device__", "").replace("__forceinline__", "inline")
     src = re.sub(r"__align__\(\d+\)", "", src)

@@ -92,6 +92,12 @@ template <class T> T __shfl_sync(unsigned, T v, int s) {
   wput(v); __syncwarp(); T r = wget<T>(s & 31); __syncwarp(); return r; }
 template <class T> T __shfl_xor_sync(unsigned, T v, int m) {
   wput(v); __syncwarp(); T r = wget<T>((threadIdx.x & 31) ^ m); __syncwarp(); return r; }
+template <class T> T __shfl_down_sync(unsigned, T v, int d) {
+  wput(v); __syncwarp(); int l = threadIdx.x & 31; T r = l + d < 32 ? wget<T>(l + d) : v; __syncwarp(); return r; }
+inline unsigned __reduce_min_sync(unsigned, unsigned v) {
+  wput(v); __syncwarp(); unsigned r = v; for (int l = 0; l < 32; ++l) r = std::min(r, wget<unsigned>(l)); __syncwarp(); return r; }
+inline unsigned __reduce_max_sync(unsigned, unsigned v) {
+  wput(v); __syncwarp(); unsigned r = v; for (int l = 0; l < 32; ++l) r = std::max(r, wget<unsigned>(l)); __syncwarp(); return r; }
 inline unsigned __ballot_sync(unsigned, int p) {
   wput<int>(p != 0); __syncwarp(); unsigned r = 0; for (int l = 0; l < 32; ++l) if (wget<int>(l)) r |= 1u << l; __syncwarp(); return r; }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }

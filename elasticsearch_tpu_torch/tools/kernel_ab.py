@@ -14,7 +14,9 @@ wait), under "device_ms" each kernel's mean device time over the same
 number of launches from torch.profiler (no wait counted); under "extra"
 the same for the launches past the main traffic
 (extra_bodies: a match of the corpus's most frequent terms at from +
-size 1000, and from + size 10,000), each lowered into one train.
+size 1000 and at from + size 10,000, and the fixed train's bodies at
+size 10, kernel k 128), each lowered into one train, with its lanes and
+the slots whose lanes reach kernel k (those slot_decode selects in).
 Compare two checkouts within one call, in turns: A, B, B, A.
 """
 
@@ -49,8 +51,9 @@ def main() -> int:
     svc = GpuSearchService(max_batch=128)
     try:
         cs.build_index(svc, cs.INDEX, corpus, cs.N_DOCS, cs.SHARDS)
+        bodies = cs.make_bodies(corpus)[:128]
         launch, kw = fixed_train(svc, mk, cs.LaunchRecorder, cs.INDEX,
-                                 cs.FIELD, cs.K, cs.make_bodies(corpus)[:128])
+                                 cs.FIELD, cs.K, bodies)
         stats = {}
         mk.fused_merge_topk(*launch, **dict(kw, stats=stats))
         for _ in range(3):
@@ -61,13 +64,17 @@ def main() -> int:
         device_ms = profiled(lambda: mk.fused_merge_topk(*launch, **kw),
                              cs.TIMED)
         extra = {}
-        for label, size, bodies in extra_bodies(corpus.vocab, cs.FIELD,
-                                                cs.K, cs.MAX_K):
+        for label, size, queries in extra_bodies(corpus.vocab, cs.FIELD,
+                                                 cs.K, cs.MAX_K, bodies):
             a, akw = fixed_train(svc, mk, cs.LaunchRecorder, cs.INDEX,
-                                 cs.FIELD, size, bodies)
+                                 cs.FIELD, size, queries)
             mk.fused_merge_topk(*a, **akw)
+            lengths = a[3]
+            kk = min(akw["k"], lengths.shape[1] * akw["max_len"])
             extra[label] = dict(
                 rows=a[2].shape[0], slots=a[2].shape[1], k=akw["k"],
+                lanes=int(lengths.clamp(min=0).sum()),
+                select_slots=int((lengths >= kk).sum()),
                 ms=cs.time_events(lambda ev: mk.fused_merge_topk(
                     *a, **dict(akw, events=ev)), 5),
                 device_ms=profiled(lambda: mk.fused_merge_topk(*a, **akw),
@@ -78,7 +85,9 @@ def main() -> int:
         "root": root, "device": cs.smi_line(),
         "shape": {"rows": launch[2].shape[0], "slots": launch[2].shape[1],
                   "k": kw["k"]},
-        "lanes": stats["lanes"], "keys": stats["keys"],
+        "lanes": stats["lanes"], "kth_lanes": stats["kth_lanes"],
+        "select_slots": int((launch[3] >= stats["kk"]).sum()),
+        "keys": stats["keys"],
         "count_keys": stats["count_keys"],
         "candidates": stats["candidates"], "ms": ms,
         "device_ms": device_ms, "extra": extra}), flush=True)
@@ -109,18 +118,22 @@ def profiled(fn, n):
     return out
 
 
-def extra_bodies(vocab, field, k, max_k):
+def extra_bodies(vocab, field, k, max_k, bodies):
     """[(label, from + size, bodies)] of the launches past the main
     traffic: matches of the corpus's four most frequent terms (the Zipf
     head fills 4096-lane slots: T >= 16, rows past every shared-memory
-    class) at k, and from + size max_k on the same terms."""
+    class) at k and at from + size max_k, and `bodies` (the fixed
+    train's) at Elasticsearch's default size 10, kernel k 128, where
+    every slot of 128 lanes or more selects its k-th lane bound."""
     head = vocab[:4]
-    return [(label, size, [{"query": {"match": {field: text}}, "size": size}
-                           for text in texts])
-            for label, texts, size in (
-                ("stopwords", (f"{head[0]} {head[1]}", f"{head[0]} "
-                               f"{head[2]}", f"{head[1]} {head[3]}"), k),
-                ("k10000", (head[0], f"{head[0]} {head[1]}"), max_k))]
+    out = [(label, size, [{"query": {"match": {field: text}},
+                           "size": size} for text in texts])
+           for label, texts, size in (
+               ("stopwords", (f"{head[0]} {head[1]}", f"{head[0]} "
+                              f"{head[2]}", f"{head[1]} {head[3]}"), k),
+               ("k10000", (head[0], f"{head[0]} {head[1]}"), max_k))]
+    out.append(("size10", 10, [dict(b, size=10) for b in bodies]))
+    return out
 
 
 def fixed_train(svc, mk, recorder, index, field, k, bodies):

@@ -55,7 +55,9 @@ def test_random_rows_match_plain(cuda, tie_heavy, chunk_cap):
 def test_skip_active_batch_matches_plain(cuda):
     """Several rows over long skewed postings: the block-max skip, msm
     rows, the pre-skip count keys and (k=700) the radix candidate
-    select all run."""
+    select all run; slot_decode's kth, group and slot bounds equal the
+    plain stages' bit for bit, with slots that select in a block and
+    slots that take the bounds only."""
     rng = np.random.default_rng(7)
     d_pad = 20000
     fd, fi, ext = cases.make_heavy_flat(rng, d_pad, [9000, 7000, 5000])
@@ -69,6 +71,9 @@ def test_skip_active_batch_matches_plain(cuda):
     for k in (10, 128, 700):
         got, want = run_pair(pos, extra, static, k, cuda)
         cases.assert_bitwise(got, want, f"k={k}")
+        classes = slot_decode_classes(pos, extra, static, k, cuda)
+        assert classes["slot_decode.select_block"] > 0
+        assert classes["slot_decode.bounds"] > 0
     # the skip really dropped lanes at k=10 (fewer keys than pre-skip)
     stats = {}
     merge_kernel.fused_merge_topk(
@@ -116,6 +121,23 @@ def test_sorted_merge_topk_routes_cuda_to_kernel(cuda):
                              variant="pallas", **static,
                              **cases.to_torch(extra, cuda))
     assert merge_kernel.LAUNCHES["row_sort"] > before
+
+
+def slot_decode_classes(pos, extra, static, k, device):
+    """slot_decode's kth, grp_ub and slot_ub (which the results cannot
+    show) bit for bit against the plain stages → its size classes."""
+    tpos = cases.to_torch(pos, device)
+    tex = cases.to_torch(extra, device)
+    stats = {}
+    merge_kernel.fused_merge_topk(*tpos, k=k, with_totals=True, stats=stats,
+                                  **static, **tex)
+    plain = merge_kernel.slot_decode_plain(*tpos, k=k, **static, **tex)
+    assert merge_kernel.slot_decode_mismatches(
+        stats["slot_decode_output"], plain) == [], k
+    classes = stats["classes"]
+    assert (classes["slot_decode.select_warp"]
+            + classes["slot_decode.select_block"]) == stats["select_slots"]
+    return classes
 
 
 def run_classes(pos, extra, static, k, device):
@@ -166,6 +188,9 @@ def test_thousand_short_slots_match_plain(cuda):
             cases.assert_bitwise(got, want, f"k={k} totals={with_totals}")
     classes = run_classes(pos, extra, static, 10, cuda)
     assert classes["row_pack.split"] == 2 and classes["run_sum.tiled"] == 2
+    # every 64-lane slot selects in a warp at k = 10
+    classes = slot_decode_classes(pos, extra, static, 10, cuda)
+    assert classes["slot_decode.select_warp"] > 0
 
 
 @pytest.mark.parametrize("k", [4096, 10000, 16384])

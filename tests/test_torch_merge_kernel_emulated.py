@@ -74,15 +74,17 @@ def test_delta_doc_stream_matches_plain(emulated):
 
 def test_every_size_class_matches_plain(emulated):
     """One short row (shared-memory sort and selection, staged rescore,
-    trimmed finalists) and one of 17,900 keys (device-memory sort and
-    selection, rescore restaged by slot group), with the block-max skip
-    on; at k = 4000 the short row needs no selection and keeps all."""
+    trimmed finalists) and one of 18,200 keys (device-memory sort and
+    selection, rescore restaged by slot group; a 300-lane slot that a
+    warp of the slot decode selects in, longer ones a block each), with
+    the block-max skip on; at k = 4000 the short row needs no selection
+    and keeps all."""
     rng = np.random.default_rng(7)
     d_pad = 20000
-    fd, fi, ext = cases.make_heavy_flat(rng, d_pad, [900, 9000, 8000],
+    fd, fi, ext = cases.make_heavy_flat(rng, d_pad, [900, 9000, 8000, 300],
                                         skew=1.0)
     rows = [[(ext[0][0], ext[0][1], 1.0, 0)],
-            [(ext[t][0], ext[t][1], 1.0 + t, t) for t in range(3)]]
+            [(ext[t][0], ext[t][1], 1.0 + t, t) for t in range(4)]]
     pos, extra, static = cases.kernel_args(fd, fi, rows, [1, 1], d_pad,
                                            ext)
     got, want, stats = run_pair(pos, extra, static, 40)
@@ -91,6 +93,7 @@ def test_every_size_class_matches_plain(emulated):
     assert all(classes[c] > 0 for c in merge_kernel.SIZE_CLASSES
                if c not in ("select.none", "final.all")), classes
     assert_run_sum_matches_reference(stats, static, [1, 1])
+    assert_slot_decode_matches_plain(pos, extra, static, 40, stats)
     got, want, stats = run_pair(pos, extra, static, 4000)
     cases.assert_bitwise(got, want)
     classes = stats["classes"]
@@ -298,6 +301,156 @@ def test_row_pack_and_run_sum_edges_match_plain(emulated, kind):
         assert lanes[1] == 0 and (pos[3][0] == 0).any()
     if kind == "delta_split":
         assert split == 1 and seen["run_sum.tiled"] > 0
+
+
+def sized_flat(rng, sizes, d_pad, impacts=None):
+    """Postings of exactly `sizes` random docs each; term t's impacts are
+    impacts[t](n) when given, else uniform in [0.1, 1)."""
+    fd, fi, ext, pos = [], [], [], 0
+    for t, n in enumerate(sizes):
+        fd.append(np.sort(rng.choice(d_pad, size=n, replace=False)))
+        fi.append(impacts[t](n) if impacts else rng.uniform(0.1, 1.0, n))
+        ext.append((pos, n))
+        pos += n
+    fd = np.concatenate(fd + [np.full(cases.SLACK, d_pad)]).astype(np.int32)
+    fi = np.concatenate(fi + [np.zeros(cases.SLACK)]).astype(np.float32)
+    return fd, fi, ext
+
+
+def slot_case(rng, kind):
+    """Operands of one of slot_decode's edge cases → (flats, rows, mins,
+    d_pad, ext, plan keywords)."""
+    if kind == "len_edges":
+        # slots of kk - 1, kk and kk + 1 lanes for kk = 10, 128, 700; an
+        # empty slot between full ones; weight 0 on two terms
+        d_pad = 3000
+        sizes = [9, 10, 11, 127, 128, 129, 699, 700, 701]
+        fd, fi, ext = sized_flat(rng, sizes, d_pad)
+        end = ext[-1][0] + ext[-1][1]
+        ws = [float(w) for w in rng.uniform(0.3, 3.0, len(sizes))]
+        row = [(ext[t][0], ext[t][1], ws[t], t) for t in range(9)]
+        rows = [row[:4] + [(end, 0, 1.0, 9)] + row[4:],
+                [(ext[t][0], ext[t][1], 0.0 if t in (4, 7) else ws[t], t)
+                 for t in range(2, 9)],
+                [row[8], row[5]]]
+        return (fd, fi), rows, [1, 1, 2], d_pad, ext, {}
+    if kind == "equal_codes":
+        # one code throughout a term; codes whose top byte is one value
+        # (impacts in [0.5, 1): one exponent); codes over six exponents;
+        # one code but for a high outlier in lane 100 (the fourth warp of
+        # a block select) and a low one
+        def outliers(n):
+            imp = np.full(n, 0.3)
+            imp[100], imp[n - 200] = 0.9, 0.05
+            return imp
+        d_pad = 4000
+        fd, fi, ext = sized_flat(rng, [300, 800, 1500, 900], d_pad, [
+            lambda n: np.full(n, 0.625),
+            lambda n: rng.uniform(0.5, 1.0, n),
+            lambda n: rng.random(n) ** 3 * 0.9 + 0.01, outliers])
+        rows = [[(ext[t][0], ext[t][1], 1.7, t)] for t in range(4)]
+        rows.append([(ext[t][0], ext[t][1], 0.4 + t, t) for t in range(4)])
+        return (fd, fi), rows, [1] * 5, d_pad, ext, {}
+    if kind == "full_slot":
+        # a term of exactly 4096 docs: one full slot; one of 4500: a full
+        # slot and one of 404 lanes
+        d_pad = 10000
+        fd, fi, ext = sized_flat(rng, [4096, 4500], d_pad)
+        rows = [[(ext[0][0], ext[0][1], 1.3, 0)],
+                [(ext[t][0], ext[t][1], 0.9 + t, t) for t in range(2)]]
+        return (fd, fi), rows, [1, 1], d_pad, ext, {}
+    # the u8 delta doc stream: every 128-lane block spans < 256 ids, so a
+    # slot holds < 256 lanes (at k = 700 the skip is off)
+    d_pad = 250
+    fd, fi, ext = sized_flat(rng, [249, 200, 130, 127, 60], d_pad)
+    rows = [[(ext[t][0], ext[t][1], 1.0 + 0.3 * t, t) for t in range(5)],
+            [(ext[t][0], ext[t][1], 0.7, t) for t in (1, 3)]]
+    return (fd, fi), rows, [1, 2], d_pad, ext, {}
+
+
+def assert_slot_decode_matches_plain(pos, extra, static, k, stats):
+    """slot_decode's kth, grp_ub and slot_ub bit for bit against the
+    plain stages (kth on the slots of ≥ kk lanes, -inf on the others),
+    and its size classes: one per slot."""
+    tpos = cases.to_torch(pos)
+    want = merge_kernel.slot_decode_plain(*tpos, k=k, **static,
+                                          **cases.to_torch(extra))
+    assert merge_kernel.slot_decode_mismatches(
+        stats["slot_decode_output"], want) == [], k
+    lengths = tpos[3]
+    kk = min(k, lengths.shape[1] * static["max_len"])
+    n_sel = int((lengths >= kk).sum())
+    n_warp = int(((lengths >= kk)
+                  & (lengths <= merge_kernel.slot_warp_lanes())).sum())
+    classes = stats["classes"]
+    assert stats["select_slots"] == n_sel
+    assert classes["slot_decode.select_warp"] == n_warp
+    assert classes["slot_decode.select_block"] == n_sel - n_warp
+    assert classes["slot_decode.bounds"] == lengths.numel() - n_sel
+
+
+SLOT_CASES = [(kind, k) for kind in ("len_edges", "equal_codes",
+                                     "full_slot", "delta")
+              for k in (10, 128, 700) if (kind, k) != ("delta", 700)]
+
+
+@pytest.mark.parametrize("kind,k", SLOT_CASES)
+def test_slot_decode_outputs_match_plain(emulated, kind, k):
+    """slot_decode's own outputs, which the final results cannot show (a
+    kth too low or a bound too high only makes the skip drop fewer
+    lanes), against the plain stages at kernel k 10, 128 and 700, with
+    both of its classes taken; and the final results against the plain
+    version."""
+    rng = np.random.default_rng(SLOT_CASES.index((kind, k)) + 90)
+    (fd, fi), rows, mins, d_pad, ext, plan_kw = slot_case(rng, kind)
+    pos, extra, static = cases.kernel_args(fd, fi, rows, mins, d_pad, ext,
+                                           **plan_kw)
+    assert ("doc_bases" in extra) == (kind == "delta")
+    got, want, stats = run_pair(pos, extra, static, k)
+    cases.assert_bitwise(got, want, f"{kind} k={k}")
+    assert stats["do_skip"] == 1
+    assert_slot_decode_matches_plain(pos, extra, static, k, stats)
+    lengths = pos[3]
+    kk = min(k, lengths.shape[1] * static["max_len"])
+    assert (lengths >= kk).any() and (lengths < kk).any()
+    if kind == "len_edges":
+        assert {kk - 1, kk, kk + 1} <= set(lengths.ravel().tolist())
+    if kind == "full_slot":
+        assert static["max_len"] == 4096 and (lengths == 4096).any()
+
+
+def test_slot_decode_thousand_short_slots_match_plain(emulated):
+    """T = T_LIMIT = 1024 slots of 64 lanes (64 chunks of each of 16
+    terms), many slots to one bounds block, every full slot selecting
+    at k = 10, and the slots past a row's terms empty."""
+    rng = np.random.default_rng(331)
+    d_pad = 9000
+    fd, fi, ext = cases.make_heavy_flat(rng, d_pad, [4096] * 16, skew=2.0)
+    ws = [float(w) for w in rng.uniform(0.5, 3.0, size=16)]
+    rows = [[(ext[t][0], ext[t][1], ws[t], t) for t in range(16)],
+            [(ext[t][0], ext[t][1], ws[t], t) for t in range(0, 16, 3)]]
+    pos, extra, static = cases.kernel_args(fd, fi, rows, [1, 1], d_pad, ext,
+                                           chunk_cap=64)
+    assert pos[2].shape[1] == merge_kernel.T_LIMIT
+    got, want, stats = run_pair(pos, extra, static, 10)
+    cases.assert_bitwise(got, want)
+    assert_slot_decode_matches_plain(pos, extra, static, 10, stats)
+
+
+@pytest.mark.parametrize("weight", [-1.5, float("inf")])
+def test_slot_decode_outside_the_code_domain_matches_plain(emulated,
+                                                           weight):
+    """A weight that packable() refuses (negative, or infinite) breaks the
+    order of codes and products: those slots select on the products,
+    the padding lanes (+0) counted, and still give the plain kth."""
+    rng = np.random.default_rng(332)
+    (fd, fi), rows, mins, d_pad, ext, _ = slot_case(rng, "len_edges")
+    rows = [[(s, n, weight if t % 2 else w, t) for s, n, w, t in row]
+            for row in rows]
+    pos, extra, static = cases.kernel_args(fd, fi, rows, mins, d_pad, ext)
+    for k in (10, 700):
+        _, _, stats = run_pair(pos, extra, static, k)
+        assert_slot_decode_matches_plain(pos, extra, static, k, stats)
 
 
 @pytest.mark.parametrize("fault", ["k", "length", "t_window"])
