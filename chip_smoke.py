@@ -7,7 +7,8 @@ Builds the hand-written CUDA kernels from elasticsearch_tpu_torch/csrc
 (nvcc, into elasticsearch_tpu_torch/_build/), indexes a 1M-document
 synthetic MS MARCO-passage-shaped corpus into 16 compressed shards on the
 card, answers 256 `_search` bodies (match OR / AND / minimum_should_match)
-through GpuSearchService from many threads, and checks:
+through GpuSearchService from many threads and then through the node's
+REST API, and checks:
 
   device         nvidia-smi name and power limit, torch and CUDA versions
   build          kernel build seconds; corpus, shards, postings; resident
@@ -52,6 +53,20 @@ through GpuSearchService from many threads, and checks:
                  timed launch took, and the slots slot_decode selected
                  in
 
+  rest           the node over HTTP on the card (the path users call):
+                 1M docs by _bulk (4,000-doc requests from 2 clients),
+                 _refresh, _forcemerge, _refresh, then the 256 bodies from
+                 128 keep-alive clients with and without _source; every
+                 recorded launch against the plain version, the hits
+                 against the oracle, the two runs against each other and
+                 against e2e (scores bit for bit, ids per score), the hbm
+                 breaker at 0 and memory_allocated() back at its value
+                 before the pack after DELETE; ingest docs/s, q/s, the
+                 StageTimes of each run, the device idle share, which
+                 host C helpers ran, resident bytes. The kernels line
+                 adds each kernel's launches in the first REST run
+                 (launches_rest)
+
 The last line is {"ok": true, "device": {...}}; any failure exits
 non-zero without it. Without a CUDA device the script exits 2 at once.
 """
@@ -79,6 +94,10 @@ TIMED = 25              # timed kernel launches after warm-up
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 FIELD = "body"
 INDEX = "msmarco"
+REST_INDEX = "msmarco-rest"
+BULK_DOCS = 4000        # docs per _bulk request
+BULK_CLIENTS = 2
+REST_CLIENTS = 128
 PALLAS_LINE = "elasticsearch_tpu/ops/pallas_merge.py:155"
 KERNEL_SOURCE = "elasticsearch_tpu_torch/csrc/merge_topk.cu"
 #: the size-class counters (merge_kernel.SIZE_CLASSES) of each kernel
@@ -210,62 +229,67 @@ def bitwise_equal(got, want):
     return same, err
 
 
+def check_launch(mk, label, args, kw):
+    """One recorded launch: the kernels against their plain version on
+    its operands, with and without totals, and slot_decode's own outputs
+    → (entry, worst error, size classes taken); raises on a mismatch."""
+    import torch
+    stats = {}
+    got = mk.fused_merge_topk(*args, **dict(kw, stats=stats))
+    want = mk.fused_merge_topk_plain(*args, **kw)
+    torch.cuda.synchronize()
+    same, err = bitwise_equal(got, want)
+    # slot_decode's kth, grp_ub and slot_ub: a kth too low would only
+    # make the skip drop fewer lanes, which the results cannot show
+    slot_diff = None
+    if stats["do_skip"]:
+        slot_diff = mk.slot_decode_mismatches(
+            stats["slot_decode_output"], mk.slot_decode_plain(*args, **kw))
+    r, t = args[2].shape
+    took = {c: n for c, n in stats["classes"].items() if n}
+    entry = dict(launch=label, rows=r, slots=t, max_len=kw["max_len"],
+                 k=kw["k"], msm_rows=int((args[5] > 1).sum()),
+                 delta=kw.get("doc_bases") is not None,
+                 with_totals=bool(kw["with_totals"]),
+                 skip=bool(stats["do_skip"]),
+                 lanes=stats["lanes"], keys_after_skip=stats["keys"],
+                 keys_before_skip=stats["count_keys"],
+                 candidates=stats["candidates"],
+                 select_slots=stats["select_slots"], size_classes=took,
+                 bitwise=same,
+                 slot_decode_bitwise=None if slot_diff is None
+                 else not slot_diff)
+    if not same:
+        raise AssertionError(f"kernel != plain at shape {entry}, "
+                             f"max_abs_err {err}")
+    if slot_diff:
+        raise AssertionError(f"slot_decode's {slot_diff} != the plain "
+                             f"stages' at shape {entry}")
+    # the same operands without totals (no pre-skip count keys)
+    kw2 = dict(kw, with_totals=False)
+    same2, err2 = bitwise_equal(mk.fused_merge_topk(*args, **kw2),
+                                mk.fused_merge_topk_plain(*args, **kw2))
+    if not same2:
+        raise AssertionError(f"kernel != plain without totals at {entry}")
+    return entry, max(err, err2), took
+
+
 def kernel_parity(mk, launches):
     """The kernels against their plain version on each recorded launch
     [(label, args, kw)], with and without totals → (entries, worst
     error, rows per size class over all launches)."""
-    import torch
     worst = 0.0
     checked = []
     skipping = 0
     classes = dict.fromkeys(mk.SIZE_CLASSES, 0)
     for label, args, kw in launches:
-        stats = {}
-        got = mk.fused_merge_topk(*args, **dict(kw, stats=stats))
-        want = mk.fused_merge_topk_plain(*args, **kw)
-        torch.cuda.synchronize()
-        same, err = bitwise_equal(got, want)
+        entry, err, took = check_launch(mk, label, args, kw)
         worst = max(worst, err)
-        # slot_decode's kth, grp_ub and slot_ub: a kth too low would only
-        # make the skip drop fewer lanes, which the results cannot show
-        slot_diff = None
-        if stats["do_skip"]:
-            slot_diff = mk.slot_decode_mismatches(
-                stats["slot_decode_output"], mk.slot_decode_plain(*args,
-                                                                  **kw))
-        r, t = args[2].shape
-        took = {c: n for c, n in stats["classes"].items() if n}
         for c, n in took.items():
             classes[c] += n
-        entry = dict(launch=label, rows=r, slots=t, max_len=kw["max_len"],
-                     k=kw["k"], msm_rows=int((args[5] > 1).sum()),
-                     delta=kw.get("doc_bases") is not None,
-                     with_totals=bool(kw["with_totals"]),
-                     skip=bool(stats["do_skip"]),
-                     lanes=stats["lanes"], keys_after_skip=stats["keys"],
-                     keys_before_skip=stats["count_keys"],
-                     candidates=stats["candidates"],
-                     select_slots=stats["select_slots"], size_classes=took,
-                     bitwise=same,
-                     slot_decode_bitwise=None if slot_diff is None
-                     else not slot_diff)
         checked.append(entry)
-        if stats["count_keys"] > stats["keys"]:
+        if entry["keys_before_skip"] > entry["keys_after_skip"]:
             skipping += 1
-        if not same:
-            raise AssertionError(f"kernel != plain at shape {entry}, "
-                                 f"max_abs_err {err}")
-        if slot_diff:
-            raise AssertionError(f"slot_decode's {slot_diff} != the plain "
-                                 f"stages' at shape {entry}")
-        # the same operands without totals (no pre-skip count keys)
-        kw2 = dict(kw, with_totals=False)
-        same2, err2 = bitwise_equal(mk.fused_merge_topk(*args, **kw2),
-                                    mk.fused_merge_topk_plain(*args, **kw2))
-        worst = max(worst, err2)
-        if not same2:
-            raise AssertionError(f"kernel != plain without totals at "
-                                 f"{entry}")
         if label == "stopwords" and not (took.get("row_sort.device")
                                          and took.get("select.device")
                                          and took.get("row_pack.split")
@@ -456,6 +480,270 @@ def traced_run(svc, bodies, mk):
         device_idle_share=(1.0 - busy_ms / 1e3 / wall) if busy_ms > 0
         else "not measured",
         top_device_ms=top)
+
+
+def rest_http(host, port, method, path, body=None, raw=None, conn=None):
+    """One request to the node over HTTP/1.1 → (status, parsed body)."""
+    import http.client
+    own = conn is None
+    if own:
+        conn = http.client.HTTPConnection(host, port, timeout=600)
+    data = raw if raw is not None else (
+        json.dumps(body).encode() if body is not None else None)
+    conn.request(method, path, data,
+                 {"Content-Type": "application/x-ndjson" if raw is not None
+                  else "application/json"})
+    resp = conn.getresponse()
+    payload = resp.read()
+    if own:
+        conn.close()
+    return resp.status, (json.loads(payload) if payload else None)
+
+
+def rest_bulk_load(host, port, corpus, n_docs):
+    """_bulk n_docs corpus documents (ids d{i}) in BULK_DOCS-doc NDJSON
+    requests from BULK_CLIENTS clients, then _refresh → seconds."""
+    import http.client
+    import threading
+    starts = list(range(0, n_docs, BULK_DOCS))
+    errors = []
+
+    def client(ci):
+        conn = http.client.HTTPConnection(host, port, timeout=600)
+        try:
+            for si in range(ci, len(starts), BULK_CLIENTS):
+                lines = []
+                for i in range(starts[si], min(starts[si] + BULK_DOCS,
+                                               n_docs)):
+                    lines.append('{"index":{"_id":"d%d"}}' % i)
+                    lines.append(json.dumps({FIELD: corpus.doc_text(i)}))
+                status, resp = rest_http(
+                    host, port, "POST", f"/{REST_INDEX}/_bulk",
+                    raw=("\n".join(lines) + "\n").encode(), conn=conn)
+                if status != 200 or resp.get("errors"):
+                    errors.append(str(resp)[:500])
+                    return
+        finally:
+            conn.close()
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(ci,))
+               for ci in range(BULK_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise AssertionError(f"_bulk failed: {errors[0]}")
+    status, resp = rest_http(host, port, "POST", f"/{REST_INDEX}/_refresh")
+    if status != 200:
+        raise AssertionError(f"_refresh: {resp}")
+    return time.perf_counter() - t0
+
+
+def rest_queries(host, port, bodies):
+    """`bodies` as POST /{index}/_search from REST_CLIENTS threads, each
+    on its own keep-alive connection → (responses in order, wall s)."""
+    import http.client
+    import threading
+    local = threading.local()
+
+    def one(body):
+        conn = getattr(local, "conn", None)
+        if conn is None:
+            conn = local.conn = http.client.HTTPConnection(host, port,
+                                                           timeout=600)
+        status, resp = rest_http(host, port, "POST",
+                                 f"/{REST_INDEX}/_search", body, conn=conn)
+        if status != 200:
+            raise AssertionError(f"_search {status}: {str(resp)[:500]}")
+        return resp
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=REST_CLIENTS) as pool:
+        out = list(pool.map(one, bodies))
+    return out, time.perf_counter() - t0
+
+
+def device_busy_ms(prof):
+    """Device time summed over the profiled kernels, ms (0: none seen)."""
+    busy = 0.0
+    for ev in prof.key_averages():
+        busy += getattr(ev, "self_device_time_total",
+                        getattr(ev, "self_cuda_time_total", 0.0)) / 1e3
+    return busy
+
+
+def hits_of(responses):
+    """[(ids, scores)] of each response's hits."""
+    return [([h["_id"] for h in r["hits"]["hits"]],
+             [h["_score"] for h in r["hits"]["hits"]]) for r in responses]
+
+
+def same_up_to_ties(got, want):
+    """Two runs over the same documents whose ordinals may differ (two
+    _bulk clients interleave their requests, and ties break toward the
+    lower ordinal): the same scores bit for bit in the same order, the
+    same ids at each score, and at each response's last score (where the
+    window cuts a tie) the same number of hits."""
+    if len(got) != len(want):
+        return False
+    for (g_ids, g_sc), (w_ids, w_sc) in zip(got, want):
+        if g_sc != w_sc:
+            return False
+        last = w_sc[-1] if w_sc else None
+        g_by, w_by = {}, {}
+        for by, ids, scores in ((g_by, g_ids, g_sc), (w_by, w_ids, w_sc)):
+            for i, sc in zip(ids, scores):
+                if sc != last:
+                    by.setdefault(sc, set()).add(i)
+        if g_by != w_by:
+            return False
+    return True
+
+
+def rest_phase(corpus, bodies, mk, smi, e2e_responses, data_root):
+    """The node over HTTP on the card: a 16-shard index with the body
+    text mapping and async translog durability, the e2e corpus loaded by
+    _bulk, _refresh, _forcemerge, _refresh, then the e2e bodies from
+    REST_CLIENTS threads, as they are (1000 hits with _source) and with
+    "_source": false. Checks the launches against the plain version, the
+    hits against the numpy oracle, the two runs against each other and
+    against the in-process e2e run, and that deleting the index drains the hbm breaker to 0 and returns
+    torch.cuda.memory_allocated() to its value before the pack."""
+    import gc
+    import shutil
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from elasticsearch_tpu_torch import native
+    from elasticsearch_tpu_torch.node import Node, serve
+
+    data = os.path.join(data_root, "chip_smoke_rest")
+    shutil.rmtree(data, ignore_errors=True)
+    node = Node(data)   # cuda:0, the reference's settings defaults
+    server = serve(node, "127.0.0.1", 0)
+    host, port = server.server_address
+    out = {"nvidia_smi": smi, "docs": N_DOCS, "shards": SHARDS,
+           "bulk_docs": BULK_DOCS, "bulk_clients": BULK_CLIENTS,
+           "clients": REST_CLIENTS,
+           "window_s": node.gpu_search.batcher.window_s}
+    try:
+        status, resp = rest_http(host, port, "PUT", f"/{REST_INDEX}", {
+            "settings": {"number_of_shards": SHARDS,
+                         "translog": {"durability": "async"}},
+            "mappings": {"properties": {FIELD: {"type": "text"}}}})
+        if status != 200:
+            raise AssertionError(f"PUT index: {resp}")
+        ingest_s = rest_bulk_load(host, port, corpus, N_DOCS)
+        t0 = time.perf_counter()
+        for method, path in (("POST", f"/{REST_INDEX}/_forcemerge"),
+                             ("POST", f"/{REST_INDEX}/_refresh")):
+            status, resp = rest_http(host, port, method, path)
+            if status != 200:
+                raise AssertionError(f"{path}: {resp}")
+        out.update(ingest_s=ingest_s, ingest_docs_per_s=N_DOCS / ingest_s,
+                   forcemerge_refresh_s=time.perf_counter() - t0)
+        svc = node.indices.index(REST_INDEX)
+        segments = [svc.shard(s).acquire_searcher().views[0].segment
+                    for s in range(SHARDS)]
+        gc.collect()
+        torch.cuda.synchronize()
+        mem_before = torch.cuda.memory_allocated()
+        hbm = node.breakers.get_breaker("hbm")
+
+        runs = {}
+        launches = {}
+        with LaunchRecorder(mk) as rec:
+            rest_queries(host, port, bodies[:8])   # builds the pack
+            resident = node.gpu_search.packs.residents()[0]
+            out.update(resident_bytes=resident.nbytes_device(),
+                       hbm_charged=hbm.used,
+                       pack_build_misses=node.gpu_search.packs.misses)
+            if hbm.used != resident.nbytes_device():
+                raise AssertionError(f"hbm charge {hbm.used} != resident "
+                                     f"bytes {resident.nbytes_device()}")
+            del resident
+            for label, source in (("source", True), ("nosource", False)):
+                run_bodies = [dict(b, _source=source) for b in bodies]
+                node.gpu_search.stages.reset()
+                mk.reset_launches()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    responses, wall = rest_queries(host, port, run_bodies)
+                    torch.cuda.synchronize()
+                launches[label] = dict(mk.LAUNCHES)
+                busy = device_busy_ms(prof)
+                stages = node.gpu_search.stages.snapshot()
+                runs[label] = responses
+                out[label] = dict(
+                    queries=len(responses), wall_s=wall,
+                    qps=len(responses) / wall,
+                    hits=sum(len(r["hits"]["hits"]) for r in responses),
+                    launches=launches[label],
+                    stages=stages,
+                    device_busy_ms=busy if busy > 0 else "not measured",
+                    device_idle_share=(1.0 - busy / 1e3 / wall) if busy > 0
+                    else "not measured")
+                zero = [n for n, c in launches[label].items() if c <= 0]
+                if zero:
+                    raise AssertionError(f"{label}: kernels not launched "
+                                         f"through REST: {zero}")
+            shapes = list(rec.shapes.values())
+            rec.shapes.clear()
+        n_shapes = len(shapes)
+        worst = 0.0
+        while shapes:   # each launch's operands go as soon as checked
+            args, kw = shapes.pop()
+            _, err, _ = check_launch(mk, "rest", args, kw)
+            worst = max(worst, err)
+            del args, kw
+        out["parity"] = dict(shapes=n_shapes, max_abs_err=worst,
+                             tolerance="bitwise: scores as uint32, docs "
+                                       "and totals exact")
+        oracle_check(runs["source"], bodies, corpus, segments)
+        if hits_of(runs["source"]) != hits_of(runs["nosource"]):
+            raise AssertionError("the _source and no-_source runs differ")
+        if any("_source" in h for r in runs["nosource"]
+               for h in r["hits"]["hits"]):
+            raise AssertionError("_source: false returned _source")
+        if not same_up_to_ties(hits_of(runs["source"]),
+                               hits_of(e2e_responses)):
+            raise AssertionError("REST hits differ from the in-process "
+                                 "e2e run's")
+        out["same_as_e2e"] = ("scores bit for bit, ids up to ties at the "
+                              "last score")
+        out["native"] = native.used()
+        del runs, segments, svc
+        status, resp = rest_http(host, port, "DELETE", f"/{REST_INDEX}")
+        if status != 200:
+            raise AssertionError(f"DELETE index: {resp}")
+        mem_after = None
+        for _ in range(50):   # the retired batcher thread lets go
+            gc.collect()
+            torch.cuda.synchronize()
+            mem_after = torch.cuda.memory_allocated()
+            if mem_after == mem_before:
+                break
+            time.sleep(0.1)
+        out.update(hbm_after_delete=hbm.used,
+                   memory_allocated_before_pack=mem_before,
+                   memory_allocated_after_delete=mem_after)
+        if hbm.used != 0:
+            raise AssertionError(f"hbm breaker reads {hbm.used} after "
+                                 f"DELETE")
+        if mem_after != mem_before:
+            raise AssertionError(f"memory_allocated {mem_after} after "
+                                 f"DELETE, {mem_before} before the pack")
+    except BaseException:
+        log("rest_failed", **out)
+        raise
+    finally:
+        server.shutdown()
+        server.server_close()
+        node.close()
+        shutil.rmtree(data, ignore_errors=True)
+    return out, launches["source"]
 
 
 def time_events(fn, n):
@@ -735,6 +1023,13 @@ def main() -> int:
                 5),
             device_ms=profiled(lambda: mk.fused_merge_topk(*a, **kw), 5))
             for label, a, kw in extra_trains])
+        # -- rest: the node over HTTP, the path users call -------------
+        rest, rest_launches = rest_phase(corpus, bodies, mk, smi, responses,
+                                         os.path.join(here, "data"))
+        log("rest", **rest)
+        for entry in kernels:
+            entry["launches_rest"] = rest_launches[
+                entry["name"].split(".", 1)[1]]
         print(json.dumps({"kernels": kernels}), flush=True)
     finally:
         svc.close()

@@ -13,7 +13,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, List, Optional
 
-from elasticsearch_tpu_torch.errors import NotLowerable, ParsingException
+from elasticsearch_tpu_torch.common.errors import NotLowerable, ParsingException
 
 
 @dataclasses.dataclass

@@ -12,16 +12,28 @@ path on one card. A ``_search`` body goes:
     format, placed on the device (one pack row per segment, one
     statistics group per index shard: the reference's query_then_fetch
     scope), with the tables that resolve kernel hits to ``_id``s.
+  IndexPackCache — the node's resident packs, keyed on the identities of
+    the shard readers they were built from (a refresh or merge swaps a
+    reader, so the key changes exactly when the segments or live docs
+    do). Each pack charges the ``hbm`` breaker with its device bytes
+    before the upload and releases them on a rebuild, an invalidate or a
+    failed upload; a lookup during another thread's rebuild serves the
+    old pack.
   MicroBatcher — coalesces concurrent queries per pack for a short
     window (or until the batch cap) and runs them as one launch.
-  GpuSearchService — create_index / index / refresh / search.
+  StageTimes — per-stage wall time of the serving path.
+  GpuSearchService — ``try_search`` over a node's IndexService (the
+    reference's TpuSearchService.try_search), and a bare service of its
+    own: create_index / index / refresh / search.
 
 A query outside the lowering subset raises ``NotLowerable``; the planner
-path that answers it in the reference comes with a later slice.
+path that answers it in the reference comes with a later slice. Nothing
+here falls back: a fault of the kernel path reaches the caller.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import threading
 import time
@@ -31,7 +43,7 @@ from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from elasticsearch_tpu_torch.errors import IndexNotFound, NotLowerable
+from elasticsearch_tpu_torch.common.errors import IndexNotFound, NotLowerable
 from elasticsearch_tpu_torch.index.segment import Segment, SegmentWriter
 from elasticsearch_tpu_torch.indices.routing import shard_for
 from elasticsearch_tpu_torch.mapping import MapperService, TextFieldType
@@ -43,6 +55,57 @@ from elasticsearch_tpu_torch.search.planner import choose_kernel_variant
 
 #: window floor of the exact kernel (the reference's _PRUNE_WINDOW)
 MIN_T_WINDOW = 8
+
+
+class StageTimes:
+    """Per-stage wall time on the serving path (the reference's
+    StageTimes, without its trace exemplars). Stages: ``lower`` (parse,
+    lowering and the resident-pack lookup), ``batch_wait`` (submit to
+    result: the batching window, the queue and the train), ``train``
+    (one launch + finish, per train) and ``assemble`` (the coordinator's
+    hits block). Each stage keeps its running totals and a bounded ring
+    of recent samples for percentiles."""
+
+    RING_SIZE = 4096
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.seconds: Dict[str, float] = {}
+        self.counts: Dict[str, int] = {}
+        self._rings: Dict[str, collections.deque] = {}
+
+    def add(self, stage: str, dt: float, n: int = 1) -> None:
+        with self._lock:
+            self.seconds[stage] = self.seconds.get(stage, 0.0) + dt
+            self.counts[stage] = self.counts.get(stage, 0) + n
+            ring = self._rings.get(stage)
+            if ring is None:
+                ring = self._rings[stage] = collections.deque(
+                    maxlen=self.RING_SIZE)
+            ring.append(dt / n if n > 1 else dt)
+
+    def reset(self) -> None:
+        with self._lock:
+            self.seconds.clear()
+            self.counts.clear()
+            self._rings.clear()
+
+    def snapshot(self) -> Dict[str, Dict[str, float]]:
+        """{stage: {seconds, count, mean_ms, p50_ms, p99_ms, max_ms}};
+        the percentiles are over the ring's recent samples."""
+        with self._lock:
+            rows = {s: (self.seconds[s], self.counts[s],
+                        sorted(self._rings[s])) for s in sorted(self.seconds)}
+        out = {}
+        for s, (sec, count, ring) in rows.items():
+            out[s] = {"seconds": sec, "count": count,
+                      "mean_ms": sec / count * 1e3 if count else 0.0}
+            if ring:
+                out[s]["p50_ms"] = ring[len(ring) // 2] * 1e3
+                out[s]["p99_ms"] = ring[min(len(ring) - 1,
+                                            int(len(ring) * 0.99))] * 1e3
+                out[s]["max_ms"] = ring[-1] * 1e3
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -128,6 +191,15 @@ class ResidentPack:
     row_segments: List[Segment]         # pack row → segment (for _source)
     row_offset: np.ndarray              # int64[S] into id_cat
     id_cat: np.ndarray                  # object[total docs] external ids
+    #: the identities of the shard readers it was built from, and the
+    #: readers themselves: holding them keeps a freed reader's id from
+    #: being reused by a new reader while this pack serves
+    reader_key: Tuple[int, ...] = ()
+    readers: Dict[int, Any] = dataclasses.field(default_factory=dict)
+    hbm_bytes: int = 0                  # the breaker charge it holds
+    #: set when the pack leaves its cache; the batcher then takes no
+    #: more work for it, so nothing new holds its device arrays
+    retired: bool = False
 
     def nbytes_device(self) -> int:
         """Bytes of the resident device image."""
@@ -143,15 +215,28 @@ class ResidentPack:
 
 def place_pack(pack: dist.StackedShardPack, device: torch.device,
                row_origin: List[Tuple[int, str]],
-               row_segments: List[Segment]) -> ResidentPack:
-    """Compress `pack` and place it on `device`. Raw (incompressible)
-    packs and their pruned tiers come with a later slice."""
+               row_segments: List[Segment], breaker=None,
+               reader_key: Tuple[int, ...] = (),
+               readers: Optional[Dict[int, Any]] = None) -> ResidentPack:
+    """Compress `pack` and place it on `device`. With a breaker, the
+    streams' device bytes are charged before the upload and refunded if
+    it raises. Raw (incompressible) packs and their pruned tiers come
+    with a later slice."""
     reason = dist.compress_pack_reason(pack)
     if reason is not None:
         raise NotLowerable(f"pack [{pack.field}] is not compressible "
                            f"({reason}); raw packs are not served yet")
     streams = dist.build_compressed_streams(pack)
-    arrays = dist.device_put_compressed(streams, device)
+    hbm = streams.nbytes_device()
+    if breaker is not None:
+        breaker.add_estimate_bytes_and_maybe_break(
+            hbm, label=f"pack[{pack.field}]")
+    try:
+        arrays = dist.device_put_compressed(streams, device)
+    except Exception:
+        if breaker is not None:
+            breaker.release(hbm)
+        raise
     sizes = [len(ids) for ids in pack.shard_doc_ids]
     row_offset = np.zeros(pack.num_shards, dtype=np.int64)
     np.cumsum(sizes[:-1], out=row_offset[1:len(sizes)])
@@ -161,7 +246,140 @@ def place_pack(pack: dist.StackedShardPack, device: torch.device,
         id_cat[off: off + len(ids)] = ids
         off += len(ids)
     return ResidentPack(pack, streams, arrays, row_origin, row_segments,
-                        row_offset, id_cat)
+                        row_offset, id_cat, reader_key=tuple(reader_key),
+                        readers=dict(readers or {}), hbm_bytes=hbm)
+
+
+class IndexPackCache:
+    """The node's resident packs, one per (index, field), keyed on the
+    tuple of the index's shard-reader identities (the reference's
+    IndexPackCache without its delta chains, placement groups and heat
+    tracking). Charges the ``hbm`` breaker before each upload; releases
+    a pack's charge when a rebuild replaces it and on invalidate.
+    ``on_evict(resident)`` runs for every pack that goes (the service
+    retires its batcher queue, whose reference would otherwise keep the
+    device arrays alive)."""
+
+    def __init__(self, device: torch.device, breaker=None):
+        self.device = device
+        self._breaker = breaker
+        self._lock = threading.Lock()
+        self._cache: Dict[Tuple[str, str], ResidentPack] = {}
+        # per-key build serialization: a rebuild of one pack never
+        # blocks lookups of the others
+        self._build_locks: Dict[Tuple[str, str], threading.Lock] = {}
+        self.on_evict = None
+        # index name → deletions so far: a build that began before its
+        # index was invalidated is not cached
+        self._epochs: Dict[str, int] = {}
+        self.hits = 0          # lookups served by the current pack
+        self.misses = 0        # lookups that (re)built a pack
+        self.stale_served = 0  # lookups served stale during a rebuild
+
+    def stats(self) -> Dict[str, Any]:
+        with self._lock:
+            packs = {f"{idx}/{field}": {"hbm_bytes": int(e.hbm_bytes),
+                                        "resident_bytes": e.nbytes_device()}
+                     for (idx, field), e in self._cache.items()}
+            return {"resident": len(self._cache), "hits": self.hits,
+                    "misses": self.misses,
+                    "stale_served": self.stale_served, "packs": packs}
+
+    def residents(self) -> List[ResidentPack]:
+        with self._lock:
+            return list(self._cache.values())
+
+    def get(self, index_service, field: str) -> Optional[ResidentPack]:
+        readers = []
+        for shard_num, shard in sorted(index_service.shards.items()):
+            readers.append((shard_num, shard.acquire_searcher()))
+        reader_key = tuple(id(r) for _, r in readers)
+        key = (index_service.name, field)
+        with self._lock:
+            epoch = self._epochs.get(key[0], 0)
+            entry = self._cache.get(key)
+            if entry is not None and entry.reader_key == reader_key:
+                self.hits += 1
+                return entry
+            build_lock = self._build_locks.setdefault(key,
+                                                      threading.Lock())
+        # stale-while-rebuild: while another thread rebuilds this key,
+        # serve the previous pack (staleness bounded by one refresh)
+        if not build_lock.acquire(blocking=False):
+            with self._lock:
+                entry = self._cache.get(key)
+                if entry is not None:
+                    self.stale_served += 1
+            if entry is not None:
+                return entry
+            build_lock.acquire()  # no old pack: wait for the build
+        try:
+            with self._lock:
+                entry = self._cache.get(key)
+                if entry is not None and entry.reader_key == reader_key:
+                    self.hits += 1
+                    return entry
+                self.misses += 1
+            entry = self._build(readers, field, reader_key)
+            old = None
+            with self._lock:
+                deleted = self._epochs.get(key[0], 0) != epoch
+                if entry is not None:
+                    old = entry if deleted else self._cache.get(key)
+                    if old is not None and self._breaker is not None:
+                        self._breaker.release(old.hbm_bytes)
+                    if not deleted:
+                        self._cache[key] = entry
+            if old is not None and self.on_evict is not None:
+                self.on_evict(old)
+            if deleted:
+                raise IndexNotFound(f"no such index [{key[0]}]")
+            return entry
+        finally:
+            build_lock.release()
+
+    def _build(self, readers, field: str,
+               reader_key: Tuple[int, ...]) -> Optional[ResidentPack]:
+        segments, live, groups = [], [], []
+        row_origin: List[Tuple[int, str]] = []
+        for group_idx, (shard_num, reader) in enumerate(readers):
+            for view in reader.views:
+                if field not in view.segment.postings:
+                    continue
+                segments.append(view.segment)
+                live.append(view.live_mask[:view.segment.num_docs].copy())
+                groups.append(group_idx)
+                row_origin.append((shard_num, view.segment.name))
+        if not segments:
+            return None
+        reader = readers[0][1]
+        pack = dist.build_stacked_pack(segments, field, live_docs=live,
+                                       k1=reader.k1, b=reader.b,
+                                       row_groups=groups)
+        return place_pack(pack, self.device, row_origin, segments,
+                          breaker=self._breaker, reader_key=reader_key,
+                          readers=dict(readers))
+
+    def invalidate(self, index_name: str) -> None:
+        """Drop every pack of `index_name` and release its charge."""
+        evicted = []
+        with self._lock:
+            for key in [k for k in self._cache if k[0] == index_name]:
+                entry = self._cache.pop(key)
+                if self._breaker is not None:
+                    self._breaker.release(entry.hbm_bytes)
+                evicted.append(entry)
+                self._build_locks.pop(key, None)
+            self._epochs[index_name] = self._epochs.get(index_name, 0) + 1
+        if self.on_evict is not None:
+            for entry in evicted:
+                self.on_evict(entry)
+
+    def invalidate_all(self) -> None:
+        with self._lock:
+            names = sorted({k[0] for k in self._cache})
+        for name in names:
+            self.invalidate(name)
 
 
 # ---------------------------------------------------------------------------
@@ -179,6 +397,7 @@ class FlatQueryResult:
     total_hits: int
     max_score: Optional[float]
     resident: Optional[ResidentPack] = None
+    total_relation: str = "eq"
 
     @classmethod
     def empty(cls) -> "FlatQueryResult":
@@ -383,12 +602,16 @@ class MicroBatcher:
             self.batch_sizes[n] = self.batch_sizes.get(n, 0) + 1
 
     def submit(self, resident: ResidentPack, flat: FlatQuery,
-               k: int) -> Future:
+               k: int) -> Optional[Future]:
+        """The future of `flat`'s result, or None when `resident` was
+        retired: the caller looks its pack up again."""
         pending = _Pending(flat, k, Future())
         while True:
             with self._lock:
                 if self._closed:
                     raise RuntimeError("micro-batcher is closed")
+                if resident.retired:
+                    return None
                 queue = self._queues.get(id(resident))
                 if queue is None:
                     queue = self._queues[id(resident)] = _PackQueue(
@@ -397,7 +620,10 @@ class MicroBatcher:
                 return pending.future
 
     def retire(self, resident: ResidentPack) -> None:
+        """Refuse new work for `resident`; its queue drains what it holds
+        and its thread ends."""
         with self._lock:
+            resident.retired = True
             queue = self._queues.pop(id(resident), None)
         if queue is not None:
             queue.close()
@@ -433,17 +659,25 @@ class _Index:
 
 
 class GpuSearchService:
-    """create_index / index / refresh / search over resident compressed
-    packs on one device (``cuda:0`` unless ``device="cpu"``)."""
+    """The kernel path of ``_search`` on one device (``cuda:0`` unless
+    ``device="cpu"``): ``try_search`` over a node's IndexService, through
+    the IndexPackCache (charged to `breaker`, the node's ``hbm``
+    breaker) and the micro-batcher; and create_index / index / refresh /
+    search over indices of its own."""
 
     def __init__(self, device=None, window_s: float = 0.005,
-                 max_batch: int = 128, batch_timeout_s: float = 300.0):
+                 max_batch: int = 128, batch_timeout_s: float = 300.0,
+                 breaker=None):
         self.device = resolve_device(device)
         self.batch_timeout_s = batch_timeout_s
         self._indices: Dict[str, _Index] = {}
         self._lock = threading.Lock()
         self.batcher = MicroBatcher(self._execute, window_s=window_s,
                                     max_batch=max_batch)
+        self.packs = IndexPackCache(self.device, breaker)
+        self.packs.on_evict = self.batcher.retire
+        self.stages = StageTimes()
+        self.served = 0
         #: kernel variant → exact launches (compressed_exact is torch ops,
         #: counted apart from the kernel)
         self.variant_launches: Dict[str, int] = {}
@@ -540,13 +774,59 @@ class GpuSearchService:
 
     def _execute(self, resident: ResidentPack, flats: Sequence[FlatQuery],
                  k: int) -> List[FlatQueryResult]:
+        t0 = time.perf_counter()
         launch = _launch_exact(resident, flats, k)
         with self._lock:
             v = launch["variant"]
             self.variant_launches[v] = self.variant_launches.get(v, 0) + 1
             shape = (launch["bucket"], launch["t_slots"], _kernel_k(k))
             self.launch_shapes[shape] = self.launch_shapes.get(shape, 0) + 1
-        return _finish_exact(launch)
+        out = _finish_exact(launch)
+        self.stages.add("train", time.perf_counter() - t0)
+        return out
+
+    # -- the node's path (the reference's TpuSearchService.try_search) -----
+
+    def try_search(self, index_service, query: dsl.QueryNode, *,
+                   k: int) -> FlatQueryResult:
+        """The kernel result of `query` over `index_service` (k = from +
+        size, the window the coordinator needs). Raises NotLowerable where
+        the reference hands the query to its planner; a fault of the
+        kernel path (or a batch that outlives the wait) reaches the
+        caller."""
+        if k <= 0 or k > MAX_K:
+            raise NotLowerable(f"from + size = {k} is outside (0, "
+                               f"{MAX_K}], the kernel path's window")
+        t0 = time.perf_counter()
+        flat = lower_query(query, index_service.mapper)
+        if flat is None:
+            self.stages.add("lower", time.perf_counter() - t0)
+            raise NotLowerable(f"[{query.query_name()}] query does not "
+                               f"lower to the merge kernel")
+        while True:
+            resident = self.packs.get(index_service, flat.field)
+            t1 = time.perf_counter()
+            if resident is None:
+                # the field has postings nowhere: zero hits, kernel-free
+                self.stages.add("lower", t1 - t0)
+                with self._lock:
+                    self.served += 1
+                return FlatQueryResult.empty()
+            future = self.batcher.submit(resident, flat, k)
+            if future is not None:
+                break
+            # a refresh or delete retired the pack after the lookup
+        self.stages.add("lower", t1 - t0)
+        result = future.result(timeout=self.batch_timeout_s)
+        self.stages.add("batch_wait", time.perf_counter() - t1)
+        with self._lock:
+            self.served += 1
+        return result
+
+    def invalidate_index(self, name: str) -> None:
+        """Drop the index's resident packs, their breaker charge and
+        their batcher queues (index delete)."""
+        self.packs.invalidate(name)
 
     def search(self, name: str, body: Optional[dict] = None) -> dict:
         """``_search`` over one index → {"took", "timed_out", "_shards",
@@ -578,12 +858,16 @@ class GpuSearchService:
         if flat is None:
             raise NotLowerable(f"[{query.query_name()}] query does not "
                                f"lower to the merge kernel")
-        resident = self.resident(name, flat.field)
-        if resident is None:
-            res = FlatQueryResult.empty()
-        else:
-            res = self.batcher.submit(resident, flat, k).result(
-                timeout=self.batch_timeout_s)
+        while True:
+            resident = self.resident(name, flat.field)
+            if resident is None:
+                res = FlatQueryResult.empty()
+                break
+            future = self.batcher.submit(resident, flat, k)
+            if future is not None:
+                res = future.result(timeout=self.batch_timeout_s)
+                break
+            # a refresh retired the pack after the lookup
         scores = res.scores[from_: from_ + size]
         rows = res.rows[from_: from_ + size]
         ords = res.ords[from_: from_ + size]
@@ -612,3 +896,4 @@ class GpuSearchService:
 
     def close(self) -> None:
         self.batcher.close()
+        self.packs.invalidate_all()

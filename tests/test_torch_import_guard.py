@@ -11,13 +11,44 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 
-GUARD = textwrap.dedent("""
+#: the node and the modules of its REST path, all of them imported below
+NODE_MODULES = [
+    "elasticsearch_tpu_torch.node",
+    "elasticsearch_tpu_torch.native",
+    "elasticsearch_tpu_torch.common.errors",
+    "elasticsearch_tpu_torch.common.settings",
+    "elasticsearch_tpu_torch.common.breaker",
+    "elasticsearch_tpu_torch.analysis.analyzers",
+    "elasticsearch_tpu_torch.mapping.types",
+    "elasticsearch_tpu_torch.mapping.mapper",
+    "elasticsearch_tpu_torch.index.segment",
+    "elasticsearch_tpu_torch.index.seqno",
+    "elasticsearch_tpu_torch.index.translog",
+    "elasticsearch_tpu_torch.index.store",
+    "elasticsearch_tpu_torch.index.reader",
+    "elasticsearch_tpu_torch.index.engine",
+    "elasticsearch_tpu_torch.index.shard",
+    "elasticsearch_tpu_torch.indices.service",
+    "elasticsearch_tpu_torch.search.coordinator",
+    "elasticsearch_tpu_torch.search.serializer",
+    "elasticsearch_tpu_torch.rest.controller",
+    "elasticsearch_tpu_torch.rest.actions.admin",
+    "elasticsearch_tpu_torch.rest.actions.document",
+    "elasticsearch_tpu_torch.rest.actions.root",
+    "elasticsearch_tpu_torch.rest.actions.search",
+]
+
+GUARD = "NODE_MODULES = %r\n" % (NODE_MODULES,) + textwrap.dedent("""
     import importlib, pkgutil, sys
     import elasticsearch_tpu_torch as port
+    import elasticsearch_tpu_torch.node
     names = [m.name for m in pkgutil.walk_packages(port.__path__,
                                                    port.__name__ + ".")]
     for name in names:
         importlib.import_module(name)
+    # the node's own modules and those of the slice it serves
+    for name in NODE_MODULES:
+        assert name in names, name
     bad = sorted(m for m in sys.modules
                  if m == "jax" or m.startswith("jax.")
                  or m == "elasticsearch_tpu"
@@ -39,8 +70,11 @@ NO_GPU = textwrap.dedent("""
     from elasticsearch_tpu_torch.parallel.device import (NoDeviceError,
                                                          resolve_device)
     from elasticsearch_tpu_torch.search.gpu_service import GpuSearchService
+    from elasticsearch_tpu_torch.node import Node
+    import tempfile
     for call in (lambda: GpuSearchService(), lambda: resolve_device(),
-                 lambda: resolve_device("cuda")):
+                 lambda: resolve_device("cuda"),
+                 lambda: Node(tempfile.mkdtemp())):
         try:
             call()
         except NoDeviceError:
@@ -49,6 +83,7 @@ NO_GPU = textwrap.dedent("""
             print("ran")
     print(resolve_device("cpu"))
     GpuSearchService(device="cpu").close()
+    Node(tempfile.mkdtemp(), device="cpu").close()
 """)
 
 
@@ -61,7 +96,7 @@ def fresh_process():
 
 def test_every_module_of_the_port_imports(fresh_process):
     n, _ = fresh_process[0].split(" ", 1)
-    assert int(n) >= 15
+    assert int(n) >= 15 + len(NODE_MODULES)
 
 
 def test_port_imports_no_jax_and_nothing_of_the_reference(fresh_process):
@@ -70,4 +105,4 @@ def test_port_imports_no_jax_and_nothing_of_the_reference(fresh_process):
 
 
 def test_entry_points_raise_without_gpu_unless_cpu_is_asked(fresh_process):
-    assert fresh_process[1:] == ["raised"] * 3 + ["cpu"]
+    assert fresh_process[1:] == ["raised"] * 4 + ["cpu"]

@@ -237,7 +237,7 @@ def test_service_on_card_matches_cpu_up_to_size_10000(cuda):
     10,000 beside a size-10 body, and refuses 10,001 alike."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from elasticsearch_tpu_torch.errors import NotLowerable
+    from elasticsearch_tpu_torch.common.errors import NotLowerable
     from elasticsearch_tpu_torch.search.gpu_service import GpuSearchService
     rng = np.random.default_rng(20)
     words = [f"w{i}" for i in range(12)]

@@ -17,7 +17,7 @@ from elasticsearch_tpu.search import coordinator
 from elasticsearch_tpu.search import tpu_service as jax_tpu
 from elasticsearch_tpu.search.tpu_service import TpuSearchService
 
-from elasticsearch_tpu_torch.errors import NotLowerable
+from elasticsearch_tpu_torch.common.errors import NotLowerable
 from elasticsearch_tpu_torch.search import dsl
 from elasticsearch_tpu_torch.search.gpu_service import (GpuSearchService,
                                                          lower_query)

@@ -2,6 +2,7 @@
 tests. Imports no JAX, so the GPU tests can use it on a machine without
 it; the parity tests hand the same arrays to both packages."""
 
+import json
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -168,3 +169,57 @@ def make_tie_heavy_full_case(rng, df=32768, d_pad=60000):
     rows = [[(ext[t][0], ext[t][1], 1.0, t) for t in range(2)],
             [(ext[t][0], ext[t][1], 1.0, t) for t in range(2)]]
     return fd, fi, rows, [1, 2], d_pad, ext
+
+
+# ---------------------------------------------------------------------------
+# the node parity corpus: documents with _ids d{i} and the search bodies
+# both nodes answer
+# ---------------------------------------------------------------------------
+
+WORDS = ["alpha", "beta", "gamma", "delta", "epsilon", "zeta", "eta",
+         "theta", "iota", "kappa", "lamda", "mu", "nu", "xi"]
+
+
+def make_docs(n=240, seed=20) -> List[Tuple[str, dict]]:
+    """Zipf-skewed documents over WORDS: early words common, late rare."""
+    rng = np.random.default_rng(seed)
+    docs = []
+    for i in range(n):
+        n_words = int(rng.integers(2, 14))
+        picks = np.minimum(rng.zipf(1.3, n_words) - 1, len(WORDS) - 1)
+        docs.append((f"d{i}", {"body": " ".join(WORDS[int(w)]
+                                                for w in picks)}))
+    return docs
+
+
+#: match OR / AND / msm, term, terms and bool-should bodies, with sizes
+#: and offsets
+PARITY_BODIES = [
+    {"query": {"match": {"body": "alpha beta"}}},
+    {"query": {"match": {"body": "gamma delta epsilon"}}, "size": 25},
+    {"query": {"match": {"body": {"query": "alpha beta gamma",
+                                  "operator": "and"}}}},
+    {"query": {"match": {"body": {"query": "beta gamma delta zeta",
+                                  "minimum_should_match": 2}}},
+     "size": 30},
+    {"query": {"term": {"body": "eta"}}, "size": 7, "from": 3},
+    {"query": {"terms": {"body": ["theta", "iota", "kappa"]}}},
+    {"query": {"bool": {"should": [{"term": {"body": "lamda"}},
+                                   {"term": {"body": "mu"}},
+                                   {"term": {"body": "alpha"}}],
+                        "minimum_should_match": 2}}, "size": 40},
+    {"query": {"match": {"body": {"query": "nu xi absentword",
+                                  "boost": 2.5}}}},
+    {"query": {"match": {"body": "alpha"}}, "size": 200},
+]
+
+
+def bulk_ndjson(docs, index=None) -> bytes:
+    """(id, source) pairs → a _bulk body of index ops."""
+    lines = []
+    for doc_id, src in docs:
+        meta = {"_id": doc_id} if index is None else {"_index": index,
+                                                      "_id": doc_id}
+        lines.append(json.dumps({"index": meta}))
+        lines.append(json.dumps(src))
+    return ("\n".join(lines) + "\n").encode()
