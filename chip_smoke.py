@@ -8,7 +8,9 @@ Builds the hand-written CUDA kernels from elasticsearch_tpu_torch/csrc
 synthetic MS MARCO-passage-shaped corpus into 16 compressed shards on the
 card, answers 256 `_search` bodies (match OR / AND / minimum_should_match)
 through GpuSearchService from many threads and then through the node's
-REST API, and checks:
+REST API, the same bodies with boost 1e-15 (weights packable() refuses:
+the compressed_exact path), and the traffic once more over a (1, 1)
+device mesh through the collective tail, and checks:
 
   device         nvidia-smi name and power limit, torch and CUDA versions
   build          kernel build seconds; corpus, shards, postings; resident
@@ -25,11 +27,27 @@ REST API, and checks:
                  and slot bounds, which the results cannot show) against
                  the plain stages bit for bit; the rows (slots, for
                  slot_decode) each size class took (every class must
-                 take some)
-  e2e            the counted run: queries, hits, batch sizes, launches per
-                 kernel (all must be > 0), compressed_exact launches, and
-                 16 sampled queries against the numpy oracle (top-10 ids,
-                 scores within rel=1e-5, abs=1e-6)
+                 take some); every train's shard_topk (the cross-shard
+                 top-k) of the counted run and of those launches against
+                 its plain version (values as uint32, positions exact),
+                 kernel k 16,384 (its device-memory sort) among them
+  e2e            the counted run on GpuSearchService(device="cuda:0"):
+                 queries, hits, batch sizes, launches per kernel of the
+                 path (all must be > 0), and 16 sampled queries against
+                 the numpy oracle (top-10 ids, scores within rel=1e-5,
+                 abs=1e-6)
+  exact          the first 128 bodies and the stop-word bodies with
+                 boost 1e-15 through the service, counts reset just
+                 before: compressed_exact trains (> 0, and no compressed
+                 one), exact_merge and shard_topk launches (> 0), every
+                 exact launch's outputs against the plain version bit for
+                 bit (both size classes taken), every train's shard_topk,
+                 and sampled hits against the oracle times the boost
+  mesh           the service on make_mesh() pinned to cuda:0, shape
+                 (1, 1): the e2e bodies through the NCCL all_gather and
+                 all_reduce at world size 1 (calls counted), its hits
+                 equal to the e2e run's bit for bit; the cards the
+                 machine shows and the one used
   trace          the same traffic again with stage timers and
                  torch.profiler: each request's lowering, wait in the
                  batcher (window and queue), train execution and
@@ -38,7 +56,10 @@ REST API, and checks:
                  device ms (mean of 5, torch.profiler) at the stop-word,
                  from + size 10,000 and size-10 launches, each one train
                  of its bodies, with the slots slot_decode selects in
-  kernels        one JSON line: per kernel, median ms over >= 20 timed
+  kernels        one JSON line: per kernel (the five merge kernels,
+                 shard_topk on the fixed train's gather, exact_merge on
+                 the fixed train's bodies with boost 1e-15), median ms
+                 over >= 20 timed
                  launches (CUDA events around each launch: a launch the
                  device waits for counts its wait) and device_ms (mean
                  device time from torch.profiler) of one fixed train (the
@@ -49,23 +70,28 @@ REST API, and checks:
                  the sort's yardstick and torch.topk as slot_decode's
                  (of its kth alone; no single torch call computes what
                  the other three compute: library_ms null, and
-                 library_of says why), the size classes the rows of the
-                 timed launch took, and the slots slot_decode selected
-                 in
+                 library_of says why), torch.topk as shard_topk's and a
+                 stable torch.sort of the lanes' (row, doc) keys as
+                 exact_merge's, the size classes the rows of the timed
+                 launch took, and the slots slot_decode selected in
 
-  rest           the node over HTTP on the card (the path users call):
+  rest           the node over HTTP on the card (the path users call; its
+                 mesh pinned to cuda:0):
                  1M docs by _bulk (4,000-doc requests from 2 clients),
                  _refresh, _forcemerge, _refresh, then the 256 bodies from
                  128 keep-alive clients with and without _source; every
                  recorded launch against the plain version, the hits
                  against the oracle, the two runs against each other and
-                 against e2e (scores bit for bit, ids per score), the hbm
+                 against e2e (scores bit for bit, ids per score), then
+                 the exact phase's bodies (every exact launch and every
+                 train's shard_topk against the plain version, the hits
+                 against the exact phase's up to ties), the hbm
                  breaker at 0 and memory_allocated() back at its value
                  before the pack after DELETE; ingest docs/s, q/s, the
                  StageTimes of each run, the device idle share, which
                  host C helpers ran, resident bytes. The kernels line
                  adds each kernel's launches in the first REST run
-                 (launches_rest)
+                 (launches_rest; exact_merge's in the exact run)
 
 The last line is {"ok": true, "device": {...}}; any failure exits
 non-zero without it. Without a CUDA device the script exits 2 at once.
@@ -99,6 +125,14 @@ BULK_DOCS = 4000        # docs per _bulk request
 BULK_CLIENTS = 2
 REST_CLIENTS = 128
 PALLAS_LINE = "elasticsearch_tpu/ops/pallas_merge.py:155"
+#: the XLA steps the two newer kernels replace
+TOPK_LINE = "elasticsearch_tpu/parallel/distributed.py:703"
+EXACT_LINE = "elasticsearch_tpu/ops/sparse.py:549"
+EXACT_BOOST = 1e-15
+#: the kernels each path launches
+MAIN_KERNELS = ("slot_decode", "row_pack", "row_sort", "run_sum",
+                "select_rescore", "shard_topk")
+EXACT_KERNELS = ("exact_merge", "shard_topk")
 KERNEL_SOURCE = "elasticsearch_tpu_torch/csrc/merge_topk.cu"
 #: the size-class counters (merge_kernel.SIZE_CLASSES) of each kernel
 CLASSES_OF = {"slot_decode": ("slot_decode",), "row_pack": ("row_pack",),
@@ -192,26 +226,246 @@ def build_index(svc, name, corpus, n_docs, shards):
 
 
 class LaunchRecorder:
-    """Wraps merge_kernel.fused_merge_topk while the main path runs and
-    keeps the operands of the first launch of every distinct shape."""
+    """Wraps merge_kernel.<fn> (fused_merge_topk, or exact_merge_topk)
+    while a path runs and keeps the operands of the first launch of
+    every distinct shape; with every=True, the operands and the outputs
+    (device copies) of every launch instead."""
 
-    def __init__(self, merge_kernel):
+    def __init__(self, merge_kernel, fn="fused_merge_topk", every=False):
         self.mk = merge_kernel
-        self.real = merge_kernel.fused_merge_topk
+        self.fn = fn
+        self.every = every
+        self.real = getattr(merge_kernel, fn)
         self.shapes = {}
+        self.launches = []
 
     def __enter__(self):
         def record(*args, **kw):
-            r, t = args[2].shape
-            key = (r, t, kw["max_len"], kw["k"], bool(kw["with_counts"]),
-                   kw.get("doc_bases") is not None)
-            self.shapes.setdefault(key, (args, dict(kw)))
-            return self.real(*args, **kw)
-        self.mk.fused_merge_topk = record
+            out = self.real(*args, **kw)
+            if self.every:
+                self.launches.append((args, dict(kw),
+                                      tuple(o.clone() for o in out)))
+            else:
+                r, t = args[2].shape
+                key = (r, t, kw["max_len"], kw["k"],
+                       bool(kw["with_counts"]),
+                       kw.get("doc_bases") is not None)
+                self.shapes.setdefault(key, (args, dict(kw)))
+            return out
+        setattr(self.mk, self.fn, record)
         return self
 
     def __exit__(self, *exc):
-        self.mk.fused_merge_topk = self.real
+        setattr(self.mk, self.fn, self.real)
+
+
+def exact_recorder(merge_kernel):
+    """A LaunchRecorder of the exact merge (kernel_ab.fixed_train's
+    recorder argument)."""
+    return LaunchRecorder(merge_kernel, "exact_merge_topk")
+
+
+class TopkRecorder:
+    """Wraps merge_kernel.shard_topk (the cross-shard top-k of every
+    train: sparse.hierarchical_top_k calls it) while a path runs and
+    keeps each call's input, k and outputs (device copies)."""
+
+    def __init__(self, merge_kernel):
+        self.mk = merge_kernel
+        self.real = merge_kernel.shard_topk
+        self.calls = []
+
+    def __enter__(self):
+        def record(vals, k, **kw):
+            out = self.real(vals, k, **kw)
+            self.calls.append((vals.clone(), k, out[0].clone(),
+                               out[1].clone()))
+            return out
+        self.mk.shard_topk = record
+        return self
+
+    def __exit__(self, *exc):
+        self.mk.shard_topk = self.real
+
+
+def check_topk_calls(mk, calls):
+    """Every recorded shard_topk against the plain version on its input:
+    values as uint32, positions exactly; raises on a mismatch. Empties
+    `calls` as it goes → {calls, shapes}."""
+    import torch
+    shapes = {}
+    n = 0
+    while calls:
+        vals, k, got_v, got_p = calls.pop()
+        want_v, want_p = mk.shard_topk_plain(vals, k)
+        if not (torch.equal(got_v.view(torch.int32),
+                            want_v.view(torch.int32))
+                and torch.equal(got_p, want_p)):
+            raise AssertionError(f"shard_topk != plain at [{vals.shape[0]},"
+                                 f" {vals.shape[1]}] k={k}")
+        key = f"B{vals.shape[0]}xN{vals.shape[1]}k{k}"
+        shapes[key] = shapes.get(key, 0) + 1
+        n += 1
+        del vals, got_v, got_p
+    return {"calls": n, "shapes": shapes,
+            "tolerance": "bitwise: values as uint32, positions exact"}
+
+
+def check_exact_launches(mk, launches):
+    """Every recorded exact-merge launch's outputs against the plain
+    version on its operands: scores as uint32, docs and totals exactly;
+    raises on a mismatch. Empties `launches` → {launches, shapes}."""
+    import torch
+    shapes = {}
+    classes = dict.fromkeys(mk.EXACT_CLASSES, 0)
+    n = 0
+    while launches:
+        args, kw, got = launches.pop()
+        lanes = args[3].clamp(min=0).sum(dim=1)
+        device_rows = int((lanes > mk.exact_smem_items()).sum())
+        classes["exact.device"] += device_rows
+        classes["exact.shared"] += lanes.numel() - device_rows
+        want = mk.exact_merge_topk_plain(*args, **kw)
+        torch.cuda.synchronize()
+        same, err = bitwise_equal(list(got), list(want))
+        r, t = args[2].shape
+        key = f"R{r}xT{t}k{kw['k']}"
+        if not same:
+            raise AssertionError(f"exact merge != plain at {key}, "
+                                 f"max_abs_err {err}")
+        shapes[key] = shapes.get(key, 0) + 1
+        n += 1
+        del args, kw, got, want
+    return {"launches": n, "shapes": shapes, "size_classes": classes,
+            "tolerance": "bitwise: scores as uint32, docs and totals "
+                         "exact"}
+
+
+def exact_bodies(bodies):
+    """The match bodies with boost EXACT_BOOST on the clause: the slot
+    weight idf·(k1+1)·boost falls below PACKED_WEIGHT_MIN, so the batch
+    fails packable() and takes compressed_exact (at 1M docs idf·2.2 is
+    at most ~31, where a boost of 1e-13 would still pass)."""
+    out = []
+    for b in bodies:
+        (field, spec), = b["query"]["match"].items()
+        spec = spec if isinstance(spec, dict) else {"query": spec}
+        out.append(dict(b, query={"match": {
+            field: dict(spec, boost=EXACT_BOOST)}}))
+    return out
+
+
+def exact_phase(svc, mk, corpus, bodies, segments, stop_bodies):
+    """The compressed_exact path through the service at the e2e width:
+    the first 128 bodies and the stop-word bodies with boost 1e-15, the
+    launch counts reset just before and read just after; every exact
+    launch's outputs and every train's shard_topk against their plain
+    versions; the sampled hits against the oracle scaled by the boost.
+    → (log fields, responses, launches, trains)."""
+    run = exact_bodies(bodies[:128]) + exact_bodies(stop_bodies)
+    mk.reset_launches()
+    svc.variant_launches.clear()
+    svc.batcher.batch_sizes.clear()
+    with LaunchRecorder(mk, "exact_merge_topk", every=True) as rec, \
+            TopkRecorder(mk) as top:
+        t0 = time.perf_counter()
+        responses = drive(svc, INDEX, run)
+        wall = time.perf_counter() - t0
+    launches = dict(mk.LAUNCHES)
+    variants = dict(svc.variant_launches)
+    trains = sum(svc.batcher.batch_sizes.values())
+    if not variants.get("compressed_exact") or variants.get("compressed"):
+        raise AssertionError(f"the exact bodies took {variants}")
+    zero = [n for n in EXACT_KERNELS if launches[n] <= 0]
+    if zero:
+        raise AssertionError(f"kernels not launched on the exact path: "
+                             f"{zero}")
+    parity = check_exact_launches(mk, rec.launches)
+    if not all(parity["size_classes"].values()):
+        raise AssertionError(f"an exact size class took no row: "
+                             f"{parity['size_classes']}")
+    topk = check_topk_calls(mk, top.calls)
+    sample = oracle_check(responses[:128], run[:128], corpus, segments,
+                          boost=EXACT_BOOST)
+    for resp in responses[128:]:
+        hits = resp["hits"]
+        if len(hits["hits"]) != min(K, hits["total"]["value"]):
+            raise AssertionError(f"exact stop-word body: "
+                                 f"{len(hits['hits'])} hits of "
+                                 f"{hits['total']}")
+    out = dict(queries=len(run), boost=EXACT_BOOST, seconds=wall,
+               hits=sum(len(r["hits"]["hits"]) for r in responses),
+               trains=trains, variant_launches=variants,
+               compressed_exact_launches=variants["compressed_exact"],
+               launches=launches, exact_parity=parity, shard_topk=topk,
+               oracle_checked=len(sample),
+               oracle_tolerance="top-10 ids, scores rel=1e-5 "
+                                "abs=1e-6 x boost")
+    return out, run, responses, launches, trains
+
+
+def mesh_phase(segments, bodies, mk, e2e_responses):
+    """The service on make_mesh() pinned to one card, shape (1, 1): the
+    e2e index (its segments) and bodies, through the collective tail
+    (NCCL all_gather and all_reduce at world size 1), counts reset just
+    before and read just after; hits equal to the e2e run's bit for bit
+    (same segments, so the same ordinals and tie order)."""
+    import torch
+    from torch.cuda import nccl
+
+    from elasticsearch_tpu_torch.parallel.mesh import make_mesh
+    from elasticsearch_tpu_torch.search.gpu_service import GpuSearchService
+
+    mesh = make_mesh(devices=[torch.device("cuda", 0)])
+    svc = GpuSearchService(mesh=mesh, max_batch=128)
+    calls = {"all_gather": 0, "all_reduce": 0}
+    saved = {name: getattr(nccl, name) for name in calls}
+
+    def counted(name):
+        def call(*a, **kw):
+            calls[name] += 1
+            return saved[name](*a, **kw)
+        return call
+
+    try:
+        svc.create_index(INDEX, SHARDS,
+                         {"properties": {FIELD: {"type": "text"}}})
+        for s, seg in enumerate(segments):
+            svc.add_segment(INDEX, s, seg)
+        drive(svc, INDEX, bodies[:8])   # places the pack
+        for name in calls:
+            setattr(nccl, name, counted(name))
+        mk.reset_launches()
+        with TopkRecorder(mk) as top:
+            t0 = time.perf_counter()
+            responses = drive(svc, INDEX, bodies)
+            wall = time.perf_counter() - t0
+        launches = dict(mk.LAUNCHES)
+    finally:
+        for name, fn in saved.items():
+            setattr(nccl, name, fn)
+        svc.close()
+    zero = [n for n in MAIN_KERNELS if launches[n] <= 0]
+    if zero:
+        raise AssertionError(f"kernels not launched on the mesh path: "
+                             f"{zero}")
+    if not calls["all_gather"] or not calls["all_reduce"]:
+        raise AssertionError(f"the mesh path made no NCCL collective: "
+                             f"{calls}")
+    if hits_of(responses) != hits_of(e2e_responses):
+        raise AssertionError("the (1, 1) mesh's hits differ from the e2e "
+                             "run's")
+    cards = torch.cuda.device_count()
+    out = dict(shape=[1, 1], devices=[str(d) for d in mesh.devices],
+               cards_visible=cards, cards_used=1,
+               queries=len(responses), seconds=wall,
+               qps=len(responses) / wall, nccl_calls=calls,
+               launches=launches, shard_topk=check_topk_calls(mk, top.calls),
+               hits_equal_e2e="bit for bit: ids and scores in order")
+    if cards > 1:
+        out["note"] = (f"the machine shows {cards} cards; this phase used "
+                       f"one (cuda:0)")
+    return out
 
 
 def bitwise_equal(got, want):
@@ -314,15 +568,16 @@ def kernel_parity(mk, launches):
     return checked, worst, classes
 
 
-def oracle_check(responses, bodies, corpus, segments):
+def oracle_check(responses, bodies, corpus, segments, boost=1.0):
     """Top-10 of sampled queries vs the numpy oracle (per-shard stats,
-    ties toward the lower shard, then the lower doc)."""
+    ties toward the lower shard, then the lower doc), its scores times
+    the bodies' `boost` (tolerances scaled with them)."""
     import numpy as np
 
     from elasticsearch_tpu_torch.ops import reference_impl
 
-    sample = list(range(0, N_QUERIES, N_QUERIES // ORACLE_SAMPLE))
-    sample = sample[:ORACLE_SAMPLE]
+    n = len(responses)
+    sample = list(range(0, n, max(1, n // ORACLE_SAMPLE)))[:ORACLE_SAMPLE]
     for qi in sample:
         spec = bodies[qi]["query"]["match"][FIELD]
         terms = spec["query"].split()
@@ -342,12 +597,13 @@ def oracle_check(responses, bodies, corpus, segments):
                 if entry is not None:
                     cnt[entry[0]] += 1
             scores = np.where(cnt >= need, scores, 0.0).astype(np.float32)
-            dense.append({seg.doc_ids[d]: float(scores[d])
+            dense.append({seg.doc_ids[d]: float(scores[d]) * boost
                           for d in np.nonzero(scores > 0)[0]})
             for d, sc in reference_impl.topk_from_scores(scores, 10):
                 ranked.append((-sc, si, d, seg.doc_ids[d]))
         ranked.sort()
-        expect = [(doc_id, -neg) for neg, _, _, doc_id in ranked[:10]]
+        expect = [(doc_id, -neg * boost) for neg, _, _, doc_id in
+                  ranked[:10]]
         hits = responses[qi]["hits"]["hits"][:10]
         if len(hits) != len(expect):
             raise AssertionError(f"query {qi}: {len(hits)} hits, oracle "
@@ -355,15 +611,16 @@ def oracle_check(responses, bodies, corpus, segments):
         oracle_of = {}
         for d in dense:
             oracle_of.update(d)
+        atol = 1e-6 * boost
         for pos, (hit, (eid, esc)) in enumerate(zip(hits, expect)):
-            if abs(hit["_score"] - esc) > 1e-6 + 1e-5 * abs(esc):
+            if abs(hit["_score"] - esc) > atol + 1e-5 * abs(esc):
                 raise AssertionError(f"query {qi} rank {pos}: score "
                                      f"{hit['_score']} vs oracle {esc}")
             if hit["_id"] != eid:
                 # equal ids up to ties: the doc taken must score the same
                 # as the oracle's doc at this rank, within the tolerance
                 alt = oracle_of.get(hit["_id"], 0.0)
-                if abs(alt - esc) > 1e-6 + 1e-5 * abs(esc):
+                if abs(alt - esc) > atol + 1e-5 * abs(esc):
                     raise AssertionError(f"query {qi} rank {pos}: id "
                                          f"{hit['_id']} vs oracle {eid}")
     return sample
@@ -602,14 +859,19 @@ def same_up_to_ties(got, want):
     return True
 
 
-def rest_phase(corpus, bodies, mk, smi, e2e_responses, data_root):
-    """The node over HTTP on the card: a 16-shard index with the body
-    text mapping and async translog durability, the e2e corpus loaded by
-    _bulk, _refresh, _forcemerge, _refresh, then the e2e bodies from
-    REST_CLIENTS threads, as they are (1000 hits with _source) and with
-    "_source": false. Checks the launches against the plain version, the
-    hits against the numpy oracle, the two runs against each other and
-    against the in-process e2e run, and that deleting the index drains the hbm breaker to 0 and returns
+def rest_phase(corpus, bodies, mk, smi, e2e_responses, data_root,
+               exact_run, exact_responses):
+    """The node over HTTP on the card, on make_mesh() pinned to one card
+    (the collective tail at world size 1): a 16-shard index with the
+    body text mapping and async translog durability, the e2e corpus
+    loaded by _bulk, _refresh, _forcemerge, _refresh, then the e2e
+    bodies from REST_CLIENTS threads, as they are (1000 hits with
+    _source) and with "_source": false, then the exact phase's bodies.
+    Checks the launches against the plain version (every train's
+    shard_topk, every exact merge), the hits against the numpy oracle,
+    the two runs against each other and against the in-process e2e run,
+    the exact run against the in-process exact phase, and that deleting
+    the index drains the hbm breaker to 0 and returns
     torch.cuda.memory_allocated() to its value before the pack."""
     import gc
     import shutil
@@ -619,10 +881,12 @@ def rest_phase(corpus, bodies, mk, smi, e2e_responses, data_root):
 
     from elasticsearch_tpu_torch import native
     from elasticsearch_tpu_torch.node import Node, serve
+    from elasticsearch_tpu_torch.parallel.mesh import make_mesh
 
     data = os.path.join(data_root, "chip_smoke_rest")
     shutil.rmtree(data, ignore_errors=True)
-    node = Node(data)   # cuda:0, the reference's settings defaults
+    # the reference's settings defaults; the node's own mesh, on one card
+    node = Node(data, mesh=make_mesh(devices=[torch.device("cuda", 0)]))
     server = serve(node, "127.0.0.1", 0)
     host, port = server.server_address
     out = {"nvidia_smi": smi, "docs": N_DOCS, "shards": SHARDS,
@@ -655,7 +919,7 @@ def rest_phase(corpus, bodies, mk, smi, e2e_responses, data_root):
 
         runs = {}
         launches = {}
-        with LaunchRecorder(mk) as rec:
+        with LaunchRecorder(mk) as rec, TopkRecorder(mk) as top:
             rest_queries(host, port, bodies[:8])   # builds the pack
             resident = node.gpu_search.packs.residents()[0]
             out.update(resident_bytes=resident.nbytes_device(),
@@ -685,12 +949,33 @@ def rest_phase(corpus, bodies, mk, smi, e2e_responses, data_root):
                     device_busy_ms=busy if busy > 0 else "not measured",
                     device_idle_share=(1.0 - busy / 1e3 / wall) if busy > 0
                     else "not measured")
-                zero = [n for n, c in launches[label].items() if c <= 0]
+                zero = [n for n in MAIN_KERNELS if launches[label][n] <= 0]
                 if zero:
                     raise AssertionError(f"{label}: kernels not launched "
                                          f"through REST: {zero}")
             shapes = list(rec.shapes.values())
             rec.shapes.clear()
+        mk.reset_launches()
+        with LaunchRecorder(mk, "exact_merge_topk", every=True) as ex, \
+                TopkRecorder(mk) as top_exact:
+            exact_resp, exact_wall = rest_queries(host, port, exact_run)
+        launches["exact"] = dict(mk.LAUNCHES)
+        zero = [n for n in EXACT_KERNELS if launches["exact"][n] <= 0]
+        if zero:
+            raise AssertionError(f"exact: kernels not launched through "
+                                 f"REST: {zero}")
+        out["exact"] = dict(queries=len(exact_resp), wall_s=exact_wall,
+                            qps=len(exact_resp) / exact_wall,
+                            launches=launches["exact"],
+                            parity=check_exact_launches(mk, ex.launches),
+                            shard_topk=check_topk_calls(mk,
+                                                        top_exact.calls))
+        if not same_up_to_ties(hits_of(exact_resp),
+                               hits_of(exact_responses)):
+            raise AssertionError("REST exact hits differ from the "
+                                 "in-process exact phase's")
+        out["shard_topk"] = check_topk_calls(mk, top.calls)
+        del exact_resp
         n_shapes = len(shapes)
         worst = 0.0
         while shapes:   # each launch's operands go as soon as checked
@@ -743,7 +1028,8 @@ def rest_phase(corpus, bodies, mk, smi, e2e_responses, data_root):
         server.server_close()
         node.close()
         shutil.rmtree(data, ignore_errors=True)
-    return out, launches["source"]
+    return out, dict(launches["source"],
+                     exact_merge=launches["exact"]["exact_merge"])
 
 
 def time_events(fn, n):
@@ -819,6 +1105,94 @@ def kernel_bounds(stats, doc_bytes):
     }
 
 
+def exact_sort_keys(args, kw):
+    """The exact merge's sort input as one int64 tensor: every valid
+    lane's doc, its row in the high 32 bits (a stable torch.sort of it
+    orders the lanes as the kernel's sort does)."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops import sparse
+    docs, _ = sparse._lane_decode(
+        *args[:5], max_len=kw["max_len"], d_pad=kw["d_pad"], exact=False,
+        doc_bases=kw.get("doc_bases"), dbs_starts=kw.get("dbs_starts"),
+        dlo_starts=kw.get("dlo_starts"))
+    lanes = torch.arange(kw["max_len"], device=docs.device)
+    valid = lanes[None, None, :] < args[3][:, :, None]
+    rows = torch.arange(docs.shape[0], device=docs.device)[:, None, None]
+    return ((rows << 32) | docs)[valid]
+
+
+def newer_kernel_entries(mk, svc, topk_call, exact_bodies_128, launches,
+                         n_trains, exact_launches, exact_trains,
+                         doc_bytes):
+    """The kernels line's shard_topk and exact_merge entries: shard_topk
+    timed on the fixed train's gather (its tail's input), exact_merge on
+    the fixed train's bodies with boost 1e-15 as one train (its own
+    shard_topk over the candidates is timed apart and not in its ms)."""
+    import torch
+
+    from elasticsearch_tpu_torch.tools.kernel_ab import (fixed_train,
+                                                         profiled)
+    vals, k = topk_call
+    b, n = vals.shape
+    kk = min(k, n)
+    topk_bytes = b * n * 4 + b * kk * (4 + 8)
+    entries = [{
+        "name": "merge_topk.shard_topk", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": TOPK_LINE,
+        "launches": launches["shard_topk"], "max_abs_err": 0.0,
+        "ms": time_events(lambda ev: mk.shard_topk(vals, k, events=ev),
+                          TIMED)["shard_topk"],
+        "device_ms": profiled(lambda: mk.shard_topk(vals, k),
+                              TIMED).get("shard_topk"),
+        "plain_ms": time_cuda(lambda: mk.shard_topk_plain(vals, k), TIMED),
+        "plain_of": "shard_topk_plain: a stable descending torch.sort",
+        "bound_ms": topk_bytes / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": time_cuda(lambda: torch.topk(vals, kk, dim=1),
+                                TIMED),
+        "library_of": "torch.topk(vals, k, dim=1): the same values, no "
+                      "fixed order among equal ones",
+        "launches_per_batch": launches["shard_topk"] / n_trains,
+        "shape": {"rows": b, "width": n, "k": k}, "bytes": topk_bytes}]
+    args, kw = fixed_train(svc, mk, exact_recorder, INDEX, FIELD, K,
+                           exact_bodies_128)
+    stats = {}
+    mk.exact_merge_topk(*args, **dict(kw, stats=stats))
+    r, t = args[2].shape
+    exact_bytes = (stats["lanes"] * (doc_bytes + 2) + r * t * 24
+                   + stats["candidates"] * 8 + r * 4)
+    keys = exact_sort_keys(args, kw)
+    library = time_cuda(lambda: torch.sort(keys, stable=True), TIMED)
+    del keys
+    entries.append({
+        "name": "merge_topk.exact_merge", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": EXACT_LINE,
+        "launches": exact_launches["exact_merge"], "max_abs_err": 0.0,
+        "ms": time_events(
+            lambda ev: mk.exact_merge_topk(*args, **dict(kw, events=ev)),
+            TIMED)["exact_merge"],
+        "device_ms": profiled(lambda: mk.exact_merge_topk(*args, **kw),
+                              TIMED).get("exact_merge"),
+        "plain_ms": time_cuda(
+            lambda: mk.exact_merge_topk_plain(*args, **kw), 5),
+        "plain_of": "exact_merge_topk_plain, the whole exact pipeline "
+                    "with its top-k",
+        "bound_ms": exact_bytes / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": library,
+        "library_of": "torch.sort(stable=True) of the same lanes' (row << "
+                      "32 | doc) keys: the sort alone, without the decode, "
+                      "the run sums or the msm filter",
+        "launches_per_batch": exact_launches["exact_merge"] / exact_trains,
+        "shape": {"rows": r, "slots": t, "max_len": kw["max_len"],
+                  "k": kw["k"]},
+        "bytes": exact_bytes, "lanes": stats["lanes"],
+        "candidates": stats["candidates"],
+        "size_classes": stats["exact_classes"]})
+    return entries
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -850,7 +1224,8 @@ def main() -> int:
     corpus = corpus_mod.generate(N_DOCS, vocab_size=VOCAB,
                                  num_queries=N_QUERIES, seed=SEED)
     gen_s = time.perf_counter() - t1
-    svc = GpuSearchService(max_batch=128)   # the service's own window
+    # a (1, 1) mesh of cuda:0 and the service's own window
+    svc = GpuSearchService(device="cuda:0", max_batch=128)
     try:
         t2 = time.perf_counter()
         segments = build_index(svc, INDEX, corpus, N_DOCS, SHARDS)
@@ -898,12 +1273,13 @@ def main() -> int:
             svc.variant_launches.clear()
             svc.launch_shapes.clear()
             svc.batcher.batch_sizes.clear()
-            t4 = time.perf_counter()
-            responses = drive(svc, INDEX, bodies)
-            e2e_s = time.perf_counter() - t4
+            with TopkRecorder(mk) as e2e_topk:
+                t4 = time.perf_counter()
+                responses = drive(svc, INDEX, bodies)
+                e2e_s = time.perf_counter() - t4
             launches = dict(mk.LAUNCHES)
             trains = dict(sorted(svc.batcher.batch_sizes.items()))
-        zero = [n for n, c in launches.items() if c <= 0]
+        zero = [n for n in MAIN_KERNELS if launches[n] <= 0]
         if zero:
             raise AssertionError(f"kernels not launched on the main path: "
                                  f"{zero}")
@@ -932,10 +1308,15 @@ def main() -> int:
                                                              fixed_train,
                                                              profiled)
         extra, extra_trains = [], []
-        for label, size, queries in extra_bodies(corpus.vocab, FIELD,
-                                                 K, MAX_K, bodies[:128]):
-            with LaunchRecorder(mk) as special:
+        extra_sets = extra_bodies(corpus.vocab, FIELD, K, MAX_K,
+                                  bodies[:128])
+        for label, size, queries in extra_sets:
+            with LaunchRecorder(mk) as special, \
+                    TopkRecorder(mk) as extra_topk:
                 answered = drive(svc, INDEX, queries)
+            e2e_topk.calls += extra_topk.calls
+            if label == "k10000":   # timed in kernels_extra
+                big_topk = extra_topk.calls[-1][:2]
             for resp in answered:
                 hits = resp["hits"]
                 if len(hits["hits"]) != min(size, hits["total"]["value"]):
@@ -947,16 +1328,31 @@ def main() -> int:
         # the launch the kernels line times: the first 128 bodies as one
         # 128-query train (no batching window decides its operands, so two
         # runs time the same launch)
-        fixed = fixed_train(svc, mk, LaunchRecorder, INDEX, FIELD, K,
-                            bodies[:128])
+        with TopkRecorder(mk) as fixed_topk:
+            fixed = fixed_train(svc, mk, LaunchRecorder, INDEX, FIELD, K,
+                                bodies[:128])
+        topk_in, topk_k = fixed_topk.calls[-1][:2]
         launches_checked = [("main", a, k) for a, k in rec.shapes.values()]
         launches_checked.append(("fixed", *fixed))
         checked, worst, classes = kernel_parity(
             mk, launches_checked + extra
             + [(f"{label} train", a, k) for label, a, k in extra_trains])
+        topk_checked = check_topk_calls(mk, e2e_topk.calls)
+        if not any("k16384" in key for key in topk_checked["shapes"]):
+            raise AssertionError("no checked shard_topk at kernel k "
+                                 "16,384 (its device class)")
         log("kernel_parity", shapes=checked, max_abs_err=worst,
-            size_classes=classes,
+            size_classes=classes, shard_topk=topk_checked,
             tolerance="bitwise: scores as uint32, docs and totals exact")
+
+        # -- exact: the compressed_exact path at the same width ----------
+        exact_log, exact_run, exact_responses, exact_launches, \
+            exact_trains = exact_phase(svc, mk, corpus, bodies, segments,
+                                       extra_sets[0][2])
+        log("exact", **exact_log)
+
+        # -- mesh: the mesh step on one card, through the NCCL tail ------
+        log("mesh", **mesh_phase(segments, bodies, mk, responses))
 
         # -- trace: a second run with stage timers and the profiler -------
         log("trace", **traced_run(svc, bodies, mk))
@@ -1013,6 +1409,10 @@ def main() -> int:
                     if c.split(".")[0] in CLASSES_OF.get(name, ())}})
             if name == "slot_decode":
                 kernels[-1]["select_slots"] = stats["select_slots"]
+        kernels += newer_kernel_entries(
+            mk, svc, (topk_in, topk_k), exact_run[:128], launches,
+            n_trains, exact_launches, exact_trains, 2 - stats["delta"])
+        del topk_in
         # the kernels at the launches past the main traffic, each one train
         log("kernels_extra", launches=[dict(
             launch=label, rows=a[2].shape[0], slots=a[2].shape[1],
@@ -1022,10 +1422,22 @@ def main() -> int:
                 lambda ev: mk.fused_merge_topk(*a, **dict(kw, events=ev)),
                 5),
             device_ms=profiled(lambda: mk.fused_merge_topk(*a, **kw), 5))
-            for label, a, kw in extra_trains])
+            for label, a, kw in extra_trains], shard_topk=dict(
+            launch="k10000 gather (device-memory sort)",
+            rows=big_topk[0].shape[0], width=big_topk[0].shape[1],
+            k=big_topk[1],
+            ms=time_events(lambda ev: mk.shard_topk(*big_topk, events=ev),
+                           5)["shard_topk"],
+            device_ms=profiled(lambda: mk.shard_topk(*big_topk),
+                               5).get("shard_topk"),
+            plain_ms=time_cuda(lambda: mk.shard_topk_plain(*big_topk), 5),
+            library_ms=time_cuda(lambda: torch.topk(
+                big_topk[0], big_topk[1], dim=1), 5)))
+        del big_topk
         # -- rest: the node over HTTP, the path users call -------------
         rest, rest_launches = rest_phase(corpus, bodies, mk, smi, responses,
-                                         os.path.join(here, "data"))
+                                         os.path.join(here, "data"),
+                                         exact_run, exact_responses)
         log("rest", **rest)
         for entry in kernels:
             entry["launches_rest"] = rest_launches[

@@ -5,9 +5,9 @@ the engine and the search path raise. Every exception carries an HTTP
 status for the REST layer and renders a structured body (``type``,
 ``reason``, metadata, nested ``caused_by``) through ``to_xcontent``.
 
-The port adds ``NotLowerable``: a valid search the reference hands to its
-planner, which the port has not got yet. It renders as a 400 whose
-reason names the missing planner path.
+The port adds ``NotLowerable``: a valid search the port does not serve
+yet (most of them the reference hands to its planner). It renders as a
+400 whose reason names the missing path.
 """
 
 from __future__ import annotations
@@ -135,19 +135,23 @@ class SettingsException(IllegalArgumentException):
 
 
 class NotLowerable(IllegalArgumentException):
-    """A valid search that the reference answers on its planner path
-    (``search/planner.py`` + ``search/query_phase.py``), which the port
-    has not got yet: a query outside the lowering subset (match
-    or/and/msm, term, terms, or a bool of should-terms on one text
-    field), ``min_score``, from + size of 0 or above 10,000, sort,
-    aggregations, ``_source`` filtering, more slots per row than the
-    kernel takes, a filtered alias, knn, scroll or PIT. The REST layer
-    answers a 400 whose reason names the missing path."""
+    """A valid search that the port does not serve yet. Most are what the
+    reference answers on its planner path (``search/planner.py`` +
+    ``search/query_phase.py``): a well-formed query outside the lowering
+    subset (match or/and/msm, term, terms, or a bool of should-terms on
+    one text field), ``min_score``, from + size of 0 or above 10,000,
+    sort, aggregations, a filtered alias, knn, scroll or PIT. With
+    ``planner=False`` it is one the reference serves on its kernel path
+    and the port's kernel path does not take yet: a raw (incompressible)
+    pack, or more slots per row than the merge kernel holds. The REST
+    layer answers a 400 whose reason names the missing path."""
 
-    def __init__(self, reason: str, **metadata: Any):
-        super().__init__(
-            f"{reason}; the reference answers this on its planner path, "
-            f"which is not ported yet", **metadata)
+    def __init__(self, reason: str, planner: bool = True, **metadata: Any):
+        path = ("the reference answers this on its planner path, which is "
+                "not ported yet" if planner else
+                "the reference serves this on its kernel path, whose "
+                "support for it is not ported yet")
+        super().__init__(f"{reason}; {path}", **metadata)
 
 
 class IndexNotFound(IndexNotFoundException, KeyError):

@@ -157,6 +157,36 @@
 // class the windows decoded again for every chunk of 512 candidates,
 // which makes a stop-word row at kk = 16,384 several ms.
 
+// Two more kernels serve the main path around the merge:
+//
+//   6. shard_topk      grid B (or R): the top min(k, N) of each row's N
+//                      f32 values, equal values in ascending position
+//                      (lax.top_k's rule). Replaces the XLA top-k of
+//                      elasticsearch_tpu/parallel/distributed.py::
+//                      _merge_topk (sparse.hierarchical_top_k) after the
+//                      cross-shard all_gather, and the exact variant's
+//                      final top_k. A radix select of the k-th key
+//                      (value order bits, position reversed: one unique
+//                      56-bit key a value; the select stops at the first
+//                      digit taken whole), a compaction of the k keys at
+//                      or above it, and a bitonic sort of them, in shared
+//                      memory up to the wrapper's sort_cap keys, else in
+//                      device memory. Bound: bytes, N values read (once
+//                      in the bound, once per select pass here).
+//   7. exact_merge     grid R: the compressed_exact variant
+//                      (elasticsearch_tpu/ops/sparse.py::_merge_topk_core,
+//                      its exact branch, for weights that fail
+//                      packable()) up to its top-k: each valid lane
+//                      decoded to w * exact value (rounded before any
+//                      add), a stable sort of the row by doc (two 8-bit
+//                      LSD passes of sort_pass on u64 items whose low
+//                      word is the value: lane order in, so equal docs
+//                      keep slot order), the run sums with the reference
+//                      tree, the msm filter and TotalHits. No block-max
+//                      skip, as in the reference. shard_topk then takes
+//                      the top kk of the candidates. Bound: bytes, each
+//                      valid lane's doc and rank read once.
+
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -937,14 +967,15 @@ __device__ __forceinline__ unsigned warp_match(unsigned label) {
 }
 
 // One stable LSD pass of the 8-bit digit at `shift` from src to dst (n
-// keys, shared or device memory), reduce-then-scan: each warp counts the
-// digits of its contiguous chunk (shared atomics), a parallel scan over
-// (digit, warp) turns the counts into each warp's first slot per digit,
-// in place, and each warp scatters its chunk in order. Returns false,
-// writing nothing, when the digit is the same in every key. s_cnt is
-// all zero on entry and on return.
-__device__ bool sort_pass(const uint32_t* src, uint32_t* dst, int n,
-                          int shift, int (*s_cnt)[256], int* s_wsum) {
+// keys, u32 or u64, shared or device memory), reduce-then-scan: each warp
+// counts the digits of its contiguous chunk (shared atomics), a parallel
+// scan over (digit, warp) turns the counts into each warp's first slot
+// per digit, in place, and each warp scatters its chunk in order.
+// Returns false, writing nothing, when the digit is the same in every
+// key. s_cnt is all zero on entry and on return. kSortThreads threads.
+template <typename K>
+__device__ bool sort_pass(const K* src, K* dst, int n, int shift,
+                          int (*s_cnt)[256], int* s_wsum) {
   constexpr int kRound = 32 * kSortItems;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const unsigned below = (1u << lane) - 1u;
@@ -952,11 +983,11 @@ __device__ bool sort_pass(const uint32_t* src, uint32_t* dst, int n,
                     / kRound * kRound;
   const int lo = min(warp * chunk, n), hi = min(lo + chunk, n);
   for (int base = lo; base < hi; base += kRound) {
-    uint32_t key[kSortItems];
+    K key[kSortItems];
 #pragma unroll
     for (int i = 0; i < kSortItems; ++i) {
       const int at = base + i * 32 + lane;
-      key[i] = at < hi ? src[at] : 0u;
+      key[i] = at < hi ? src[at] : (K)0;
     }
 #pragma unroll
     for (int i = 0; i < kSortItems; ++i)  // counting needs no order
@@ -995,12 +1026,12 @@ __device__ bool sort_pass(const uint32_t* src, uint32_t* dst, int n,
   __syncthreads();
   if (constant) return false;  // order unchanged
   for (int base = lo; base < hi; base += kRound) {
-    uint32_t key[kSortItems];
+    K key[kSortItems];
     int pos[kSortItems];
 #pragma unroll
     for (int i = 0; i < kSortItems; ++i) {
       const int at = base + i * 32 + lane;
-      key[i] = at < hi ? src[at] : 0u;
+      key[i] = at < hi ? src[at] : (K)0;
     }
     // the peers of every item first (out-of-range lanes share the label
     // 256 and take no slot); then, item by item, the digit's leader takes
@@ -1570,6 +1601,274 @@ select_rescore_kernel(Streams s, Slots p, const float* cand_score,
   }
 }
 
+// ---------------------------------------------------------------------------
+// 6. shard_topk: the cross-shard top-k (and the exact merge's final top-k)
+// ---------------------------------------------------------------------------
+
+// A row's finalist key: the value's order bits (NaN above +inf, where a
+// stable descending torch.sort puts it; -0 with +0), then the position
+// reversed in the low kTopPosBits, so a larger key is a larger value or,
+// between equal values, the earlier position: lax.top_k's order. The
+// keys of a row are unique, and every key is above 0.
+constexpr int kTopThreads = 512;
+constexpr int kTopPosBits = 24;   // positions of a row < 2**24
+constexpr uint32_t kTopPosMask = (1u << kTopPosBits) - 1u;
+constexpr int kTopKeyTop = 48;    // the top digit of a 56-bit key
+
+__device__ __forceinline__ unsigned long long topk_key(float v, int pos) {
+  const uint32_t ob = v != v ? 0xFFFFFFFFu : order_bits(v);
+  return ((unsigned long long)ob << kTopPosBits) |
+         (kTopPosMask - (uint32_t)pos);
+}
+
+// The k-th largest (1-based, k <= n) of n unique keys, 8-bit digits from
+// `top` down. It stops at the first digit whose bin is taken whole: then
+// exactly k keys are >= the returned prefix (its lower bits 0), which is
+// all the caller compares with.
+template <typename Load>
+__device__ unsigned long long select_kth_key(int n, int k, Load load,
+                                             int top, int* s_hist,
+                                             int* s_wsum, int* s_pick) {
+  unsigned long long prefix = 0, mask = 0;
+  int remaining = k;
+  for (int shift = top; shift >= 0; shift -= 8) {
+    for (int i = threadIdx.x; i < 256; i += blockDim.x) s_hist[i] = 0;
+    __syncthreads();
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const unsigned long long v = load(i);
+      if ((v & mask) == prefix)
+        atomicAdd(&s_hist[(int)((v >> shift) & 0xFF)], 1);
+    }
+    __syncthreads();
+    pick_digit(s_hist, remaining, s_wsum, s_pick);
+    const int digit = s_pick[0];
+    const bool whole = s_hist[digit] == s_pick[1];
+    prefix |= (unsigned long long)digit << shift;
+    mask |= 0xFFull << shift;
+    remaining = s_pick[1];
+    __syncthreads();  // s_hist and s_pick are read before the next pass
+    if (whole) break;
+  }
+  return prefix;
+}
+
+// One block per row: the top min(kk, n) of the row's n values by (value
+// desc, position asc), then (-inf, fill) up to kk. A row of more than kk
+// values finds its kk-th key by a radix select over the keys (read from
+// device memory in each pass) and keeps the kk keys at or above it; the
+// finalists are sorted by a bitonic sort, in shared memory when the next
+// power of two of their count fits sort_cap keys (class "shared"), else
+// in the row's slice of `scratch` in device memory ("device"). Writes
+// the values (read back from the input, so every bit is the input's),
+// their positions when out_pos is given, and ids[position] (fill where
+// the value is -inf or NaN) when ids is given.
+__global__ void __launch_bounds__(kTopThreads)
+shard_topk_kernel(const float* vals, long long stride,
+                  const long long* row_off, const int* row_n, int n_all,
+                  int kk, int sort_cap, unsigned long long* scratch,
+                  long long scratch_stride, float* out_vals,
+                  long long* out_pos, const int* ids, int fill,
+                  int* out_ids, int* class_rows) {
+  extern __shared__ __align__(16) unsigned long long s_fin[];
+  __shared__ int s_hist[256];
+  __shared__ int s_wsum[8];
+  __shared__ int s_pick[2];
+  __shared__ int s_count;
+  const int r = blockIdx.x;
+  const long long off =
+      row_off != nullptr ? row_off[r] : (long long)r * stride;
+  const int n = row_n != nullptr ? row_n[r] : n_all;
+  const float* v = vals + off;
+  const int count = min(n, kk);
+  int sort_n = 1;
+  while (sort_n < count) sort_n <<= 1;
+  const bool shared = sort_n <= sort_cap;
+  unsigned long long* fin =
+      shared ? s_fin : scratch + (long long)r * scratch_stride;
+  if (class_rows != nullptr && threadIdx.x == 0)
+    atomicAdd(&class_rows[shared ? 0 : 1], 1);
+  auto key_at = [&](int i) { return topk_key(v[i], i); };
+  if (n > count) {
+    const unsigned long long thr = select_kth_key(
+        n, count, key_at, kTopKeyTop, s_hist, s_wsum, s_pick);
+    if (threadIdx.x == 0) s_count = 0;
+    __syncthreads();
+    for (int base = 0; base < n; base += blockDim.x) {
+      const int i = base + threadIdx.x;
+      const unsigned long long key = i < n ? key_at(i) : 0ull;
+      const bool take = i < n && key >= thr;
+      const int at = warp_append(take, &s_count);
+      if (take) fin[at] = key;
+    }
+  } else {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) fin[i] = key_at(i);
+  }
+  for (int j = count + threadIdx.x; j < sort_n; j += blockDim.x)
+    fin[j] = 0ull;  // below every real key
+  __syncthreads();
+  // bitonic sort, descending
+  for (int size = 2; size <= sort_n; size <<= 1) {
+    for (int half = size >> 1; half > 0; half >>= 1) {
+      for (int i = threadIdx.x; i < sort_n / 2; i += blockDim.x) {
+        const int lo = 2 * i - (i & (half - 1));
+        const int hi = lo + half;
+        const unsigned long long a = fin[lo], b = fin[hi];
+        if ((a < b) == ((lo & size) == 0)) {
+          fin[lo] = b;
+          fin[hi] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  for (int j = threadIdx.x; j < kk; j += blockDim.x) {
+    float val = __int_as_float(kNegInfBits);
+    long long pos = -1;
+    if (j < count) {
+      pos = (long long)(kTopPosMask - (uint32_t)(fin[j] & kTopPosMask));
+      val = v[pos];
+    }
+    const long long o = (long long)r * kk + j;
+    out_vals[o] = val;
+    if (out_pos != nullptr) out_pos[o] = pos;
+    if (out_ids != nullptr)
+      out_ids[o] = pos >= 0 && val > __int_as_float(kNegInfBits)
+                       ? ids[off + pos] : fill;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 7. exact_merge: the compressed_exact variant up to its final top-k
+// ---------------------------------------------------------------------------
+
+constexpr int kExactThreads = kSortThreads;  // sort_pass's block
+constexpr int kExactSmemItems = 8192;        // "shared" class: lanes a row
+
+// One block per row. Every valid lane of the row's slots, in lane order
+// (slot by slot), becomes one u64 item: its doc (d_pad at most) in bits
+// 32-47 and, below, the bits of w * exact value (rank -> residual table;
+// the product rounded, as the reference rounds it). Two stable LSD
+// passes on the doc's bytes order the items as the reference's stable
+// (doc, value) sort orders the row's lanes: in shared memory when the
+// row has at most kExactSmemItems lanes (class "shared"), else between
+// its slices of items and alt in device memory ("device"). Each run end
+// then sums its run with the doubling tree of segmented_run_sum (TreeUp
+// over the run's last `window` lanes), counts those lanes, and keeps the
+// doc when the total is > 0 and, with counts, the lanes reach min_count:
+// candidates in doc order (the reference's position order among run
+// ends), and their number, the row's TotalHits.
+__global__ void __launch_bounds__(kExactThreads)
+exact_merge_kernel(Streams s, Slots p, const long long* row_off,
+                   int with_counts, int window, unsigned long long* items,
+                   unsigned long long* alt, float* cand_score,
+                   int* cand_doc, int* n_cand, int* class_rows) {
+  extern __shared__ __align__(16) unsigned long long s_items[];
+  __shared__ int s_cnt[kSortWarps][256];
+  __shared__ int s_wsum[8];
+  __shared__ int s_warp[33];
+  __shared__ int s_pref[kMaxSlots + 1];
+  const int r = blockIdx.x;
+  const int T = p.T;
+  const int tid = threadIdx.x;
+  int carry = 0;
+  for (int base = 0; base < T; base += blockDim.x) {
+    const int t = base + tid;
+    const int len = t < T ? max(p.lengths[r * T + t], 0) : 0;
+    int tile = 0;
+    const int x = block_excl_scan(len, s_warp, &tile);
+    if (t < T) s_pref[t] = carry + x;
+    carry += tile;
+  }
+  const int n = carry;
+  if (tid == 0) s_pref[T] = n;
+  for (int i = tid; i < kSortWarps * 256; i += blockDim.x)
+    (&s_cnt[0][0])[i] = 0;
+  const bool shared = n <= kExactSmemItems;
+  if (class_rows != nullptr && tid == 0)
+    atomicAdd(&class_rows[shared ? 0 : 1], 1);
+  const long long off = row_off[r];
+  unsigned long long* src = shared ? s_items : items + off;
+  unsigned long long* dst = shared ? s_items + kExactSmemItems : alt + off;
+  __syncthreads();  // s_pref, s_cnt
+
+  // 1. decode, in lane order
+  const bool delta = s.docs8 != nullptr;
+  const int nb_slice = p.max_len / kLaneBlock + 2;
+  for (int t = 0; t < T; ++t) {
+    const int len = s_pref[t + 1] - s_pref[t];
+    if (len == 0) continue;
+    const int rt = r * T + t;
+    const long long eff = clampll(p.starts[rt], 0, s.n_post - p.max_len);
+    const float w = p.weights[rt];
+    const long long rs = p.res_starts[rt];
+    const int rl = p.res_lens[rt];
+    const long long dbs =
+        delta ? clampll(p.dbs[rt], 0, s.n_bases - nb_slice) : 0;
+    const int dlo = delta ? p.dlo[rt] : 0;
+    unsigned long long* out = src + s_pref[t];
+    for (int l = tid; l < len; l += blockDim.x) {
+      const long long pos = eff + l;
+      const int doc =
+          delta ? (int)s.doc_bases[dbs + (dlo + l) / kLaneBlock] +
+                      (int)s.docs8[pos]
+                : (int)s.docs16[pos];
+      const int rank = (int)s.ranks[pos];
+      float val = 0.0f;
+      if (rank > 0 && rank <= rl) {
+        const long long at = rs + rank - 1;
+        if (at >= 0 && at < s.n_res) val = s.res_vals[at];
+      }
+      const uint32_t key = (uint32_t)min(doc, p.d_pad);
+      out[l] = ((unsigned long long)key << 32) |
+               __float_as_uint(__fmul_rn(w, val));
+    }
+  }
+  __syncthreads();
+
+  // 2. stable sort by doc (bits 32-47)
+  for (int shift = 32; shift < 48 && n > 1; shift += 8) {
+    if (sort_pass(src, dst, n, shift, s_cnt, s_wsum)) {
+      unsigned long long* tmp = src;
+      src = dst;
+      dst = tmp;
+    }
+  }
+
+  // 3. run ends: the tree sum, the lane count, the filters; candidates
+  // leave in doc order
+  const int need = with_counts ? p.min_count[r] : 0;
+  int found = 0;
+  for (int base = 0; base < n; base += blockDim.x) {
+    const int i = base + tid;
+    bool keep = false;
+    float total = 0.0f;
+    uint32_t doc = 0;
+    if (i < n) {
+      doc = (uint32_t)(src[i] >> 32);
+      const bool end = i == n - 1 || (uint32_t)(src[i + 1] >> 32) != doc;
+      if (end && doc < (uint32_t)p.d_pad) {
+        TreeUp tree;
+        for (int d = 0; d < window && i - d >= 0; ++d) {
+          const unsigned long long it = src[i - d];
+          if ((uint32_t)(it >> 32) != doc) break;
+          tree.push(__uint_as_float((uint32_t)it));
+        }
+        total = tree.result();
+        keep = total > 0.0f &&
+               (!with_counts || (float)tree.n >= (float)need);
+      }
+    }
+    int tile = 0;
+    const int at = block_rank(keep, s_warp, &tile);
+    if (keep) {
+      cand_score[off + found + at] = total;
+      cand_doc[off + found + at] = (int)doc;
+    }
+    found += tile;
+  }
+  if (tid == 0) n_cand[r] = found;
+}
+
 Streams make_streams(const void* docs8, const void* docs16,
                      const void* codes, const void* ranks, long long n_post,
                      const void* doc_bases, long long n_bases,
@@ -1753,6 +2052,66 @@ int es_select_rescore(const void* docs8, const void* docs16,
       static_cast<int*>(class_rows));
   return (int)cudaGetLastError();
 }
+
+int es_shard_topk(const void* vals, long long stride, const void* row_off,
+                  const void* row_n, int n_all, int R, int kk, int sort_cap,
+                  void* scratch, long long scratch_stride, void* out_vals,
+                  void* out_pos, const void* ids, int fill, void* out_ids,
+                  void* class_rows, void* stream) {
+  // shared memory for the "shared" class's finalists: none when every
+  // row has n_all values and they sort in device memory
+  const int count = row_n != nullptr ? kk : (n_all < kk ? n_all : kk);
+  int sort_n = 1;
+  while (sort_n < count) sort_n <<= 1;
+  const int smem =
+      row_n == nullptr && sort_n > sort_cap
+          ? 0
+          : (sort_n < sort_cap ? sort_n : sort_cap) * (int)sizeof(long long);
+  cudaError_t err = cudaFuncSetAttribute(
+      shard_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  shard_topk_kernel<<<R, kTopThreads, smem, (cudaStream_t)stream>>>(
+      static_cast<const float*>(vals), stride,
+      static_cast<const long long*>(row_off),
+      static_cast<const int*>(row_n), n_all, kk, sort_cap,
+      static_cast<unsigned long long*>(scratch), scratch_stride,
+      static_cast<float*>(out_vals), static_cast<long long*>(out_pos),
+      static_cast<const int*>(ids), fill, static_cast<int*>(out_ids),
+      static_cast<int*>(class_rows));
+  return (int)cudaGetLastError();
+}
+
+int es_exact_merge(const void* docs8, const void* docs16, const void* codes,
+                   const void* ranks, long long n_post,
+                   const void* doc_bases, long long n_bases,
+                   const void* res_vals, long long n_res,
+                   const void* starts, const void* lengths,
+                   const void* weights, const void* min_count,
+                   const void* res_starts, const void* res_lens,
+                   const void* dbs, const void* dlo, int R, int T,
+                   int max_len, int d_pad, const void* row_off,
+                   int with_counts, int window, void* items, void* alt,
+                   void* cand_score, void* cand_doc, void* n_cand,
+                   void* class_rows, void* stream) {
+  Streams s = make_streams(docs8, docs16, codes, ranks, n_post, doc_bases,
+                           n_bases, res_vals, n_res);
+  Slots p = make_slots(starts, lengths, weights, min_count, res_starts,
+                       res_lens, dbs, dlo, T, max_len, d_pad);
+  const int smem = 2 * kExactSmemItems * (int)sizeof(long long);
+  cudaError_t err = cudaFuncSetAttribute(
+      exact_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  exact_merge_kernel<<<R, kExactThreads, smem, (cudaStream_t)stream>>>(
+      s, p, static_cast<const long long*>(row_off), with_counts, window,
+      static_cast<unsigned long long*>(items),
+      static_cast<unsigned long long*>(alt), static_cast<float*>(cand_score),
+      static_cast<int*>(cand_doc), static_cast<int*>(n_cand),
+      static_cast<int*>(class_rows));
+  return (int)cudaGetLastError();
+}
+
+// Lanes of a row the exact merge sorts in shared memory.
+int es_exact_smem_items() { return kExactSmemItems; }
 
 const char* es_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -4,8 +4,12 @@ Counterpart of the reference's ``node.py``: constructs the indices
 service, the circuit breakers and the GPU search service, wires the REST
 controller, and serves JSON over a stdlib ThreadingHTTPServer (the heavy
 work is on the device; the host's HTTP layer parses and routes). A node
-runs on ``cuda:0`` unless ``device="cpu"`` is asked for
-(``--device cpu``); without a GPU and without that request it raises.
+lays its packs over a mesh of every visible GPU on the shards axis
+(``make_mesh()``, the reference's ``(1, n_local_devices)``) unless it is
+given a mesh (``mesh=``, ``--mesh-shape D,S``) or one device (``device=``,
+a (1, 1) mesh; ``--device cpu`` runs the plain torch path on the CPU,
+and with ``--mesh-shape`` a CPU mesh of D×S entries); without a GPU and
+without the CPU asked for it raises.
 
 The node reads the reference's setting names, so a node configuration
 moves across unchanged:
@@ -16,6 +20,7 @@ moves across unchanged:
   indices.breaker.total.limit_bytes         8 GiB
 
 Run: python -m elasticsearch_tpu_torch.node --port 9200 --data-path ./data
+     [--device cpu] [--mesh-shape D,S]
 """
 
 from __future__ import annotations
@@ -39,6 +44,8 @@ from elasticsearch_tpu_torch.common.settings import Settings
 from elasticsearch_tpu_torch.indices.service import (IndexService,
                                                      IndicesService)
 from elasticsearch_tpu_torch.parallel.device import resolve_device
+from elasticsearch_tpu_torch.parallel.mesh import (Mesh, make_mesh,
+                                                   resolve_mesh)
 from elasticsearch_tpu_torch.rest.controller import RestController
 from elasticsearch_tpu_torch.search.gpu_service import GpuSearchService
 from elasticsearch_tpu_torch.search.serializer import dumps_response
@@ -49,10 +56,10 @@ class Node:
                  node_name: str = "node-1",
                  cluster_name: str = "elasticsearch-tpu",
                  settings: Optional[Settings] = None,
-                 device=None):
+                 device=None, mesh: Optional[Mesh] = None):
         self.settings = Settings((settings or Settings.EMPTY)
                                  .get_as_dict())
-        self.device = resolve_device(device)
+        self.mesh = resolve_mesh(device, mesh)
         self.node_name = node_name
         self.node_id = _load_or_create_node_id(data_path, node_name)
         self.cluster_name = cluster_name
@@ -62,7 +69,7 @@ class Node:
             total_limit_bytes=self.settings.get_int(
                 "indices.breaker.total.limit_bytes", 8 << 30))
         self.gpu_search = GpuSearchService(
-            device=self.device,
+            mesh=self.mesh,
             breaker=self.breakers.breakers["hbm"],
             window_s=self.settings.get_float(
                 "search.tpu_serving.batch_window_seconds", 0.01),
@@ -246,18 +253,34 @@ def main() -> None:
     parser.add_argument("--data-path", default="./data")
     parser.add_argument("--node-name", default="node-1")
     parser.add_argument("--device", default=None,
-                        help="torch device (default cuda:0; 'cpu' runs "
-                             "the plain torch path)")
+                        help="torch device: one card, or 'cpu' for the "
+                             "plain torch path (default: every visible "
+                             "GPU on the shards axis, a (1, n) mesh)")
+    parser.add_argument("--mesh-shape", default=None, metavar="D,S",
+                        help="a (data, shards) mesh of D*S visible GPUs, "
+                             "or with --device cpu of D*S CPU entries "
+                             "(default: every GPU on the shards axis)")
     parser.add_argument("-E", action="append", default=[], metavar="K=V",
                         dest="settings", help="node setting override")
     args = parser.parse_args()
     overrides = dict(kv.split("=", 1) for kv in args.settings)
+    device, mesh = args.device, None
+    if args.mesh_shape:
+        shape = tuple(int(x) for x in args.mesh_shape.split(","))
+        if len(shape) != 2:
+            parser.error("--mesh-shape takes D,S")
+        if device is not None and resolve_device(device).type != "cpu":
+            parser.error("--mesh-shape takes the visible GPUs, or with "
+                         "--device cpu CPU entries")
+        mesh = make_mesh(["cpu"] * (shape[0] * shape[1]) if device
+                         else None, shape)
+        device = None
     node = Node(args.data_path, node_name=args.node_name,
-                settings=Settings.of(overrides), device=args.device)
+                settings=Settings.of(overrides), device=device, mesh=mesh)
     node.start_refresher()
     server = serve(node, args.host, args.port)
     print(f"[{args.node_name}] listening on http://{args.host}:{args.port} "
-          f"({node.device})", flush=True)
+          f"({node.mesh})", flush=True)
     try:
         threading.Event().wait()
     except KeyboardInterrupt:

@@ -9,24 +9,39 @@ it runs ``fused_merge_topk_plain``, the plain torch pipeline of
 ``ops/sparse.py``, which is also what the tests and ``chip_smoke.py`` hold
 the kernel against.
 
+Two more kernels of the same source serve the main path around the
+merge. ``shard_topk`` is the cross-shard top-k after the all-gather (the
+reference's ``_merge_topk`` → ``hierarchical_top_k``); ``sparse.
+hierarchical_top_k`` calls it on a CUDA tensor. ``exact_merge_topk`` is
+``sorted_merge_topk(variant="compressed_exact")``, for weights that fail
+``packable()``: the ``exact_merge`` kernel (decode, stable sort by doc,
+run sums, msm filter, totals) and then ``shard_topk`` over its
+candidates. Each has its plain version beside it (``shard_topk_plain``,
+``exact_merge_topk_plain``), taken for a CPU tensor only.
+
 ``LAUNCHES`` counts the launches of each kernel (a plain integer per
 kernel name, bumped where the kernel is launched and nowhere else). The
-row sort takes both key sets of a train in one launch.
+row sort takes both key sets of a train in one launch. Every launch runs
+under ``torch.cuda.device`` of its tensors: the C entries launch on the
+host thread's current device and set their shared-memory attribute
+there.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from elasticsearch_tpu_torch.ops import sparse
+from elasticsearch_tpu_torch.parallel.device import device_context
 
 #: kernel name → launches since the last reset (see reset_launches)
 LAUNCHES: Dict[str, int] = {"slot_decode": 0, "row_pack": 0, "row_sort": 0,
-                            "run_sum": 0, "select_rescore": 0}
+                            "run_sum": 0, "select_rescore": 0,
+                            "shard_topk": 0, "exact_merge": 0}
 _LAUNCHES_LOCK = threading.Lock()  # batcher threads of several packs launch
 
 #: widest slot window the slot-decode kernel keeps in shared memory
@@ -51,6 +66,15 @@ SIZE_CLASSES = ("row_sort.shared", "row_sort.device", "select.none",
                 "run_sum.tiled", "slot_decode.bounds",
                 "slot_decode.select_warp", "slot_decode.select_block")
 
+#: finalists the shard top-k sorts in shared memory (8 B each); a row
+#: with more sorts them in device memory
+TOPK_SORT_CAP = 8192
+#: values a shard top-k row may hold (the key keeps 24 position bits)
+TOPK_ROW_LIMIT = 1 << 24
+#: the size classes of shard_topk and exact_merge (rows per class)
+TOPK_CLASSES = ("shard_topk.shared", "shard_topk.device")
+EXACT_CLASSES = ("exact.shared", "exact.device")
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
@@ -70,6 +94,11 @@ _SIGNATURES = {
     "es_select_rescore": _STREAM_ARGS + _SLOT_ARGS + [_P, _P, _P, _P, _P,
                                                       _I, _I, _I, _P, _P,
                                                       _P, _P, _P, _P],
+    "es_shard_topk": [_P, _L, _P, _P, _I, _I, _I, _I, _P, _L, _P, _P, _P,
+                      _I, _P, _P, _P],
+    "es_exact_merge": _STREAM_ARGS + _SLOT_ARGS + [_P, _I, _I, _P, _P, _P,
+                                                   _P, _P, _P, _P],
+    "es_exact_smem_items": [],
 }
 
 
@@ -124,6 +153,12 @@ def _run(lib, kernel: str, events: Optional[list], fn, *args) -> None:
         LAUNCHES[kernel] += 1
 
 
+def exact_smem_items() -> int:
+    """Lanes of a row the exact merge sorts in shared memory; a longer
+    row sorts in device memory."""
+    return _lib().es_exact_smem_items()
+
+
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
@@ -141,6 +176,72 @@ def _need(t: Optional[torch.Tensor], name: str, dtype: torch.dtype,
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
+
+
+def _check_operands(what, flat_docs, flat_impact, starts, lengths, weights,
+                    min_count, *, max_len, d_pad, k, t_window, flat_rank,
+                    res_starts, res_lens, res_vals, doc_bases, dbs_starts,
+                    dlo_starts):
+    """The checks every merge launch makes of the compressed streams and
+    the slot operands (device, type, shape, contiguity, the kernels'
+    limits) → (R, T, delta); raises ValueError naming `what`."""
+    dev = flat_docs.device
+    r, t = starts.shape
+    if d_pad >= sparse.PACKED_DOC_LIMIT:
+        raise ValueError(f"{what} needs d_pad < "
+                         f"{sparse.PACKED_DOC_LIMIT}, got {d_pad}")
+    if not 1 <= max_len <= MAX_LEN_LIMIT:
+        raise ValueError(f"{what} takes max_len ≤ {MAX_LEN_LIMIT}, got "
+                         f"{max_len}")
+    if not 1 <= t <= T_LIMIT or not 1 <= r < 65536:
+        raise ValueError(f"{what} takes 1 ≤ T ≤ {T_LIMIT} slots and "
+                         f"R < 65536 rows, got R={r}, T={t}")
+    if t_window > T_LIMIT:  # the run trees hold runs of ≤ 1024 lanes
+        raise ValueError(f"{what} takes t_window ≤ {T_LIMIT}, got "
+                         f"{t_window}")
+    if k > K_LIMIT:
+        raise ValueError(f"{what} takes k ≤ {K_LIMIT}, got {k}")
+    delta = doc_bases is not None
+    if delta and (dbs_starts is None or dlo_starts is None):
+        raise ValueError("delta doc stream needs dbs_starts/dlo_starts")
+    _need(flat_docs, "flat_docs", torch.uint8 if delta else torch.uint16,
+          dev)
+    n_post = flat_docs.shape[0]
+    if n_post < max_len:
+        raise ValueError(f"streams hold {n_post} postings, fewer than one "
+                         f"{max_len}-lane window")
+    _need(flat_impact, "flat_impact", torch.uint16, dev, (n_post,))
+    _need(flat_rank, "flat_rank", torch.uint16, dev, (n_post,))
+    _need(res_vals, "res_vals", torch.float32, dev)
+    for name, ten in (("starts", starts), ("lengths", lengths),
+                      ("res_starts", res_starts), ("res_lens", res_lens)):
+        _need(ten, name, torch.int32, dev, (r, t))
+    _need(weights, "weights", torch.float32, dev, (r, t))
+    _need(min_count, "min_count", torch.int32, dev, (r,))
+    if delta:
+        _need(doc_bases, "doc_bases", torch.uint16, dev)
+        if doc_bases.shape[0] < max_len // sparse.COMPRESSED_BLOCK + 2:
+            raise ValueError("doc_bases is shorter than one slot's bases")
+        _need(dbs_starts, "dbs_starts", torch.int32, dev, (r, t))
+        _need(dlo_starts, "dlo_starts", torch.int32, dev, (r, t))
+    return r, t, delta
+
+
+def _stream_slot_args(flat_docs, flat_impact, starts, lengths, weights,
+                      min_count, *, max_len, d_pad, flat_rank, res_starts,
+                      res_lens, res_vals, doc_bases, dbs_starts, dlo_starts):
+    """The C entries' Streams and Slots arguments, in order."""
+    delta = doc_bases is not None
+    r, t = starts.shape
+    streams = (_ptr(flat_docs) if delta else None,
+               None if delta else _ptr(flat_docs),
+               _ptr(flat_impact), _ptr(flat_rank), flat_docs.shape[0],
+               _ptr(doc_bases), doc_bases.shape[0] if delta else 0,
+               _ptr(res_vals), res_vals.shape[0])
+    slots = (_ptr(starts), _ptr(lengths), _ptr(weights), _ptr(min_count),
+             _ptr(res_starts), _ptr(res_lens), _ptr(dbs_starts),
+             _ptr(dlo_starts), r, t, max_len, d_pad)
+    return streams, slots
 
 
 def fused_merge_topk_plain(flat_docs, flat_impact, starts, lengths, weights,
@@ -232,8 +333,9 @@ def fused_merge_topk(
     if flat_docs.device.type != "cuda":
         raise ValueError(f"merge kernel runs on cuda or cpu tensors, got "
                          f"{flat_docs.device}")
-    return _launch(flat_docs, flat_impact, starts, lengths, weights,
-                   min_count, stats=stats, events=events, **kw)
+    with device_context(flat_docs.device):
+        return _launch(flat_docs, flat_impact, starts, lengths, weights,
+                       min_count, stats=stats, events=events, **kw)
 
 
 def _launch(flat_docs, flat_impact, starts, lengths, weights, min_count, *,
@@ -242,42 +344,12 @@ def _launch(flat_docs, flat_impact, starts, lengths, weights, min_count, *,
             blk_starts, slot_terms, doc_bases, dbs_starts, dlo_starts,
             stats, events) -> Tuple[torch.Tensor, ...]:
     dev = flat_docs.device
-    r, t = starts.shape
-    if d_pad >= sparse.PACKED_DOC_LIMIT:
-        raise ValueError(f"merge kernel needs d_pad < "
-                         f"{sparse.PACKED_DOC_LIMIT}, got {d_pad}")
-    if not 1 <= max_len <= MAX_LEN_LIMIT:
-        raise ValueError(f"merge kernel takes max_len ≤ {MAX_LEN_LIMIT}, "
-                         f"got {max_len}")
-    if not 1 <= t <= T_LIMIT or not 1 <= r < 65536:
-        raise ValueError(f"merge kernel takes 1 ≤ T ≤ {T_LIMIT} slots and "
-                         f"R < 65536 rows, got R={r}, T={t}")
-    if t_window > T_LIMIT:  # run_sum's tree holds runs of ≤ 1024 lanes
-        raise ValueError(f"merge kernel takes t_window ≤ {T_LIMIT}, got "
-                         f"{t_window}")
-    delta = doc_bases is not None
-    if delta and (dbs_starts is None or dlo_starts is None):
-        raise ValueError("delta doc stream needs dbs_starts/dlo_starts")
-    _need(flat_docs, "flat_docs", torch.uint8 if delta else torch.uint16,
-          dev)
-    n_post = flat_docs.shape[0]
-    if n_post < max_len:
-        raise ValueError(f"streams hold {n_post} postings, fewer than one "
-                         f"{max_len}-lane window")
-    _need(flat_impact, "flat_impact", torch.uint16, dev, (n_post,))
-    _need(flat_rank, "flat_rank", torch.uint16, dev, (n_post,))
-    _need(res_vals, "res_vals", torch.float32, dev)
-    for name, ten in (("starts", starts), ("lengths", lengths),
-                      ("res_starts", res_starts), ("res_lens", res_lens)):
-        _need(ten, name, torch.int32, dev, (r, t))
-    _need(weights, "weights", torch.float32, dev, (r, t))
-    _need(min_count, "min_count", torch.int32, dev, (r,))
-    if delta:
-        _need(doc_bases, "doc_bases", torch.uint16, dev)
-        if doc_bases.shape[0] < max_len // sparse.COMPRESSED_BLOCK + 2:
-            raise ValueError("doc_bases is shorter than one slot's bases")
-        _need(dbs_starts, "dbs_starts", torch.int32, dev, (r, t))
-        _need(dlo_starts, "dlo_starts", torch.int32, dev, (r, t))
+    r, t, delta = _check_operands(
+        "merge kernel", flat_docs, flat_impact, starts, lengths, weights,
+        min_count, max_len=max_len, d_pad=d_pad, k=k, t_window=t_window,
+        flat_rank=flat_rank, res_starts=res_starts, res_lens=res_lens,
+        res_vals=res_vals, doc_bases=doc_bases, dbs_starts=dbs_starts,
+        dlo_starts=dlo_starts)
     kk = min(k, t * max_len)
     do_skip = block_max is not None and blk_starts is not None \
         and k <= max_len
@@ -289,8 +361,6 @@ def _launch(flat_docs, flat_impact, starts, lengths, weights, min_count, *,
             raise ValueError("block_max is shorter than one slot's groups")
         if slot_terms is not None:
             _need(slot_terms, "slot_terms", torch.int32, dev, (r, t))
-    if k > K_LIMIT:
-        raise ValueError(f"merge kernel takes k ≤ {K_LIMIT}, got {k}")
     length = t * max_len
     kc = min(length, kk + max(2 * kk, 256))
     final_n = 1
@@ -357,14 +427,11 @@ def _launch(flat_docs, flat_impact, starts, lengths, weights, min_count, *,
     class_rows = (torch.zeros(len(SIZE_CLASSES), **i32)
                   if stats is not None else None)
 
-    streams = (_ptr(flat_docs) if delta else None,
-               None if delta else _ptr(flat_docs),
-               _ptr(flat_impact), _ptr(flat_rank), n_post,
-               _ptr(doc_bases), doc_bases.shape[0] if delta else 0,
-               _ptr(res_vals), res_vals.shape[0])
-    slots = (_ptr(starts), _ptr(lengths), _ptr(weights), _ptr(min_count),
-             _ptr(res_starts), _ptr(res_lens), _ptr(dbs_starts),
-             _ptr(dlo_starts), r, t, max_len, d_pad)
+    streams, slots = _stream_slot_args(
+        flat_docs, flat_impact, starts, lengths, weights, min_count,
+        max_len=max_len, d_pad=d_pad, flat_rank=flat_rank,
+        res_starts=res_starts, res_lens=res_lens, res_vals=res_vals,
+        doc_bases=doc_bases, dbs_starts=dbs_starts, dlo_starts=dlo_starts)
     kth = grp_ub = slot_ub = None
     if do_skip:
         kth = torch.empty((r, t), dtype=torch.float32, device=dev)
@@ -429,4 +496,185 @@ def _launch(flat_docs, flat_impact, starts, lengths, weights, min_count, *,
                      classes=dict(zip(SIZE_CLASSES, class_rows.tolist())))
     if with_totals:
         return out_vals, out_docs, totals
+    return out_vals, out_docs
+
+
+# ---------------------------------------------------------------------------
+# shard_topk: the cross-shard top-k
+# ---------------------------------------------------------------------------
+
+#: the plain version: lax.top_k over [B, N] f32 (the min(k, N) largest
+#: values, equal values in ascending position) as a stable descending
+#: sort, on whatever device the tensor lies → (values [B, k'], positions
+#: int64 [B, k'])
+shard_topk_plain = sparse.top_k_plain
+
+
+def shard_topk(vals: torch.Tensor, k: int, *,
+               stats: Optional[Dict[str, Any]] = None,
+               events: Optional[list] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """shard_topk_plain's function: the plain version for a CPU tensor;
+    for a CUDA tensor the kernel launches or the call raises. `stats`
+    receives the rows each size class took; `events` (kernel, start,
+    end) CUDA events."""
+    if vals.device.type == "cpu":
+        return shard_topk_plain(vals, k)
+    if vals.device.type != "cuda":
+        raise ValueError(f"shard_topk runs on cuda or cpu tensors, got "
+                         f"{vals.device}")
+    with device_context(vals.device):
+        return _launch_topk(vals, k, stats=stats, events=events)
+
+
+def _launch_topk(vals, k, *, stats, events):
+    dev = vals.device
+    if vals.dim() != 2:
+        raise ValueError(f"shard_topk takes [B, N] values, got "
+                         f"{tuple(vals.shape)}")
+    _need(vals, "vals", torch.float32, dev)
+    b, n = vals.shape
+    if n >= TOPK_ROW_LIMIT:
+        raise ValueError(f"shard_topk takes rows of < {TOPK_ROW_LIMIT} "
+                         f"values, got {n}")
+    kk = min(k, n)
+    out_vals = torch.empty((b, max(kk, 0)), dtype=torch.float32,
+                           device=dev)
+    out_pos = torch.empty((b, max(kk, 0)), dtype=torch.int64, device=dev)
+    if b and kk > 0:
+        _topk_rows(_lib(), vals, b, kk, stride=n, row_off=None, row_n=None,
+                   n_all=n, out_vals=out_vals, out_pos=out_pos, ids=None,
+                   fill=0, out_ids=None, stats=stats, events=events)
+    return out_vals, out_pos
+
+
+def _topk_rows(lib, vals, rows, kk, *, stride, row_off, row_n, n_all,
+               out_vals, out_pos, ids, fill, out_ids, stats, events):
+    """One shard_topk launch over `rows` rows of `vals` (row r at
+    row_off[r], or r * stride; row_n[r] values, or n_all)."""
+    dev = vals.device
+    sort_n = 1
+    while sort_n < kk:
+        sort_n *= 2
+    scratch = torch.empty((rows, sort_n) if sort_n > TOPK_SORT_CAP else 1,
+                          dtype=torch.int64, device=dev)
+    class_rows = (torch.zeros(len(TOPK_CLASSES), dtype=torch.int32,
+                              device=dev) if stats is not None else None)
+    _run(lib, "shard_topk", events, lib.es_shard_topk, _ptr(vals), stride,
+         _ptr(row_off), _ptr(row_n), n_all, rows, kk, TOPK_SORT_CAP,
+         _ptr(scratch), sort_n, _ptr(out_vals), _ptr(out_pos), _ptr(ids),
+         fill, _ptr(out_ids), _ptr(class_rows),
+         torch.cuda.current_stream(dev).cuda_stream)
+    if stats is not None:
+        stats.setdefault("topk_classes", dict.fromkeys(TOPK_CLASSES, 0))
+        for name, c in zip(TOPK_CLASSES, class_rows.tolist()):
+            stats["topk_classes"][name] += c
+
+
+# ---------------------------------------------------------------------------
+# exact_merge: sorted_merge_topk(variant="compressed_exact")
+# ---------------------------------------------------------------------------
+
+def exact_merge_topk_plain(flat_docs, flat_impact, starts, lengths, weights,
+                           min_count, **kw) -> Tuple[torch.Tensor, ...]:
+    """The plain version of the exact merge (ops/sparse.merge_topk_core
+    with variant="compressed_exact"), on whatever device the operands
+    lie."""
+    kw.pop("stats", None)
+    kw.pop("events", None)
+    return sparse.merge_topk_core(flat_docs, flat_impact, starts, lengths,
+                                  weights, min_count,
+                                  variant="compressed_exact", **kw)
+
+
+def exact_merge_topk(flat_docs, flat_impact, starts, lengths, weights,
+                     min_count, *, stats: Optional[Dict[str, Any]] = None,
+                     events: Optional[list] = None, **kw
+                     ) -> Tuple[torch.Tensor, ...]:
+    """sorted_merge_topk(variant="compressed_exact") → (scores f32
+    [R, k'], docs int32 [R, k'][, totals int32 [R]]). CPU operands run
+    the plain version; CUDA operands launch exact_merge and shard_topk
+    or raise. `stats` receives the lane and candidate counts (a host
+    sync) and the rows each size class took; `events` (kernel, start,
+    end) CUDA events."""
+    if flat_docs.device.type == "cpu":
+        return exact_merge_topk_plain(flat_docs, flat_impact, starts,
+                                      lengths, weights, min_count, **kw)
+    if flat_docs.device.type != "cuda":
+        raise ValueError(f"exact merge runs on cuda or cpu tensors, got "
+                         f"{flat_docs.device}")
+    with device_context(flat_docs.device):
+        return _launch_exact(flat_docs, flat_impact, starts, lengths,
+                             weights, min_count, stats=stats, events=events,
+                             **kw)
+
+
+def _launch_exact(flat_docs, flat_impact, starts, lengths, weights,
+                  min_count, *, max_len, d_pad, k, t_window, with_counts,
+                  with_totals=False, flat_rank=None, res_starts=None,
+                  res_lens=None, res_vals=None, doc_bases=None,
+                  dbs_starts=None, dlo_starts=None, stats=None, events=None,
+                  **_skip_operands):
+    """The exact variant reads no block-max or slot-term operands (the
+    reference's exact branch has no skip): they are taken and unused."""
+    dev = flat_docs.device
+    r, t, delta = _check_operands(
+        "exact merge", flat_docs, flat_impact, starts, lengths, weights,
+        min_count, max_len=max_len, d_pad=d_pad, k=k, t_window=t_window,
+        flat_rank=flat_rank, res_starts=res_starts, res_lens=res_lens,
+        res_vals=res_vals, doc_bases=doc_bases, dbs_starts=dbs_starts,
+        dlo_starts=dlo_starts)
+    kk = min(k, t * max_len)
+    window = 1
+    while window < t_window:
+        window *= 2
+
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # each row's valid lanes, back to back: the u64 items, their sort
+    # scratch and the candidates live in the row's slice
+    row_cap = lengths.clamp(min=0).sum(dim=1, dtype=torch.int64)
+    offs = torch.zeros(r + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(row_cap, dim=0, out=offs[1:])
+    total_cap, longest = torch.stack(
+        [offs[r], lengths.max().to(torch.int64)]).tolist()
+    if longest > max_len:
+        raise ValueError(f"a slot holds {longest} lanes, more than "
+                         f"max_len={max_len}")
+    row_off = offs[:r]
+    total_cap = max(1, total_cap)
+    items = torch.empty(total_cap, dtype=torch.int64, device=dev)
+    alt = torch.empty(total_cap, dtype=torch.int64, device=dev)
+    cand_score = torch.empty(total_cap, dtype=torch.float32, device=dev)
+    cand_doc = torch.empty(total_cap, dtype=torch.int32, device=dev)
+    n_cand = torch.empty(r, dtype=torch.int32, device=dev)
+    class_rows = (torch.zeros(len(EXACT_CLASSES), dtype=torch.int32,
+                              device=dev) if stats is not None else None)
+    streams, slots = _stream_slot_args(
+        flat_docs, flat_impact, starts, lengths, weights, min_count,
+        max_len=max_len, d_pad=d_pad, flat_rank=flat_rank,
+        res_starts=res_starts, res_lens=res_lens, res_vals=res_vals,
+        doc_bases=doc_bases, dbs_starts=dbs_starts, dlo_starts=dlo_starts)
+    _run(lib, "exact_merge", events, lib.es_exact_merge, *streams, *slots,
+         _ptr(row_off), int(with_counts), window, _ptr(items), _ptr(alt),
+         _ptr(cand_score), _ptr(cand_doc), _ptr(n_cand), _ptr(class_rows),
+         stream)
+    out_vals = torch.empty((r, kk), dtype=torch.float32, device=dev)
+    out_docs = torch.empty((r, kk), dtype=torch.int32, device=dev)
+    _topk_rows(lib, cand_score, r, kk, stride=0, row_off=row_off,
+               row_n=n_cand, n_all=0, out_vals=out_vals, out_pos=None,
+               ids=cand_doc, fill=d_pad, out_ids=out_docs, stats=stats,
+               events=events)
+    if stats is not None:
+        stats.update(lanes=int(row_cap.sum()),
+                     candidates=int(n_cand.sum()), rows=r, slots=t, kk=kk,
+                     delta=int(delta),
+                     exact_classes=dict(zip(EXACT_CLASSES,
+                                            class_rows.tolist())))
+        stats["run_sum_output"] = dict(score=cand_score.clone(),
+                                       doc=cand_doc.clone(),
+                                       n_cand=n_cand.clone(),
+                                       row_off=row_off)
+    if with_totals:
+        return out_vals, out_docs, n_cand
     return out_vals, out_docs

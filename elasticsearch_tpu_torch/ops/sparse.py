@@ -19,11 +19,12 @@ uint32 ops. The result is bit-identical to the JAX package on the same
 operands: scores compared as uint32, doc ids and totals exactly.
 
 ``sorted_merge_topk(variant=...)`` takes ``compressed``,
-``compressed_exact`` and ``pallas``. ``compressed``/``pallas`` on a CUDA
-tensor launch the hand-written Hopper kernel (``ops/merge_kernel.py``);
-on a CPU tensor they run the plain core below. ``compressed_exact`` (the
-gate for weights that fail ``packable()``) is plain torch ops on either
-device.
+``compressed_exact`` and ``pallas``. On a CUDA tensor each launches its
+hand-written Hopper kernels (``ops/merge_kernel.py``): the fused merge
+for ``compressed``/``pallas``, the exact merge and the shard top-k for
+``compressed_exact`` (the gate for weights that fail ``packable()``); on
+a CPU tensor each runs the plain core below, ``merge_topk_core``, whose
+top-k is ``top_k_plain``.
 """
 
 from __future__ import annotations
@@ -360,7 +361,16 @@ def hierarchical_top_k(score: torch.Tensor, k: int
     """The reference's hierarchical_top_k over [R, L]: its per-block
     split runs only on a TPU and selects exactly what a flat top_k does,
     so this is lax.top_k — the min(k, L) largest values, equal values in
-    ascending index order (a stable descending sort)."""
+    ascending index order. A CUDA tensor launches the shard_topk kernel
+    (ops/merge_kernel.py); a CPU tensor takes top_k_plain."""
+    from elasticsearch_tpu_torch.ops import merge_kernel
+    return merge_kernel.shard_topk(score, k)
+
+
+def top_k_plain(score: torch.Tensor, k: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """hierarchical_top_k as a stable descending sort on whatever device
+    the tensor lies: the plain pipeline's top-k."""
     kk = min(k, score.shape[1])
     vals, pos = torch.sort(score, dim=1, descending=True, stable=True)
     return vals[:, :kk], pos[:, :kk]
@@ -594,7 +604,7 @@ def _packed_rescore_topk(flat_docs, starts, lengths, weights, sk, score,
     length = sk.shape[1]
     slack = max(2 * kk, 256)
     kc = min(length, kk + slack)
-    a_vals, a_pos = hierarchical_top_k(score, kc)
+    a_vals, a_pos = top_k_plain(score, kc)
     cand_docs = torch.gather(sk, 1, a_pos)                      # [R, kc]
     cand_cnt = torch.gather(cnt, 1, a_pos).to(torch.int64)
 
@@ -722,13 +732,13 @@ def sorted_merge_topk(
         res_vals=res_vals, block_max=block_max, blk_starts=blk_starts,
         slot_terms=slot_terms, doc_bases=doc_bases,
         dbs_starts=dbs_starts, dlo_starts=dlo_starts)
+    from elasticsearch_tpu_torch.ops import merge_kernel
     if variant in ("compressed", "pallas"):
-        from elasticsearch_tpu_torch.ops import merge_kernel
         return merge_kernel.fused_merge_topk(
             flat_docs, flat_impact, starts, lengths, weights, min_count,
             **kw)
-    return merge_topk_core(flat_docs, flat_impact, starts, lengths,
-                           weights, min_count, variant=variant, **kw)
+    return merge_kernel.exact_merge_topk(
+        flat_docs, flat_impact, starts, lengths, weights, min_count, **kw)
 
 
 def merge_topk_core(flat_docs, flat_impact, starts, lengths, weights,
@@ -805,7 +815,7 @@ def _merge_topk_core(
         totals = skip_totals
 
     if exact:
-        vals, pos = hierarchical_top_k(score, kk)
+        vals, pos = top_k_plain(score, kk)
         hit_docs = torch.gather(sk, 1, pos)
         hit_docs = torch.where(vals > NEG_INF, hit_docs,
                                torch.full_like(hit_docs, d_pad))

@@ -5,6 +5,7 @@ they raise instead of quietly running on the CPU."""
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -29,3 +30,11 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def device_context(dev: torch.device):
+    """The context a launch on `dev` runs under: torch.cuda.device for a
+    CUDA device (kernels, their attributes and collectives act on the
+    host thread's current device), nothing for the CPU."""
+    return (torch.cuda.device(dev) if dev.type == "cuda"
+            else contextlib.nullcontext())

@@ -1,17 +1,27 @@
-"""Stacked-shard BM25 search on one device.
+"""Stacked-shard BM25 search over a device mesh.
 
 Counterpart of the reference's ``parallel/distributed.py`` for the
-compressed main path on one card. The reference fans shards out over a
-mesh and merges with ``all_gather`` + top-k; here every shard of the pack
-lies on the one device, which is the reference's ``make_local_search``
-shape: per-(shard, query) rows go through ``sparse.sorted_merge_topk`` in
-one call, then a top-k over the shards' concatenated lists.
+compressed main path. A pack's shards are laid over the mesh's shards
+axis and replicated down its data axis (``device_put_compressed``). One
+step (``make_distributed_search``) scores, on each device, its shards ×
+its data row's slice of the batch through ``sparse.sorted_merge_topk``
+(one call for all its (shard, query) rows), then each data row gathers
+its columns' lists in column order, sums their totals and takes the
+cross-shard top-k: the reference's ``_local_body`` + ``tail``
+(all_gather, psum, top-k). On CUDA devices the gather and the sum are
+NCCL collectives of one process over every device of the row
+(``torch.cuda.nccl``), as the reference is one SPMD program over its
+local chips; on CPU entries they are ``torch.cat`` and a sum. One device
+is a (1, 1) mesh, whose step ``make_local_search`` returns as the
+reference's one-device step. The device bodies of a step run one after
+another; only the collectives are serialized between steps.
 
   StackedShardPack — S shards' postings for one field, padded to common
     shapes, with group-level statistics (one group per index shard).
   CompressedStreams — the compressed resident image: u16 (or u8-delta)
     doc stream, u16 value codes, u16 ranks, block-max codes, residual
     tables.
+  MeshImage — the image placed over a mesh.
   QueryBatch — per-(shard, query, slot) chunk arrays.
 
 Global doc identity: shard s, local ordinal d → s * (d_pad + 1) + d,
@@ -20,8 +30,11 @@ decoded host-side by ``decode_refs``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import math
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -30,6 +43,9 @@ import torch
 from elasticsearch_tpu_torch.index.pack import LANE, _pad_to
 from elasticsearch_tpu_torch.index.segment import Segment
 from elasticsearch_tpu_torch.ops import sparse
+from elasticsearch_tpu_torch.parallel.device import device_context
+from elasticsearch_tpu_torch.parallel.mesh import (DATA_AXIS, SHARD_AXIS,
+                                                   Mesh)
 
 NEG_INF = float("-inf")
 CHUNK_CAP = 4096  # max postings chunk per slot; flat arrays pad by this much
@@ -67,15 +83,22 @@ class StackedShardPack:
 def build_stacked_pack(segments: Sequence[Segment], field: str,
                        live_docs: Optional[Sequence[Optional[np.ndarray]]] = None,
                        k1: float = 1.2, b: float = 0.75,
-                       row_groups: Optional[Sequence[int]] = None
+                       row_groups: Optional[Sequence[int]] = None,
+                       pad_shards_to: Optional[int] = None
                        ) -> StackedShardPack:
     """Each segment is one pack row. Shapes pad to the max across rows +
     CHUNK_CAP slack so chunk windows never run past the arrays.
     row_groups[i] assigns segment i to a statistics group (one group per
-    index shard → per-shard idf/avgdl); omitted → one index-level group."""
+    index shard → per-shard idf/avgdl); omitted → one index-level group.
+    pad_shards_to appends empty rows up to that many (a multiple of a
+    mesh's shards axis)."""
     from elasticsearch_tpu_torch.index.pack import build_field_pack
 
-    s = len(segments)
+    s_real = len(segments)
+    s = pad_shards_to or s_real
+    if s < s_real:
+        raise ValueError(
+            f"pad_shards_to={s} < {s_real} segments (would drop shards)")
     d_pad = max(_pad_to(seg.num_docs) for seg in segments)
     packs = [build_field_pack(seg, field, d_pad) for seg in segments]
     p_pad = max((p.flat_docs.shape[0] for p in packs if p is not None),
@@ -88,10 +111,10 @@ def build_stacked_pack(segments: Sequence[Segment], field: str,
     row_starts: List[np.ndarray] = []
     shard_num_docs: List[int] = []
     shard_doc_ids: List[List[str]] = []
-    groups = list(row_groups) if row_groups is not None else [0] * s
-    if len(groups) != s:
+    groups = list(row_groups) if row_groups is not None else [0] * s_real
+    if len(groups) != s_real:
         raise ValueError(f"row_groups has {len(groups)} entries for "
-                         f"{s} segments")
+                         f"{s_real} segments")
     n_groups = (max(groups) + 1) if groups else 1
     total_docs = 0
     sum_ttf = 0
@@ -128,11 +151,17 @@ def build_stacked_pack(segments: Sequence[Segment], field: str,
             sum_ttf += st.sum_total_term_freq
             group_doc_count[g] += st.doc_count
             group_sum_ttf[g] += st.sum_total_term_freq
+    for _ in range(s_real, s):
+        vocabs.append({})
+        row_starts.append(np.zeros(1, dtype=np.int64))
+        shard_num_docs.append(0)
+        shard_doc_ids.append([])
+        groups.append(0)
     avgdl = (sum_ttf / total_docs) if total_docs else 1.0
     group_avgdl = [(group_sum_ttf[g] / group_doc_count[g])
                    if group_doc_count[g] else 1.0 for g in range(n_groups)]
     flat_impact = np.zeros((s, p_pad), dtype=np.float32)
-    for i in range(s):
+    for i in range(s_real):
         flat_impact[i] = sparse.eager_impacts(
             flat_docs[i], flat_tfs[i], norms[i], k1, b,
             group_avgdl[groups[i]])
@@ -240,11 +269,32 @@ def build_compressed_streams(pack: StackedShardPack,
                              doc_bases=doc_bases)
 
 
+@dataclasses.dataclass
+class MeshImage:
+    """The compressed image laid over a mesh: parts[d][c] holds shards
+    [c·S_l, (c+1)·S_l) of every stream on device grid[d][c] (the
+    reference's P(SHARD_AXIS, None): split over the shards axis,
+    replicated down the data axis)."""
+
+    mesh: Mesh
+    parts: Tuple[Tuple[Tuple[torch.Tensor, ...], ...], ...]
+
+    @property
+    def delta(self) -> bool:
+        return len(self.parts[0][0]) == 6
+
+    def row_arrays(self) -> Tuple[torch.Tensor, ...]:
+        """Every tensor of one data row: the image once."""
+        return tuple(t for part in self.parts[0] for t in part)
+
+
 def device_put_compressed(streams: CompressedStreams,
-                          device: torch.device) -> Tuple[torch.Tensor, ...]:
-    """Place the compressed image on `device` → 5 tensors (docs16,
-    code16, rank16, block_max, res_vals), or 6 in delta mode (docs8 in
-    the doc slot, doc_bases appended): the tuple length is the format."""
+                          mesh: Mesh) -> MeshImage:
+    """Place the compressed image over `mesh` (the pack's shard count must
+    be a multiple of the shards axis: build the pack with
+    pad_shards_to). Each part is 5 tensors (docs16, code16, rank16,
+    block_max, res_vals), or 6 in delta mode (docs8 in the doc slot,
+    doc_bases appended): the tuple length is the format."""
     if streams.delta:
         arrays = (streams.flat_docs8, streams.flat_code16,
                   streams.flat_rank16, streams.block_max,
@@ -252,8 +302,18 @@ def device_put_compressed(streams: CompressedStreams,
     else:
         arrays = (streams.flat_docs16, streams.flat_code16,
                   streams.flat_rank16, streams.block_max, streams.res_vals)
-    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                 for a in arrays)
+    n_sh = mesh.shape[SHARD_AXIS]
+    s = arrays[0].shape[0]
+    if s % n_sh:
+        raise ValueError(f"{s} pack shards do not split over a shards "
+                         f"axis of {n_sh}")
+    s_l = s // n_sh
+    host = [[torch.from_numpy(np.ascontiguousarray(a[c * s_l:(c + 1) * s_l]))
+             for a in arrays] for c in range(n_sh)]
+    parts = tuple(tuple(tuple(t.to(dev) for t in host[c])
+                        for c, dev in enumerate(row))
+                  for row in mesh.grid)
+    return MeshImage(mesh, parts)
 
 
 @dataclasses.dataclass
@@ -378,7 +438,8 @@ def prepare_query_batch(pack: StackedShardPack,
 
 def _local_body(flat_docs, flat_impact, starts, lengths, weights, min_count,
                 *, max_len: int, d_pad: int, p_pad: int, k: int,
-                t_window: int, with_counts: bool, variant: str, comp):
+                t_window: int, with_counts: bool, variant: str, comp,
+                shard_offset: int = 0):
     """Score S shards × B queries in one sorted_merge_topk call → per
     query (vals [B, S·k'], gids int64 [B, S·k'], totals int32 [B]).
 
@@ -427,7 +488,8 @@ def _local_body(flat_docs, flat_impact, starts, lengths, weights, min_count,
     vals = vals.reshape(s_l, b, k_l)
     docs = docs.reshape(s_l, b, k_l)
     totals_b = totals.reshape(s_l, b).sum(dim=0, dtype=torch.int32)
-    shard_ids = torch.arange(s_l, dtype=torch.int64, device=dev)
+    shard_ids = shard_offset + torch.arange(s_l, dtype=torch.int64,
+                                            device=dev)
     gids = docs.to(torch.int64) + (shard_ids * (d_pad + 1))[:, None, None]
     vals_b = vals.permute(1, 0, 2).reshape(b, -1)
     gids_b = gids.permute(1, 0, 2).reshape(b, -1)
@@ -441,41 +503,154 @@ def _merge_topk(vals_b, gids_b, k: int):
     return top_vals, torch.gather(gids_b, 1, pos)
 
 
-def make_local_search(*, max_len: int, d_pad: int, p_pad: int, k: int,
-                      t_window: int, with_counts: bool = False,
-                      variant: str = "compressed"):
-    """Single-device search step: S shards × B queries → global top-k.
-    The step takes the compressed image and the batch tensors on one
-    device and returns (vals [B, k], gids [B, k], totals [B])."""
+#: held while a step of a multi-device mesh enqueues its collectives, so
+#: that those of two steps (two packs' batcher threads) reach every
+#: device in the same order; the device bodies run outside it, so two
+#: packs' trains overlap on the cards
+DEVICE_DISPATCH_LOCK = threading.Lock()
+
+
+def _run_bodies(jobs):
+    """Run the device bodies of a step, one after another in the calling
+    thread → their results in order. Each waits on its device once (the
+    wrappers read their counts on the host), but a body's device work is
+    a small part of its host work: run in threads, one a device, the
+    bodies lost more to the interpreter lock than they overlapped on the
+    cards (tools/mesh_ab.py; PERF.md §6)."""
+    return [job() for job in jobs]
+
+
+#: the batch operands a step takes, in order ([S, B, T] each, then [B])
+_BATCH_FIELDS = ("starts", "lengths", "weights", "res_starts", "res_lens",
+                 "slot_terms")
+
+
+def _gather_row(outs, cuda: bool):
+    """The tail's transport for one data row: the columns' (vals_b
+    [B_l, S_l·k'], gids_b, totals_b) → the row's [B_l, S·k'] values and
+    ids in column order and its summed totals, on column 0's device. On
+    CUDA devices an NCCL all_gather and all_reduce (one process, every
+    device of the row: torch.cuda.nccl); on CPU entries cat and sum."""
+    if not cuda:
+        return (torch.cat([o[0] for o in outs], dim=1),
+                torch.cat([o[1] for o in outs], dim=1),
+                torch.stack([o[2] for o in outs]).sum(dim=0,
+                                                      dtype=torch.int32))
+    from torch.cuda import nccl
+    n = len(outs)
+    gathered = []
+    for j in (0, 1):
+        ins = [o[j].contiguous() for o in outs]
+        outs_j = [torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
+                              device=t.device) for t in ins]
+        nccl.all_gather(ins, outs_j)
+        b_l = ins[0].shape[0]
+        gathered.append(outs_j[0].permute(1, 0, 2).reshape(b_l, -1))
+    totals = [o[2].contiguous() for o in outs]
+    nccl.all_reduce(totals)
+    return gathered[0], gathered[1], totals[0]
+
+
+def make_distributed_search(mesh: Mesh, *, max_len: int, d_pad: int,
+                            p_pad: int, k: int, t_window: int,
+                            with_counts: bool = False,
+                            variant: str = "compressed"):
+    """The search step over a (data, shards) mesh: device (d, c) scores
+    its S_l shards (global ids from shard_offset = c·S_l) for data row
+    d's slice of the batch, [B/data, S_l, T], on its own current stream;
+    each data row then gathers its columns' lists in column order, sums
+    their totals and takes the cross-shard top-k (the tail). The step
+    takes a MeshImage and the host batch arrays and returns each data
+    row's (vals [B_l, k'], gids [B_l, k'], totals [B_l]) on the row's
+    column-0 device, in data-row order."""
     if variant not in sparse.KERNEL_VARIANTS:
         raise ValueError(f"unknown kernel variant {variant!r}")
+    n_data = mesh.shape[DATA_AXIS]
 
-    def step(flat_docs, flat_impact, flat_rank, block_max, res_vals,
-             starts, lengths, weights, res_starts, res_lens, slot_terms,
-             min_count, doc_bases=None):
-        vals_b, gids_b, totals_b = _local_body(
-            flat_docs, flat_impact, starts, lengths, weights, min_count,
+    def device_body(dev, arrays, batch_part, min_count, shard_offset):
+        put = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+               for a in batch_part]
+        starts, lengths, weights, res_starts, res_lens, slot_terms = put
+        flat_docs, flat_impact, flat_rank, block_max, res_vals = arrays[:5]
+        doc_bases = arrays[5] if len(arrays) == 6 else None
+        return _local_body(
+            flat_docs, flat_impact, starts, lengths, weights,
+            torch.from_numpy(np.ascontiguousarray(min_count)).to(dev),
             max_len=max_len, d_pad=d_pad, p_pad=p_pad, k=k,
             t_window=t_window, with_counts=with_counts, variant=variant,
             comp=(flat_rank, block_max, res_vals, res_starts, res_lens,
-                  slot_terms, doc_bases))
-        top_vals, top_ids = _merge_topk(vals_b, gids_b, k)
-        return top_vals, top_ids, totals_b
+                  slot_terms, doc_bases), shard_offset=shard_offset)
+
+    def run_body(dev, arrays, batch_part, min_count, shard_offset):
+        with device_context(dev):
+            return device_body(dev, arrays, batch_part, min_count,
+                               shard_offset)
+
+    def step(image: MeshImage, batch: QueryBatch):
+        b = batch.starts.shape[1]
+        if b % n_data:
+            raise ValueError(f"a batch of {b} queries does not split over "
+                             f"a data axis of {n_data}")
+        b_l = b // n_data
+        s_l = image.parts[0][0][0].shape[0]
+        jobs = []
+        for d, row in enumerate(mesh.grid):
+            qs = slice(d * b_l, (d + 1) * b_l)
+            for c, dev in enumerate(row):
+                ss = slice(c * s_l, (c + 1) * s_l)
+                part = [getattr(batch, f)[ss, qs] for f in _BATCH_FIELDS]
+                jobs.append(functools.partial(
+                    run_body, dev, image.parts[d][c], part,
+                    batch.min_count[qs], c * s_l))
+        outs = _run_bodies(jobs)
+        n_cols = len(mesh.grid[0])
+        lock = (DEVICE_DISPATCH_LOCK if len(mesh.devices) > 1
+                else contextlib.nullcontext())
+        rows = []
+        for d, row in enumerate(mesh.grid):
+            with device_context(row[0]):
+                with lock:
+                    vals, gids, totals = _gather_row(
+                        outs[d * n_cols:(d + 1) * n_cols], mesh.is_cuda)
+                top_vals, top_ids = _merge_topk(vals, gids, k)
+            rows.append((top_vals, top_ids, totals))
+        return rows
+
+    return step
+
+
+def make_local_search(*, max_len: int, d_pad: int, p_pad: int, k: int,
+                      t_window: int, with_counts: bool = False,
+                      variant: str = "compressed"):
+    """The reference's one-device step: the step of a (1, 1) mesh. It
+    takes a MeshImage placed on a (1, 1) mesh and a QueryBatch and
+    returns (vals [B, k'], gids [B, k'], totals [B]) on that device."""
+    kw = dict(max_len=max_len, d_pad=d_pad, p_pad=p_pad, k=k,
+              t_window=t_window, with_counts=with_counts, variant=variant)
+
+    def step(image: MeshImage, batch: QueryBatch):
+        if len(image.mesh.devices) != 1:
+            raise ValueError(f"make_local_search runs on a (1, 1) mesh, "
+                             f"not {image.mesh}")
+        (row,) = make_distributed_search(image.mesh, **kw)(image, batch)
+        return row
 
     return step
 
 
 def distributed_search_raw(pack: StackedShardPack, batch: QueryBatch,
-                           k: int, device_arrays: Tuple[torch.Tensor, ...],
+                           k: int, mesh: Mesh,
+                           device_arrays: Optional[MeshImage] = None,
                            with_counts: Optional[bool] = None,
                            t_window: Optional[int] = None,
                            materialize: bool = True,
                            variant: str = "compressed"):
-    """One search step, raw outputs: numpy (vals [B, k'], gids int64
-    [B, k'], totals [B]); materialize=False returns the device tensors
-    without waiting. device_arrays is device_put_compressed's tuple (5
-    tensors, or 6 with the delta doc stream); the batch must be prepared
-    with compressed= streams."""
+    """One step of make_distributed_search over `mesh`, raw outputs:
+    numpy (vals [B, k'], gids int64 [B, k'], totals [B]); materialize=
+    False returns torch tensors without waiting (data rows past the
+    first moved to the first's device). device_arrays is the pack's
+    MeshImage (placed here when None); the batch must be prepared with
+    compressed= streams."""
     if batch.res_starts is None:
         raise ValueError(
             "compressed variant needs a batch prepared with "
@@ -486,19 +661,40 @@ def distributed_search_raw(pack: StackedShardPack, batch: QueryBatch,
         t_window = batch.window
     elif t_window < batch.window:
         raise ValueError(f"t_window={t_window} < needed {batch.window}")
-    dev = device_arrays[0].device
-    fn = make_local_search(max_len=batch.max_len, d_pad=pack.d_pad,
-                           p_pad=pack.p_pad, k=k, t_window=t_window,
-                           with_counts=with_counts, variant=variant)
-    bases = device_arrays[5:]
-    put = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-           for a in (batch.starts, batch.lengths, batch.weights,
-                     batch.res_starts, batch.res_lens, batch.slot_terms,
-                     batch.min_count)]
-    vals, ids, totals = fn(*device_arrays[:5], *put, *bases)
+    if device_arrays is None:
+        device_arrays = device_put_compressed(
+            build_compressed_streams(pack), mesh)
+    step = make_distributed_search(
+        mesh, max_len=batch.max_len, d_pad=pack.d_pad, p_pad=pack.p_pad,
+        k=k, t_window=t_window, with_counts=with_counts, variant=variant)
+    rows = step(device_arrays, batch)
+    if len(rows) == 1:
+        vals, ids, totals = rows[0]
+    elif materialize:
+        return tuple(np.concatenate([r[j].cpu().numpy() for r in rows])
+                     for j in range(3))
+    else:
+        dev = rows[0][0].device
+        vals, ids, totals = (torch.cat([r[j].to(dev) for r in rows])
+                             for j in range(3))
     if not materialize:
         return vals, ids, totals
     return vals.cpu().numpy(), ids.cpu().numpy(), totals.cpu().numpy()
+
+
+def distributed_search(pack: StackedShardPack, batch: QueryBatch, k: int,
+                       mesh: Mesh, device_arrays: Optional[MeshImage] = None,
+                       with_counts: Optional[bool] = None,
+                       t_window: Optional[int] = None,
+                       variant: str = "compressed"):
+    """One search step → (scores [B, k'], refs, totals [B]): refs[q] =
+    [(score, shard, local ord), ...] decoded on the host; totals[q] is
+    the exact matched-doc count."""
+    vals, ids, totals = distributed_search_raw(
+        pack, batch, k, mesh, device_arrays=device_arrays,
+        with_counts=with_counts, t_window=t_window, variant=variant)
+    vals, refs = decode_refs(pack, vals, ids)
+    return vals, refs, totals
 
 
 def decode_refs(pack: StackedShardPack, vals: np.ndarray, ids: np.ndarray):
@@ -516,3 +712,19 @@ def decode_refs(pack: StackedShardPack, vals: np.ndarray, ids: np.ndarray):
             row.append((float(v), shard, ord_))
         refs.append(row)
     return vals, refs
+
+
+def resolve_hits(pack: StackedShardPack,
+                 refs: List[List[Tuple[float, int, int]]]):
+    """(score, shard, ord) → [{'_id', '_score'}] via the host doc-id
+    maps."""
+    out = []
+    for row in refs:
+        hits = []
+        for score, shard, ord_ in row:
+            if shard < len(pack.shard_doc_ids) \
+                    and ord_ < len(pack.shard_doc_ids[shard]):
+                hits.append({"_id": pack.shard_doc_ids[shard][ord_],
+                             "_score": score})
+        out.append(hits)
+    return out

@@ -9,9 +9,10 @@ columnar hit assembly (``ColumnarHits`` / ``SplicedHits``).
 
 Every request that the reference hands to its planner path (a query
 outside the lowering subset, ``min_score``, from + size of 0 or above
-10,000, sort, aggregations, ``_source`` filtering, a filtered alias,
-knn, PIT, ...) raises ``NotLowerable``, a typed 400, because that path
-is not ported yet. Unlike the reference, a fault of the kernel path is
+10,000, sort, aggregations, a filtered alias, knn, PIT, ...) raises
+``NotLowerable``, a typed 400, because that path is not ported yet. A
+``_source`` list or tuple filters each hit's source, as the reference's
+kernel path does. Unlike the reference, a fault of the kernel path is
 not caught here: it reaches the client as a 5xx.
 """
 
@@ -27,6 +28,7 @@ from elasticsearch_tpu_torch.common.errors import (IllegalArgumentException,
                                                    IndexNotFoundException,
                                                    NotLowerable)
 from elasticsearch_tpu_torch.search import dsl
+from elasticsearch_tpu_torch.search.gpu_service import MAX_K
 from elasticsearch_tpu_torch.search.serializer import (ColumnarHits,
                                                        SplicedHits,
                                                        assemble_hits_list)
@@ -163,8 +165,6 @@ def search(indices, index_expr: Optional[str],
     size = int(params.get("size", body.get("size", 10)))
     from_ = int(params.get("from", body.get("from", 0)))
     source = body.get("_source", True)
-    if not isinstance(source, bool):
-        raise NotLowerable("_source filtering")
     if alias_filters:
         raise NotLowerable(f"filtered aliases {sorted(alias_filters)}")
     if params.get("timeout") is not None:
@@ -183,6 +183,10 @@ def _search_fast(indices, names: List[str], query: dsl.QueryNode,
                  seq_no_primary_term: bool = False) -> Dict[str, Any]:
     """Kernel-path query phase + columnar response assembly."""
     k = from_ + size
+    if k <= 0 or k > MAX_K:
+        # the reference hands such a request to its planner
+        raise NotLowerable(f"from + size = {k} is outside (0, {MAX_K}], "
+                           f"the kernel path's window")
     per_index = []
     n_shards_total = 0
     for name in names:

@@ -2,16 +2,24 @@
 micro-batched kernel.
 
 Counterpart of the reference's ``search/tpu_service.py`` for the main
-path on one card. A ``_search`` body goes:
+path. A ``_search`` body goes:
 
   parse_query → lower_query → MicroBatcher (8 / 64 / 128 query buckets)
-  → prepare_query_batch → sorted_merge_topk (the Hopper merge kernel for
-  packable weights) → cross-shard top-k → decode → hits response.
+  → prepare_query_batch → sorted_merge_topk on every device of the mesh
+  (the Hopper merge kernel for packable weights, the exact merge for the
+  others) → all-gather, totals sum and cross-shard top-k (shard_topk) →
+  decode → hits response.
+
+The service runs on a mesh (``parallel/mesh.py``): by default every
+visible GPU on the shards axis, the reference's ``(1, n_local_devices)``;
+``device=`` makes it a (1, 1) mesh of that device (the tests'
+``device="cpu"``).
 
   ResidentPack — one (index, field) StackedShardPack in the compressed
-    format, placed on the device (one pack row per segment, one
-    statistics group per index shard: the reference's query_then_fetch
-    scope), with the tables that resolve kernel hits to ``_id``s.
+    format, laid over the mesh (one pack row per segment, padded to a
+    multiple of the shards axis; one statistics group per index shard:
+    the reference's query_then_fetch scope), with the tables that
+    resolve kernel hits to ``_id``s.
   IndexPackCache — the node's resident packs, keyed on the identities of
     the shard readers they were built from (a refresh or merge swaps a
     reader, so the key changes exactly when the segments or live docs
@@ -26,9 +34,10 @@ path on one card. A ``_search`` body goes:
     reference's TpuSearchService.try_search), and a bare service of its
     own: create_index / index / refresh / search.
 
-A query outside the lowering subset raises ``NotLowerable``; the planner
-path that answers it in the reference comes with a later slice. Nothing
-here falls back: a fault of the kernel path reaches the caller.
+A query outside the lowering subset raises ``NotLowerable`` from
+``lower_query``; the planner path that answers it in the reference
+comes with a later slice. Nothing here falls back: a fault of the
+kernel path reaches the caller.
 """
 
 from __future__ import annotations
@@ -49,8 +58,10 @@ from elasticsearch_tpu_torch.indices.routing import shard_for
 from elasticsearch_tpu_torch.mapping import MapperService, TextFieldType
 from elasticsearch_tpu_torch.ops import merge_kernel
 from elasticsearch_tpu_torch.parallel import distributed as dist
-from elasticsearch_tpu_torch.parallel.device import resolve_device
+from elasticsearch_tpu_torch.parallel.mesh import (DATA_AXIS, SHARD_AXIS,
+                                                   Mesh, resolve_mesh)
 from elasticsearch_tpu_torch.search import dsl
+from elasticsearch_tpu_torch.search.query_phase import filter_source
 from elasticsearch_tpu_torch.search.planner import choose_kernel_variant
 
 #: window floor of the exact kernel (the reference's _PRUNE_WINDOW)
@@ -123,8 +134,18 @@ class FlatQuery:
     min_count: int
 
 
-def lower_query(query: dsl.QueryNode, mapper) -> Optional[FlatQuery]:
-    """QueryNode → FlatQuery, or None when the kernel cannot serve it."""
+def lower_query(query: dsl.QueryNode, mapper) -> FlatQuery:
+    """QueryNode → FlatQuery. Raises NotLowerable for a query the merge
+    kernel does not serve (the reference hands it to its planner)."""
+    flat = _lower(query, mapper)
+    if flat is None:
+        raise NotLowerable(f"[{query.query_name()}] query does not lower "
+                           f"to the merge kernel")
+    return flat
+
+
+def _lower(query: dsl.QueryNode, mapper) -> Optional[FlatQuery]:
+    """lower_query's rules: a FlatQuery, or None."""
     if isinstance(query, dsl.MatchQuery):
         ft = mapper.field_type(query.field)
         if not isinstance(ft, TextFieldType):
@@ -154,7 +175,7 @@ def lower_query(query: dsl.QueryNode, mapper) -> Optional[FlatQuery]:
         # single-field should-only bool of term/match clauses = weighted OR
         if query.must or query.must_not or query.filter:
             return None
-        subs = [lower_query(q, mapper) for q in query.should]
+        subs = [_lower(q, mapper) for q in query.should]
         if not subs or any(s is None for s in subs):
             return None
         fields = {s.field for s in subs}
@@ -182,11 +203,12 @@ def lower_query(query: dsl.QueryNode, mapper) -> Optional[FlatQuery]:
 
 @dataclasses.dataclass
 class ResidentPack:
-    """One (index, field) compressed pack on the device + provenance."""
+    """One (index, field) compressed pack on the mesh's devices +
+    provenance."""
 
     pack: dist.StackedShardPack
     streams: dist.CompressedStreams
-    device_arrays: Tuple[torch.Tensor, ...]
+    image: dist.MeshImage
     row_origin: List[Tuple[int, str]]   # pack row → (shard, segment name)
     row_segments: List[Segment]         # pack row → segment (for _source)
     row_offset: np.ndarray              # int64[S] into id_cat
@@ -201,8 +223,14 @@ class ResidentPack:
     #: more work for it, so nothing new holds its device arrays
     retired: bool = False
 
+    @property
+    def device_arrays(self) -> Tuple[torch.Tensor, ...]:
+        """The tensors of the image, once (one data row of the mesh)."""
+        return self.image.row_arrays()
+
     def nbytes_device(self) -> int:
-        """Bytes of the resident device image."""
+        """Bytes of the resident device image (a data axis's replicas
+        counted once, as the breaker charges them)."""
         return int(sum(t.numel() * t.element_size()
                        for t in self.device_arrays))
 
@@ -213,26 +241,27 @@ class ResidentPack:
         return self.id_cat[self.row_offset[rows] + ords]
 
 
-def place_pack(pack: dist.StackedShardPack, device: torch.device,
+def place_pack(pack: dist.StackedShardPack, mesh: Mesh,
                row_origin: List[Tuple[int, str]],
                row_segments: List[Segment], breaker=None,
                reader_key: Tuple[int, ...] = (),
                readers: Optional[Dict[int, Any]] = None) -> ResidentPack:
-    """Compress `pack` and place it on `device`. With a breaker, the
-    streams' device bytes are charged before the upload and refunded if
-    it raises. Raw (incompressible) packs and their pruned tiers come
-    with a later slice."""
+    """Compress `pack` and place it over `mesh`. With a breaker, the
+    streams' device bytes (the image once, as the
+    reference's cache charges it) are charged before the upload and
+    refunded if it raises. Raw (incompressible) packs and their pruned
+    tiers come with a later slice."""
     reason = dist.compress_pack_reason(pack)
     if reason is not None:
         raise NotLowerable(f"pack [{pack.field}] is not compressible "
-                           f"({reason}); raw packs are not served yet")
+                           f"({reason}): a raw pack", planner=False)
     streams = dist.build_compressed_streams(pack)
     hbm = streams.nbytes_device()
     if breaker is not None:
         breaker.add_estimate_bytes_and_maybe_break(
             hbm, label=f"pack[{pack.field}]")
     try:
-        arrays = dist.device_put_compressed(streams, device)
+        image = dist.device_put_compressed(streams, mesh)
     except Exception:
         if breaker is not None:
             breaker.release(hbm)
@@ -245,7 +274,7 @@ def place_pack(pack: dist.StackedShardPack, device: torch.device,
     for ids in pack.shard_doc_ids:
         id_cat[off: off + len(ids)] = ids
         off += len(ids)
-    return ResidentPack(pack, streams, arrays, row_origin, row_segments,
+    return ResidentPack(pack, streams, image, row_origin, row_segments,
                         row_offset, id_cat, reader_key=tuple(reader_key),
                         readers=dict(readers or {}), hbm_bytes=hbm)
 
@@ -260,8 +289,8 @@ class IndexPackCache:
     retires its batcher queue, whose reference would otherwise keep the
     device arrays alive)."""
 
-    def __init__(self, device: torch.device, breaker=None):
-        self.device = device
+    def __init__(self, mesh: Mesh, breaker=None):
+        self.mesh = mesh
         self._breaker = breaker
         self._lock = threading.Lock()
         self._cache: Dict[Tuple[str, str], ResidentPack] = {}
@@ -355,8 +384,10 @@ class IndexPackCache:
         reader = readers[0][1]
         pack = dist.build_stacked_pack(segments, field, live_docs=live,
                                        k1=reader.k1, b=reader.b,
-                                       row_groups=groups)
-        return place_pack(pack, self.device, row_origin, segments,
+                                       row_groups=groups,
+                                       pad_shards_to=_pad_rows(
+                                           len(segments), self.mesh))
+        return place_pack(pack, self.mesh, row_origin, segments,
                           breaker=self._breaker, reader_key=reader_key,
                           readers=dict(readers))
 
@@ -405,6 +436,12 @@ class FlatQueryResult:
         return cls(np.empty(0, dtype=np.float32), z, z, 0, None)
 
 
+def _pad_rows(n: int, mesh: Mesh) -> int:
+    """Pack rows padded to a multiple of the mesh's shards axis."""
+    n_sh = mesh.shape[SHARD_AXIS]
+    return (n + n_sh - 1) // n_sh * n_sh
+
+
 def _batch_bucket(n: int, cap: int) -> int:
     b = 1
     while b < n:
@@ -441,11 +478,14 @@ def _launch_exact(resident: ResidentPack, flats: Sequence[FlatQuery],
     (≥ 8) and chunk length (pinned CHUNK_CAP), as the reference pins
     them. Returns the launch state for _finish_exact."""
     pack = resident.pack
+    n_data = resident.image.mesh.shape[DATA_AXIS]
+    # a multiple of the data axis
+    bucket = (_serving_bucket(len(flats)) + n_data - 1) // n_data * n_data
     batch = dist.prepare_query_batch(
         pack, [f.terms for f in flats],
         boosts=[f.boost for f in flats],
         min_counts=[f.min_count for f in flats],
-        pad_batch_to=_serving_bucket(len(flats)),
+        pad_batch_to=bucket,
         pad_max_len=dist.CHUNK_CAP,
         compressed=resident.streams)
     t_pin = 8
@@ -453,7 +493,8 @@ def _launch_exact(resident: ResidentPack, flats: Sequence[FlatQuery],
         t_pin *= 2
     if t_pin > merge_kernel.T_LIMIT:
         raise NotLowerable(f"{batch.t_slots} posting slots per row exceed "
-                           f"the merge kernel's {merge_kernel.T_LIMIT}")
+                           f"the merge kernel's {merge_kernel.T_LIMIT}",
+                           planner=False)
     if t_pin > batch.t_slots:
         pad = ((0, 0), (0, 0), (0, t_pin - batch.t_slots))
         # zero-padded slots: length 0 ⇒ inert in grouping and rescore
@@ -466,7 +507,8 @@ def _launch_exact(resident: ResidentPack, flats: Sequence[FlatQuery],
             slot_terms=np.pad(batch.slot_terms, pad))
     variant = choose_kernel_variant(pack.d_pad, batch.weights)
     vals, gids, totals = dist.distributed_search_raw(
-        pack, batch, _kernel_k(k), resident.device_arrays,
+        pack, batch, _kernel_k(k), resident.image.mesh,
+        device_arrays=resident.image,
         t_window=max(MIN_T_WINDOW, batch.window), materialize=False,
         variant=variant)
     return {"resident": resident, "n": len(flats), "k": k, "vals": vals,
@@ -659,27 +701,28 @@ class _Index:
 
 
 class GpuSearchService:
-    """The kernel path of ``_search`` on one device (``cuda:0`` unless
-    ``device="cpu"``): ``try_search`` over a node's IndexService, through
-    the IndexPackCache (charged to `breaker`, the node's ``hbm``
-    breaker) and the micro-batcher; and create_index / index / refresh /
-    search over indices of its own."""
+    """The kernel path of ``_search`` over a mesh (``make_mesh()``: every
+    visible GPU on the shards axis; ``device=``: a (1, 1) mesh of that
+    device, ``device="cpu"`` the plain path): ``try_search`` over a
+    node's IndexService, through the IndexPackCache (charged to
+    `breaker`, the node's ``hbm`` breaker) and the micro-batcher; and
+    create_index / index / refresh / search over indices of its own."""
 
     def __init__(self, device=None, window_s: float = 0.005,
                  max_batch: int = 128, batch_timeout_s: float = 300.0,
-                 breaker=None):
-        self.device = resolve_device(device)
+                 breaker=None, mesh: Optional[Mesh] = None):
+        self.mesh = resolve_mesh(device, mesh)
         self.batch_timeout_s = batch_timeout_s
         self._indices: Dict[str, _Index] = {}
         self._lock = threading.Lock()
         self.batcher = MicroBatcher(self._execute, window_s=window_s,
                                     max_batch=max_batch)
-        self.packs = IndexPackCache(self.device, breaker)
+        self.packs = IndexPackCache(self.mesh, breaker)
         self.packs.on_evict = self.batcher.retire
         self.stages = StageTimes()
         self.served = 0
-        #: kernel variant → exact launches (compressed_exact is torch ops,
-        #: counted apart from the kernel)
+        #: kernel variant → trains (compressed: the fused merge kernel;
+        #: compressed_exact: the exact merge, for unpackable weights)
         self.variant_launches: Dict[str, int] = {}
         self.launch_shapes: Dict[Tuple[int, int, int], int] = {}
 
@@ -764,9 +807,10 @@ class GpuSearchService:
                     origin.append((shard, seg.name))
             if not segments:
                 return None
-            pack = dist.build_stacked_pack(segments, field,
-                                           row_groups=groups)
-            entry = place_pack(pack, self.device, origin, segments)
+            pack = dist.build_stacked_pack(
+                segments, field, row_groups=groups,
+                pad_shards_to=_pad_rows(len(segments), self.mesh))
+            entry = place_pack(pack, self.mesh, origin, segments)
             idx.packs[field] = entry
             return entry
 
@@ -790,19 +834,18 @@ class GpuSearchService:
     def try_search(self, index_service, query: dsl.QueryNode, *,
                    k: int) -> FlatQueryResult:
         """The kernel result of `query` over `index_service` (k = from +
-        size, the window the coordinator needs). Raises NotLowerable where
-        the reference hands the query to its planner; a fault of the
-        kernel path (or a batch that outlives the wait) reaches the
-        caller."""
+        size, the window the coordinator needs, which checks it against
+        MAX_K). Raises lower_query's NotLowerable where the reference
+        hands the query to its planner; a fault of the kernel path (or a
+        batch that outlives the wait) reaches the caller."""
         if k <= 0 or k > MAX_K:
-            raise NotLowerable(f"from + size = {k} is outside (0, "
-                               f"{MAX_K}], the kernel path's window")
+            raise ValueError(f"k = {k} is outside (0, {MAX_K}]")
         t0 = time.perf_counter()
-        flat = lower_query(query, index_service.mapper)
-        if flat is None:
+        try:
+            flat = lower_query(query, index_service.mapper)
+        except NotLowerable:
             self.stages.add("lower", time.perf_counter() - t0)
-            raise NotLowerable(f"[{query.query_name()}] query does not "
-                               f"lower to the merge kernel")
+            raise
         while True:
             resident = self.packs.get(index_service, flat.field)
             t1 = time.perf_counter()
@@ -845,9 +888,6 @@ class GpuSearchService:
         size = int(body.get("size", 10))
         from_ = int(body.get("from", 0))
         source = body.get("_source", True)
-        if not isinstance(source, bool):
-            raise NotLowerable("_source filtering is not served by the "
-                               "device path")
         k = from_ + size
         if k <= 0 or k > MAX_K:
             # refused on every device alike, before it joins a train (the
@@ -855,9 +895,6 @@ class GpuSearchService:
             raise NotLowerable(f"from + size = {k} is outside (0, "
                                f"{MAX_K}], the device path's window")
         flat = lower_query(query, idx.mapper)
-        if flat is None:
-            raise NotLowerable(f"[{query.query_name()}] query does not "
-                               f"lower to the merge kernel")
         while True:
             resident = self.resident(name, flat.field)
             if resident is None:
@@ -879,8 +916,11 @@ class GpuSearchService:
                                     ords.tolist()):
                 hit: Dict[str, Any] = {"_index": name, "_id": i,
                                        "_score": s}
-                if source:
-                    hit["_source"] = segs[row].stored_source[o]
+                if source is not False:
+                    src = segs[row].stored_source[o]
+                    if isinstance(source, (list, tuple)):
+                        src = filter_source(src or {}, list(source))
+                    hit["_source"] = src
                 hits.append(hit)
         n_shards = idx.num_shards
         return {

@@ -33,6 +33,7 @@ from collections.abc import Sequence
 from typing import Any, Dict, List, Optional, Tuple
 
 from elasticsearch_tpu_torch import native
+from elasticsearch_tpu_torch.search.query_phase import filter_source
 
 __all__ = ["ColumnarHits", "SplicedHits", "SpliceColumns",
            "assemble_hits_list", "dumps_response", "hits_columns_from_dicts",
@@ -47,8 +48,9 @@ def assemble_hits_list(name: str, resident, scores, rows, ords, source,
     """Columnar window → response hit dicts (the materialized form).
     ids via one fancy-index; stored fields (when requested) read
     directly from the segments the pack was scored against (same
-    snapshot contract as the fetch phase). `source` is a bool: source
-    filtering is refused before the kernel path."""
+    snapshot contract as the fetch phase). `source` is the body's
+    ``_source``: a list or tuple filters the stored source, False drops
+    it, any other value returns it whole."""
     if resident is None or len(scores) == 0:
         return []
     ids = resident.resolve_ids(rows, ords).tolist()
@@ -64,7 +66,10 @@ def assemble_hits_list(name: str, resident, scores, rows, ords, source,
         doc: Dict[str, Any] = {"_index": name, "_id": i, "_score": s}
         seg = segs[row]
         if source is not False:
-            doc["_source"] = seg.stored_source[o]
+            src = seg.stored_source[o]
+            if isinstance(source, (list, tuple)):
+                src = filter_source(src or {}, list(source))
+            doc["_source"] = src
         if version:
             doc["_version"] = int(seg.doc_versions[o])
         if seq_no_primary_term:

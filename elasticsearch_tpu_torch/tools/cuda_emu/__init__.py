@@ -1,5 +1,7 @@
 """Run the merge kernels' CUDA source on the CPU, for rehearsing a kernel
-edit where there is no nvcc and no card.
+edit where there is no nvcc and no card. The source holds all seven
+kernels: the five of the fused merge, shard_topk and exact_merge
+(reached through ``merge_kernel._launch_topk`` / ``_launch_exact``).
 
 ``csrc/merge_topk.cu`` is rewritten into plain C++ against ``emu.h`` (a
 host shim of the CUDA subset the kernels use: each CUDA thread a fiber

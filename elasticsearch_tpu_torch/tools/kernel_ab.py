@@ -48,7 +48,7 @@ def main() -> int:
 
     corpus = corpus_mod.generate(cs.N_DOCS, vocab_size=cs.VOCAB,
                                  num_queries=cs.N_QUERIES, seed=cs.SEED)
-    svc = GpuSearchService(max_batch=128)
+    svc = GpuSearchService(device="cuda:0", max_batch=128)
     try:
         cs.build_index(svc, cs.INDEX, corpus, cs.N_DOCS, cs.SHARDS)
         bodies = cs.make_bodies(corpus)[:128]
@@ -95,7 +95,7 @@ def main() -> int:
 
 
 KERNELS = ("slot_decode", "row_pack", "row_sort", "run_sum",
-           "select_rescore")
+           "select_rescore", "shard_topk", "exact_merge")
 
 
 def profiled(fn, n):

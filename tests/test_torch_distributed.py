@@ -3,7 +3,9 @@
 The same segments (built by the reference's SegmentWriter) give the
 reference's StackedShardPack; convert.py carries its fields across, and
 build_compressed_streams → prepare_query_batch → the local search step
-run on both sides. Vals (as uint32), global ids and totals must equal
+run on both sides (the reference's one-device step; the port's
+distributed_search_raw on a (1, 1) CPU mesh, the path its service runs).
+Vals (as uint32), global ids and totals must equal
 dist.make_local_search(variant="pallas"): padding rows, tombstones, AND
 counts and a 32-term window. The port's own SegmentWriter and bulk
 token-id builder are held equal to the reference's segments too.
@@ -26,6 +28,7 @@ from elasticsearch_tpu_torch.index.segment import (SegmentWriter,
                                                    segment_from_token_ids)
 from elasticsearch_tpu_torch.mapping import MapperService
 from elasticsearch_tpu_torch.parallel import distributed as tdist
+from elasticsearch_tpu_torch.parallel.mesh import make_mesh
 
 torch.set_num_threads(1)
 
@@ -114,9 +117,9 @@ def run_both(segments, queries, *, k, min_counts=None, pad_batch_to=None,
                                      ("starts", "lengths", "weights",
                                       "res_starts", "res_lens",
                                       "slot_terms", "min_count")), *bases)
+    mesh = make_mesh(["cpu"])
     tv, tg, tt = tdist.distributed_search_raw(
-        tpack, tbatch, k, tdist.device_put_compressed(
-            tstreams, torch.device("cpu")),
+        tpack, tbatch, k, mesh, tdist.device_put_compressed(tstreams, mesh),
         t_window=window, variant="compressed")
     np.testing.assert_array_equal(tv.view(np.uint32),
                                   np.asarray(jv).view(np.uint32))

@@ -30,6 +30,10 @@ NODE_MODULES = [
     "elasticsearch_tpu_torch.index.shard",
     "elasticsearch_tpu_torch.indices.service",
     "elasticsearch_tpu_torch.search.coordinator",
+    "elasticsearch_tpu_torch.search.query_phase",
+    "elasticsearch_tpu_torch.search.dsl",
+    "elasticsearch_tpu_torch.parallel.mesh",
+    "elasticsearch_tpu_torch.parallel.distributed",
     "elasticsearch_tpu_torch.search.serializer",
     "elasticsearch_tpu_torch.rest.controller",
     "elasticsearch_tpu_torch.rest.actions.admin",

@@ -264,3 +264,82 @@ def test_service_on_card_matches_cpu_up_to_size_10000(cuda):
         finally:
             svc.close()
     assert out["cuda"] == out["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# shard_topk and the exact merge
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,shards,per_shard,k", [
+    (128, 16, 128, 128), (128, 16, 1024, 1024), (16, 16, 16384, 16384),
+    (4, 3, 50, 400)])
+def test_shard_topk_matches_plain(cuda, b, shards, per_shard, k):
+    """The chip_smoke train's gather ([128, 16 x 1024] at kernel k 1024),
+    kernel k 128, kernel k 16,384 (finalists past the shared-memory
+    sort: the device class) and k past the row's width: values as
+    uint32, positions exactly; a row of -inf only among them."""
+    rng = np.random.default_rng(b + per_shard)
+    vals = cases.gathered_rows(rng, b, shards, per_shard, 40, step=0.125)
+    vals[0] = -np.inf
+    t = torch.from_numpy(vals).to(cuda)
+    stats = {}
+    got = merge_kernel.shard_topk(t, k, stats=stats)
+    torch.cuda.synchronize()
+    want = merge_kernel.shard_topk_plain(t, k)
+    np.testing.assert_array_equal(got[0].cpu().numpy().view(np.uint32),
+                                  want[0].cpu().numpy().view(np.uint32))
+    np.testing.assert_array_equal(got[1].cpu().numpy(),
+                                  want[1].cpu().numpy())
+    big = 1 << max(0, (min(k, vals.shape[1]) - 1).bit_length())
+    cls = "device" if big > merge_kernel.TOPK_SORT_CAP else "shared"
+    assert stats["topk_classes"][f"shard_topk.{cls}"] == b
+
+
+@pytest.mark.parametrize("weight", [1e-15, -2.0, "mixed"])
+@pytest.mark.parametrize("chunk_cap", [64, 4096])
+def test_exact_merge_matches_plain(cuda, weight, chunk_cap):
+    """sorted_merge_topk(variant="compressed_exact") on the card launches
+    exact_merge and shard_topk and equals the plain pipeline bit for bit:
+    random rows (OR, msm, AND) with weights packable() refuses, and long
+    skewed postings whose rows pass the shared-memory sort."""
+    rng = np.random.default_rng(61 + chunk_cap)
+    cases_ = [cases.make_case(rng) for _ in range(4)]
+    fd, fi, ext = cases.make_heavy_flat(rng, 60000, [30000, 20000, 900])
+    heavy_rows = [[(ext[t][0], ext[t][1], 1.0, t) for t in range(3)],
+                  [(ext[t][0], ext[t][1], 1.0, t) for t in (0, 2)]]
+    cases_.append((fd, fi, heavy_rows, [1, 2], 60000, 1000, ext))
+    for fd, fi, rows, mins, d_pad, k, ext in cases_:
+        def w_of(w, t):
+            if weight == "mixed":
+                return w * (-1.0 if t % 2 else 1e-13)
+            return w * weight if weight == 1e-15 else weight
+        rows = [[(s, n, w_of(w, t), t) for s, n, w, t in row]
+                for row in rows]
+        pos, extra, static = cases.kernel_args(fd, fi, rows, mins, d_pad,
+                                               ext, chunk_cap=chunk_cap)
+        assert not sparse.packable(d_pad, pos[4])
+        tpos = cases.to_torch(pos, cuda)
+        tex = cases.to_torch(extra, cuda)
+        for kk in (k, 16384):
+            for with_totals in (True, False):
+                kw = dict(static, k=kk, with_totals=with_totals, **tex)
+                before = dict(merge_kernel.LAUNCHES)
+                got = sparse.sorted_merge_topk(
+                    *tpos, variant="compressed_exact", **kw)
+                torch.cuda.synchronize()
+                assert merge_kernel.LAUNCHES["exact_merge"] == \
+                    before["exact_merge"] + 1
+                assert merge_kernel.LAUNCHES["shard_topk"] == \
+                    before["shard_topk"] + 1
+                want = merge_kernel.exact_merge_topk_plain(*tpos, **kw)
+                cases.assert_bitwise(got, want, f"w={weight} k={kk}")
+
+
+def test_hierarchical_top_k_routes_cuda_to_shard_topk(cuda):
+    t = torch.randn(4, 300, device=cuda)
+    before = merge_kernel.LAUNCHES["shard_topk"]
+    v, p = sparse.hierarchical_top_k(t, 17)
+    torch.cuda.synchronize()
+    assert merge_kernel.LAUNCHES["shard_topk"] == before + 1
+    wv, wp = sparse.top_k_plain(t, 17)
+    assert torch.equal(v, wv) and torch.equal(p, wp)

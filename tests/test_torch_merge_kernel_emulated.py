@@ -474,3 +474,141 @@ def test_launch_refuses_what_the_kernels_do_not_take(emulated, fault):
     with pytest.raises(ValueError, match=match):
         run_pair(pos, extra, static, k)
     assert merge_kernel.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# shard_topk and the exact merge
+# ---------------------------------------------------------------------------
+
+def run_topk_pair(vals, k):
+    """(emulated shard_topk, plain version, stats) on a CPU [B, N]."""
+    t = torch.from_numpy(vals)
+    stats = {}
+    got = merge_kernel._launch_topk(t, k, stats=stats, events=None)
+    return got, merge_kernel.shard_topk_plain(t, k), stats
+
+
+def assert_topk_equal(got, want, msg=""):
+    np.testing.assert_array_equal(got[0].numpy().view(np.uint32),
+                                  want[0].numpy().view(np.uint32),
+                                  err_msg=msg)
+    np.testing.assert_array_equal(got[1].numpy(), want[1].numpy(),
+                                  err_msg=msg)
+
+
+@pytest.mark.parametrize("case", ["ties_across_shards", "all_neg_inf",
+                                  "k_above_sort_cap", "k_above_width",
+                                  "signed_zeros"])
+def test_shard_topk_matches_plain(emulated, case, monkeypatch):
+    """The kernel's values (as uint32) and positions equal the stable
+    descending sort's: equal scores of several shards in ascending
+    position, rows of -inf only, finalists past the shared-memory sort
+    (the device class), k past the row's width, and -0.0 beside +0.0."""
+    rng = np.random.default_rng(90)
+    if case == "ties_across_shards":
+        vals, ks = cases.gathered_rows(rng, 3, 8, 40, 6), (1, 7, 40, 130)
+    elif case == "all_neg_inf":
+        vals = cases.gathered_rows(rng, 3, 4, 30, 5)
+        vals[1] = -np.inf
+        ks = (10, 120)
+    elif case == "k_above_sort_cap":
+        monkeypatch.setattr(merge_kernel, "TOPK_SORT_CAP", 64)
+        vals, ks = cases.gathered_rows(rng, 2, 8, 64, 9), (65, 200, 512)
+    elif case == "k_above_width":
+        vals, ks = cases.gathered_rows(rng, 2, 3, 10, 4), (31, 100)
+    else:
+        vals = np.array([[0.0, -0.0, 1.5, -0.0, 0.0, -1.0, -np.inf, 1.5]],
+                        dtype=np.float32)
+        ks = (3, 8)
+    for k in ks:
+        got, want, stats = run_topk_pair(vals, k)
+        assert_topk_equal(got, want, f"{case} k={k}")
+    if case == "k_above_sort_cap":
+        assert stats["topk_classes"]["shard_topk.device"] == 2
+    elif case == "ties_across_shards":
+        assert stats["topk_classes"]["shard_topk.shared"] == 3
+
+
+def run_exact_pair(pos, extra, static, k, with_totals=True):
+    """(emulated exact merge, its plain version, stats) on CPU
+    operands."""
+    tpos = cases.to_torch(pos)
+    kw = dict(static, k=k, with_totals=with_totals,
+              **cases.to_torch(extra))
+    stats = {}
+    got = merge_kernel._launch_exact(*tpos, stats=stats, events=None, **kw)
+    return got, merge_kernel.exact_merge_topk_plain(*tpos, **kw), stats
+
+
+def unpackable(rows, weight):
+    """The rows with every slot weight replaced by `weight` (a value
+    packable() refuses), or scaled by it when it is a tiny boost."""
+    return [[(s, n, weight, t) for s, n, _, t in row] for row in rows]
+
+
+@pytest.mark.parametrize("case", ["tiny_boost", "negative", "mixed_sign",
+                                  "tie_heavy", "delta", "device_rows"])
+def test_exact_merge_matches_plain(emulated, case):
+    """compressed_exact's kernel path against merge_topk_core(variant=
+    "compressed_exact"): scores as uint32, docs and totals exactly, with
+    and without totals. Weights packable() refuses (1e-15, negative:
+    every total ≤ 0, no candidate; mixed signs: lanes that cancel), tied
+    exact scores (ordered by doc), the u8 delta doc stream, msm rows, and
+    rows longer than the shared-memory sort (the device class)."""
+    rng = np.random.default_rng(95)
+    if case == "device_rows":
+        d_pad = 12000
+        fd, fi, ext = cases.make_heavy_flat(rng, d_pad, [5000, 4000, 300])
+        rows = [[(ext[t][0], ext[t][1], 1e-15 * (t + 1), t)
+                 for t in range(3)],
+                [(ext[t][0], ext[t][1], 2e-15, t) for t in (0, 2)]]
+        mins = [1, 2]
+        chunk_cap = 4096
+    else:
+        fd, fi, rows, mins, d_pad, _, ext = cases.make_case(
+            rng, tie_heavy=case == "tie_heavy")
+        rows = rows + [rows[0][:2]]
+        mins = mins + [2]
+        chunk_cap = 64
+        if case == "tiny_boost":
+            rows = [[(s, n, w * 1e-15, t) for s, n, w, t in row]
+                    for row in rows]
+        elif case == "negative":
+            rows = unpackable(rows, -1.5)
+        elif case == "mixed_sign":
+            rows = [[(s, n, (-1.0 if t % 2 else 1.0) * w, t)
+                     for s, n, w, t in row] for row in rows]
+        elif case == "tie_heavy":
+            rows = unpackable(rows, 1e-15)
+    delta = True if case == "delta" else (False if case != "device_rows"
+                                          else None)
+    if case == "delta":
+        d_pad = 250
+        fd, fi, ext = cases.make_flat(rng, 5, d_pad, 200)
+        rows = [[(ext[t][0], ext[t][1], -0.5 + t, t) for t in range(5)],
+                [(ext[t][0], ext[t][1], 1e-14, t) for t in (1, 3)]]
+        mins = [1, 2]
+    pos, extra, static = cases.kernel_args(fd, fi, rows, mins, d_pad, ext,
+                                           chunk_cap=chunk_cap, delta=delta)
+    if case == "delta":
+        assert "doc_bases" in extra
+    merge_kernel.reset_launches()
+    n_valid = 0
+    for k in (5, 300):
+        for with_totals in (True, False):
+            got, want, stats = run_exact_pair(pos, extra, static, k,
+                                              with_totals)
+            cases.assert_bitwise(got, want, f"{case} k={k}")
+            n_valid += int((got[0] > float("-inf")).sum())
+    assert merge_kernel.LAUNCHES["exact_merge"] == 4
+    assert merge_kernel.LAUNCHES["shard_topk"] == 4
+    classes = stats["exact_classes"]
+    if case == "device_rows":
+        assert classes["exact.device"] >= 1
+    else:
+        assert classes["exact.shared"] == len(rows)
+    if case == "negative":
+        assert n_valid == 0 and not got[0].isfinite().any()
+    else:
+        assert n_valid > 0
+

@@ -25,6 +25,7 @@ from elasticsearch_tpu.node import Node as RefNode
 from elasticsearch_tpu.search.serializer import dumps_response as ref_dumps
 
 from elasticsearch_tpu_torch.node import Node, serve
+from elasticsearch_tpu_torch.parallel.mesh import make_mesh
 from elasticsearch_tpu_torch.search import gpu_service
 from elasticsearch_tpu_torch.search.serializer import dumps_response
 
@@ -51,13 +52,19 @@ def call(node, dumps, method, path, body=None, raw=None, params=None):
 
 
 class Pair:
-    def __init__(self, ref, port):
+    def __init__(self, ref, port, mesh_port=None):
         self.ref = ref
         self.port = port
         self.log = []   # (label, reference answer, port answer)
+        #: a second port node over a (1, 4) CPU mesh: it takes every
+        #: request while `mirror` is on (the fixture's writes) and those
+        #: sent with mesh=True; its answers go to mesh_log
+        self.mesh_port = mesh_port
+        self.mirror = mesh_port is not None
+        self.mesh_log = []
 
     def both(self, method, path, body=None, raw=None, params=None,
-             kernel=False):
+             kernel=False, mesh=False):
         served = self.ref.tpu_search.served
         want = call(self.ref, ref_dumps, method, path, body, raw, params)
         if kernel:
@@ -66,6 +73,10 @@ class Pair:
         got = call(self.port, dumps_response, method, path, body, raw,
                    params)
         self.log.append((f"{method} {path}", want, got))
+        if self.mesh_port is not None and (self.mirror or mesh):
+            self.mesh_log.append((f"{method} {path}", want, call(
+                self.mesh_port, dumps_response, method, path, body, raw,
+                params)))
         return want, got
 
 
@@ -74,7 +85,9 @@ def pair(tmp_path_factory):
     ref = RefNode(str(tmp_path_factory.mktemp("ref")),
                   settings=RefSettings.of(REF_SETTINGS))
     port = Node(str(tmp_path_factory.mktemp("port")), device="cpu")
-    p = Pair(ref, port)
+    mesh_port = Node(str(tmp_path_factory.mktemp("mesh")),
+                     mesh=make_mesh(["cpu"] * 4, (1, 4)))
+    p = Pair(ref, port, mesh_port)
     docs = make_docs()
     try:
         for name in ("corpus", "merged"):
@@ -105,9 +118,11 @@ def pair(tmp_path_factory):
         p.both("POST", "/other/_bulk", raw=bulk_ndjson(
             [(f"o{i}", src) for i, (_, src) in enumerate(make_docs(60, 7))]))
         p.both("POST", "/other/_refresh")
+        p.mirror = False
         yield p
     finally:
         port.close()
+        mesh_port.close()
         ref.close()
 
 
@@ -131,6 +146,25 @@ def test_search_bytes_match_reference(pair, body, source):
     assert got == want
 
 
+@pytest.mark.parametrize("source", [True, False], ids=["source", "nosource"])
+@pytest.mark.parametrize("body", PARITY_BODIES,
+                         ids=[f"body{i}" for i in range(len(PARITY_BODIES))])
+def test_mesh_node_search_bytes_match_reference(pair, body, source):
+    """The node laid over a (1, 4) CPU mesh (its 3-shard index padded to
+    4 pack rows a segment set, each column's shards searched on their own
+    entry, the lists gathered in column order): the reference's bytes,
+    and its writes' bytes too."""
+    want, _ = pair.both("POST", "/corpus/_search",
+                        dict(body, _source=source), kernel=True, mesh=True)
+    label, mesh_want, got = pair.mesh_log[-1]
+    assert mesh_want is want and want[0] == 200, want
+    assert got == want
+    assert pair.mesh_port.gpu_search.mesh.shape["shards"] == 4
+    for label, want, got in pair.mesh_log:
+        if label.split(" ")[1].split("/")[-1] != "_search":
+            assert got == want, label
+
+
 @pytest.mark.parametrize("body", PARITY_BODIES[:4] + PARITY_BODIES[6:],
                          ids=[f"body{i}" for i in (0, 1, 2, 3, 6, 7, 8)])
 def test_search_after_forcemerge_and_deletes_matches_reference(pair, body):
@@ -142,7 +176,46 @@ def test_search_after_forcemerge_and_deletes_matches_reference(pair, body):
     assert got == want
 
 
-@pytest.mark.parametrize("source", [True, False], ids=["source", "nosource"])
+#: `_source` values other than a bool, on a lowerable match: the
+#: reference's kernel path filters a list (``[]`` gives ``{}``) and
+#: returns the whole source for every other value but false
+SOURCE_VALUES = {"source_filter": ["body"], "source_empty_list": [],
+                 "source_null": None, "source_string": "body",
+                 "source_string_false": "false", "source_object": {}}
+
+
+@pytest.mark.parametrize("name", sorted(SOURCE_VALUES))
+def test_source_values_match_reference(pair, name):
+    body = {"query": {"match": {"body": "alpha beta"}}, "size": 12,
+            "_source": SOURCE_VALUES[name]}
+    want, got = pair.both("POST", "/corpus/_search", body, kernel=True)
+    assert want[0] == 200, want
+    assert got == want
+
+
+#: bodies the reference's query grammar refuses (parsing_exception):
+#: an unknown query name, and known names with malformed bodies
+GRAMMAR_ERRORS = {
+    "unknown_query": {"query": {"no_such_query": {}}},
+    "range_not_object": {"query": {"range": {"body": 5}}},
+    "exists_no_field": {"query": {"exists": {}}},
+    "ids_not_object": {"query": {"ids": 3}},
+    "bool_malformed_clause": {"query": {"bool": {"should": [
+        {"match": {"body": "alpha"}},
+        {"match": {"body": {"operator": "and"}}}]}}},
+}
+
+
+@pytest.mark.parametrize("name", sorted(GRAMMAR_ERRORS))
+def test_query_grammar_errors_match_reference(pair, name):
+    want, got = pair.both("POST", "/corpus/_search", GRAMMAR_ERRORS[name])
+    assert want[0] == 400, want
+    assert json.loads(want[1])["error"]["type"] == "parsing_exception"
+    assert got == want
+
+
+@pytest.mark.parametrize("source", [True, False, ["body"]],
+                         ids=["source", "nosource", "filtered"])
 def test_two_index_search_matches_reference(pair, source):
     body = {"query": {"match": {"body": "alpha beta gamma"}}, "size": 50,
             "_source": source}
@@ -254,8 +327,6 @@ PLANNER_BOUND = {
     "sort": {"query": {"match": {"body": "alpha"}}, "sort": ["_score"]},
     "aggs": {"query": {"match": {"body": "alpha"}},
              "aggs": {"n": {"value_count": {"field": "body"}}}},
-    "source_filter": {"query": {"match": {"body": "alpha"}},
-                      "_source": ["body"]},
     "knn": {"knn": {"field": "v", "query_vector": [1.0], "k": 1,
                     "num_candidates": 1}},
     "pit": {"query": {"match": {"body": "alpha"}},

@@ -266,3 +266,42 @@ def test_too_many_slots_refused():
         assert got["hits"]["total"]["value"] == 2
     finally:
         svc.close()
+
+
+#: bodies whose slot weights fail packable(): boost 1e-15 puts
+#: idf·(k1+1)·boost below PACKED_WEIGHT_MIN, a negative boost makes the
+#: weights negative (every total ≤ 0: no hits)
+UNPACKABLE_BODIES = [
+    {"query": {"match": {"body": {"query": "alpha beta gamma",
+                                  "boost": 1e-15}}}, "size": 30},
+    {"query": {"match": {"body": {"query": "beta gamma delta zeta",
+                                  "minimum_should_match": 2,
+                                  "boost": 1e-15}}}},
+    {"query": {"terms": {"body": ["theta", "iota"], "boost": 1e-15}}},
+    {"query": {"match": {"body": {"query": "alpha beta",
+                                  "boost": -1.0}}}},
+]
+
+
+@pytest.mark.parametrize("body", UNPACKABLE_BODIES,
+                         ids=[f"body{i}" for i in
+                              range(len(UNPACKABLE_BODIES))])
+def test_unpackable_weights_take_the_exact_variant_on_both_sides(
+        both, body, monkeypatch):
+    """The reference routes these bodies to compressed_exact (its
+    dist.distributed_search_raw sees variant="compressed_exact"); the
+    port does too, and answers the same bytes."""
+    ref, tpu, port = both
+    seen = []
+    real = jax_tpu.dist.distributed_search_raw
+
+    def spy(*a, **kw):
+        seen.append(kw.get("variant"))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(jax_tpu.dist, "distributed_search_raw", spy)
+    want = reference_search(ref, tpu, body)
+    assert seen == ["compressed_exact"]
+    before = port.variant_launches.get("compressed_exact", 0)
+    assert_same_response(want, port.search("corpus", dict(body)))
+    assert port.variant_launches["compressed_exact"] == before + 1

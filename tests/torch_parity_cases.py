@@ -171,6 +171,19 @@ def make_tie_heavy_full_case(rng, df=32768, d_pad=60000):
     return fd, fi, rows, [1, 2], d_pad, ext
 
 
+def gathered_rows(rng, b, shards, per_shard, levels, step=0.25):
+    """[b, shards * per_shard] f32 as the cross-shard top-k gets it: each
+    shard's list descending with a -inf tail, scores on a grid of
+    `levels` multiples of `step`, so equal scores meet across shards."""
+    out = np.full((b, shards * per_shard), -np.inf, dtype=np.float32)
+    for r in range(b):
+        for s in range(shards):
+            n = int(rng.integers(0, per_shard + 1))
+            v = np.sort(rng.integers(1, levels + 1, n))[::-1] * step
+            out[r, s * per_shard: s * per_shard + n] = v
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the node parity corpus: documents with _ids d{i} and the search bodies
 # both nodes answer
