@@ -41,13 +41,17 @@ device mesh through the collective tail, and checks:
                  before: compressed_exact trains (> 0, and no compressed
                  one), exact_merge and shard_topk launches (> 0), every
                  exact launch's outputs against the plain version bit for
-                 bit (both size classes taken), every train's shard_topk,
-                 and sampled hits against the oracle times the boost
+                 bit (the merge and parts classes taken; the rows of
+                 each class from the launch run again with stats), every
+                 train's shard_topk, and sampled hits against the oracle
+                 times the boost
   mesh           the service on make_mesh() pinned to cuda:0, shape
                  (1, 1): the e2e bodies through the NCCL all_gather and
                  all_reduce at world size 1 (calls counted), its hits
-                 equal to the e2e run's bit for bit; the cards the
-                 machine shows and the one used
+                 equal to the e2e run's bit for bit; the collective
+                 tail's ms per train (CUDA events around each nccl call)
+                 beside its bytes bound; the cards the machine shows and
+                 the one used
   trace          the same traffic again with stage timers and
                  torch.profiler: each request's lowering, wait in the
                  batcher (window and queue), train execution and
@@ -55,10 +59,13 @@ device mesh through the collective tail, and checks:
   kernels_extra  the five kernels' ms (median of 5, CUDA events) and
                  device ms (mean of 5, torch.profiler) at the stop-word,
                  from + size 10,000 and size-10 launches, each one train
-                 of its bodies, with the slots slot_decode selects in
+                 of its bodies, with the slots slot_decode selects in,
+                 and the k10000 gather's shape (timed in kernels)
   kernels        one JSON line: per kernel (the five merge kernels,
-                 shard_topk on the fixed train's gather, exact_merge on
-                 the fixed train's bodies with boost 1e-15), median ms
+                 shard_topk on the fixed train's gather and on the
+                 k10000 train's (kernel k 16,384, the device class),
+                 exact_merge on the fixed train's bodies with boost 1e-15,
+                 also at each window cap), median ms
                  over >= 20 timed
                  launches (CUDA events around each launch: a launch the
                  device waits for counts its wait) and device_ms (mean
@@ -73,7 +80,8 @@ device mesh through the collective tail, and checks:
                  library_of says why), torch.topk as shard_topk's and a
                  stable torch.sort of the lanes' (row, doc) keys as
                  exact_merge's, the size classes the rows of the timed
-                 launch took, and the slots slot_decode selected in
+                 launch took, the blocks per SM of the newer kernels, and
+                 the slots slot_decode selected in
 
   rest           the node over HTTP on the card (the path users call; its
                  mesh pinned to cuda:0):
@@ -133,6 +141,12 @@ EXACT_BOOST = 1e-15
 MAIN_KERNELS = ("slot_decode", "row_pack", "row_sort", "run_sum",
                 "select_rescore", "shard_topk")
 EXACT_KERNELS = ("exact_merge", "shard_topk")
+#: the exact merge's classes the exact phase's rows must take (a row of
+#: one window and a row cut into parts; the radix class takes a row only
+#: when one of its slots' docs descend)
+EXACT_REQUIRED = ("exact.merge", "exact.parts")
+#: window caps (lanes) at which the kernels line also times exact_merge
+EXACT_WINDOW_CAPS = (1024, 2048, 4096, 8192)
 KERNEL_SOURCE = "elasticsearch_tpu_torch/csrc/merge_topk.cu"
 #: the size-class counters (merge_kernel.SIZE_CLASSES) of each kernel
 CLASSES_OF = {"slot_decode": ("slot_decode",), "row_pack": ("row_pack",),
@@ -321,16 +335,18 @@ def check_exact_launches(mk, launches):
     n = 0
     while launches:
         args, kw, got = launches.pop()
-        lanes = args[3].clamp(min=0).sum(dim=1)
-        device_rows = int((lanes > mk.exact_smem_items()).sum())
-        classes["exact.device"] += device_rows
-        classes["exact.shared"] += lanes.numel() - device_rows
+        # the rows each class took: the launch again with stats (after
+        # the counted run), which must give the recorded outputs
+        stats = {}
+        again = mk.exact_merge_topk(*args, **dict(kw, stats=stats))
+        for name, rows in stats["exact_classes"].items():
+            classes[name] += rows
         want = mk.exact_merge_topk_plain(*args, **kw)
         torch.cuda.synchronize()
         same, err = bitwise_equal(list(got), list(want))
         r, t = args[2].shape
         key = f"R{r}xT{t}k{kw['k']}"
-        if not same:
+        if not same or not bitwise_equal(list(again), list(got))[0]:
             raise AssertionError(f"exact merge != plain at {key}, "
                                  f"max_abs_err {err}")
         shapes[key] = shapes.get(key, 0) + 1
@@ -381,7 +397,7 @@ def exact_phase(svc, mk, corpus, bodies, segments, stop_bodies):
         raise AssertionError(f"kernels not launched on the exact path: "
                              f"{zero}")
     parity = check_exact_launches(mk, rec.launches)
-    if not all(parity["size_classes"].values()):
+    if not all(parity["size_classes"][c] for c in EXACT_REQUIRED):
         raise AssertionError(f"an exact size class took no row: "
                              f"{parity['size_classes']}")
     topk = check_topk_calls(mk, top.calls)
@@ -420,11 +436,25 @@ def mesh_phase(segments, bodies, mk, e2e_responses):
     svc = GpuSearchService(mesh=mesh, max_batch=128)
     calls = {"all_gather": 0, "all_reduce": 0}
     saved = {name: getattr(nccl, name) for name in calls}
+    timed = []   # (name, start event, end event, bytes moved)
+
+    def nbytes(tensors):
+        return sum(t.numel() * t.element_size() for t in tensors or ())
 
     def counted(name):
-        def call(*a, **kw):
+        def call(inputs, outputs=None, *a, **kw):
             calls[name] += 1
-            return saved[name](*a, **kw)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = saved[name](inputs, outputs, *a, **kw)
+            end.record()
+            # each input read once and each output written once (an
+            # in-place all_reduce writes its inputs)
+            timed.append((name, start, end, nbytes(inputs)
+                          + nbytes(outputs if outputs is not None
+                                   else inputs)))
+            return out
         return call
 
     try:
@@ -436,11 +466,13 @@ def mesh_phase(segments, bodies, mk, e2e_responses):
         for name in calls:
             setattr(nccl, name, counted(name))
         mk.reset_launches()
+        svc.batcher.batch_sizes.clear()
         with TopkRecorder(mk) as top:
             t0 = time.perf_counter()
             responses = drive(svc, INDEX, bodies)
             wall = time.perf_counter() - t0
         launches = dict(mk.LAUNCHES)
+        trains = sum(svc.batcher.batch_sizes.values())
     finally:
         for name, fn in saved.items():
             setattr(nccl, name, fn)
@@ -455,11 +487,23 @@ def mesh_phase(segments, bodies, mk, e2e_responses):
     if hits_of(responses) != hits_of(e2e_responses):
         raise AssertionError("the (1, 1) mesh's hits differ from the e2e "
                              "run's")
+    torch.cuda.synchronize()
+    tail_ms = sum(a.elapsed_time(b) for _, a, b, _ in timed)
+    tail_bytes = sum(n for *_, n in timed)
+    tail = {"trains": trains, "calls": len(timed),
+            "ms_per_train": tail_ms / max(trains, 1),
+            "bytes_per_train": tail_bytes / max(trains, 1),
+            "bound_ms_per_train": tail_bytes / max(trains, 1)
+            / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes (world size 1: the collectives copy within "
+                        "the card)",
+            "timed_by": "CUDA events around each nccl call"}
     cards = torch.cuda.device_count()
     out = dict(shape=[1, 1], devices=[str(d) for d in mesh.devices],
                cards_visible=cards, cards_used=1,
                queries=len(responses), seconds=wall,
                qps=len(responses) / wall, nccl_calls=calls,
+               collective_tail=tail,
                launches=launches, shard_topk=check_topk_calls(mk, top.calls),
                hits_equal_e2e="bit for bit: ids and scores in order")
     if cards > 1:
@@ -1122,23 +1166,21 @@ def exact_sort_keys(args, kw):
     return ((rows << 32) | docs)[valid]
 
 
-def newer_kernel_entries(mk, svc, topk_call, exact_bodies_128, launches,
-                         n_trains, exact_launches, exact_trains,
-                         doc_bytes):
-    """The kernels line's shard_topk and exact_merge entries: shard_topk
-    timed on the fixed train's gather (its tail's input), exact_merge on
-    the fixed train's bodies with boost 1e-15 as one train (its own
-    shard_topk over the candidates is timed apart and not in its ms)."""
+def topk_entry(mk, name, vals, k, launches, n_trains):
+    """A kernels-line entry of shard_topk on one gather: its ms and
+    device ms, the stable sort (its plain version) and torch.topk timed
+    on the same tensor, the bytes bound, the size classes its rows took
+    and the blocks per SM of each of its kernels."""
     import torch
 
-    from elasticsearch_tpu_torch.tools.kernel_ab import (fixed_train,
-                                                         profiled)
-    vals, k = topk_call
+    from elasticsearch_tpu_torch.tools.kernel_ab import profiled
     b, n = vals.shape
     kk = min(k, n)
     topk_bytes = b * n * 4 + b * kk * (4 + 8)
-    entries = [{
-        "name": "merge_topk.shard_topk", "route": "cuda",
+    stats = {}
+    mk.shard_topk(vals, k, stats=stats)
+    return {
+        "name": name, "kernel": "shard_topk", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": TOPK_LINE,
         "launches": launches["shard_topk"], "max_abs_err": 0.0,
         "ms": time_events(lambda ev: mk.shard_topk(vals, k, events=ev),
@@ -1154,7 +1196,27 @@ def newer_kernel_entries(mk, svc, topk_call, exact_bodies_128, launches,
         "library_of": "torch.topk(vals, k, dim=1): the same values, no "
                       "fixed order among equal ones",
         "launches_per_batch": launches["shard_topk"] / n_trains,
-        "shape": {"rows": b, "width": n, "k": k}, "bytes": topk_bytes}]
+        "shape": {"rows": b, "width": n, "k": k}, "bytes": topk_bytes,
+        "size_classes": stats["topk_classes"],
+        "slices": stats["topk_slices"],
+        "blocks_per_sm": stats["topk_blocks_per_sm"]}
+
+
+def newer_kernel_entries(mk, svc, topk_calls, exact_bodies_128, launches,
+                         n_trains, exact_launches, exact_trains,
+                         doc_bytes):
+    """The kernels line's shard_topk and exact_merge entries: shard_topk
+    timed on the fixed train's gather (its tail's input) and on the
+    k10000 train's (kernel k 16,384: the device class), exact_merge on
+    the fixed train's bodies with boost 1e-15 as one train (its own
+    shard_topk over the candidates is timed apart and not in its ms), at
+    the package's window cap and at each of EXACT_WINDOW_CAPS."""
+    import torch
+
+    from elasticsearch_tpu_torch.tools.kernel_ab import (fixed_train,
+                                                         profiled)
+    entries = [topk_entry(mk, name, vals, k, launches, n_trains)
+               for name, (vals, k) in topk_calls]
     args, kw = fixed_train(svc, mk, exact_recorder, INDEX, FIELD, K,
                            exact_bodies_128)
     stats = {}
@@ -1165,13 +1227,33 @@ def newer_kernel_entries(mk, svc, topk_call, exact_bodies_128, launches,
     keys = exact_sort_keys(args, kw)
     library = time_cuda(lambda: torch.sort(keys, stable=True), TIMED)
     del keys
+
+    def exact_ms():
+        return time_events(
+            lambda ev: mk.exact_merge_topk(*args, **dict(kw, events=ev)),
+            TIMED)["exact_merge"]
+
+    by_cap = {}
+    default_cap = mk.EXACT_WINDOW_CAP
+    try:
+        for cap in EXACT_WINDOW_CAPS:
+            mk.EXACT_WINDOW_CAP = cap
+            cap_stats = {}
+            mk.exact_merge_topk(*args, **dict(kw, stats=cap_stats))
+            by_cap[cap] = {"ms": exact_ms(),
+                           "window_lanes": cap_stats["window_lanes"],
+                           "smem": cap_stats["exact_smem"],
+                           "blocks_per_sm":
+                               cap_stats["exact_blocks_per_sm"],
+                           "size_classes": cap_stats["exact_classes"]}
+    finally:
+        mk.EXACT_WINDOW_CAP = default_cap
     entries.append({
-        "name": "merge_topk.exact_merge", "route": "cuda",
+        "name": "merge_topk.exact_merge", "kernel": "exact_merge",
+        "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": EXACT_LINE,
         "launches": exact_launches["exact_merge"], "max_abs_err": 0.0,
-        "ms": time_events(
-            lambda ev: mk.exact_merge_topk(*args, **dict(kw, events=ev)),
-            TIMED)["exact_merge"],
+        "ms": exact_ms(),
         "device_ms": profiled(lambda: mk.exact_merge_topk(*args, **kw),
                               TIMED).get("exact_merge"),
         "plain_ms": time_cuda(
@@ -1188,8 +1270,12 @@ def newer_kernel_entries(mk, svc, topk_call, exact_bodies_128, launches,
         "shape": {"rows": r, "slots": t, "max_len": kw["max_len"],
                   "k": kw["k"]},
         "bytes": exact_bytes, "lanes": stats["lanes"],
+        "longest_row": int(args[3].clamp(min=0).sum(dim=1).max()),
         "candidates": stats["candidates"],
-        "size_classes": stats["exact_classes"]})
+        "size_classes": stats["exact_classes"],
+        "window_lanes": stats["window_lanes"], "smem": stats["exact_smem"],
+        "blocks_per_sm": stats["exact_blocks_per_sm"],
+        "by_window_cap": by_cap})
     return entries
 
 
@@ -1410,8 +1496,10 @@ def main() -> int:
             if name == "slot_decode":
                 kernels[-1]["select_slots"] = stats["select_slots"]
         kernels += newer_kernel_entries(
-            mk, svc, (topk_in, topk_k), exact_run[:128], launches,
-            n_trains, exact_launches, exact_trains, 2 - stats["delta"])
+            mk, svc, [("merge_topk.shard_topk", (topk_in, topk_k)),
+                      ("merge_topk.shard_topk.k16384", big_topk)],
+            exact_run[:128], launches, n_trains, exact_launches,
+            exact_trains, 2 - stats["delta"])
         del topk_in
         # the kernels at the launches past the main traffic, each one train
         log("kernels_extra", launches=[dict(
@@ -1423,16 +1511,9 @@ def main() -> int:
                 5),
             device_ms=profiled(lambda: mk.fused_merge_topk(*a, **kw), 5))
             for label, a, kw in extra_trains], shard_topk=dict(
-            launch="k10000 gather (device-memory sort)",
+            launch="k10000 gather (the device class)",
             rows=big_topk[0].shape[0], width=big_topk[0].shape[1],
-            k=big_topk[1],
-            ms=time_events(lambda ev: mk.shard_topk(*big_topk, events=ev),
-                           5)["shard_topk"],
-            device_ms=profiled(lambda: mk.shard_topk(*big_topk),
-                               5).get("shard_topk"),
-            plain_ms=time_cuda(lambda: mk.shard_topk_plain(*big_topk), 5),
-            library_ms=time_cuda(lambda: torch.topk(
-                big_topk[0], big_topk[1], dim=1), 5)))
+            k=big_topk[1], in_kernels_line="merge_topk.shard_topk.k16384"))
         del big_topk
         # -- rest: the node over HTTP, the path users call -------------
         rest, rest_launches = rest_phase(corpus, bodies, mk, smi, responses,
@@ -1441,7 +1522,7 @@ def main() -> int:
         log("rest", **rest)
         for entry in kernels:
             entry["launches_rest"] = rest_launches[
-                entry["name"].split(".", 1)[1]]
+                entry.get("kernel", entry["name"].split(".", 1)[1])]
         print(json.dumps({"kernels": kernels}), flush=True)
     finally:
         svc.close()

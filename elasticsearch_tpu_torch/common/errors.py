@@ -70,6 +70,10 @@ class ShardNotFoundException(ResourceNotFoundException):
     pass
 
 
+class DocumentMissingException(ResourceNotFoundException):
+    status = 404
+
+
 class ParsingException(EsException, ValueError):
     """A malformed query or search body."""
 

@@ -159,33 +159,43 @@
 
 // Two more kernels serve the main path around the merge:
 //
-//   6. shard_topk      grid B (or R): the top min(k, N) of each row's N
-//                      f32 values, equal values in ascending position
-//                      (lax.top_k's rule). Replaces the XLA top-k of
+//   6. shard_topk      the top min(k, N) of each row's N f32 values,
+//                      equal values in ascending position (lax.top_k's
+//                      rule). Replaces the XLA top-k of
 //                      elasticsearch_tpu/parallel/distributed.py::
 //                      _merge_topk (sparse.hierarchical_top_k) after the
 //                      cross-shard all_gather, and the exact variant's
-//                      final top_k. A radix select of the k-th key
-//                      (value order bits, position reversed: one unique
-//                      56-bit key a value; the select stops at the first
-//                      digit taken whole), a compaction of the k keys at
-//                      or above it, and a bitonic sort of them, in shared
-//                      memory up to the wrapper's sort_cap keys, else in
-//                      device memory. Bound: bytes, N values read (once
-//                      in the bound, once per select pass here).
+//                      final top_k. One unique 56-bit key a value (value
+//                      order bits, position reversed); a radix select of
+//                      the k-th key stops at the first digit taken whole.
+//                      A row whose finalists sort in one block (up to
+//                      the wrapper's sort_cap keys) takes one block: its
+//                      values staged in shared memory when they fit
+//                      ("staged": one read of the row, every select pass
+//                      there), else read from device memory ("shared");
+//                      a bitonic sort in shared memory. A row with more
+//                      finalists ("device", kernel k 16,384) spreads over
+//                      blocks of `slice` values: one launch per 8-bit
+//                      digit whose last-arriving block picks the digit,
+//                      then each block sorts its slice's finalists in
+//                      shared memory into one run, then each key's rank
+//                      is its index in its run plus the keys above it in
+//                      the other runs (binary searches in shared memory).
+//                      Bound: bytes, N values read once.
 //   7. exact_merge     grid R: the compressed_exact variant
 //                      (elasticsearch_tpu/ops/sparse.py::_merge_topk_core,
 //                      its exact branch, for weights that fail
 //                      packable()) up to its top-k: each valid lane
 //                      decoded to w * exact value (rounded before any
-//                      add), a stable sort of the row by doc (two 8-bit
-//                      LSD passes of sort_pass on u64 items whose low
-//                      word is the value: lane order in, so equal docs
-//                      keep slot order), the run sums with the reference
-//                      tree, the msm filter and TotalHits. No block-max
-//                      skip, as in the reference. shard_topk then takes
-//                      the top kk of the candidates. Bound: bytes, each
-//                      valid lane's doc and rank read once.
+//                      add); the row's slots, each a sorted run of docs,
+//                      merged stably (equal docs in slot order) in
+//                      windows of shared memory sized to the launch; the
+//                      run sums with the reference tree, the msm filter
+//                      and TotalHits. A slot whose docs descend sends its
+//                      row through LSD radix passes instead. No
+//                      block-max skip, as in the reference. shard_topk
+//                      then takes the top kk of the candidates. Bound:
+//                      bytes, each valid lane's doc and rank read once.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -972,14 +982,15 @@ __device__ __forceinline__ unsigned warp_match(unsigned label) {
 // scan over (digit, warp) turns the counts into each warp's first slot
 // per digit, in place, and each warp scatters its chunk in order.
 // Returns false, writing nothing, when the digit is the same in every
-// key. s_cnt is all zero on entry and on return. kSortThreads threads.
-template <typename K>
+// key. s_cnt (kWarps rows) is all zero on entry and on return; kWarps
+// warps of at least 256 threads in all.
+template <typename K, int kWarps = kSortWarps>
 __device__ bool sort_pass(const K* src, K* dst, int n, int shift,
                           int (*s_cnt)[256], int* s_wsum) {
   constexpr int kRound = 32 * kSortItems;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const unsigned below = (1u << lane) - 1u;
-  const int chunk = ((n + kSortWarps - 1) / kSortWarps + kRound - 1)
+  const int chunk = ((n + kWarps - 1) / kWarps + kRound - 1)
                     / kRound * kRound;
   const int lo = min(warp * chunk, n), hi = min(lo + chunk, n);
   for (int base = lo; base < hi; base += kRound) {
@@ -998,11 +1009,11 @@ __device__ bool sort_pass(const K* src, K* dst, int n, int shift,
   // thread d < 256: digit d's counts per warp become its slots: the
   // exclusive scan over digits, then over the warps of each digit
   const int d = threadIdx.x;
-  int cnt[kSortWarps];
+  int cnt[kWarps];
   int tot = 0;
   if (d < 256) {
 #pragma unroll
-    for (int w = 0; w < kSortWarps; ++w) {
+    for (int w = 0; w < kWarps; ++w) {
       cnt[w] = s_cnt[w][d];
       tot += cnt[w];
     }
@@ -1018,7 +1029,7 @@ __device__ bool sort_pass(const K* src, K* dst, int n, int shift,
     int run = inc - tot;
     for (int w = 0; w < warp; ++w) run += s_wsum[w];
 #pragma unroll
-    for (int w = 0; w < kSortWarps; ++w) {
+    for (int w = 0; w < kWarps; ++w) {
       s_cnt[w][d] = constant ? 0 : run;
       run += cnt[w];
     }
@@ -1065,7 +1076,7 @@ __device__ bool sort_pass(const K* src, K* dst, int n, int shift,
   }
   __syncthreads();
   if (d < 256)
-    for (int w = 0; w < kSortWarps; ++w) s_cnt[w][d] = 0;
+    for (int w = 0; w < kWarps; ++w) s_cnt[w][d] = 0;
   __syncthreads();
   return true;
 }
@@ -1613,66 +1624,276 @@ select_rescore_kernel(Streams s, Slots p, const float* cand_score,
 constexpr int kTopThreads = 512;
 constexpr int kTopPosBits = 24;   // positions of a row < 2**24
 constexpr uint32_t kTopPosMask = (1u << kTopPosBits) - 1u;
-constexpr int kTopKeyTop = 48;    // the top digit of a 56-bit key
+// The select takes the value's four 8-bit digits (order bits, shifts 24
+// to 0); equal values split by position through their order, not by
+// more digits.
+constexpr int kTopValueTop = 24;
+constexpr int kTopBatch = 8;      // keys a thread loads before it bins them
+constexpr int kTopMaxRuns = 1024; // slices of a device-class row
+// size classes of shard_topk (rows per class)
+enum { kTopStaged = 0, kTopShared, kTopDevice };
 
-__device__ __forceinline__ unsigned long long topk_key(float v, int pos) {
-  const uint32_t ob = v != v ? 0xFFFFFFFFu : order_bits(v);
+// A value's order bits: NaN above +inf, -0 with +0.
+__device__ __forceinline__ uint32_t topk_ob(float v) {
+  return v != v ? 0xFFFFFFFFu : order_bits(v);
+}
+
+__device__ __forceinline__ unsigned long long topk_key(uint32_t ob, int pos) {
   return ((unsigned long long)ob << kTopPosBits) |
          (kTopPosMask - (uint32_t)pos);
 }
 
-// The k-th largest (1-based, k <= n) of n unique keys, 8-bit digits from
-// `top` down. It stops at the first digit whose bin is taken whole: then
-// exactly k keys are >= the returned prefix (its lower bits 0), which is
-// all the caller compares with.
+__device__ __forceinline__ long long topk_pos(unsigned long long key) {
+  return (long long)(kTopPosMask - (uint32_t)(key & kTopPosMask));
+}
+
+// The values lo <= i < hi (their order bits, from load) in the order a
+// thread meets them: each warp a contiguous chunk, its lanes on
+// neighbouring values (coalesced, and conflict-free in shared memory),
+// kTopBatch values a lane loaded before any is used, so their loads are
+// in flight together. fn(in range, ob, i) for every one; a lane's values
+// are 32 apart within its warp's chunk, so on a gather of descending
+// shard lists they descend too.
+template <typename Load, typename Fn>
+__device__ __forceinline__ void for_keys(int lo, int hi, Load load, Fn fn) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  constexpr int kRound = 32 * kTopBatch;
+  const int chunk =
+      ((hi - lo + nwarps - 1) / nwarps + kRound - 1) / kRound * kRound;
+  const int c_lo = min(lo + warp * chunk, hi), c_hi = min(c_lo + chunk, hi);
+  for (int base = c_lo; base < c_hi; base += kRound) {
+    uint32_t ob[kTopBatch];
+#pragma unroll
+    for (int j = 0; j < kTopBatch; ++j) {
+      const int i = base + j * 32 + lane;
+      ob[j] = i < c_hi ? load(i) : 0u;
+    }
+#pragma unroll
+    for (int j = 0; j < kTopBatch; ++j) {
+      const int i = base + j * 32 + lane;
+      fn(i < c_hi, ob[j], i);
+    }
+  }
+}
+
+// Adds the digit at `shift` of the values lo <= i < hi whose order bits
+// match `prefix` under `mask` into s_hist. A thread counts a run of equal
+// digits in a register and adds it once: on descending shard lists a
+// lane's values change their digit a few times, so the one or two digits
+// most values share cost a few atomics a thread, not one a value.
 template <typename Load>
-__device__ unsigned long long select_kth_key(int n, int k, Load load,
-                                             int top, int* s_hist,
-                                             int* s_wsum, int* s_pick) {
-  unsigned long long prefix = 0, mask = 0;
-  int remaining = k;
-  for (int shift = top; shift >= 0; shift -= 8) {
+__device__ __forceinline__ void bin_values(int lo, int hi, Load load,
+                                           uint32_t prefix, uint32_t mask,
+                                           int shift, int* s_hist) {
+  int cur = 0, cnt = 0;
+  for_keys(lo, hi, load, [&](bool in, uint32_t ob, int) {
+    if (!in || (ob & mask) != prefix) return;
+    const int d = (int)((ob >> shift) & 0xFF);
+    if (d != cur) {
+      if (cnt) atomicAdd(&s_hist[cur], cnt);
+      cur = d;
+      cnt = 0;
+    }
+    ++cnt;
+  });
+  if (cnt) atomicAdd(&s_hist[cur], cnt);
+}
+
+// Where a select of the k-th value stopped. Not split: the digits it took
+// are `value` (its lower bits 0), the last bin taken whole, and exactly k
+// values have order bits >= value. Split: `value` is the k-th value's
+// order bits, and the finalists are the values above it and, of those
+// equal to it, the `remaining` earliest.
+struct TopkCut {
+  uint32_t value;
+  int remaining;
+  bool split;
+};
+
+// The k-th largest (1-based, k <= n) of n values by their order bits,
+// 8-bit digits from the top; it stops at the first digit whose bin is
+// taken whole.
+template <typename Load>
+__device__ TopkCut select_kth_value(int n, int k, Load load, int* s_hist,
+                                    int* s_wsum, int* s_pick) {
+  TopkCut cut{0u, k, false};
+  uint32_t mask = 0;
+  for (int shift = kTopValueTop; shift >= 0; shift -= 8) {
     for (int i = threadIdx.x; i < 256; i += blockDim.x) s_hist[i] = 0;
     __syncthreads();
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const unsigned long long v = load(i);
-      if ((v & mask) == prefix)
-        atomicAdd(&s_hist[(int)((v >> shift) & 0xFF)], 1);
-    }
+    bin_values(0, n, load, cut.value, mask, shift, s_hist);
     __syncthreads();
-    pick_digit(s_hist, remaining, s_wsum, s_pick);
+    pick_digit(s_hist, cut.remaining, s_wsum, s_pick);
     const int digit = s_pick[0];
     const bool whole = s_hist[digit] == s_pick[1];
-    prefix |= (unsigned long long)digit << shift;
-    mask |= 0xFFull << shift;
-    remaining = s_pick[1];
+    cut.value |= (uint32_t)digit << shift;
+    mask |= 0xFFu << shift;
+    cut.remaining = s_pick[1];
+    cut.split = !whole && shift == 0;
     __syncthreads();  // s_hist and s_pick are read before the next pass
     if (whole) break;
   }
-  return prefix;
+  return cut;
 }
 
+// The lane's share of a warp sum (every lane gets it).
+__device__ __forceinline__ int warp_sum(int v) {
+  for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(0xffffffffu, v, d);
+  return v;
+}
+
+// Appends to out (order free: they are sorted next; s_count is 0 on
+// entry) the finalists among the values lo <= i < hi under `cut`, as
+// their keys: every value >= its prefix, or when the cut splits a value,
+// every larger value and the values equal to it whose rank by position
+// among the row's equal ones, counting from tie_base (those before lo),
+// is below cut.remaining: one pass counts each warp's equal values, a
+// block scan orders the warps (their chunks are in position order), a
+// second pass ranks them by ballots.
+template <typename Load>
+__device__ void take_finalists(int lo, int hi, Load load, TopkCut cut,
+                               int tie_base, unsigned long long* out,
+                               int* s_count, int* s_warp) {
+  if (!cut.split) {
+    for_keys(lo, hi, load, [&](bool in, uint32_t ob, int i) {
+      const bool take = in && ob >= cut.value;
+      const int at = warp_append(take, s_count);
+      if (take) out[at] = topk_key(ob, i);
+    });
+    return;
+  }
+  int ties = 0;
+  for_keys(lo, hi, load, [&](bool in, uint32_t ob, int) {
+    ties += in && ob == cut.value;
+  });
+  ties = warp_sum(ties);
+  const int lane = threadIdx.x & 31;
+  int total = 0;
+  const int before = block_excl_scan(lane == 0 ? ties : 0, s_warp, &total);
+  int run = tie_base + __shfl_sync(0xffffffffu, before, 0);
+  for_keys(lo, hi, load, [&](bool in, uint32_t ob, int i) {
+    const bool tie = in && ob == cut.value;
+    const unsigned bal = __ballot_sync(0xffffffffu, tie);
+    const int rank = run + __popc(bal & ((1u << lane) - 1u));
+    run += __popc(bal);
+    const bool take = in && (ob > cut.value || (tie && rank < cut.remaining));
+    const int at = warp_append(take, s_count);
+    if (take) out[at] = topk_key(ob, i);
+  });
+}
+
+// One compare-exchange of a bitonic sort, descending: element e of a
+// pair (e, e ^ half) keeps the larger key when it is the lower of the
+// two in a descending block of `size`, or the higher in an ascending one.
+__device__ __forceinline__ unsigned long long bitonic_keep(
+    unsigned long long mine, unsigned long long other, int e, int half,
+    int size) {
+  const bool lower = (e & half) == 0;
+  const bool desc = (e & size) == 0;
+  return lower == desc ? (mine > other ? mine : other)
+                       : (mine < other ? mine : other);
+}
+
+// The stages of a bitonic sort of block `size` with half < 64, for every
+// group of 64 keys: a warp holds a group in registers (two keys a lane,
+// 2 * lane and 2 * lane + 1) and exchanges by shuffles, no barrier.
+__device__ __forceinline__ void bitonic_warp(unsigned long long* a, int n,
+                                             int size, int top_half) {
+  const int lane = threadIdx.x & 31;
+  for (int g = (threadIdx.x >> 5) * 64; g < n; g += (blockDim.x >> 5) * 64) {
+    const int e0 = g + 2 * lane;
+    unsigned long long x0 = a[e0], x1 = a[e0 + 1];
+    for (int sz = size == 0 ? 2 : size; sz <= (size == 0 ? 64 : size);
+         sz <<= 1) {
+      for (int half = size == 0 ? sz >> 1 : top_half; half > 0;
+           half >>= 1) {
+        if (half == 1) {
+          const unsigned long long y0 = bitonic_keep(x0, x1, e0, 1, sz);
+          x1 = bitonic_keep(x1, x0, e0 + 1, 1, sz);
+          x0 = y0;
+        } else {
+          const int m = half >> 1;
+          const unsigned long long o0 = __shfl_xor_sync(0xffffffffu, x0, m);
+          const unsigned long long o1 = __shfl_xor_sync(0xffffffffu, x1, m);
+          x0 = bitonic_keep(x0, o0, e0, half, sz);
+          x1 = bitonic_keep(x1, o1, e0 + 1, half, sz);
+        }
+      }
+    }
+    a[e0] = x0;
+    a[e0 + 1] = x1;
+  }
+}
+
+// Bitonic sort, descending, of n (a power of two) keys in shared memory;
+// every thread of the block calls it. The stages that pair keys 64 or
+// more apart go through shared memory with a barrier each; the rest run
+// in registers a warp at a time (bitonic_warp): for 1024 keys, 15
+// barriers where a stage each would take 55.
+__device__ void bitonic_desc(unsigned long long* a, int n) {
+  if (n >= 64) {
+    bitonic_warp(a, n, 0, 0);  // every block of up to 64 keys
+    __syncthreads();
+  }
+  for (int size = n >= 64 ? 128 : 2; size <= n; size <<= 1) {
+    const int low = n >= 64 ? 64 : 1;  // stages below go by warps
+    for (int half = size >> 1; half >= low; half >>= 1) {
+      for (int i = threadIdx.x; i < n / 2; i += blockDim.x) {
+        const int lo = 2 * i - (i & (half - 1));
+        const int hi = lo + half;
+        const unsigned long long x = a[lo], y = a[hi];
+        if ((x < y) == ((lo & size) == 0)) {
+          a[lo] = y;
+          a[hi] = x;
+        }
+      }
+      __syncthreads();
+    }
+    if (n >= 64) {
+      bitonic_warp(a, n, size, 32);
+      __syncthreads();
+    }
+  }
+}
+
+// The select of a device-class row, carried from launch to launch.
+struct TopkRow {
+  uint32_t value, mask;  // the k-th value's digits found so far (TopkCut)
+  int remaining;  // rank of the k-th value among the values under them
+  int done;       // the cut is final
+  int split;      // it splits a value (TopkCut::split)
+  int arrive;     // blocks of the row done with the current pass
+  int placed;     // finalists written by the runs kernel
+  int count;      // min(n, kk)
+  int device;     // the row takes the device class
+};
+
 // One block per row: the top min(kk, n) of the row's n values by (value
-// desc, position asc), then (-inf, fill) up to kk. A row of more than kk
-// values finds its kk-th key by a radix select over the keys (read from
-// device memory in each pass) and keeps the kk keys at or above it; the
-// finalists are sorted by a bitonic sort, in shared memory when the next
-// power of two of their count fits sort_cap keys (class "shared"), else
-// in the row's slice of `scratch` in device memory ("device"). Writes
-// the values (read back from the input, so every bit is the input's),
-// their positions when out_pos is given, and ids[position] (fill where
-// the value is -inf or NaN) when ids is given.
+// desc, position asc), then (-inf, fill) up to kk. A row whose finalists'
+// sort (the next power of two of their count) fits sort_cap keys sorts
+// them in shared memory with a bitonic sort. When it has more than kk
+// values it finds its kk-th key by a radix select: over its values
+// staged in shared memory when they fit the launch's stage_cap (class
+// "staged": one coalesced read of the row, every pass in shared
+// memory), else over the row in device memory ("shared", the finalists'
+// sort in shared memory all the same). A row with more finalists
+// ("device") is only initialised here (its TopkRow, its fill beyond
+// min(kk, n)); topk_pass, topk_runs and topk_merge take it. Writes the
+// values (read back from the input, so every bit is the input's), their
+// positions when out_pos is given, and ids[position] (fill where the
+// value is -inf or NaN) when ids is given.
 __global__ void __launch_bounds__(kTopThreads)
 shard_topk_kernel(const float* vals, long long stride,
                   const long long* row_off, const int* row_n, int n_all,
-                  int kk, int sort_cap, unsigned long long* scratch,
-                  long long scratch_stride, float* out_vals,
-                  long long* out_pos, const int* ids, int fill,
-                  int* out_ids, int* class_rows) {
+                  int kk, int sort_cap, int fin_cap, int stage_cap,
+                  TopkRow* rows, float* out_vals, long long* out_pos,
+                  const int* ids, int fill, int* out_ids, int* class_rows) {
   extern __shared__ __align__(16) unsigned long long s_fin[];
   __shared__ int s_hist[256];
   __shared__ int s_wsum[8];
   __shared__ int s_pick[2];
+  __shared__ int s_warp[33];
   __shared__ int s_count;
   const int r = blockIdx.x;
   const long long off =
@@ -1682,50 +1903,61 @@ shard_topk_kernel(const float* vals, long long stride,
   const int count = min(n, kk);
   int sort_n = 1;
   while (sort_n < count) sort_n <<= 1;
-  const bool shared = sort_n <= sort_cap;
-  unsigned long long* fin =
-      shared ? s_fin : scratch + (long long)r * scratch_stride;
-  if (class_rows != nullptr && threadIdx.x == 0)
-    atomicAdd(&class_rows[shared ? 0 : 1], 1);
-  auto key_at = [&](int i) { return topk_key(v[i], i); };
-  if (n > count) {
-    const unsigned long long thr = select_kth_key(
-        n, count, key_at, kTopKeyTop, s_hist, s_wsum, s_pick);
-    if (threadIdx.x == 0) s_count = 0;
-    __syncthreads();
-    for (int base = 0; base < n; base += blockDim.x) {
-      const int i = base + threadIdx.x;
-      const unsigned long long key = i < n ? key_at(i) : 0ull;
-      const bool take = i < n && key >= thr;
-      const int at = warp_append(take, &s_count);
-      if (take) fin[at] = key;
+  if (sort_n > sort_cap) {  // the device class: the later launches
+    if (threadIdx.x == 0) {
+      TopkRow st;
+      st.value = 0;
+      st.mask = 0;
+      st.remaining = count;
+      st.done = n <= count;  // every key a finalist: prefix 0 takes all
+      st.split = 0;
+      st.arrive = 0;
+      st.placed = 0;
+      st.count = count;
+      st.device = 1;
+      rows[r] = st;
+      if (class_rows != nullptr) atomicAdd(&class_rows[kTopDevice], 1);
     }
-  } else {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) fin[i] = key_at(i);
+    for (int j = count + threadIdx.x; j < kk; j += blockDim.x) {
+      const long long o = (long long)r * kk + j;
+      out_vals[o] = __int_as_float(kNegInfBits);
+      if (out_pos != nullptr) out_pos[o] = -1;
+      if (out_ids != nullptr) out_ids[o] = fill;
+    }
+    return;
   }
+  if (rows != nullptr && threadIdx.x == 0) rows[r].device = 0;
+  const bool staged = n > count && n <= stage_cap;
+  uint32_t* s_ob = reinterpret_cast<uint32_t*>(s_fin + fin_cap);
+  if (class_rows != nullptr && threadIdx.x == 0)
+    atomicAdd(&class_rows[staged ? kTopStaged : kTopShared], 1);
+  unsigned long long* fin = s_fin;
+  auto staged_ob = [&](int i) { return s_ob[i]; };
+  auto device_ob = [&](int i) { return topk_ob(v[i]); };
+  TopkCut cut{0u, count, false};  // value 0: every value a finalist
+  if (staged) {
+#pragma unroll 8
+    for (int i = threadIdx.x; i < n; i += blockDim.x) s_ob[i] = topk_ob(v[i]);
+    __syncthreads();
+    cut = select_kth_value(n, count, staged_ob, s_hist, s_wsum, s_pick);
+  } else if (n > count) {
+    cut = select_kth_value(n, count, device_ob, s_hist, s_wsum, s_pick);
+  }
+  if (threadIdx.x == 0) s_count = 0;
+  __syncthreads();
+  if (staged)
+    take_finalists(0, n, staged_ob, cut, 0, fin, &s_count, s_warp);
+  else
+    take_finalists(0, n, device_ob, cut, 0, fin, &s_count, s_warp);
   for (int j = count + threadIdx.x; j < sort_n; j += blockDim.x)
     fin[j] = 0ull;  // below every real key
   __syncthreads();
-  // bitonic sort, descending
-  for (int size = 2; size <= sort_n; size <<= 1) {
-    for (int half = size >> 1; half > 0; half >>= 1) {
-      for (int i = threadIdx.x; i < sort_n / 2; i += blockDim.x) {
-        const int lo = 2 * i - (i & (half - 1));
-        const int hi = lo + half;
-        const unsigned long long a = fin[lo], b = fin[hi];
-        if ((a < b) == ((lo & size) == 0)) {
-          fin[lo] = b;
-          fin[hi] = a;
-        }
-      }
-      __syncthreads();
-    }
-  }
+  bitonic_desc(fin, sort_n);
   for (int j = threadIdx.x; j < kk; j += blockDim.x) {
     float val = __int_as_float(kNegInfBits);
     long long pos = -1;
     if (j < count) {
-      pos = (long long)(kTopPosMask - (uint32_t)(fin[j] & kTopPosMask));
+      pos = topk_pos(fin[j]);
       val = v[pos];
     }
     const long long o = (long long)r * kk + j;
@@ -1737,136 +1969,841 @@ shard_topk_kernel(const float* vals, long long stride,
   }
 }
 
+// The device class, one launch per value digit (grid: slices x rows).
+// Block g bins the keys of its slice [g * slice, (g + 1) * slice) of the
+// row into its own histogram (hist[row][g]); the last block of the row to
+// arrive (one atomic a block, after a fence) sums the row's histograms,
+// picks the digit and moves the row's TopkRow on. A row whose select is
+// done, or that is not of the class, returns at once. No block waits for
+// another: the passes are separate launches. After the last value digit
+// hist keeps each slice's count of the k-th value (its bin), which the
+// runs kernel reads when the cut splits that value.
+__global__ void __launch_bounds__(kTopThreads)
+topk_pass_kernel(const float* vals, long long stride,
+                 const long long* row_off, const int* row_n, int n_all,
+                 int slice, int shift, TopkRow* rows, int* hist) {
+  __shared__ int s_hist[256];
+  __shared__ int s_wsum[8];
+  __shared__ int s_pick[2];
+  __shared__ int s_last;
+  const int r = blockIdx.y, g = blockIdx.x, G = gridDim.x;
+  TopkRow* st = rows + r;
+  if (!st->device || st->done) return;
+  const int n = row_n != nullptr ? row_n[r] : n_all;
+  const int g_row = (n + slice - 1) / slice;
+  if (g >= g_row) return;
+  const float* v =
+      vals + (row_off != nullptr ? row_off[r] : (long long)r * stride);
+  const uint32_t value = st->value, mask = st->mask;
+  const int remaining = st->remaining;
+  for (int i = threadIdx.x; i < 256; i += blockDim.x) s_hist[i] = 0;
+  __syncthreads();
+  bin_values(g * slice, min(n, (g + 1) * slice),
+             [&](int i) { return topk_ob(v[i]); }, value, mask, shift,
+             s_hist);
+  __syncthreads();
+  int* mine = hist + ((long long)r * G + g) * 256;
+  for (int d = threadIdx.x; d < 256; d += blockDim.x) mine[d] = s_hist[d];
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(&st->arrive, 1) == g_row - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  for (int d = threadIdx.x; d < 256; d += blockDim.x) {
+    int sum = 0;
+    for (int b = 0; b < g_row; ++b)
+      sum += __ldcg(hist + ((long long)r * G + b) * 256 + d);
+    s_hist[d] = sum;
+  }
+  __syncthreads();
+  pick_digit(s_hist, remaining, s_wsum, s_pick);
+  if (threadIdx.x == 0) {
+    const int digit = s_pick[0];
+    const bool whole = s_hist[digit] == s_pick[1];
+    st->value = value | ((uint32_t)digit << shift);
+    st->mask = mask | (0xFFu << shift);
+    st->remaining = s_pick[1];
+    st->done = whole || shift == 0;
+    st->split = !whole && shift == 0;
+    st->arrive = 0;
+  }
+}
+
+// The device class's finalists (grid: slices x rows): block g takes the
+// finalists of its slice (exactly `count` over the row; a split value's
+// ties ranked from those of the earlier slices, which hist holds), sorts
+// them in shared memory (bitonic, the next power of two of their number)
+// and writes them as one descending run at a base taken with one atomic:
+// runs[row][g] = (base, length).
+__global__ void __launch_bounds__(kTopThreads)
+topk_runs_kernel(const float* vals, long long stride,
+                 const long long* row_off, const int* row_n, int n_all,
+                 int kk, int slice, TopkRow* rows, const int* hist,
+                 unsigned long long* finals, int* runs) {
+  extern __shared__ __align__(16) unsigned long long s_sorted[];
+  __shared__ int s_warp[33];
+  __shared__ int s_count;
+  __shared__ int s_base;
+  const int r = blockIdx.y, g = blockIdx.x, G = gridDim.x;
+  TopkRow* st = rows + r;
+  if (!st->device) return;
+  const int n = row_n != nullptr ? row_n[r] : n_all;
+  if (g * slice >= n) return;
+  const float* v =
+      vals + (row_off != nullptr ? row_off[r] : (long long)r * stride);
+  const TopkCut cut{st->value, st->remaining, st->split != 0};
+  int tie_base = 0;
+  if (cut.split) {  // the k-th value's count in the slices before this one
+    int mine = 0;
+    for (int b = threadIdx.x; b < g; b += blockDim.x)
+      mine += hist[((long long)r * G + b) * 256 + (cut.value & 0xFF)];
+    block_excl_scan(mine, s_warp, &tie_base);
+  }
+  if (threadIdx.x == 0) s_count = 0;
+  __syncthreads();
+  take_finalists(g * slice, min(n, (g + 1) * slice),
+                 [&](int i) { return topk_ob(v[i]); }, cut, tie_base,
+                 s_sorted, &s_count, s_warp);
+  __syncthreads();
+  const int m = s_count;
+  int sort_n = 1;
+  while (sort_n < m) sort_n <<= 1;
+  for (int j = m + threadIdx.x; j < sort_n; j += blockDim.x)
+    s_sorted[j] = 0ull;
+  if (threadIdx.x == 0) {
+    s_base = m > 0 ? atomicAdd(&st->placed, m) : 0;
+    int* run = runs + ((long long)r * G + g) * 2;
+    run[0] = s_base;
+    run[1] = m;
+  }
+  __syncthreads();
+  if (m > 1) bitonic_desc(s_sorted, sort_n);
+  unsigned long long* out = finals + (long long)r * kk + s_base;
+  for (int j = threadIdx.x; j < m; j += blockDim.x) out[j] = s_sorted[j];
+}
+
+// The keys above `key` in the runs b0 <= b < b0 + kTopSearch (those below
+// n_runs) of a[], run b at s_base[b], s_len[b], each descending:
+// kTopSearch binary searches stepped together, so their loads are in
+// flight at once.
+constexpr int kTopSearch = 8;
+
+__device__ __forceinline__ int keys_above(const unsigned long long* a,
+                                          const int* s_base,
+                                          const int* s_len, int b0,
+                                          int n_runs,
+                                          unsigned long long key) {
+  int lo[kTopSearch], cnt[kTopSearch];
+#pragma unroll
+  for (int q = 0; q < kTopSearch; ++q) {
+    const bool in = b0 + q < n_runs;
+    lo[q] = in ? s_base[b0 + q] : 0;
+    cnt[q] = in ? s_len[b0 + q] : 0;
+  }
+  int above = 0;
+#pragma unroll
+  for (int q = 0; q < kTopSearch; ++q) above -= lo[q];
+  bool more = true;
+  while (more) {
+    more = false;
+#pragma unroll
+    for (int q = 0; q < kTopSearch; ++q) {
+      if (cnt[q] > 0) {
+        const int half = cnt[q] >> 1;
+        if (a[lo[q] + half] > key) {
+          lo[q] += half + 1;
+          cnt[q] -= half + 1;
+        } else {
+          cnt[q] = half;
+        }
+        more |= cnt[q] > 0;
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kTopSearch; ++q) above += lo[q];
+  return above;
+}
+
+// The device class's output (grid: chunks of kTopMergeKeys finalists x
+// rows): every block stages the row's finalists (every run) in shared
+// memory and ranks its chunk of them (in the order the runs were
+// placed): a key's rank is the keys above it in every run, its own
+// included (binary searches; the keys are unique). Writes the value read
+// back from the input, the position and the id at that rank.
+constexpr int kTopMergeKeys = 1024;
+
+__global__ void __launch_bounds__(kTopThreads)
+topk_merge_kernel(const float* vals, long long stride,
+                  const long long* row_off, const int* row_n, int n_all,
+                  int kk, int slice, const TopkRow* rows,
+                  const unsigned long long* finals, const int* runs,
+                  int runs_stride, float* out_vals, long long* out_pos,
+                  const int* ids, int fill, int* out_ids) {
+  extern __shared__ __align__(16) unsigned long long s_all[];
+  __shared__ int s_base[kTopMaxRuns];
+  __shared__ int s_len[kTopMaxRuns];
+  const int r = blockIdx.y;
+  const TopkRow* st = rows + r;
+  if (!st->device) return;
+  const int count = st->count;
+  const int lo = blockIdx.x * kTopMergeKeys;
+  if (lo >= count) return;
+  const int n = row_n != nullptr ? row_n[r] : n_all;
+  const int n_runs = (n + slice - 1) / slice;
+  const long long off =
+      row_off != nullptr ? row_off[r] : (long long)r * stride;
+  const float* v = vals + off;
+  for (int b = threadIdx.x; b < n_runs; b += blockDim.x) {
+    s_base[b] = runs[((long long)r * runs_stride + b) * 2];
+    s_len[b] = runs[((long long)r * runs_stride + b) * 2 + 1];
+  }
+  const unsigned long long* fin = finals + (long long)r * kk;
+#pragma unroll 8
+  for (int j = threadIdx.x; j < count; j += blockDim.x) s_all[j] = fin[j];
+  __syncthreads();
+  const int hi = min(count, lo + kTopMergeKeys);
+  for (int j = lo + threadIdx.x; j < hi; j += blockDim.x) {
+    const unsigned long long key = s_all[j];
+    int rank = 0;
+    for (int b0 = 0; b0 < n_runs; b0 += kTopSearch)
+      rank += keys_above(s_all, s_base, s_len, b0, n_runs, key);
+    const long long pos = topk_pos(key);
+    const float val = v[pos];
+    const long long o = (long long)r * kk + rank;
+    out_vals[o] = val;
+    if (out_pos != nullptr) out_pos[o] = pos;
+    if (out_ids != nullptr)
+      out_ids[o] = val > __int_as_float(kNegInfBits) ? ids[off + pos] : fill;
+  }
+}
+
 // ---------------------------------------------------------------------------
 // 7. exact_merge: the compressed_exact variant up to its final top-k
 // ---------------------------------------------------------------------------
 
-constexpr int kExactThreads = kSortThreads;  // sort_pass's block
-constexpr int kExactSmemItems = 8192;        // "shared" class: lanes a row
+constexpr int kExactThreads = 256;
+constexpr int kExactBlocksPerSm = 6;  // bounds its registers a thread
+constexpr int kExactWarps = kExactThreads / 32;
+constexpr int kExactBatch = 4;  // lanes a thread decodes at once
+constexpr int kExactSlotsPerThread = kMaxSlots / kExactThreads;
+constexpr int kNoNext = 0x7fffffff;  // a slot with no lane past its chunk
+// size classes of exact_merge (rows per class)
+enum { kExactMerge = 0, kExactParts, kExactRadix };
 
-// One block per row. Every valid lane of the row's slots, in lane order
-// (slot by slot), becomes one u64 item: its doc (d_pad at most) in bits
-// 32-47 and, below, the bits of w * exact value (rank -> residual table;
-// the product rounded, as the reference rounds it). Two stable LSD
-// passes on the doc's bytes order the items as the reference's stable
-// (doc, value) sort orders the row's lanes: in shared memory when the
-// row has at most kExactSmemItems lanes (class "shared"), else between
-// its slices of items and alt in device memory ("device"). Each run end
-// then sums its run with the doubling tree of segmented_run_sum (TreeUp
-// over the run's last `window` lanes), counts those lanes, and keeps the
-// doc when the total is > 0 and, with counts, the lanes reach min_count:
-// candidates in doc order (the reference's position order among run
-// ends), and their number, the row's TotalHits.
-__global__ void __launch_bounds__(kExactThreads)
-exact_merge_kernel(Streams s, Slots p, const long long* row_off,
-                   int with_counts, int window, unsigned long long* items,
-                   unsigned long long* alt, float* cand_score,
-                   int* cand_doc, int* n_cand, int* class_rows) {
-  extern __shared__ __align__(16) unsigned long long s_items[];
-  __shared__ int s_cnt[kSortWarps][256];
-  __shared__ int s_wsum[8];
-  __shared__ int s_warp[33];
-  __shared__ int s_pref[kMaxSlots + 1];
-  const int r = blockIdx.x;
-  const int T = p.T;
-  const int tid = threadIdx.x;
-  int carry = 0;
-  for (int base = 0; base < T; base += blockDim.x) {
-    const int t = base + tid;
-    const int len = t < T ? max(p.lengths[r * T + t], 0) : 0;
-    int tile = 0;
-    const int x = block_excl_scan(len, s_warp, &tile);
-    if (t < T) s_pref[t] = carry + x;
-    carry += tile;
-  }
-  const int n = carry;
-  if (tid == 0) s_pref[T] = n;
-  for (int i = tid; i < kSortWarps * 256; i += blockDim.x)
-    (&s_cnt[0][0])[i] = 0;
-  const bool shared = n <= kExactSmemItems;
-  if (class_rows != nullptr && tid == 0)
-    atomicAdd(&class_rows[shared ? 0 : 1], 1);
-  const long long off = row_off[r];
-  unsigned long long* src = shared ? s_items : items + off;
-  unsigned long long* dst = shared ? s_items + kExactSmemItems : alt + off;
-  __syncthreads();  // s_pref, s_cnt
+// A row's slot table in shared memory (dynamic, after the two item
+// buffers): per slot its clamped start, delta block base, lane count,
+// cursor (lanes merged so far), staged and taken lanes, residual table,
+// delta offset, weight, and the prefixes of the staged, taken and all
+// lanes.
+struct ExactTable {
+  long long* eff;
+  long long* dbs;
+  int* len;
+  int* cur;
+  int* chunk;
+  int* take;
+  int* rs;
+  int* rl;
+  int* dlo;
+  float* w;
+  int* cpre;  // T + 1
+  int* tpre;  // T + 1
+  int* lpre;  // T + 1
+};
 
-  // 1. decode, in lane order
+__host__ __device__ __forceinline__ int exact_smem_bytes(int S, int T) {
+  return 16 * S + 16 * T + 32 * T + 12 * (T + 1);
+}
+
+// The table of T slots laid out at `base` (8-byte aligned).
+__device__ __forceinline__ ExactTable exact_table(void* base, int T) {
+  ExactTable tb;
+  tb.eff = static_cast<long long*>(base);
+  tb.dbs = tb.eff + T;
+  tb.len = reinterpret_cast<int*>(tb.dbs + T);
+  tb.cur = tb.len + T;
+  tb.chunk = tb.cur + T;
+  tb.take = tb.chunk + T;
+  tb.rs = tb.take + T;
+  tb.rl = tb.rs + T;
+  tb.dlo = tb.rl + T;
+  tb.w = reinterpret_cast<float*>(tb.dlo + T);
+  tb.cpre = reinterpret_cast<int*>(tb.w + T);
+  tb.tpre = tb.cpre + T + 1;
+  tb.lpre = tb.tpre + T + 1;
+  return tb;
+}
+
+// Row r's slot table: each slot's clamped window start, delta block base
+// and offset, weight, residual table and lane count; cursors at 0.
+__device__ void load_slot_table(const Streams& s, const Slots& p,
+                                const ExactTable& tb, int r) {
   const bool delta = s.docs8 != nullptr;
   const int nb_slice = p.max_len / kLaneBlock + 2;
-  for (int t = 0; t < T; ++t) {
-    const int len = s_pref[t + 1] - s_pref[t];
-    if (len == 0) continue;
-    const int rt = r * T + t;
-    const long long eff = clampll(p.starts[rt], 0, s.n_post - p.max_len);
-    const float w = p.weights[rt];
-    const long long rs = p.res_starts[rt];
-    const int rl = p.res_lens[rt];
-    const long long dbs =
-        delta ? clampll(p.dbs[rt], 0, s.n_bases - nb_slice) : 0;
-    const int dlo = delta ? p.dlo[rt] : 0;
-    unsigned long long* out = src + s_pref[t];
-    for (int l = tid; l < len; l += blockDim.x) {
-      const long long pos = eff + l;
-      const int doc =
-          delta ? (int)s.doc_bases[dbs + (dlo + l) / kLaneBlock] +
-                      (int)s.docs8[pos]
-                : (int)s.docs16[pos];
-      const int rank = (int)s.ranks[pos];
+  for (int t = threadIdx.x; t < p.T; t += blockDim.x) {
+    const int rt = r * p.T + t;
+    tb.len[t] = max(p.lengths[rt], 0);
+    tb.cur[t] = 0;
+    tb.eff[t] = clampll(p.starts[rt], 0, s.n_post - p.max_len);
+    tb.w[t] = p.weights[rt];
+    tb.rs[t] = p.res_starts[rt];
+    tb.rl[t] = p.res_lens[rt];
+    tb.dbs[t] = delta ? clampll(p.dbs[rt], 0, s.n_bases - nb_slice) : 0;
+    tb.dlo[t] = delta ? p.dlo[rt] : 0;
+  }
+}
+
+// The slot t whose prefix range pre[t] <= i < pre[t + 1] holds i.
+__device__ __forceinline__ int slot_of(const int* pre, int T, int i) {
+  int lo = 0, hi = T - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (pre[mid] <= i) lo = mid;
+    else hi = mid - 1;
+  }
+  return lo;
+}
+
+__device__ __forceinline__ int item_doc(unsigned long long it) {
+  return (int)(it >> 32);
+}
+
+// The doc of lane l of slot t, d_pad at most.
+__device__ __forceinline__ int lane_doc(const Streams& s, const Slots& p,
+                                        const ExactTable& tb, int t, int l) {
+  const long long pos = tb.eff[t] + l;
+  const int doc =
+      s.docs8 != nullptr
+          ? (int)s.doc_bases[tb.dbs[t] + (tb.dlo[t] + l) / kLaneBlock] +
+                (int)s.docs8[pos]
+          : (int)s.docs16[pos];
+  return min(doc, p.d_pad);
+}
+
+// Items i < n as items out[i]: lane (cur[t] when given) + i - pre[t] of
+// the slot t with pre[t] <= i < pre[t + 1], each its doc (d_pad at most)
+// in bits 32-47 and, below, the bits of w * exact value (rank ->
+// residual table; the product rounded, as the reference rounds it).
+// kExactBatch lanes a thread at a time: every doc and rank load of the
+// batch, then every residual load, so their round trips overlap.
+__device__ void stage_items(const Streams& s, const Slots& p,
+                            const ExactTable& tb, const int* pre,
+                            const int* cur, int n, unsigned long long* out) {
+  for (int base = 0; base < n; base += kExactBatch * blockDim.x) {
+    int t[kExactBatch], doc[kExactBatch], rank[kExactBatch];
+#pragma unroll
+    for (int j = 0; j < kExactBatch; ++j) {
+      const int i = base + j * blockDim.x + threadIdx.x;
+      t[j] = 0;
+      doc[j] = 0;
+      rank[j] = 0;
+      if (i < n) {
+        t[j] = slot_of(pre, p.T, i);
+        const int l = (cur != nullptr ? cur[t[j]] : 0) + i - pre[t[j]];
+        doc[j] = lane_doc(s, p, tb, t[j], l);
+        rank[j] = (int)s.ranks[tb.eff[t[j]] + l];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kExactBatch; ++j) {
+      const int i = base + j * blockDim.x + threadIdx.x;
+      if (i >= n) continue;
       float val = 0.0f;
-      if (rank > 0 && rank <= rl) {
-        const long long at = rs + rank - 1;
+      if (rank[j] > 0 && rank[j] <= tb.rl[t[j]]) {
+        const long long at = (long long)tb.rs[t[j]] + rank[j] - 1;
         if (at >= 0 && at < s.n_res) val = s.res_vals[at];
       }
-      const uint32_t key = (uint32_t)min(doc, p.d_pad);
-      out[l] = ((unsigned long long)key << 32) |
-               __float_as_uint(__fmul_rn(w, val));
+      out[i] = ((unsigned long long)(uint32_t)doc[j] << 32) |
+               __float_as_uint(__fmul_rn(tb.w[t[j]], val));
     }
   }
-  __syncthreads();
+}
 
-  // 2. stable sort by doc (bits 32-47)
+// Exclusive prefix of one int per slot into pre[0..T], pre[T] the total
+// (all threads call it; returns the total).
+__device__ int slot_scan(const int* vals, int* pre, int T, int* s_warp) {
+  int carry = 0;
+  for (int base = 0; base < T; base += blockDim.x) {
+    const int t = base + threadIdx.x;
+    int tile = 0;
+    const int x = block_excl_scan(t < T ? vals[t] : 0, s_warp, &tile);
+    if (t < T) pre[t] = carry + x;
+    carry += tile;
+  }
+  if (threadIdx.x == 0) pre[T] = carry;
+  __syncthreads();
+  return carry;
+}
+
+// Items of a[lo..hi) whose doc is below d, the docs ascending.
+__device__ __forceinline__ int docs_below(const unsigned long long* a,
+                                          int lo, int hi, int d) {
+  const int start = lo;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (item_doc(a[mid]) < d) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo - start;
+}
+
+// Items a thread takes when each takes a contiguous segment of n: odd,
+// so the 8-byte items that the lanes of a warp read at one step of their
+// segments fall on different banks (an even count of items puts every
+// other lane on one bank pair).
+__device__ __forceinline__ int odd_share(int n) {
+  return ((n + blockDim.x - 1) / blockDim.x) | 1;
+}
+
+// Merges T runs of src, each ascending by doc, into one stable doc order
+// (equal docs in run order) at [0, n): run u has pre[u + 1] - pre[u]
+// items from src[at[u]] and takes output places pre[u] on, so the first
+// level also packs runs that lie apart (a window's taken lanes). Pairwise
+// merges, log2 T levels ping-ponging between src and dst (with T = 1 the
+// run must start at 0: src is the result). In
+// each level a thread takes `per` consecutive outputs, finds where its
+// first one comes from by one binary search along the merge path of its
+// pair of runs, then merges sequentially; a pair whose first run ends at
+// or before the second's first doc (the slots of one term split into
+// chunks, say) is copied. Returns the buffer that holds the result (src
+// when T is 1).
+__device__ unsigned long long* merge_runs(unsigned long long* src,
+                                          unsigned long long* dst,
+                                          const int* pre, const int* at,
+                                          int T, int n) {
+  const int per = odd_share(n);
+  for (int width = 1; width < T; width <<= 1) {
+    int o = min(n, (int)threadIdx.x * per);
+    const int o_end = min(n, o + per);
+    while (o < o_end) {
+      const int g = slot_of(pre, T, o) / (2 * width);
+      const int a0 = pre[g * 2 * width];
+      const int m = pre[min(T, g * 2 * width + width)];
+      const int b1 = pre[min(T, (g + 1) * 2 * width)];
+      const int la = m - a0, lb = b1 - m, rel = o - a0;
+      // where A and B start in src: first at[] (the staged slots),
+      // then the runs of the level before, back to back
+      const int sa = width == 1 ? at[2 * g] : a0;
+      const int sb = width == 1 ? at[min(T, 2 * g + 1)] : m;
+      const int stop = min(o_end, b1);
+      if (la == 0 || lb == 0 ||
+          item_doc(src[sa + la - 1]) <= item_doc(src[sb])) {
+        for (; o < stop; ++o)  // A then B: a copy
+          dst[o] = o - a0 < la ? src[sa + o - a0] : src[sb + o - a0 - la];
+        continue;
+      }
+      int lo = max(0, rel - lb), hi = min(rel, la);
+      while (lo < hi) {  // A[mid] first when its doc is at most B's
+        const int mid = (lo + hi) >> 1;
+        if (item_doc(src[sa + mid]) <= item_doc(src[sb + rel - mid - 1]))
+          lo = mid + 1;
+        else
+          hi = mid;
+      }
+      // the heads of A and B in registers: one load a step
+      int i = lo, j = rel - lo;
+      unsigned long long xa = i < la ? src[sa + i] : 0ull;
+      unsigned long long xb = j < lb ? src[sb + j] : 0ull;
+      for (; o < stop; ++o) {
+        if (j >= lb || (i < la && item_doc(xa) <= item_doc(xb))) {
+          dst[o] = xa;
+          xa = ++i < la ? src[sa + i] : 0ull;
+        } else {
+          dst[o] = xb;
+          xb = ++j < lb ? src[sb + j] : 0ull;
+        }
+      }
+    }
+    __syncthreads();
+    unsigned long long* tmp = src;
+    src = dst;
+    dst = tmp;
+  }
+  return src;
+}
+
+// The run ends of n items in doc order (shared or device memory): each
+// run of a doc below d_pad sums its last `window` lanes with the doubling
+// tree of segmented_run_sum (TreeUp), counts them, and keeps the doc when
+// the total is > 0 and, with counts, the lanes reach `need`. Each thread
+// takes a contiguous segment of the items and parks its candidates in
+// `scratch` (not src: a run's tree may read an earlier segment) from its
+// segment's start; one block scan then places them: candidates in doc
+// order after the `found` already written, to cand_score and cand_doc,
+// or packed as (score bits << 32 | doc) when `packed` is given.
+__device__ void emit_runs(const unsigned long long* src, int n, int window,
+                          int with_counts, int need, int d_pad,
+                          unsigned long long* scratch, float* cand_score,
+                          int* cand_doc, unsigned long long* packed,
+                          int* found, int* s_warp) {
+  const int per = odd_share(n);
+  const int lo = min(n, (int)threadIdx.x * per), hi = min(n, lo + per);
+  int kept = 0;
+  for (int i = lo; i < hi; ++i) {
+    const int doc = item_doc(src[i]);
+    if (doc >= d_pad || (i + 1 < n && item_doc(src[i + 1]) == doc))
+      continue;  // not a run end, or a run of padding
+    float total = __uint_as_float((uint32_t)src[i]);
+    int lanes = 1;  // a run of one lane: its tree is its leaf
+    if (i > 0 && item_doc(src[i - 1]) == doc) {
+      TreeUp tree;
+      for (int d = 0; d < window && i - d >= 0; ++d) {
+        const unsigned long long it = src[i - d];
+        if (item_doc(it) != doc) break;
+        tree.push(__uint_as_float((uint32_t)it));
+      }
+      total = tree.result();
+      lanes = tree.n;
+    }
+    if (total > 0.0f && (!with_counts || (float)lanes >= (float)need))
+      scratch[lo + kept++] =
+          ((unsigned long long)__float_as_uint(total) << 32) |
+          (uint32_t)doc;
+  }
+  int tile = 0;
+  const int at = *found + block_excl_scan(kept, s_warp, &tile);
+  for (int j = 0; j < kept; ++j) {
+    const unsigned long long c = scratch[lo + j];
+    if (packed != nullptr) {
+      packed[at + j] = c;
+    } else {
+      cand_score[at + j] = __uint_as_float((uint32_t)(c >> 32));
+      cand_doc[at + j] = (int)(uint32_t)c;
+    }
+  }
+  *found += tile;
+}
+
+// The first lane of slot t whose doc is at least d (its length if none),
+// by a warp (every lane calls it): 32 probes a round, each round cutting
+// the range to one probe step, so 4096 lanes take three rounds of loads
+// in flight together. Where a slot's docs descend the answer is still a
+// function of d that never falls as d rises (each probe's test only
+// turns true as d rises), so the parts of a slot still tile it.
+__device__ int warp_lower_bound(const Streams& s, const Slots& p,
+                                const ExactTable& tb, int t, int d) {
+  const int lane = threadIdx.x & 31;
+  int a = 0, b = tb.len[t];  // the answer lies in [a, b]
+  while (a < b) {
+    const int step = (b - a + 31) / 32;
+    const int at = a + lane * step;
+    const bool probe = at < b;
+    const bool below = probe && lane_doc(s, p, tb, t, at) < d;
+    const unsigned probes = __ballot_sync(0xffffffffu, probe);
+    const unsigned belows = __ballot_sync(0xffffffffu, below);
+    const int k = __ffs(~belows & probes) - 1;  // the first probe not below
+    if (k < 0) {
+      a += (__popc(probes) - 1) * step + 1;
+    } else {
+      b = a + k * step;
+      if (k > 0) a += (k - 1) * step + 1;
+    }
+  }
+  return a;
+}
+
+// A row's slot windows each hold a term's postings, docs ascending (the
+// pack sorts postings per term), so the reference's stable sort of the
+// row's lanes by doc is a merge of T sorted runs in which equal docs keep
+// slot order. A row of more lanes than a window (S, the launch's shared
+// memory) is cut into P parts by doc, part q the docs [q * d_pad / P,
+// (q + 1) * d_pad / P) (the last one up), each slot's share of a part
+// found by a binary search of its docs, and each part takes its own
+// block: block r is part 0 of row r, block R + e the part part_rq[e]
+// (row | part << 16). A part is merged in windows of at most S lanes (a
+// row of one part in one): each window stages, from every slot with
+// lanes left, its lanes left or, when they do not fit, its next lanes (S
+// shared among the slots), decoded to items in one flat pass (each
+// thread a few lanes, the slot found by a search over the staged prefix,
+// every doc and rank load of a batch before its residual loads), and
+// takes every staged lane whose doc is below D1, the least first
+// unstaged doc of any slot (d_pad at most). So no doc's lanes straddle
+// two windows or parts, and each window is complete: its taken lanes, T
+// sorted runs, are merged pairwise along their merge paths (merge_runs),
+// then emit_runs writes the window's candidates in doc order: part 0 to
+// the row's candidates, a later part packed in `parked` at its first
+// lane (exact_finish moves them). Every staged pair of neighbouring lanes,
+// the last staged lane against the slot's next one and the lane before a
+// part's start against it are checked: a slot whose docs descend (a
+// window clamped to the end of the stream reads another term's postings)
+// marks its row `bad`, and exact_finish redoes it whole. Lanes clamped to
+// d_pad never reach a candidate (they sort last and a run of d_pad is
+// dropped). 256 threads, their registers bounded so that six blocks
+// share an SM when their windows fit (2048 lanes, 33 KB each).
+__global__ void __launch_bounds__(kExactThreads, kExactBlocksPerSm)
+exact_merge_kernel(Streams s, Slots p, const long long* row_off,
+                   const int* part_rq, const int* row_parts, int R,
+                   int with_counts, int window, int S, float* cand_score,
+                   int* cand_doc, int* n_cand, unsigned long long* parked,
+                   int* part_found, int* part_base, int* bad,
+                   int* class_rows) {
+  extern __shared__ __align__(16) unsigned long long s_dyn[];
+  __shared__ int s_wsum[8];
+  __shared__ int s_warp[33];
+  __shared__ int s_d1;
+  __shared__ int s_more;
+  const bool first = blockIdx.x < R;
+  const int e = first ? 0 : (int)blockIdx.x - R;
+  const int r = first ? (int)blockIdx.x : part_rq[e] & 0xFFFF;
+  const int q = first ? 0 : part_rq[e] >> 16;
+  const int P = row_parts[r];
+  const int T = p.T;
+  const int tid = threadIdx.x;
+  const int d_pad = p.d_pad;
+  unsigned long long* s_src = s_dyn;
+  unsigned long long* s_dst = s_dyn + S;
+  const ExactTable tb = exact_table(s_dyn + 2 * S, T);
+  load_slot_table(s, p, tb, r);
+  __syncthreads();
+  // the part's lanes of each slot: [cur, len) between the binary searches
+  // of its doc bounds (monotone in the bound even where docs descend, so
+  // the parts of a slot tile it); the lane before the start is checked
+  bool bad_here = false;
+  if (P > 1) {
+    const int d_lo = (int)((long long)q * d_pad / P);
+    const int d_hi = (int)((long long)(q + 1) * d_pad / P);
+    // a warp a search: slot t's lower (item 2t) and upper (2t + 1) bound,
+    // parked in chunk and take
+    const int nwarps = blockDim.x >> 5;
+    for (int item = tid >> 5; item < 2 * T; item += nwarps) {
+      const int t = item >> 1;
+      const bool upper = item & 1;
+      if (upper ? q + 1 < P : q > 0) {
+        const int at = warp_lower_bound(s, p, tb, t, upper ? d_hi : d_lo);
+        if ((tid & 31) == 0) (upper ? tb.take : tb.chunk)[t] = at;
+      }
+    }
+    __syncthreads();
+    for (int t = tid; t < T; t += blockDim.x) {
+      const int lo = q > 0 ? tb.chunk[t] : 0;
+      const int hi = q + 1 < P ? max(lo, tb.take[t]) : tb.len[t];
+      if (lo > 0 && lo < tb.len[t]) {
+        const int b = lane_doc(s, p, tb, t, lo);
+        bad_here |= b < d_pad && lane_doc(s, p, tb, t, lo - 1) >= b;
+      }
+      tb.cur[t] = lo;
+      tb.len[t] = hi;
+    }
+  }
+  bool radix = __syncthreads_or(bad_here);
+  int lanes_before = 0;  // the row's lanes of the parts before this one
+  if (q > 0) {
+    int mine = 0;
+    for (int t = tid; t < T; t += blockDim.x) mine += tb.cur[t];
+    block_excl_scan(mine, s_warp, &lanes_before);
+  }
+  const long long off = row_off[r];
+  const int need = with_counts ? p.min_count[r] : 0;
+  int found = 0;
+  while (!radix) {
+    // 1. every slot's share of the window: all its lanes left when they
+    // fit (a row of one part: one window); else S over the slots with
+    // lanes left, then what the short ones leave over the long ones (one
+    // scan of the slots' lanes below the share and, from bit 20, the
+    // slots above it: at most S and T)
+    int left = 0, active = 0, total = 0;
+    for (int t = tid; t < T; t += blockDim.x) {
+      left += tb.len[t] - tb.cur[t];
+      active += tb.len[t] > tb.cur[t];
+    }
+    block_excl_scan(left, s_warp, &total);
+    if (total == 0) break;
+    int share = S, extra = 0;
+    if (total > S) {
+      block_excl_scan(active, s_warp, &active);
+      share = max(1, S / active);
+      int packed = 0, sums = 0;
+      for (int t = tid; t < T; t += blockDim.x) {
+        const int rem = tb.len[t] - tb.cur[t];
+        packed += min(rem, share) + (rem > share ? 1 << 20 : 0);
+      }
+      block_excl_scan(packed, s_warp, &sums);
+      const int used = sums & ((1 << 20) - 1), n_big = sums >> 20;
+      extra = n_big > 0 ? (S - used) / n_big : 0;
+    }
+    for (int t = tid; t < T; t += blockDim.x)
+      tb.chunk[t] = min(tb.len[t] - tb.cur[t], share + extra);
+    if (tid == 0) {
+      s_d1 = d_pad;
+      s_more = 0;
+    }
+    const int staged = slot_scan(tb.chunk, tb.cpre, T, s_warp);
+    // 2. stage the chunks; each slot's next unstaged doc bounds D1 (its
+    // load issued first, used after the staging)
+    int next[kExactSlotsPerThread];
+#pragma unroll
+    for (int u = 0; u < kExactSlotsPerThread; ++u) {
+      const int t = tid + u * kExactThreads;
+      const bool has = t < T && tb.cur[t] + tb.chunk[t] < tb.len[t];
+      next[u] = has ? lane_doc(s, p, tb, t, tb.cur[t] + tb.chunk[t])
+                    : kNoNext;
+    }
+    stage_items(s, p, tb, tb.cpre, tb.cur, staged, s_src);
+#pragma unroll
+    for (int u = 0; u < kExactSlotsPerThread; ++u) {
+      if (next[u] != kNoNext) {
+        atomicMin(&s_d1, next[u]);
+        s_more = 1;
+      }
+    }
+    __syncthreads();
+    // 3. the ascent check: neighbours in a chunk, and the chunk's last
+    // lane against the slot's next
+    bool descends = false;
+    for (int i = tid; i < staged; i += blockDim.x) {
+      const int t = slot_of(tb.cpre, T, i);
+      if (i > tb.cpre[t]) {
+        const int b = item_doc(s_src[i]);
+        descends |= b < d_pad && item_doc(s_src[i - 1]) >= b;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kExactSlotsPerThread; ++u) {
+      const int t = tid + u * kExactThreads;
+      if (t < T && tb.chunk[t] > 0 && next[u] < d_pad)
+        descends |= item_doc(s_src[tb.cpre[t + 1] - 1]) >= next[u];
+    }
+    radix = __syncthreads_or(descends);
+    if (radix) break;
+    // 4. each slot takes its staged lanes below D1; with D1 = d_pad no
+    // lane below d_pad is left unstaged, and every staged lane is taken
+    // (those of d_pad go last and make no candidate)
+    const int d1 = s_d1;
+    for (int t = tid; t < T; t += blockDim.x)
+      tb.take[t] = d1 >= d_pad ? tb.chunk[t]
+                               : docs_below(s_src, tb.cpre[t],
+                                            tb.cpre[t + 1], d1);
+    const int taken = slot_scan(tb.take, tb.tpre, T, s_warp);
+    // 5. the merge: each slot's taken lanes, a run from cpre, stably
+    unsigned long long* merged =
+        merge_runs(s_src, s_dst, tb.tpre, tb.cpre, T, taken);
+    // 6. the window's run ends; the cursors move on
+    emit_runs(merged, taken, window, with_counts, need, d_pad,
+              merged == s_src ? s_dst : s_src, cand_score + off,
+              cand_doc + off,
+              q > 0 ? parked + off + lanes_before : nullptr, &found,
+              s_warp);
+    const bool more = s_more;
+    for (int t = tid; t < T; t += blockDim.x) tb.cur[t] += tb.take[t];
+    __syncthreads();
+    if (!more && d1 >= d_pad) break;  // every lane was staged and taken
+  }
+  if (tid == 0) {
+    part_found[blockIdx.x] = found;
+    part_base[blockIdx.x] = lanes_before;
+    if (radix) {
+      bad[r] = 1;
+    } else if (P == 1) {
+      n_cand[r] = found;
+      if (class_rows != nullptr) atomicAdd(&class_rows[kExactMerge], 1);
+    }
+  }
+}
+
+// What exact_merge leaves (grid R + the later parts, 256 threads): block
+// r redoes row r whole when it is bad, every lane in lane order, two
+// stable LSD passes of sort_pass on the doc's bytes in device memory
+// (items, alt), then the run ends (class "radix"); block R + e moves the
+// parked candidates of the later part part_rq[e] of a good row after
+// those of the row's earlier parts (part_rq holds a row's parts in
+// order), and the last part writes the row's count (class "parts").
+__global__ void __launch_bounds__(kExactThreads)
+exact_finish_kernel(Streams s, Slots p, const long long* row_off,
+                    const int* part_rq, const int* row_parts, int R,
+                    int with_counts, int window, const int* part_found,
+                    const int* part_base, const int* bad,
+                    unsigned long long* items, unsigned long long* alt,
+                    float* cand_score, int* cand_doc, int* n_cand,
+                    int* class_rows) {
+  extern __shared__ __align__(16) unsigned long long s_tab[];
+  __shared__ int s_cnt[kExactWarps][256];
+  __shared__ int s_wsum[8];
+  __shared__ int s_warp[33];
+  if (blockIdx.x >= R) {
+    const int e = blockIdx.x - R;
+    const int r = part_rq[e] & 0xFFFF, q = part_rq[e] >> 16;
+    if (bad[r]) return;
+    int at = part_found[r];  // part 0
+    for (int j = e - q + 1; j < e; ++j) at += part_found[R + j];
+    const int m = part_found[R + e];
+    const long long off = row_off[r];
+    const unsigned long long* src = alt + off + part_base[R + e];
+    for (int j = threadIdx.x; j < m; j += blockDim.x) {
+      const unsigned long long c = src[j];
+      cand_score[off + at + j] = __uint_as_float((uint32_t)(c >> 32));
+      cand_doc[off + at + j] = (int)(uint32_t)c;
+    }
+    if (threadIdx.x == 0 && q + 1 == row_parts[r]) {
+      n_cand[r] = at + m;
+      if (class_rows != nullptr) atomicAdd(&class_rows[kExactParts], 1);
+    }
+    return;
+  }
+  const int r = blockIdx.x;
+  if (!bad[r]) return;
+  const ExactTable tb = exact_table(s_tab, p.T);
+  load_slot_table(s, p, tb, r);
+  for (int i = threadIdx.x; i < kExactWarps * 256; i += blockDim.x)
+    (&s_cnt[0][0])[i] = 0;
+  __syncthreads();
+  const int n = slot_scan(tb.len, tb.lpre, p.T, s_warp);
+  const long long off = row_off[r];
+  unsigned long long* src = items + off;
+  unsigned long long* dst = alt + off;
+  stage_items(s, p, tb, tb.lpre, nullptr, n, src);
+  __syncthreads();
   for (int shift = 32; shift < 48 && n > 1; shift += 8) {
-    if (sort_pass(src, dst, n, shift, s_cnt, s_wsum)) {
+    if (sort_pass<unsigned long long, kExactWarps>(src, dst, n, shift, s_cnt,
+                                                    s_wsum)) {
       unsigned long long* tmp = src;
       src = dst;
       dst = tmp;
     }
   }
-
-  // 3. run ends: the tree sum, the lane count, the filters; candidates
-  // leave in doc order
-  const int need = with_counts ? p.min_count[r] : 0;
   int found = 0;
-  for (int base = 0; base < n; base += blockDim.x) {
-    const int i = base + tid;
-    bool keep = false;
-    float total = 0.0f;
-    uint32_t doc = 0;
-    if (i < n) {
-      doc = (uint32_t)(src[i] >> 32);
-      const bool end = i == n - 1 || (uint32_t)(src[i + 1] >> 32) != doc;
-      if (end && doc < (uint32_t)p.d_pad) {
-        TreeUp tree;
-        for (int d = 0; d < window && i - d >= 0; ++d) {
-          const unsigned long long it = src[i - d];
-          if ((uint32_t)(it >> 32) != doc) break;
-          tree.push(__uint_as_float((uint32_t)it));
-        }
-        total = tree.result();
-        keep = total > 0.0f &&
-               (!with_counts || (float)tree.n >= (float)need);
-      }
-    }
-    int tile = 0;
-    const int at = block_rank(keep, s_warp, &tile);
-    if (keep) {
-      cand_score[off + found + at] = total;
-      cand_doc[off + found + at] = (int)doc;
-    }
-    found += tile;
+  emit_runs(src, n, window, with_counts, with_counts ? p.min_count[r] : 0,
+            p.d_pad, dst, cand_score + off, cand_doc + off, nullptr, &found,
+            s_warp);
+  if (threadIdx.x == 0) {
+    n_cand[r] = found;
+    if (class_rows != nullptr) atomicAdd(&class_rows[kExactRadix], 1);
   }
-  if (tid == 0) n_cand[r] = found;
+}
+
+// Lets fn take `bytes` of dynamic shared memory: past the 48 KB that
+// every kernel may take, the attribute is raised (it is never lowered in
+// this source, so a smaller launch needs no call).
+template <typename F>
+cudaError_t allow_smem(F fn, int bytes) {
+  return bytes > 48 * 1024
+             ? cudaFuncSetAttribute(
+                   fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes)
+             : cudaSuccess;
+}
+
+// A shard_topk launch over rows of at most n_max values: the finalists
+// of its largest row (count), their sort (sort_n), whether a row may take
+// the device class, the finalist slots of the per-row kernel's shared
+// memory (none when every row is of the device class) and the values it
+// stages there (a select runs only over a row wider than kk).
+struct TopkPlan {
+  int count, sort_n, fin_cap, stage;
+  bool device;
+};
+
+TopkPlan topk_plan(int n_max, int kk, int sort_cap, int stage_cap,
+                   bool has_row_n) {
+  TopkPlan t;
+  t.count = n_max < kk ? n_max : kk;
+  t.sort_n = 1;
+  while (t.sort_n < t.count) t.sort_n <<= 1;
+  t.device = t.sort_n > sort_cap;
+  t.fin_cap = t.device ? (has_row_n ? sort_cap : 0) : t.sort_n;
+  t.stage = n_max > kk && t.fin_cap > 0
+                ? (n_max < stage_cap ? n_max : stage_cap) : 0;
+  return t;
 }
 
 Streams make_streams(const void* docs8, const void* docs16,
@@ -2053,33 +2990,93 @@ int es_select_rescore(const void* docs8, const void* docs16,
   return (int)cudaGetLastError();
 }
 
+// Dynamic shared memory of a shard_topk launch's kernel (1 the per-row
+// kernel, 2 topk_pass, 3 topk_runs, 4 topk_merge; es_blocks_per_sm's
+// numbers) for rows of at most n_max values (row_n given or not) and
+// kernel k kk.
+int es_topk_smem(int kernel, int n_max, int kk, int sort_cap, int stage_cap,
+                 int slice, int has_row_n) {
+  const TopkPlan t = topk_plan(n_max, kk, sort_cap, stage_cap, has_row_n);
+  if (kernel == 1)
+    return t.fin_cap * (int)sizeof(long long) +
+           t.stage * (int)sizeof(float);
+  if (kernel == 3) {
+    int run_n = 1;
+    while (run_n < (slice < t.count ? slice : t.count)) run_n <<= 1;
+    return run_n * (int)sizeof(long long);
+  }
+  return kernel == 4 ? t.count * (int)sizeof(long long) : 0;
+}
+
 int es_shard_topk(const void* vals, long long stride, const void* row_off,
-                  const void* row_n, int n_all, int R, int kk, int sort_cap,
-                  void* scratch, long long scratch_stride, void* out_vals,
+                  const void* row_n, int n_all, int n_max, int R, int kk,
+                  int sort_cap, int stage_cap, int slice, void* rows,
+                  void* hist, void* finals, void* runs, void* out_vals,
                   void* out_pos, const void* ids, int fill, void* out_ids,
                   void* class_rows, void* stream) {
-  // shared memory for the "shared" class's finalists: none when every
-  // row has n_all values and they sort in device memory
-  const int count = row_n != nullptr ? kk : (n_all < kk ? n_all : kk);
-  int sort_n = 1;
-  while (sort_n < count) sort_n <<= 1;
-  const int smem =
-      row_n == nullptr && sort_n > sort_cap
-          ? 0
-          : (sort_n < sort_cap ? sort_n : sort_cap) * (int)sizeof(long long);
-  cudaError_t err = cudaFuncSetAttribute(
-      shard_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int has_row_n = row_n != nullptr;
+  const TopkPlan t = topk_plan(n_max, kk, sort_cap, stage_cap, has_row_n);
+  const bool device = t.device;
+  const int fin_cap = t.fin_cap, stage = t.stage;
+  const int smem = es_topk_smem(1, n_max, kk, sort_cap, stage_cap, slice,
+                                has_row_n);
+  cudaStream_t st = (cudaStream_t)stream;
+  TopkRow* trows = static_cast<TopkRow*>(rows);
+  cudaError_t err = allow_smem(shard_topk_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  shard_topk_kernel<<<R, kTopThreads, smem, (cudaStream_t)stream>>>(
+  shard_topk_kernel<<<R, kTopThreads, smem, st>>>(
       static_cast<const float*>(vals), stride,
       static_cast<const long long*>(row_off),
-      static_cast<const int*>(row_n), n_all, kk, sort_cap,
-      static_cast<unsigned long long*>(scratch), scratch_stride,
-      static_cast<float*>(out_vals), static_cast<long long*>(out_pos),
-      static_cast<const int*>(ids), fill, static_cast<int*>(out_ids),
-      static_cast<int*>(class_rows));
+      static_cast<const int*>(row_n), n_all, kk, sort_cap, fin_cap, stage,
+      device ? trows : nullptr, static_cast<float*>(out_vals),
+      static_cast<long long*>(out_pos), static_cast<const int*>(ids), fill,
+      static_cast<int*>(out_ids), static_cast<int*>(class_rows));
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !device) return (int)err;
+  // the device class: a select pass a value digit, the runs, the rank
+  // merge (a block a kTopMergeKeys finalists)
+  const int G = (n_max + slice - 1) / slice;
+  const dim3 grid(G, R);
+  for (int shift = kTopValueTop; shift >= 0; shift -= 8) {
+    topk_pass_kernel<<<grid, kTopThreads, 0, st>>>(
+        static_cast<const float*>(vals), stride,
+        static_cast<const long long*>(row_off),
+        static_cast<const int*>(row_n), n_all, slice, shift, trows,
+        static_cast<int*>(hist));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int run_smem = es_topk_smem(3, n_max, kk, sort_cap, stage_cap,
+                                    slice, has_row_n);
+  err = allow_smem(topk_runs_kernel, run_smem);
+  if (err != cudaSuccess) return (int)err;
+  topk_runs_kernel<<<grid, kTopThreads, run_smem, st>>>(
+      static_cast<const float*>(vals), stride,
+      static_cast<const long long*>(row_off),
+      static_cast<const int*>(row_n), n_all, kk, slice, trows,
+      static_cast<const int*>(hist),
+      static_cast<unsigned long long*>(finals), static_cast<int*>(runs));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int merge_smem = es_topk_smem(4, n_max, kk, sort_cap, stage_cap,
+                                      slice, has_row_n);
+  err = allow_smem(topk_merge_kernel, merge_smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 merge_grid((t.count + kTopMergeKeys - 1) / kTopMergeKeys, R);
+  topk_merge_kernel<<<merge_grid, kTopThreads, merge_smem, st>>>(
+      static_cast<const float*>(vals), stride,
+      static_cast<const long long*>(row_off),
+      static_cast<const int*>(row_n), n_all, kk, slice, trows,
+      static_cast<const unsigned long long*>(finals),
+      static_cast<const int*>(runs), G, static_cast<float*>(out_vals),
+      static_cast<long long*>(out_pos), static_cast<const int*>(ids), fill,
+      static_cast<int*>(out_ids));
   return (int)cudaGetLastError();
 }
+
+// Bytes of a device-class row's TopkRow, and the most slices it may take.
+int es_topk_row_bytes() { return (int)sizeof(TopkRow); }
+int es_topk_max_runs() { return kTopMaxRuns; }
 
 int es_exact_merge(const void* docs8, const void* docs16, const void* codes,
                    const void* ranks, long long n_post,
@@ -2090,19 +3087,39 @@ int es_exact_merge(const void* docs8, const void* docs16, const void* codes,
                    const void* res_starts, const void* res_lens,
                    const void* dbs, const void* dlo, int R, int T,
                    int max_len, int d_pad, const void* row_off,
-                   int with_counts, int window, void* items, void* alt,
-                   void* cand_score, void* cand_doc, void* n_cand,
-                   void* class_rows, void* stream) {
+                   const void* part_rq, const void* row_parts, int n_extra,
+                   int with_counts, int window, int window_lanes,
+                   void* items, void* alt, void* cand_score, void* cand_doc,
+                   void* n_cand, void* part_found, void* part_base,
+                   void* bad, void* class_rows, void* stream) {
   Streams s = make_streams(docs8, docs16, codes, ranks, n_post, doc_bases,
                            n_bases, res_vals, n_res);
   Slots p = make_slots(starts, lengths, weights, min_count, res_starts,
                        res_lens, dbs, dlo, T, max_len, d_pad);
-  const int smem = 2 * kExactSmemItems * (int)sizeof(long long);
-  cudaError_t err = cudaFuncSetAttribute(
-      exact_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaStream_t st = (cudaStream_t)stream;
+  // a window stages at least one lane of every slot
+  const int S = window_lanes > T ? window_lanes : T;
+  const int smem = exact_smem_bytes(S, T);
+  cudaError_t err = allow_smem(exact_merge_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  exact_merge_kernel<<<R, kExactThreads, smem, (cudaStream_t)stream>>>(
-      s, p, static_cast<const long long*>(row_off), with_counts, window,
+  exact_merge_kernel<<<R + n_extra, kExactThreads, smem, st>>>(
+      s, p, static_cast<const long long*>(row_off),
+      static_cast<const int*>(part_rq), static_cast<const int*>(row_parts),
+      R, with_counts, window, S, static_cast<float*>(cand_score),
+      static_cast<int*>(cand_doc), static_cast<int*>(n_cand),
+      static_cast<unsigned long long*>(alt), static_cast<int*>(part_found),
+      static_cast<int*>(part_base), static_cast<int*>(bad),
+      static_cast<int*>(class_rows));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int table = exact_smem_bytes(0, T);
+  err = allow_smem(exact_finish_kernel, table);
+  if (err != cudaSuccess) return (int)err;
+  exact_finish_kernel<<<R + n_extra, kExactThreads, table, st>>>(
+      s, p, static_cast<const long long*>(row_off),
+      static_cast<const int*>(part_rq), static_cast<const int*>(row_parts),
+      R, with_counts, window, static_cast<const int*>(part_found),
+      static_cast<const int*>(part_base), static_cast<const int*>(bad),
       static_cast<unsigned long long*>(items),
       static_cast<unsigned long long*>(alt), static_cast<float*>(cand_score),
       static_cast<int*>(cand_doc), static_cast<int*>(n_cand),
@@ -2110,8 +3127,37 @@ int es_exact_merge(const void* docs8, const void* docs16, const void* codes,
   return (int)cudaGetLastError();
 }
 
-// Lanes of a row the exact merge sorts in shared memory.
-int es_exact_smem_items() { return kExactSmemItems; }
+// Dynamic shared memory of an exact_merge launch of T slots and windows
+// of window_lanes lanes.
+int es_exact_smem_bytes(int window_lanes, int T) {
+  return exact_smem_bytes(window_lanes > T ? window_lanes : T, T);
+}
+
+// Blocks of a kernel resident on one SM at `smem` bytes of dynamic shared
+// memory (0 exact_merge, 1 shard_topk, 2 topk_pass, 3 topk_runs,
+// 4 topk_merge, 5 exact_finish), or -1 with an unknown kernel or a
+// refused size.
+int es_blocks_per_sm(int kernel, int smem) {
+  int blocks = -1;
+  cudaError_t err = cudaSuccess;
+#define ES_OCCUPANCY(fn, threads)                                          \
+  err = allow_smem(fn, smem);                                              \
+  if (err == cudaSuccess)                                                  \
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn,       \
+                                                        threads, smem);
+  switch (kernel) {
+    case 0: ES_OCCUPANCY(exact_merge_kernel, kExactThreads) break;
+    case 1: ES_OCCUPANCY(shard_topk_kernel, kTopThreads) break;
+    case 2: ES_OCCUPANCY(topk_pass_kernel, kTopThreads) break;
+    case 3: ES_OCCUPANCY(topk_runs_kernel, kTopThreads) break;
+    case 4: ES_OCCUPANCY(topk_merge_kernel, kTopThreads) break;
+    case 5: ES_OCCUPANCY(exact_finish_kernel, kExactThreads) break;
+    default: break;
+  }
+#undef ES_OCCUPANCY
+  cudaGetLastError();  // a refused size leaves no error for a later launch
+  return err == cudaSuccess ? blocks : -1;
+}
 
 const char* es_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

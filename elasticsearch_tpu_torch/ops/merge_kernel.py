@@ -14,14 +14,17 @@ merge. ``shard_topk`` is the cross-shard top-k after the all-gather (the
 reference's ``_merge_topk`` → ``hierarchical_top_k``); ``sparse.
 hierarchical_top_k`` calls it on a CUDA tensor. ``exact_merge_topk`` is
 ``sorted_merge_topk(variant="compressed_exact")``, for weights that fail
-``packable()``: the ``exact_merge`` kernel (decode, stable sort by doc,
-run sums, msm filter, totals) and then ``shard_topk`` over its
-candidates. Each has its plain version beside it (``shard_topk_plain``,
-``exact_merge_topk_plain``), taken for a CPU tensor only.
+``packable()``: the ``exact_merge`` kernel (decode, a stable merge of
+the slots' sorted doc runs, run sums, msm filter, totals) and then
+``shard_topk`` over its candidates. Each has its plain version beside
+it (``shard_topk_plain``, ``exact_merge_topk_plain``), taken for a CPU
+tensor only.
 
 ``LAUNCHES`` counts the launches of each kernel (a plain integer per
 kernel name, bumped where the kernel is launched and nowhere else). The
-row sort takes both key sets of a train in one launch. Every launch runs
+row sort takes both key sets of a train in one launch; a call of
+``shard_topk`` (its device class runs nine CUDA kernels in turn) or of
+``exact_merge`` (two) is one launch of its C entry. Every launch runs
 under ``torch.cuda.device`` of its tensors: the C entries launch on the
 host thread's current device and set their shared-memory attribute
 there.
@@ -66,14 +69,33 @@ SIZE_CLASSES = ("row_sort.shared", "row_sort.device", "select.none",
                 "run_sum.tiled", "slot_decode.bounds",
                 "slot_decode.select_warp", "slot_decode.select_block")
 
-#: finalists the shard top-k sorts in shared memory (8 B each); a row
-#: with more sorts them in device memory
+#: finalists the shard top-k sorts in one block's shared memory (8 B
+#: each); a row with more takes the device class
 TOPK_SORT_CAP = 8192
 #: values a shard top-k row may hold (the key keeps 24 position bits)
 TOPK_ROW_LIMIT = 1 << 24
-#: the size classes of shard_topk and exact_merge (rows per class)
-TOPK_CLASSES = ("shard_topk.shared", "shard_topk.device")
-EXACT_CLASSES = ("exact.shared", "exact.device")
+#: values of a row the shard top-k stages in shared memory (4 B each) to
+#: run its select there
+TOPK_STAGE_CAP = 16384
+#: values of a device-class row each block of its select and of its
+#: sorted runs takes
+TOPK_SLICE = 4096
+#: the size classes of shard_topk (rows per class): the select over the
+#: row staged in shared memory, or none (no more values than k) or over
+#: device memory, the finalists sorted in shared memory; or more
+#: finalists than TOPK_SORT_CAP: a select over several blocks a row,
+#: sorted runs, a rank merge
+TOPK_CLASSES = ("shard_topk.staged", "shard_topk.shared",
+                "shard_topk.device")
+#: the most lanes an exact-merge window holds (16 B of shared memory
+#: each); the launch's window is the longest row rounded up to 1024 lanes,
+#: at most this
+EXACT_WINDOW_CAP = 2048
+#: the size classes of exact_merge (rows per class): merged in one
+#: window, in several parts by doc (a row of more lanes than the window:
+#: a block a part), or (a slot whose docs descend) radix-sorted in
+#: device memory
+EXACT_CLASSES = ("exact.merge", "exact.parts", "exact.radix")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -94,11 +116,16 @@ _SIGNATURES = {
     "es_select_rescore": _STREAM_ARGS + _SLOT_ARGS + [_P, _P, _P, _P, _P,
                                                       _I, _I, _I, _P, _P,
                                                       _P, _P, _P, _P],
-    "es_shard_topk": [_P, _L, _P, _P, _I, _I, _I, _I, _P, _L, _P, _P, _P,
-                      _I, _P, _P, _P],
-    "es_exact_merge": _STREAM_ARGS + _SLOT_ARGS + [_P, _I, _I, _P, _P, _P,
-                                                   _P, _P, _P, _P],
-    "es_exact_smem_items": [],
+    "es_shard_topk": [_P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                      _P, _P, _P, _P, _P, _I, _P, _P, _P],
+    "es_topk_row_bytes": [],
+    "es_topk_smem": [_I, _I, _I, _I, _I, _I, _I],
+    "es_topk_max_runs": [],
+    "es_exact_merge": _STREAM_ARGS + _SLOT_ARGS + [_P, _P, _P, _I, _I, _I,
+                                                   _I, _P, _P, _P, _P, _P,
+                                                   _P, _P, _P, _P, _P],
+    "es_exact_smem_bytes": [_I, _I],
+    "es_blocks_per_sm": [_I, _I],
 }
 
 
@@ -153,10 +180,19 @@ def _run(lib, kernel: str, events: Optional[list], fn, *args) -> None:
         LAUNCHES[kernel] += 1
 
 
-def exact_smem_items() -> int:
-    """Lanes of a row the exact merge sorts in shared memory; a longer
-    row sorts in device memory."""
-    return _lib().es_exact_smem_items()
+#: the kernels es_blocks_per_sm knows, by its index
+OCCUPANCY_KERNELS = ("exact_merge", "shard_topk", "topk_pass", "topk_runs",
+                     "topk_merge", "exact_finish")
+#: the CUDA kernels a shard_topk launch runs (the last three: the device
+#: class)
+TOPK_KERNELS = OCCUPANCY_KERNELS[1:5]
+
+
+def blocks_per_sm(kernel: str, smem: int) -> int:
+    """Blocks of `kernel` (one of OCCUPANCY_KERNELS) resident on one SM
+    of the current device at `smem` bytes of dynamic shared memory (the
+    CUDA occupancy calculator)."""
+    return _lib().es_blocks_per_sm(OCCUPANCY_KERNELS.index(kernel), smem)
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -543,32 +579,57 @@ def _launch_topk(vals, k, *, stats, events):
     out_pos = torch.empty((b, max(kk, 0)), dtype=torch.int64, device=dev)
     if b and kk > 0:
         _topk_rows(_lib(), vals, b, kk, stride=n, row_off=None, row_n=None,
-                   n_all=n, out_vals=out_vals, out_pos=out_pos, ids=None,
-                   fill=0, out_ids=None, stats=stats, events=events)
+                   n_all=n, n_max=n, out_vals=out_vals, out_pos=out_pos,
+                   ids=None, fill=0, out_ids=None, stats=stats,
+                   events=events)
     return out_vals, out_pos
 
 
 def _topk_rows(lib, vals, rows, kk, *, stride, row_off, row_n, n_all,
-               out_vals, out_pos, ids, fill, out_ids, stats, events):
+               n_max, out_vals, out_pos, ids, fill, out_ids, stats, events):
     """One shard_topk launch over `rows` rows of `vals` (row r at
-    row_off[r], or r * stride; row_n[r] values, or n_all)."""
+    row_off[r], or r * stride; row_n[r] values, or n_all; n_max at most).
+    When a row may hold more finalists than TOPK_SORT_CAP the launch also
+    runs the device class's kernels, over the scratch made here."""
     dev = vals.device
+    count = min(n_max, kk)
     sort_n = 1
-    while sort_n < kk:
+    while sort_n < count:
         sort_n *= 2
-    scratch = torch.empty((rows, sort_n) if sort_n > TOPK_SORT_CAP else 1,
-                          dtype=torch.int64, device=dev)
+    device = sort_n > TOPK_SORT_CAP
+    slices = 1
+    scratch = [None] * 4    # row states, histograms, finalists, runs
+    if device:
+        slices = -(-n_max // TOPK_SLICE)
+        if slices > lib.es_topk_max_runs() or count > K_LIMIT:
+            raise ValueError(f"shard_topk's device class takes rows of at "
+                             f"most {lib.es_topk_max_runs()} slices of "
+                             f"{TOPK_SLICE} values and k <= {K_LIMIT}, got "
+                             f"{n_max} values and k {kk}")
+        row_words = -(-lib.es_topk_row_bytes() // 8)
+        scratch = [
+            torch.empty((rows, row_words), dtype=torch.int64, device=dev),
+            torch.empty((rows, slices, 256), dtype=torch.int32, device=dev),
+            torch.empty((rows, kk), dtype=torch.int64, device=dev),
+            torch.empty((rows, slices, 2), dtype=torch.int32, device=dev)]
     class_rows = (torch.zeros(len(TOPK_CLASSES), dtype=torch.int32,
                               device=dev) if stats is not None else None)
     _run(lib, "shard_topk", events, lib.es_shard_topk, _ptr(vals), stride,
-         _ptr(row_off), _ptr(row_n), n_all, rows, kk, TOPK_SORT_CAP,
-         _ptr(scratch), sort_n, _ptr(out_vals), _ptr(out_pos), _ptr(ids),
-         fill, _ptr(out_ids), _ptr(class_rows),
+         _ptr(row_off), _ptr(row_n), n_all, n_max, rows, kk, TOPK_SORT_CAP,
+         TOPK_STAGE_CAP, TOPK_SLICE, *map(_ptr, scratch), _ptr(out_vals),
+         _ptr(out_pos), _ptr(ids), fill, _ptr(out_ids), _ptr(class_rows),
          torch.cuda.current_stream(dev).cuda_stream)
     if stats is not None:
         stats.setdefault("topk_classes", dict.fromkeys(TOPK_CLASSES, 0))
         for name, c in zip(TOPK_CLASSES, class_rows.tolist()):
             stats["topk_classes"][name] += c
+        stats["topk_slices"] = slices
+        # the per-row kernel, then (the device class) the three others
+        stats["topk_blocks_per_sm"] = {
+            name: blocks_per_sm(name, lib.es_topk_smem(
+                OCCUPANCY_KERNELS.index(name), n_max, kk, TOPK_SORT_CAP,
+                TOPK_STAGE_CAP, TOPK_SLICE, int(row_n is not None)))
+            for name in TOPK_KERNELS[:4 if device else 1]}
 
 
 # ---------------------------------------------------------------------------
@@ -631,23 +692,38 @@ def _launch_exact(flat_docs, flat_impact, starts, lengths, weights,
 
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    # each row's valid lanes, back to back: the u64 items, their sort
-    # scratch and the candidates live in the row's slice
+    # each row's valid lanes, back to back: its candidates (and the radix
+    # class's items and sort scratch, later parts' parked candidates) live
+    # in the row's slice
     row_cap = lengths.clamp(min=0).sum(dim=1, dtype=torch.int64)
     offs = torch.zeros(r + 1, dtype=torch.int64, device=dev)
     torch.cumsum(row_cap, dim=0, out=offs[1:])
-    total_cap, longest = torch.stack(
-        [offs[r], lengths.max().to(torch.int64)]).tolist()
+    *caps, longest = torch.cat(
+        [row_cap, lengths.max().to(torch.int64).view(1)]).tolist()
     if longest > max_len:
         raise ValueError(f"a slot holds {longest} lanes, more than "
                          f"max_len={max_len}")
     row_off = offs[:r]
-    total_cap = max(1, total_cap)
+    total_cap = max(1, sum(caps))
+    longest_row = max(caps)
+    # the merge's window: the longest row in 1024-lane steps, capped; a
+    # longer row is cut into parts of about a window, a block each
+    window_lanes = min(EXACT_WINDOW_CAP, -(-max(longest_row, 1) // 1024)
+                       * 1024)
+    parts = [max(1, -(-c // window_lanes)) for c in caps]
+    part_rq = [row | q << 16 for row, n_parts in enumerate(parts)
+               for q in range(1, n_parts)]
+    row_parts = torch.tensor(parts, dtype=torch.int32).to(dev)
+    part_rq_t = torch.tensor(part_rq or [0], dtype=torch.int32).to(dev)
     items = torch.empty(total_cap, dtype=torch.int64, device=dev)
     alt = torch.empty(total_cap, dtype=torch.int64, device=dev)
     cand_score = torch.empty(total_cap, dtype=torch.float32, device=dev)
     cand_doc = torch.empty(total_cap, dtype=torch.int32, device=dev)
     n_cand = torch.empty(r, dtype=torch.int32, device=dev)
+    part_found = torch.empty(r + len(part_rq), dtype=torch.int32,
+                             device=dev)
+    part_base = torch.empty_like(part_found)
+    bad = torch.zeros(r, dtype=torch.int32, device=dev)
     class_rows = (torch.zeros(len(EXACT_CLASSES), dtype=torch.int32,
                               device=dev) if stats is not None else None)
     streams, slots = _stream_slot_args(
@@ -656,25 +732,27 @@ def _launch_exact(flat_docs, flat_impact, starts, lengths, weights,
         res_starts=res_starts, res_lens=res_lens, res_vals=res_vals,
         doc_bases=doc_bases, dbs_starts=dbs_starts, dlo_starts=dlo_starts)
     _run(lib, "exact_merge", events, lib.es_exact_merge, *streams, *slots,
-         _ptr(row_off), int(with_counts), window, _ptr(items), _ptr(alt),
-         _ptr(cand_score), _ptr(cand_doc), _ptr(n_cand), _ptr(class_rows),
-         stream)
+         _ptr(row_off), _ptr(part_rq_t), _ptr(row_parts), len(part_rq),
+         int(with_counts), window, window_lanes, _ptr(items), _ptr(alt),
+         _ptr(cand_score), _ptr(cand_doc), _ptr(n_cand), _ptr(part_found),
+         _ptr(part_base), _ptr(bad), _ptr(class_rows), stream)
     out_vals = torch.empty((r, kk), dtype=torch.float32, device=dev)
     out_docs = torch.empty((r, kk), dtype=torch.int32, device=dev)
     _topk_rows(lib, cand_score, r, kk, stride=0, row_off=row_off,
-               row_n=n_cand, n_all=0, out_vals=out_vals, out_pos=None,
+               row_n=n_cand, n_all=0, n_max=max(longest_row, 1),
+               out_vals=out_vals, out_pos=None,
                ids=cand_doc, fill=d_pad, out_ids=out_docs, stats=stats,
                events=events)
     if stats is not None:
-        stats.update(lanes=int(row_cap.sum()),
+        stats.update(lanes=sum(caps), parts=len(part_rq),
                      candidates=int(n_cand.sum()), rows=r, slots=t, kk=kk,
                      delta=int(delta),
                      exact_classes=dict(zip(EXACT_CLASSES,
-                                            class_rows.tolist())))
-        stats["run_sum_output"] = dict(score=cand_score.clone(),
-                                       doc=cand_doc.clone(),
-                                       n_cand=n_cand.clone(),
-                                       row_off=row_off)
+                                            class_rows.tolist())),
+                     window_lanes=window_lanes,
+                     exact_smem=lib.es_exact_smem_bytes(window_lanes, t))
+        stats["exact_blocks_per_sm"] = blocks_per_sm("exact_merge",
+                                                     stats["exact_smem"])
     if with_totals:
         return out_vals, out_docs, n_cand
     return out_vals, out_docs

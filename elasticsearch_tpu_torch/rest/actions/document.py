@@ -2,13 +2,16 @@
 
 Copy of the reference's ``rest/actions/document.py`` for ``PUT``/``POST
 /{index}/_doc/{id}``, ``POST /{index}/_doc``, ``GET`` and ``DELETE
-/{index}/_doc/{id}`` and ``_bulk`` with index, create and delete ops. The
-bulk body is NDJSON action/metadata lines as in the reference; maximal
-runs of plain index ops group per shard and apply through the engine's
-batched path, the shards of a run on a thread pool (each shard's ops
-stay in request order, so doc ordinals — and with them the tie order of
-equal scores — are the reference's). Left out: cluster routing,
-indexing pressure, ingest pipelines, ``_update`` and ``_mget``.
+/{index}/_doc/{id}`` and ``_bulk`` with index, create, delete and update
+ops (an update merges its ``doc`` into the stored source, or upserts it
+with ``doc_as_upsert``; a scripted update refuses the whole bulk until
+the script module is ported). The bulk body is NDJSON action/metadata
+lines as in the reference; maximal runs of plain index ops group per
+shard and apply through the engine's batched path, the shards of a run
+on a thread pool (each shard's ops stay in request order, so doc
+ordinals — and with them the tie order of equal scores — are the
+reference's). Left out: cluster routing, indexing pressure, ingest
+pipelines, scripts, the ``_update`` route and ``_mget``.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ import time
 import uuid
 from typing import Any, Dict, List, Optional, Tuple
 
-from elasticsearch_tpu_torch.common.errors import (EsException,
+from elasticsearch_tpu_torch.common.errors import (DocumentMissingException,
+                                                   EsException,
                                                    IllegalArgumentException)
 from elasticsearch_tpu_torch.rest.controller import (RestController,
                                                      RestRequest,
@@ -124,10 +128,7 @@ def parse_bulk_body(raw: str, default_index: Optional[str]
             raise IllegalArgumentException(
                 f"Malformed action/metadata line [{i + 1}]")
         op, meta = next(iter(action_line.items()))
-        if op == "update":
-            raise IllegalArgumentException(
-                "bulk action [update] is not ported yet")
-        if op not in ("index", "create", "delete"):
+        if op not in ("index", "create", "delete", "update"):
             raise IllegalArgumentException(f"Unknown bulk action [{op}]")
         _refuse_pipeline(meta.get("pipeline"))
         index = meta.get("_index", default_index)
@@ -140,6 +141,11 @@ def parse_bulk_body(raw: str, default_index: Optional[str]
                     "Validation Failed: bulk source line missing")
             source = json.loads(lines[i])
             i += 1
+        if (op == "update" and isinstance(source, dict)
+                and "script" in source and source.get("doc") is None):
+            raise IllegalArgumentException(
+                "bulk action [update] with a script: the script module is "
+                "not ported yet")
         ops.append({"op": op, "index": index,
                     "id": doc_id or _auto_id(),
                     "routing": meta.get("routing"), "source": source})
@@ -243,7 +249,7 @@ def _bulk_error_item(op, index, the_id, exc) -> Dict[str, Any]:
 
 def _apply_one_op(node, entry: Dict[str, Any],
                   refresh_shards) -> Dict[str, Any]:
-    """Apply one delete or create op."""
+    """Apply one delete, update or create op."""
     op, index, the_id = entry["op"], entry["index"], entry["id"]
     try:
         index, svc, shard_num = _resolve_target(node, entry)
@@ -256,6 +262,23 @@ def _apply_one_op(node, entry: Dict[str, Any],
                 "result": "deleted" if r.found else "not_found",
                 "_seq_no": r.seq_no, "_primary_term": r.primary_term,
                 "status": 200 if r.found else 404}}
+        if op == "update":
+            body = entry["source"] or {}
+            if "script" in body:    # with a doc: parse_bulk_body let it by
+                raise IllegalArgumentException(
+                    "Validation Failed: can't provide both script and doc")
+            existing = shard.get(the_id)
+            if existing is None and not body.get("doc_as_upsert"):
+                raise DocumentMissingException(
+                    f"[{the_id}]: document missing")
+            base = dict((existing or {}).get("_source") or {})
+            merged = _deep_merge(base, body.get("doc") or {})
+            r = shard.apply_index_on_primary(the_id, merged)
+            refresh_shards.add(shard)
+            return {"update": {
+                "_index": index, "_id": the_id, "_version": r.version,
+                "result": r.result, "_seq_no": r.seq_no,
+                "_primary_term": r.primary_term, "status": 200}}
         r = shard.apply_index_on_primary(the_id, entry["source"],
                                          op_type="create")
         refresh_shards.add(shard)
@@ -266,6 +289,18 @@ def _apply_one_op(node, entry: Dict[str, Any],
             "status": 201 if r.created else 200}}
     except EsException as exc:
         return _bulk_error_item(op, index, the_id, exc)
+
+
+def _deep_merge(base: dict, update: dict) -> dict:
+    """`update` merged into `base`: objects on both sides merge key by
+    key, any other value replaces."""
+    out = dict(base)
+    for k, v in update.items():
+        if isinstance(v, dict) and isinstance(out.get(k), dict):
+            out[k] = _deep_merge(out[k], v)
+        else:
+            out[k] = v
+    return out
 
 
 def bulk_has_errors(items: List[Dict[str, Any]]) -> bool:

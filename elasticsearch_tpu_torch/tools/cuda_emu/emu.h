@@ -20,6 +20,8 @@ typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <class F> int cudaFuncSetAttribute(F, int, int v) { return v > 232448 ? 1 : 0; }
 inline int cudaGetLastError() { return 0; }
+template <class F> int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) { *n = 0; return 0; }
+#define __host__
 inline const char* cudaGetErrorString(int) { return "emu"; }
 
 constexpr size_t kFiberStack = 1 << 16;
@@ -47,7 +49,7 @@ struct Block {
 };
 
 static Block* g_block;
-static dim3 blockIdx, blockDim;
+static dim3 blockIdx, blockDim, gridDim;
 alignas(16) static unsigned char g_smem[1 << 18];
 #define threadIdx (g_block->fibers[g_block->cur].tid)
 
@@ -105,6 +107,9 @@ inline int __ffs(unsigned v) { return __builtin_ffs((int)v); }
 inline int __clz(unsigned v) { return v ? __builtin_clz(v) : 32; }
 inline void __nanosleep(unsigned) {}  // blocks run in order: no wait
 inline int atomicAdd(int* a, int v) { const int old = *a; *a = old + v; return old; }
+inline int atomicMin(int* a, int v) { const int old = *a; *a = std::min(old, v); return old; }
+inline void __threadfence() {}  // one block at a time: every write is seen
+template <class T> inline T __ldcg(const T* p) { return *p; }
 inline float __uint_as_float(uint32_t u) { float f; std::memcpy(&f, &u, 4); return f; }
 inline float __int_as_float(int u) { float f; std::memcpy(&f, &u, 4); return f; }
 inline uint32_t __float_as_uint(float f) { uint32_t u; std::memcpy(&u, &f, 4); return u; }
@@ -141,6 +146,7 @@ void emu_launch(void (*k)(KA...), dim3 grid, dim3 block, size_t smem, cudaStream
   blk.warp_vals.assign(blk.warp_bar.size() * 32, 0);
   g_block = &blk;
   blockDim = block;
+  gridDim = grid;
   for (unsigned by = 0; by < grid.y; ++by)
     for (unsigned bx = 0; bx < grid.x; ++bx) {
       blockIdx = dim3(bx, by, 0);

@@ -96,11 +96,18 @@ def main() -> int:
 
 KERNELS = ("slot_decode", "row_pack", "row_sort", "run_sum",
            "select_rescore", "shard_topk", "exact_merge")
+#: the CUDA functions each kernel's launch runs (shard_topk's device
+#: class adds its select passes, runs and rank merge; exact_merge its
+#: finishing kernel)
+FUNCTIONS = {name: (name,) for name in KERNELS}
+FUNCTIONS["shard_topk"] = ("shard_topk", "topk_pass", "topk_runs",
+                           "topk_merge")
+FUNCTIONS["exact_merge"] = ("exact_merge", "exact_finish")
 
 
 def profiled(fn, n):
-    """Mean device ms per call of each merge kernel over n calls of fn,
-    from torch.profiler's CUDA activity."""
+    """Mean device ms per call of each merge kernel (all its FUNCTIONS)
+    over n calls of fn, from torch.profiler's CUDA activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -112,7 +119,8 @@ def profiled(fn, n):
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0.0))
-        name = next((k for k in KERNELS if f"{k}_kernel" in ev.key), None)
+        name = next((k for k, fns in FUNCTIONS.items()
+                     if any(f"{f}_kernel" in ev.key for f in fns)), None)
         if name is not None and us > 0:
             out[name] = out.get(name, 0.0) + us / 1e3 / n
     return out

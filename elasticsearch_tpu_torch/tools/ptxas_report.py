@@ -22,7 +22,8 @@ from pathlib import Path
 
 HERE_ROOT = Path(__file__).resolve().parents[2]
 KERNELS = ("slot_decode", "row_pack", "row_sort", "run_sum",
-           "select_rescore")
+           "select_rescore", "shard_topk", "topk_pass", "topk_runs",
+           "topk_merge", "exact_merge", "exact_finish")
 
 
 def parse(text: str) -> dict:

@@ -290,8 +290,10 @@ def test_shard_topk_matches_plain(cuda, b, shards, per_shard, k):
                                   want[0].cpu().numpy().view(np.uint32))
     np.testing.assert_array_equal(got[1].cpu().numpy(),
                                   want[1].cpu().numpy())
-    big = 1 << max(0, (min(k, vals.shape[1]) - 1).bit_length())
-    cls = "device" if big > merge_kernel.TOPK_SORT_CAP else "shared"
+    n = vals.shape[1]
+    big = 1 << max(0, (min(k, n) - 1).bit_length())
+    cls = ("device" if big > merge_kernel.TOPK_SORT_CAP else
+           "staged" if k < n <= merge_kernel.TOPK_STAGE_CAP else "shared")
     assert stats["topk_classes"][f"shard_topk.{cls}"] == b
 
 
@@ -333,6 +335,86 @@ def test_exact_merge_matches_plain(cuda, weight, chunk_cap):
                     before["shard_topk"] + 1
                 want = merge_kernel.exact_merge_topk_plain(*tpos, **kw)
                 cases.assert_bitwise(got, want, f"w={weight} k={kk}")
+
+
+def assert_topk_equal(got, want, msg=""):
+    np.testing.assert_array_equal(got[0].cpu().numpy().view(np.uint32),
+                                  want[0].cpu().numpy().view(np.uint32),
+                                  err_msg=msg)
+    np.testing.assert_array_equal(got[1].cpu().numpy(),
+                                  want[1].cpu().numpy(), err_msg=msg)
+
+
+@pytest.mark.parametrize("case", cases.TOPK_DEVICE_CASES)
+def test_shard_topk_device_class_matches_plain(cuda, case, monkeypatch):
+    """The device class with the caps of the emulated test (finalist
+    sort cap 64, slices of 64 values), so its launches run several blocks
+    a row on the card, concurrently: the select passes and their
+    last-arriving block, the sorted runs, the rank merge."""
+    monkeypatch.setattr(merge_kernel, "TOPK_SORT_CAP", 64)
+    monkeypatch.setattr(merge_kernel, "TOPK_SLICE",
+                        128 if case == "run_holds_its_slice" else 64)
+    vals, ks = cases.topk_case(np.random.default_rng(97), case)
+    t = torch.from_numpy(vals).to(cuda)
+    for k in ks:
+        stats = {}
+        got = merge_kernel.shard_topk(t, k, stats=stats)
+        torch.cuda.synchronize()
+        assert_topk_equal(got, merge_kernel.shard_topk_plain(t, k),
+                          f"{case} k={k}")
+        assert stats["topk_classes"]["shard_topk.device"] == vals.shape[0]
+        assert stats["topk_slices"] > 1
+
+
+@pytest.mark.parametrize("staged", [True, False], ids=["staged", "shared"])
+def test_shard_topk_select_classes_match_plain(cuda, staged, monkeypatch):
+    """The select over a row staged in shared memory, and over device
+    memory (a row past the stage cap), at [128, 16 x 1024] and k 1024
+    with NaN, -0.0 and ties among the values."""
+    if not staged:
+        monkeypatch.setattr(merge_kernel, "TOPK_STAGE_CAP", 1000)
+    rng = np.random.default_rng(98)
+    vals = cases.gathered_rows(rng, 128, 16, 1024, 40, step=0.125)
+    vals[0, ::7] = np.nan
+    vals[1, ::5] = -0.0
+    vals[1, 1::5] = 0.0
+    t = torch.from_numpy(vals).to(cuda)
+    for k in (1, 1024, 5000):
+        stats = {}
+        got = merge_kernel.shard_topk(t, k, stats=stats)
+        torch.cuda.synchronize()
+        assert_topk_equal(got, merge_kernel.shard_topk_plain(t, k),
+                          f"k={k}")
+        cls = "shard_topk.staged" if staged else "shard_topk.shared"
+        assert stats["topk_classes"][cls] == 128
+
+
+@pytest.mark.parametrize("window_cap", [64, 2048],
+                         ids=["windows", "one_window"])
+@pytest.mark.parametrize("case", cases.EXACT_WINDOW_CASES)
+def test_exact_merge_windows_match_plain(cuda, case, window_cap,
+                                         monkeypatch):
+    """The exact merge's windows on the card (the emulated test's cases:
+    one window, rows cut into parts a block each, uneven slots, equal
+    docs in many slots, msm, the u8 delta stream, and a descending slot
+    that takes the radix class): scores as uint32, docs and totals
+    exactly."""
+    monkeypatch.setattr(merge_kernel, "EXACT_WINDOW_CAP", window_cap)
+    fd, fi, rows, mins, d_pad, ext, delta = cases.exact_window_case(
+        np.random.default_rng(99), case)
+    pos, extra, static = cases.kernel_args(fd, fi, rows, mins, d_pad, ext,
+                                           chunk_cap=256, delta=delta)
+    tpos = cases.to_torch(pos, cuda)
+    kw = dict(static, with_totals=True, **cases.to_torch(extra, cuda))
+    for k in (7, 400):
+        stats = {}
+        got = merge_kernel.exact_merge_topk(*tpos, k=k, stats=stats, **kw)
+        torch.cuda.synchronize()
+        want = merge_kernel.exact_merge_topk_plain(*tpos, k=k, **kw)
+        cases.assert_bitwise(got, want, f"{case} k={k}")
+    classes = stats["exact_classes"]
+    assert classes["exact.radix"] == (case == "descending_slot")
+    assert (classes["exact.parts"] > 0) == (window_cap == 64)
 
 
 def test_hierarchical_top_k_routes_cuda_to_shard_topk(cuda):

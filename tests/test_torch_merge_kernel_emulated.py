@@ -525,8 +525,8 @@ def test_shard_topk_matches_plain(emulated, case, monkeypatch):
         assert_topk_equal(got, want, f"{case} k={k}")
     if case == "k_above_sort_cap":
         assert stats["topk_classes"]["shard_topk.device"] == 2
-    elif case == "ties_across_shards":
-        assert stats["topk_classes"]["shard_topk.shared"] == 3
+    elif case == "ties_across_shards":   # 320 values a row, k 130
+        assert stats["topk_classes"]["shard_topk.staged"] == 3
 
 
 def run_exact_pair(pos, extra, static, k, with_totals=True):
@@ -603,12 +603,93 @@ def test_exact_merge_matches_plain(emulated, case):
     assert merge_kernel.LAUNCHES["exact_merge"] == 4
     assert merge_kernel.LAUNCHES["shard_topk"] == 4
     classes = stats["exact_classes"]
-    if case == "device_rows":
-        assert classes["exact.device"] >= 1
+    if case == "device_rows":   # rows past the 2048-lane window
+        assert classes["exact.parts"] >= 1
     else:
-        assert classes["exact.shared"] == len(rows)
+        assert classes["exact.merge"] == len(rows)
     if case == "negative":
         assert n_valid == 0 and not got[0].isfinite().any()
     else:
         assert n_valid > 0
 
+
+
+@pytest.mark.parametrize("case", cases.TOPK_DEVICE_CASES)
+def test_shard_topk_device_class_matches_plain(emulated, case,
+                                               monkeypatch):
+    """The device class at a small scale (finalist sort cap 64, slices of
+    64 values, so a row takes several blocks): the select passes with
+    their last-arriving block, the sorted runs (a run of a whole slice,
+    past the cap) and the rank merge, against the stable sort: values as
+    uint32 (NaN, -0.0, +-inf kept), positions exactly."""
+    monkeypatch.setattr(merge_kernel, "TOPK_SORT_CAP", 64)
+    monkeypatch.setattr(merge_kernel, "TOPK_SLICE", 64)
+    if case == "run_holds_its_slice":
+        monkeypatch.setattr(merge_kernel, "TOPK_SLICE", 128)
+    vals, ks = cases.topk_case(np.random.default_rng(97), case)
+    for k in ks:
+        got, want, stats = run_topk_pair(vals, k)
+        assert_topk_equal(got, want, f"{case} k={k}")
+        assert stats["topk_classes"] == {
+            "shard_topk.staged": 0, "shard_topk.shared": 0,
+            "shard_topk.device": vals.shape[0]}, k
+        assert stats["topk_slices"] == -(-vals.shape[1]
+                                         // merge_kernel.TOPK_SLICE) > 1
+
+
+@pytest.mark.parametrize("staged", [True, False], ids=["staged", "shared"])
+def test_shard_topk_select_classes_match_plain(emulated, staged,
+                                               monkeypatch):
+    """Rows wider than k whose finalists sort in one block: the select
+    over the row staged in shared memory, or (a row past the stage cap)
+    over device memory; NaN, -0.0 and ties among the values."""
+    if not staged:
+        monkeypatch.setattr(merge_kernel, "TOPK_STAGE_CAP", 100)
+    rng = np.random.default_rng(98)
+    vals = cases.gathered_rows(rng, 3, 6, 50, 7)
+    vals[0, ::7] = np.nan
+    vals[1, ::5] = -0.0
+    vals[1, 1::5] = 0.0
+    for k in (1, 33, 130):
+        got, want, stats = run_topk_pair(vals, k)
+        assert_topk_equal(got, want, f"k={k}")
+        cls = "shard_topk.staged" if staged else "shard_topk.shared"
+        assert stats["topk_classes"][cls] == 3
+
+
+@pytest.mark.parametrize("window_cap", [64, 2048],
+                         ids=["windows", "one_window"])
+@pytest.mark.parametrize("case", cases.EXACT_WINDOW_CASES)
+def test_exact_merge_windows_match_plain(emulated, case, window_cap,
+                                         monkeypatch):
+    """The exact merge's merge of sorted slot runs: short rows in one
+    window of right-sized shared memory (the longest row rounded up to
+    1024 lanes), and (a 64-lane cap) rows cut by doc into parts of a
+    block each, a part's window budget shared unevenly among slots of
+    very different lengths (over several windows); equal docs in many
+    slots (the run sums in slot order), msm rows, the u8 delta doc
+    stream; and a slot whose docs descend, which sends its row to the
+    radix passes. Scores as uint32, docs and totals exactly; every row's
+    class asserted."""
+    monkeypatch.setattr(merge_kernel, "EXACT_WINDOW_CAP", window_cap)
+    fd, fi, rows, mins, d_pad, ext, delta = cases.exact_window_case(
+        np.random.default_rng(99), case)
+    pos, extra, static = cases.kernel_args(fd, fi, rows, mins, d_pad, ext,
+                                           chunk_cap=256, delta=delta)
+    assert ("doc_bases" in extra) == delta
+    for k in (7, 400):
+        got, want, stats = run_exact_pair(pos, extra, static, k)
+        cases.assert_bitwise(got, want, f"{case} k={k}")
+        assert int(got[2].sum()) > 0
+    classes = stats["exact_classes"]
+    lanes = np.asarray(pos[3]).clip(min=0).sum(axis=1)
+    assert stats["window_lanes"] == min(window_cap,
+                                        -(-int(lanes.max()) // 1024) * 1024)
+    longer = int((lanes > stats["window_lanes"]).sum())
+    assert (longer > 0) == (window_cap == 64)
+    if case == "descending_slot":
+        assert classes["exact.radix"] == 1
+        assert sum(classes.values()) == len(rows)
+    else:   # a row past the window is cut into parts
+        assert classes == {"exact.merge": len(rows) - longer,
+                           "exact.parts": longer, "exact.radix": 0}

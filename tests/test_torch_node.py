@@ -243,6 +243,110 @@ def test_dynamic_mapping_index_matches_reference(pair):
     assert mapping == pair.ref.indices.index("dyn").mapper.to_mapping()
 
 
+def ndjson(*lines) -> bytes:
+    return ("\n".join(json.dumps(x) for x in lines) + "\n").encode()
+
+
+#: bulk bodies with update items (doc-merge form), each sent to both
+#: nodes in this order against the index "upd"
+UPDATE_BULKS = {
+    # an index then an update of the same doc: the deep merge replaces
+    # one key of the nested object and keeps the other
+    "merge_nested": ndjson(
+        {"index": {"_index": "upd", "_id": "b1"}},
+        {"body": "alpha beta", "meta": {"tag": "red", "note": "kept"}},
+        {"update": {"_index": "upd", "_id": "b1"}},
+        {"doc": {"body": "alpha gamma", "meta": {"tag": "blue"}}}),
+    # a missing doc: a per-item 404 without doc_as_upsert, a create with
+    "missing_and_upsert": ndjson(
+        {"update": {"_index": "upd", "_id": "nope"}},
+        {"doc": {"body": "never written"}},
+        {"update": {"_index": "upd", "_id": "u2"}},
+        {"doc": {"body": "beta upserted"}, "doc_as_upsert": True},
+        {"update": {"_index": "upd", "_id": "u2"}},
+        {"doc": {"extra": "zeta"}, "doc_as_upsert": True}),
+    # "doc" with "script": the reference's per-item validation error
+    "doc_and_script": ndjson(
+        {"update": {"_index": "upd", "_id": "b1"}},
+        {"doc": {"body": "alpha"}, "script": {"source": "ctx._source.x=1"}},
+        {"index": {"_index": "upd", "_id": "b3"}},
+        {"body": "gamma after the failed item"}),
+    # update mixed with delete and create on one _id, in op order
+    "mixed_ops": ndjson(
+        {"create": {"_index": "upd", "_id": "m1"}}, {"body": "alpha one"},
+        {"update": {"_index": "upd", "_id": "m1"}},
+        {"doc": {"body": "alpha two", "meta": {"n": "1"}}},
+        {"delete": {"_index": "upd", "_id": "m1"}},
+        {"update": {"_index": "upd", "_id": "m1"}},
+        {"doc": {"body": "gone"}},
+        {"create": {"_index": "upd", "_id": "m1"}}, {"body": "beta three"},
+        {"update": {"_index": "upd", "_id": "m1"}},
+        {"doc": {"meta": {"n": "2"}}},
+        {"index": {"_index": "upd", "_id": "m2"}}, {"body": "gamma four"},
+        {"update": {"_index": "upd", "_id": "m2"}},
+        {"doc": {"body": "gamma five alpha"}}),
+}
+
+
+@pytest.fixture(scope="module")
+def updated(pair):
+    """The index "upd" after every UPDATE_BULKS body and a _refresh;
+    → {name: (reference answer, port answer)}."""
+    pair.both("PUT", "/upd", INDEX_BODY)
+    out = {name: pair.both("POST", "/_bulk", raw=raw)
+           for name, raw in UPDATE_BULKS.items()}
+    pair.both("POST", "/upd/_refresh")
+    return out
+
+
+@pytest.mark.parametrize("name", list(UPDATE_BULKS))
+def test_bulk_update_items_match_reference(updated, name):
+    """A _bulk with update items: the reference node's status and bytes
+    (each item's result, _version, _seq_no, status and error)."""
+    want, got = updated[name]
+    assert want[0] == 200, want
+    assert got == want
+    assert any("update" in item for item in json.loads(got[1])["items"])
+
+
+@pytest.mark.parametrize("doc_id", ["b1", "u2", "m1", "m2", "b3", "nope"])
+def test_bulk_updated_docs_read_back_as_reference(pair, updated, doc_id):
+    want, got = pair.both("GET", f"/upd/_doc/{doc_id}")
+    assert got == want
+    if doc_id == "b1":
+        assert json.loads(got[1])["_source"]["meta"] == {"tag": "blue",
+                                                         "note": "kept"}
+
+
+@pytest.mark.parametrize("text", ["alpha", "gamma beta", "zeta"])
+def test_bulk_updated_docs_search_as_reference(pair, updated, text):
+    want, got = pair.both("POST", "/upd/_search",
+                          {"query": {"match": {"body": text}}},
+                          kernel=True)
+    assert want[0] == 200, want
+    assert got == want
+
+
+def test_scripted_bulk_update_is_refused_whole(pair, updated):
+    """A scripted update needs the script module (not ported): the port
+    refuses the whole bulk with a 400, and none of its items applies
+    (the reference applies them)."""
+    raw = ndjson({"index": {"_index": "upd", "_id": "s1"}},
+                 {"body": "alpha scripted"},
+                 {"update": {"_index": "upd", "_id": "b1"}},
+                 {"script": {"source": "ctx._source.x = 1"}})
+    status, text = call(pair.port, dumps_response, "POST", "/_bulk",
+                        raw=raw)
+    err = json.loads(text)
+    assert status == 400
+    assert err["error"]["type"] == "illegal_argument_exception"
+    assert "script module is not ported" in err["error"]["reason"]
+    status, text = call(pair.port, dumps_response, "GET", "/upd/_doc/s1")
+    assert status == 404 and not json.loads(text)["found"]
+    status, text = call(pair.port, dumps_response, "GET", "/upd/_doc/b1")
+    assert "x" not in json.loads(text)["_source"]
+
+
 def test_serve_returns_the_bytes_of_handle(pair):
     """One _search over HTTP (an ephemeral port, http.client): the same
     body bytes as handle + dumps_response, and the reference's headers."""

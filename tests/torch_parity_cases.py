@@ -184,6 +184,99 @@ def gathered_rows(rng, b, shards, per_shard, levels, step=0.25):
     return out
 
 
+#: shard_topk's device-class cases (topk_case) and the exact merge's
+#: window cases (exact_window_case), run by the emulated and card tests
+TOPK_DEVICE_CASES = ("multi_block", "run_holds_its_slice", "all_neg_inf",
+                     "nan_and_zeros", "k_above_width",
+                     "tie_run_across_slices")
+EXACT_WINDOW_CASES = ("uneven_slots", "budget_split",
+                      "equal_docs_many_slots", "msm", "delta",
+                      "descending_slot")
+
+
+def topk_case(rng, case):
+    """[B, N] f32 rows and the k's of a shard_topk case."""
+    if case == "multi_block":
+        return gathered_rows(rng, 3, 8, 64, 9), (65, 200, 511, 512)
+    if case == "run_holds_its_slice":
+        # every finalist in the first slice of each row, one run of a
+        # whole slice (more finalists than TOPK_SORT_CAP) in one block
+        vals = gathered_rows(rng, 2, 4, 128, 5, step=0.125)
+        vals[:, 128:] -= 100.0
+        return vals, (100, 128, 300)
+    if case == "all_neg_inf":
+        vals = gathered_rows(rng, 3, 4, 100, 5)
+        vals[1] = -np.inf
+        return vals, (90, 250, 400)
+    if case == "nan_and_zeros":
+        vals = rng.choice(np.array([np.nan, 0.0, -0.0, 1.5, -1.0, np.inf,
+                                    -np.inf], dtype=np.float32),
+                          size=(2, 300))
+        return vals, (70, 150, 299)
+    if case == "k_above_width":
+        return gathered_rows(rng, 2, 3, 40, 4), (121, 500)
+    # a tie run over the slice boundaries: the k-th value is one of
+    # 180 equal values at positions 30-209 (slices of 64)
+    vals = np.sort(rng.uniform(0.0, 1.0, (2, 256)).astype(np.float32),
+                   axis=1)[:, ::-1].copy()
+    vals[:, 30:210] = 0.5
+    return vals, (66, 100, 200)
+
+
+def exact_window_case(rng, case):
+    """(flat docs, flat impacts, rows, mins, d_pad, ext, delta) of an
+    exact-merge window case; weights packable() refuses."""
+    if case == "uneven_slots":
+        # one long term, short ones, a one-lane one
+        d_pad = 3000
+        fd, fi, ext = make_heavy_flat(rng, d_pad, [900, 12, 40, 1],
+                                            skew=1.0)
+        rows = [[(ext[t][0], ext[t][1], 1e-15 * (t + 1), t)
+                 for t in range(4)],
+                [(ext[t][0], ext[t][1], 3e-15, t) for t in (1, 0)]]
+        return fd, fi, rows, [1, 1], d_pad, ext, False
+    if case == "budget_split":
+        # five slots of uneven length: past a 64-lane window its parts
+        # share the window unevenly (the two of 256 lanes get less than
+        # their lanes); 1022 lanes: one 1024-lane window
+        d_pad = 2000
+        dfs = [256, 256, 210, 250, 50]
+        fd, fi, ext = make_heavy_flat(rng, d_pad, dfs, skew=1.0)
+        rows = [[(ext[t][0], ext[t][1], 1e-15 * (t + 1), t)
+                 for t in range(len(dfs))]]
+        return fd, fi, rows, [1], d_pad, ext, False
+    if case == "equal_docs_many_slots":
+        # one term in six slots of different weights: every doc a run of
+        # six lanes, summed in slot order
+        d_pad = 1200
+        fd, fi, ext = make_flat(rng, 2, d_pad, 300)
+        ws = [0.3e-15, 1.7e-15, -0.2e-15, 0.9e-15, 2.5e-15, 0.1e-15]
+        rows = [[(ext[0][0], ext[0][1], w, 0) for w in ws]
+                + [(ext[1][0], ext[1][1], 1e-15, 1)]]
+        return fd, fi, rows, [1], d_pad, ext, False
+    if case == "msm":
+        d_pad = 400
+        fd, fi, ext = make_flat(rng, 4, d_pad, 300)
+        rows = [[(ext[t][0], ext[t][1], 1e-15 * (t + 1), t)
+                 for t in range(4)]] * 2
+        return fd, fi, rows, [2, 3], d_pad, ext, False
+    if case == "delta":
+        d_pad = 250
+        fd, fi, ext = make_flat(rng, 5, d_pad, 200)
+        rows = [[(ext[t][0], ext[t][1], -0.5 + t, t) for t in range(5)],
+                [(ext[t][0], ext[t][1], 1e-14, t) for t in (1, 3)]]
+        return fd, fi, rows, [1, 2], d_pad, ext, True
+    # a slot window past the end of its term, into the next term's
+    # postings: its docs descend, and the row takes the radix class
+    d_pad = 900
+    fd, fi, ext = make_flat(rng, 3, d_pad, 200)
+    s0, n0 = ext[0]
+    rows = [[(s0 + n0 - 5, 30, 2e-15, 0), (ext[2][0], ext[2][1], 1e-15, 2)],
+            [(ext[1][0], ext[1][1], 1e-15, 1)]]
+    return fd, fi, rows, [1, 1], d_pad, ext, False
+
+
+
 # ---------------------------------------------------------------------------
 # the node parity corpus: documents with _ids d{i} and the search bodies
 # both nodes answer
