@@ -100,6 +100,32 @@ device mesh through the collective tail, and checks:
                  host C helpers ran, resident bytes. The kernels line
                  adds each kernel's launches in the first REST run
                  (launches_rest; exact_merge's in the exact run)
+  planner        the planner path on the same node: the body index and a
+                 100,000-doc "typed" index (cut from 1M to keep the run
+                 inside its limit; body, a Zipf `views` long, a
+                 `published` date, a `tag` keyword, a `flag` boolean) by
+                 _bulk; match_all (size 10; from + size 10,000), size 0,
+                 bool must/filter/must_not, match_phrase, prefix,
+                 wildcard, fuzzy, constant_score, ids, exists,
+                 multi_match, min_score, a body matching nothing, ranges
+                 on views and published (one past the data: can_match
+                 skips), a term on flag and function_score with
+                 field_value_factor (log1p; none) from one client: a
+                 cold pass of each body once (it builds the host segment
+                 packs; its first-request ms is kept apart), then the
+                 timed window, the mix PLANNER_ROUNDS times over: q/s,
+                 per-request ms over the window, can_match skips,
+                 shard_topk launches and size classes; the device busy
+                 share of one more round under the profiler;
+                 fails on a failed shard, on a window response whose hits
+                 differ from the cold pass's, on a shard_topk call of the
+                 cold pass != top_k_plain
+                 (the k 10,000 tie row and an all -inf row among them), or
+                 when execute_query on the card != the CPU plain path on
+                 any shard (log bodies: rtol 1e-6) or the response !=
+                 the merge of the card's shard results. The kernels line
+                 adds shard_topk on a planner row (~62,600 wide) at k 10
+                 and k 10,000
 
 The last line is {"ok": true, "device": {...}}; any failure exits
 non-zero without it. Without a CUDA device the script exits 2 at once.
@@ -137,6 +163,14 @@ PALLAS_LINE = "elasticsearch_tpu/ops/pallas_merge.py:155"
 TOPK_LINE = "elasticsearch_tpu/parallel/distributed.py:703"
 EXACT_LINE = "elasticsearch_tpu/ops/sparse.py:549"
 EXACT_BOOST = 1e-15
+TYPED_INDEX = "typed"
+TYPED_DOCS = 100_000    # cut from 1M to keep the smoke inside its limit
+TYPED_SHARDS = 4
+PLANNER_ROUNDS = 5      # the planner's timed window: the mix this many times
+PLANNER_TOPK_LINE = "elasticsearch_tpu/ops/bm25.py:138"
+#: rtol of scores that pass through a log (field_value_factor's log
+#: modifiers): the card's logf need not round as the CPU's log does
+LOG_RTOL = 1e-6
 #: the kernels each path launches
 MAIN_KERNELS = ("slot_decode", "row_pack", "row_sort", "run_sum",
                 "select_rescore", "shard_topk")
@@ -284,13 +318,16 @@ class TopkRecorder:
     train: sparse.hierarchical_top_k calls it) while a path runs and
     keeps each call's input, k and outputs (device copies)."""
 
-    def __init__(self, merge_kernel):
+    def __init__(self, merge_kernel, stats=None):
         self.mk = merge_kernel
         self.real = merge_kernel.shard_topk
         self.calls = []
+        self.stats = stats   # the size classes of every call, when given
 
     def __enter__(self):
         def record(vals, k, **kw):
+            if self.stats is not None and "stats" not in kw:
+                kw["stats"] = self.stats
             out = self.real(vals, k, **kw)
             self.calls.append((vals.clone(), k, out[0].clone(),
                                out[1].clone()))
@@ -903,6 +940,302 @@ def same_up_to_ties(got, want):
     return True
 
 
+def planner_bodies(corpus):
+    """The planner line's bodies: (index, label, body). The body index's
+    words are generator words (ids 20-3000: neither stop words nor
+    hapaxes); the phrase is two adjacent words of a document, the pair
+    whose commoner word is rarest (few candidates to verify)."""
+    tokens = corpus.doc_tokens[123_457]
+    pair = max(range(len(tokens) - 1),
+               key=lambda i: min(tokens[i], tokens[i + 1]))
+    phrase = f"{corpus.vocab[tokens[pair]]} {corpus.vocab[tokens[pair + 1]]}"
+    q0 = corpus.query_text(0)
+    out = [
+        ("match_all_10", {"query": {"match_all": {}}, "size": 10}),
+        ("match_all_k10000", {"query": {"match_all": {}}, "from": 9990,
+                              "size": 10}),
+        ("size_0", {"query": {"match": {FIELD: q0}}, "size": 0}),
+        ("bool", {"query": {"bool": {
+            "must": [{"match": {FIELD: "w25 w40"}}],
+            "filter": [{"term": {FIELD: "w90"}}],
+            "must_not": [{"term": {FIELD: "w31"}}]}}, "size": 100}),
+        ("match_phrase", {"query": {"match_phrase": {FIELD: phrase}}}),
+        ("prefix", {"query": {"prefix": {FIELD: "w123"}}, "size": 50}),
+        ("wildcard", {"query": {"wildcard": {FIELD: "w12?4"}}}),
+        ("fuzzy", {"query": {"fuzzy": {FIELD: "w1234"}}, "size": 20}),
+        ("constant_score", {"query": {"constant_score": {
+            "filter": {"term": {FIELD: "w77"}}, "boost": 1.5}}}),
+        ("ids", {"query": {"ids": {"values": ["d1", "d500000", "d999999",
+                                             "nope"]}}}),
+        ("exists", {"query": {"exists": {"field": FIELD}}}),
+        ("multi_match", {"query": {"multi_match": {
+            "query": corpus.query_text(1), "fields": [FIELD]}},
+            "size": 30}),
+        ("min_score", {"query": {"match": {FIELD: corpus.query_text(2)}},
+                       "min_score": 8.0, "size": 50}),
+        ("no_match", {"query": {"bool": {"must_not": [
+            {"match_all": {}}]}}}),
+    ]
+    typed = [
+        ("range_views", {"query": {"range": {"views": {"gte": 3,
+                                                       "lt": 40}}},
+                         "size": 50}),
+        ("range_published", {"query": {"range": {"published": {
+            "gte": "2021-01-01", "lt": "2022-07-01T00:00:00Z"}}},
+            "size": 50}),
+        ("range_future", {"query": {"range": {"published": {
+            "gte": "2030-01-01"}}}}),
+        ("term_flag", {"query": {"term": {"flag": True}}, "size": 20}),
+        ("fvf_log1p", {"query": {"function_score": {
+            "query": {"match": {FIELD: q0}},
+            "field_value_factor": {"field": "views",
+                                   "modifier": "log1p"}}}, "size": 100}),
+        ("fvf_none", {"query": {"function_score": {
+            "query": {"bool": {"filter": [{"term": {"flag": False}}]}},
+            "field_value_factor": {"field": "views", "factor": 0.5,
+                                   "missing": 1},
+            "boost_mode": "replace"}}, "size": 100}),
+    ]
+    return ([(REST_INDEX, label, b) for label, b in out]
+            + [(TYPED_INDEX, label, b) for label, b in typed])
+
+
+def typed_bulk_load(host, port, corpus):
+    """The typed index: TYPED_DOCS corpus bodies with a Zipf `views`
+    long, a `published` date (epoch millis over 2019-2024), a `tag`
+    keyword and a `flag` boolean, from the seed; by _bulk, then
+    _refresh → seconds."""
+    import numpy as np
+    status, resp = rest_http(host, port, "PUT", f"/{TYPED_INDEX}", {
+        "settings": {"number_of_shards": TYPED_SHARDS,
+                     "translog": {"durability": "async"}},
+        "mappings": {"properties": {
+            FIELD: {"type": "text"}, "views": {"type": "long"},
+            "published": {"type": "date"}, "tag": {"type": "keyword"},
+            "flag": {"type": "boolean"}}}})
+    if status != 200:
+        raise AssertionError(f"PUT {TYPED_INDEX}: {resp}")
+    rng = np.random.default_rng(SEED + 1)
+    views = np.minimum(rng.zipf(1.5, TYPED_DOCS), 10**7)
+    published = 1546300800000 + rng.integers(0, 6 * 365 * 86_400_000,
+                                             TYPED_DOCS)
+    tags = rng.integers(0, 50, TYPED_DOCS)
+    flags = rng.random(TYPED_DOCS) < 0.3
+    t0 = time.perf_counter()
+    for start in range(0, TYPED_DOCS, BULK_DOCS):
+        lines = []
+        for i in range(start, min(start + BULK_DOCS, TYPED_DOCS)):
+            lines.append('{"index":{"_id":"t%d"}}' % i)
+            lines.append(json.dumps({
+                FIELD: corpus.doc_text(i), "views": int(views[i]),
+                "published": int(published[i]), "tag": f"t{tags[i]}",
+                "flag": bool(flags[i])}))
+        status, resp = rest_http(host, port, "POST",
+                                 f"/{TYPED_INDEX}/_bulk",
+                                 raw=("\n".join(lines) + "\n").encode())
+        if status != 200 or resp.get("errors"):
+            raise AssertionError(f"typed _bulk: {str(resp)[:500]}")
+    status, resp = rest_http(host, port, "POST", f"/{TYPED_INDEX}/_refresh")
+    if status != 200:
+        raise AssertionError(f"typed _refresh: {resp}")
+    return time.perf_counter() - t0
+
+
+def same_shard_results(got, want, rtol):
+    """Two execute_query results: ids in order, scores as uint32 and
+    totals (rtol: scores within it, order free among hits within it)."""
+    import numpy as np
+    if got.total_hits != want.total_hits or len(got.hits) != len(want.hits):
+        return False
+    g = np.array([h.score for h in got.hits], dtype=np.float32)
+    w = np.array([h.score for h in want.hits], dtype=np.float32)
+    g_ids = [h.doc_id for h in got.hits]
+    w_ids = [h.doc_id for h in want.hits]
+    if rtol == 0:
+        return g_ids == w_ids and np.array_equal(g.view(np.uint32),
+                                                 w.view(np.uint32))
+    if not np.allclose(g, w, rtol=rtol, atol=0):
+        return False
+    groups_g, groups_w, last = [], [], None
+    for gi, wi, sc in zip(g_ids, w_ids, w):
+        if last is not None and abs(sc - last) <= rtol * abs(sc):
+            groups_g[-1].add(gi)
+            groups_w[-1].add(wi)
+        else:
+            groups_g.append({gi})
+            groups_w.append({wi})
+        last = sc
+    return groups_g == groups_w
+
+
+def planner_phase(host, port, node, corpus, mk, smi):
+    """The planner path over HTTP on the card: the body index (16
+    shards of ~62,500 docs, one segment each) and the typed index, from
+    one client. A cold pass sends each body once (it builds the host
+    segment packs and fills the analyzer memo), launches counted and
+    every shard_topk recorded (with its size classes); then the timed
+    window sends the mix PLANNER_ROUNDS times, launches counted, each
+    response's hits equal to the cold pass's; one more round runs under
+    the profiler for the device busy share. Per body
+    and shard, execute_query on the card against the CPU plain path
+    over the same reader, and the response's hits against the
+    coordinator's merge of the card's shard results. → (line, kernels
+    entries)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from elasticsearch_tpu_torch.search import dsl
+    from elasticsearch_tpu_torch.search.query_phase import execute_query
+
+    out = {"nvidia_smi": smi, "typed_docs": TYPED_DOCS,
+           "typed_shards": TYPED_SHARDS,
+           "typed_note": ("the typed index is cut from 1M documents to "
+                          "100,000 to keep the smoke inside its limit")}
+    out["typed_ingest_s"] = typed_bulk_load(host, port, corpus)
+    bodies = planner_bodies(corpus)
+
+    def send(index, label, body):
+        t1 = time.perf_counter()
+        status, resp = rest_http(host, port, "POST", f"/{index}/_search",
+                                 body)
+        ms = (time.perf_counter() - t1) * 1e3
+        if status != 200:
+            raise AssertionError(f"planner {label}: {status} "
+                                 f"{str(resp)[:500]}")
+        if resp["_shards"]["failed"] > 0:
+            raise AssertionError(f"planner {label}: shard failures "
+                                 f"{resp['_shards']}")
+        return resp, ms
+
+    # cold pass: each body once, every shard_topk recorded
+    classes = {}
+    mk.reset_launches()
+    with TopkRecorder(mk, stats=classes) as top:
+        t0 = time.perf_counter()
+        cold = [send(*b) for b in bodies]
+        torch.cuda.synchronize()
+        cold_wall = time.perf_counter() - t0
+    cold_launches = dict(mk.LAUNCHES)
+    responses = [r for r, _ in cold]
+
+    def run_mix(times):
+        for (index, label, body), want in zip(bodies, responses):
+            resp, ms = send(index, label, body)
+            times.append(ms)
+            if hits_of([resp]) != hits_of([want]) or \
+                    resp["hits"]["total"] != want["hits"]["total"]:
+                raise AssertionError(f"planner {label}: the window's hits "
+                                     f"differ from the cold pass's")
+
+    # the timed window: the same mix PLANNER_ROUNDS times, warm
+    mk.reset_launches()
+    times = []
+    t0 = time.perf_counter()
+    for _ in range(PLANNER_ROUNDS):
+        run_mix(times)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(mk.LAUNCHES)
+    if cold_launches["shard_topk"] <= 0 or launches["shard_topk"] <= 0:
+        raise AssertionError("the planner launched no shard_topk")
+    # the device busy share from one more round under the profiler,
+    # outside the window (its overhead and its event parsing, which
+    # grows with the events, stay out of the timed numbers)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_mix([])
+        torch.cuda.synchronize()
+        busy_wall = time.perf_counter() - t0
+    busy = device_busy_ms(prof)
+    # the dense segment rows of the kernels line: match_all at k 10 and
+    # at from + size 10,000 (rows of ties)
+    rows = {}
+    for vals, k, _, _ in top.calls:
+        live = vals[torch.isfinite(vals)]
+        if k in (10, 10_000) and k not in rows and live.numel() > k \
+                and bool((live == live[0]).all()):
+            rows[k] = vals
+    tie_k10000 = 10_000 in rows
+    all_inf = any(bool(torch.isneginf(v).all()) for v, *_ in top.calls)
+    if not tie_k10000 or not all_inf:
+        raise AssertionError(f"planner shard_topk calls lack the k 10,000 "
+                             f"tie row ({tie_k10000}) or an all -inf row "
+                             f"({all_inf})")
+    out["shard_topk"] = check_topk_calls(mk, top.calls)
+
+    # card against the CPU plain path, shard by shard, and the response
+    # against the merge of the card's results
+    dev = node.gpu_search.mesh.grid[0][0]
+    checked = 0
+    for (index, label, body), resp in zip(bodies, responses):
+        svc = node.indices.index(index)
+        query = dsl.parse_query(body["query"])
+        size, from_ = body.get("size", 10), body.get("from", 0)
+        rtol = LOG_RTOL if "log" in json.dumps(body) else 0
+        merged, total = [], 0
+        for si, (_, shard) in enumerate(sorted(svc.shards.items())):
+            reader = shard.acquire_searcher()
+            kw = dict(size=size + from_, from_=0,
+                      min_score=body.get("min_score"))
+            gpu = execute_query(reader, query, device=dev, **kw)
+            cpu = execute_query(reader, query, device="cpu", **kw)
+            if not same_shard_results(gpu, cpu, rtol):
+                raise AssertionError(f"planner {label}: shard {si} on the "
+                                     f"card != the CPU plain path")
+            total += gpu.total_hits
+            merged += [(-h.score, si, r, h) for r, h in enumerate(gpu.hits)]
+            checked += 1
+        merged.sort(key=lambda t: (t[0], t[1], t[2]))
+        window = merged[from_: from_ + size]
+        got = [(h["_id"], h["_score"]) for h in resp["hits"]["hits"]]
+        want = [(h.doc_id, h.score) for *_, h in window]
+        if got != want or resp["hits"]["total"]["value"] != total:
+            raise AssertionError(f"planner {label}: the response is not "
+                                 f"the merge of the shard results")
+    kernels = [topk_entry(mk, f"merge_topk.shard_topk.planner_k{k}",
+                          rows[k], k, launches, len(times),
+                          replaces=PLANNER_TOPK_LINE)
+               for k in sorted(rows)]
+    del rows
+    for index in (TYPED_INDEX,):
+        status, resp = rest_http(host, port, "DELETE", f"/{index}")
+        if status != 200:
+            raise AssertionError(f"DELETE {index}: {resp}")
+    n = len(bodies)
+    out.update(
+        cold={"requests": n, "wall_s": cold_wall,
+              "first_request_ms": cold[0][1],
+              "first_request_note": ("the first body-index request builds "
+                                     "the 16 host segment packs"),
+              "per_body_ms": {label: ms for (_, label, _), (_, ms)
+                              in zip(bodies, cold)},
+              "launches": cold_launches},
+        rounds=PLANNER_ROUNDS, requests=len(times), wall_s=wall,
+        qps=len(times) / wall,
+        request_ms={"mean": statistics.mean(times),
+                    "p50": statistics.median(times), "max": max(times)},
+        slowest=bodies[times.index(max(times)) % n][1],
+        per_body_ms_p50={label: statistics.median(times[i::n])
+                         for i, (_, label, _) in enumerate(bodies)},
+        can_match_skipped=sum(r["_shards"]["skipped"] for r in responses),
+        hits=sum(len(r["hits"]["hits"]) for r in responses),
+        launches=launches,
+        shard_topk_per_request=launches["shard_topk"] / len(times),
+        shard_topk_size_classes=classes.get("topk_classes"),
+        device_busy_ms=busy if busy > 0 else "not measured",
+        device_busy_share=(busy / 1e3 / busy_wall) if busy > 0
+        else "not measured",
+        device_busy_of=("one more round of the mix under torch.profiler, "
+                        "after the window"),
+        shards_checked=checked,
+        parity=("every body and shard: execute_query on the card == the "
+                "CPU plain path (ids, scores as uint32, totals; log "
+                f"bodies rtol {LOG_RTOL}), and the response == the merge "
+                "of the card's shard results"))
+    return out, kernels
+
+
 def rest_phase(corpus, bodies, mk, smi, e2e_responses, data_root,
                exact_run, exact_responses):
     """The node over HTTP on the card, on make_mesh() pinned to one card
@@ -1044,6 +1377,8 @@ def rest_phase(corpus, bodies, mk, smi, e2e_responses, data_root,
                               "last score")
         out["native"] = native.used()
         del runs, segments, svc
+        planner, planner_kernels = planner_phase(host, port, node, corpus,
+                                                 mk, smi)
         status, resp = rest_http(host, port, "DELETE", f"/{REST_INDEX}")
         if status != 200:
             raise AssertionError(f"DELETE index: {resp}")
@@ -1073,7 +1408,8 @@ def rest_phase(corpus, bodies, mk, smi, e2e_responses, data_root,
         node.close()
         shutil.rmtree(data, ignore_errors=True)
     return out, dict(launches["source"],
-                     exact_merge=launches["exact"]["exact_merge"])
+                     exact_merge=launches["exact"]["exact_merge"]), \
+        planner, planner_kernels
 
 
 def time_events(fn, n):
@@ -1166,7 +1502,8 @@ def exact_sort_keys(args, kw):
     return ((rows << 32) | docs)[valid]
 
 
-def topk_entry(mk, name, vals, k, launches, n_trains):
+def topk_entry(mk, name, vals, k, launches, n_trains,
+               replaces=TOPK_LINE):
     """A kernels-line entry of shard_topk on one gather: its ms and
     device ms, the stable sort (its plain version) and torch.topk timed
     on the same tensor, the bytes bound, the size classes its rows took
@@ -1181,7 +1518,7 @@ def topk_entry(mk, name, vals, k, launches, n_trains):
     mk.shard_topk(vals, k, stats=stats)
     return {
         "name": name, "kernel": "shard_topk", "route": "cuda",
-        "source": KERNEL_SOURCE, "replaces": TOPK_LINE,
+        "source": KERNEL_SOURCE, "replaces": replaces,
         "launches": launches["shard_topk"], "max_abs_err": 0.0,
         "ms": time_events(lambda ev: mk.shard_topk(vals, k, events=ev),
                           TIMED)["shard_topk"],
@@ -1516,10 +1853,12 @@ def main() -> int:
             k=big_topk[1], in_kernels_line="merge_topk.shard_topk.k16384"))
         del big_topk
         # -- rest: the node over HTTP, the path users call -------------
-        rest, rest_launches = rest_phase(corpus, bodies, mk, smi, responses,
-                                         os.path.join(here, "data"),
-                                         exact_run, exact_responses)
+        rest, rest_launches, planner, planner_kernels = rest_phase(
+            corpus, bodies, mk, smi, responses, os.path.join(here, "data"),
+            exact_run, exact_responses)
         log("rest", **rest)
+        log("planner", **planner)
+        kernels += planner_kernels
         for entry in kernels:
             entry["launches_rest"] = rest_launches[
                 entry.get("kernel", entry["name"].split(".", 1)[1])]

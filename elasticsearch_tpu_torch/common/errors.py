@@ -6,13 +6,12 @@ status for the REST layer and renders a structured body (``type``,
 ``reason``, metadata, nested ``caused_by``) through ``to_xcontent``.
 
 The port adds ``NotLowerable``: a valid search the port does not serve
-yet (most of them the reference hands to its planner). It renders as a
-400 whose reason names the missing path.
+yet. It renders as a 400 whose reason names the missing path.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 
 class EsException(Exception):
@@ -90,6 +89,13 @@ class MapperParsingException(ParsingException):
     status = 400
 
 
+class QueryShardException(EsException):
+    """A query a shard cannot evaluate (a range on a text field, a
+    multi-term expansion past the clause limit)."""
+
+    status = 400
+
+
 class VersionConflictEngineException(EsException):
     """Optimistic concurrency failure on versioned/if_seq_no writes."""
 
@@ -139,23 +145,26 @@ class SettingsException(IllegalArgumentException):
 
 
 class NotLowerable(IllegalArgumentException):
-    """A valid search that the port does not serve yet. Most are what the
-    reference answers on its planner path (``search/planner.py`` +
-    ``search/query_phase.py``): a well-formed query outside the lowering
-    subset (match or/and/msm, term, terms, or a bool of should-terms on
-    one text field), ``min_score``, from + size of 0 or above 10,000,
-    sort, aggregations, a filtered alias, knn, scroll or PIT. With
+    """A valid search that the port does not serve yet. With
+    ``planner=True`` it is one the reference answers on its planner path
+    (``search/planner.py`` + ``search/query_phase.py``): the kernel path
+    raises it for a query outside its lowering subset, and the
+    coordinator then runs the port's planner; what reaches the client is
+    a planner feature the port has not got yet (sort, search_after,
+    highlight, suggest, rescore, collapse, aggregations, knn, scroll,
+    PIT, and the query types of field types it does not map). With
     ``planner=False`` it is one the reference serves on its kernel path
     and the port's kernel path does not take yet: a raw (incompressible)
     pack, or more slots per row than the merge kernel holds. The REST
     layer answers a 400 whose reason names the missing path."""
 
     def __init__(self, reason: str, planner: bool = True, **metadata: Any):
-        path = ("the reference answers this on its planner path, which is "
-                "not ported yet" if planner else
+        path = ("the reference answers this on its planner path, where "
+                "the port does not serve it yet" if planner else
                 "the reference serves this on its kernel path, whose "
                 "support for it is not ported yet")
         super().__init__(f"{reason}; {path}", **metadata)
+        self.planner = planner
 
 
 class IndexNotFound(IndexNotFoundException, KeyError):
@@ -165,3 +174,59 @@ class IndexNotFound(IndexNotFoundException, KeyError):
 
     def __str__(self) -> str:
         return self.reason
+
+
+def exception_type_name(exc: BaseException) -> str:
+    """Snake-case wire name of any exception class (the ``reason.type``
+    of a shard failure raised by code outside this taxonomy)."""
+    if isinstance(exc, EsException):
+        return exc.error_type
+    name = type(exc).__name__
+    out = []
+    for i, ch in enumerate(name):
+        if ch.isupper() and i > 0:
+            out.append("_")
+        out.append(ch.lower())
+    return "".join(out)
+
+
+def shard_failure_entry(index: str, shard: int, exc: BaseException,
+                        node: Optional[str] = None) -> Dict[str, Any]:
+    """One ``_shards.failures[]`` element: shard, index, optional node,
+    nested reason and status."""
+    reason = (exc.to_xcontent() if isinstance(exc, EsException)
+              else {"type": exception_type_name(exc), "reason": str(exc)})
+    entry: Dict[str, Any] = {"shard": shard, "index": index,
+                             "reason": reason,
+                             "status": (int(getattr(exc, "status", 503))
+                                        if isinstance(exc, EsException)
+                                        else 503)}
+    if node is not None:
+        entry["node"] = node
+    return entry
+
+
+class SearchPhaseExecutionException(EsException):
+    """Every shard failed a search phase, or one did while partial
+    results are disallowed. Its status derives from the shard failures:
+    a client error that hit every shard stays that 4xx; any 5xx-class
+    failure makes it a 503."""
+
+    status = 503
+
+    def __init__(self, phase: str, reason: str,
+                 shard_failures: Optional[list] = None):
+        super().__init__(reason, phase=phase, grouped=True)
+        self.shard_failures = shard_failures or []
+        statuses = [f.get("status", 503) for f in self.shard_failures
+                    if isinstance(f, dict)]
+        if statuses:
+            self.status = (503 if any(s >= 500 for s in statuses)
+                           else statuses[0])
+
+    def to_xcontent(self) -> Dict[str, Any]:
+        body = super().to_xcontent()
+        body["failed_shards"] = [
+            f.to_xcontent() if isinstance(f, EsException) else f
+            for f in self.shard_failures]
+        return body

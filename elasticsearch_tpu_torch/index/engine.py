@@ -309,9 +309,9 @@ class InternalEngine:
         existing = self._resolve_version(doc_id)
         if existing is not None and existing.location is not None:
             self._tombstone_location(existing.location)
-        ord_ = self._writer.add_document(parsed, seq_no=seq_no,
-                                         primary_term=primary_term,
-                                         version=version)
+        ord_ = self._writer.add_document(
+            parsed, seq_no=seq_no, primary_term=primary_term,
+            version=version, dv_kinds=self.config.mapper.dv_kinds())
         self._version_map[doc_id] = VersionValue(
             seq_no, primary_term, version, False, ("buffer", ord_))
 
@@ -368,6 +368,7 @@ class InternalEngine:
                 for _i, _p, seq_no, _pt, _v, _u in plan:
                     self._close_refused_gap(seq_no)
                 raise
+            dv_kinds = mapper.dv_kinds()
             for i, parsed, seq_no, primary_term, new_version, is_update \
                     in plan:
                 doc_id = parsed.doc_id
@@ -375,8 +376,8 @@ class InternalEngine:
                 if existing is not None and existing.location is not None:
                     self._tombstone_location(existing.location)
                 ord_ = self._writer.add_document(
-                    parsed, seq_no=seq_no,
-                    primary_term=primary_term, version=new_version)
+                    parsed, seq_no=seq_no, primary_term=primary_term,
+                    version=new_version, dv_kinds=dv_kinds)
                 self._version_map[doc_id] = VersionValue(
                     seq_no, primary_term, new_version, False,
                     ("buffer", ord_))

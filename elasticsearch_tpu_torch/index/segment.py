@@ -5,12 +5,13 @@ Counterpart of the reference's ``index/segment.py``: ``SegmentWriter``
 buffers parsed documents and ``freeze()`` emits a ``Segment`` whose
 per-field postings are (doc ids i32[], tfs i32[]) sorted by doc, with
 SmallFloat-encoded norms, the exact field statistics BM25 needs,
-``keyword`` doc values (``DocValuesColumn``) and each doc's seq_no,
-primary term and version. ``merge_segments`` concatenates segments in
-order and drops tombstoned docs, as the reference's force merge does.
-Live docs are a mask owned by the shard's engine; segments stay
-immutable. ``_build_postings`` is the reference's sort-based builder,
-verbatim; positions (phrase queries) are left out.
+doc-value columns (``DocValuesColumn``: keyword ordinals, i64 numbers,
+dates and booleans, f64 floats), the text fields' term slots (positions
+for phrase queries, read per candidate doc) and each doc's seq_no, primary term
+and version. ``merge_segments`` concatenates segments in order and
+drops tombstoned docs, as the reference's force merge does. Live docs
+are a mask owned by the shard's engine; segments stay immutable.
+``_build_postings`` is the reference's sort-based builder, verbatim.
 """
 
 from __future__ import annotations
@@ -21,12 +22,19 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from elasticsearch_tpu_torch.mapping import ParsedDocument
+from elasticsearch_tpu_torch.mapping.mapper import slots_to_positions
 from elasticsearch_tpu_torch.ops.smallfloat import encode_norms
+
+#: an i64 column's "no value in this doc"
+MISSING_I64 = -(2**63)
+
 
 @dataclasses.dataclass
 class DocValuesColumn:
-    kind: str  # "ord": keyword ordinals (numeric kinds come with their types)
-    values: np.ndarray  # i32 ordinals, -1 = missing
+    kind: str  # "i64" | "f64" | "ord"
+    # i64 (MISSING_I64 = missing), f64 (NaN = missing) or, for "ord",
+    # i32 ordinals into ord_terms (-1 = missing)
+    values: np.ndarray
     # multi-valued docs: values stores the FIRST value; extra values per doc here
     extra: Dict[int, List[Any]]
     ord_terms: Optional[List[str]] = None  # sorted unique terms for "ord"
@@ -52,7 +60,9 @@ class Segment:
                  *, doc_values: Optional[Dict[str, DocValuesColumn]] = None,
                  seq_nos: Optional[np.ndarray] = None,
                  primary_terms: Optional[np.ndarray] = None,
-                 doc_versions: Optional[np.ndarray] = None):
+                 doc_versions: Optional[np.ndarray] = None,
+                 token_slots: Optional[Dict[str, Dict[int, List[List[str]]]]]
+                 = None):
         self.name = name
         self.num_docs = num_docs
         self.doc_ids = doc_ids                # local doc ord → external _id
@@ -62,6 +72,10 @@ class Segment:
         self.stored_source = stored_source
         self.exact_lengths = exact_lengths or {}
         self.doc_values = doc_values or {}
+        # text field → {doc ord: per-value term slots}: the positions
+        # phrase queries read
+        self.token_slots = token_slots or {}
+        self._pack = None   # index/pack.py's SegmentPack, built on first use
         # per-doc write metadata, persisted so versioning survives a restart
         self.seq_nos = seq_nos if seq_nos is not None else \
             np.full(num_docs, -1, dtype=np.int64)
@@ -78,6 +92,21 @@ class Segment:
             self._id_to_ord = {d: i for i, d in enumerate(self.doc_ids)}
         return self._id_to_ord
 
+    def doc_positions(self, field: str, terms: List[str], doc: int
+                      ) -> List[Optional[np.ndarray]]:
+        """Each term's positions i32[] in `doc` (None where the term is
+        not there), read from that doc's term slots: the arrays of the
+        reference's materialized per-term position maps, built for the
+        candidate docs of a phrase only."""
+        found: Dict[str, List[int]] = {t: [] for t in terms}
+        for term, pos in slots_to_positions(
+                self.token_slots.get(field, {}).get(doc, [])):
+            hit = found.get(term)
+            if hit is not None:
+                hit.append(pos)
+        return [np.asarray(found[t], dtype=np.int32) if found[t] else None
+                for t in terms]
+
     def doc_freq(self, field: str, term: str) -> int:
         entry = self.postings.get(field, {}).get(term)
         return 0 if entry is None else len(entry[0])
@@ -90,9 +119,11 @@ class SegmentWriter:
         self.name = name
         self._doc_ids: List[str] = []
         self._doc_terms: Dict[str, List[Tuple[int, List[str]]]] = {}
+        self._doc_slots: Dict[str, Dict[int, List[List[str]]]] = {}
         self._field_lengths: Dict[str, Dict[int, int]] = {}
         self._field_stats: Dict[str, FieldStats] = {}
         self._doc_values: Dict[str, Dict[int, Any]] = {}
+        self._dv_kinds: Dict[str, str] = {}
         self._stored: List[Optional[dict]] = []
         self._seq_nos: List[int] = []
         self._primary_terms: List[int] = []
@@ -102,9 +133,12 @@ class SegmentWriter:
     def num_docs(self) -> int:
         return len(self._doc_ids)
 
-    def add_document(self, doc: ParsedDocument, seq_no: int = -1,
-                     primary_term: int = 0, version: int = 1) -> int:
-        """Returns the local doc ordinal."""
+    def add_document(self, doc: ParsedDocument, dv_kinds: Dict[str, str],
+                     seq_no: int = -1, primary_term: int = 0,
+                     version: int = 1) -> int:
+        """dv_kinds: field → "i64" | "f64" | "ord", from the mapper's
+        field types (MapperService.dv_kinds). Returns the local doc
+        ordinal."""
         ord_ = len(self._doc_ids)
         self._doc_ids.append(doc.doc_id)
         self._stored.append(doc.source)
@@ -114,6 +148,8 @@ class SegmentWriter:
         for field, terms in doc.postings_terms.items():
             if terms:
                 self._doc_terms.setdefault(field, []).append((ord_, terms))
+        for field, slot_lists in doc.term_slots.items():
+            self._doc_slots.setdefault(field, {})[ord_] = slot_lists
         for field, length in doc.field_lengths.items():
             self._field_lengths.setdefault(field, {})[ord_] = length
             stats = self._field_stats.setdefault(field, FieldStats())
@@ -121,6 +157,8 @@ class SegmentWriter:
             stats.sum_total_term_freq += length
         for field, dv in doc.doc_values.items():
             self._doc_values.setdefault(field, {})[ord_] = dv
+            if field in dv_kinds:
+                self._dv_kinds[field] = dv_kinds[field]
         return ord_
 
     def freeze(self) -> Segment:
@@ -140,7 +178,8 @@ class SegmentWriter:
             exact[ords] = vals
             norms[field] = col
             exact_lengths[field] = exact
-        doc_values = {field: _build_dv_column(per_doc, n)
+        doc_values = {field: _build_dv_column(
+                          self._dv_kinds.get(field, "i64"), per_doc, n)
                       for field, per_doc in self._doc_values.items()}
         return Segment(self.name, n, list(self._doc_ids), postings, norms,
                        dict(self._field_stats), list(self._stored),
@@ -148,7 +187,9 @@ class SegmentWriter:
                        seq_nos=np.array(self._seq_nos, dtype=np.int64),
                        primary_terms=np.array(self._primary_terms,
                                               dtype=np.int64),
-                       doc_versions=np.array(self._versions, dtype=np.int64))
+                       doc_versions=np.array(self._versions, dtype=np.int64),
+                       token_slots={f: dict(d)
+                                    for f, d in self._doc_slots.items()})
 
 
 def _build_postings(entries: List[Tuple[int, List[str]]], n: int
@@ -189,22 +230,35 @@ def _build_postings(entries: List[Tuple[int, List[str]]], n: int
             for t in range(len(uniq))}
 
 
-def _build_dv_column(per_doc: Dict[int, Any], n: int) -> DocValuesColumn:
-    """A keyword column: per-doc ordinals into the sorted unique terms."""
+def _build_dv_column(kind: str, per_doc: Dict[int, Any], n: int
+                     ) -> DocValuesColumn:
+    """A doc-value column of `kind` over n docs: the first value of each
+    doc in `values`, the rest in `extra`."""
     extra: Dict[int, List[Any]] = {}
-    uniq = set()
-    for v in per_doc.values():
-        for x in (v if isinstance(v, list) else [v]):
-            uniq.add(x)
-    ord_terms = sorted(uniq)
-    ord_of = {t: i for i, t in enumerate(ord_terms)}
-    values = np.full(n, -1, dtype=np.int32)
+    if kind == "ord":
+        uniq = set()
+        for v in per_doc.values():
+            for x in (v if isinstance(v, list) else [v]):
+                uniq.add(x)
+        ord_terms = sorted(uniq)
+        ord_of = {t: i for i, t in enumerate(ord_terms)}
+        values = np.full(n, -1, dtype=np.int32)
+        for d, v in per_doc.items():
+            vs = v if isinstance(v, list) else [v]
+            values[d] = ord_of[vs[0]]
+            if len(vs) > 1:
+                extra[d] = [ord_of[x] for x in vs[1:]]
+        return DocValuesColumn("ord", values, extra, ord_terms)
+    if kind == "f64":
+        values = np.full(n, np.nan, dtype=np.float64)
+    else:
+        values = np.full(n, MISSING_I64, dtype=np.int64)
     for d, v in per_doc.items():
         vs = v if isinstance(v, list) else [v]
-        values[d] = ord_of[vs[0]]
+        values[d] = vs[0]
         if len(vs) > 1:
-            extra[d] = [ord_of[x] for x in vs[1:]]
-    return DocValuesColumn("ord", values, extra, ord_terms)
+            extra[d] = vs[1:]
+    return DocValuesColumn(kind, values, extra)
 
 
 def merge_segments(name: str, segments: List[Segment],
@@ -238,6 +292,14 @@ def merge_segments(name: str, segments: List[Segment],
         + [np.zeros(0, dtype=np.int64)])
 
     postings: Dict[str, Dict[str, Tuple[np.ndarray, np.ndarray]]] = {}
+    token_slots: Dict[str, Dict[int, List[List[str]]]] = {}
+    for m, seg in zip(remap, segments):
+        for field, per_doc in seg.token_slots.items():
+            out = token_slots.setdefault(field, {})
+            for d, slot_lists in per_doc.items():
+                nd = int(m[d])
+                if nd >= 0:
+                    out[nd] = slot_lists
     norms: Dict[str, np.ndarray] = {}
     field_stats: Dict[str, FieldStats] = {}
     dv_parts: Dict[str, List[Tuple[int, DocValuesColumn, np.ndarray]]] = {}
@@ -294,20 +356,33 @@ def merge_segments(name: str, segments: List[Segment],
 
     doc_values: Dict[str, DocValuesColumn] = {}
     for field, parts in dv_parts.items():
+        kind = parts[0][1].kind
         per_doc: Dict[int, Any] = {}
         for _, col, m in parts:
             for old in range(len(col.values)):
                 new = int(m[old])
-                if new < 0 or col.values[old] < 0:
+                if new < 0:
                     continue
-                vals = [col.ord_terms[col.values[old]]]
-                vals += [col.ord_terms[x] for x in col.extra.get(old, [])]
+                if col.kind == "ord":
+                    if col.values[old] < 0:
+                        continue
+                    vals = [col.ord_terms[col.values[old]]]
+                    vals += [col.ord_terms[x]
+                             for x in col.extra.get(old, [])]
+                else:
+                    v = col.values[old]
+                    if col.kind == "i64" and v == MISSING_I64:
+                        continue
+                    if col.kind == "f64" and np.isnan(v):
+                        continue
+                    vals = [v] + list(col.extra.get(old, []))
                 per_doc[new] = vals if len(vals) > 1 else vals[0]
-        doc_values[field] = _build_dv_column(per_doc, n)
+        doc_values[field] = _build_dv_column(kind, per_doc, n)
 
     return Segment(name, n, doc_ids, postings, norms, field_stats, stored,
                    exact_lengths, doc_values=doc_values, seq_nos=seq_nos,
-                   primary_terms=primary_terms, doc_versions=doc_versions)
+                   primary_terms=primary_terms, doc_versions=doc_versions,
+                   token_slots=token_slots)
 
 
 class TokenSources:

@@ -1,10 +1,11 @@
 """Segment persistence: the on-disk commit format.
 
-Copy of the reference's ``index/store.py`` (positions and nested stores
-left out). A commit is:
+Copy of the reference's ``index/store.py`` (nested stores left out). A
+commit is:
 
   <dir>/segments/<name>.npz       postings/norms/doc-values arrays
-  <dir>/segments/<name>.json      vocab, doc ids, stored sources
+  <dir>/segments/<name>.json      vocab, doc ids, stored sources, the
+                                  text fields' term slots (positions)
   <dir>/commit.json               atomic manifest: segment names, live-doc
                                   tombstones, local_checkpoint, max_seq_no,
                                   primary_term, translog generation, mapping
@@ -48,6 +49,9 @@ def save_segment(path: str, seg: Segment) -> Dict[str, int]:
         "stored": [seg.stored_source[i] for i in range(seg.num_docs)],
         "field_stats": {f: [st.doc_count, st.sum_total_term_freq]
                         for f, st in seg.field_stats.items()},
+        "token_slots": {
+            f: {str(d): sl for d, sl in per_doc.items()}
+            for f, per_doc in seg.token_slots.items()},
         "postings_fields": {}, "dv": {},
     }
     for field, terms in seg.postings.items():
@@ -136,7 +140,11 @@ def load_segment(path: str, name: str,
                    norms, field_stats, meta["stored"], exact,
                    doc_values=doc_values, seq_nos=arrays["meta.seq_nos"],
                    primary_terms=arrays["meta.primary_terms"],
-                   doc_versions=arrays["meta.doc_versions"])
+                   doc_versions=arrays["meta.doc_versions"],
+                   token_slots={
+                       f: {int(d): sl for d, sl in per_doc.items()}
+                       for f, per_doc in meta.get("token_slots",
+                                                  {}).items()})
 
 
 def write_commit(path: str, *, segments: List[str],

@@ -4,4 +4,5 @@
 from elasticsearch_tpu_torch.mapping.mapper import (  # noqa: F401
     DocumentMapper, MapperService, ParsedDocument)
 from elasticsearch_tpu_torch.mapping.types import (  # noqa: F401
-    FieldType, KeywordFieldType, TextFieldType, field_type_for)
+    BooleanFieldType, DateFieldType, FieldType, KeywordFieldType,
+    NumberFieldType, TextFieldType, field_type_for, parse_date_millis)

@@ -1,17 +1,17 @@
-"""MapperService + DocumentParser for ``text`` and ``keyword`` fields.
+"""MapperService + DocumentParser.
 
 Copy of the reference's ``mapping/mapper.py`` (MapperService#merge with
-its type-conflict check, DocumentParser with dynamic mapping, object
-flattening to dotted paths), trimmed to the field types of
+its type-conflict check, DocumentParser with dynamic mapping, plain
+objects flattened to dotted paths), trimmed to the field types of
 ``mapping/types.py``. Dynamic mapping is the reference's: a string
-becomes ``text`` with a ``.keyword`` multi-field (ignore_above 256); a
-value that the reference maps to another type (a number, a boolean, an
-ISO date string) is refused with ``mapper_parsing_exception`` naming the
-type. Nested objects and positions (phrase queries) are left out.
+becomes ``date`` when it looks like an ISO date and ``text`` with a
+``.keyword`` multi-field (ignore_above 256) otherwise, an integer
+``long``, a float ``double`` and a boolean ``boolean``. Nested objects
+(the ``nested`` type) are left out.
 
 ParsedDocument carries what the segment builder needs: postings terms
-(duplicates give term frequency), field lengths (BM25 norms) and doc
-values.
+(duplicates give term frequency), field lengths (BM25 norms), the text
+fields' term slots (positions, for phrase queries) and doc values.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from __future__ import annotations
 import dataclasses
 import re
 import threading
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from elasticsearch_tpu_torch.common.errors import MapperParsingException
 from elasticsearch_tpu_torch.common.settings import Settings
@@ -38,7 +38,45 @@ class ParsedDocument:
     source: Dict[str, Any]
     postings_terms: Dict[str, List[str]]  # duplicates give term frequency
     field_lengths: Dict[str, int]         # BM25 norm source per field
+    # text fields: one slots list (the term at each position) per value
+    # of the field; positions derive from slot indices and the
+    # 100-position gap between values (slots_to_positions)
+    term_slots: Dict[str, List[List[str]]] = dataclasses.field(
+        default_factory=dict)
     doc_values: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    @property
+    def positions(self) -> Dict[str, List[Tuple[str, int]]]:
+        """{field: [(term, position), ...]}, 100 positions between the
+        values of an array."""
+        return {field: slots_to_positions(slot_lists)
+                for field, slot_lists in self.term_slots.items()}
+
+
+def slots_to_positions(slot_lists: List[List[Optional[str]]]
+                       ) -> List[Tuple[str, int]]:
+    """Per-value slot lists → [(term, absolute position)]: value j starts
+    at (tokens so far) + 100 · (values with tokens before it), Lucene's
+    position_increment_gap. A list entry stacks several terms at one
+    position; an empty entry is a hole."""
+    out: List[Tuple[str, int]] = []
+    base = 0
+    for slots in slot_lists:
+        gap = 100 if base else 0
+        n = 0
+        for si, entry in enumerate(slots):
+            if not entry:
+                continue
+            if isinstance(entry, list):
+                for term in entry:
+                    if term:
+                        out.append((term, si + base + gap))
+                        n += 1
+            else:
+                out.append((entry, si + base + gap))
+                n += 1
+        base = base + gap + n
+    return out
 
 
 class DocumentMapper:
@@ -62,6 +100,9 @@ class DocumentMapper:
         #: top-level text fields with no multi-fields: documents touching
         #: only these take the flat parse path
         self.fast_text_fields = fast
+        #: field → doc-value column kind, for SegmentWriter.add_document
+        self.dv_kinds = {f: t.dv_kind for f, t in self.fields.items()
+                         if t.dv_kind != "none"}
 
     def to_mapping(self) -> dict:
         props: Dict[str, Any] = {}
@@ -160,6 +201,10 @@ class MapperService:
     def field_type(self, path: str) -> Optional[FieldType]:
         return self.mapper.fields.get(path)
 
+    def dv_kinds(self) -> Dict[str, str]:
+        """field → doc-value column kind of the live mapping."""
+        return self.mapper.dv_kinds
+
     def to_mapping(self) -> dict:
         return self.mapper.to_mapping()
 
@@ -174,6 +219,7 @@ class MapperService:
         if fast:
             postings: Dict[str, List[str]] = {}
             lengths: Dict[str, int] = {}
+            slots_map: Dict[str, List[List[str]]] = {}
             for name, value in source.items():
                 ft = fast.get(name)
                 if ft is None or type(value) is not str:
@@ -181,9 +227,10 @@ class MapperService:
                 slots = ft.analyzer.analyze_slots(value)
                 postings[name] = slots
                 lengths[name] = len(slots)
+                slots_map[name] = [slots]
             else:
                 return ParsedDocument(doc_id, routing, source, postings,
-                                      lengths)
+                                      lengths, slots_map)
         parsed = ParsedDocument(doc_id, routing, source, {}, {})
         update_props: Dict[str, Any] = {}
         self._parse_object(source, "", parsed, update_props)
@@ -237,6 +284,7 @@ class MapperService:
                     base = parsed.field_lengths.get(path, 0)
                     parsed.field_lengths[path] = \
                         base + (100 if base else 0) + len(terms)
+                    parsed.term_slots.setdefault(path, []).append(terms)
                     parsed.postings_terms.setdefault(path, []).extend(terms)
                 else:
                     terms, length = ft.index_terms(v)
@@ -257,7 +305,6 @@ class MapperService:
         spec = self._infer(sample)
         if spec is None:
             return None
-        # refuses a type the port does not map before anything changes
         fields = {path: field_type_for(path, spec)}
         for sub, subspec in (spec.get("fields") or {}).items():
             fields[f"{path}.{sub}"] = field_type_for(f"{path}.{sub}", subspec)

@@ -1,10 +1,10 @@
 """The ``_search`` REST action.
 
 Copy of the reference's ``rest/actions/search.py`` for ``GET``/``POST
-/_search`` and ``/{index}/_search`` on the kernel path. Scroll and PIT
-pin readers that the reference serves on its planner path: they are
-refused typed (``NotLowerable``), as the coordinator refuses the other
-planner-bound requests.
+/_search`` and ``/{index}/_search`` (the coordinator picks the kernel
+path or the planner). Scroll and PIT pin readers, which the port does
+not do yet: they are refused typed (``NotLowerable``), as the
+coordinator refuses the other planner features it lacks.
 """
 
 from __future__ import annotations

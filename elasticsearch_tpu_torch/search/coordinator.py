@@ -1,19 +1,29 @@
-"""Search coordinator — the kernel path of ``_search`` across indices.
+"""Search coordinator — ``_search`` across indices and shards.
 
-Copy of the reference's ``search/coordinator.py`` for what its
-``_search_fast`` serves: target resolution (``resolve_targets``, over
-index and alias names), body parsing (``parse_search_body``), the kernel
-query phase per index through ``GpuSearchService.try_search``, the
-lexsort merge across indices (score desc, index order, kernel rank) and
-columnar hit assembly (``ColumnarHits`` / ``SplicedHits``).
+Copy of the reference's ``search/coordinator.py``: target resolution
+(``resolve_targets``, over index and alias names), body parsing
+(``parse_search_body``), and two paths.
 
-Every request that the reference hands to its planner path (a query
-outside the lowering subset, ``min_score``, from + size of 0 or above
-10,000, sort, aggregations, a filtered alias, knn, PIT, ...) raises
-``NotLowerable``, a typed 400, because that path is not ported yet. A
-``_source`` list or tuple filters each hit's source, as the reference's
-kernel path does. Unlike the reference, a fault of the kernel path is
-not caught here: it reaches the client as a 5xx.
+The kernel path (``_search_fast``) runs the query phase of each index
+through ``GpuSearchService.try_search``, merges across indices (score
+desc, index order, kernel rank) and assembles columnar hits
+(``ColumnarHits`` / ``SplicedHits``); a ``_source`` list or tuple
+filters each hit's source. The planner path (``_search_planner``) takes
+every request the reference hands to its planner: a filtered alias,
+from + size of 0 or above 10,000, ``min_score``, or a query outside the
+kernel's lowering subset (``NotLowerable(planner=True)``). It skips
+shards ``can_match`` rules out, runs ``execute_query`` on each shard's
+reader under per-shard failure capture, merges by (score desc, index
+order, shard, rank), fetches the window's winners and renders the
+reference's response. It runs on the first device of the service's
+mesh.
+
+Refused typed (``NotLowerable``): the planner features not ported yet
+(sort, search_after, highlight, suggest, rescore, collapse, pit,
+aggregations, knn), and what the reference serves on its kernel path
+but the port's does not take yet (``planner=False``: raw packs, rows of
+more than 1024 slots). Unlike the reference, a fault of the kernel path
+is not retried on the planner: it reaches the client as a 5xx.
 """
 
 from __future__ import annotations
@@ -24,11 +34,16 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from elasticsearch_tpu_torch.common.errors import (IllegalArgumentException,
-                                                   IndexNotFoundException,
-                                                   NotLowerable)
+from elasticsearch_tpu_torch.common.errors import (
+    CircuitBreakingException, IllegalArgumentException,
+    IndexNotFoundException, NotLowerable, SearchPhaseExecutionException,
+    shard_failure_entry)
 from elasticsearch_tpu_torch.search import dsl
+from elasticsearch_tpu_torch.search.can_match import can_match
 from elasticsearch_tpu_torch.search.gpu_service import MAX_K
+from elasticsearch_tpu_torch.search.query_phase import (ShardHit,
+                                                        execute_fetch,
+                                                        execute_query)
 from elasticsearch_tpu_torch.search.serializer import (ColumnarHits,
                                                        SplicedHits,
                                                        assemble_hits_list)
@@ -39,9 +54,38 @@ KNOWN_KEYS = frozenset({
     "track_total_hits", "sort", "search_after", "timeout", "pit",
     "profile", "highlight", "suggest", "version", "seq_no_primary_term",
     "rescore", "collapse", "knn"})
-#: body keys whose presence sends a request to the reference's planner
+#: body keys of planner features the port does not serve yet
 PLANNER_KEYS = ("sort", "search_after", "highlight", "suggest", "rescore",
                 "collapse", "pit")
+
+#: failures that abort the whole request rather than degrade to a
+#: per-shard failure: a breaker trip is a 429 before work is admitted,
+#: and a feature the port does not serve is the client's typed 400
+_NON_DEGRADABLE = (CircuitBreakingException, NotLowerable)
+
+
+def allow_partial_results(params: Optional[Dict[str, str]]) -> bool:
+    """The ``allow_partial_search_results`` query param (default true:
+    a search survives shard failures and reports them in
+    ``_shards.failures``)."""
+    raw = (params or {}).get("allow_partial_search_results", "true")
+    return str(raw).lower() not in ("false", "0", "no")
+
+
+def check_shard_failures(failures: List[Dict[str, Any]], successful: int,
+                         allow_partial: bool, phase: str = "query") -> None:
+    """Every shard failing, or any shard failing when partial results
+    are disallowed, raises SearchPhaseExecutionException instead of a
+    degraded 200."""
+    if not failures:
+        return
+    if successful == 0:
+        raise SearchPhaseExecutionException(phase, "all shards failed",
+                                            failures)
+    if not allow_partial:
+        raise SearchPhaseExecutionException(
+            phase, "Search rejected due to failed shards "
+            "[allow_partial_search_results=false]", failures)
 
 
 def resolve_targets(indices, expression: Optional[str]
@@ -128,9 +172,24 @@ def resolve_concrete_indices(indices, expression: Optional[str]) -> List[str]:
     return out
 
 
+def with_alias_filters(query: dsl.QueryNode,
+                       filts: Optional[List[dict]]) -> dsl.QueryNode:
+    """The request query with the matched aliases' filters as a filter
+    clause (several filtered aliases OR together)."""
+    if not filts:
+        return query
+    parsed = [dsl.parse_query(f) for f in filts]
+    if len(parsed) == 1:
+        filt: dsl.QueryNode = parsed[0]
+    else:
+        filt = dsl.BoolQuery(should=parsed, minimum_should_match=1)
+    return dsl.BoolQuery(must=[query], filter=[filt])
+
+
 def parse_search_body(body: Optional[Dict[str, Any]]):
     """→ (query node, body). Unknown keys are a 400, as in the
-    reference; keys of the planner path raise NotLowerable."""
+    reference; planner features the port does not serve raise
+    NotLowerable."""
     body = body or {}
     if "script_fields" in body:
         raise IllegalArgumentException(
@@ -142,7 +201,7 @@ def parse_search_body(body: Optional[Dict[str, Any]]):
             f"unknown search body keys {sorted(unknown)}")
     planner = [k for k in PLANNER_KEYS if k in body]
     planner += [k for k in ("aggs", "aggregations") if body.get(k)]
-    planner += [k for k in ("min_score", "knn") if body.get(k) is not None]
+    planner += [k for k in ("knn",) if body.get(k) is not None]
     if planner:
         raise NotLowerable(f"search options {planner}")
     for key in ("profile", "timeout"):
@@ -156,8 +215,8 @@ def parse_search_body(body: Optional[Dict[str, Any]]):
 def search(indices, index_expr: Optional[str],
            body: Optional[Dict[str, Any]],
            params: Optional[Dict[str, str]], gpu_search) -> Dict[str, Any]:
-    """One ``_search`` over the indices `index_expr` names, on the
-    kernel path."""
+    """One ``_search`` over the indices `index_expr` names: the kernel
+    path where the reference takes it, else the planner path."""
     t0 = time.perf_counter()
     params = params or {}
     names, alias_filters = resolve_targets(indices, index_expr)
@@ -165,28 +224,140 @@ def search(indices, index_expr: Optional[str],
     size = int(params.get("size", body.get("size", 10)))
     from_ = int(params.get("from", body.get("from", 0)))
     source = body.get("_source", True)
-    if alias_filters:
-        raise NotLowerable(f"filtered aliases {sorted(alias_filters)}")
+    min_score = body.get("min_score")
+    version = bool(body.get("version"))
+    seq_no_primary_term = bool(body.get("seq_no_primary_term"))
     if params.get("timeout") is not None:
         raise IllegalArgumentException(
             "[timeout] is not ported yet to the GPU search path")
-    return _search_fast(indices, names, query, gpu_search, size=size,
-                        from_=from_, source=source, t0=t0,
-                        version=bool(body.get("version")),
-                        seq_no_primary_term=bool(
-                            body.get("seq_no_primary_term")))
+    if not alias_filters:
+        # filtered aliases run the planner, as in the reference
+        try:
+            return _search_fast(indices, names, query, gpu_search,
+                                size=size, from_=from_,
+                                min_score=min_score, source=source, t0=t0,
+                                version=version,
+                                seq_no_primary_term=seq_no_primary_term)
+        except NotLowerable as exc:
+            if not exc.planner:
+                raise
+    return _search_planner(indices, names, alias_filters, query, params,
+                           size=size, from_=from_, min_score=min_score,
+                           source=source, t0=t0, version=version,
+                           seq_no_primary_term=seq_no_primary_term,
+                           device=gpu_search.mesh.grid[0][0])
+
+
+def _search_planner(indices, names: List[str],
+                    alias_filters: Dict[str, List[dict]],
+                    query: dsl.QueryNode, params: Dict[str, str], *,
+                    size: int, from_: int, min_score, source, t0: float,
+                    version: bool, seq_no_primary_term: bool,
+                    device) -> Dict[str, Any]:
+    """The planner path: per-shard query phase under failure capture,
+    the merge, the fetch phase, the response."""
+    shard_results = []   # (index name, shard num, reader, result)
+    failures: List[Dict[str, Any]] = []
+    allow_partial = allow_partial_results(params)
+    total = 0
+    skipped = 0
+    n_shards_expected = sum(len(indices.index(n).shards) for n in names)
+    for name in names:
+        svc = indices.index(name)
+        eff_query = with_alias_filters(query, alias_filters.get(name))
+        for shard_num, shard in sorted(svc.shards.items()):
+            try:
+                reader = shard.acquire_searcher()
+                if not can_match(reader, eff_query, svc.mapper):
+                    skipped += 1
+                    continue
+                res = execute_query(reader, eff_query, size=size + from_,
+                                    from_=0, min_score=min_score,
+                                    device=device)
+            except _NON_DEGRADABLE:
+                raise
+            except Exception as e:  # noqa: BLE001 — per-shard capture
+                failures.append(shard_failure_entry(name, shard_num, e))
+                continue
+            shard_results.append((name, shard_num, reader, res))
+            total += res.total_hits
+    check_shard_failures(failures, len(shard_results) + skipped,
+                         allow_partial, "query")
+
+    # merge: score desc, ties toward the lower index/shard order, then
+    # the shard's rank
+    merged: List[Tuple[float, int, int, ShardHit]] = []
+    for si, (_, _, _, res) in enumerate(shard_results):
+        for rank, hit in enumerate(res.hits):
+            merged.append((-hit.score, si, rank, hit))
+    merged.sort(key=lambda t: (t[0], t[1], t[2]))
+    window = merged[from_: from_ + size]
+
+    # fetch: only the shards that own winners, on the reader the query
+    # phase scored
+    by_shard: Dict[int, List[ShardHit]] = {}
+    for _, si, _, hit in window:
+        by_shard.setdefault(si, []).append(hit)
+    fetched: Dict[Tuple[int, str], Dict[str, Any]] = {}
+    fetch_failed: set = set()
+    for si, hits in by_shard.items():
+        name, shard_num, reader, _ = shard_results[si]
+        try:
+            for hit, doc in zip(hits, execute_fetch(
+                    reader, hits, source, version=version,
+                    seq_no_primary_term=seq_no_primary_term)):
+                doc["_index"] = name
+                fetched[(si, hit.doc_id)] = doc
+        except _NON_DEGRADABLE:
+            raise
+        except Exception as e:  # noqa: BLE001 — per-shard capture
+            failures.append(shard_failure_entry(name, shard_num, e))
+            fetch_failed.add(si)
+            fetched = {k: v for k, v in fetched.items() if k[0] != si}
+    if fetch_failed:
+        # a shard that lost its fetch contributes no hits and counts
+        # failed, though its query phase ran
+        window = [e for e in window if e[1] not in fetch_failed]
+        check_shard_failures(
+            failures, len(shard_results) - len(fetch_failed) + skipped,
+            allow_partial, "fetch")
+    hits_json = []
+    for _, si, _, hit in window:
+        doc = fetched.get((si, hit.doc_id), {"_id": hit.doc_id})
+        doc["_score"] = hit.score
+        hits_json.append(doc)
+    shards_json: Dict[str, Any] = {
+        "total": n_shards_expected,
+        "successful": len(shard_results) - len(fetch_failed) + skipped,
+        "skipped": skipped,
+        "failed": len(failures)}
+    if failures:
+        shards_json["failures"] = failures
+    return {
+        "took": int((time.perf_counter() - t0) * 1000),
+        "timed_out": False,
+        "_shards": shards_json,
+        "hits": {"total": {"value": total, "relation": "eq"},
+                 "max_score": -merged[0][0] if merged else None,
+                 "hits": hits_json},
+    }
 
 
 def _search_fast(indices, names: List[str], query: dsl.QueryNode,
-                 gpu_search, *, size: int, from_: int, source, t0: float,
-                 version: bool = False,
+                 gpu_search, *, size: int, from_: int, min_score, source,
+                 t0: float, version: bool = False,
                  seq_no_primary_term: bool = False) -> Dict[str, Any]:
-    """Kernel-path query phase + columnar response assembly."""
+    """Kernel-path query phase + columnar response assembly. Raises
+    NotLowerable(planner=True) where the reference's fast path declines
+    and its planner answers: from + size outside the kernel's window,
+    min_score (the kernel counts totals before it), or a query of any
+    target index outside the lowering subset."""
     k = from_ + size
     if k <= 0 or k > MAX_K:
-        # the reference hands such a request to its planner
         raise NotLowerable(f"from + size = {k} is outside (0, {MAX_K}], "
                            f"the kernel path's window")
+    if min_score is not None:
+        raise NotLowerable("min_score")
     per_index = []
     n_shards_total = 0
     for name in names:

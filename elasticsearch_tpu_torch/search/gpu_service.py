@@ -759,8 +759,9 @@ class GpuSearchService:
                 if writer is None:
                     writer = idx.writers[shard] = SegmentWriter(
                         f"s{shard}_g{idx.generation}")
-                writer.add_document(idx.mapper.parse_document(doc_id,
-                                                              source))
+                writer.add_document(
+                    idx.mapper.parse_document(doc_id, source),
+                    dv_kinds=idx.mapper.dv_kinds())
                 n += 1
         return n
 

@@ -1,20 +1,126 @@
-"""The query phase's source filtering.
+"""Query and fetch phases for one shard, on the planner path.
 
-Copy of the reference's ``search/query_phase.py::filter_source``, which
-the kernel path's response assembly uses for a ``_source`` list. The
-rest of the module (the planner's query and fetch phases) comes with
-the planner path.
+Copy of the reference's ``search/query_phase.py``: the query phase runs
+``SegmentQueryExecutor`` over each segment of a ShardReader on a device,
+masks tombstoned docs, takes each segment's top-k (``ops/bm25.topk``:
+the ``shard_topk`` kernel on a CUDA tensor) and merges them by (score
+desc, segment, doc); it returns doc refs and scores only. The fetch
+phase resolves the winners' ``_source`` (``filter_source`` for a list),
+``_version`` and ``_seq_no``/``_primary_term``. Like every entry point
+of the port it runs on ``cuda:0`` unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from elasticsearch_tpu_torch.index.reader import ShardReader
+from elasticsearch_tpu_torch.ops import bm25
+from elasticsearch_tpu_torch.parallel.device import resolve_device
+from elasticsearch_tpu_torch.search import dsl
+from elasticsearch_tpu_torch.search.planner import SegmentQueryExecutor
+
+
+@dataclasses.dataclass
+class ShardDocRef:
+    segment: str
+    ord: int
+
+
+@dataclasses.dataclass
+class ShardHit:
+    doc_id: str
+    score: float
+    ref: ShardDocRef
+
+
+@dataclasses.dataclass
+class QuerySearchResult:
+    """A shard's query-phase result: top-k (doc ref, score), total hits;
+    no _source yet."""
+    hits: List[ShardHit]
+    total_hits: int
+    max_score: Optional[float]
+
+
+def execute_query(reader: ShardReader, query: dsl.QueryNode, *,
+                  size: int = 10, from_: int = 0,
+                  min_score: Optional[float] = None,
+                  device=None) -> QuerySearchResult:
+    """The unsorted query phase over every segment of `reader` on
+    `device` (default: cuda:0; "cpu" for the plain path). min_score
+    filters the match set, totals included."""
+    dev = resolve_device(device)
+    k = size + from_
+    per_segment: List[Tuple[int, np.ndarray, np.ndarray]] = []
+    total = 0
+    for idx, view in enumerate(reader.views):
+        executor = SegmentQueryExecutor(reader, idx, dev)
+        mask, score = executor.execute(query)
+        live = torch.as_tensor(view.live_mask).to(dev)
+        final = bm25.mask_scores(score[None, :], mask[None, :], live)[0]
+        match = mask & live
+        if min_score is not None:
+            # min_score filters the match set: totals agree with it
+            match = match & (final >= min_score)
+        total += int(match.sum())
+        if k > 0:
+            vals, idxs = bm25.topk(final[None, :], k=min(k, view.d_pad))
+            per_segment.append((idx, vals[0].cpu().numpy(),
+                                idxs[0].cpu().numpy()))
+    # merge across segments: (score desc, segment asc, doc asc)
+    merged: List[Tuple[float, int, int]] = []
+    for seg_idx, vals, idxs in per_segment:
+        for v, d in zip(vals.tolist(), idxs.tolist()):
+            if v == float("-inf"):
+                continue
+            if min_score is not None and v < min_score:
+                continue
+            merged.append((v, seg_idx, d))
+    merged.sort(key=lambda t: (-t[0], t[1], t[2]))
+    window = merged[from_: from_ + size] if size > 0 else []
+    hits = []
+    for score, seg_idx, ord_ in window:
+        seg = reader.views[seg_idx].segment
+        hits.append(ShardHit(seg.doc_ids[ord_], score,
+                             ShardDocRef(seg.name, ord_)))
+    max_score = merged[0][0] if merged else None
+    return QuerySearchResult(hits, total, max_score)
+
+
+def execute_fetch(reader: ShardReader, hits: List[ShardHit],
+                  source: Any = True, *, version: bool = False,
+                  seq_no_primary_term: bool = False) -> List[Dict[str, Any]]:
+    """The winners' _source (True | False | a list of field-name
+    prefixes) and, when asked, _version and _seq_no/_primary_term."""
+    by_name = {v.segment.name: v.segment for v in reader.views}
+    out = []
+    for hit in hits:
+        seg = by_name.get(hit.ref.segment)
+        doc: Dict[str, Any] = {"_id": hit.doc_id, "_score": hit.score}
+        if seg is not None and source is not False:
+            src = seg.stored_source[hit.ref.ord]
+            if isinstance(source, (list, tuple)):
+                src = filter_source(src or {}, list(source))
+            doc["_source"] = src
+        if seg is not None and version:
+            doc["_version"] = int(seg.doc_versions[hit.ref.ord])
+        if seg is not None and seq_no_primary_term:
+            doc["_seq_no"] = int(seg.seq_nos[hit.ref.ord])
+            doc["_primary_term"] = int(seg.primary_terms[hit.ref.ord])
+        out.append(doc)
+    return out
 
 
 def filter_source(src: Dict[str, Any],
                   includes: List[str]) -> Dict[str, Any]:
     """Project a stored _source onto an includes list (dotted paths
-    descend into objects)."""
+    descend into objects). Shared by the planner's fetch phase and the
+    kernel path's columnar serializer."""
     out: Dict[str, Any] = {}
     for key, value in src.items():
         for inc in includes:

@@ -66,7 +66,7 @@ def port_segments(shard_docs):
     for s, docs in enumerate(shard_docs):
         w = SegmentWriter(f"shard{s}")
         for doc_id, src in docs:
-            w.add_document(ms.parse_document(doc_id, src))
+            w.add_document(ms.parse_document(doc_id, src), ms.dv_kinds())
         segs.append(w.freeze())
     return segs
 
@@ -148,7 +148,8 @@ class TestSegments:
         w = SegmentWriter("seg")
         for doc_id, tok in zip(ids, tokens):
             w.add_document(ms.parse_document(
-                doc_id, {"body": " ".join(VOCAB[t] for t in tok)}))
+                doc_id, {"body": " ".join(VOCAB[t] for t in tok)}),
+                ms.dv_kinds())
         want = w.freeze()
         got = segment_from_token_ids("seg", ids, tokens, VOCAB, "body")
         assert got.doc_ids == want.doc_ids

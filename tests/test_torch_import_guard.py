@@ -29,7 +29,11 @@ NODE_MODULES = [
     "elasticsearch_tpu_torch.index.engine",
     "elasticsearch_tpu_torch.index.shard",
     "elasticsearch_tpu_torch.indices.service",
+    "elasticsearch_tpu_torch.index.pack",
+    "elasticsearch_tpu_torch.ops.bm25",
     "elasticsearch_tpu_torch.search.coordinator",
+    "elasticsearch_tpu_torch.search.can_match",
+    "elasticsearch_tpu_torch.search.planner",
     "elasticsearch_tpu_torch.search.query_phase",
     "elasticsearch_tpu_torch.search.dsl",
     "elasticsearch_tpu_torch.parallel.mesh",

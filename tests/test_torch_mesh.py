@@ -69,7 +69,7 @@ def segments(shard_docs):
         rw, pw = RefWriter(f"shard{s}"), SegmentWriter(f"shard{s}")
         for doc_id, src in docs:
             rw.add_document(ref_ms.parse_document(doc_id, src), {})
-            pw.add_document(ms.parse_document(doc_id, src))
+            pw.add_document(ms.parse_document(doc_id, src), ms.dv_kinds())
         ref.append(rw.freeze())
         port.append(pw.freeze())
     return ref, port

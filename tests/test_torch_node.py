@@ -29,7 +29,9 @@ from elasticsearch_tpu_torch.parallel.mesh import make_mesh
 from elasticsearch_tpu_torch.search import gpu_service
 from elasticsearch_tpu_torch.search.serializer import dumps_response
 
-from torch_parity_cases import PARITY_BODIES, bulk_ndjson, make_docs
+from torch_parity_cases import (PARITY_BODIES, TRANSCENDENTAL,
+                                TYPED_BODIES, TYPED_MAPPING, bulk_ndjson, make_docs,
+                                make_typed_docs)
 
 torch.set_num_threads(1)
 
@@ -418,7 +420,9 @@ def test_restart_with_translog_replay_answers_the_same_bytes(
         ref.close()
 
 
-PLANNER_BOUND = {
+#: bodies the reference answers on its planner path; the port's planner
+#: must give its bytes
+PLANNER_SERVED = {
     "match_all": {"query": {"match_all": {}}},
     "match_phrase": {"query": {"match_phrase": {"body": "alpha beta"}}},
     "range": {"query": {"range": {"body": {"gte": "a"}}}},
@@ -428,6 +432,10 @@ PLANNER_BOUND = {
     "k_10001": {"query": {"match": {"body": "alpha"}}, "size": 10001},
     "from_9995": {"query": {"match": {"body": "alpha"}}, "from": 9995,
                   "size": 10},
+}
+
+#: planner features the port does not serve yet: a typed 400
+PLANNER_BOUND = {
     "sort": {"query": {"match": {"body": "alpha"}}, "sort": ["_score"]},
     "aggs": {"query": {"match": {"body": "alpha"}},
              "aggs": {"n": {"value_count": {"field": "body"}}}},
@@ -436,6 +444,18 @@ PLANNER_BOUND = {
     "pit": {"query": {"match": {"body": "alpha"}},
             "pit": {"id": "abc"}},
 }
+
+
+@pytest.mark.parametrize("name", sorted(PLANNER_SERVED))
+def test_planner_served_requests_match_reference(pair, name):
+    """The planner path: the reference node's status and bytes, on the
+    one-device node and on the (1, 4) CPU mesh node."""
+    want, got = pair.both("POST", "/corpus/_search", PLANNER_SERVED[name],
+                          mesh=True)
+    assert got == want
+    _, mesh_want, mesh_got = pair.mesh_log[-1]
+    assert mesh_want is want
+    assert mesh_got == want
 
 
 @pytest.mark.parametrize("name", sorted(PLANNER_BOUND))
@@ -453,10 +473,12 @@ def test_scroll_filtered_alias_and_wide_rows_get_a_typed_400(pair):
     port = pair.port
     bodies = [("/corpus/_search", {"scroll": "1m"},
                {"query": {"match": {"body": "alpha"}}})]
-    port.indices.put_alias("corpus", "filtered",
+    port.indices.put_alias("corpus", "filtered400",
                            {"filter": {"term": {"body": "beta"}}})
-    bodies.append(("/filtered/_search", {},
-                   {"query": {"match": {"body": "alpha"}}}))
+    # a filtered alias now runs the planner; a sort on it still waits
+    bodies.append(("/filtered400/_search", {},
+                   {"query": {"match": {"body": "alpha"}},
+                    "sort": ["_score"]}))
     # one document of 1100 distinct words: a terms query of all of them
     # needs more than the kernel's 1024 slots a row
     words = [f"w{i}" for i in range(1100)]
@@ -469,6 +491,23 @@ def test_scroll_filtered_alias_and_wide_rows_get_a_typed_400(pair):
         err = json.loads(text)
         assert status == 400, (path, err)
         assert err["error"]["type"] == "not_lowerable", (path, err)
+
+
+@pytest.mark.parametrize("body", [
+    {"query": {"match": {"body": "alpha"}}},
+    {"query": {"match": {"body": "gamma delta"}}, "size": 30,
+     "_source": ["body"]}], ids=["match", "match_source_filter"])
+def test_filtered_alias_search_matches_reference(pair, body):
+    """A filtered alias joins the request query as a filter clause and
+    runs the planner: the reference's bytes."""
+    for node in (pair.ref, pair.port, pair.mesh_port):
+        if "filtered" not in node.indices.aliases:
+            node.indices.put_alias("corpus", "filtered",
+                                   {"filter": {"term": {"body": "beta"}}})
+    want, got = pair.both("POST", "/filtered/_search", body, mesh=True)
+    assert want[0] == 200, want
+    assert got == want
+    assert pair.mesh_log[-1][2] == want
 
 
 def test_kernel_fault_reaches_the_client_as_5xx(pair, monkeypatch):
@@ -488,15 +527,104 @@ def test_kernel_fault_reaches_the_client_as_5xx(pair, monkeypatch):
 
 
 def test_unported_field_type_is_refused_with_the_reference_body(pair):
-    status, text = call(pair.port, dumps_response, "PUT", "/typed", {
-        "mappings": {"properties": {"n": {"type": "long"}}}})
+    """An explicit field type of a later slice (ip) is a 400
+    mapper_parsing_exception naming it; a JSON number met by dynamic
+    mapping is a long now, as in the reference."""
+    status, text = call(pair.port, dumps_response, "PUT", "/typed_ip", {
+        "mappings": {"properties": {"addr": {"type": "ip"}}}})
     err = json.loads(text)
     assert status == 400
     assert err["error"]["type"] == "mapper_parsing_exception"
-    assert "[long]" in err["error"]["reason"]
-    status, text = call(pair.port, dumps_response, "PUT", "/dyn2/_doc/1",
-                        {"body": "alpha", "n": 7})
-    err = json.loads(text)
-    assert status == 400
-    assert err["error"]["type"] == "mapper_parsing_exception"
-    assert "[long]" in err["error"]["reason"]
+    assert "[ip]" in err["error"]["reason"]
+    want, got = pair.both("PUT", "/dyn2/_doc/1", {"body": "alpha", "n": 7})
+    assert want[0] == 201, want
+    assert got == want
+    assert pair.port.indices.index("dyn2").mapper.to_mapping() == \
+        pair.ref.indices.index("dyn2").mapper.to_mapping()
+
+
+@pytest.fixture(scope="module")
+def typed(pair):
+    """The index "typed" (TYPED_MAPPING, 3 shards) on all three nodes:
+    a _bulk of make_typed_docs, single writes, a delete, a refresh, a
+    second bulk (a second segment per shard) → the write answers."""
+    docs = make_typed_docs()
+    out = [pair.both("PUT", "/typed", {"settings": {"number_of_shards": 3},
+                                       "mappings": TYPED_MAPPING},
+                     mesh=True),
+           pair.both("POST", "/typed/_bulk", raw=bulk_ndjson(docs[:80]),
+                     mesh=True),
+           pair.both("PUT", "/typed/_doc/w1",
+                     {"body": "alpha beta", "views": 42, "flag": True,
+                      "published": "2021-03-04T05:06:07Z",
+                      "price": 12.25}, mesh=True),
+           pair.both("DELETE", "/typed/_doc/t3", mesh=True),
+           pair.both("POST", "/typed/_refresh", mesh=True),
+           pair.both("POST", "/typed/_bulk", raw=bulk_ndjson(docs[80:]),
+                     mesh=True),
+           pair.both("PUT", "/typed/_doc/t10",
+                     {"body": "gamma updated", "views": 7, "flag": False},
+                     mesh=True),
+           pair.both("POST", "/typed/_refresh", mesh=True)]
+    return out
+
+
+def test_typed_writes_match_reference(pair, typed):
+    """_bulk and _doc writes of long, double, date, boolean, keyword and
+    object fields: the reference's bytes, and the same mapping."""
+    for want, got in typed:
+        assert got == want
+    for label, want, got in pair.mesh_log:
+        if "/typed" in label:
+            assert got == want, label
+    assert pair.port.indices.index("typed").mapper.to_mapping() == \
+        pair.ref.indices.index("typed").mapper.to_mapping()
+
+
+@pytest.mark.parametrize("name", sorted(TYPED_BODIES))
+def test_typed_planner_searches_match_reference(pair, typed, name):
+    """Range, term, exists, bool and function_score searches over the
+    numeric, date and boolean fields: the reference's bytes on both port
+    nodes."""
+    want, got = pair.both("POST", "/typed/_search", TYPED_BODIES[name],
+                          mesh=True)
+    assert want[0] == 200, want
+    if name in TRANSCENDENTAL:
+        assert_close_response(got, want)
+        assert_close_response(pair.mesh_log[-1][2], want)
+        return
+    assert got == want
+    assert pair.mesh_log[-1][2] == want
+
+
+def assert_close_response(got, want, rtol=1e-6):
+    """The one exception to bitwise parity: a score that passes through
+    a transcendental (field_value_factor's log modifiers; XLA:CPU's f32
+    log is its own polynomial, not libm). Scores agree to rtol (atol 0),
+    hits come in the same order except among hits whose scores lie
+    within that tolerance, and everything else is byte-equal."""
+    assert got[0] == want[0]
+    g, w = json.loads(got[1]), json.loads(want[1])
+    g_hits, w_hits = g["hits"].pop("hits"), w["hits"].pop("hits")
+    g_max, w_max = g["hits"].pop("max_score"), w["hits"].pop("max_score")
+    assert g == w
+    assert (g_max is None) == (w_max is None)
+    if w_max is not None:
+        assert abs(g_max - w_max) <= rtol * abs(w_max)
+    assert len(g_hits) == len(w_hits)
+    groups_g, groups_w = [], []
+    for gh, wh in zip(g_hits, w_hits):
+        assert abs(gh["_score"] - wh["_score"]) <= rtol * abs(wh["_score"])
+        if groups_w and abs(wh["_score"] - groups_w[-1][-1]["_score"]) \
+                <= rtol * abs(wh["_score"]):
+            groups_w[-1].append(wh)
+            groups_g[-1].append(gh)
+        else:
+            groups_w.append([wh])
+            groups_g.append([gh])
+    for gg, ww in zip(groups_g, groups_w):
+        strip = [{k: v for k, v in h.items() if k != "_score"} for h in gg]
+        want_docs = [{k: v for k, v in h.items() if k != "_score"}
+                     for h in ww]
+        assert sorted(map(json.dumps, strip)) == \
+            sorted(map(json.dumps, want_docs))

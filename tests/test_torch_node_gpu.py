@@ -1,8 +1,11 @@
 """The port's node on the card against the same node on the CPU: the
 same REST requests give the same response bytes (``took`` set to 0)
 when the merge kernel answers on the card and its plain version on the
-CPU; deleting the index drains the ``hbm`` breaker to 0 and returns
-``torch.cuda.memory_allocated()`` to its value before the pack.
+CPU, and when the planner path runs on the card (its segment top-k the
+shard_topk kernel) and on the CPU; deleting the index drains the
+``hbm`` breaker to 0 and returns ``torch.cuda.memory_allocated()`` to
+its value before the pack. shard_topk on dense segment rows (ties,
+-inf) against its plain version, bit for bit.
 
 Marked gpu: skips without a CUDA device. On the card:
 ``python -m pytest --noconftest -p no:cacheprovider
@@ -20,7 +23,9 @@ from elasticsearch_tpu_torch.node import Node
 from elasticsearch_tpu_torch.ops import merge_kernel
 from elasticsearch_tpu_torch.search.serializer import dumps_response
 
-from torch_parity_cases import PARITY_BODIES, bulk_ndjson, make_docs
+from torch_parity_cases import (PARITY_BODIES, TRANSCENDENTAL,
+                                TYPED_BODIES, TYPED_MAPPING, bulk_ndjson,
+                                make_docs, make_typed_docs)
 
 pytestmark = pytest.mark.gpu
 
@@ -48,6 +53,11 @@ def nodes(tmp_path_factory):
             call(node, "PUT", "/corpus", INDEX_BODY)
             call(node, "POST", "/corpus/_bulk", raw=bulk_ndjson(make_docs()))
             call(node, "POST", "/corpus/_refresh")
+            call(node, "PUT", "/typed", {"settings": {"number_of_shards": 3},
+                                         "mappings": TYPED_MAPPING})
+            call(node, "POST", "/typed/_bulk",
+                 raw=bulk_ndjson(make_typed_docs()))
+            call(node, "POST", "/typed/_refresh")
         yield gpu, cpu
     finally:
         gpu.close()
@@ -65,6 +75,92 @@ def test_card_bytes_match_cpu_bytes(nodes, body, source):
     want = call(cpu, "POST", "/corpus/_search", dict(body, _source=source))
     assert got[0] == 200, got
     assert got == want
+
+
+#: bodies the planner answers (the kernel path declines them)
+PLANNER_BODIES = {
+    "match_all": {"query": {"match_all": {}}},
+    "match_all_k10000": {"query": {"match_all": {}}, "from": 9990,
+                         "size": 10},
+    "match_phrase": {"query": {"match_phrase": {"body": "alpha beta"}}},
+    "bool_must": {"query": {"bool": {"must": [{"term": {"body": "eta"}}],
+                                     "must_not": [{"term": {
+                                         "body": "beta"}}]}}},
+    "min_score": {"query": {"match": {"body": "alpha"}}, "min_score": 1.0},
+    "size_0": {"query": {"match": {"body": "alpha"}}, "size": 0},
+    "k_10001": {"query": {"match": {"body": "alpha"}}, "size": 10001},
+    "prefix": {"query": {"prefix": {"body": "e"}}, "size": 30},
+    "fuzzy": {"query": {"fuzzy": {"body": "gamna"}}},
+    "no_match": {"query": {"bool": {"must_not": [{"match_all": {}}]}}},
+}
+
+
+@pytest.mark.parametrize("name", sorted(PLANNER_BODIES))
+def test_planner_card_bytes_match_cpu_bytes(nodes, name):
+    gpu, cpu = nodes
+    before = merge_kernel.LAUNCHES["shard_topk"]
+    got = call(gpu, "POST", "/corpus/_search", PLANNER_BODIES[name])
+    if PLANNER_BODIES[name].get("size", 10):
+        assert merge_kernel.LAUNCHES["shard_topk"] > before
+    want = call(cpu, "POST", "/corpus/_search", PLANNER_BODIES[name])
+    assert got[0] == 200, got
+    assert got == want
+
+
+@pytest.mark.parametrize("name", sorted(set(TYPED_BODIES) - TRANSCENDENTAL))
+def test_typed_planner_card_bytes_match_cpu_bytes(nodes, name):
+    gpu, cpu = nodes
+    got = call(gpu, "POST", "/typed/_search", TYPED_BODIES[name])
+    want = call(cpu, "POST", "/typed/_search", TYPED_BODIES[name])
+    assert got[0] == 200, got
+    assert got == want
+
+
+@pytest.mark.parametrize("name", sorted(TRANSCENDENTAL))
+def test_typed_log_bodies_on_the_card_match_cpu(nodes, name):
+    """A log modifier: the card's logf and the CPU's log need not round
+    alike, so scores agree to rtol 1e-6 and the ids as a set."""
+    gpu, cpu = nodes
+    got = json.loads(call(gpu, "POST", "/typed/_search",
+                          TYPED_BODIES[name])[1])
+    want = json.loads(call(cpu, "POST", "/typed/_search",
+                           TYPED_BODIES[name])[1])
+    g, w = got["hits"].pop("hits"), want["hits"].pop("hits")
+    got["hits"].pop("max_score"), want["hits"].pop("max_score")
+    assert got == want
+    assert {h["_id"] for h in g} == {h["_id"] for h in w}
+    for a, b in zip(sorted(h["_score"] for h in g),
+                    sorted(h["_score"] for h in w)):
+        assert abs(a - b) <= 1e-6 * abs(b)
+
+
+@pytest.mark.parametrize("kind,k", [("ties", 10), ("ties", 10_000),
+                                    ("neg_inf", 10), ("neg_inf", 10_000),
+                                    ("few_live", 10_000),
+                                    ("scores", 10), ("scores", 10_000)])
+def test_shard_topk_on_dense_segment_rows_matches_plain(kind, k):
+    """The planner's operand: one row a segment, 62,592 wide (a padded
+    62,5xx-doc segment), all ties, all -inf, a few live docs among -inf,
+    or BM25-like scores with many repeats."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    n = 62_592
+    gen = torch.Generator().manual_seed(3)
+    if kind == "ties":
+        row = torch.ones((1, n))
+        row[0, n - 70:] = float("-inf")
+    elif kind == "neg_inf":
+        row = torch.full((1, n), float("-inf"))
+    elif kind == "few_live":
+        row = torch.full((1, n), float("-inf"))
+        row[0, ::997] = 2.5
+    else:
+        row = torch.randint(0, 300, (1, n), generator=gen).float() / 7
+    vals = row.to("cuda")
+    got = merge_kernel.shard_topk(vals, k)
+    want = merge_kernel.shard_topk_plain(vals, k)
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
 
 
 def test_delete_drains_breaker_and_device_memory(tmp_path):

@@ -329,3 +329,96 @@ def bulk_ndjson(docs, index=None) -> bytes:
         lines.append(json.dumps({"index": meta}))
         lines.append(json.dumps(src))
     return ("\n".join(lines) + "\n").encode()
+
+
+#: a mapping with every field type the planner slice maps
+TYPED_MAPPING = {"properties": {
+    "body": {"type": "text"}, "tag": {"type": "keyword"},
+    "views": {"type": "long"}, "price": {"type": "double"},
+    "published": {"type": "date"}, "flag": {"type": "boolean"},
+    "meta": {"properties": {"rank": {"type": "integer"}}}}}
+
+
+def make_typed_docs(n=120, seed=21) -> List[Tuple[str, dict]]:
+    """Documents over TYPED_MAPPING: body text over WORDS, Zipf views,
+    prices, dates over 2019-2024 (ISO strings and epoch millis), flags,
+    tags, an object sub-field, and some docs missing each field."""
+    rng = np.random.default_rng(seed)
+    docs = []
+    base = 1546300800000   # 2019-01-01T00:00:00Z
+    span = 6 * 365 * 86400000
+    for i in range(n):
+        n_words = int(rng.integers(2, 10))
+        picks = np.minimum(rng.zipf(1.3, n_words) - 1, len(WORDS) - 1)
+        src = {"body": " ".join(WORDS[int(w)] for w in picks)}
+        if i % 7 != 3:
+            src["views"] = int(min(rng.zipf(1.5), 10**6))
+        if i % 5 != 1:
+            src["price"] = round(float(rng.uniform(0, 500)), 2)
+        if i % 6 != 2:
+            ms = base + int(rng.integers(0, span))
+            src["published"] = (ms if i % 2 else
+                                __import__("datetime").datetime.fromtimestamp(
+                                    ms / 1000, __import__("datetime")
+                                    .timezone.utc).strftime(
+                                    "%Y-%m-%dT%H:%M:%SZ"))
+        if i % 4 != 0:
+            src["flag"] = bool(rng.integers(0, 2))
+        src["tag"] = f"t{int(rng.integers(0, 5))}"
+        if i % 3 == 0:
+            src["meta"] = {"rank": int(rng.integers(0, 20))}
+        if i % 11 == 5:
+            src["views"] = [int(rng.integers(1, 50)),
+                            int(rng.integers(1, 50))]
+        docs.append((f"t{i}", src))
+    return docs
+
+
+#: planner bodies over TYPED_MAPPING fields
+TYPED_BODIES = {
+    "range_long": {"query": {"range": {"views": {"gte": 2, "lt": 9}}},
+                   "size": 50},
+    "range_long_gt": {"query": {"range": {"views": {"gt": 3}}}},
+    "range_double": {"query": {"range": {"price": {"gt": 100.5,
+                                                   "lte": 300}}},
+                     "size": 40},
+    "range_date_iso": {"query": {"range": {"published": {
+        "gte": "2020-01-01", "lt": "2022-06-30T12:00:00Z"}}}, "size": 30},
+    "range_date_millis": {"query": {"range": {"published": {
+        "lte": 1609459200000}}}},
+    "range_disjoint": {"query": {"range": {"views": {"gte": 10**7}}}},
+    "term_flag": {"query": {"term": {"flag": True}}, "size": 20},
+    "term_flag_string": {"query": {"term": {"flag": "false"}}},
+    "term_long": {"query": {"term": {"views": 1}}, "size": 15},
+    "terms_tag": {"query": {"terms": {"tag": ["t1", "t3"]}}, "size": 12},
+    "match_long": {"query": {"match": {"views": "2"}}},
+    "exists_price": {"query": {"exists": {"field": "price"}}, "size": 5},
+    "object_subfield": {"query": {"range": {"meta.rank": {"gte": 5}}}},
+    "bool_filter_range": {"query": {"bool": {
+        "must": [{"match": {"body": "alpha beta"}}],
+        "filter": [{"range": {"views": {"gte": 1, "lte": 20}}}],
+        "must_not": [{"term": {"flag": False}}]}}, "size": 25},
+    "fvf_log1p": {"query": {"function_score": {
+        "query": {"match": {"body": "alpha gamma"}},
+        "field_value_factor": {"field": "views", "modifier": "log1p",
+                               "missing": 1}}}, "size": 30},
+    "fvf_plain": {"query": {"function_score": {
+        "query": {"match_all": {}},
+        "field_value_factor": {"field": "views", "factor": 1.5},
+        "boost_mode": "replace"}}, "size": 30},
+    "fvf_sqrt_sum": {"query": {"function_score": {
+        "query": {"match": {"body": "beta"}},
+        "functions": [
+            {"field_value_factor": {"field": "price", "modifier": "sqrt"}},
+            {"filter": {"term": {"flag": True}}, "weight": 3},
+            {"weight": 0.5}],
+        "score_mode": "sum", "boost_mode": "sum", "max_boost": 20}},
+        "size": 30},
+    "min_score_range": {"query": {"bool": {
+        "should": [{"match": {"body": "gamma"}},
+                   {"range": {"price": {"gte": 250}}}]}},
+        "min_score": 1.2, "size": 30},
+}
+
+#: TYPED_BODIES whose scores pass through a log (held to rtol 1e-6)
+TRANSCENDENTAL = {"fvf_log1p"}
