@@ -127,6 +127,30 @@ device mesh through the collective tail, and checks:
                  adds shard_topk on a planner row (~62,600 wide) at k 10
                  and k 10,000
 
+  raw            segments past 65,408 docs, which take a raw pack (int32
+                 docs and f32 impacts, doc-sorted and impact-sorted) and
+                 the pruned tiers: the corpus over 2 shards (~500,000
+                 docs a segment, MS MARCO passage's width at 16 shards),
+                 resident through a service with an hbm breaker (its
+                 charge = the resident bytes = the doc-sorted pack with
+                 its live masks plus the impact-sorted copy); the e2e
+                 bodies from 128 clients, counts reset just before and
+                 read just after (raw_merge, pruned_candidates and
+                 pruned_rescore must each launch), the tiers each query
+                 took (full-32, full-128, prefix-16k, escalated-64k,
+                 exact), the gte results, q/s and the stage means; then
+                 the stop-word bodies at from + size 10,000, the exact
+                 phase's boost-1e-15 bodies and prefix-tier probes;
+                 every recorded raw_merge / pruned_candidates /
+                 pruned_rescore call against its plain version bit for
+                 bit, every shard_topk, the 16 sampled hits against the
+                 oracle; delete_index drains the breaker to 0 and
+                 memory_allocated() back. REST: a default one-shard
+                 index of 70,000 docs by _bulk, force-merged to one
+                 segment, answers a match and an `and` _search 200 from
+                 a raw pack. The kernels line adds the three kernels,
+                 each timed alone on the first 128 bodies as one train
+
 The last line is {"ok": true, "device": {...}}; any failure exits
 non-zero without it. Without a CUDA device the script exits 2 at once.
 """
@@ -168,6 +192,17 @@ TYPED_DOCS = 100_000    # cut from 1M to keep the smoke inside its limit
 TYPED_SHARDS = 4
 PLANNER_ROUNDS = 5      # the planner's timed window: the mix this many times
 PLANNER_TOPK_LINE = "elasticsearch_tpu/ops/bm25.py:138"
+RAW_INDEX = "msmarco-raw"
+RAW_SHARDS = 2          # ~500,000 docs a segment: MS MARCO passage's width
+                        # at 16 shards, past the 16-bit doc stream
+RAW_REST_INDEX = "raw-rest"
+RAW_REST_DOCS = 70_000  # one default shard above 65,408 docs: a raw pack
+RAW_KERNELS = ("raw_merge", "pruned_candidates", "pruned_rescore")
+RAW_LINES = {"raw_merge": "elasticsearch_tpu/ops/sparse.py:666",
+             "pruned_candidates": "elasticsearch_tpu/parallel/"
+                                  "distributed.py:971",
+             "pruned_rescore": "elasticsearch_tpu/parallel/"
+                               "distributed.py:1052"}
 #: rtol of scores that pass through a log (field_value_factor's log
 #: modifiers): the card's logf need not round as the CPU's log does
 LOG_RTOL = 1e-6
@@ -232,19 +267,33 @@ def make_bodies(corpus):
     return bodies
 
 
-def drive(svc, index, bodies):
-    """Send `bodies` in concurrent waves; → responses in order."""
+def drive(svc, index, bodies, refused=None):
+    """Send `bodies` in concurrent waves; → responses in order. With a
+    `refused` list, a query the kernel path refuses (NotLowerable with
+    planner False: more slots a row than its merge kernel holds) answers
+    None and its body joins the list; without one the refusal raises."""
+    from elasticsearch_tpu_torch.common.errors import NotLowerable
+
+    def search(body):
+        try:
+            return svc.search(index, body)
+        except NotLowerable as exc:
+            if refused is None or exc.planner:
+                raise
+            refused.append(body)
+            return None
+
     out = [None] * len(bodies)
     pos = 0
     with ThreadPoolExecutor(max_workers=max(WAVES)) as pool:
         for wave in WAVES:
             idx = list(range(pos, min(pos + wave, len(bodies))))
-            futs = [pool.submit(svc.search, index, bodies[i]) for i in idx]
+            futs = [pool.submit(search, bodies[i]) for i in idx]
             for i, f in zip(idx, futs):
                 out[i] = f.result()
             pos += wave
         rest = list(range(pos, len(bodies)))
-        futs = [pool.submit(svc.search, index, bodies[i]) for i in rest]
+        futs = [pool.submit(search, bodies[i]) for i in rest]
         for i, f in zip(rest, futs):
             out[i] = f.result()
     return out
@@ -838,7 +887,7 @@ def rest_http(host, port, method, path, body=None, raw=None, conn=None):
     return resp.status, (json.loads(payload) if payload else None)
 
 
-def rest_bulk_load(host, port, corpus, n_docs):
+def rest_bulk_load(host, port, corpus, n_docs, index=REST_INDEX):
     """_bulk n_docs corpus documents (ids d{i}) in BULK_DOCS-doc NDJSON
     requests from BULK_CLIENTS clients, then _refresh → seconds."""
     import http.client
@@ -856,7 +905,7 @@ def rest_bulk_load(host, port, corpus, n_docs):
                     lines.append('{"index":{"_id":"d%d"}}' % i)
                     lines.append(json.dumps({FIELD: corpus.doc_text(i)}))
                 status, resp = rest_http(
-                    host, port, "POST", f"/{REST_INDEX}/_bulk",
+                    host, port, "POST", f"/{index}/_bulk",
                     raw=("\n".join(lines) + "\n").encode(), conn=conn)
                 if status != 200 or resp.get("errors"):
                     errors.append(str(resp)[:500])
@@ -873,7 +922,7 @@ def rest_bulk_load(host, port, corpus, n_docs):
         t.join()
     if errors:
         raise AssertionError(f"_bulk failed: {errors[0]}")
-    status, resp = rest_http(host, port, "POST", f"/{REST_INDEX}/_refresh")
+    status, resp = rest_http(host, port, "POST", f"/{index}/_refresh")
     if status != 200:
         raise AssertionError(f"_refresh: {resp}")
     return time.perf_counter() - t0
@@ -1616,6 +1665,502 @@ def newer_kernel_entries(mk, svc, topk_calls, exact_bodies_128, launches,
     return entries
 
 
+# ---------------------------------------------------------------------------
+# raw: a raw pack (segments above 65,408 docs) and its pruned tiers
+# ---------------------------------------------------------------------------
+
+class RawRecorder:
+    """Wraps merge_kernel's raw_merge_topk, pruned_candidates,
+    pruned_rescore and pruned_order while a path runs and keeps every
+    call's operands and outputs (device copies)."""
+
+    NAMES = ("raw_merge_topk", "pruned_candidates", "pruned_rescore",
+             "pruned_order")
+
+    def __init__(self, merge_kernel):
+        self.mk = merge_kernel
+        self.real = {n: getattr(merge_kernel, n) for n in self.NAMES}
+        self.calls = []
+
+    def __enter__(self):
+        for name, real in self.real.items():
+            def record(*args, _name=name, _real=real, **kw):
+                out = _real(*args, **kw)
+                outs = out if isinstance(out, tuple) else (out,)
+                self.calls.append((_name, args, dict(kw),
+                                   tuple(o.clone() for o in outs)))
+                return out
+            setattr(self.mk, name, record)
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self.real.items():
+            setattr(self.mk, name, real)
+
+
+def check_raw_calls(mk, calls):
+    """Every recorded raw-path call against its plain version on its
+    operands, bit for bit (a pruned_candidates gid only where its value
+    is finite: a -inf entry's gid is free, the step zeroes it); raises on
+    a mismatch. Empties `calls` → {kernel: calls checked}."""
+    import torch
+    plain = {"raw_merge_topk": mk.raw_merge_topk_plain,
+             "pruned_candidates": mk.pruned_candidates_plain,
+             "pruned_rescore": mk.pruned_rescore_plain,
+             "pruned_order": mk.pruned_order_plain}
+    kernel = {"raw_merge_topk": "raw_merge",
+              "pruned_candidates": "pruned_candidates",
+              "pruned_rescore": "pruned_rescore",
+              "pruned_order": "pruned_rescore"}
+    checked = {}
+    while calls:
+        name, args, kw, got = calls.pop()
+        want = plain[name](*args, **kw)
+        want = want if isinstance(want, tuple) else (want,)
+        if name == "pruned_candidates":
+            live = want[0] > float("-inf")
+            same = (torch.equal(got[0].view(torch.int32),
+                                want[0].view(torch.int32))
+                    and torch.equal(got[1][live], want[1][live])
+                    and torch.equal(got[2], want[2]))
+        else:
+            same = bitwise_equal(list(got), list(want))[0]
+        if not same:
+            raise AssertionError(f"{name} != plain at "
+                                 f"{[tuple(a.shape) for a in args[:4] if hasattr(a, 'shape')]}")
+        key = kernel[name] + ("" if name != "pruned_order" else ".order")
+        checked[key] = checked.get(key, 0) + 1
+        del args, kw, got, want
+    return checked
+
+
+def raw_probe_bodies(vocab):
+    """Bodies, sent as trains of their own (a train's k is its largest
+    from + size), that reach the tiers the e2e traffic may not: one head
+    term at size 10 (33-128 slots a shard: full-128), two head terms and
+    a rare one at size 10 (more than 128 slots: the prefix tier, whose
+    bound the rare term's scores may clear) and three head terms at size
+    10 (a bound that fails, so it escalates)."""
+    head = vocab[:4]
+    texts = [head[0], head[1]]
+    texts += [f"{head[0]} {head[1]} {vocab[2000 + 500 * i]}"
+              for i in range(4)]
+    texts += [f"{head[0]} {head[1]} {head[2]}",
+              f"{head[1]} {head[2]} {head[3]}"]
+    return [{"query": {"match": {FIELD: t}}, "size": 10} for t in texts]
+
+
+def raw_bytes(name, args, kw, got):
+    """Least bytes a raw-path kernel must move for one call's data: each
+    input read once, each output written once."""
+    if name == "raw_merge":
+        lanes = int(args[3].clamp(min=0).sum())
+        r, t = args[2].shape
+        cand = int(got[2].sum()) if len(got) > 2 else 0
+        return lanes * 8 + r * t * 12 + cand * 8 + r * 4
+    if name == "pruned_candidates":
+        lanes = int(args[3].clamp(min=0, max=kw["max_len"]).sum())
+        b, gt = args[2].shape
+        return lanes * 8 + b * gt * 16 + int(got[2].sum()) * 8 + b * 4
+    # pruned_rescore: each candidate's gid; each (candidate, term)'s
+    # range and weight, search_iters probes and its impact; the output
+    cand_gids, t_starts = args[2], args[3]
+    b, c = cand_gids.shape
+    terms = t_starts.shape[2]
+    k = kw.get("k") or 0
+    return (b * c * 8 + b * c * terms * (12 + 4 * kw["search_iters"] + 4)
+            + b * k * 12)
+
+
+def raw_kernel_entries(mk, calls, launches, n_trains, rescore_call):
+    """The kernels line's raw_merge, pruned_candidates and pruned_rescore
+    entries, each timed alone on the fixed train's call of it (the first
+    128 bodies as one train; pruned_rescore on `rescore_call`, the
+    widest scoring call of the run, when the train has none): ms (CUDA
+    events), device ms (torch.profiler), the plain version's ms, the
+    bytes bound and the library call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from elasticsearch_tpu_torch.ops import sparse
+
+    def device_ms(fn, fn_names):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(TIMED):
+                fn()
+            torch.cuda.synchronize()
+        total = 0.0
+        for ev in prof.key_averages():
+            us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+            if any(f in ev.key for f in fn_names):
+                total += us / 1e3 / TIMED
+        return total or None
+
+    def biggest(name):
+        own = [c for c in calls if c[0] == name]
+        return max(own, key=lambda c: c[1][2].numel() * (
+            int(c[1][3].clamp(min=0).sum()) if c[1][3] is not None else 1))
+
+    entries = []
+    # raw_merge: the train's exact launch (its AND / msm bodies)
+    _, args, kw, got = biggest("raw_merge_topk")
+    docs, _ = sparse._lane_decode(*args[:5], max_len=kw["max_len"],
+                                  d_pad=kw["d_pad"], exact=False)
+    lanes = torch.arange(kw["max_len"], device=docs.device)
+    valid = lanes[None, None, :] < args[3][:, :, None]
+    rows = torch.arange(docs.shape[0], device=docs.device)[:, None, None]
+    keys = ((rows << 32) | docs)[valid]
+    del docs, valid
+    fn_kw = {k: v for k, v in kw.items() if k not in ("stats", "events")}
+    entries.append(dict(
+        name="merge_topk.raw_merge", kernel="raw_merge",
+        ms=time_events(lambda ev: mk.raw_merge_topk(
+            *args, **dict(fn_kw, events=ev)), TIMED)["raw_merge"],
+        device_ms=device_ms(lambda: mk.raw_merge_topk(*args, **fn_kw),
+                            ("exact_merge_kernel<true>",
+                             "exact_finish_kernel<true>")),
+        plain_ms=time_cuda(lambda: mk.raw_merge_topk_plain(*args, **fn_kw),
+                           5),
+        plain_of="raw_merge_topk_plain: the whole ref pipeline with its "
+                 "top-k",
+        library_ms=time_cuda(lambda: torch.sort(keys, stable=True), TIMED),
+        library_of="torch.sort(stable=True) of the same lanes' (row << 32 "
+                   "| doc) keys: the sort alone",
+        bytes=raw_bytes("raw_merge", args, fn_kw, got),
+        shape={"rows": args[2].shape[0], "slots": args[2].shape[1],
+               "max_len": kw["max_len"], "k": kw["k"],
+               "lanes": int(keys.numel())}))
+    del keys
+    # pruned_candidates: the train's widest phase-A group
+    _, args, kw, got = biggest("pruned_candidates")
+    flat_docs, flat_imps, starts, lengths, weights, prow = args
+    gid = (prow.to(torch.int64)[:, :, None] * (kw["d_pad"] + 1)
+           + sparse._window(flat_docs, starts, kw["max_len"]))
+    valid = (torch.arange(kw["max_len"], device=gid.device)[None, None, :]
+             < lengths[:, :, None])
+    qrow = torch.arange(gid.shape[0], device=gid.device)[:, None, None]
+    gkeys = ((qrow << 40) | gid)[valid]
+    del gid, valid
+    entries.append(dict(
+        name="merge_topk.pruned_candidates", kernel="pruned_candidates",
+        ms=time_events(lambda ev: mk.pruned_candidates(
+            *args, **dict(kw, events=ev)), TIMED)["pruned_candidates"],
+        device_ms=device_ms(lambda: mk.pruned_candidates(*args, **kw),
+                            ("pruned_candidates_kernel",)),
+        plain_ms=time_cuda(lambda: mk.pruned_candidates_plain(*args, **kw),
+                           5),
+        plain_of="pruned_candidates_plain: the group's sort, run sums "
+                 "and top-k",
+        library_ms=time_cuda(lambda: torch.sort(gkeys, stable=True), TIMED),
+        library_of="torch.sort(stable=True) of the same lanes' (query << "
+                   "40 | gid) keys: the sort alone",
+        bytes=raw_bytes("pruned_candidates", args, kw, got),
+        shape={"queries": starts.shape[0], "slots": starts.shape[1],
+               "max_len": kw["max_len"], "k": kw["k"],
+               "pack_keys": kw["pack_keys"], "lanes": int(gkeys.numel())}))
+    del gkeys
+    # pruned_rescore: the train's phase B (or, without a prefix launch,
+    # its order-only call)
+    own = [c for c in calls if c[0] == "pruned_rescore"]
+    if rescore_call is not None or own:
+        _, args, kw, got = rescore_call or max(
+            own, key=lambda c: c[1][2].numel())
+        ds_docs, ds_imps, cgids, t_st, t_ln, t_w = args
+        d1 = kw["d_pad"] + 1
+        flat = ds_docs.reshape(-1).to(torch.int64)
+        flat_imp = ds_imps.reshape(-1)
+        # each ascending run of docs (a term's postings, or two that
+        # chain) gets an id: (run << 20 | doc) is sorted over the whole
+        # array, so one searchsorted finds a doc inside any term's range
+        run_id = torch.cumsum(torch.cat([
+            torch.zeros(1, dtype=torch.int64, device=flat.device),
+            (flat[1:] <= flat[:-1]).long()]), 0)
+        keys = (run_id << 20) | flat
+        if kw["d_pad"] >= 1 << 20:
+            raise AssertionError("the searchsorted yardstick keeps docs "
+                                 "in 20 bits")
+        row = torch.div(cgids, d1, rounding_mode="floor")
+        ord_ = cgids - row * d1
+        lr = row.clamp(0, t_st.shape[0] - 1)
+        qsel = torch.arange(cgids.shape[0], device=cgids.device)[:, None]
+        p_pad = kw["p_pad"]
+
+        def library():
+            total = torch.zeros(cgids.shape, dtype=torch.float32,
+                                device=cgids.device)
+            for t in range(t_st.shape[2]):
+                lo = lr * p_pad + t_st[lr, qsel, t]
+                ln = t_ln[lr, qsel, t]
+                pos = torch.searchsorted(keys, (run_id[lo] << 20) | ord_)
+                pos = pos.clamp(max=flat.numel() - 1)
+                hit = (pos >= lo) & (pos < lo + ln) & (flat[pos] == ord_)
+                total += torch.where(hit, t_w[lr, qsel, t] * flat_imp[pos],
+                                     torch.zeros_like(total))
+            return total
+
+        mode = "score_and_order" if kw.get("cand_vals") is not None \
+            else "score"
+        run = (lambda ev=None: mk.pruned_rescore(*args, **dict(kw,
+                                                               events=ev)))
+        plain = (lambda: mk.pruned_rescore_plain(*args, **kw))
+        lib_of = ("torch.searchsorted per term of the candidates' docs "
+                  "plus the weighted sum (no range bounds, no order)")
+        lib = time_cuda(library, TIMED)
+    else:
+        _, args, kw, got = max(
+            (c for c in calls if c[0] == "pruned_order"),
+            key=lambda c: c[1][0].numel())
+        mode = "order"
+        run = (lambda ev=None: mk.pruned_order(*args, **dict(kw,
+                                                             events=ev)))
+        plain = (lambda: mk.pruned_order_plain(*args, **kw))
+        lib_of = ("torch.sort of the candidates' -score (the order "
+                  "without its gid tie rule)")
+        lib = time_cuda(lambda: torch.sort(-args[0], dim=1), TIMED)
+    entries.append(dict(
+        name="merge_topk.pruned_rescore", kernel="pruned_rescore",
+        ms=time_events(run, TIMED)["pruned_rescore"],
+        device_ms=device_ms(lambda: run(None), ("pruned_rescore_kernel",)),
+        plain_ms=time_cuda(plain, 5),
+        plain_of=f"pruned_rescore_plain / pruned_order_plain ({mode})",
+        library_ms=lib, library_of=lib_of,
+        bytes=(raw_bytes("pruned_rescore", args, kw, got) if mode != "order"
+               else args[0].numel() * 16 + args[0].shape[0] * kw["k"] * 12),
+        shape={"queries": args[2].shape[0] if mode != "order"
+               else args[0].shape[0], "mode": mode}))
+    for e in entries:
+        e.update(route="cuda", source=KERNEL_SOURCE,
+                 replaces=RAW_LINES[e["kernel"]],
+                 launches=launches[e["kernel"]], max_abs_err=0.0,
+                 bound_ms=e["bytes"] / HBM_BYTES_PER_S * 1e3,
+                 bound_by="bytes",
+                 launches_per_batch=launches[e["kernel"]] / n_trains)
+    return entries
+
+
+def raw_rest_check(corpus, smi, data_root):
+    """A default one-shard index of RAW_REST_DOCS documents by _bulk over
+    HTTP, force-merged to one segment (a raw pack: d_pad past 2**16),
+    then a match and an `and` _search: both answered 200 with hits, the
+    pack raw; its breaker charge drained by DELETE."""
+    import shutil
+
+    import torch
+
+    from elasticsearch_tpu_torch.node import Node, serve
+    from elasticsearch_tpu_torch.parallel.mesh import make_mesh
+
+    data = os.path.join(data_root, "chip_smoke_raw_rest")
+    shutil.rmtree(data, ignore_errors=True)
+    node = Node(data, mesh=make_mesh(devices=[torch.device("cuda", 0)]))
+    server = serve(node, "127.0.0.1", 0)
+    host, port = server.server_address
+    out = {"docs": RAW_REST_DOCS}
+    try:
+        status, resp = rest_http(host, port, "PUT", f"/{RAW_REST_INDEX}", {
+            "mappings": {"properties": {FIELD: {"type": "text"}}}})
+        if status != 200:
+            raise AssertionError(f"PUT index: {resp}")
+        out["ingest_s"] = rest_bulk_load(host, port, corpus, RAW_REST_DOCS,
+                                         index=RAW_REST_INDEX)
+        for method, path in (("POST", f"/{RAW_REST_INDEX}/_forcemerge"),
+                             ("POST", f"/{RAW_REST_INDEX}/_refresh")):
+            status, resp = rest_http(host, port, method, path)
+            if status != 200:
+                raise AssertionError(f"{path}: {resp}")
+        text = corpus.query_text(0)
+        answers = []
+        for spec in ({"query": text}, {"query": text, "operator": "and"}):
+            status, resp = rest_http(
+                host, port, "POST", f"/{RAW_REST_INDEX}/_search",
+                {"query": {"match": {FIELD: spec}}, "size": 10})
+            if status != 200:
+                raise AssertionError(f"_search {status}: {str(resp)[:500]}")
+            answers.append({"status": status,
+                            "total": resp["hits"]["total"],
+                            "hits": len(resp["hits"]["hits"])})
+        (resident,) = node.gpu_search.packs.residents()
+        if resident.streams is not None or resident.pack.d_pad < 1 << 16:
+            raise AssertionError("the 70,000-doc shard did not take a raw "
+                                 "pack")
+        hbm = node.breakers.get_breaker("hbm")
+        if hbm.used != resident.nbytes_device():
+            raise AssertionError("raw REST pack charge != resident bytes")
+        out.update(searches=answers, d_pad=resident.pack.d_pad,
+                   segments=len(resident.pack.shard_doc_ids),
+                   resident_bytes=resident.nbytes_device(),
+                   tiers=dict(node.gpu_search.tier_queries))
+        del resident
+        status, resp = rest_http(host, port, "DELETE", f"/{RAW_REST_INDEX}")
+        if status != 200 or hbm.used != 0:
+            raise AssertionError(f"DELETE: {status}, hbm {hbm.used}")
+    finally:
+        server.shutdown()
+        node.close()
+        shutil.rmtree(data, ignore_errors=True)
+    return out
+
+
+def raw_phase(corpus, bodies, mk, smi, extra_sets, data_root):
+    """The raw deployment: the corpus over RAW_SHARDS shards (a segment
+    of ~500,000 docs each: d_pad past 2**16, so the pack is raw: int32
+    docs and f32 impacts, doc-sorted and impact-sorted), resident through
+    the service with an hbm breaker; the e2e bodies from 128 clients
+    (counts reset just before, read just after: every raw kernel must
+    launch), then the stop-word bodies at from + size 10,000, the exact
+    phase's boost-1e-15 bodies and probes of the prefix tier (queries
+    the raw merge's slot limit refuses counted, not raised); every
+    recorded raw-path call against its plain version bit for bit, the
+    sampled hits against the oracle, the breaker charge against the
+    resident bytes and its drain to 0 (memory_allocated() back) after
+    delete_index; the fixed train's kernels timed; and the REST check of
+    a 70,000-document one-shard index → (log fields, kernels entries)."""
+    import gc
+
+    import torch
+
+    from elasticsearch_tpu_torch.common.breaker import CircuitBreaker
+    from elasticsearch_tpu_torch.parallel import distributed as dist
+    from elasticsearch_tpu_torch.search import dsl
+    from elasticsearch_tpu_torch.search.gpu_service import (
+        GpuSearchService, TIERS, lower_query)
+
+    gc.collect()
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated()
+    breaker = CircuitBreaker("hbm", 64 << 30)
+    svc = GpuSearchService(device="cuda:0", max_batch=128, breaker=breaker)
+    out = {"nvidia_smi": smi, "docs": N_DOCS, "shards": RAW_SHARDS}
+    try:
+        t0 = time.perf_counter()
+        segments = build_index(svc, RAW_INDEX, corpus, N_DOCS, RAW_SHARDS)
+        t1 = time.perf_counter()
+        resident = svc.resident(RAW_INDEX, FIELD)
+        torch.cuda.synchronize()
+        pack = resident.pack
+        if resident.streams is not None or pack.d_pad < 1 << 16:
+            raise AssertionError("the raw deployment did not take a raw "
+                                 "pack")
+        charge = dist.raw_image_nbytes(pack, *resident.imp_host)
+        if not breaker.used == resident.nbytes_device() == charge:
+            raise AssertionError(f"hbm {breaker.used} != resident "
+                                 f"{resident.nbytes_device()} / {charge}")
+        postings = int(sum(int(rs[-1]) for rs in pack.row_starts))
+        out.update(segments_s=t1 - t0, pack_s=time.perf_counter() - t1,
+                   shard_docs=[s.num_docs for s in segments],
+                   d_pad=pack.d_pad, p_pad=pack.p_pad, postings=postings,
+                   resident_bytes=resident.nbytes_device(),
+                   hbm_charged=breaker.used,
+                   bytes_per_posting=resident.nbytes_device() / postings)
+        del resident, pack
+        head_k = [b for label, _, bs in extra_sets if label == "k10000"
+                  for b in bs]
+        run_extra = head_k + exact_bodies(bodies[:128])
+        probes = raw_probe_bodies(corpus.vocab)
+        with RawRecorder(mk) as rec, TopkRecorder(mk) as top:
+            drive(svc, RAW_INDEX, bodies[:64])   # warm-up
+            mk.reset_launches()
+            svc.tier_queries.clear()
+            svc.variant_launches.clear()
+            svc.batcher.batch_sizes.clear()
+            svc.stages.reset()
+            svc.gte_results = 0
+            refused = []
+            t2 = time.perf_counter()
+            responses = drive(svc, RAW_INDEX, bodies, refused)
+            run_s = time.perf_counter() - t2
+            launches = dict(mk.LAUNCHES)
+            tiers = dict(svc.tier_queries)
+            gte = svc.gte_results
+            stages = svc.stages.snapshot()
+            trains = dict(sorted(svc.batcher.batch_sizes.items()))
+            svc.tier_queries.clear()
+            svc.gte_results = 0
+            mk.reset_launches()
+            extra = drive(svc, RAW_INDEX, run_extra, refused)
+            extra_launches = {n: mk.LAUNCHES[n] for n in RAW_KERNELS}
+            extra_tiers = dict(svc.tier_queries)
+            extra_gte = svc.gte_results
+            svc.tier_queries.clear()
+            svc.gte_results = 0
+            probed = drive(svc, RAW_INDEX, probes, refused)
+            probe_tiers = dict(svc.tier_queries)
+            probe_gte = svc.gte_results
+        # phase B's kernel timed on its widest scoring call (the prefix
+        # tier's), before the checks consume the recorded calls
+        scoring = [c for c in rec.calls if c[0] == "pruned_rescore"]
+        rescore_call = (max(scoring, key=lambda c: c[1][2].numel())
+                        if scoring else None)
+        del scoring
+        zero = [n for n in RAW_KERNELS if launches[n] <= 0]
+        if zero:
+            raise AssertionError(f"raw kernels not launched on the raw "
+                                 f"path: {zero}")
+        if any(r is None for r in responses + probed):
+            raise AssertionError("the raw slot limit refused e2e or probe "
+                                 "bodies, which the checks below need")
+        for body, resp in zip(head_k, extra):
+            if resp is None:
+                continue
+            hits = resp["hits"]
+            if len(hits["hits"]) != min(body["size"],
+                                        hits["total"]["value"]):
+                raise AssertionError(f"k10000: {len(hits['hits'])} hits "
+                                     f"of {hits['total']}")
+        sample = oracle_check(responses, bodies, corpus, segments)
+        n_calls = len(rec.calls)
+        checked = check_raw_calls(mk, rec.calls)
+        topk_checked = check_topk_calls(mk, top.calls)
+        all_tiers = {t: tiers.get(t, 0) + extra_tiers.get(t, 0)
+                     + probe_tiers.get(t, 0) for t in TIERS}
+        out.update(
+            queries=len(responses), seconds=run_s,
+            qps=len(responses) / run_s, trains=trains,
+            launches={n: launches[n] for n in RAW_KERNELS + ("shard_topk",)},
+            tiers=tiers, gte=gte,
+            stage_means_ms={s: v["mean_ms"] for s, v in stages.items()},
+            extra_bodies=len(run_extra), extra_tiers=extra_tiers,
+            extra_gte=extra_gte, extra_launches=extra_launches,
+            probes=[{"query": b["query"]["match"][FIELD], "size": b["size"],
+                     "total": r["hits"]["total"]}
+                    for b, r in zip(probes, probed)],
+            probe_tiers=probe_tiers, probe_gte=probe_gte,
+            refused_slot_limit=len(refused),
+            tiers_taken=all_tiers,
+            tiers_not_taken=[t for t, n in all_tiers.items() if n == 0],
+            checked_calls=checked, recorded_calls=n_calls,
+            shard_topk=topk_checked, oracle_checked=len(sample),
+            oracle_tolerance="top-10 ids, scores rel=1e-5 abs=1e-6",
+            tolerance="bitwise: scores as uint32, gids and totals exact")
+        del responses, extra, probed
+        # the fixed train: the first 128 bodies as one train of k 1000
+        mapper = svc._index(RAW_INDEX).mapper
+        flats = [lower_query(dsl.parse_query(b["query"]), mapper)
+                 for b in bodies[:128]]
+        with RawRecorder(mk) as fixed:
+            svc._execute(svc.resident(RAW_INDEX, FIELD), flats, K)
+        kernels = raw_kernel_entries(mk, fixed.calls, launches,
+                                     sum(trains.values()), rescore_call)
+        fixed.calls.clear()
+        del rescore_call
+        svc.delete_index(RAW_INDEX)
+        gc.collect()
+        torch.cuda.synchronize()
+        mem_after = torch.cuda.memory_allocated()
+        if breaker.used != 0 or mem_after != mem_before:
+            raise AssertionError(f"after delete: hbm {breaker.used}, "
+                                 f"memory {mem_after} vs {mem_before}")
+        out.update(hbm_after_delete=breaker.used,
+                   memory_allocated_before=mem_before,
+                   memory_allocated_after=mem_after)
+    finally:
+        svc.close()
+    out["rest"] = raw_rest_check(corpus, smi, data_root)
+    return out, kernels
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1859,9 +2404,14 @@ def main() -> int:
         log("rest", **rest)
         log("planner", **planner)
         kernels += planner_kernels
+        # -- raw: segments past 65,408 docs, a raw pack, the pruned tiers
+        raw, raw_kernels = raw_phase(corpus, bodies, mk, smi, extra_sets,
+                                     os.path.join(here, "data"))
+        log("raw", **raw)
         for entry in kernels:
             entry["launches_rest"] = rest_launches[
                 entry.get("kernel", entry["name"].split(".", 1)[1])]
+        kernels += raw_kernels
         print(json.dumps({"kernels": kernels}), flush=True)
     finally:
         svc.close()

@@ -154,8 +154,8 @@ class NotLowerable(IllegalArgumentException):
     highlight, suggest, rescore, collapse, aggregations, knn, scroll,
     PIT, and the query types of field types it does not map). With
     ``planner=False`` it is one the reference serves on its kernel path
-    and the port's kernel path does not take yet: a raw (incompressible)
-    pack, or more slots per row than the merge kernel holds. The REST
+    and the port's kernel path does not take yet: more slots per row
+    than the merge kernels hold. The REST
     layer answers a 400 whose reason names the missing path."""
 
     def __init__(self, reason: str, planner: bool = True, **metadata: Any):

@@ -245,6 +245,8 @@ struct Streams {
   long long n_bases;
   const float* res_vals;      // f32 residual tables
   long long n_res;
+  const int* docs32;          // a raw pack's int32 doc ids, or null
+  const float* imps;          // a raw pack's f32 impacts, or null
 };
 
 struct Slots {
@@ -2237,7 +2239,9 @@ __device__ __forceinline__ ExactTable exact_table(void* base, int T) {
 }
 
 // Row r's slot table: each slot's clamped window start, delta block base
-// and offset, weight, residual table and lane count; cursors at 0.
+// and offset, weight, residual table and lane count; cursors at 0. kRaw
+// (the raw merge): a raw pack's lanes, no residual tables.
+template <bool kRaw>
 __device__ void load_slot_table(const Streams& s, const Slots& p,
                                 const ExactTable& tb, int r) {
   const bool delta = s.docs8 != nullptr;
@@ -2248,8 +2252,8 @@ __device__ void load_slot_table(const Streams& s, const Slots& p,
     tb.cur[t] = 0;
     tb.eff[t] = clampll(p.starts[rt], 0, s.n_post - p.max_len);
     tb.w[t] = p.weights[rt];
-    tb.rs[t] = p.res_starts[rt];
-    tb.rl[t] = p.res_lens[rt];
+    tb.rs[t] = kRaw ? 0 : p.res_starts[rt];
+    tb.rl[t] = kRaw ? 0 : p.res_lens[rt];
     tb.dbs[t] = delta ? clampll(p.dbs[rt], 0, s.n_bases - nb_slice) : 0;
     tb.dlo[t] = delta ? p.dlo[rt] : 0;
   }
@@ -2271,9 +2275,11 @@ __device__ __forceinline__ int item_doc(unsigned long long it) {
 }
 
 // The doc of lane l of slot t, d_pad at most.
+template <bool kRaw>
 __device__ __forceinline__ int lane_doc(const Streams& s, const Slots& p,
                                         const ExactTable& tb, int t, int l) {
   const long long pos = tb.eff[t] + l;
+  if (kRaw) return min(s.docs32[pos], p.d_pad);
   const int doc =
       s.docs8 != nullptr
           ? (int)s.doc_bases[tb.dbs[t] + (tb.dlo[t] + l) / kLaneBlock] +
@@ -2284,34 +2290,39 @@ __device__ __forceinline__ int lane_doc(const Streams& s, const Slots& p,
 
 // Items i < n as items out[i]: lane (cur[t] when given) + i - pre[t] of
 // the slot t with pre[t] <= i < pre[t + 1], each its doc (d_pad at most)
-// in bits 32-47 and, below, the bits of w * exact value (rank ->
-// residual table; the product rounded, as the reference rounds it).
-// kExactBatch lanes a thread at a time: every doc and rank load of the
-// batch, then every residual load, so their round trips overlap.
+// in bits 32-63 and, below, the bits of w * exact value (rank ->
+// residual table, or kRaw the raw pack's f32 impact; the product
+// rounded, as the reference rounds it). kExactBatch lanes a thread at a
+// time: every doc and rank (or impact) load of the batch, then every
+// residual load, so their round trips overlap.
+template <bool kRaw>
 __device__ void stage_items(const Streams& s, const Slots& p,
                             const ExactTable& tb, const int* pre,
                             const int* cur, int n, unsigned long long* out) {
   for (int base = 0; base < n; base += kExactBatch * blockDim.x) {
     int t[kExactBatch], doc[kExactBatch], rank[kExactBatch];
+    float imp[kExactBatch];
 #pragma unroll
     for (int j = 0; j < kExactBatch; ++j) {
       const int i = base + j * blockDim.x + threadIdx.x;
       t[j] = 0;
       doc[j] = 0;
       rank[j] = 0;
+      imp[j] = 0.0f;
       if (i < n) {
         t[j] = slot_of(pre, p.T, i);
         const int l = (cur != nullptr ? cur[t[j]] : 0) + i - pre[t[j]];
-        doc[j] = lane_doc(s, p, tb, t[j], l);
-        rank[j] = (int)s.ranks[tb.eff[t[j]] + l];
+        doc[j] = lane_doc<kRaw>(s, p, tb, t[j], l);
+        if (kRaw) imp[j] = s.imps[tb.eff[t[j]] + l];
+        else rank[j] = (int)s.ranks[tb.eff[t[j]] + l];
       }
     }
 #pragma unroll
     for (int j = 0; j < kExactBatch; ++j) {
       const int i = base + j * blockDim.x + threadIdx.x;
       if (i >= n) continue;
-      float val = 0.0f;
-      if (rank[j] > 0 && rank[j] <= tb.rl[t[j]]) {
+      float val = imp[j];
+      if (!kRaw && rank[j] > 0 && rank[j] <= tb.rl[t[j]]) {
         const long long at = (long long)tb.rs[t[j]] + rank[j] - 1;
         if (at >= 0 && at < s.n_res) val = s.res_vals[at];
       }
@@ -2482,6 +2493,7 @@ __device__ void emit_runs(const unsigned long long* src, int n, int window,
 // in flight together. Where a slot's docs descend the answer is still a
 // function of d that never falls as d rises (each probe's test only
 // turns true as d rises), so the parts of a slot still tile it.
+template <bool kRaw>
 __device__ int warp_lower_bound(const Streams& s, const Slots& p,
                                 const ExactTable& tb, int t, int d) {
   const int lane = threadIdx.x & 31;
@@ -2490,7 +2502,7 @@ __device__ int warp_lower_bound(const Streams& s, const Slots& p,
     const int step = (b - a + 31) / 32;
     const int at = a + lane * step;
     const bool probe = at < b;
-    const bool below = probe && lane_doc(s, p, tb, t, at) < d;
+    const bool below = probe && lane_doc<kRaw>(s, p, tb, t, at) < d;
     const unsigned probes = __ballot_sync(0xffffffffu, probe);
     const unsigned belows = __ballot_sync(0xffffffffu, below);
     const int k = __ffs(~belows & probes) - 1;  // the first probe not below
@@ -2531,7 +2543,10 @@ __device__ int warp_lower_bound(const Streams& s, const Slots& p,
 // marks its row `bad`, and exact_finish redoes it whole. Lanes clamped to
 // d_pad never reach a candidate (they sort last and a run of d_pad is
 // dropped). 256 threads, their registers bounded so that six blocks
-// share an SM when their windows fit (2048 lanes, 33 KB each).
+// share an SM when their windows fit (2048 lanes, 33 KB each). kRaw: the
+// raw merge, the same design over a raw pack's int32 docs and f32
+// impacts (docs up to 2**31, which the items' 32 doc bits hold).
+template <bool kRaw>
 __global__ void __launch_bounds__(kExactThreads, kExactBlocksPerSm)
 exact_merge_kernel(Streams s, Slots p, const long long* row_off,
                    const int* part_rq, const int* row_parts, int R,
@@ -2555,7 +2570,7 @@ exact_merge_kernel(Streams s, Slots p, const long long* row_off,
   unsigned long long* s_src = s_dyn;
   unsigned long long* s_dst = s_dyn + S;
   const ExactTable tb = exact_table(s_dyn + 2 * S, T);
-  load_slot_table(s, p, tb, r);
+  load_slot_table<kRaw>(s, p, tb, r);
   __syncthreads();
   // the part's lanes of each slot: [cur, len) between the binary searches
   // of its doc bounds (monotone in the bound even where docs descend, so
@@ -2571,7 +2586,8 @@ exact_merge_kernel(Streams s, Slots p, const long long* row_off,
       const int t = item >> 1;
       const bool upper = item & 1;
       if (upper ? q + 1 < P : q > 0) {
-        const int at = warp_lower_bound(s, p, tb, t, upper ? d_hi : d_lo);
+        const int at =
+            warp_lower_bound<kRaw>(s, p, tb, t, upper ? d_hi : d_lo);
         if ((tid & 31) == 0) (upper ? tb.take : tb.chunk)[t] = at;
       }
     }
@@ -2580,8 +2596,8 @@ exact_merge_kernel(Streams s, Slots p, const long long* row_off,
       const int lo = q > 0 ? tb.chunk[t] : 0;
       const int hi = q + 1 < P ? max(lo, tb.take[t]) : tb.len[t];
       if (lo > 0 && lo < tb.len[t]) {
-        const int b = lane_doc(s, p, tb, t, lo);
-        bad_here |= b < d_pad && lane_doc(s, p, tb, t, lo - 1) >= b;
+        const int b = lane_doc<kRaw>(s, p, tb, t, lo);
+        bad_here |= b < d_pad && lane_doc<kRaw>(s, p, tb, t, lo - 1) >= b;
       }
       tb.cur[t] = lo;
       tb.len[t] = hi;
@@ -2637,10 +2653,10 @@ exact_merge_kernel(Streams s, Slots p, const long long* row_off,
     for (int u = 0; u < kExactSlotsPerThread; ++u) {
       const int t = tid + u * kExactThreads;
       const bool has = t < T && tb.cur[t] + tb.chunk[t] < tb.len[t];
-      next[u] = has ? lane_doc(s, p, tb, t, tb.cur[t] + tb.chunk[t])
+      next[u] = has ? lane_doc<kRaw>(s, p, tb, t, tb.cur[t] + tb.chunk[t])
                     : kNoNext;
     }
-    stage_items(s, p, tb, tb.cpre, tb.cur, staged, s_src);
+    stage_items<kRaw>(s, p, tb, tb.cpre, tb.cur, staged, s_src);
 #pragma unroll
     for (int u = 0; u < kExactSlotsPerThread; ++u) {
       if (next[u] != kNoNext) {
@@ -2703,12 +2719,14 @@ exact_merge_kernel(Streams s, Slots p, const long long* row_off,
 }
 
 // What exact_merge leaves (grid R + the later parts, 256 threads): block
-// r redoes row r whole when it is bad, every lane in lane order, two
-// stable LSD passes of sort_pass on the doc's bytes in device memory
-// (items, alt), then the run ends (class "radix"); block R + e moves the
-// parked candidates of the later part part_rq[e] of a good row after
-// those of the row's earlier parts (part_rq holds a row's parts in
+// r redoes row r whole when it is bad, every lane in lane order, stable
+// LSD passes of sort_pass on the doc's bytes below d_pad in device memory
+// (items, alt: two for a compressed pack's 16-bit docs, three for a raw
+// pack of up to 2**24), then the run ends (class "radix"); block R + e
+// moves the parked candidates of the later part part_rq[e] of a good row
+// after those of the row's earlier parts (part_rq holds a row's parts in
 // order), and the last part writes the row's count (class "parts").
+template <bool kRaw>
 __global__ void __launch_bounds__(kExactThreads)
 exact_finish_kernel(Streams s, Slots p, const long long* row_off,
                     const int* part_rq, const int* row_parts, int R,
@@ -2744,7 +2762,7 @@ exact_finish_kernel(Streams s, Slots p, const long long* row_off,
   const int r = blockIdx.x;
   if (!bad[r]) return;
   const ExactTable tb = exact_table(s_tab, p.T);
-  load_slot_table(s, p, tb, r);
+  load_slot_table<kRaw>(s, p, tb, r);
   for (int i = threadIdx.x; i < kExactWarps * 256; i += blockDim.x)
     (&s_cnt[0][0])[i] = 0;
   __syncthreads();
@@ -2752,9 +2770,10 @@ exact_finish_kernel(Streams s, Slots p, const long long* row_off,
   const long long off = row_off[r];
   unsigned long long* src = items + off;
   unsigned long long* dst = alt + off;
-  stage_items(s, p, tb, tb.lpre, nullptr, n, src);
+  stage_items<kRaw>(s, p, tb, tb.lpre, nullptr, n, src);
   __syncthreads();
-  for (int shift = 32; shift < 48 && n > 1; shift += 8) {
+  const int doc_bits = 32 - __clz((unsigned)p.d_pad);
+  for (int shift = 32; shift < 32 + doc_bits && n > 1; shift += 8) {
     if (sort_pass<unsigned long long, kExactWarps>(src, dst, n, shift, s_cnt,
                                                     s_wsum)) {
       unsigned long long* tmp = src;
@@ -2820,6 +2839,8 @@ Streams make_streams(const void* docs8, const void* docs16,
   s.n_bases = n_bases;
   s.res_vals = static_cast<const float*>(res_vals);
   s.n_res = n_res;
+  s.docs32 = nullptr;
+  s.imps = nullptr;
   return s;
 }
 
@@ -2842,6 +2863,278 @@ Slots make_slots(const void* starts, const void* lengths,
   p.d_pad = d_pad;
   return p;
 }
+
+
+// ---------------------------------------------------------------------------
+// 8. pruned_candidates: phase A of a pruned tier, one group of pack rows
+// ---------------------------------------------------------------------------
+
+// One block per query (grid B, 256 threads; row r of the launch). Its
+// slots are G rows x T slots of the impact-sorted copy (rows[r * GT + j]:
+// slot j's device-local pack row), so a slot's lanes are in impact order,
+// not doc order: the runs of exact_merge do not exist here, and the
+// block sorts. Every valid lane (j < len of its slot) becomes one u64
+// item: the gid row * (d_pad + 1) + doc in the high 32 bits, the bits of
+// w * impact (rounded) below, staged in the query's slice of `items`
+// (row_off[r]) in lane order; stable LSD passes of sort_pass over the gid
+// bits (a lane whose doc equals another's of the same row stays in slot
+// order, as the reference's stable sort keeps it); then emit_runs: each
+// run's total by the reference's doubling tree (t_window), the runs with
+// total > 0 as candidates in gid order. pack_keys: the item's high word
+// is the reference's u32 key instead, (group-relative gid << 16 | the
+// value's 16-bit code), the value its decoded code; the passes then
+// sort all 32 key bits (equal gids by code, as the reference's key sort
+// does) and the gids are restored before the runs. Invalid lanes are
+// not staged: in the reference they carry doc d_pad and impact 0, so
+// their runs are never candidates. shard_topk then takes the query's
+// top-k of the candidates (ties by gid: the sorted order). Bound: bytes,
+// each valid lane's doc and impact read once, and the sort's passes.
+constexpr int kCandThreads = kExactThreads;
+
+// Per slot of the launch's rows: the clamped window start, lane count,
+// weight and row, and the prefix of the lane counts (dynamic shared
+// memory, 24 B a slot).
+__host__ __device__ __forceinline__ int cand_smem_bytes(int GT) {
+  return 8 * GT + 4 * GT + 4 * GT + 4 * GT + 4 * (GT + 1);
+}
+
+__global__ void __launch_bounds__(kCandThreads)
+pruned_candidates_kernel(const int* docs32, const float* imps,
+                         long long n_post, const int* starts,
+                         const int* lengths, const float* weights,
+                         const int* rows, int GT, int max_len, int d_pad,
+                         int key_bits, int pack_keys, int window,
+                         const long long* row_off,
+                         unsigned long long* items,
+                         unsigned long long* alt, float* cand_score,
+                         int* cand_gid, int* n_cand) {
+  extern __shared__ __align__(16) unsigned long long s_cand[];
+  __shared__ int s_cnt[kExactWarps][256];
+  __shared__ int s_wsum[8];
+  __shared__ int s_warp[33];
+  const int r = blockIdx.x;
+  long long* eff = reinterpret_cast<long long*>(s_cand);
+  int* len = reinterpret_cast<int*>(eff + GT);
+  float* w = reinterpret_cast<float*>(len + GT);
+  int* row = reinterpret_cast<int*>(w + GT);
+  int* pre = row + GT;
+  const long long d1 = (long long)d_pad + 1;
+  for (int j = threadIdx.x; j < GT; j += blockDim.x) {
+    const int rj = r * GT + j;
+    eff[j] = clampll(starts[rj], 0, n_post - max_len);
+    len[j] = min(max(lengths[rj], 0), max_len);
+    w[j] = weights[rj];
+    row[j] = rows[rj];
+  }
+  for (int i = threadIdx.x; i < kExactWarps * 256; i += blockDim.x)
+    (&s_cnt[0][0])[i] = 0;
+  __syncthreads();
+  const int n = slot_scan(len, pre, GT, s_warp);
+  const long long off = row_off[r];
+  unsigned long long* src = items + off;
+  unsigned long long* dst = alt + off;
+  const long long base0 = (long long)rows[0] * d1;  // the group's row 0
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int j = slot_of(pre, GT, i);
+    const long long pos = eff[j] + i - pre[j];
+    const int doc = docs32[pos];
+    const uint32_t v = __float_as_uint(__fmul_rn(w[j], imps[pos]));
+    const long long gid = (long long)row[j] * d1 + doc;
+    unsigned long long item;
+    if (pack_keys) {
+      const long long grel = gid > base0 ? gid - base0 : 0;
+      const uint32_t key = ((uint32_t)grel << 16) | (v >> 16);
+      item = ((unsigned long long)key << 32) | ((v >> 16) << 16);
+    } else {
+      item = ((unsigned long long)(uint32_t)gid << 32) | v;
+    }
+    src[i] = item;
+  }
+  __syncthreads();
+  for (int shift = 32; shift < 32 + key_bits && n > 1; shift += 8) {
+    if (sort_pass<unsigned long long, kExactWarps>(src, dst, n, shift, s_cnt,
+                                                    s_wsum)) {
+      unsigned long long* tmp = src;
+      src = dst;
+      dst = tmp;
+    }
+  }
+  if (pack_keys) {  // the group-relative key back to the gid
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const unsigned long long it = src[i];
+      const long long gid = (long long)(uint32_t)(it >> 48) + base0;
+      src[i] = ((unsigned long long)(uint32_t)gid << 32) | (uint32_t)it;
+    }
+    __syncthreads();
+  }
+  int found = 0;
+  emit_runs(src, n, window, 0, 0, 0x7fffffff, dst, cand_score + off,
+            cand_gid + off, nullptr, &found, s_warp);
+  if (threadIdx.x == 0) n_cand[r] = found;
+}
+
+// ---------------------------------------------------------------------------
+// 9. pruned_rescore: phase B of a pruned tier, and its final order
+// ---------------------------------------------------------------------------
+
+// One block per query (grid B, 256 threads), mode bits: 1 scores, 2
+// orders. Scoring: each of the query's C candidate gids (phase A's,
+// global) whose row lies in this device's [row_base, row_base + S_l)
+// gets, for each of its row's T_terms term ranges, a lower-bound binary
+// search of search_iters steps in the doc-sorted docs (the reference's
+// loop as it is: no early stop, reads past the array give d_pad) and
+// w * impact where the doc is found; a warp takes 32 / T_terms
+// candidates at once, a lane a (candidate, term), and sums the terms by
+// shuffles in the reference's association (halving: x_t + x_(t + T/2),
+// then the halves again: for 8 terms ((x0 + x4) + (x2 + x6)) + ((x1 +
+// x5) + (x3 + x7))). Ordering: -inf where the candidate was (cand_vals),
+// each candidate one u64 key (order bits of -score, +inf for -inf, then
+// the gid; -0 before +0 as the reference's float sort has it), a bitonic
+// sort of the C keys in shared memory, the first k out. A device that
+// holds every row of the query does both in one launch; else each
+// device scores (exact_out), the sum over the devices comes in between,
+// and one launch orders. Bound: dependent loads, search_iters a term.
+constexpr int kRescoreThreads = 256;
+constexpr int kRescoreCands = 4096;  // PRUNED_CAND_LIMIT
+
+__device__ __forceinline__ uint32_t sort_order_bits(float x) {
+  const uint32_t u = __float_as_uint(x);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float sort_order_inverse(uint32_t o) {
+  return __uint_as_float((o & 0x80000000u) ? (o & 0x7FFFFFFFu) : ~o);
+}
+
+__global__ void __launch_bounds__(kRescoreThreads)
+pruned_rescore_kernel(const int* docs32, const float* imps,
+                      long long n_post, const long long* cand_gids, int C,
+                      const int* t_starts, const int* t_lengths,
+                      const float* t_weights, int S_l, int B, int T_terms,
+                      int d_pad, long long p_pad, int row_base,
+                      int search_iters, const float* exact_in,
+                      const float* cand_vals, float* exact_out, int kk,
+                      float* out_vals, long long* out_gids, int mode) {
+  extern __shared__ __align__(16) unsigned long long s_order[];
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  int sort_n = 1;
+  while (sort_n < C) sort_n <<= 1;
+  float* s_exact = reinterpret_cast<float*>(s_order + sort_n);
+  if (mode & 1) {
+    const int per_warp = 32 / T_terms;
+    const int sub = lane / T_terms, t = lane % T_terms;
+    const long long d1 = (long long)d_pad + 1;
+    for (int c0 = warp * per_warp; c0 < C; c0 += nwarps * per_warp) {
+      const int c = c0 + sub;
+      float x = 0.0f;
+      if (c < C) {
+        const int gid = (int)cand_gids[(long long)b * C + c];
+        const long long row = (long long)gid / d1;
+        const int ord = (int)((long long)gid - row * d1);
+        const long long local = row - row_base;
+        const bool in_local = local >= 0 && local < S_l;
+        const long long lr = local < 0 ? 0 : (local >= S_l ? S_l - 1 : local);
+        const long long at = (lr * B + b) * T_terms + t;
+        const int ln = t_lengths[at];
+        long long lo = lr * p_pad + t_starts[at];
+        long long hi = lo + ln;
+        const long long end = hi;
+        for (int it = 0; it < search_iters; ++it) {
+          const long long mid = (lo + hi) >> 1;
+          const int v = (mid >= 0 && mid < n_post) ? docs32[mid] : d_pad;
+          const bool go = v < ord;
+          lo = go ? mid + 1 : lo;
+          hi = go ? hi : mid;
+        }
+        const bool inside = lo >= 0 && lo < n_post;
+        const int v = inside ? docs32[lo] : d_pad;
+        const bool found = ln > 0 && v == ord && lo < end;
+        if (found && in_local)
+          x = __fmul_rn(t_weights[at], inside ? imps[lo] : 0.0f);
+      }
+      for (int h = T_terms >> 1; h > 0; h >>= 1) {
+        const float o = __shfl_down_sync(0xffffffffu, x, h);
+        if (t < h) x = __fadd_rn(x, o);
+      }
+      if (c < C && t == 0) {
+        if (mode & 2) s_exact[c] = x;
+        else exact_out[(long long)b * C + c] = x;
+      }
+    }
+  } else {
+    for (int c = threadIdx.x; c < C; c += blockDim.x)
+      s_exact[c] = exact_in[(long long)b * C + c];
+  }
+  if (!(mode & 2)) return;
+  __syncthreads();
+  const float neg_inf = __int_as_float(kNegInfBits);
+  const float pos_inf = __int_as_float(0x7f800000);
+  for (int c = threadIdx.x; c < sort_n; c += blockDim.x) {
+    unsigned long long key = ~0ull;  // past every candidate
+    if (c < C) {
+      const float v = cand_vals[(long long)b * C + c];
+      const float e = v > neg_inf ? s_exact[c] : neg_inf;
+      const float neg = e > neg_inf ? -e : pos_inf;
+      key = ((unsigned long long)sort_order_bits(neg) << 32) |
+            (uint32_t)cand_gids[(long long)b * C + c];
+    }
+    s_order[c] = ~key;  // bitonic_desc sorts descending
+  }
+  __syncthreads();
+  bitonic_desc(s_order, sort_n);
+  for (int j = threadIdx.x; j < kk; j += blockDim.x) {
+    const unsigned long long key = ~s_order[j];
+    const float neg = sort_order_inverse((uint32_t)(key >> 32));
+    out_vals[(long long)b * kk + j] = isinf(neg) ? neg_inf : -neg;
+    out_gids[(long long)b * kk + j] = (long long)(uint32_t)key;
+  }
+}
+
+// exact_merge then exact_finish over the lanes of kRaw's reader.
+template <bool kRaw>
+int launch_exact(const Streams& s, const Slots& p, int R,
+                 const void* row_off, const void* part_rq,
+                 const void* row_parts, int n_extra, int with_counts,
+                 int window, int window_lanes, void* items, void* alt,
+                 void* cand_score, void* cand_doc, void* n_cand,
+                 void* part_found, void* part_base, void* bad,
+                 void* class_rows, void* stream) {
+  const int T = p.T;
+  cudaStream_t st = (cudaStream_t)stream;
+  // a window stages at least one lane of every slot
+  const int S = window_lanes > T ? window_lanes : T;
+  const int smem = exact_smem_bytes(S, T);
+  auto merge = exact_merge_kernel<kRaw>;
+  auto finish = exact_finish_kernel<kRaw>;
+  cudaError_t err = allow_smem(merge, smem);
+  if (err != cudaSuccess) return (int)err;
+  merge<<<R + n_extra, kExactThreads, smem, st>>>(
+      s, p, static_cast<const long long*>(row_off),
+      static_cast<const int*>(part_rq), static_cast<const int*>(row_parts),
+      R, with_counts, window, S, static_cast<float*>(cand_score),
+      static_cast<int*>(cand_doc), static_cast<int*>(n_cand),
+      static_cast<unsigned long long*>(alt), static_cast<int*>(part_found),
+      static_cast<int*>(part_base), static_cast<int*>(bad),
+      static_cast<int*>(class_rows));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int table = exact_smem_bytes(0, T);
+  err = allow_smem(finish, table);
+  if (err != cudaSuccess) return (int)err;
+  finish<<<R + n_extra, kExactThreads, table, st>>>(
+      s, p, static_cast<const long long*>(row_off),
+      static_cast<const int*>(part_rq), static_cast<const int*>(row_parts),
+      R, with_counts, window, static_cast<const int*>(part_found),
+      static_cast<const int*>(part_base), static_cast<const int*>(bad),
+      static_cast<unsigned long long*>(items),
+      static_cast<unsigned long long*>(alt), static_cast<float*>(cand_score),
+      static_cast<int*>(cand_doc), static_cast<int*>(n_cand),
+      static_cast<int*>(class_rows));
+  return (int)cudaGetLastError();
+}
+
 
 }  // namespace
 
@@ -3096,34 +3389,91 @@ int es_exact_merge(const void* docs8, const void* docs16, const void* codes,
                            n_bases, res_vals, n_res);
   Slots p = make_slots(starts, lengths, weights, min_count, res_starts,
                        res_lens, dbs, dlo, T, max_len, d_pad);
-  cudaStream_t st = (cudaStream_t)stream;
-  // a window stages at least one lane of every slot
-  const int S = window_lanes > T ? window_lanes : T;
-  const int smem = exact_smem_bytes(S, T);
-  cudaError_t err = allow_smem(exact_merge_kernel, smem);
+  return launch_exact<false>(s, p, R, row_off, part_rq, row_parts, n_extra,
+                             with_counts, window, window_lanes, items, alt,
+                             cand_score, cand_doc, n_cand, part_found,
+                             part_base, bad, class_rows, stream);
+}
+
+// The raw merge: exact_merge over a raw pack (int32 docs, f32 impacts).
+int es_raw_merge(const void* docs32, const void* imps, long long n_post,
+                 const void* starts, const void* lengths,
+                 const void* weights, const void* min_count, int R, int T,
+                 int max_len, int d_pad, const void* row_off,
+                 const void* part_rq, const void* row_parts, int n_extra,
+                 int with_counts, int window, int window_lanes,
+                 void* items, void* alt, void* cand_score, void* cand_doc,
+                 void* n_cand, void* part_found, void* part_base,
+                 void* bad, void* class_rows, void* stream) {
+  Streams s = make_streams(nullptr, nullptr, nullptr, nullptr, n_post,
+                           nullptr, 0, nullptr, 0);
+  s.docs32 = static_cast<const int*>(docs32);
+  s.imps = static_cast<const float*>(imps);
+  Slots p = make_slots(starts, lengths, weights, min_count, nullptr,
+                       nullptr, nullptr, nullptr, T, max_len, d_pad);
+  return launch_exact<true>(s, p, R, row_off, part_rq, row_parts, n_extra,
+                            with_counts, window, window_lanes, items, alt,
+                            cand_score, cand_doc, n_cand, part_found,
+                            part_base, bad, class_rows, stream);
+}
+
+// Phase A of a pruned tier over B queries of GT slots each (see
+// pruned_candidates_kernel).
+int es_pruned_candidates(const void* docs32, const void* imps,
+                         long long n_post, const void* starts,
+                         const void* lengths, const void* weights,
+                         const void* rows, int B, int GT, int max_len,
+                         int d_pad, int n_rows, int pack_keys, int window,
+                         const void* row_off, void* items, void* alt,
+                         void* cand_score, void* cand_gid, void* n_cand,
+                         void* stream) {
+  const long long top = pack_keys ? (1ll << 32) - 1
+                                  : (long long)n_rows * (d_pad + 1);
+  int key_bits = 0;
+  while (key_bits < 32 && (top >> key_bits) > 0) ++key_bits;
+  const int smem = cand_smem_bytes(GT);
+  cudaError_t err = allow_smem(pruned_candidates_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  exact_merge_kernel<<<R + n_extra, kExactThreads, smem, st>>>(
-      s, p, static_cast<const long long*>(row_off),
-      static_cast<const int*>(part_rq), static_cast<const int*>(row_parts),
-      R, with_counts, window, S, static_cast<float*>(cand_score),
-      static_cast<int*>(cand_doc), static_cast<int*>(n_cand),
-      static_cast<unsigned long long*>(alt), static_cast<int*>(part_found),
-      static_cast<int*>(part_base), static_cast<int*>(bad),
-      static_cast<int*>(class_rows));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int table = exact_smem_bytes(0, T);
-  err = allow_smem(exact_finish_kernel, table);
-  if (err != cudaSuccess) return (int)err;
-  exact_finish_kernel<<<R + n_extra, kExactThreads, table, st>>>(
-      s, p, static_cast<const long long*>(row_off),
-      static_cast<const int*>(part_rq), static_cast<const int*>(row_parts),
-      R, with_counts, window, static_cast<const int*>(part_found),
-      static_cast<const int*>(part_base), static_cast<const int*>(bad),
+  pruned_candidates_kernel<<<B, kCandThreads, smem, (cudaStream_t)stream>>>(
+      static_cast<const int*>(docs32), static_cast<const float*>(imps),
+      n_post, static_cast<const int*>(starts),
+      static_cast<const int*>(lengths), static_cast<const float*>(weights),
+      static_cast<const int*>(rows), GT, max_len, d_pad, key_bits,
+      pack_keys, window, static_cast<const long long*>(row_off),
       static_cast<unsigned long long*>(items),
       static_cast<unsigned long long*>(alt), static_cast<float*>(cand_score),
-      static_cast<int*>(cand_doc), static_cast<int*>(n_cand),
-      static_cast<int*>(class_rows));
+      static_cast<int*>(cand_gid), static_cast<int*>(n_cand));
+  return (int)cudaGetLastError();
+}
+
+// Phase B of a pruned tier and its final order (mode bits 1 and 2; see
+// pruned_rescore_kernel).
+int es_pruned_rescore(const void* docs32, const void* imps, long long n_post,
+                      const void* cand_gids, int C, const void* t_starts,
+                      const void* t_lengths, const void* t_weights, int S_l,
+                      int B, int T_terms, int d_pad, int p_pad, int row_base,
+                      int search_iters, const void* exact_in,
+                      const void* cand_vals, void* exact_out, int kk,
+                      void* out_vals, void* out_gids, int mode,
+                      void* stream) {
+  if (C > kRescoreCands || T_terms > 32 || (T_terms & (T_terms - 1)))
+    return (int)cudaErrorInvalidValue;
+  int sort_n = 1;
+  while (sort_n < C) sort_n <<= 1;
+  const int smem = 8 * sort_n + 4 * C;
+  cudaError_t err = allow_smem(pruned_rescore_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  pruned_rescore_kernel<<<B, kRescoreThreads, smem,
+                          (cudaStream_t)stream>>>(
+      static_cast<const int*>(docs32), static_cast<const float*>(imps),
+      n_post, static_cast<const long long*>(cand_gids), C,
+      static_cast<const int*>(t_starts), static_cast<const int*>(t_lengths),
+      static_cast<const float*>(t_weights), S_l, B, T_terms, d_pad,
+      (long long)p_pad, row_base, search_iters,
+      static_cast<const float*>(exact_in),
+      static_cast<const float*>(cand_vals), static_cast<float*>(exact_out),
+      kk, static_cast<float*>(out_vals), static_cast<long long*>(out_gids),
+      mode);
   return (int)cudaGetLastError();
 }
 
@@ -3146,12 +3496,12 @@ int es_blocks_per_sm(int kernel, int smem) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn,       \
                                                         threads, smem);
   switch (kernel) {
-    case 0: ES_OCCUPANCY(exact_merge_kernel, kExactThreads) break;
+    case 0: ES_OCCUPANCY(exact_merge_kernel<false>, kExactThreads) break;
     case 1: ES_OCCUPANCY(shard_topk_kernel, kTopThreads) break;
     case 2: ES_OCCUPANCY(topk_pass_kernel, kTopThreads) break;
     case 3: ES_OCCUPANCY(topk_runs_kernel, kTopThreads) break;
     case 4: ES_OCCUPANCY(topk_merge_kernel, kTopThreads) break;
-    case 5: ES_OCCUPANCY(exact_finish_kernel, kExactThreads) break;
+    case 5: ES_OCCUPANCY(exact_finish_kernel<false>, kExactThreads) break;
     default: break;
   }
 #undef ES_OCCUPANCY

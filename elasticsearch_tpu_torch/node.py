@@ -76,7 +76,11 @@ class Node:
             max_batch=self.settings.get_int(
                 "search.tpu_serving.max_batch", 128),
             batch_timeout_s=self.settings.get_float(
-                "search.tpu_serving.batch_timeout_seconds", 30.0))
+                "search.tpu_serving.batch_timeout_seconds", 30.0),
+            packed_sort=self.settings.get_bool(
+                "search.tpu_serving.kernel.packed_sort", True),
+            compressed_pack=self.settings.get_bool(
+                "search.tpu_serving.kernel.compressed_pack", True))
         self.controller = RestController()
         from elasticsearch_tpu_torch.rest.actions import (admin, document,
                                                           root, search)

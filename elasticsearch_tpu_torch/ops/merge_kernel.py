@@ -41,10 +41,14 @@ import torch
 from elasticsearch_tpu_torch.ops import sparse
 from elasticsearch_tpu_torch.parallel.device import device_context
 
+NEG_INF = sparse.NEG_INF
+
 #: kernel name → launches since the last reset (see reset_launches)
 LAUNCHES: Dict[str, int] = {"slot_decode": 0, "row_pack": 0, "row_sort": 0,
                             "run_sum": 0, "select_rescore": 0,
-                            "shard_topk": 0, "exact_merge": 0}
+                            "shard_topk": 0, "exact_merge": 0,
+                            "raw_merge": 0, "pruned_candidates": 0,
+                            "pruned_rescore": 0}
 _LAUNCHES_LOCK = threading.Lock()  # batcher threads of several packs launch
 
 #: widest slot window the slot-decode kernel keeps in shared memory
@@ -91,6 +95,9 @@ TOPK_CLASSES = ("shard_topk.staged", "shard_topk.shared",
 #: each); the launch's window is the longest row rounded up to 1024 lanes,
 #: at most this
 EXACT_WINDOW_CAP = 2048
+#: slots per row the raw merge takes (its block's slot table, four
+#: slots a thread): 1024 slots of CHUNK_CAP lanes, 4M postings a row
+RAW_T_LIMIT = 1024
 #: the size classes of exact_merge (rows per class): merged in one
 #: window, in several parts by doc (a row of more lanes than the window:
 #: a block a part), or (a slot whose docs descend) radix-sorted in
@@ -125,6 +132,13 @@ _SIGNATURES = {
                                                    _I, _P, _P, _P, _P, _P,
                                                    _P, _P, _P, _P, _P],
     "es_exact_smem_bytes": [_I, _I],
+    "es_raw_merge": [_P, _P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
+                     _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                     _P, _P],
+    "es_pruned_candidates": [_P, _P, _L, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "es_pruned_rescore": [_P, _P, _L, _P, _I, _P, _P, _P, _I, _I, _I, _I,
+                          _I, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P],
     "es_blocks_per_sm": [_I, _I],
 }
 
@@ -261,6 +275,34 @@ def _check_operands(what, flat_docs, flat_impact, starts, lengths, weights,
         _need(dbs_starts, "dbs_starts", torch.int32, dev, (r, t))
         _need(dlo_starts, "dlo_starts", torch.int32, dev, (r, t))
     return r, t, delta
+
+
+def _check_raw_operands(flat_docs, flat_impact, starts, lengths, weights,
+                        min_count, *, max_len, d_pad, k, t_window):
+    """The raw merge's checks of a raw pack's streams and the slot
+    operands → (R, T); raises ValueError. Its only slot limit is the
+    rows' part count (a row is cut into parts of a window each, at most
+    32,767): the reference's exact launch has no slot cap."""
+    dev = flat_docs.device
+    r, t = starts.shape
+    n_post = _raw_streams(flat_docs, flat_impact, dev)
+    if not 1 <= max_len <= MAX_LEN_LIMIT or n_post < max_len:
+        raise ValueError(f"raw merge takes windows of 1...{MAX_LEN_LIMIT} "
+                         f"lanes inside the streams, got {max_len} over "
+                         f"{n_post} postings")
+    if not 1 <= t <= RAW_T_LIMIT or not 1 <= r < 65536:
+        raise ValueError(f"raw merge takes 1 ≤ T ≤ {RAW_T_LIMIT} slots "
+                         f"and R < 65536 rows, got R={r}, T={t}")
+    if t_window > T_LIMIT:
+        raise ValueError(f"raw merge takes t_window ≤ {T_LIMIT}, got "
+                         f"{t_window}")
+    if k > K_LIMIT or d_pad >= 1 << 31:
+        raise ValueError(f"raw merge takes k ≤ {K_LIMIT} and d_pad < 2**31")
+    for name, ten in (("starts", starts), ("lengths", lengths)):
+        _need(ten, name, torch.int32, dev, (r, t))
+    _need(weights, "weights", torch.float32, dev, (r, t))
+    _need(min_count, "min_count", torch.int32, dev, (r,))
+    return r, t
 
 
 def _stream_slot_args(flat_docs, flat_impact, starts, lengths, weights,
@@ -675,16 +717,24 @@ def _launch_exact(flat_docs, flat_impact, starts, lengths, weights,
                   with_totals=False, flat_rank=None, res_starts=None,
                   res_lens=None, res_vals=None, doc_bases=None,
                   dbs_starts=None, dlo_starts=None, stats=None, events=None,
-                  **_skip_operands):
+                  raw=False, **_skip_operands):
     """The exact variant reads no block-max or slot-term operands (the
-    reference's exact branch has no skip): they are taken and unused."""
+    reference's exact branch has no skip): they are taken and unused.
+    raw=True: the raw merge over a raw pack's int32 docs and f32
+    impacts (es_raw_merge), the same design and size classes."""
     dev = flat_docs.device
-    r, t, delta = _check_operands(
-        "exact merge", flat_docs, flat_impact, starts, lengths, weights,
-        min_count, max_len=max_len, d_pad=d_pad, k=k, t_window=t_window,
-        flat_rank=flat_rank, res_starts=res_starts, res_lens=res_lens,
-        res_vals=res_vals, doc_bases=doc_bases, dbs_starts=dbs_starts,
-        dlo_starts=dlo_starts)
+    if raw:
+        r, t = _check_raw_operands(
+            flat_docs, flat_impact, starts, lengths, weights, min_count,
+            max_len=max_len, d_pad=d_pad, k=k, t_window=t_window)
+        delta = False
+    else:
+        r, t, delta = _check_operands(
+            "exact merge", flat_docs, flat_impact, starts, lengths, weights,
+            min_count, max_len=max_len, d_pad=d_pad, k=k,
+            t_window=t_window, flat_rank=flat_rank, res_starts=res_starts,
+            res_lens=res_lens, res_vals=res_vals, doc_bases=doc_bases,
+            dbs_starts=dbs_starts, dlo_starts=dlo_starts)
     kk = min(k, t * max_len)
     window = 1
     while window < t_window:
@@ -726,16 +776,25 @@ def _launch_exact(flat_docs, flat_impact, starts, lengths, weights,
     bad = torch.zeros(r, dtype=torch.int32, device=dev)
     class_rows = (torch.zeros(len(EXACT_CLASSES), dtype=torch.int32,
                               device=dev) if stats is not None else None)
-    streams, slots = _stream_slot_args(
-        flat_docs, flat_impact, starts, lengths, weights, min_count,
-        max_len=max_len, d_pad=d_pad, flat_rank=flat_rank,
-        res_starts=res_starts, res_lens=res_lens, res_vals=res_vals,
-        doc_bases=doc_bases, dbs_starts=dbs_starts, dlo_starts=dlo_starts)
-    _run(lib, "exact_merge", events, lib.es_exact_merge, *streams, *slots,
-         _ptr(row_off), _ptr(part_rq_t), _ptr(row_parts), len(part_rq),
-         int(with_counts), window, window_lanes, _ptr(items), _ptr(alt),
-         _ptr(cand_score), _ptr(cand_doc), _ptr(n_cand), _ptr(part_found),
-         _ptr(part_base), _ptr(bad), _ptr(class_rows), stream)
+    tail = (_ptr(row_off), _ptr(part_rq_t), _ptr(row_parts), len(part_rq),
+            int(with_counts), window, window_lanes, _ptr(items), _ptr(alt),
+            _ptr(cand_score), _ptr(cand_doc), _ptr(n_cand),
+            _ptr(part_found), _ptr(part_base), _ptr(bad), _ptr(class_rows),
+            stream)
+    if raw:
+        _run(lib, "raw_merge", events, lib.es_raw_merge, _ptr(flat_docs),
+             _ptr(flat_impact), flat_docs.shape[0], _ptr(starts),
+             _ptr(lengths), _ptr(weights), _ptr(min_count), r, t, max_len,
+             d_pad, *tail)
+    else:
+        streams, slots = _stream_slot_args(
+            flat_docs, flat_impact, starts, lengths, weights, min_count,
+            max_len=max_len, d_pad=d_pad, flat_rank=flat_rank,
+            res_starts=res_starts, res_lens=res_lens, res_vals=res_vals,
+            doc_bases=doc_bases, dbs_starts=dbs_starts,
+            dlo_starts=dlo_starts)
+        _run(lib, "exact_merge", events, lib.es_exact_merge, *streams,
+             *slots, *tail)
     out_vals = torch.empty((r, kk), dtype=torch.float32, device=dev)
     out_docs = torch.empty((r, kk), dtype=torch.int32, device=dev)
     _topk_rows(lib, cand_score, r, kk, stride=0, row_off=row_off,
@@ -756,3 +815,366 @@ def _launch_exact(flat_docs, flat_impact, starts, lengths, weights,
     if with_totals:
         return out_vals, out_docs, n_cand
     return out_vals, out_docs
+
+
+# ---------------------------------------------------------------------------
+# raw_merge: sorted_merge_topk(variant="ref" / "packed") on a raw pack
+# ---------------------------------------------------------------------------
+
+def raw_merge_topk_plain(flat_docs, flat_impact, starts, lengths, weights,
+                         min_count, *, packed: bool = False, **kw
+                         ) -> Tuple[torch.Tensor, ...]:
+    """The plain version of the raw merge (ops/sparse.merge_topk_core
+    with variant="ref", or "packed"), on whatever device the operands
+    lie."""
+    kw.pop("stats", None)
+    kw.pop("events", None)
+    return sparse.merge_topk_core(flat_docs, flat_impact, starts, lengths,
+                                  weights, min_count,
+                                  variant="packed" if packed else "ref",
+                                  **kw)
+
+
+def raw_merge_topk(flat_docs, flat_impact, starts, lengths, weights,
+                   min_count, *, packed: bool = False,
+                   stats: Optional[Dict[str, Any]] = None,
+                   events: Optional[list] = None, **kw
+                   ) -> Tuple[torch.Tensor, ...]:
+    """sorted_merge_topk(variant="ref" or "packed") on a raw pack (int32
+    docs, f32 impacts) → (scores f32 [R, k'], docs int32 [R, k'][, totals
+    int32 [R]]). CPU operands run the plain version of the variant; CUDA
+    operands launch raw_merge and shard_topk or raise. On a card "packed"
+    launches the same kernels as "ref": the reference's contract
+    (sorted_merge_topk's doc) makes the two bit-identical, and packed's
+    16-bit key is a device for a TPU's sort width, which a merge of
+    sorted runs does not need. `stats` and `events` as exact_merge_topk's.
+    """
+    if flat_docs.device.type == "cpu":
+        return raw_merge_topk_plain(flat_docs, flat_impact, starts, lengths,
+                                    weights, min_count, packed=packed, **kw)
+    if flat_docs.device.type != "cuda":
+        raise ValueError(f"raw merge runs on cuda or cpu tensors, got "
+                         f"{flat_docs.device}")
+    with device_context(flat_docs.device):
+        return _launch_exact(flat_docs, flat_impact, starts, lengths,
+                             weights, min_count, stats=stats, events=events,
+                             raw=True, **kw)
+
+
+# ---------------------------------------------------------------------------
+# the pruned tiers: pruned_candidates (phase A) and pruned_rescore (phase B)
+# ---------------------------------------------------------------------------
+
+#: candidates a pruned_rescore row orders in one block's shared memory
+PRUNED_CAND_LIMIT = 4096
+
+
+def pruned_candidates_plain(flat_docs, flat_impact, starts, lengths,
+                            weights, rows, *, max_len: int, d_pad: int,
+                            t_window: int, k: int, pack_keys: bool = False
+                            ) -> Tuple[torch.Tensor, ...]:
+    """Phase A of one group (the reference's make_pruned_search
+    one_group), on whatever device the operands lie: each query's
+    [G·T] slot windows of the impact-sorted docs (int32) and impacts
+    (f32), lanes keyed by gid = row·(d_pad + 1) + doc (rows [B, G·T]: the
+    slot's device-local row), a stable sort by gid (or, with pack_keys,
+    one sort of u32 keys: group-relative gid << 16 | impact code), the
+    run sums, ok = run end & total > 0, the count of ok runs and the
+    top-k by (score desc, position asc) → (vals f32 [B, k], gids int64
+    [B, k] (any gid where the value is -inf), totals int32 [B])."""
+    b, gt = starts.shape
+    width = gt * max_len
+    chunk = max(1, sparse.PLAIN_CHUNK_LANES // max(1, width))
+    outs = [_candidates_rows(flat_docs, flat_impact, starts[a:a + chunk],
+                             lengths[a:a + chunk], weights[a:a + chunk],
+                             rows[a:a + chunk], row0=rows[0, 0],
+                             max_len=max_len, d_pad=d_pad,
+                             t_window=t_window, k=k, pack_keys=pack_keys)
+            for a in range(0, max(b, 1), chunk)]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def _candidates_rows(flat_docs, flat_impact, starts, lengths, weights, rows,
+                     *, row0, max_len, d_pad, t_window, k, pack_keys):
+    b = starts.shape[0]
+    dev = starts.device
+    docs = sparse._window(flat_docs, starts, max_len)
+    imps = sparse._window(flat_impact, starts, max_len)
+    idx = torch.arange(max_len, dtype=torch.int64, device=dev)
+    valid = idx[None, None, :] < lengths[:, :, None]
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    imp = torch.where(valid, weights[:, :, None] * imps, zero)
+    lane_doc = torch.where(valid, docs, torch.full_like(docs, d_pad))
+    if pack_keys:
+        grel = torch.clamp(rows.to(torch.int64) - row0, min=0)
+        gid_p = grel[:, :, None] * (d_pad + 1) + lane_doc
+        key = ((gid_p << 16) | sparse.impact_code16(imp)).reshape(b, -1)
+        skp = torch.sort(key, dim=1).values
+        sk = (skp >> 16) + int(row0) * (d_pad + 1)
+        sv = sparse.decode_code16(skp & 0xFFFF)
+    else:
+        gid = rows.to(torch.int64)[:, :, None] * (d_pad + 1) + lane_doc
+        order = torch.sort(gid.reshape(b, -1), dim=1, stable=True).indices
+        sk = torch.gather(gid.reshape(b, -1), 1, order)
+        sv = torch.gather(imp.reshape(b, -1), 1, order)
+    total = sparse.segmented_run_sum(sk, sv, t_window)
+    run_end = torch.cat([sk[:, :-1] != sk[:, 1:],
+                         torch.ones((b, 1), dtype=torch.bool, device=dev)],
+                        dim=1)
+    ok = run_end & (total > 0.0)
+    score = torch.where(ok, total, torch.full_like(total, NEG_INF))
+    vals, pos = sparse.top_k_plain(score, k)
+    return vals, torch.gather(sk, 1, pos), ok.sum(dim=1, dtype=torch.int32)
+
+
+def pruned_candidates(flat_docs, flat_impact, starts, lengths, weights,
+                      rows, *, max_len: int, d_pad: int, t_window: int,
+                      k: int, pack_keys: bool = False,
+                      events: Optional[list] = None
+                      ) -> Tuple[torch.Tensor, ...]:
+    """pruned_candidates_plain's function: the plain version for CPU
+    operands; for CUDA operands the pruned_candidates kernel (each
+    query's valid lanes staged as (gid, w·impact) items, radix-sorted by
+    key, run sums and the ok runs as candidates in gid order) and
+    shard_topk over those candidates, or the call raises."""
+    kw = dict(max_len=max_len, d_pad=d_pad, t_window=t_window, k=k,
+              pack_keys=pack_keys)
+    if flat_docs.device.type == "cpu":
+        return pruned_candidates_plain(flat_docs, flat_impact, starts,
+                                       lengths, weights, rows, **kw)
+    if flat_docs.device.type != "cuda":
+        raise ValueError(f"pruned candidates run on cuda or cpu tensors, "
+                         f"got {flat_docs.device}")
+    with device_context(flat_docs.device):
+        return _launch_candidates(flat_docs, flat_impact, starts, lengths,
+                                  weights, rows, events=events, **kw)
+
+
+def _raw_streams(flat_docs, flat_impact, dev):
+    _need(flat_docs, "flat_docs", torch.int32, dev)
+    n_post = flat_docs.shape[0]
+    _need(flat_impact, "flat_impact", torch.float32, dev, (n_post,))
+    return n_post
+
+
+def _launch_candidates(flat_docs, flat_impact, starts, lengths, weights,
+                       rows, *, max_len, d_pad, t_window, k, pack_keys,
+                       events):
+    dev = flat_docs.device
+    n_post = _raw_streams(flat_docs, flat_impact, dev)
+    b, gt = starts.shape
+    for name, ten in (("starts", starts), ("lengths", lengths),
+                      ("rows", rows)):
+        _need(ten, name, torch.int32, dev, (b, gt))
+    _need(weights, "weights", torch.float32, dev, (b, gt))
+    if n_post < max_len or not 1 <= max_len <= MAX_LEN_LIMIT:
+        raise ValueError(f"pruned candidates take windows of 1..."
+                         f"{MAX_LEN_LIMIT} lanes inside the streams, got "
+                         f"{max_len} over {n_post} postings")
+    if t_window > T_LIMIT or b >= 65536:
+        raise ValueError(f"pruned candidates take t_window <= {T_LIMIT} "
+                         f"and fewer than 65536 queries")
+    n_rows = int(rows.max()) + 1 if rows.numel() else 1
+    if n_rows * (d_pad + 1) >= 1 << 31:
+        raise ValueError("pruned candidates keep gids in 31 bits")
+    kk = min(k, gt * max_len)
+    lib = _lib()
+    row_cap = lengths.clamp(min=0, max=max_len).sum(dim=1, dtype=torch.int64)
+    offs = torch.zeros(b + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(row_cap, dim=0, out=offs[1:])
+    caps = row_cap.tolist()
+    total_cap = max(1, sum(caps))
+    items = torch.empty(total_cap, dtype=torch.int64, device=dev)
+    alt = torch.empty(total_cap, dtype=torch.int64, device=dev)
+    cand_score = torch.empty(total_cap, dtype=torch.float32, device=dev)
+    cand_gid = torch.empty(total_cap, dtype=torch.int32, device=dev)
+    n_cand = torch.empty(b, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _run(lib, "pruned_candidates", events, lib.es_pruned_candidates,
+         _ptr(flat_docs), _ptr(flat_impact), n_post, _ptr(starts),
+         _ptr(lengths), _ptr(weights), _ptr(rows), b, gt, max_len, d_pad,
+         n_rows, int(pack_keys), t_window, _ptr(offs), _ptr(items),
+         _ptr(alt), _ptr(cand_score), _ptr(cand_gid), _ptr(n_cand), stream)
+    out_vals = torch.empty((b, kk), dtype=torch.float32, device=dev)
+    out_gids = torch.empty((b, kk), dtype=torch.int32, device=dev)
+    _topk_rows(lib, cand_score, b, kk, stride=0, row_off=offs[:b],
+               row_n=n_cand, n_all=0, n_max=max(max(caps, default=1), 1),
+               out_vals=out_vals, out_pos=None, ids=cand_gid, fill=0,
+               out_ids=out_gids, stats=None, events=events)
+    return out_vals, out_gids.to(torch.int64), n_cand
+
+
+def pruned_rescore_plain(ds_docs, ds_impacts, cand_gids, t_starts,
+                         t_lengths, t_weights, *, d_pad: int, p_pad: int,
+                         row_base: int, search_iters: int, cand_vals=None,
+                         k: Optional[int] = None):
+    """Phase B on one device (the reference's make_pruned_search, its
+    rescore), on whatever device the operands lie: each candidate gid
+    (int64 [B, C]) whose row lies in this device's rows [row_base,
+    row_base + S_l) of the doc-sorted docs (int32 [S_l, P_pad]) and
+    impacts gets, for each term of its row's ranges (t_* [S_l, B,
+    T_terms]), a lower-bound binary search of search_iters steps, and
+    the sum of the found w · impact over the terms in the reference's
+    association (_term_sum) → exact f32 [B, C] (0 off this device).
+    With cand_vals (one device holds every row) the result goes on to
+    pruned_order_plain: (vals [B, k], gids int64 [B, k])."""
+    s_l, p_pad_ = ds_docs.shape[0], p_pad
+    flat_ds = ds_docs.reshape(-1)
+    flat_imp = ds_impacts.reshape(-1)
+    b = cand_gids.shape[0]
+    d1 = d_pad + 1
+    gid32 = cand_gids.to(torch.int32).to(torch.int64)
+    row = torch.div(gid32, d1, rounding_mode="floor")
+    ord_ = gid32 - row * d1
+    local_row = row - row_base
+    in_local = (local_row >= 0) & (local_row < s_l)
+    lr = torch.clamp(local_row, 0, s_l - 1)
+    qsel = torch.arange(b, dtype=torch.int64, device=cand_gids.device)[:, None]
+    st = t_starts[lr, qsel].to(torch.int64)           # [B, C, T]
+    ln = t_lengths[lr, qsel].to(torch.int64)
+    w = t_weights[lr, qsel]
+    lo = (lr * p_pad_)[:, :, None] + st
+    hi = lo + ln
+    end = hi
+    ord3 = ord_[:, :, None]
+    for _ in range(search_iters):
+        mid = (lo + hi) >> 1
+        go = sparse._take(flat_ds, mid, d_pad) < ord3
+        lo = torch.where(go, mid + 1, lo)
+        hi = torch.where(go, hi, mid)
+    v = sparse._take(flat_ds, lo, d_pad)
+    found = (ln > 0) & (v == ord3) & (lo < end)
+    imp_f = sparse._take(flat_imp, lo, 0.0)
+    contrib = torch.where(found & in_local[:, :, None], w * imp_f,
+                          torch.zeros((), dtype=torch.float32,
+                                      device=w.device))
+    return _term_sum(contrib) if cand_vals is None else pruned_order_plain(
+        _term_sum(contrib), cand_vals, cand_gids, k=k)
+
+
+def _term_sum(contrib: torch.Tensor) -> torch.Tensor:
+    """Σ over the last axis (a power of two) in the association XLA:CPU
+    gives the reference's rescore sum inside its fused step: halving,
+    x_i + x_(i + n/2), then again over the halves (for 8 terms ((x0 + x4)
+    + (x2 + x6)) + ((x1 + x5) + (x3 + x7)))."""
+    n = contrib.shape[-1]
+    if n & (n - 1):
+        raise ValueError(f"the term sum takes a power of two of terms, "
+                         f"got {n}")
+    while n > 1:
+        n //= 2
+        contrib = contrib[..., :n] + contrib[..., n:]
+    return contrib[..., 0]
+
+
+
+def pruned_order_plain(exact, cand_vals, cand_gids, *, k: int):
+    """The pruned step's final order, on whatever device the operands
+    lie: -inf where the candidate is (cand_vals), then (−exact, gid)
+    ascending with the reference sort's float order (-0.0 before 0.0),
+    the first k → (vals f32 [B, k], gids int64 [B, k])."""
+    exact = torch.where(cand_vals > NEG_INF, exact,
+                        torch.full_like(exact, NEG_INF))
+    neg = torch.where(exact > NEG_INF, -exact,
+                      torch.full_like(exact, float("inf")))
+    bits = neg.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    ob = torch.where(bits >= 0x80000000, bits ^ 0xFFFFFFFF,
+                     bits | 0x80000000)
+    o1 = torch.sort(cand_gids, dim=1, stable=True).indices
+    o2 = torch.sort(torch.gather(ob, 1, o1), dim=1, stable=True).indices
+    order = torch.gather(o1, 1, o2)[:, :k]
+    neg_s = torch.gather(neg, 1, order)
+    vals = torch.where(torch.isinf(neg_s), torch.full_like(neg_s, NEG_INF),
+                       -neg_s)
+    return vals, torch.gather(cand_gids, 1, order)
+
+
+def pruned_rescore(ds_docs, ds_impacts, cand_gids, t_starts, t_lengths,
+                   t_weights, *, d_pad: int, p_pad: int, row_base: int,
+                   search_iters: int, cand_vals=None, k: Optional[int] = None,
+                   events: Optional[list] = None):
+    """pruned_rescore_plain's function: the plain version for CPU
+    operands; for CUDA operands the pruned_rescore kernel (a block a
+    query: a warp a candidate, its terms' binary searches, the sum in
+    the reference's order, and with cand_vals the final order in shared
+    memory), or the call raises."""
+    kw = dict(d_pad=d_pad, p_pad=p_pad, row_base=row_base,
+              search_iters=search_iters, cand_vals=cand_vals, k=k)
+    if ds_docs.device.type == "cpu":
+        return pruned_rescore_plain(ds_docs, ds_impacts, cand_gids,
+                                    t_starts, t_lengths, t_weights, **kw)
+    if ds_docs.device.type != "cuda":
+        raise ValueError(f"pruned rescore runs on cuda or cpu tensors, "
+                         f"got {ds_docs.device}")
+    with device_context(ds_docs.device):
+        return _launch_rescore(ds_docs, ds_impacts, cand_gids, t_starts,
+                               t_lengths, t_weights, None, events=events,
+                               **kw)
+
+
+def pruned_order(exact, cand_vals, cand_gids, *, k: int,
+                 events: Optional[list] = None):
+    """pruned_order_plain's function: the plain version for CPU operands;
+    for CUDA operands the pruned_rescore kernel in its order-only mode,
+    or the call raises."""
+    if exact.device.type == "cpu":
+        return pruned_order_plain(exact, cand_vals, cand_gids, k=k)
+    if exact.device.type != "cuda":
+        raise ValueError(f"pruned order runs on cuda or cpu tensors, got "
+                         f"{exact.device}")
+    with device_context(exact.device):
+        return _launch_rescore(None, None, cand_gids, None, None, None,
+                               exact, cand_vals=cand_vals, k=k, d_pad=0,
+                               p_pad=0, row_base=0, search_iters=0,
+                               events=events)
+
+
+def _launch_rescore(ds_docs, ds_impacts, cand_gids, t_starts, t_lengths,
+                    t_weights, exact_in, *, d_pad, p_pad, row_base,
+                    search_iters, cand_vals, k, events):
+    """One pruned_rescore launch: mode 1 scores (ds_* given), 2 orders
+    (cand_vals given), 3 both."""
+    dev = cand_gids.device
+    b, c = cand_gids.shape
+    _need(cand_gids, "cand_gids", torch.int64, dev)
+    if c > PRUNED_CAND_LIMIT:
+        raise ValueError(f"pruned rescore orders at most "
+                         f"{PRUNED_CAND_LIMIT} candidates a query, got {c}")
+    score = ds_docs is not None
+    order = cand_vals is not None
+    s_l = n_post = t_terms = 0
+    if score:
+        n_post = _raw_streams(ds_docs.reshape(-1), ds_impacts.reshape(-1),
+                              dev)
+        s_l = ds_docs.shape[0]
+        t_terms = t_starts.shape[2]
+        for name, ten in (("t_starts", t_starts), ("t_lengths", t_lengths)):
+            _need(ten, name, torch.int32, dev, (s_l, b, t_terms))
+        _need(t_weights, "t_weights", torch.float32, dev, (s_l, b, t_terms))
+    else:
+        _need(exact_in, "exact", torch.float32, dev, (b, c))
+    exact_out = None
+    out_vals = out_gids = None
+    kk = 0
+    if order:
+        _need(cand_vals, "cand_vals", torch.float32, dev, (b, c))
+        kk = min(k, c)
+        out_vals = torch.empty((b, kk), dtype=torch.float32, device=dev)
+        out_gids = torch.empty((b, kk), dtype=torch.int64, device=dev)
+    else:
+        exact_out = torch.empty((b, c), dtype=torch.float32, device=dev)
+    mode = int(score) | int(order) << 1
+    lib = _lib()
+    if b and c:
+        _run(lib, "pruned_rescore", events, lib.es_pruned_rescore,
+             _ptr(ds_docs), _ptr(ds_impacts), n_post, _ptr(cand_gids), c,
+             _ptr(t_starts), _ptr(t_lengths), _ptr(t_weights), s_l, b,
+             t_terms, d_pad, p_pad, row_base, search_iters, _ptr(exact_in),
+             _ptr(cand_vals), _ptr(exact_out), kk, _ptr(out_vals),
+             _ptr(out_gids), mode, torch.cuda.current_stream(dev).cuda_stream)
+    elif order:
+        out_vals.fill_(NEG_INF)
+        out_gids.zero_()
+    else:
+        exact_out.zero_()
+    return (out_vals, out_gids) if order else exact_out

@@ -1,7 +1,7 @@
-"""Compressed-pack sorted-merge top-k: host helpers and the plain torch core.
+"""Sorted-merge top-k: host helpers and the plain torch core.
 
 Counterpart of ``elasticsearch_tpu/ops/sparse.py`` for the compressed
-resident pack. The host half (code helpers, ``compress_flat``, the
+and the raw resident packs. The host half (code helpers, ``compress_flat``, the
 delta doc stream, ``packable``, ``plan_slots``, ``eager_impacts``) is a
 verbatim numpy copy. The device half is written in torch:
 
@@ -10,7 +10,9 @@ verbatim numpy copy. The device half is written in torch:
   * ``hierarchical_top_k`` — top-k with the earliest-index tie rule
     (``lax.top_k``), built on a stable descending sort;
   * ``_rank_decode``, ``_packed_rescore_topk`` and ``_merge_topk_core``
-    for the ``compressed`` and ``compressed_exact`` variants.
+    for the ``compressed`` and ``compressed_exact`` variants on the
+    compressed streams, and ``ref`` and ``packed`` on a raw pack (int32
+    docs, f32 impacts).
 
 Every sort that the reference runs through ``lax.sort`` (stable) or
 ``lax.top_k`` (earliest index wins) is a ``torch.sort(stable=True)`` on
@@ -18,13 +20,14 @@ explicit keys here; u32 sort keys ride as int64, because torch has few
 uint32 ops. The result is bit-identical to the JAX package on the same
 operands: scores compared as uint32, doc ids and totals exactly.
 
-``sorted_merge_topk(variant=...)`` takes ``compressed``,
-``compressed_exact`` and ``pallas``. On a CUDA tensor each launches its
-hand-written Hopper kernels (``ops/merge_kernel.py``): the fused merge
-for ``compressed``/``pallas``, the exact merge and the shard top-k for
-``compressed_exact`` (the gate for weights that fail ``packable()``); on
-a CPU tensor each runs the plain core below, ``merge_topk_core``, whose
-top-k is ``top_k_plain``.
+``sorted_merge_topk(variant=...)`` takes every variant of the
+reference. On a CUDA tensor each launches its hand-written Hopper
+kernels (``ops/merge_kernel.py``): the fused merge for
+``compressed``/``pallas``, the exact merge and the shard top-k for
+``compressed_exact`` (the gate for weights that fail ``packable()``),
+the raw merge and the shard top-k for ``ref`` and ``packed``; on a CPU
+tensor each runs the plain core below, ``merge_topk_core``, whose top-k
+is ``top_k_plain``.
 """
 
 from __future__ import annotations
@@ -46,9 +49,11 @@ PACKED_DOC_LIMIT = 1 << 16
 PACKED_WEIGHT_MIN = 1e-12
 PACKED_WEIGHT_MAX = 1e30
 
-#: variants this port serves; "ref"/"packed" read raw packs, which come
-#: with the raw-pack slice
-KERNEL_VARIANTS = ("compressed", "compressed_exact", "pallas")
+#: every variant of the reference: "ref"/"packed" read a raw pack
+#: (int32 docs, f32 impacts), the others the compressed streams
+KERNEL_VARIANTS = ("ref", "packed", "compressed", "compressed_exact",
+                   "pallas")
+COMPRESSED_VARIANTS = ("compressed", "compressed_exact", "pallas")
 
 #: block-max metadata granularity (one max code per 128 postings lanes)
 COMPRESSED_BLOCK = 128
@@ -441,13 +446,20 @@ def _lane_decode(flat_docs, flat_impact, starts, lengths, weights, *,
                  res_starts=None, res_lens=None, res_vals=None,
                  doc_bases=None, dbs_starts=None, dlo_starts=None):
     """Stage 1: gather every slot's window and decode lane docs and
-    weighted lane values → (docs int64[R,T,L], imp f32[R,T,L])."""
+    weighted lane values → (docs int64[R,T,L], imp f32[R,T,L]). An f32
+    flat_impact is a raw pack's: its lanes are w · impact as they lie."""
     dev = starts.device
     idx = torch.arange(max_len, dtype=torch.int64, device=dev)
     docs = _window(flat_docs, starts, max_len).to(torch.int64)
-    codes = _window(flat_impact, starts, max_len).to(torch.int64)
     valid = idx[None, None, :] < lengths[:, :, None]
     pad = torch.full_like(docs, d_pad)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    if flat_impact.dtype == torch.float32:
+        # a raw pack: int32 docs, f32 impacts
+        imps = _window(flat_impact, starts, max_len)
+        return (torch.where(valid, docs, pad),
+                torch.where(valid, weights[:, :, None] * imps, zero))
+    codes = _window(flat_impact, starts, max_len).to(torch.int64)
     if doc_bases is not None:
         nb_slice = max_len // COMPRESSED_BLOCK + 2
         n_bd = doc_bases.shape[0]
@@ -461,7 +473,6 @@ def _lane_decode(flat_docs, flat_impact, starts, lengths, weights, *,
         docs = torch.where(valid, docs, pad)
     codes = torch.where(valid, codes, torch.zeros_like(codes))
     w3 = weights[:, :, None]
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
     if exact:
         ranks = _window(flat_rank, starts, max_len).to(torch.int64)
         ranks = torch.where(valid, ranks, torch.zeros_like(ranks))
@@ -593,16 +604,19 @@ def _run_totals(sk, sv, min_count, *, d_pad: int, t_window: int,
 
 def _packed_rescore_topk(flat_docs, starts, lengths, weights, sk, score,
                          cnt, kk, *, max_len: int, d_pad: int,
-                         t_window: int, res, delta=None):
+                         t_window: int, res=None, delta=None,
+                         flat_impact=None):
     """Stage 5: candidate selection over the quantized run totals (with
-    the compressed slack), exact rescore through the residual tables, and
-    the final (−score, doc) order. The rescore sums the matched
-    contributions in slot order with the SAME log-step tree as
-    segmented_run_sum, so the scores equal the reference's bit for bit."""
+    the reference's slack: doubled for the compressed streams, which
+    quantize twice), exact rescore through the residual tables (res) or
+    from a raw pack's f32 impacts (flat_impact), and the final (−score,
+    doc) order. The rescore sums the matched contributions in slot order
+    with the SAME log-step tree as segmented_run_sum, so the scores equal
+    the reference's bit for bit."""
     dev = sk.device
     r, t_slots = starts.shape
     length = sk.shape[1]
-    slack = max(2 * kk, 256)
+    slack = max(2 * kk, 256) if res is not None else max(2 * kk, 128)
     kc = min(length, kk + slack)
     a_vals, a_pos = top_k_plain(score, kc)
     cand_docs = torch.gather(sk, 1, a_pos)                      # [R, kc]
@@ -639,10 +653,14 @@ def _packed_rescore_topk(flat_docs, starts, lengths, weights, sk, score,
         hi = torch.where(active & ~go, mid, hi)
     v = doc_at(lo)
     found = (ln3 > 0) & (lo < end) & (v == target) & (target < d_pad)
-    res_st, res_ln, r_vals, f_rank = res
-    rank_at = _take(f_rank, lo, 0)
-    imp_exact = _rank_decode(rank_at, res_st.to(torch.int64)[:, None, :],
-                             res_ln.to(torch.int64)[:, None, :], r_vals)
+    if res is None:
+        imp_exact = _take(flat_impact, lo, 0.0)
+    else:
+        res_st, res_ln, r_vals, f_rank = res
+        rank_at = _take(f_rank, lo, 0)
+        imp_exact = _rank_decode(rank_at,
+                                 res_st.to(torch.int64)[:, None, :],
+                                 res_ln.to(torch.int64)[:, None, :], r_vals)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     contrib = torch.where(found, weights[:, None, :] * imp_exact, zero)
 
@@ -681,8 +699,9 @@ def _packed_rescore_topk(flat_docs, starts, lengths, weights, sk, score,
 
 
 def sorted_merge_topk(
-    flat_docs: torch.Tensor,    # u16[P] doc ids, or u8[P] deltas with doc_bases
-    flat_impact: torch.Tensor,  # u16[P] value codes
+    flat_docs: torch.Tensor,    # u16[P] doc ids, or u8[P] deltas with
+                                # doc_bases; int32[P] on a raw pack
+    flat_impact: torch.Tensor,  # u16[P] value codes; f32[P] on a raw pack
     starts: torch.Tensor,       # int32[R, T] absolute offsets into the streams
     lengths: torch.Tensor,      # int32[R, T] chunk lengths (0 = empty slot)
     weights: torch.Tensor,      # f32[R, T] idf·(k1+1)·boost per slot
@@ -708,16 +727,17 @@ def sorted_merge_topk(
 ) -> Tuple[torch.Tensor, ...]:
     """→ (scores f32[R, k'], doc_ids int32[R, k'][, totals int32[R]]);
     empty lanes are (-inf, d_pad), k' = min(k, T·L_c). Same operands,
-    gates and bits as the reference's sorted_merge_topk for the
-    compressed variants."""
+    gates and bits as the reference's sorted_merge_topk. "ref" and
+    "packed" read a raw pack; "packed" needs d_pad < 2**16."""
     if variant not in KERNEL_VARIANTS:
         raise ValueError(f"unknown kernel variant {variant!r}")
-    if d_pad >= PACKED_DOC_LIMIT:
+    compressed = variant in COMPRESSED_VARIANTS
+    if variant != "ref" and d_pad >= PACKED_DOC_LIMIT:
         raise ValueError(
             f"variant {variant!r} needs d_pad < {PACKED_DOC_LIMIT}, got "
-            f"{d_pad}")
-    if (flat_rank is None or res_starts is None or res_lens is None
-            or res_vals is None):
+            f"{d_pad} — caller must fall back to variant='ref'")
+    if compressed and (flat_rank is None or res_starts is None
+                       or res_lens is None or res_vals is None):
         raise ValueError(
             "compressed variants need flat_rank/res_starts/res_lens/"
             "res_vals — build them with compress_flat()")
@@ -737,16 +757,21 @@ def sorted_merge_topk(
         return merge_kernel.fused_merge_topk(
             flat_docs, flat_impact, starts, lengths, weights, min_count,
             **kw)
-    return merge_kernel.exact_merge_topk(
-        flat_docs, flat_impact, starts, lengths, weights, min_count, **kw)
+    if variant == "compressed_exact":
+        return merge_kernel.exact_merge_topk(
+            flat_docs, flat_impact, starts, lengths, weights, min_count,
+            **kw)
+    return merge_kernel.raw_merge_topk(
+        flat_docs, flat_impact, starts, lengths, weights, min_count,
+        packed=variant == "packed", **kw)
 
 
 def merge_topk_core(flat_docs, flat_impact, starts, lengths, weights,
                     min_count, *, max_len: int, d_pad: int, k: int,
                     t_window: int, with_counts: bool, with_totals: bool,
                     variant: str, **optional) -> Tuple[torch.Tensor, ...]:
-    """The plain torch pipeline for `variant` ("compressed" or
-    "compressed_exact"), run over row chunks so the gathered [R, T, L]
+    """The plain torch pipeline for `variant` (any but "pallas"), run
+    over row chunks so the gathered [R, T, L]
     scratch stays bounded. Rows are independent, so chunking changes no
     bit of the result."""
     r, t_slots = starts.shape
@@ -773,19 +798,22 @@ def _merge_topk_core(
     res_lens=None, res_vals=None, block_max=None, blk_starts=None,
     slot_terms=None, doc_bases=None, dbs_starts=None, dlo_starts=None,
 ) -> Tuple[torch.Tensor, ...]:
-    """The reference's _merge_topk_core for the compressed variants, in
-    torch ops, stage by stage."""
+    """The reference's _merge_topk_core in torch ops, stage by stage:
+    "ref" and "compressed_exact" sort exact f32 lanes by doc and take
+    their top-k; "packed" and "compressed" sort one quantized key a lane
+    and rescore their candidates exactly."""
     r, t_slots = starts.shape
-    exact = variant == "compressed_exact"
+    exact = variant in ("ref", "compressed_exact")
     docs, imp = _lane_decode(
         flat_docs, flat_impact, starts, lengths, weights, max_len=max_len,
-        d_pad=d_pad, exact=exact, flat_rank=flat_rank,
+        d_pad=d_pad, exact=variant == "compressed_exact",
+        flat_rank=flat_rank,
         res_starts=res_starts, res_lens=res_lens, res_vals=res_vals,
         doc_bases=doc_bases, dbs_starts=dbs_starts, dlo_starts=dlo_starts)
     length = t_slots * max_len
     kk = min(k, length)
 
-    do_skip = (not exact and block_max is not None
+    do_skip = (variant == "compressed" and block_max is not None
                and blk_starts is not None and k <= max_len)
     skip_totals = None
     if do_skip and with_totals:
@@ -824,10 +852,13 @@ def _merge_topk_core(
         delta = None
         if doc_bases is not None:
             delta = (doc_bases, dbs_starts, dlo_starts)
+        res = None
+        if variant == "compressed":
+            res = (res_starts, res_lens, res_vals, flat_rank)
         vals, hit_docs = _packed_rescore_topk(
             flat_docs, starts, lengths, weights, sk, score, cnt, kk,
-            max_len=max_len, d_pad=d_pad, t_window=t_window,
-            res=(res_starts, res_lens, res_vals, flat_rank), delta=delta)
+            max_len=max_len, d_pad=d_pad, t_window=t_window, res=res,
+            delta=delta, flat_impact=flat_impact)
     if with_totals:
         return vals, hit_docs, totals
     return vals, hit_docs

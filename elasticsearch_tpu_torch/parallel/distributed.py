@@ -21,8 +21,20 @@ another; only the collectives are serialized between steps.
   CompressedStreams — the compressed resident image: u16 (or u8-delta)
     doc stream, u16 value codes, u16 ranks, block-max codes, residual
     tables.
-  MeshImage — the image placed over a mesh.
+  MeshImage — the image placed over a mesh: the compressed streams, or a
+    raw pack (``device_put_pack``: the doc-sorted int32 docs and f32
+    impacts, the live masks and the impact-sorted copy of
+    ``build_impact_sorted``).
   QueryBatch — per-(shard, query, slot) chunk arrays.
+
+A raw pack also serves the block-max pruned tiers (``make_pruned_search``,
+the reference's r5 routing): phase A merges each query's impact-sorted
+postings prefixes (or its full postings, in the no-rescore tier) over
+groups of at most FUSE_ROWS rows into candidates (the
+``pruned_candidates`` kernel), the tail gathers them in column order and
+takes the global top-c; phase B rescores every candidate exactly by a
+binary search of each term's doc-sorted postings and orders them by
+(−score, gid) (the ``pruned_rescore`` kernel).
 
 Global doc identity: shard s, local ordinal d → s * (d_pad + 1) + d,
 decoded host-side by ``decode_refs``.
@@ -49,6 +61,16 @@ from elasticsearch_tpu_torch.parallel.mesh import (DATA_AXIS, SHARD_AXIS,
 
 NEG_INF = float("-inf")
 CHUNK_CAP = 4096  # max postings chunk per slot; flat arrays pad by this much
+FUSE_ROWS = 8     # max pack rows fused into one phase-A group
+#: phase-A element budget per group: the group size derives from it, so a
+#: wide-slot, big-batch launch fuses fewer rows
+FUSE_ELEM_BUDGET = 192 * 1024 * 1024
+
+
+def fuse_group_rows(batch_b: int, t_slots: int, max_len: int) -> int:
+    """Rows of one phase-A group for a batch of batch_b queries."""
+    per_row = batch_b * t_slots * max_len
+    return max(1, min(FUSE_ROWS, FUSE_ELEM_BUDGET // max(per_row, 1)))
 
 
 @dataclasses.dataclass
@@ -78,6 +100,11 @@ class StackedShardPack:
     row_group: Optional[List[int]] = None
     group_df: Optional[List[Dict[str, int]]] = None
     group_doc_count: Optional[List[int]] = None
+
+    def nbytes_device(self) -> int:
+        """Bytes of the doc-sorted raw image: docs, impacts, live masks."""
+        return (self.flat_docs.nbytes + self.flat_impact.nbytes
+                + self.live.nbytes)
 
 
 def build_stacked_pack(segments: Sequence[Segment], field: str,
@@ -271,17 +298,20 @@ def build_compressed_streams(pack: StackedShardPack,
 
 @dataclasses.dataclass
 class MeshImage:
-    """The compressed image laid over a mesh: parts[d][c] holds shards
-    [c·S_l, (c+1)·S_l) of every stream on device grid[d][c] (the
+    """A resident image laid over a mesh: parts[d][c] holds shards
+    [c·S_l, (c+1)·S_l) of every array on device grid[d][c] (the
     reference's P(SHARD_AXIS, None): split over the shards axis,
-    replicated down the data axis)."""
+    replicated down the data axis). A compressed image's part is its 5
+    streams (6 in delta mode); a raw one's (raw=True) its 5 arrays
+    (device_put_pack)."""
 
     mesh: Mesh
     parts: Tuple[Tuple[Tuple[torch.Tensor, ...], ...], ...]
+    raw: bool = False
 
     @property
     def delta(self) -> bool:
-        return len(self.parts[0][0]) == 6
+        return not self.raw and len(self.parts[0][0]) == 6
 
     def row_arrays(self) -> Tuple[torch.Tensor, ...]:
         """Every tensor of one data row: the image once."""
@@ -302,6 +332,54 @@ def device_put_compressed(streams: CompressedStreams,
     else:
         arrays = (streams.flat_docs16, streams.flat_code16,
                   streams.flat_rank16, streams.block_max, streams.res_vals)
+    return _place(arrays, mesh)
+
+
+def build_impact_sorted(pack: StackedShardPack
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-term impact-DESCENDING copies of the postings arrays (the
+    block-max layout): the pruned tiers read each term's highest-impact
+    prefix, and what they skip is bounded by the impact at the cut. Ties
+    order by doc id. Returns host (docs, impacts) [S, P_pad]."""
+    s, p_pad = pack.flat_docs.shape
+    imp_docs = pack.flat_docs.copy()
+    imp_impacts = pack.flat_impact.copy()
+    for si in range(s):
+        rstart = pack.row_starts[si]
+        total = int(rstart[-1])
+        if total <= 1:
+            continue
+        # one lexsort per row: term id first (keeps the rows), then
+        # -impact, then doc (deterministic ties)
+        term_ids = np.repeat(np.arange(len(rstart) - 1, dtype=np.int64),
+                             np.diff(rstart))
+        seg_doc = pack.flat_docs[si, :total]
+        seg_imp = pack.flat_impact[si, :total]
+        order = np.lexsort((seg_doc, -seg_imp, term_ids))
+        imp_docs[si, :total] = seg_doc[order]
+        imp_impacts[si, :total] = seg_imp[order]
+    return imp_docs, imp_impacts
+
+
+def raw_image_nbytes(pack: StackedShardPack, imp_docs: np.ndarray,
+                     imp_impacts: np.ndarray) -> int:
+    """Bytes of a raw image, as the reference's cache charges them: the
+    doc-sorted pack and its impact-sorted copy."""
+    return pack.nbytes_device() + imp_docs.nbytes + imp_impacts.nbytes
+
+
+def device_put_pack(pack: StackedShardPack, mesh: Mesh,
+                    imp_docs: np.ndarray, imp_impacts: np.ndarray
+                    ) -> MeshImage:
+    """Place a raw pack over `mesh`: each part holds (flat_docs int32,
+    flat_impact f32, live bool, imp_docs int32, imp_impacts f32), the
+    doc-sorted pack and its impact-sorted copy, raw_image_nbytes in
+    all."""
+    return _place((pack.flat_docs, pack.flat_impact, pack.live, imp_docs,
+                   imp_impacts), mesh, raw=True)
+
+
+def _place(arrays, mesh: Mesh, raw: bool = False) -> MeshImage:
     n_sh = mesh.shape[SHARD_AXIS]
     s = arrays[0].shape[0]
     if s % n_sh:
@@ -313,7 +391,7 @@ def device_put_compressed(streams: CompressedStreams,
     parts = tuple(tuple(tuple(t.to(dev) for t in host[c])
                         for c, dev in enumerate(row))
                   for row in mesh.grid)
-    return MeshImage(mesh, parts)
+    return MeshImage(mesh, parts, raw=raw)
 
 
 @dataclasses.dataclass
@@ -329,6 +407,10 @@ class QueryBatch:
     t_slots: int
     window: int            # max same-doc entries per row (= max terms)
     need_counts: bool      # any query has min_count > 1 (msm/AND)
+    # the pruned tiers only: per (shard, query) bound on the score a doc
+    # can collect from truncated postings tails, Σ_t w_t · impact_t[cap]
+    tail_bounds: Optional[np.ndarray] = None  # f32[S, B]
+    truncated: bool = False  # any slot shorter than its full postings row
     res_starts: Optional[np.ndarray] = None   # int32[S, B, T]
     res_lens: Optional[np.ndarray] = None     # int32[S, B, T]
     slot_terms: Optional[np.ndarray] = None   # int32[S, B, T]
@@ -362,11 +444,20 @@ def prepare_query_batch(pack: StackedShardPack,
                         min_counts: Optional[Sequence[int]] = None,
                         pad_batch_to: Optional[int] = None,
                         pad_max_len: Optional[int] = None,
-                        compressed: Optional[CompressedStreams] = None
+                        compressed: Optional[CompressedStreams] = None,
+                        prefix_cap: Optional[int] = None,
+                        imp_impacts: Optional[np.ndarray] = None,
+                        pad_t_slots: Optional[int] = None
                         ) -> QueryBatch:
     """Host-side planning: vocab lookups, group-level idf, chunk
     splitting. min_counts[i] = required matched clauses. compressed: the
-    pack's streams, to fill the residual extents and slot→term ids."""
+    pack's streams, to fill the residual extents and slot→term ids.
+    prefix_cap (the pruned tiers): each term's slots stop at its first
+    prefix_cap impact-sorted entries, valid only against the
+    impact-sorted copy, whose host imp_impacts give the tail bound at the
+    cut. pad_t_slots pads the slot count up to that many."""
+    if prefix_cap is not None and imp_impacts is None:
+        raise ValueError("prefix_cap requires imp_impacts")
     b_real = len(queries)
     b = pad_batch_to or b_real
     if b < b_real:
@@ -375,6 +466,9 @@ def prepare_query_batch(pack: StackedShardPack,
     s = pack.num_shards
     rows: List[List[Tuple[int, int, float, int]]] = []
     mins: List[int] = []
+    tail_bounds = (np.zeros((s, b), dtype=np.float32)
+                   if prefix_cap is not None else None)
+    truncated = False
     for si in range(s):
         vocab = pack.vocabs[si]
         rstart = pack.row_starts[si]
@@ -388,18 +482,32 @@ def prepare_query_batch(pack: StackedShardPack,
             weights_r = term_weights(pack, si, terms, boost)
             row = []
             for tid, term in enumerate(terms):
+                w = weights_r[tid]
                 r = vocab.get(term, -1)
                 if r >= 0:
                     st = int(rstart[r])
                     ln = int(rstart[r + 1] - rstart[r])
                 else:
                     st, ln = 0, 0
-                row.append((st, ln, weights_r[tid], tid))
+                if prefix_cap is not None and ln > prefix_cap:
+                    # the skipped entries' impacts are at most the one at
+                    # the cut (impact-descending layout)
+                    tail_bounds[si, qi] += w * float(
+                        imp_impacts[si, st + prefix_cap])
+                    ln = prefix_cap
+                    truncated = True
+                row.append((st, ln, w, tid))
             rows.append(row)
             mins.append(int(min_counts[qi]) if min_counts is not None else 1)
     plan = sparse.plan_slots(rows, mins, chunk_cap=CHUNK_CAP)
     t_slots = plan.t_slots
     starts_a, lengths_a, weights_a = plan.starts, plan.lengths, plan.weights
+    if pad_t_slots is not None and pad_t_slots > t_slots:
+        pad = ((0, 0), (0, pad_t_slots - t_slots))
+        starts_a = np.pad(starts_a, pad)
+        lengths_a = np.pad(lengths_a, pad)
+        weights_a = np.pad(weights_a, pad)
+        t_slots = pad_t_slots
     max_len = plan.max_len
     if pad_max_len is not None and pad_max_len > max_len:
         max_len = pad_max_len
@@ -428,6 +536,7 @@ def prepare_query_batch(pack: StackedShardPack,
             res_lens3[si][lengths3[si] == 0] = 0
     return QueryBatch(starts3, lengths3, weights_a.reshape(shape3), mc,
                       max_len, t_slots, plan.window, bool((mc > 1).any()),
+                      tail_bounds=tail_bounds, truncated=truncated,
                       res_starts=res_starts3, res_lens=res_lens3,
                       slot_terms=slot_terms3)
 
@@ -446,13 +555,43 @@ def _local_body(flat_docs, flat_impact, starts, lengths, weights, min_count,
     flat_docs/flat_impact [S, P_pad]; starts/lengths/weights [S, B, T]
     (shard-relative starts); comp = (flat_rank, block_max, res_vals,
     res_starts, res_lens, slot_terms, doc_bases or None), flattened here
-    with per-shard offsets. With doc_bases (delta doc stream) each slot's
-    base cursor (dbs, dlo) derives from its shard-relative start."""
+    with per-shard offsets, or None for a raw pack. With doc_bases (delta
+    doc stream) each slot's base cursor (dbs, dlo) derives from its
+    shard-relative start."""
     dev = flat_docs.device
     s_l, b, t = starts.shape
     base = torch.arange(s_l, dtype=torch.int32, device=dev) * p_pad
     starts_abs = starts + base[:, None, None]
     r = s_l * b
+    extra = {}
+    if comp is not None:
+        extra = _compressed_operands(comp, starts, r, t)
+    vals, docs, totals = sparse.sorted_merge_topk(
+        flat_docs.reshape(-1), flat_impact.reshape(-1),
+        starts_abs.reshape(r, t).contiguous(),
+        lengths.reshape(r, t).contiguous(),
+        weights.reshape(r, t).contiguous(),
+        min_count.repeat(s_l).contiguous(),
+        max_len=max_len, d_pad=d_pad, k=k, t_window=t_window,
+        with_counts=with_counts, with_totals=True, variant=variant,
+        **extra)
+    k_l = vals.shape[1]
+    vals = vals.reshape(s_l, b, k_l)
+    docs = docs.reshape(s_l, b, k_l)
+    totals_b = totals.reshape(s_l, b).sum(dim=0, dtype=torch.int32)
+    shard_ids = shard_offset + torch.arange(s_l, dtype=torch.int64,
+                                            device=dev)
+    gids = docs.to(torch.int64) + (shard_ids * (d_pad + 1))[:, None, None]
+    vals_b = vals.permute(1, 0, 2).reshape(b, -1)
+    gids_b = gids.permute(1, 0, 2).reshape(b, -1)
+    return vals_b, gids_b, totals_b
+
+
+def _compressed_operands(comp, starts, r: int, t: int):
+    """The compressed streams' keyword operands of sorted_merge_topk,
+    flattened with per-shard offsets."""
+    dev = starts.device
+    s_l = starts.shape[0]
     (flat_rank, block_max, res_vals, res_starts, res_lens, slot_terms,
      doc_bases) = comp
     nbp = block_max.shape[1]
@@ -475,25 +614,7 @@ def _local_body(flat_docs, flat_impact, starts, lengths, weights, min_count,
                      dbs_starts=dbs.reshape(r, t).contiguous(),
                      dlo_starts=(starts % sparse.COMPRESSED_BLOCK
                                  ).reshape(r, t).contiguous())
-    vals, docs, totals = sparse.sorted_merge_topk(
-        flat_docs.reshape(-1), flat_impact.reshape(-1),
-        starts_abs.reshape(r, t).contiguous(),
-        lengths.reshape(r, t).contiguous(),
-        weights.reshape(r, t).contiguous(),
-        min_count.repeat(s_l).contiguous(),
-        max_len=max_len, d_pad=d_pad, k=k, t_window=t_window,
-        with_counts=with_counts, with_totals=True, variant=variant,
-        **extra)
-    k_l = vals.shape[1]
-    vals = vals.reshape(s_l, b, k_l)
-    docs = docs.reshape(s_l, b, k_l)
-    totals_b = totals.reshape(s_l, b).sum(dim=0, dtype=torch.int32)
-    shard_ids = shard_offset + torch.arange(s_l, dtype=torch.int64,
-                                            device=dev)
-    gids = docs.to(torch.int64) + (shard_ids * (d_pad + 1))[:, None, None]
-    vals_b = vals.permute(1, 0, 2).reshape(b, -1)
-    gids_b = gids.permute(1, 0, 2).reshape(b, -1)
-    return vals_b, gids_b, totals_b
+    return extra
 
 
 def _merge_topk(vals_b, gids_b, k: int):
@@ -520,9 +641,11 @@ def _run_bodies(jobs):
     return [job() for job in jobs]
 
 
-#: the batch operands a step takes, in order ([S, B, T] each, then [B])
+#: the batch operands a step takes, in order ([S, B, T] each, then [B]);
+#: a raw pack's step takes the first three
 _BATCH_FIELDS = ("starts", "lengths", "weights", "res_starts", "res_lens",
                  "slot_terms")
+_RAW_FIELDS = _BATCH_FIELDS[:3]
 
 
 def _gather_row(outs, cuda: bool):
@@ -562,24 +685,29 @@ def make_distributed_search(mesh: Mesh, *, max_len: int, d_pad: int,
     their totals and takes the cross-shard top-k (the tail). The step
     takes a MeshImage and the host batch arrays and returns each data
     row's (vals [B_l, k'], gids [B_l, k'], totals [B_l]) on the row's
-    column-0 device, in data-row order."""
+    column-0 device, in data-row order. A raw variant ("ref", "packed")
+    takes a raw MeshImage, a compressed one the streams'."""
     if variant not in sparse.KERNEL_VARIANTS:
         raise ValueError(f"unknown kernel variant {variant!r}")
+    raw = variant not in sparse.COMPRESSED_VARIANTS
+    fields = _RAW_FIELDS if raw else _BATCH_FIELDS
     n_data = mesh.shape[DATA_AXIS]
 
     def device_body(dev, arrays, batch_part, min_count, shard_offset):
         put = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                for a in batch_part]
-        starts, lengths, weights, res_starts, res_lens, slot_terms = put
-        flat_docs, flat_impact, flat_rank, block_max, res_vals = arrays[:5]
-        doc_bases = arrays[5] if len(arrays) == 6 else None
+        starts, lengths, weights = put[:3]
+        comp = None
+        if not raw:
+            flat_rank, block_max, res_vals = arrays[2:5]
+            doc_bases = arrays[5] if len(arrays) == 6 else None
+            comp = (flat_rank, block_max, res_vals, *put[3:], doc_bases)
         return _local_body(
-            flat_docs, flat_impact, starts, lengths, weights,
+            arrays[0], arrays[1], starts, lengths, weights,
             torch.from_numpy(np.ascontiguousarray(min_count)).to(dev),
             max_len=max_len, d_pad=d_pad, p_pad=p_pad, k=k,
             t_window=t_window, with_counts=with_counts, variant=variant,
-            comp=(flat_rank, block_max, res_vals, res_starts, res_lens,
-                  slot_terms, doc_bases), shard_offset=shard_offset)
+            comp=comp, shard_offset=shard_offset)
 
     def run_body(dev, arrays, batch_part, min_count, shard_offset):
         with device_context(dev):
@@ -587,6 +715,9 @@ def make_distributed_search(mesh: Mesh, *, max_len: int, d_pad: int,
                                shard_offset)
 
     def step(image: MeshImage, batch: QueryBatch):
+        if image.raw != raw:
+            raise ValueError(f"variant {variant!r} does not read a "
+                             f"{'raw' if image.raw else 'compressed'} image")
         b = batch.starts.shape[1]
         if b % n_data:
             raise ValueError(f"a batch of {b} queries does not split over "
@@ -598,7 +729,7 @@ def make_distributed_search(mesh: Mesh, *, max_len: int, d_pad: int,
             qs = slice(d * b_l, (d + 1) * b_l)
             for c, dev in enumerate(row):
                 ss = slice(c * s_l, (c + 1) * s_l)
-                part = [getattr(batch, f)[ss, qs] for f in _BATCH_FIELDS]
+                part = [getattr(batch, f)[ss, qs] for f in fields]
                 jobs.append(functools.partial(
                     run_body, dev, image.parts[d][c], part,
                     batch.min_count[qs], c * s_l))
@@ -649,9 +780,11 @@ def distributed_search_raw(pack: StackedShardPack, batch: QueryBatch,
     numpy (vals [B, k'], gids int64 [B, k'], totals [B]); materialize=
     False returns torch tensors without waiting (data rows past the
     first moved to the first's device). device_arrays is the pack's
-    MeshImage (placed here when None); the batch must be prepared with
-    compressed= streams."""
-    if batch.res_starts is None:
+    MeshImage (placed here when None: the compressed streams for a
+    compressed variant, the raw image for "ref"/"packed"); a compressed
+    variant's batch must be prepared with compressed= streams."""
+    compressed = variant in sparse.COMPRESSED_VARIANTS
+    if compressed and batch.res_starts is None:
         raise ValueError(
             "compressed variant needs a batch prepared with "
             "compressed= streams (res_starts/res_lens/slot_terms)")
@@ -662,8 +795,12 @@ def distributed_search_raw(pack: StackedShardPack, batch: QueryBatch,
     elif t_window < batch.window:
         raise ValueError(f"t_window={t_window} < needed {batch.window}")
     if device_arrays is None:
-        device_arrays = device_put_compressed(
-            build_compressed_streams(pack), mesh)
+        if compressed:
+            device_arrays = device_put_compressed(
+                build_compressed_streams(pack), mesh)
+        else:
+            device_arrays = device_put_pack(pack, mesh,
+                                            *build_impact_sorted(pack))
     step = make_distributed_search(
         mesh, max_len=batch.max_len, d_pad=pack.d_pad, p_pad=pack.p_pad,
         k=k, t_window=t_window, with_counts=with_counts, variant=variant)
@@ -695,6 +832,314 @@ def distributed_search(pack: StackedShardPack, batch: QueryBatch, k: int,
         with_counts=with_counts, t_window=t_window, variant=variant)
     vals, refs = decode_refs(pack, vals, ids)
     return vals, refs, totals
+
+
+# ---------------------------------------------------------------------------
+# the block-max pruned tiers (raw packs)
+# ---------------------------------------------------------------------------
+
+def prepare_term_ranges(pack: StackedShardPack,
+                        queries: Sequence[Sequence[str]],
+                        boosts: Optional[Sequence[float]] = None,
+                        pad_batch_to: Optional[int] = None,
+                        pad_terms: int = 8):
+    """Per-TERM (unchunked) postings ranges for phase B's exact rescore:
+    (starts, lengths, weights) int32/int32/f32 [S, B, pad_terms]."""
+    b_real = len(queries)
+    b = pad_batch_to or b_real
+    s = pack.num_shards
+    starts = np.zeros((s, b, pad_terms), dtype=np.int32)
+    lengths = np.zeros((s, b, pad_terms), dtype=np.int32)
+    weights = np.zeros((s, b, pad_terms), dtype=np.float32)
+    for si in range(s):
+        vocab = pack.vocabs[si]
+        rstart = pack.row_starts[si]
+        for qi in range(b_real):
+            terms = list(queries[qi])[:pad_terms]
+            boost = boosts[qi] if boosts is not None else 1.0
+            ws = term_weights(pack, si, terms, boost)
+            for t, term in enumerate(terms):
+                r = vocab.get(term, -1)
+                if r < 0:
+                    continue
+                starts[si, qi, t] = int(rstart[r])
+                lengths[si, qi, t] = int(rstart[r + 1] - rstart[r])
+                weights[si, qi, t] = ws[t]
+    return starts, lengths, weights
+
+
+def pack_pruned_operands(batch: QueryBatch, t_starts: np.ndarray,
+                         t_lengths: np.ndarray, t_weights: np.ndarray
+                         ) -> np.ndarray:
+    """The 7 per-launch query arrays as ONE [S, B, 3T + 3T_terms + 1] f32
+    array (ints bitcast): slot starts, lengths, weights, term starts,
+    lengths, weights, tail bound. One host-to-device copy a device."""
+    tail = (batch.tail_bounds[:, :, None] if batch.tail_bounds is not None
+            else np.zeros(batch.starts.shape[:2] + (1,), dtype=np.float32))
+    parts = [batch.starts.view(np.float32), batch.lengths.view(np.float32),
+             batch.weights,
+             t_starts.view(np.float32), t_lengths.view(np.float32),
+             t_weights, tail]
+    return np.concatenate(parts, axis=2)
+
+
+def unpack_pruned(packed: np.ndarray, k_keep: Optional[int] = None):
+    """make_pruned_search's [B, 2k + 3] output → (vals [B, k], gids int32
+    [B, k], totals [B], cutoff [B], beta [B]). k comes from the width:
+    the step clamps k_out to its candidate pool."""
+    derived = (packed.shape[1] - 3) // 2
+    if packed.shape[1] != 2 * derived + 3:
+        raise ValueError(
+            f"packed width {packed.shape[1]} is not of the form 2k+3")
+    if k_keep is None:
+        k_keep = derived
+    elif k_keep != derived:
+        raise ValueError(
+            f"packed width {packed.shape[1]} implies k_keep={derived}, "
+            f"caller passed {k_keep}")
+    vals = packed[:, :k_keep]
+    gids = np.ascontiguousarray(packed[:, k_keep:2 * k_keep]
+                                ).view(np.int32)
+    totals = packed[:, 2 * k_keep].astype(np.int64)
+    cutoff = packed[:, 2 * k_keep + 1]
+    beta = packed[:, 2 * k_keep + 2]
+    return vals, gids, totals, cutoff, beta
+
+
+def _split_ops(ops: torch.Tensor, t_terms: int):
+    """The fused operand [S_l, B_l, W] → (starts, lengths, weights,
+    t_starts, t_lengths, t_weights, tail_bound)."""
+    t = (ops.shape[2] - 3 * t_terms - 1) // 3
+
+    def ints(a):
+        return a.contiguous().view(torch.int32)
+
+    o = 3 * t
+    return (ints(ops[:, :, 0:t]), ints(ops[:, :, t:2 * t]),
+            ops[:, :, 2 * t:o].contiguous(),
+            ints(ops[:, :, o:o + t_terms]),
+            ints(ops[:, :, o + t_terms:o + 2 * t_terms]),
+            ops[:, :, o + 2 * t_terms:o + 3 * t_terms].contiguous(),
+            ops[:, :, o + 3 * t_terms])
+
+
+def _phase_a(imp_docs, imp_impacts, starts, lengths, weights, *, p_pad,
+             max_len, d_pad, t_window, c_local, pack_keys, with_rescore):
+    """Phase A on one device: its S_l rows' slots, fused in groups of
+    fuse_group_rows rows → (vals [B, n_groups·k_dev], local gids int64,
+    totals int32 [B], cut_local f32 [B], use_pack)."""
+    from elasticsearch_tpu_torch.ops import merge_kernel
+    dev = starts.device
+    s_l, b, t = starts.shape
+    row_of_slot = torch.arange(s_l, dtype=torch.int32,
+                               device=dev)[:, None, None].expand(s_l, b, t)
+    starts_abs = starts + row_of_slot * p_pad
+    g = min(fuse_group_rows(b, t, max_len), s_l)
+    n_groups = (s_l + g - 1) // g
+    pad_rows = n_groups * g - s_l
+
+    def grouped(a):  # [S_l, B, T] → [n_groups, B, G·T]
+        if pad_rows:
+            a = torch.cat([a, torch.zeros((pad_rows,) + tuple(a.shape[1:]),
+                                          dtype=a.dtype, device=dev)])
+        return (a.reshape(n_groups, g, b, t).permute(0, 2, 1, 3)
+                .reshape(n_groups, b, g * t).contiguous())
+
+    g_starts, g_lengths = grouped(starts_abs), grouped(lengths)
+    g_weights, g_rows = grouped(weights), grouped(row_of_slot)
+    k_dev = min(c_local, g * t * max_len)
+    # one u32 key a lane when a group's relative gid range fits 16 bits;
+    # never in the no-rescore tier, whose phase-A totals are the scores
+    use_pack = (pack_keys and with_rescore
+                and g * (d_pad + 1) <= sparse.PACKED_DOC_LIMIT)
+    flat_docs, flat_imps = imp_docs.reshape(-1), imp_impacts.reshape(-1)
+    outs = [merge_kernel.pruned_candidates(
+        flat_docs, flat_imps, g_starts[j], g_lengths[j], g_weights[j],
+        g_rows[j], max_len=max_len, d_pad=d_pad, t_window=t_window,
+        k=k_dev, pack_keys=use_pack) for j in range(n_groups)]
+    if n_groups == 1:
+        vals_b, gid_local, totals_b = outs[0]
+        return vals_b, gid_local, totals_b, vals_b[:, -1], use_pack
+    vals_gs = torch.stack([o[0] for o in outs])
+    # [n_groups, B, k_dev] → [B, n_groups·k_dev]
+    vals_b = vals_gs.permute(1, 0, 2).reshape(b, -1)
+    gid_local = torch.stack([o[1] for o in outs]).permute(1, 0, 2
+                                                          ).reshape(b, -1)
+    totals_b = torch.stack([o[2] for o in outs]).sum(dim=0,
+                                                     dtype=torch.int32)
+    # a doc cut in ANY group fell below ITS group's k_dev-th
+    return (vals_b, gid_local, totals_b, vals_gs[:, :, -1].max(dim=0).values,
+            use_pack)
+
+
+def _row_cat(tensors, dev, cuda: bool):
+    """The columns' [B_l, n] tensors of one data row side by side in
+    column order, on `dev` (an NCCL all_gather on CUDA devices)."""
+    if not cuda:
+        return torch.cat([t.to(dev) for t in tensors], dim=1)
+    from torch.cuda import nccl
+    ins = [t.contiguous() for t in tensors]
+    outs = [torch.empty((len(ins),) + tuple(t.shape), dtype=t.dtype,
+                        device=t.device) for t in ins]
+    nccl.all_gather(ins, outs)
+    return outs[0].permute(1, 0, 2).reshape(ins[0].shape[0], -1)
+
+
+def _row_broadcast(t: torch.Tensor, devices, cuda: bool):
+    """Column 0's tensor on every device of the row (NCCL on CUDA)."""
+    if not cuda or len(devices) == 1:
+        return [t.to(d) for d in devices]
+    from torch.cuda import nccl
+    outs = [t.contiguous()] + [torch.empty_like(t, device=d)
+                               for d in devices[1:]]
+    nccl.broadcast(outs, root=0)
+    return outs
+
+
+def make_pruned_search(mesh: Mesh, *, max_len: int, d_pad: int, p_pad: int,
+                       c_cand: int, k_out: int, t_window: int, t_terms: int,
+                       search_iters: Optional[int] = None,
+                       c_local: Optional[int] = None,
+                       with_rescore: bool = True, variant: str = "ref",
+                       pack_keys: bool = False):
+    """The block-max serving step over a raw image (the reference's
+    make_pruned_search):
+
+      phase A  candidates over each query's impact-sorted postings
+               prefixes (or full postings in the no-rescore tier), this
+               device's rows merged in groups of at most FUSE_ROWS
+               (pruned_candidates), then the row's tail: the max of the
+               group cuts, an all-gather of the candidates in column
+               order, the totals summed, the global top-c_cand;
+      phase B  every candidate's exact score from a binary search of
+               each term's doc-sorted postings on the device that holds
+               its row, summed over the row's columns, and the final
+               order by (−score, gid) (pruned_rescore).
+
+    step(image, ops) takes a raw MeshImage and pack_pruned_operands'
+    [S, B, W] array and returns [B, 2k + 3] f32 (scores, gids as int32
+    bits, totals, cutoff, beta: unpack_pruned) on the first device. The
+    caller checks the WAND bound `kth ≥ (cutoff if full else 0) + beta`
+    with its k and escalates when it fails. pack_keys (variant "packed",
+    rescore tiers): each phase-A lane's group-relative gid and 16-bit
+    impact code as one u32 key when the group's gid range fits 16 bits,
+    its totals quantized lower bounds; the cutoff is inflated by the
+    quantization slack to keep the bound conservative."""
+    from elasticsearch_tpu_torch.ops import merge_kernel
+    if search_iters is None:
+        # a postings row is at most d_pad docs long
+        search_iters = max(1, math.ceil(math.log2(d_pad + 1)))
+    if c_local is None:
+        c_local = c_cand
+    n_data = mesh.shape[DATA_AXIS]
+
+    def step(image: MeshImage, ops: np.ndarray) -> torch.Tensor:
+        if not image.raw:
+            raise ValueError("the pruned tiers read a raw image")
+        b = ops.shape[1]
+        if b % n_data:
+            raise ValueError(f"a batch of {b} queries does not split over "
+                             f"a data axis of {n_data}")
+        b_l = b // n_data
+        s_l = image.parts[0][0][0].shape[0]
+        rows = []
+        for d, row in enumerate(mesh.grid):
+            qs = slice(d * b_l, (d + 1) * b_l)
+            rows.append(_pruned_row(image.parts[d], row, ops[:, qs], s_l))
+        dev0 = mesh.grid[0][0]
+        with device_context(dev0):
+            return torch.cat([r.to(dev0) for r in rows])
+
+    def _pruned_row(parts, devices, ops, s_l):
+        cuda = mesh.is_cuda
+        bodies = []
+        for c, dev in enumerate(devices):
+            with device_context(dev):
+                part = torch.from_numpy(np.ascontiguousarray(
+                    ops[c * s_l:(c + 1) * s_l])).to(dev)
+                (starts, lengths, weights, t_st, t_ln, t_w,
+                 tail) = _split_ops(part, t_terms)
+                _, _, _, imp_docs, imp_imps = parts[c]
+                vals_b, gid_local, totals_b, cut, use_pack = _phase_a(
+                    imp_docs, imp_imps, starts, lengths, weights,
+                    p_pad=p_pad, max_len=max_len, d_pad=d_pad,
+                    t_window=t_window, c_local=c_local,
+                    pack_keys=pack_keys and variant == "packed",
+                    with_rescore=with_rescore)
+                gids_b = gid_local + c * s_l * (d_pad + 1)
+                gids_b = torch.where(vals_b > NEG_INF, gids_b,
+                                     torch.zeros_like(gids_b))
+                bodies.append((vals_b, gids_b, totals_b, cut,
+                               tail.max(dim=0).values, (t_st, t_ln, t_w),
+                               use_pack))
+        dev0 = devices[0]
+        lock = (DEVICE_DISPATCH_LOCK if len(mesh.devices) > 1
+                else contextlib.nullcontext())
+        with device_context(dev0):
+            with lock:
+                all_vals = _row_cat([o[0] for o in bodies], dev0, cuda)
+                all_gids = _row_cat([o[1] for o in bodies], dev0, cuda)
+                totals = _row_cat([o[2][:, None] for o in bodies], dev0,
+                                  cuda).sum(dim=1, dtype=torch.int32)
+                row_cut = _row_cat([o[3][:, None] for o in bodies], dev0,
+                                   cuda).max(dim=1).values
+                beta = _row_cat([o[4][:, None] for o in bodies], dev0,
+                                cuda).max(dim=1).values
+            c = min(c_cand, all_vals.shape[1])
+            cand_vals, pos = sparse.hierarchical_top_k(all_vals, c)
+            cand_gids = torch.gather(all_gids, 1, pos)
+            k_keep = min(k_out, c)
+            if not with_rescore:
+                # the full-postings tier: phase-A run totals are the
+                # exact scores
+                out_vals, out_gids = merge_kernel.pruned_order(
+                    cand_vals, cand_vals, cand_gids, k=k_keep)
+            else:
+                out_vals, out_gids = _phase_b(
+                    parts, devices, bodies, cand_vals, cand_gids, k_keep,
+                    s_l, cuda, lock)
+            cutoff = torch.maximum(cand_vals[:, -1], row_cut)
+            if bodies[0][6]:
+                # packed phase-A totals are quantized lower bounds (< 2**-7
+                # relative a lane): a cut doc's true phase-A score may
+                # exceed its quantized one by that much
+                cutoff = torch.where(cutoff > 0.0,
+                                     cutoff * (1.0 + 2.0 ** -6), cutoff)
+            gids_f32 = out_gids.to(torch.int32).view(torch.float32)
+            return torch.cat([out_vals, gids_f32,
+                              totals[:, None].to(torch.float32),
+                              cutoff[:, None], beta[:, None]], dim=1)
+
+    def _phase_b(parts, devices, bodies, cand_vals, cand_gids, k_keep, s_l,
+                 cuda, lock):
+        if len(devices) == 1:
+            t_st, t_ln, t_w = bodies[0][5]
+            return merge_kernel.pruned_rescore(
+                parts[0][0], parts[0][1], cand_gids, t_st, t_ln, t_w,
+                d_pad=d_pad, p_pad=p_pad, row_base=0,
+                search_iters=search_iters, cand_vals=cand_vals, k=k_keep)
+        with lock:
+            cands = _row_broadcast(cand_gids, devices, cuda)
+        exact_parts = []
+        for c, dev in enumerate(devices):
+            with device_context(dev):
+                t_st, t_ln, t_w = bodies[c][5]
+                exact_parts.append(merge_kernel.pruned_rescore(
+                    parts[c][0], parts[c][1], cands[c], t_st, t_ln, t_w,
+                    d_pad=d_pad, p_pad=p_pad, row_base=c * s_l,
+                    search_iters=search_iters))
+        with lock:
+            stacked = _row_cat(exact_parts, devices[0], cuda)
+        b_l, n_cand = cand_gids.shape
+        cols = stacked.reshape(b_l, len(devices), n_cand)
+        # the psum over the shards axis, in column order
+        exact = cols[:, 0]
+        for j in range(1, len(devices)):
+            exact = exact + cols[:, j]
+        return merge_kernel.pruned_order(exact, cand_vals, cand_gids,
+                                         k=k_keep)
+
+    return step
 
 
 def decode_refs(pack: StackedShardPack, vals: np.ndarray, ids: np.ndarray):

@@ -21,8 +21,8 @@ mesh.
 Refused typed (``NotLowerable``): the planner features not ported yet
 (sort, search_after, highlight, suggest, rescore, collapse, pit,
 aggregations, knn), and what the reference serves on its kernel path
-but the port's does not take yet (``planner=False``: raw packs, rows of
-more than 1024 slots). Unlike the reference, a fault of the kernel path
+but the port's does not take yet (``planner=False``: rows of more than
+1024 slots). Unlike the reference, a fault of the kernel path
 is not retried on the planner: it reaches the client as a 5xx.
 """
 

@@ -1,14 +1,28 @@
-"""GPU serving path for ``_search``: resident compressed packs + a
-micro-batched kernel.
+"""GPU serving path for ``_search``: resident packs + a micro-batched
+kernel.
 
 Counterpart of the reference's ``search/tpu_service.py`` for the main
 path. A ``_search`` body goes:
 
   parse_query → lower_query → MicroBatcher (8 / 64 / 128 query buckets)
-  → prepare_query_batch → sorted_merge_topk on every device of the mesh
-  (the Hopper merge kernel for packable weights, the exact merge for the
-  others) → all-gather, totals sum and cross-shard top-k (shard_topk) →
-  decode → hits response.
+  → the train's routing (execute_flat_batch) → prepare_query_batch →
+  the kernels on every device of the mesh → all-gather, totals sum and
+  cross-shard top-k (shard_topk) → decode → hits response.
+
+A pack is resident in the compressed format (the default) when every
+shard's flats compress (``sparse.compress_reason``), else in the RAW
+format: int32 docs and f32 impacts, doc-sorted and impact-sorted (a
+segment above 65,408 documents, d_pad ≥ 2**16, is raw). A compressed pack
+serves every query through the exact launch (the Hopper merge kernel for
+packable weights, the exact merge for the others). A raw pack routes as
+the reference's r5 routing: an OR query of at most PRUNE_MAX_TERMS terms
+with k ≤ PRUNE_MAX_K goes to the smallest full-postings tier of
+FULL_SLOT_BUCKETS that holds all its postings (no rescore, exact
+totals), a hotter one to the prefix tier at PREFIX_CAP2 (the phase-B
+rescore, the WAND validity check on the host, escalating to PREFIX_CAP3,
+then to the exact launch); msm/AND, k > 1000 or more terms take the
+exact launch (the raw merge, variant "ref" or "packed"). A pruned
+result's total is "gte" when some term's postings were cut.
 
 The service runs on a mesh (``parallel/mesh.py``): by default every
 visible GPU on the shards axis, the reference's ``(1, n_local_devices)``;
@@ -56,7 +70,7 @@ from elasticsearch_tpu_torch.common.errors import IndexNotFound, NotLowerable
 from elasticsearch_tpu_torch.index.segment import Segment, SegmentWriter
 from elasticsearch_tpu_torch.indices.routing import shard_for
 from elasticsearch_tpu_torch.mapping import MapperService, TextFieldType
-from elasticsearch_tpu_torch.ops import merge_kernel
+from elasticsearch_tpu_torch.ops import merge_kernel, sparse
 from elasticsearch_tpu_torch.parallel import distributed as dist
 from elasticsearch_tpu_torch.parallel.mesh import (DATA_AXIS, SHARD_AXIS,
                                                    Mesh, resolve_mesh)
@@ -64,8 +78,18 @@ from elasticsearch_tpu_torch.search import dsl
 from elasticsearch_tpu_torch.search.query_phase import filter_source
 from elasticsearch_tpu_torch.search.planner import choose_kernel_variant
 
-#: window floor of the exact kernel (the reference's _PRUNE_WINDOW)
-MIN_T_WINDOW = 8
+#: window floor of the exact and pruned kernels
+_PRUNE_WINDOW = 8
+
+# the pruned tiers of a raw pack (the reference's r5 routing): the
+# full-postings sort widths in slots of CHUNK_CAP lanes, the prefixes of
+# the hot tier and of its escalation, and the queries they take
+FULL_SLOT_BUCKETS = (32, 128)
+PREFIX_CAP = 4096    # a prefix launch's default cap
+PREFIX_CAP2 = 16384  # the hot tier
+PREFIX_CAP3 = 65536  # its escalation
+PRUNE_MAX_K = 1000
+PRUNE_MAX_TERMS = 8  # more terms → the exact launch
 
 
 class StageTimes:
@@ -203,11 +227,13 @@ def _lower(query: dsl.QueryNode, mapper) -> Optional[FlatQuery]:
 
 @dataclasses.dataclass
 class ResidentPack:
-    """One (index, field) compressed pack on the mesh's devices +
-    provenance."""
+    """One (index, field) pack on the mesh's devices + provenance: the
+    compressed streams, or (streams None) a raw image with its host
+    impact-sorted copy (imp_host: docs, impacts), which the pruned tiers
+    read."""
 
     pack: dist.StackedShardPack
-    streams: dist.CompressedStreams
+    streams: Optional[dist.CompressedStreams]
     image: dist.MeshImage
     row_origin: List[Tuple[int, str]]   # pack row → (shard, segment name)
     row_segments: List[Segment]         # pack row → segment (for _source)
@@ -222,6 +248,10 @@ class ResidentPack:
     #: set when the pack leaves its cache; the batcher then takes no
     #: more work for it, so nothing new holds its device arrays
     retired: bool = False
+    imp_host: Optional[Tuple[np.ndarray, np.ndarray]] = None
+    #: query terms → the slots a full-postings launch of them needs
+    slots_memo: Dict[Tuple[str, ...], int] = dataclasses.field(
+        default_factory=dict)
 
     @property
     def device_arrays(self) -> Tuple[torch.Tensor, ...]:
@@ -245,23 +275,30 @@ def place_pack(pack: dist.StackedShardPack, mesh: Mesh,
                row_origin: List[Tuple[int, str]],
                row_segments: List[Segment], breaker=None,
                reader_key: Tuple[int, ...] = (),
-               readers: Optional[Dict[int, Any]] = None) -> ResidentPack:
-    """Compress `pack` and place it over `mesh`. With a breaker, the
-    streams' device bytes (the image once, as the
-    reference's cache charges it) are charged before the upload and
-    refunded if it raises. Raw (incompressible) packs and their pruned
-    tiers come with a later slice."""
-    reason = dist.compress_pack_reason(pack)
-    if reason is not None:
-        raise NotLowerable(f"pack [{pack.field}] is not compressible "
-                           f"({reason}): a raw pack", planner=False)
-    streams = dist.build_compressed_streams(pack)
-    hbm = streams.nbytes_device()
+               readers: Optional[Dict[int, Any]] = None,
+               compressed_pack: bool = True) -> ResidentPack:
+    """Place `pack` over `mesh`: compressed when `compressed_pack` (the
+    setting) and every shard's flats compress, else raw (the doc-sorted
+    pack and its impact-sorted copy: a segment above 65,408 documents,
+    say). With a breaker, the image's device bytes (once, as the
+    reference's cache charges them: for a raw pack the doc-sorted arrays
+    with their live masks plus the impact-sorted copy) are charged before
+    the upload and refunded if it raises."""
+    streams = imp_host = None
+    if compressed_pack and dist.compress_pack_reason(pack) is None:
+        streams = dist.build_compressed_streams(pack)
+        hbm = streams.nbytes_device()
+    else:
+        imp_host = dist.build_impact_sorted(pack)
+        hbm = dist.raw_image_nbytes(pack, *imp_host)
     if breaker is not None:
         breaker.add_estimate_bytes_and_maybe_break(
             hbm, label=f"pack[{pack.field}]")
     try:
-        image = dist.device_put_compressed(streams, mesh)
+        if streams is not None:
+            image = dist.device_put_compressed(streams, mesh)
+        else:
+            image = dist.device_put_pack(pack, mesh, *imp_host)
     except Exception:
         if breaker is not None:
             breaker.release(hbm)
@@ -276,7 +313,8 @@ def place_pack(pack: dist.StackedShardPack, mesh: Mesh,
         off += len(ids)
     return ResidentPack(pack, streams, image, row_origin, row_segments,
                         row_offset, id_cat, reader_key=tuple(reader_key),
-                        readers=dict(readers or {}), hbm_bytes=hbm)
+                        readers=dict(readers or {}), hbm_bytes=hbm,
+                        imp_host=imp_host)
 
 
 class IndexPackCache:
@@ -287,11 +325,15 @@ class IndexPackCache:
     a pack's charge when a rebuild replaces it and on invalidate.
     ``on_evict(resident)`` runs for every pack that goes (the service
     retires its batcher queue, whose reference would otherwise keep the
-    device arrays alive)."""
+    device arrays alive). kernel_config["compressed_pack"] decides the
+    format of the packs built from then on."""
 
-    def __init__(self, mesh: Mesh, breaker=None):
+    def __init__(self, mesh: Mesh, breaker=None,
+                 kernel_config: Optional[Dict[str, bool]] = None):
         self.mesh = mesh
         self._breaker = breaker
+        self.kernel_config = (kernel_config if kernel_config is not None
+                              else {"compressed_pack": True})
         self._lock = threading.Lock()
         self._cache: Dict[Tuple[str, str], ResidentPack] = {}
         # per-key build serialization: a rebuild of one pack never
@@ -308,7 +350,8 @@ class IndexPackCache:
     def stats(self) -> Dict[str, Any]:
         with self._lock:
             packs = {f"{idx}/{field}": {"hbm_bytes": int(e.hbm_bytes),
-                                        "resident_bytes": e.nbytes_device()}
+                                        "resident_bytes": e.nbytes_device(),
+                                        "compressed": e.streams is not None}
                      for (idx, field), e in self._cache.items()}
             return {"resident": len(self._cache), "hits": self.hits,
                     "misses": self.misses,
@@ -389,7 +432,9 @@ class IndexPackCache:
                                            len(segments), self.mesh))
         return place_pack(pack, self.mesh, row_origin, segments,
                           breaker=self._breaker, reader_key=reader_key,
-                          readers=dict(readers))
+                          readers=dict(readers),
+                          compressed_pack=self.kernel_config[
+                              "compressed_pack"])
 
     def invalidate(self, index_name: str) -> None:
         """Drop every pack of `index_name` and release its charge."""
@@ -471,45 +516,56 @@ def _kernel_k(k: int) -> int:
                                  else _batch_bucket(k, 16384))
 
 
-def _launch_exact(resident: ResidentPack, flats: Sequence[FlatQuery],
-                  k: int) -> Dict[str, Any]:
-    """Host prep + device dispatch of one micro-batch: bucketed batch
-    (8/64/pow2), kernel k (128/1024/pow2), slot count (pow2 ≥ 8), window
-    (≥ 8) and chunk length (pinned CHUNK_CAP), as the reference pins
-    them. Returns the launch state for _finish_exact."""
-    pack = resident.pack
+def _data_bucket(resident: ResidentPack, n: int) -> int:
+    """The serving bucket of n queries, a multiple of the data axis."""
     n_data = resident.image.mesh.shape[DATA_AXIS]
-    # a multiple of the data axis
-    bucket = (_serving_bucket(len(flats)) + n_data - 1) // n_data * n_data
+    return (_serving_bucket(n) + n_data - 1) // n_data * n_data
+
+
+def _launch_exact(resident: ResidentPack, flats: Sequence[FlatQuery],
+                  k: int, packed_sort: bool = True) -> Dict[str, Any]:
+    """Host prep + device dispatch of one micro-batch through the exact
+    variants: bucketed batch (8/64/pow2), kernel k (128/1024/pow2), slot
+    count (pow2 ≥ 8), window (≥ 8) and chunk length (pinned CHUNK_CAP),
+    as the reference pins them. A compressed pack takes "compressed" or
+    "compressed_exact", a raw one "packed" or "ref" (the raw merge).
+    Returns the launch state for _finish_exact."""
+    pack = resident.pack
+    compressed = resident.streams is not None
     batch = dist.prepare_query_batch(
         pack, [f.terms for f in flats],
         boosts=[f.boost for f in flats],
         min_counts=[f.min_count for f in flats],
-        pad_batch_to=bucket,
+        pad_batch_to=_data_bucket(resident, len(flats)),
         pad_max_len=dist.CHUNK_CAP,
         compressed=resident.streams)
     t_pin = 8
     while t_pin < batch.t_slots:
         t_pin *= 2
-    if t_pin > merge_kernel.T_LIMIT:
+    limit = merge_kernel.T_LIMIT if compressed else merge_kernel.RAW_T_LIMIT
+    if t_pin > limit:
         raise NotLowerable(f"{batch.t_slots} posting slots per row exceed "
-                           f"the merge kernel's {merge_kernel.T_LIMIT}",
-                           planner=False)
+                           f"the {'merge' if compressed else 'raw merge'} "
+                           f"kernel's {limit}", planner=False)
     if t_pin > batch.t_slots:
         pad = ((0, 0), (0, 0), (0, t_pin - batch.t_slots))
-        # zero-padded slots: length 0 ⇒ inert in grouping and rescore
+        extra = {}
+        if compressed:
+            # zero-padded slots: length 0 ⇒ inert in grouping and rescore
+            extra = dict(res_starts=np.pad(batch.res_starts, pad),
+                         res_lens=np.pad(batch.res_lens, pad),
+                         slot_terms=np.pad(batch.slot_terms, pad))
         batch = dataclasses.replace(
             batch, starts=np.pad(batch.starts, pad),
             lengths=np.pad(batch.lengths, pad),
-            weights=np.pad(batch.weights, pad), t_slots=t_pin,
-            res_starts=np.pad(batch.res_starts, pad),
-            res_lens=np.pad(batch.res_lens, pad),
-            slot_terms=np.pad(batch.slot_terms, pad))
-    variant = choose_kernel_variant(pack.d_pad, batch.weights)
+            weights=np.pad(batch.weights, pad), t_slots=t_pin, **extra)
+    variant = choose_kernel_variant(pack.d_pad, batch.weights,
+                                    enabled=packed_sort,
+                                    compressed=compressed)
     vals, gids, totals = dist.distributed_search_raw(
         pack, batch, _kernel_k(k), resident.image.mesh,
         device_arrays=resident.image,
-        t_window=max(MIN_T_WINDOW, batch.window), materialize=False,
+        t_window=max(_PRUNE_WINDOW, batch.window), materialize=False,
         variant=variant)
     return {"resident": resident, "n": len(flats), "k": k, "vals": vals,
             "gids": gids, "totals": totals, "variant": variant,
@@ -518,10 +574,12 @@ def _launch_exact(resident: ResidentPack, flats: Sequence[FlatQuery],
 
 def _columnar_results(resident: ResidentPack, vals: np.ndarray,
                       gids: np.ndarray, totals: np.ndarray,
-                      n_queries: int, k_cap: int) -> List[FlatQueryResult]:
-    """Decode a batch's [B, k'] output into columnar per-query results.
-    Sentinel lanes (-inf score, ordinal d_pad, padding rows) sort to the
-    tail, so each query's valid hits are a prefix."""
+                      n_queries: int, relation_fn,
+                      k_cap: Optional[int] = None) -> List[FlatQueryResult]:
+    """Decode a batch's [B, k'] output into columnar per-query results,
+    each with its total's relation, relation_fn(query index). Sentinel
+    lanes (-inf score, ordinal d_pad, padding rows) sort to the tail, so
+    each query's valid hits are a prefix."""
     pack = resident.pack
     d1 = pack.d_pad + 1
     rows = (gids // d1).astype(np.int32)
@@ -532,11 +590,14 @@ def _columnar_results(resident: ResidentPack, vals: np.ndarray,
                        valid.argmin(axis=1))
     out = []
     for qi in range(n_queries):
-        m = min(int(n_valid[qi]), k_cap)
+        m = int(n_valid[qi])
+        if k_cap is not None:
+            m = min(m, k_cap)
         sc = vals[qi, :m]
         out.append(FlatQueryResult(
             sc, rows[qi, :m], ords[qi, :m], int(totals[qi]),
-            float(sc[0]) if m else None, resident=resident))
+            float(sc[0]) if m else None, resident=resident,
+            total_relation=relation_fn(qi)))
     return out
 
 
@@ -545,7 +606,238 @@ def _finish_exact(launch: Dict[str, Any]) -> List[FlatQueryResult]:
     gids = launch["gids"].cpu().numpy()
     totals = launch["totals"].cpu().numpy()
     return _columnar_results(launch["resident"], vals, gids, totals,
-                             launch["n"], launch["k"])
+                             launch["n"], lambda qi: "eq",
+                             k_cap=launch["k"])
+
+
+def _prune_t_slots(prefix_cap: int) -> int:
+    return PRUNE_MAX_TERMS * max(1, prefix_cap // dist.CHUNK_CAP)
+
+
+def _candidate_k(k: int) -> int:
+    """Candidate-count buckets of a pruned launch (k + slack)."""
+    return 128 if k <= 64 else 2048
+
+
+def _pruned_variant(packed_sort: bool) -> str:
+    """"packed" lets a prefix launch sort one u32 key a lane (pack_keys,
+    a per-launch gate); the setting is the reference's packed_sort."""
+    return "packed" if packed_sort else "ref"
+
+
+def _slots_needed(resident: ResidentPack, flat: FlatQuery) -> int:
+    """Max over pack rows of Σ_terms ceil(row_len / CHUNK_CAP): the slots
+    a full-postings launch of this query needs (a term missing from a
+    row still costs its zero-length slot), memoized per pack by terms."""
+    memo_key = tuple(flat.terms)
+    cached = resident.slots_memo.get(memo_key)
+    if cached is not None:
+        return cached
+    pack = resident.pack
+    worst = 0
+    for si in range(len(pack.vocabs)):
+        vocab = pack.vocabs[si]
+        rstart = pack.row_starts[si]
+        n = 0
+        for t in flat.terms:
+            r = vocab.get(t)
+            if r is None:
+                n += 1
+                continue
+            ln = int(rstart[r + 1] - rstart[r])
+            n += max(1, (ln + dist.CHUNK_CAP - 1) // dist.CHUNK_CAP)
+        worst = max(worst, n)
+    result = max(worst, 1)
+    if len(resident.slots_memo) < 65536:
+        resident.slots_memo[memo_key] = result
+    return result
+
+
+def _full_bucket(slots: int) -> Optional[int]:
+    for b in FULL_SLOT_BUCKETS:
+        if slots <= b:
+            return b
+    return None
+
+
+def _launch_pruned(resident: ResidentPack, flats: Sequence[FlatQuery],
+                   k: int, prefix_cap: int = PREFIX_CAP,
+                   full_slots: Optional[int] = None,
+                   packed_sort: bool = True) -> Dict[str, Any]:
+    """One pruned launch over a raw pack: with full_slots=N the
+    full-postings tier at N slots (its run totals are the exact scores:
+    no rescore, exact totals); else the prefix tier (each term's first
+    prefix_cap impact-sorted entries, the exact rescore on the device)."""
+    pack = resident.pack
+    imp_impacts = resident.imp_host[1]
+    k_cand = _candidate_k(k)
+    k_out = 128 if k_cand == 128 else 1024
+    b_bucket = _data_bucket(resident, len(flats))
+    terms = [f.terms for f in flats]
+    boosts = [f.boost for f in flats]
+    with_rescore = full_slots is None
+    if full_slots is not None:
+        k_cand = k_out  # exact totals: the candidate pool is the result
+        batch = dist.prepare_query_batch(
+            pack, terms, boosts=boosts, min_counts=[1] * len(flats),
+            pad_batch_to=b_bucket, pad_t_slots=full_slots,
+            pad_max_len=dist.CHUNK_CAP)
+    else:
+        batch = dist.prepare_query_batch(
+            pack, terms, boosts=boosts, min_counts=[1] * len(flats),
+            pad_batch_to=b_bucket, prefix_cap=prefix_cap,
+            imp_impacts=imp_impacts, pad_t_slots=_prune_t_slots(prefix_cap),
+            pad_max_len=dist.CHUNK_CAP)
+    ranges = dist.prepare_term_ranges(pack, terms, boosts=boosts,
+                                      pad_batch_to=b_bucket,
+                                      pad_terms=PRUNE_MAX_TERMS)
+    variant = _pruned_variant(packed_sort)
+    pack_keys = (variant == "packed" and with_rescore
+                 and sparse.packable(pack.d_pad, batch.weights)
+                 and sparse.packable(pack.d_pad, ranges[2]))
+    step = dist.make_pruned_search(
+        resident.image.mesh, max_len=batch.max_len, d_pad=pack.d_pad,
+        p_pad=pack.p_pad, c_cand=k_cand, k_out=k_out,
+        t_window=max(_PRUNE_WINDOW, batch.window), t_terms=PRUNE_MAX_TERMS,
+        with_rescore=with_rescore, variant=variant, pack_keys=pack_keys)
+    packed = step(resident.image,
+                  dist.pack_pruned_operands(batch, *ranges))
+    return {"resident": resident, "flats": flats, "k": k,
+            "packed": packed, "variant": variant}
+
+
+def _finish_pruned(launch: Dict[str, Any]
+                   ) -> Tuple[List[Optional[FlatQueryResult]], List[int]]:
+    """Decode a pruned launch and check the WAND validity bound: a doc
+    outside the candidates scores below cutoff + β (a cut candidate) or β
+    (tail only); a query whose k-th score is below that, or that has
+    fewer than k hits while its postings were cut, is invalid (None, its
+    index listed) and escalates."""
+    resident, flats, k = launch["resident"], launch["flats"], launch["k"]
+    vals, gids, totals, cutoff, beta = dist.unpack_pruned(
+        launch["packed"].cpu().numpy())
+    decoded = _columnar_results(
+        resident, vals, gids.astype(np.int64), totals, len(flats),
+        lambda qi: "gte" if beta[qi] > 0.0 else "eq")
+    results: List[Optional[FlatQueryResult]] = []
+    invalid: List[int] = []
+    for qi, res in enumerate(decoded):
+        b_q = float(beta[qi])
+        n = len(res.scores)
+        if n > k:
+            res = dataclasses.replace(res, scores=res.scores[:k],
+                                      rows=res.rows[:k], ords=res.ords[:k])
+            n = k
+        if b_q > 0.0:
+            kth = float(res.scores[k - 1]) if n >= k else float("-inf")
+            c_q = float(cutoff[qi])
+            threshold = (c_q + b_q) if c_q > dist.NEG_INF else b_q
+            if kth < threshold or n < k:
+                results.append(None)
+                invalid.append(qi)
+                continue
+        results.append(res)
+    return results, invalid
+
+
+def _execute_pruned(resident: ResidentPack, flats: Sequence[FlatQuery],
+                    k: int, **kw
+                    ) -> Tuple[List[Optional[FlatQueryResult]], List[int]]:
+    return _finish_pruned(_launch_pruned(resident, flats, k, **kw))
+
+
+#: the routes a query of a train can take (execute_flat_batch's tiers)
+TIERS = tuple(f"full-{b}" for b in FULL_SLOT_BUCKETS) + (
+    "prefix-16k", "escalated-64k", "exact")
+
+
+def execute_flat_batch(resident: ResidentPack, flats: Sequence[FlatQuery],
+                       k: int, packed_sort: bool = True,
+                       tiers: Optional[Dict[str, int]] = None,
+                       variants: Optional[Dict[str, int]] = None,
+                       shapes: Optional[Dict[Tuple[int, int, int], int]]
+                       = None) -> List[FlatQueryResult]:
+    """Run one micro-batch, the reference's r5 routing. On a raw pack an
+    OR query (min_count 1) of at most PRUNE_MAX_TERMS terms with k ≤
+    PRUNE_MAX_K takes the smallest full-postings tier that holds its
+    postings (a tier of fewer than 16 queries joins the next wider one
+    when that one launches anyway), else the prefix tier at PREFIX_CAP2;
+    queries whose validity bound fails escalate to PREFIX_CAP3, then to
+    the exact launch, which also takes every other query (and every query
+    of a compressed pack). `tiers` counts the queries each tier of TIERS
+    took (an escalated query in each tier it passed), `variants` the
+    exact launches by variant and `shapes` by (batch bucket, slots,
+    kernel k)."""
+    raw = resident.imp_host is not None
+    pruned_idx = [i for i, f in enumerate(flats)
+                  if raw and f.min_count == 1 and k <= PRUNE_MAX_K
+                  and len(f.terms) <= PRUNE_MAX_TERMS]
+    pruned_set = set(pruned_idx)
+    exact_idx = [i for i in range(len(flats)) if i not in pruned_set]
+    full_groups: Dict[int, List[int]] = {b: [] for b in FULL_SLOT_BUCKETS}
+    hot_idx: List[int] = []
+    for i in pruned_idx:
+        b = _full_bucket(_slots_needed(resident, flats[i]))
+        if b is None:
+            hot_idx.append(i)
+        else:
+            full_groups[b].append(i)
+    buckets = list(FULL_SLOT_BUCKETS)
+    for bi, b in enumerate(buckets[:-1]):
+        if 0 < len(full_groups[b]) < 16 and full_groups[buckets[bi + 1]]:
+            full_groups[buckets[bi + 1]].extend(full_groups[b])
+            full_groups[b] = []
+    out: List[Optional[FlatQueryResult]] = [None] * len(flats)
+    taken: Dict[str, int] = {}
+    escalate: List[int] = []
+    for b, idxs in full_groups.items():
+        if not idxs:
+            continue
+        results, invalid = _execute_pruned(
+            resident, [flats[i] for i in idxs], k, full_slots=b,
+            packed_sort=packed_sort)
+        for j, i in enumerate(idxs):
+            out[i] = results[j]
+        taken[f"full-{b}"] = len(idxs)
+        # full-postings runs are exact (beta 0, never invalid); should
+        # that ever break, escalate rather than fail the train
+        escalate.extend(idxs[j] for j in invalid)
+    if hot_idx:
+        results, invalid = _execute_pruned(
+            resident, [flats[i] for i in hot_idx], k,
+            prefix_cap=PREFIX_CAP2, packed_sort=packed_sort)
+        for j, i in enumerate(hot_idx):
+            out[i] = results[j]
+        taken["prefix-16k"] = len(hot_idx)
+        escalate.extend(hot_idx[j] for j in invalid)
+    tier3_idx: List[int] = []
+    if escalate:
+        results, invalid = _execute_pruned(
+            resident, [flats[i] for i in escalate], k,
+            prefix_cap=PREFIX_CAP3, packed_sort=packed_sort)
+        for j, i in enumerate(escalate):
+            out[i] = results[j]
+        taken["escalated-64k"] = len(escalate)
+        tier3_idx = [escalate[j] for j in invalid]
+    for idxs in (exact_idx, tier3_idx):
+        if not idxs:
+            continue
+        launch = _launch_exact(resident, [flats[i] for i in idxs], k,
+                               packed_sort=packed_sort)
+        if variants is not None:
+            v = launch["variant"]
+            variants[v] = variants.get(v, 0) + 1
+        if shapes is not None:
+            shape = (launch["bucket"], launch["t_slots"], _kernel_k(k))
+            shapes[shape] = shapes.get(shape, 0) + 1
+        results = _finish_exact(launch)
+        for j, i in enumerate(idxs):
+            out[i] = results[j]
+        taken["exact"] = taken.get("exact", 0) + len(idxs)
+    if tiers is not None:
+        for name, n in taken.items():
+            tiers[name] = tiers.get(name, 0) + n
+    return out  # type: ignore[return-value]
 
 
 # ---------------------------------------------------------------------------
@@ -661,14 +953,17 @@ class MicroBatcher:
             if queue.submit(pending):
                 return pending.future
 
-    def retire(self, resident: ResidentPack) -> None:
+    def retire(self, resident: ResidentPack) -> Optional[threading.Thread]:
         """Refuse new work for `resident`; its queue drains what it holds
-        and its thread ends."""
+        and its thread ends. → that thread (None without a queue): until
+        it ends it holds `resident` and so its device arrays."""
         with self._lock:
             resident.retired = True
             queue = self._queues.pop(id(resident), None)
-        if queue is not None:
-            queue.close()
+        if queue is None:
+            return None
+        queue.close()
+        return queue.thread
 
     def close(self) -> None:
         with self._lock:
@@ -706,25 +1001,40 @@ class GpuSearchService:
     device, ``device="cpu"`` the plain path): ``try_search`` over a
     node's IndexService, through the IndexPackCache (charged to
     `breaker`, the node's ``hbm`` breaker) and the micro-batcher; and
-    create_index / index / refresh / search over indices of its own."""
+    create_index / index / refresh / search / delete_index over indices
+    of its own, whose packs charge the same breaker."""
 
     def __init__(self, device=None, window_s: float = 0.005,
                  max_batch: int = 128, batch_timeout_s: float = 300.0,
-                 breaker=None, mesh: Optional[Mesh] = None):
+                 breaker=None, mesh: Optional[Mesh] = None,
+                 packed_sort: bool = True, compressed_pack: bool = True):
         self.mesh = resolve_mesh(device, mesh)
         self.batch_timeout_s = batch_timeout_s
         self._indices: Dict[str, _Index] = {}
         self._lock = threading.Lock()
+        #: the reference's KERNEL_CONFIG routing keys (its settings
+        #: search.tpu_serving.kernel.packed_sort / .compressed_pack), per
+        #: service: compressed_pack decides the format of the packs built
+        #: from then on (False keeps every pack raw), packed_sort lets a
+        #: raw pack's launches take "packed"
+        self.kernel_config = {"packed_sort": bool(packed_sort),
+                              "compressed_pack": bool(compressed_pack)}
         self.batcher = MicroBatcher(self._execute, window_s=window_s,
                                     max_batch=max_batch)
-        self.packs = IndexPackCache(self.mesh, breaker)
+        self._breaker = breaker
+        self.packs = IndexPackCache(self.mesh, breaker, self.kernel_config)
         self.packs.on_evict = self.batcher.retire
         self.stages = StageTimes()
         self.served = 0
-        #: kernel variant → trains (compressed: the fused merge kernel;
-        #: compressed_exact: the exact merge, for unpackable weights)
+        #: exact launches by kernel variant (compressed: the fused merge
+        #: kernel; compressed_exact: the exact merge, for unpackable
+        #: weights; ref / packed: the raw merge)
         self.variant_launches: Dict[str, int] = {}
         self.launch_shapes: Dict[Tuple[int, int, int], int] = {}
+        #: queries each tier of TIERS took (an escalated query in each it
+        #: passed) and results whose total's relation is "gte"
+        self.tier_queries: Dict[str, int] = {}
+        self.gte_results = 0
 
     # -- indices -----------------------------------------------------------
 
@@ -785,10 +1095,30 @@ class GpuSearchService:
             idx.generation += 1
             self._drop_packs(idx)
 
-    def _drop_packs(self, idx: _Index) -> None:
+    def _drop_packs(self, idx: _Index) -> List[threading.Thread]:
+        """Retire and uncharge the index's packs → their batcher threads."""
+        threads = []
         for resident in idx.packs.values():
-            self.batcher.retire(resident)
+            thread = self.batcher.retire(resident)
+            if thread is not None:
+                threads.append(thread)
+            if self._breaker is not None:
+                self._breaker.release(resident.hbm_bytes)
         idx.packs.clear()
+        return threads
+
+    def delete_index(self, name: str) -> None:
+        """Drop an index of the service's own, its resident packs and
+        their breaker charge. Returns once the packs' batcher threads
+        have ended, so that their device arrays are freed."""
+        idx = self._index(name)
+        with idx.lock:
+            threads = self._drop_packs(idx)
+        with self._lock:
+            self._indices.pop(name, None)
+        for thread in threads:
+            if thread is not threading.current_thread():
+                thread.join()
 
     def resident(self, name: str, field: str) -> Optional[ResidentPack]:
         """The field's resident pack, built and placed on first use; None
@@ -811,7 +1141,9 @@ class GpuSearchService:
             pack = dist.build_stacked_pack(
                 segments, field, row_groups=groups,
                 pad_shards_to=_pad_rows(len(segments), self.mesh))
-            entry = place_pack(pack, self.mesh, origin, segments)
+            entry = place_pack(
+                pack, self.mesh, origin, segments, breaker=self._breaker,
+                compressed_pack=self.kernel_config["compressed_pack"])
             idx.packs[field] = entry
             return entry
 
@@ -820,13 +1152,20 @@ class GpuSearchService:
     def _execute(self, resident: ResidentPack, flats: Sequence[FlatQuery],
                  k: int) -> List[FlatQueryResult]:
         t0 = time.perf_counter()
-        launch = _launch_exact(resident, flats, k)
+        tiers: Dict[str, int] = {}
+        variants: Dict[str, int] = {}
+        shapes: Dict[Tuple[int, int, int], int] = {}
+        out = execute_flat_batch(
+            resident, flats, k,
+            packed_sort=self.kernel_config["packed_sort"], tiers=tiers,
+            variants=variants, shapes=shapes)
         with self._lock:
-            v = launch["variant"]
-            self.variant_launches[v] = self.variant_launches.get(v, 0) + 1
-            shape = (launch["bucket"], launch["t_slots"], _kernel_k(k))
-            self.launch_shapes[shape] = self.launch_shapes.get(shape, 0) + 1
-        out = _finish_exact(launch)
+            for mine, total in ((tiers, self.tier_queries),
+                                (variants, self.variant_launches),
+                                (shapes, self.launch_shapes)):
+                for key, n in mine.items():
+                    total[key] = total.get(key, 0) + n
+            self.gte_results += sum(r.total_relation == "gte" for r in out)
         self.stages.add("train", time.perf_counter() - t0)
         return out
 
@@ -898,12 +1237,15 @@ class GpuSearchService:
         flat = lower_query(query, idx.mapper)
         while True:
             resident = self.resident(name, flat.field)
+            t1 = time.perf_counter()
             if resident is None:
                 res = FlatQueryResult.empty()
                 break
             future = self.batcher.submit(resident, flat, k)
             if future is not None:
+                self.stages.add("lower", t1 - t0)
                 res = future.result(timeout=self.batch_timeout_s)
+                self.stages.add("batch_wait", time.perf_counter() - t1)
                 break
             # a refresh retired the pack after the lookup
         scores = res.scores[from_: from_ + size]
@@ -929,7 +1271,8 @@ class GpuSearchService:
             "timed_out": False,
             "_shards": {"total": n_shards, "successful": n_shards,
                         "skipped": 0, "failed": 0},
-            "hits": {"total": {"value": res.total_hits, "relation": "eq"},
+            "hits": {"total": {"value": res.total_hits,
+                               "relation": res.total_relation},
                      "max_score": (float(res.scores[0]) if len(res.scores)
                                    else None),
                      "hits": hits},
@@ -938,3 +1281,6 @@ class GpuSearchService:
     def close(self) -> None:
         self.batcher.close()
         self.packs.invalidate_all()
+        for idx in list(self._indices.values()):
+            with idx.lock:
+                self._drop_packs(idx)

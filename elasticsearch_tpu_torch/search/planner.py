@@ -53,16 +53,26 @@ Pair = Tuple[torch.Tensor, torch.Tensor]
 
 
 def choose_kernel_variant(d_pad: int,
-                          weights: Optional[np.ndarray] = None) -> str:
-    """Variant for one lowered (compressed pack, batch): "compressed" —
-    quantized sort keys + block-max pruning, the Hopper kernel on a card —
-    when sparse.packable() holds for the doc axis and the slot weights;
-    otherwise "compressed_exact", exact for any weights. (The reference's
-    "pallas" spelling is the same kernel in the port; sorted_merge_topk
+                          weights: Optional[np.ndarray] = None,
+                          enabled: bool = True,
+                          compressed: bool = False) -> str:
+    """Variant for one lowered (pack, batch), the reference's rule.
+    A compressed pack: "compressed" (quantized sort keys + block-max
+    pruning, the Hopper merge kernel on a card) when sparse.packable()
+    holds for the doc axis and the slot weights, else "compressed_exact",
+    exact for any weights. A raw pack: "packed" (the single-key sort and
+    exact rescore; on a card the raw merge, bit-identical to "ref") when
+    `enabled` (the packed_sort setting) and packable() holds, else "ref"
+    — the variant for d_pad ≥ 2**16. (The reference's "pallas" spelling
+    of "compressed" is the same kernel in the port; sorted_merge_topk
     still accepts it.)"""
-    if sparse.packable(d_pad, weights):
-        return "compressed"
-    return "compressed_exact"
+    if compressed:
+        if sparse.packable(d_pad, weights):
+            return "compressed"
+        return "compressed_exact"
+    if enabled and sparse.packable(d_pad, weights):
+        return "packed"
+    return "ref"
 
 
 def _edit_distance_lte(a: str, b: str, k: int) -> bool:

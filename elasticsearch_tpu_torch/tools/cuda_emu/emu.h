@@ -17,7 +17,7 @@ struct int2 { int x, y; };
 inline int2 make_int2(int a, int b) { return int2{a, b}; }
 typedef void* cudaStream_t;
 typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <class F> int cudaFuncSetAttribute(F, int, int v) { return v > 232448 ? 1 : 0; }
 inline int cudaGetLastError() { return 0; }
 template <class F> int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) { *n = 0; return 0; }

@@ -425,3 +425,127 @@ def test_hierarchical_top_k_routes_cuda_to_shard_topk(cuda):
     assert merge_kernel.LAUNCHES["shard_topk"] == before + 1
     wv, wp = sparse.top_k_plain(t, 17)
     assert torch.equal(v, wv) and torch.equal(p, wp)
+
+
+# ---------------------------------------------------------------------------
+# raw packs: raw_merge, pruned_candidates, pruned_rescore
+# ---------------------------------------------------------------------------
+
+def raw_pair(pos, static, k, device):
+    tpos = cases.to_torch(pos, device)
+    before = merge_kernel.LAUNCHES["raw_merge"]
+    got = sparse.sorted_merge_topk(*tpos, k=k, with_totals=True,
+                                   variant="ref", **static)
+    torch.cuda.synchronize()
+    assert merge_kernel.LAUNCHES["raw_merge"] == before + 1
+    want = merge_kernel.raw_merge_topk_plain(*tpos, k=k, with_totals=True,
+                                             **static)
+    return got, want
+
+
+@pytest.mark.parametrize("window_cap", [64, 2048],
+                         ids=["windows", "one_window"])
+@pytest.mark.parametrize("case", [c for c in cases.EXACT_WINDOW_CASES
+                                  if c != "delta"])
+def test_raw_merge_windows_match_plain(cuda, case, window_cap, monkeypatch):
+    """The raw merge's size classes (one window, parts by doc, the radix
+    passes of a descending slot) on int32 docs and f32 impacts."""
+    monkeypatch.setattr(merge_kernel, "EXACT_WINDOW_CAP", window_cap)
+    fd, fi, rows, mins, d_pad, _, _ = cases.exact_window_case(
+        np.random.default_rng(101), case)
+    pos, static = cases.raw_args(fd, fi, rows, mins, d_pad)
+    for k in (7, 400):
+        got, want = raw_pair(pos, static, k, cuda)
+        cases.assert_bitwise(got, want, f"{case} k={k}")
+
+
+@pytest.mark.parametrize("k", [10, 1024, 16384])
+def test_raw_merge_wide_segment_matches_plain(cuda, k):
+    """Rows of a 500,000-doc segment (19-bit docs) at full slot width:
+    CHUNK_CAP-lane slots, a stop-word row of ~100 slots cut into parts,
+    msm rows, kernel k up to 16,384 (shard_topk's device class)."""
+    rng = np.random.default_rng(104)
+    d_pad = 500_096
+    fd, fi, ext = cases.make_flat(rng, 6, d_pad, 150_000)
+    rows = [[(ext[t][0], ext[t][1], 0.5 + t, t) for t in range(6)],
+            [(ext[t][0], ext[t][1], 1.0, t) for t in (0, 2, 4)],
+            [(ext[3][0], ext[3][1], 2.0, 3)]]
+    pos, static = cases.raw_args(fd, fi, rows, [1, 2, 1], d_pad,
+                                 chunk_cap=4096)
+    got, want = raw_pair(pos, static, k, cuda)
+    cases.assert_bitwise(got, want, f"k={k}")
+
+
+def test_sorted_merge_topk_packed_takes_the_raw_merge(cuda):
+    """On a card "packed" launches the raw merge: bit-identical to the
+    plain "packed" (the reference's contract), one raw_merge launch."""
+    rng = np.random.default_rng(105)
+    fd, fi, rows, mins, d_pad, k, _ = cases.make_case(rng)
+    pos, static = cases.raw_args(fd, fi, rows, mins, d_pad)
+    tpos = cases.to_torch(pos, cuda)
+    before = merge_kernel.LAUNCHES["raw_merge"]
+    got = sparse.sorted_merge_topk(*tpos, k=k, with_totals=True,
+                                   variant="packed", **static)
+    assert merge_kernel.LAUNCHES["raw_merge"] == before + 1
+    want = merge_kernel.raw_merge_topk_plain(*tpos, k=k, with_totals=True,
+                                             packed=True, **static)
+    cases.assert_bitwise(got, want, "packed")
+
+
+@pytest.mark.parametrize("pack_keys", [False, True], ids=["gid", "u32_key"])
+@pytest.mark.parametrize("size", ["small", "full_width"])
+def test_pruned_candidates_match_plain(cuda, pack_keys, size):
+    """Phase A of a group: the query's lanes sorted in device memory (a
+    few hundred, or full_width: 2 rows x 32 slots of CHUNK_CAP lanes,
+    ~100,000 lanes a query), run sums, the candidates' top-k."""
+    rng = np.random.default_rng(106)
+    if size == "small":
+        arrays, static = cases.candidates_case(rng)
+        ks = (9, 200)
+    else:
+        arrays, static = cases.candidates_case(
+            rng, g=2, t_slots=32, d_pad=20_000, max_len=4096, b=8,
+            n_terms=24, max_df=6000)
+        ks = (128, 2048)
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    for k in ks:
+        kw = dict(static, k=k, pack_keys=pack_keys)
+        before = merge_kernel.LAUNCHES["pruned_candidates"]
+        got = merge_kernel.pruned_candidates(*args, **kw)
+        torch.cuda.synchronize()
+        assert merge_kernel.LAUNCHES["pruned_candidates"] == before + 1
+        want = merge_kernel.pruned_candidates_plain(*args, **kw)
+        assert torch.equal(got[0].view(torch.int32),
+                           want[0].view(torch.int32))
+        live = want[0] > float("-inf")
+        assert torch.equal(got[1][live], want[1][live])
+        assert torch.equal(got[2], want[2])
+
+
+@pytest.mark.parametrize("c", [128, 2048])
+@pytest.mark.parametrize("mode", ["score_and_order", "score", "order"])
+def test_pruned_rescore_matches_plain(cuda, mode, c):
+    ds, tg, tr, tv, kw = cases.rescore_case(np.random.default_rng(107),
+                                            c=c, b=16, device=cuda)
+    exact = merge_kernel.pruned_rescore_plain(*ds, tg, *tr, **kw)
+    before = merge_kernel.LAUNCHES["pruned_rescore"]
+    if mode == "score":
+        got = merge_kernel.pruned_rescore(*ds, tg, *tr, **kw)
+        assert torch.equal(got.view(torch.int32), exact.view(torch.int32))
+    elif mode == "order":
+        exact[:, 30] = exact[:, 31]
+        got = merge_kernel.pruned_order(exact, tv, tg, k=100)
+        want = merge_kernel.pruned_order_plain(exact, tv, tg, k=100)
+        assert torch.equal(got[0].view(torch.int32),
+                           want[0].view(torch.int32))
+        assert torch.equal(got[1], want[1])
+    else:
+        got = merge_kernel.pruned_rescore(*ds, tg, *tr, cand_vals=tv, k=100,
+                                          **kw)
+        want = merge_kernel.pruned_rescore_plain(*ds, tg, *tr, cand_vals=tv,
+                                                 k=100, **kw)
+        assert torch.equal(got[0].view(torch.int32),
+                           want[0].view(torch.int32))
+        assert torch.equal(got[1], want[1])
+    torch.cuda.synchronize()
+    assert merge_kernel.LAUNCHES["pruned_rescore"] == before + 1

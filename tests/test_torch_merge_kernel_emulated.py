@@ -693,3 +693,96 @@ def test_exact_merge_windows_match_plain(emulated, case, window_cap,
     else:   # a row past the window is cut into parts
         assert classes == {"exact.merge": len(rows) - longer,
                            "exact.parts": longer, "exact.radix": 0}
+
+
+# ---------------------------------------------------------------------------
+# raw packs: raw_merge, pruned_candidates, pruned_rescore
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("window_cap", [64, 2048],
+                         ids=["windows", "one_window"])
+@pytest.mark.parametrize("case", [c for c in cases.EXACT_WINDOW_CASES
+                                  if c != "delta"] + ["wide_docs"])
+def test_raw_merge_matches_plain(emulated, case, window_cap, monkeypatch):
+    """raw_merge (variant "ref" on a raw pack) against its plain version:
+    the exact merge's window cases on int32 docs and f32 impacts, and
+    docs past 2**16 (wide_docs: 19-bit docs, three radix passes when a
+    row falls back). Scores as uint32, docs and totals exactly."""
+    monkeypatch.setattr(merge_kernel, "EXACT_WINDOW_CAP", window_cap)
+    rng = np.random.default_rng(101)
+    if case == "wide_docs":
+        d_pad = 300_032
+        fd, fi, ext = cases.make_flat(rng, 5, d_pad, 900)
+        rows = [[(ext[t][0], ext[t][1], 0.5 + t, t) for t in range(5)],
+                [(ext[t][0], ext[t][1], 1.0, t) for t in (0, 2, 4)]]
+        mins = [1, 2]
+    else:
+        fd, fi, rows, mins, d_pad, _, _ = cases.exact_window_case(rng, case)
+    pos, static = cases.raw_args(fd, fi, rows, mins, d_pad)
+    tpos = cases.to_torch(pos)
+    for k in (7, 400):
+        stats = {}
+        got = merge_kernel._launch_exact(*tpos, k=k, with_totals=True,
+                                         stats=stats, events=None, raw=True,
+                                         **static)
+        want = merge_kernel.raw_merge_topk_plain(*tpos, k=k,
+                                                 with_totals=True, **static)
+        cases.assert_bitwise(got, want, f"{case} k={k}")
+        assert int(got[2].sum()) > 0
+    if case == "descending_slot":
+        assert stats["exact_classes"]["exact.radix"] == 1
+
+
+@pytest.mark.parametrize("pack_keys", [False, True], ids=["gid", "u32_key"])
+def test_pruned_candidates_match_plain(emulated, pack_keys):
+    """Phase A of one group of 3 rows: every query's lanes keyed by gid
+    (or, pack_keys, by the group-relative key with the impact code),
+    sorted, run-summed, the candidates' top-k; values, gids and totals
+    exactly, prefixes (lengths below a term's postings) included."""
+    arrays, static = cases.candidates_case(np.random.default_rng(102))
+    args = [torch.from_numpy(a) for a in arrays]
+    for k in (9, 200):
+        kw = dict(static, k=k, pack_keys=pack_keys)
+        got = merge_kernel._launch_candidates(*args, events=None, **kw)
+        want = merge_kernel.pruned_candidates_plain(*args, **kw)
+        np.testing.assert_array_equal(got[0].numpy().view(np.uint32),
+                                      want[0].numpy().view(np.uint32))
+        live = want[0] > float("-inf")
+        np.testing.assert_array_equal(got[1][live].numpy(),
+                                      want[1][live].numpy())
+        np.testing.assert_array_equal(got[2].numpy(), want[2].numpy())
+        assert int(got[2].sum()) > 0
+
+
+@pytest.mark.parametrize("mode", ["score_and_order", "score", "order"])
+def test_pruned_rescore_matches_plain(emulated, mode):
+    """Phase B: each candidate's terms binary-searched in the doc-sorted
+    rows, summed in the reference's association; and the final (-score,
+    gid) order of the candidates (ties of score by gid, -inf last)."""
+    ds, tg, tr, tv, kw = cases.rescore_case(np.random.default_rng(103))
+    exact = merge_kernel.pruned_rescore_plain(*ds, tg, *tr, **kw)
+    assert (exact > 0).any()
+    if mode == "score":
+        got = merge_kernel._launch_rescore(*ds, tg, *tr, None,
+                                           cand_vals=None, k=None,
+                                           events=None, **kw)
+        np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                      exact.numpy().view(np.uint32))
+        return
+    # a tie of exact scores, broken by gid
+    exact[:, 30] = exact[:, 31]
+    want = merge_kernel.pruned_order_plain(exact, tv, tg, k=60)
+    if mode == "order":
+        got = merge_kernel._launch_rescore(None, None, tg, None, None, None,
+                                           exact, cand_vals=tv, k=60,
+                                           d_pad=0, p_pad=0, row_base=0,
+                                           search_iters=0, events=None)
+    else:
+        want = merge_kernel.pruned_rescore_plain(*ds, tg, *tr, cand_vals=tv,
+                                                 k=60, **kw)
+        got = merge_kernel._launch_rescore(*ds, tg, *tr, None,
+                                           cand_vals=tv, k=60, events=None,
+                                           **kw)
+    np.testing.assert_array_equal(got[0].numpy().view(np.uint32),
+                                  want[0].numpy().view(np.uint32))
+    np.testing.assert_array_equal(got[1].numpy(), want[1].numpy())

@@ -156,7 +156,7 @@ class TestCompressedParity:
         pos, extra, static = cases.kernel_args(fd, fi, rows, mins, d_pad,
                                                ext)
         with pytest.raises(ValueError, match="variant"):
-            run_port(pos, extra, static, k, "ref")
+            run_port(pos, extra, static, k, "bogus")
         static = dict(static, d_pad=tsp.PACKED_DOC_LIMIT)
         with pytest.raises(ValueError, match="d_pad"):
             run_port(pos, extra, static, k, "compressed")

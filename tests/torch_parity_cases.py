@@ -422,3 +422,114 @@ TYPED_BODIES = {
 
 #: TYPED_BODIES whose scores pass through a log (held to rtol 1e-6)
 TRANSCENDENTAL = {"fvf_log1p"}
+
+
+# ---------------------------------------------------------------------------
+# raw packs: the raw merge's operands and the pruned kernels' cases
+# ---------------------------------------------------------------------------
+
+def raw_args(fd, fi, rows, mins, d_pad, chunk_cap=256):
+    """The raw merge's six positional operands (int32 docs, f32 impacts,
+    the planned slots) and static keywords, as numpy arrays."""
+    plan = sparse.plan_slots(rows, mins, chunk_cap=chunk_cap, lane=8)
+    pos = [fd, fi, plan.starts, plan.lengths, plan.weights, plan.min_count]
+    static = dict(max_len=plan.max_len, d_pad=d_pad, t_window=plan.window,
+                  with_counts=any(m > 1 for m in mins))
+    return pos, static
+
+
+def impact_sorted_rows(rng, n_rows, n_terms, d_pad, max_df, slack=SLACK):
+    """n_rows pack rows of n_terms postings each in impact-descending
+    order (ties by doc; impacts on a 1/16 grid, so ties are many) →
+    (docs int32 [S, P_pad], impacts f32, p_pad, ext[row][term] = (start,
+    length) within the row)."""
+    rows, ext = [], []
+    for _ in range(n_rows):
+        docs_r, imps_r, ext_r, pos = [], [], [], 0
+        for _t in range(n_terms):
+            df = int(rng.integers(1, max_df))
+            d = rng.choice(d_pad, size=df, replace=False).astype(np.int32)
+            im = (np.ceil(rng.uniform(0.05, 1.0, df) * 16) / 16).astype(
+                np.float32)
+            order = np.lexsort((d, -im))
+            docs_r.append(d[order])
+            imps_r.append(im[order])
+            ext_r.append((pos, df))
+            pos += df
+        rows.append((np.concatenate(docs_r), np.concatenate(imps_r)))
+        ext.append(ext_r)
+    p_pad = max(r[0].size for r in rows) + slack
+    docs = np.full((n_rows, p_pad), d_pad, dtype=np.int32)
+    imps = np.zeros((n_rows, p_pad), dtype=np.float32)
+    for i, (d, im) in enumerate(rows):
+        docs[i, :d.size] = d
+        imps[i, :im.size] = im
+    return docs, imps, p_pad, ext
+
+
+def candidates_case(rng, g=3, t_slots=4, d_pad=400, max_len=128, b=5,
+                    n_terms=6, max_df=120):
+    """One phase-A group of g rows: each of b queries takes up to t_slots
+    terms of every row, whole (even queries) or a random prefix (odd) →
+    ([flat docs, flat impacts, starts, lengths, weights, rows] numpy,
+    static keywords)."""
+    docs, imps, p_pad, ext = impact_sorted_rows(rng, g, n_terms, d_pad,
+                                                max_df)
+    starts = np.zeros((b, g * t_slots), dtype=np.int32)
+    lengths = np.zeros_like(starts)
+    weights = np.zeros((b, g * t_slots), dtype=np.float32)
+    rows = np.repeat(np.arange(g, dtype=np.int32), t_slots)[None].repeat(
+        b, axis=0)
+    for q in range(b):
+        terms = rng.choice(n_terms, size=int(rng.integers(
+            1, min(t_slots, n_terms) + 1)), replace=False)
+        ws = rng.uniform(0.3, 3.0, len(terms)).astype(np.float32)
+        for r in range(g):
+            for j, (term, w) in enumerate(zip(terms, ws)):
+                st, ln = ext[r][term]
+                cap = int(rng.integers(1, ln + 1)) if q % 2 else ln
+                starts[q, r * t_slots + j] = r * p_pad + st
+                lengths[q, r * t_slots + j] = min(cap, max_len)
+                weights[q, r * t_slots + j] = w
+    arrays = [docs.reshape(-1), imps.reshape(-1), starts, lengths, weights,
+              rows]
+    return arrays, dict(max_len=max_len, d_pad=d_pad, t_window=8)
+
+
+def rescore_case(rng, s_l=3, d_pad=300, b=4, t_terms=8, c=100,
+                 n_terms=10, max_df=150, device="cpu"):
+    """Phase B on a device holding rows 2 .. 2 + s_l of 6: doc-sorted
+    rows, each query's term ranges, c candidate gids of every row (some
+    repeated, the last 7 -inf with gid 0) → (doc-sorted [docs, impacts],
+    cand gids, [t_starts, t_lengths, t_weights], cand_vals, keywords), as
+    torch tensors on `device`."""
+    docs, imps, p_pad, ext = impact_sorted_rows(rng, s_l, n_terms, d_pad,
+                                                max_df)
+    for r in range(s_l):   # doc-sorted within each term
+        for st, ln in ext[r]:
+            o = np.argsort(docs[r, st:st + ln], kind="stable")
+            docs[r, st:st + ln] = docs[r, st:st + ln][o]
+            imps[r, st:st + ln] = imps[r, st:st + ln][o]
+    t_starts = np.zeros((s_l, b, t_terms), dtype=np.int32)
+    t_lengths = np.zeros_like(t_starts)
+    t_weights = np.zeros((s_l, b, t_terms), dtype=np.float32)
+    for q in range(b):
+        terms = rng.choice(n_terms, size=int(rng.integers(1, t_terms + 1)),
+                           replace=False)
+        for r in range(s_l):
+            for j, term in enumerate(terms):
+                t_starts[r, q, j], t_lengths[r, q, j] = ext[r][term]
+                t_weights[r, q, j] = rng.uniform(0.2, 2.0)
+    gids = (rng.integers(0, 6, (b, c)) * (d_pad + 1)
+            + rng.integers(0, d_pad, (b, c))).astype(np.int64)
+    gids[:, :10] = gids[:, 10:20]
+    cand_vals = rng.uniform(0.1, 5.0, (b, c)).astype(np.float32)
+    cand_vals[:, -7:] = float("-inf")
+    gids[:, -7:] = 0
+
+    def t(a):
+        return torch.from_numpy(a).to(device)
+
+    return ([t(docs), t(imps)], t(gids),
+            [t(t_starts), t(t_lengths), t(t_weights)], t(cand_vals),
+            dict(d_pad=d_pad, p_pad=p_pad, row_base=2, search_iters=9))
