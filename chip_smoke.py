@@ -145,11 +145,24 @@ device mesh through the collective tail, and checks:
                  pruned_rescore call against its plain version bit for
                  bit, every shard_topk, the 16 sampled hits against the
                  oracle; delete_index drains the breaker to 0 and
-                 memory_allocated() back. REST: a default one-shard
+                 memory_allocated() back; the routes of the counted run
+                 and the probes must equal RAW_TIERS / RAW_GTE (the
+                 extra bodies' split between full-32 and exact depends
+                 on which trains the from + size 10,000 bodies join),
+                 and the queries each pruned_candidates class took in
+                 each window are counted (each recorded call launched
+                 once more with stats), a class no query took named
+                 with the reason. REST: a default one-shard
                  index of 70,000 docs by _bulk, force-merged to one
                  segment, answers a match and an `and` _search 200 from
                  a raw pack. The kernels line adds the three kernels,
-                 each timed alone on the first 128 bodies as one train
+                 each timed alone on the first 128 bodies as one train;
+                 pruned_candidates also on the probes' widest prefix-16k
+                 and escalated-64k groups (its classes, blocks and
+                 blocks per SM), pruned_rescore on the probes' widest
+                 score-and-order call (with its device ms at each
+                 staged-levels setting) and on the fixed train's widest
+                 order-only call
 
 The last line is {"ok": true, "device": {...}}; any failure exits
 non-zero without it. Without a CUDA device the script exits 2 at once.
@@ -198,6 +211,29 @@ RAW_SHARDS = 2          # ~500,000 docs a segment: MS MARCO passage's width
 RAW_REST_INDEX = "raw-rest"
 RAW_REST_DOCS = 70_000  # one default shard above 65,408 docs: a raw pack
 RAW_KERNELS = ("raw_merge", "pruned_candidates", "pruned_rescore")
+#: the routes of the raw line's counted run and probes (queries a tier
+#: took; each probe a train of its own) and their gte results: the pruned
+#: kernels compute the reference's function, so a kernel change cannot
+#: move them. The extra bodies' split between full-32 and exact is not
+#: fixed: a train's k is its largest from + size, and an OR body that
+#: shares a train with a from + size 10,000 body takes exact
+RAW_TIERS = {"run": {"full-32": 128, "exact": 128},
+             "probes": {"full-128": 2, "prefix-16k": 6, "escalated-64k": 2,
+                        "exact": 2}}
+RAW_GTE = {"run": 0, "probes": 4}
+RAW_EXTRA = (130, ("full-32", "exact"))   # queries, the tiers they take
+#: why the raw traffic may leave a pruned_candidates class untaken
+CAND_CLASS_ABSENT = {
+    "cand.shared": "every phase-A query of this traffic holds more than "
+                   "CAND_BAND_CAP lanes (a term of a 500,000-doc row "
+                   "fills its 4,096-lane slots)",
+    "cand.bands": "no phase-A query of this traffic holds more than "
+                  "CAND_BAND_CAP lanes",
+    "cand.device": "no band of this traffic holds more than CAND_BAND_CAP "
+                   "items: a query's lanes spread evenly over its gids, "
+                   "and its bands are cut for half the cap; the kernel "
+                   "tests shrink the cap to reach the class",
+}
 RAW_LINES = {"raw_merge": "elasticsearch_tpu/ops/sparse.py:666",
              "pruned_candidates": "elasticsearch_tpu/parallel/"
                                   "distributed.py:971",
@@ -1672,30 +1708,70 @@ def newer_kernel_entries(mk, svc, topk_calls, exact_bodies_128, launches,
 class RawRecorder:
     """Wraps merge_kernel's raw_merge_topk, pruned_candidates,
     pruned_rescore and pruned_order while a path runs and keeps every
-    call's operands and outputs (device copies)."""
+    call's operands and outputs (device copies), and in `tiers`, in step
+    with `calls`, the pruned tier the service ran each call for (None
+    outside one)."""
 
     NAMES = ("raw_merge_topk", "pruned_candidates", "pruned_rescore",
              "pruned_order")
 
     def __init__(self, merge_kernel):
+        import threading
+
+        from elasticsearch_tpu_torch.search import gpu_service
         self.mk = merge_kernel
+        self.gs = gpu_service
         self.real = {n: getattr(merge_kernel, n) for n in self.NAMES}
+        self.real_execute = gpu_service._execute_pruned
         self.calls = []
+        self.tiers = []
+        self.tier = threading.local()
 
     def __enter__(self):
+        gs = self.gs
+        prefix = {gs.PREFIX_CAP2: "prefix-16k",
+                  gs.PREFIX_CAP3: "escalated-64k"}
+
+        def execute(resident, flats, k, **kw):
+            self.tier.name = (f"full-{kw['full_slots']}"
+                              if kw.get("full_slots") is not None
+                              else prefix.get(kw.get("prefix_cap")))
+            try:
+                return self.real_execute(resident, flats, k, **kw)
+            finally:
+                self.tier.name = None
+
+        gs._execute_pruned = execute
         for name, real in self.real.items():
             def record(*args, _name=name, _real=real, **kw):
                 out = _real(*args, **kw)
                 outs = out if isinstance(out, tuple) else (out,)
                 self.calls.append((_name, args, dict(kw),
                                    tuple(o.clone() for o in outs)))
+                self.tiers.append(getattr(self.tier, "name", None))
                 return out
             setattr(self.mk, name, record)
         return self
 
     def __exit__(self, *exc):
+        self.gs._execute_pruned = self.real_execute
         for name, real in self.real.items():
             setattr(self.mk, name, real)
+
+
+def candidate_classes(mk, calls):
+    """The queries each pruned_candidates class takes in the recorded
+    calls (each call launched once more with stats, after the window's
+    counts were read) → {class: queries}."""
+    out = dict.fromkeys(mk.CAND_CLASSES, 0)
+    for name, args, kw, _ in calls:
+        if name != "pruned_candidates":
+            continue
+        stats = {}
+        mk.pruned_candidates(*args, **dict(kw, stats=stats))
+        for cls, n in stats["cand_classes"].items():
+            out[cls] += n
+    return out
 
 
 def check_raw_calls(mk, calls):
@@ -1772,40 +1848,68 @@ def raw_bytes(name, args, kw, got):
             + b * k * 12)
 
 
-def raw_kernel_entries(mk, calls, launches, n_trains, rescore_call):
+def raw_kernel_entries(mk, calls, launches, n_trains, rescore_call,
+                       tier_calls):
     """The kernels line's raw_merge, pruned_candidates and pruned_rescore
-    entries, each timed alone on the fixed train's call of it (the first
-    128 bodies as one train; pruned_rescore on `rescore_call`, the
-    widest scoring call of the run, when the train has none): ms (CUDA
-    events), device ms (torch.profiler), the plain version's ms, the
-    bytes bound and the library call."""
+    entries, each timed alone: raw_merge and pruned_candidates on the
+    fixed train's calls (the first 128 bodies as one train), and
+    pruned_candidates also on the probes' widest prefix-16k and
+    escalated-64k groups (`tier_calls`); pruned_rescore on
+    `rescore_call`, the widest scoring call of the run (a prefix probe's
+    score and order), and on the fixed train's widest order-only call:
+    ms (CUDA events), device ms (torch.profiler), the plain version's
+    ms, the bytes bound, the library call, and for pruned_candidates the
+    classes its queries took, its blocks and their residency."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from elasticsearch_tpu_torch.ops import sparse
 
     def device_ms(fn, fn_names):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(TIMED):
-                fn()
+        """Mean device ms a call of fn spends in the named kernels, each
+        launched once a call: the sum of their means per record, since a
+        session may end without some or all of the device's kernel
+        records (up to PROFILE_TRIES sessions until one holds a named
+        kernel), and when none did what the last session listed."""
+        from elasticsearch_tpu_torch.tools.kernel_ab import PROFILE_TRIES
+        for _ in range(PROFILE_TRIES):
             torch.cuda.synchronize()
-        total = 0.0
-        for ev in prof.key_averages():
-            us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0.0))
-            if any(f in ev.key for f in fn_names):
-                total += us / 1e3 / TIMED
-        return total or None
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(TIMED):
+                    fn()
+                torch.cuda.synchronize()
+            total, seen = 0.0, {}
+            for ev in prof.key_averages():
+                us = getattr(ev, "self_device_time_total",
+                             getattr(ev, "self_cuda_time_total", 0.0))
+                seen[ev.key[:120]] = (us, ev.count)
+                if any(f in ev.key for f in fn_names) and ev.count:
+                    total += us / 1e3 / ev.count
+            if total:
+                return total, None
+        listed = sorted(seen.items(), key=lambda kv: -kv[1][0])[:8]
+        return None, {"sessions": PROFILE_TRIES, "listed": listed}
 
-    def biggest(name):
+    def widest(name):
         own = [c for c in calls if c[0] == name]
         return max(own, key=lambda c: c[1][2].numel() * (
             int(c[1][3].clamp(min=0).sum()) if c[1][3] is not None else 1))
 
+    def entry(name, kernel, run, names, plain, plain_of, library,
+              library_of, nbytes, **extra):
+        """run(events) launches the kernel once."""
+        dev_ms, seen = device_ms(lambda: run(None), names)
+        e = dict(name=name, kernel=kernel, ms=time_events(run, TIMED)[kernel],
+                 device_ms=dev_ms, plain_ms=time_cuda(plain, 5),
+                 plain_of=plain_of, library_ms=library,
+                 library_of=library_of, bytes=nbytes, **extra)
+        if seen is not None:
+            e["device_ms_seen"] = seen
+        return e
+
     entries = []
     # raw_merge: the train's exact launch (its AND / msm bodies)
-    _, args, kw, got = biggest("raw_merge_topk")
+    _, args, kw, got = widest("raw_merge_topk")
     docs, _ = sparse._lane_decode(*args[:5], max_len=kw["max_len"],
                                   d_pad=kw["d_pad"], exact=False)
     lanes = torch.arange(kw["max_len"], device=docs.device)
@@ -1814,59 +1918,59 @@ def raw_kernel_entries(mk, calls, launches, n_trains, rescore_call):
     keys = ((rows << 32) | docs)[valid]
     del docs, valid
     fn_kw = {k: v for k, v in kw.items() if k not in ("stats", "events")}
-    entries.append(dict(
-        name="merge_topk.raw_merge", kernel="raw_merge",
-        ms=time_events(lambda ev: mk.raw_merge_topk(
-            *args, **dict(fn_kw, events=ev)), TIMED)["raw_merge"],
-        device_ms=device_ms(lambda: mk.raw_merge_topk(*args, **fn_kw),
-                            ("exact_merge_kernel<true>",
-                             "exact_finish_kernel<true>")),
-        plain_ms=time_cuda(lambda: mk.raw_merge_topk_plain(*args, **fn_kw),
-                           5),
-        plain_of="raw_merge_topk_plain: the whole ref pipeline with its "
-                 "top-k",
-        library_ms=time_cuda(lambda: torch.sort(keys, stable=True), TIMED),
-        library_of="torch.sort(stable=True) of the same lanes' (row << 32 "
-                   "| doc) keys: the sort alone",
-        bytes=raw_bytes("raw_merge", args, fn_kw, got),
+    entries.append(entry(
+        "merge_topk.raw_merge", "raw_merge",
+        lambda ev: mk.raw_merge_topk(*args, **dict(fn_kw, events=ev)),
+        ("exact_merge_kernel<true>", "exact_finish_kernel<true>"),
+        lambda: mk.raw_merge_topk_plain(*args, **fn_kw),
+        "raw_merge_topk_plain: the whole ref pipeline with its top-k",
+        time_cuda(lambda: torch.sort(keys, stable=True), TIMED),
+        "torch.sort(stable=True) of the same lanes' (row << 32 | doc) "
+        "keys: the sort alone", raw_bytes("raw_merge", args, fn_kw, got),
         shape={"rows": args[2].shape[0], "slots": args[2].shape[1],
                "max_len": kw["max_len"], "k": kw["k"],
                "lanes": int(keys.numel())}))
     del keys
-    # pruned_candidates: the train's widest phase-A group
-    _, args, kw, got = biggest("pruned_candidates")
-    flat_docs, flat_imps, starts, lengths, weights, prow = args
-    gid = (prow.to(torch.int64)[:, :, None] * (kw["d_pad"] + 1)
-           + sparse._window(flat_docs, starts, kw["max_len"]))
-    valid = (torch.arange(kw["max_len"], device=gid.device)[None, None, :]
-             < lengths[:, :, None])
-    qrow = torch.arange(gid.shape[0], device=gid.device)[:, None, None]
-    gkeys = ((qrow << 40) | gid)[valid]
-    del gid, valid
-    entries.append(dict(
-        name="merge_topk.pruned_candidates", kernel="pruned_candidates",
-        ms=time_events(lambda ev: mk.pruned_candidates(
-            *args, **dict(kw, events=ev)), TIMED)["pruned_candidates"],
-        device_ms=device_ms(lambda: mk.pruned_candidates(*args, **kw),
-                            ("pruned_candidates_kernel",)),
-        plain_ms=time_cuda(lambda: mk.pruned_candidates_plain(*args, **kw),
-                           5),
-        plain_of="pruned_candidates_plain: the group's sort, run sums "
-                 "and top-k",
-        library_ms=time_cuda(lambda: torch.sort(gkeys, stable=True), TIMED),
-        library_of="torch.sort(stable=True) of the same lanes' (query << "
-                   "40 | gid) keys: the sort alone",
-        bytes=raw_bytes("pruned_candidates", args, kw, got),
-        shape={"queries": starts.shape[0], "slots": starts.shape[1],
-               "max_len": kw["max_len"], "k": kw["k"],
-               "pack_keys": kw["pack_keys"], "lanes": int(gkeys.numel())}))
-    del gkeys
-    # pruned_rescore: the train's phase B (or, without a prefix launch,
-    # its order-only call)
-    own = [c for c in calls if c[0] == "pruned_rescore"]
-    if rescore_call is not None or own:
-        _, args, kw, got = rescore_call or max(
-            own, key=lambda c: c[1][2].numel())
+    # pruned_candidates: the train's widest phase-A group, then the
+    # probes' prefix tiers (a query of many bands)
+    groups = [("merge_topk.pruned_candidates", widest("pruned_candidates"),
+               "full-32: the fixed train's widest group")]
+    groups += [(f"merge_topk.pruned_candidates.{tier.replace('-', '_')}",
+                call, f"{tier}: the probes' widest group")
+               for tier, call in tier_calls.items()]
+    for name, (_, args, kw, got), group in groups:
+        flat_docs, flat_imps, starts, lengths, weights, prow = args
+        gid = (prow.to(torch.int64)[:, :, None] * (kw["d_pad"] + 1)
+               + sparse._window(flat_docs, starts, kw["max_len"]))
+        valid = (torch.arange(kw["max_len"], device=gid.device)[
+            None, None, :] < lengths[:, :, None])
+        qrow = torch.arange(gid.shape[0], device=gid.device)[:, None, None]
+        gkeys = ((qrow << 40) | gid)[valid]
+        del gid, valid
+        stats = {}
+        mk.pruned_candidates(*args, **dict(kw, stats=stats))
+        entries.append(entry(
+            name, "pruned_candidates",
+            lambda ev, a=args, k=kw: mk.pruned_candidates(
+                *a, **dict(k, events=ev)),
+            ("cand_part_kernel", "cand_band_kernel"),
+            lambda a=args, k=kw: mk.pruned_candidates_plain(*a, **k),
+            "pruned_candidates_plain: the group's sort, run sums and top-k",
+            time_cuda(lambda: torch.sort(gkeys, stable=True), TIMED),
+            "torch.sort(stable=True) of the same lanes' (query << 40 | gid)"
+            " keys: the sort alone",
+            raw_bytes("pruned_candidates", args, kw, got), group=group,
+            shape={"queries": starts.shape[0], "slots": starts.shape[1],
+                   "max_len": kw["max_len"], "k": kw["k"],
+                   "pack_keys": kw["pack_keys"],
+                   "lanes": int(gkeys.numel())},
+            size_classes=stats["cand_classes"], blocks=stats["cand_blocks"],
+            smem=stats["cand_smem"],
+            blocks_per_sm=stats["cand_blocks_per_sm"]))
+        del gkeys
+    # pruned_rescore: the run's widest scoring call (score and order)
+    if rescore_call is not None:
+        _, args, kw, got = rescore_call
         ds_docs, ds_imps, cgids, t_st, t_ln, t_w = args
         d1 = kw["d_pad"] + 1
         flat = ds_docs.reshape(-1).to(torch.int64)
@@ -1900,36 +2004,48 @@ def raw_kernel_entries(mk, calls, launches, n_trains, rescore_call):
                                      torch.zeros_like(total))
             return total
 
-        mode = "score_and_order" if kw.get("cand_vals") is not None \
-            else "score"
-        run = (lambda ev=None: mk.pruned_rescore(*args, **dict(kw,
-                                                               events=ev)))
-        plain = (lambda: mk.pruned_rescore_plain(*args, **kw))
-        lib_of = ("torch.searchsorted per term of the candidates' docs "
-                  "plus the weighted sum (no range bounds, no order)")
-        lib = time_cuda(library, TIMED)
-    else:
-        _, args, kw, got = max(
-            (c for c in calls if c[0] == "pruned_order"),
-            key=lambda c: c[1][0].numel())
-        mode = "order"
-        run = (lambda ev=None: mk.pruned_order(*args, **dict(kw,
-                                                             events=ev)))
-        plain = (lambda: mk.pruned_order_plain(*args, **kw))
-        lib_of = ("torch.sort of the candidates' -score (the order "
-                  "without its gid tie rule)")
-        lib = time_cuda(lambda: torch.sort(-args[0], dim=1), TIMED)
-    entries.append(dict(
-        name="merge_topk.pruned_rescore", kernel="pruned_rescore",
-        ms=time_events(run, TIMED)["pruned_rescore"],
-        device_ms=device_ms(lambda: run(None), ("pruned_rescore_kernel",)),
-        plain_ms=time_cuda(plain, 5),
-        plain_of=f"pruned_rescore_plain / pruned_order_plain ({mode})",
-        library_ms=lib, library_of=lib_of,
-        bytes=(raw_bytes("pruned_rescore", args, kw, got) if mode != "order"
-               else args[0].numel() * 16 + args[0].shape[0] * kw["k"] * 12),
-        shape={"queries": args[2].shape[0] if mode != "order"
-               else args[0].shape[0], "mode": mode}))
+        mode = ("score_and_order" if kw.get("cand_vals") is not None
+                else "score")
+        stats = {}
+        mk.pruned_rescore(*args, **dict(kw, stats=stats))
+        entries.append(entry(
+            "merge_topk.pruned_rescore", "pruned_rescore",
+            lambda ev: mk.pruned_rescore(*args, **dict(kw, events=ev)),
+            ("rescore_score_kernel", "rescore_order_kernel"),
+            lambda: mk.pruned_rescore_plain(*args, **kw),
+            f"pruned_rescore_plain ({mode})", time_cuda(library, TIMED),
+            "torch.searchsorted per term of the candidates' docs plus the "
+            "weighted sum (no range bounds, no order)",
+            raw_bytes("pruned_rescore", args, kw, got),
+            shape={"queries": cgids.shape[0], "candidates": cgids.shape[1],
+                   "terms": t_st.shape[2], "mode": mode,
+                   "search_iters": kw["search_iters"]},
+            size_classes=stats["rescore_classes"],
+            blocks=stats["rescore_blocks"], smem=stats["rescore_smem"],
+            blocks_per_sm=stats["rescore_blocks_per_sm"]))
+        del keys, run_id, flat
+    # pruned_rescore's order alone: the fixed train's widest call
+    orders = [c for c in calls if c[0] == "pruned_order"]
+    if orders:
+        _, args, kw, got = max(orders, key=lambda c: c[1][0].numel())
+        stats = {}
+        mk.pruned_order(*args, **dict(kw, stats=stats))
+        entries.append(entry(
+            "merge_topk.pruned_rescore.order", "pruned_rescore",
+            lambda ev: mk.pruned_order(*args, **dict(kw, events=ev)),
+            ("rescore_order_kernel",),
+            lambda: mk.pruned_order_plain(*args, **kw),
+            "pruned_order_plain", time_cuda(
+                lambda: torch.sort(-args[0], dim=1), TIMED),
+            "torch.sort of the candidates' -score (the order without its "
+            "gid tie rule)",
+            args[0].numel() * 16 + args[0].shape[0] * kw["k"] * 12,
+            shape={"queries": args[0].shape[0],
+                   "candidates": args[0].shape[1], "k": kw["k"],
+                   "mode": "order"},
+            size_classes=stats["rescore_classes"],
+            blocks=stats["rescore_blocks"], smem=stats["rescore_smem"],
+            blocks_per_sm=stats["rescore_blocks_per_sm"]))
     for e in entries:
         e.update(route="cuda", source=KERNEL_SOURCE,
                  replaces=RAW_LINES[e["kernel"]],
@@ -2061,6 +2177,7 @@ def raw_phase(corpus, bodies, mk, smi, extra_sets, data_root):
         probes = raw_probe_bodies(corpus.vocab)
         with RawRecorder(mk) as rec, TopkRecorder(mk) as top:
             drive(svc, RAW_INDEX, bodies[:64])   # warm-up
+            n_warm = len(rec.calls)
             mk.reset_launches()
             svc.tier_queries.clear()
             svc.variant_launches.clear()
@@ -2072,6 +2189,7 @@ def raw_phase(corpus, bodies, mk, smi, extra_sets, data_root):
             responses = drive(svc, RAW_INDEX, bodies, refused)
             run_s = time.perf_counter() - t2
             launches = dict(mk.LAUNCHES)
+            n_run = len(rec.calls)
             tiers = dict(svc.tier_queries)
             gte = svc.gte_results
             stages = svc.stages.snapshot()
@@ -2081,6 +2199,7 @@ def raw_phase(corpus, bodies, mk, smi, extra_sets, data_root):
             mk.reset_launches()
             extra = drive(svc, RAW_INDEX, run_extra, refused)
             extra_launches = {n: mk.LAUNCHES[n] for n in RAW_KERNELS}
+            n_extra = len(rec.calls)
             extra_tiers = dict(svc.tier_queries)
             extra_gte = svc.gte_results
             svc.tier_queries.clear()
@@ -2089,11 +2208,29 @@ def raw_phase(corpus, bodies, mk, smi, extra_sets, data_root):
             probe_tiers = dict(svc.tier_queries)
             probe_gte = svc.gte_results
         # phase B's kernel timed on its widest scoring call (the prefix
-        # tier's), before the checks consume the recorded calls
+        # tier's), phase A's on the probes' widest group of each prefix
+        # tier, before the checks consume the recorded calls
         scoring = [c for c in rec.calls if c[0] == "pruned_rescore"]
         rescore_call = (max(scoring, key=lambda c: c[1][2].numel())
                         if scoring else None)
-        del scoring
+        tier_calls = {}
+        for tier in ("prefix-16k", "escalated-64k"):
+            own = [c for c, t in zip(rec.calls, rec.tiers)
+                   if c[0] == "pruned_candidates" and t == tier]
+            if own:
+                tier_calls[tier] = max(own, key=lambda c: int(
+                    c[1][3].clamp(min=0, max=c[2]["max_len"]).sum()))
+        del scoring, own
+        windows = {"run": rec.calls[n_warm:n_run],
+                   "extra": rec.calls[n_run:n_extra],
+                   "probes": rec.calls[n_extra:]}
+        cand_classes = {w: candidate_classes(mk, c)
+                        for w, c in windows.items()}
+        del windows
+        cand_all = {c: sum(v[c] for v in cand_classes.values())
+                    for c in mk.CAND_CLASSES}
+        cand_not_taken = {c: CAND_CLASS_ABSENT[c] for c, n in
+                          cand_all.items() if n == 0}
         zero = [n for n in RAW_KERNELS if launches[n] <= 0]
         if zero:
             raise AssertionError(f"raw kernels not launched on the raw "
@@ -2115,6 +2252,15 @@ def raw_phase(corpus, bodies, mk, smi, extra_sets, data_root):
         topk_checked = check_topk_calls(mk, top.calls)
         all_tiers = {t: tiers.get(t, 0) + extra_tiers.get(t, 0)
                      + probe_tiers.get(t, 0) for t in TIERS}
+        routes = {"run": (tiers, gte), "probes": (probe_tiers, probe_gte)}
+        moved = {w: r for w, r in routes.items()
+                 if r != (RAW_TIERS[w], RAW_GTE[w])}
+        if (moved or sum(extra_tiers.values()) != RAW_EXTRA[0]
+                or not set(extra_tiers) <= set(RAW_EXTRA[1]) or extra_gte):
+            raise AssertionError(f"the raw traffic's routes moved: {moved}, "
+                                 f"extra {extra_tiers} gte {extra_gte}; "
+                                 f"expected {RAW_TIERS}, gte {RAW_GTE}, "
+                                 f"extra {RAW_EXTRA}")
         out.update(
             queries=len(responses), seconds=run_s,
             qps=len(responses) / run_s, trains=trains,
@@ -2130,6 +2276,9 @@ def raw_phase(corpus, bodies, mk, smi, extra_sets, data_root):
             refused_slot_limit=len(refused),
             tiers_taken=all_tiers,
             tiers_not_taken=[t for t, n in all_tiers.items() if n == 0],
+            tiers_expected=RAW_TIERS, gte_expected=RAW_GTE,
+            extra_expected=RAW_EXTRA,
+            cand_classes=cand_classes, cand_classes_not_taken=cand_not_taken,
             checked_calls=checked, recorded_calls=n_calls,
             shard_topk=topk_checked, oracle_checked=len(sample),
             oracle_tolerance="top-10 ids, scores rel=1e-5 abs=1e-6",
@@ -2142,9 +2291,10 @@ def raw_phase(corpus, bodies, mk, smi, extra_sets, data_root):
         with RawRecorder(mk) as fixed:
             svc._execute(svc.resident(RAW_INDEX, FIELD), flats, K)
         kernels = raw_kernel_entries(mk, fixed.calls, launches,
-                                     sum(trains.values()), rescore_call)
+                                     sum(trains.values()), rescore_call,
+                                     tier_calls)
         fixed.calls.clear()
-        del rescore_call
+        del rescore_call, tier_calls
         svc.delete_index(RAW_INDEX)
         gc.collect()
         torch.cuda.synchronize()

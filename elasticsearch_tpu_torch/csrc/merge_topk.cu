@@ -2439,16 +2439,12 @@ __device__ unsigned long long* merge_runs(unsigned long long* src,
 // run of a doc below d_pad sums its last `window` lanes with the doubling
 // tree of segmented_run_sum (TreeUp), counts them, and keeps the doc when
 // the total is > 0 and, with counts, the lanes reach `need`. Each thread
-// takes a contiguous segment of the items and parks its candidates in
-// `scratch` (not src: a run's tree may read an earlier segment) from its
-// segment's start; one block scan then places them: candidates in doc
-// order after the `found` already written, to cand_score and cand_doc,
-// or packed as (score bits << 32 | doc) when `packed` is given.
-__device__ void emit_runs(const unsigned long long* src, int n, int window,
-                          int with_counts, int need, int d_pad,
-                          unsigned long long* scratch, float* cand_score,
-                          int* cand_doc, unsigned long long* packed,
-                          int* found, int* s_warp) {
+// takes a contiguous segment of the items and parks its candidates, as
+// (score bits << 32 | doc), in `scratch` (not src: a run's tree may read
+// an earlier segment) from its segment's start *lo on → how many.
+__device__ int park_runs(const unsigned long long* src, int n, int window,
+                         int with_counts, int need, int d_pad,
+                         unsigned long long* scratch, int* lo_out) {
   const int per = odd_share(n);
   const int lo = min(n, (int)threadIdx.x * per), hi = min(n, lo + per);
   int kept = 0;
@@ -2473,6 +2469,21 @@ __device__ void emit_runs(const unsigned long long* src, int n, int window,
           ((unsigned long long)__float_as_uint(total) << 32) |
           (uint32_t)doc;
   }
+  *lo_out = lo;
+  return kept;
+}
+
+// park_runs, then one block scan places the candidates: in doc order
+// after the `found` already written, to cand_score and cand_doc, or
+// packed as (score bits << 32 | doc) when `packed` is given.
+__device__ void emit_runs(const unsigned long long* src, int n, int window,
+                          int with_counts, int need, int d_pad,
+                          unsigned long long* scratch, float* cand_score,
+                          int* cand_doc, unsigned long long* packed,
+                          int* found, int* s_warp) {
+  int lo = 0;
+  const int kept = park_runs(src, n, window, with_counts, need, d_pad,
+                             scratch, &lo);
   int tile = 0;
   const int at = *found + block_excl_scan(kept, s_warp, &tile);
   for (int j = 0; j < kept; ++j) {
@@ -2869,132 +2880,385 @@ Slots make_slots(const void* starts, const void* lengths,
 // 8. pruned_candidates: phase A of a pruned tier, one group of pack rows
 // ---------------------------------------------------------------------------
 
-// One block per query (grid B, 256 threads; row r of the launch). Its
-// slots are G rows x T slots of the impact-sorted copy (rows[r * GT + j]:
-// slot j's device-local pack row), so a slot's lanes are in impact order,
-// not doc order: the runs of exact_merge do not exist here, and the
-// block sorts. Every valid lane (j < len of its slot) becomes one u64
-// item: the gid row * (d_pad + 1) + doc in the high 32 bits, the bits of
-// w * impact (rounded) below, staged in the query's slice of `items`
-// (row_off[r]) in lane order; stable LSD passes of sort_pass over the gid
-// bits (a lane whose doc equals another's of the same row stays in slot
-// order, as the reference's stable sort keeps it); then emit_runs: each
-// run's total by the reference's doubling tree (t_window), the runs with
-// total > 0 as candidates in gid order. pack_keys: the item's high word
-// is the reference's u32 key instead, (group-relative gid << 16 | the
-// value's 16-bit code), the value its decoded code; the passes then
-// sort all 32 key bits (equal gids by code, as the reference's key sort
-// does) and the gids are restored before the runs. Invalid lanes are
-// not staged: in the reference they carry doc d_pad and impact 0, so
-// their runs are never candidates. shard_topk then takes the query's
-// top-k of the candidates (ties by gid: the sorted order). Bound: bytes,
-// each valid lane's doc and impact read once, and the sort's passes.
-constexpr int kCandThreads = kExactThreads;
+// Replaces the reference's make_pruned_search phase A, one_group
+// (elasticsearch_tpu/parallel/distributed.py:971). Query b's slots are G
+// rows x T slots of the impact-sorted copy (rows[b * GT + j]: slot j's
+// device-local pack row), so a slot's lanes are in impact order, not doc
+// order: there are no runs to merge, and the lanes are sorted. Every
+// valid lane (j < len of its slot) is one u64 item: its key in the high
+// 32 bits, the bits of w * impact (rounded) below. The key is the gid
+// row * (d_pad + 1) + doc less key_base (the gid of the launch's lowest
+// row's doc 0), or with pack_keys the reference's u32 key ((gid -
+// key_base) << 16 | the value's 16-bit code, key_base then the group's
+// first slot's row, as the reference's group-relative gid), the value
+// its decoded code. The order is
+// a stable one by key (a lane whose gid equals another's stays in
+// slot-then-lane order, as the reference's stable sort keeps it; with
+// pack_keys equal keys are equal items); then each run's total by the
+// reference's doubling tree (t_window), the runs with total > 0 as
+// candidates in gid order, whose top-k shard_topk then takes. Invalid
+// lanes are not staged: in the reference they carry doc d_pad and
+// impact 0, so their runs are never candidates.
+//
+// Bound: bytes, each valid lane's doc and impact read once, each
+// candidate written once. The design keeps every sort pass in shared
+// memory and spreads a query over many blocks, two launches:
+//
+//   cand_part   a block per part_lanes lanes of a query: its lanes read
+//               once from the streams, partitioned stably by band (the
+//               key's bits above the query's `shift`) in shared memory,
+//               written back in band order with each band's start;
+//   cand_band   a block per band of a query: the band's pieces from every
+//               part, in part order (so lane order), staged in shared
+//               memory and sorted there by the key bits below the band
+//               (stable LSD passes of sort_pass); the run sums; the
+//               band's candidates after those of the query's earlier
+//               bands, found by a decoupled look-back over them.
+//
+// A run never crosses a band: its lanes share a gid, so its key bits
+// above `shift` (with pack_keys, shift >= 16: above the code). The
+// wrapper picks each query's shift so that a band holds about half of
+// `cap` items; a band that holds more is sorted in device memory
+// (class cand.device). A query of at most the shared cap takes one
+// band block that reads its lanes from the streams itself and no part
+// block (class cand.shared). The plan (each query's shift, bands, parts
+// and blocks) comes from the wrapper, which reads each query's lane
+// count and the rows' bounds once on the host to make it and to size
+// the buffers; no other host read.
+constexpr int kCandThreads = 256;
+constexpr int kCandWarps = kCandThreads / 32;
+enum { kCandShared = 0, kCandBands, kCandDevice, kCandClasses };
 
-// Per slot of the launch's rows: the clamped window start, lane count,
-// weight and row, and the prefix of the lane counts (dynamic shared
-// memory, 24 B a slot).
-__host__ __device__ __forceinline__ int cand_smem_bytes(int GT) {
-  return 8 * GT + 4 * GT + 4 * GT + 4 * GT + 4 * (GT + 1);
+struct CandArgs {
+  const int* docs32;
+  const float* imps;
+  long long n_post;
+  const int* starts;     // [B, GT]
+  const int* lengths;    // [B, GT]
+  const float* weights;  // [B, GT]
+  const int* rows;       // [B, GT]
+  int GT, max_len, d_pad, pack_keys, window, cap, part_lanes;
+  long long key_base;
+  // the wrapper's plan: row_off [B + 1] (a query's slice of the lane
+  // buffers), qinfo [B][4] (shift, bands, parts, its first band start in
+  // bstart), the part blocks' and the band blocks' (query | index << 32)
+  const long long* row_off;
+  const long long* qinfo;
+  const long long* part_tiles;
+  const long long* band_tiles;
+  unsigned long long* items;  // the parts' items, band by band
+  unsigned long long* alt;    // a device-class band's items and its
+  unsigned long long* alt2;   // pass buffer, at the band's start
+  int* bstart;     // per part of a query: its bands' starts, bands + 1
+  unsigned long long* status;  // per band block: the look-back word
+  float* cand_score;
+  int* cand_gid;
+  int* n_cand;
+  int* class_rows;
+};
+
+// A query's slot table in shared memory: the clamped window starts, the
+// weights, the rows and the prefix of the lane counts (pre[GT] = lanes).
+struct CandTable {
+  long long* eff;
+  float* w;
+  int* row;
+  int* pre;
+};
+
+__host__ __device__ __forceinline__ int cand_table_bytes(int GT) {
+  return 8 * GT + 4 * GT + 4 * GT + 4 * (GT + 1);
 }
 
+__device__ __forceinline__ CandTable cand_table(void* base, int GT) {
+  CandTable tb;
+  tb.eff = static_cast<long long*>(base);
+  tb.w = reinterpret_cast<float*>(tb.eff + GT);
+  tb.row = reinterpret_cast<int*>(tb.w + GT);
+  tb.pre = tb.row + GT;
+  return tb;
+}
+
+// Stages query b's slot table (all threads) → its lanes.
+__device__ int load_cand_table(const CandArgs& a, const CandTable& tb,
+                               int b, int* s_warp) {
+  for (int j = threadIdx.x; j < a.GT; j += blockDim.x) {
+    const long long rj = (long long)b * a.GT + j;
+    tb.eff[j] = clampll(a.starts[rj], 0, a.n_post - a.max_len);
+    tb.pre[j] = min(max(a.lengths[rj], 0), a.max_len);
+    tb.w[j] = a.weights[rj];
+    tb.row[j] = a.rows[rj];
+  }
+  __syncthreads();
+  return slot_scan(tb.pre, tb.pre, a.GT, s_warp);  // in place
+}
+
+// The items of the query's lanes lo .. lo + m - 1 into out[0 .. m), four
+// lanes a thread at a time: their doc and impact loads first, then the
+// keys, so the loads' round trips overlap.
+constexpr int kCandBatch = 4;
+__device__ void stage_cand_items(const CandArgs& a, const CandTable& tb,
+                                 int lo, int m, unsigned long long* out) {
+  const long long d1 = (long long)a.d_pad + 1;
+  for (int i0 = threadIdx.x; i0 < m; i0 += kCandBatch * blockDim.x) {
+    int slot[kCandBatch], doc[kCandBatch];
+    float imp[kCandBatch];
+#pragma unroll
+    for (int u = 0; u < kCandBatch; ++u) {
+      const int i = i0 + u * blockDim.x;
+      slot[u] = 0;
+      doc[u] = 0;
+      imp[u] = 0.0f;
+      if (i < m) {
+        slot[u] = slot_of(tb.pre, a.GT, lo + i);
+        const long long pos = tb.eff[slot[u]] + lo + i - tb.pre[slot[u]];
+        doc[u] = a.docs32[pos];
+        imp[u] = a.imps[pos];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kCandBatch; ++u) {
+      const int i = i0 + u * blockDim.x;
+      if (i >= m) continue;
+      const int j = slot[u];
+      const uint32_t v = __float_as_uint(__fmul_rn(tb.w[j], imp[u]));
+      const long long gid = (long long)tb.row[j] * d1 + doc[u];
+      if (a.pack_keys) {
+        const long long grel = gid > a.key_base ? gid - a.key_base : 0;
+        const uint32_t key = ((uint32_t)grel << 16) | (v >> 16);
+        out[i] = ((unsigned long long)key << 32) | ((v >> 16) << 16);
+      } else {
+        out[i] = ((unsigned long long)(uint32_t)(gid - a.key_base) << 32) |
+                 v;
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ int cand_band(unsigned long long it, int shift) {
+  return (int)((it >> 32) >> shift);
+}
+
+// One block per part of a banded query (part_tiles): its lanes in shared
+// memory, stable LSD passes of sort_pass over the band bits, the items
+// out in band order to the part's slice of `items`, and each band's
+// start within the part (bands + 1 of them) to bstart.
 __global__ void __launch_bounds__(kCandThreads)
-pruned_candidates_kernel(const int* docs32, const float* imps,
-                         long long n_post, const int* starts,
-                         const int* lengths, const float* weights,
-                         const int* rows, int GT, int max_len, int d_pad,
-                         int key_bits, int pack_keys, int window,
-                         const long long* row_off,
-                         unsigned long long* items,
-                         unsigned long long* alt, float* cand_score,
-                         int* cand_gid, int* n_cand) {
+cand_part_kernel(CandArgs a) {
   extern __shared__ __align__(16) unsigned long long s_cand[];
-  __shared__ int s_cnt[kExactWarps][256];
+  __shared__ int s_cnt[kCandWarps][256];
   __shared__ int s_wsum[8];
   __shared__ int s_warp[33];
-  const int r = blockIdx.x;
-  long long* eff = reinterpret_cast<long long*>(s_cand);
-  int* len = reinterpret_cast<int*>(eff + GT);
-  float* w = reinterpret_cast<float*>(len + GT);
-  int* row = reinterpret_cast<int*>(w + GT);
-  int* pre = row + GT;
-  const long long d1 = (long long)d_pad + 1;
-  for (int j = threadIdx.x; j < GT; j += blockDim.x) {
-    const int rj = r * GT + j;
-    eff[j] = clampll(starts[rj], 0, n_post - max_len);
-    len[j] = min(max(lengths[rj], 0), max_len);
-    w[j] = weights[rj];
-    row[j] = rows[rj];
-  }
-  for (int i = threadIdx.x; i < kExactWarps * 256; i += blockDim.x)
+  const long long tile = a.part_tiles[blockIdx.x];
+  const int b = (int)(tile & 0xFFFFFFFFll), p = (int)(tile >> 32);
+  const long long* q = a.qinfo + 4 * (long long)b;
+  const int shift = (int)q[0], nb = (int)q[1];
+  unsigned long long* src = s_cand;
+  unsigned long long* dst = s_cand + a.part_lanes;
+  const CandTable tb = cand_table(s_cand + 2 * a.part_lanes, a.GT);
+  for (int i = threadIdx.x; i < kCandWarps * 256; i += blockDim.x)
     (&s_cnt[0][0])[i] = 0;
+  const int n = load_cand_table(a, tb, b, s_warp);
+  const int lo = min(n, p * a.part_lanes);
+  const int m = min(n - lo, a.part_lanes);
+  stage_cand_items(a, tb, lo, m, src);
   __syncthreads();
-  const int n = slot_scan(len, pre, GT, s_warp);
-  const long long off = row_off[r];
-  unsigned long long* src = items + off;
-  unsigned long long* dst = alt + off;
-  const long long base0 = (long long)rows[0] * d1;  // the group's row 0
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int j = slot_of(pre, GT, i);
-    const long long pos = eff[j] + i - pre[j];
-    const int doc = docs32[pos];
-    const uint32_t v = __float_as_uint(__fmul_rn(w[j], imps[pos]));
-    const long long gid = (long long)row[j] * d1 + doc;
-    unsigned long long item;
-    if (pack_keys) {
-      const long long grel = gid > base0 ? gid - base0 : 0;
-      const uint32_t key = ((uint32_t)grel << 16) | (v >> 16);
-      item = ((unsigned long long)key << 32) | ((v >> 16) << 16);
-    } else {
-      item = ((unsigned long long)(uint32_t)gid << 32) | v;
-    }
-    src[i] = item;
-  }
-  __syncthreads();
-  for (int shift = 32; shift < 32 + key_bits && n > 1; shift += 8) {
-    if (sort_pass<unsigned long long, kExactWarps>(src, dst, n, shift, s_cnt,
-                                                    s_wsum)) {
+  const int band_bits = 32 - __clz((unsigned)(nb - 1));
+  for (int sh = 32 + shift; sh < 32 + shift + band_bits && m > 1; sh += 8) {
+    if (sort_pass<unsigned long long, kCandWarps>(src, dst, m, sh, s_cnt,
+                                                   s_wsum)) {
       unsigned long long* tmp = src;
       src = dst;
       dst = tmp;
     }
   }
-  if (pack_keys) {  // the group-relative key back to the gid
+  unsigned long long* out = a.items + a.row_off[b] + lo;
+  for (int i = threadIdx.x; i < m; i += blockDim.x) out[i] = src[i];
+  int* bs = a.bstart + q[3] + (long long)p * (nb + 1);
+  for (int c = threadIdx.x; c <= nb; c += blockDim.x) {
+    int l = 0, h = m;  // the first item of a band >= c
+    while (l < h) {
+      const int mid = (l + h) >> 1;
+      if (cand_band(src[mid], shift) < c) l = mid + 1;
+      else h = mid;
+    }
+    bs[c] = l;
+  }
+}
+
+// One block per band of a query (band_tiles; a shared-class query: one
+// block, its lanes from the streams): the band's items sorted, in shared
+// memory or (more than cap) in device memory, the run sums, and the
+// band's candidates placed after those of the query's earlier bands
+// (look-back word: bits 0-30 candidates, 31-61 device-class bands, as
+// run_sum's). The query's last band writes its count and class.
+__global__ void __launch_bounds__(kCandThreads)
+cand_band_kernel(CandArgs a) {
+  constexpr int kWarps = kCandWarps;
+  extern __shared__ __align__(16) unsigned long long s_cand[];
+  __shared__ int s_cnt[kWarps][256];
+  __shared__ int s_wsum[8];
+  __shared__ int s_warp[33];
+  __shared__ long long s_before;
+  const long long tile = a.band_tiles[blockIdx.x];
+  const int b = (int)(tile & 0xFFFFFFFFll), c = (int)(tile >> 32);
+  const long long* q = a.qinfo + 4 * (long long)b;
+  const int shift = (int)q[0], nb = (int)q[1], np = (int)q[2];
+  const long long off = a.row_off[b];
+  unsigned long long* src = s_cand;
+  unsigned long long* dst = s_cand + a.cap;
+  for (int i = threadIdx.x; i < kWarps * 256; i += blockDim.x)
+    (&s_cnt[0][0])[i] = 0;
+  int n = 0;
+  bool device = false;
+  if (np == 0) {  // the shared class: the query's lanes from the streams
+    const CandTable tb = cand_table(s_cand + 2 * a.cap, a.GT);
+    n = load_cand_table(a, tb, b, s_warp);
+    stage_cand_items(a, tb, 0, n, src);
+  } else {
+    // the band's piece of each part: from pst[p], ppre[p] before it
+    int* pst = reinterpret_cast<int*>(s_cand + 2 * a.cap);
+    int* ppre = pst + np;
+    const int* bs = a.bstart + q[3];
+    for (int p = threadIdx.x; p < np; p += blockDim.x) {
+      const int s0 = bs[(long long)p * (nb + 1) + c];
+      pst[p] = s0;
+      ppre[p] = bs[(long long)p * (nb + 1) + c + 1] - s0;
+    }
+    n = slot_scan(ppre, ppre, np, s_warp);  // in place
+    device = n > a.cap;
+    if (device) {  // at the band's start in the query's band order
+      int starts_below = 0, below = 0;
+      for (int p = threadIdx.x; p < np; p += blockDim.x)
+        starts_below += pst[p];
+      block_excl_scan(starts_below, s_warp, &below);
+      src = a.alt + off + below;
+      dst = a.alt2 + off + below;
+    }
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const int p = slot_of(ppre, np, i);
+      src[i] = a.items[off + (long long)p * a.part_lanes + pst[p] + i -
+                       ppre[p]];
+    }
+  }
+  __syncthreads();
+  for (int sh = 32; sh < 32 + shift && n > 1; sh += 8) {
+    if (sort_pass<unsigned long long, kWarps>(src, dst, n, sh, s_cnt, s_wsum)) {
+      unsigned long long* tmp = src;
+      src = dst;
+      dst = tmp;
+    }
+  }
+  if (a.pack_keys) {  // the key's relative gid back in the high word
     for (int i = threadIdx.x; i < n; i += blockDim.x) {
       const unsigned long long it = src[i];
-      const long long gid = (long long)(uint32_t)(it >> 48) + base0;
-      src[i] = ((unsigned long long)(uint32_t)gid << 32) | (uint32_t)it;
+      src[i] = ((it >> 48) << 32) | (uint32_t)it;
     }
     __syncthreads();
   }
+  int lo = 0;
+  const int kept = park_runs(src, n, a.window, 0, 0, 0x7fffffff, dst, &lo);
   int found = 0;
-  emit_runs(src, n, window, 0, 0, 0x7fffffff, dst, cand_score + off,
-            cand_gid + off, nullptr, &found, s_warp);
-  if (threadIdx.x == 0) n_cand[r] = found;
+  const int at = block_excl_scan(kept, s_warp, &found);
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    const unsigned long long own =
+        (unsigned long long)found | ((unsigned long long)device << 31);
+    volatile unsigned long long* sts = a.status;
+    const long long t = blockIdx.x;
+    unsigned long long before = 0;
+    if (c > 0) {  // the query's earlier bands, 32 at a time
+      if (lane == 0) sts[t] = kOwnCounts | own;
+      for (int top = c - 1;; top -= 32) {
+        const int cc = top - lane;
+        unsigned long long w = kRowCounts;
+        if (cc >= 0)
+          while ((w = sts[t - (c - cc)]) == 0ull) __nanosleep(32);
+        const unsigned incl =
+            __ballot_sync(0xffffffffu, (w & ~kCountBits) == kRowCounts);
+        const int last = incl ? __ffs(incl) - 1 : 31;
+        unsigned long long v = lane <= last ? (w & kCountBits) : 0ull;
+        for (int d = 16; d > 0; d >>= 1)
+          v += __shfl_xor_sync(0xffffffffu, v, d);
+        before += v;
+        if (incl) break;
+      }
+    }
+    if (lane == 0) {
+      const unsigned long long all = before + own;
+      if (nb > 1) sts[t] = kRowCounts | all;
+      if (c == nb - 1) {
+        a.n_cand[b] = (int)(all & 0x7FFFFFFFull);
+        if (a.class_rows != nullptr)
+          atomicAdd(&a.class_rows[np == 0 ? kCandShared
+                                  : (all >> 31) ? kCandDevice
+                                                : kCandBands],
+                    1);
+      }
+      s_before = (long long)(before & 0x7FFFFFFFull);
+    }
+  }
+  __syncthreads();
+  const long long out = off + s_before + at;
+  for (int j = 0; j < kept; ++j) {
+    const unsigned long long cv = dst[lo + j];
+    a.cand_score[out + j] = __uint_as_float((uint32_t)(cv >> 32));
+    a.cand_gid[out + j] = (int)((long long)(uint32_t)cv + a.key_base);
+  }
+}
+
+// Dynamic shared memory of the two launches: the items and the pass
+// buffer, then the slot table (part blocks, shared-class band blocks) or
+// the band's pieces of the query's parts (banded band blocks).
+__host__ __device__ __forceinline__ int cand_part_smem(int GT,
+                                                       int part_lanes) {
+  return 16 * part_lanes + cand_table_bytes(GT);
+}
+
+__host__ __device__ __forceinline__ int cand_band_smem(int GT, int cap,
+                                                       int p_max,
+                                                       int has_shared) {
+  const int table = has_shared ? cand_table_bytes(GT) : 0;
+  const int parts = p_max > 0 ? 8 * p_max + 4 : 0;
+  return 16 * cap + (table > parts ? table : parts);
 }
 
 // ---------------------------------------------------------------------------
 // 9. pruned_rescore: phase B of a pruned tier, and its final order
 // ---------------------------------------------------------------------------
 
-// One block per query (grid B, 256 threads), mode bits: 1 scores, 2
-// orders. Scoring: each of the query's C candidate gids (phase A's,
-// global) whose row lies in this device's [row_base, row_base + S_l)
-// gets, for each of its row's T_terms term ranges, a lower-bound binary
-// search of search_iters steps in the doc-sorted docs (the reference's
-// loop as it is: no early stop, reads past the array give d_pad) and
-// w * impact where the doc is found; a warp takes 32 / T_terms
-// candidates at once, a lane a (candidate, term), and sums the terms by
+// Replaces the reference's phase B and final order
+// (elasticsearch_tpu/parallel/distributed.py:1052-1108). Mode bits: 1
+// scores, 2 orders. Scoring: each of query b's C candidate gids (phase
+// A's, global) whose row lies in this device's [row_base, row_base +
+// S_l) gets, for each of its row's T_terms term ranges, a lower-bound
+// binary search of search_iters steps in the doc-sorted docs (the
+// reference's loop as it is: no early stop, reads past the array give
+// d_pad) and w * impact where the doc is found, summed over the terms by
 // shuffles in the reference's association (halving: x_t + x_(t + T/2),
 // then the halves again: for 8 terms ((x0 + x4) + (x2 + x6)) + ((x1 +
-// x5) + (x3 + x7))). Ordering: -inf where the candidate was (cand_vals),
-// each candidate one u64 key (order bits of -score, +inf for -inf, then
-// the gid; -0 before +0 as the reference's float sort has it), a bitonic
-// sort of the C keys in shared memory, the first k out. A device that
-// holds every row of the query does both in one launch; else each
-// device scores (exact_out), the sum over the devices comes in between,
-// and one launch orders. Bound: dependent loads, search_iters a term.
+// x5) + (x3 + x7))). Ordering: -inf where the candidate was
+// (cand_vals), each candidate one u64 key (order bits of -score, +inf
+// for -inf, then the gid; -0 before +0 as the reference's float sort has
+// it), sorted, the first k out. A device that holds every row of the
+// query does both in one call; else each device scores (exact_out), the
+// sum over the devices comes in between, and one call orders.
+//
+// Bound: bytes, each candidate's gid and score read once, each (candidate,
+// term)'s range and weight, its search_iters probes and its impact, the
+// first k written; but the searches' probes are dependent loads, so
+// latency bounds it: every search has to be in flight at once. The
+// design: rescore_score spreads a query's candidates over blocks of 256 /
+// T_terms candidates (grid chunks x B), a thread a (candidate, term)
+// walking the loop's search_iters steps in device memory, its scores to
+// exact_out; rescore_order, a block of 512 threads a query, sorts the
+// (-score, gid) keys in shared memory: groups of 64 in a warp's
+// registers by bitonic stages (shuffles), then merge-path levels, one
+// barrier a level (sort_desc_merge). A score-and-order call is the two
+// launches. 512 order threads: the least device time of 256, 512 and
+// 1,024 on the raw deployment's order calls (tools/kernel_ab.py --raw).
 constexpr int kRescoreThreads = 256;
+constexpr int kOrderThreads = 512;
 constexpr int kRescoreCands = 4096;  // PRUNED_CAND_LIMIT
 
 __device__ __forceinline__ uint32_t sort_order_bits(float x) {
@@ -3006,90 +3270,196 @@ __device__ __forceinline__ float sort_order_inverse(uint32_t o) {
   return __uint_as_float((o & 0x80000000u) ? (o & 0x7FFFFFFFu) : ~o);
 }
 
-__global__ void __launch_bounds__(kRescoreThreads)
-pruned_rescore_kernel(const int* docs32, const float* imps,
-                      long long n_post, const long long* cand_gids, int C,
-                      const int* t_starts, const int* t_lengths,
-                      const float* t_weights, int S_l, int B, int T_terms,
-                      int d_pad, long long p_pad, int row_base,
-                      int search_iters, const float* exact_in,
-                      const float* cand_vals, float* exact_out, int kk,
-                      float* out_vals, long long* out_gids, int mode) {
-  extern __shared__ __align__(16) unsigned long long s_order[];
-  const int b = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  int sort_n = 1;
-  while (sort_n < C) sort_n <<= 1;
-  float* s_exact = reinterpret_cast<float*>(s_order + sort_n);
-  if (mode & 1) {
-    const int per_warp = 32 / T_terms;
-    const int sub = lane / T_terms, t = lane % T_terms;
-    const long long d1 = (long long)d_pad + 1;
-    for (int c0 = warp * per_warp; c0 < C; c0 += nwarps * per_warp) {
-      const int c = c0 + sub;
-      float x = 0.0f;
-      if (c < C) {
-        const int gid = (int)cand_gids[(long long)b * C + c];
-        const long long row = (long long)gid / d1;
-        const int ord = (int)((long long)gid - row * d1);
-        const long long local = row - row_base;
-        const bool in_local = local >= 0 && local < S_l;
-        const long long lr = local < 0 ? 0 : (local >= S_l ? S_l - 1 : local);
-        const long long at = (lr * B + b) * T_terms + t;
-        const int ln = t_lengths[at];
-        long long lo = lr * p_pad + t_starts[at];
-        long long hi = lo + ln;
-        const long long end = hi;
-        for (int it = 0; it < search_iters; ++it) {
-          const long long mid = (lo + hi) >> 1;
-          const int v = (mid >= 0 && mid < n_post) ? docs32[mid] : d_pad;
-          const bool go = v < ord;
-          lo = go ? mid + 1 : lo;
-          hi = go ? hi : mid;
+struct RescoreArgs {
+  const int* docs32;   // [S_l * p_pad] doc-sorted docs
+  const float* imps;
+  long long n_post;
+  const long long* cand_gids;  // [B, C]
+  int C;
+  const int* t_starts;    // [S_l, B, T_terms]
+  const int* t_lengths;
+  const float* t_weights;
+  int S_l, B, T_terms, d_pad;
+  long long p_pad;
+  int row_base, search_iters;
+  const float* exact_in;   // [B, C]: order-only calls
+  const float* cand_vals;  // [B, C]
+  float* exact_out;        // [B, C]
+  int kk;
+  float* out_vals;         // [B, kk]
+  long long* out_gids;
+};
+
+// Candidate c's term t of query b: w * impact where the search finds its
+// doc, else 0.
+__device__ __forceinline__ float score_lane(const RescoreArgs& a, int b,
+                                            int c, int t) {
+  const int T = a.T_terms;
+  const long long d1 = (long long)a.d_pad + 1;
+  const int gid = (int)a.cand_gids[(long long)b * a.C + c];
+  const long long row = (long long)gid / d1;
+  const int ord = (int)((long long)gid - row * d1);
+  const long long local = row - a.row_base;
+  const bool in_local = local >= 0 && local < a.S_l;
+  const long long lr = local < 0 ? 0 : (local >= a.S_l ? a.S_l - 1 : local);
+  const long long at = (lr * a.B + b) * T + t;
+  const int ln = a.t_lengths[at];
+  long long lo = lr * a.p_pad + a.t_starts[at];
+  long long hi = lo + ln;
+  const long long end = hi;
+  for (int it = 0; it < a.search_iters; ++it) {
+    const long long mid = (lo + hi) >> 1;
+    const int v = (mid >= 0 && mid < a.n_post) ? a.docs32[mid] : a.d_pad;
+    const bool go = v < ord;
+    lo = go ? mid + 1 : lo;
+    hi = go ? hi : mid;
+  }
+  const bool inside = lo >= 0 && lo < a.n_post;
+  const int v = inside ? a.docs32[lo] : a.d_pad;
+  const bool found = ln > 0 && v == ord && lo < end;
+  return found && in_local
+             ? __fmul_rn(a.t_weights[at], inside ? a.imps[lo] : 0.0f)
+             : 0.0f;
+}
+
+// Lane L (candidate L / T, term L % T) of query b scored and summed over their terms by shuffles in the
+// reference's association (a candidate's T lanes are neighbours in a
+// warp) → the sum, at the candidate's first lane (else meaningless).
+__device__ __forceinline__ float score_sum(const RescoreArgs& a, int b,
+                                           int L) {
+  const int T = a.T_terms;
+  const int c = L / T, t = L % T;
+  float x = c < a.C ? score_lane(a, b, c, t) : 0.0f;
+  for (int h = T >> 1; h > 0; h >>= 1) {
+    const float o = __shfl_down_sync(0xffffffffu, x, h);
+    if (t < h) x = __fadd_rn(x, o);
+  }
+  return x;
+}
+
+// Sorts n keys (a power of two, at least 64) descending in shared
+// memory: each warp's groups of 64 in registers by bitonic stages, as
+// bitonic_warp runs them but every group descending (shuffles, no
+// barrier), then merge levels of runs of 64,
+// 128, ... between a and b, one barrier a level: a thread takes a few
+// consecutive outputs of a pair of runs, finds where the first comes
+// from by one binary search along the merge path, and merges on (equal
+// keys: the first run's first). Returns the buffer that holds the
+// result.
+__device__ unsigned long long* sort_desc_merge(unsigned long long* a,
+                                               unsigned long long* b,
+                                               int n) {
+  const int lane = threadIdx.x & 31;
+  for (int g = (threadIdx.x >> 5) * 64; g < n; g += (blockDim.x >> 5) * 64) {
+    const int e0 = 2 * lane;  // within the group: every group descending
+    unsigned long long x0 = a[g + e0], x1 = a[g + e0 + 1];
+    for (int sz = 2; sz <= 64; sz <<= 1) {
+      for (int half = sz >> 1; half > 0; half >>= 1) {
+        if (half == 1) {
+          const unsigned long long y0 = bitonic_keep(x0, x1, e0, 1, sz);
+          x1 = bitonic_keep(x1, x0, e0 + 1, 1, sz);
+          x0 = y0;
+        } else {
+          const int m = half >> 1;
+          const unsigned long long o0 = __shfl_xor_sync(0xffffffffu, x0, m);
+          const unsigned long long o1 = __shfl_xor_sync(0xffffffffu, x1, m);
+          x0 = bitonic_keep(x0, o0, e0, half, sz);
+          x1 = bitonic_keep(x1, o1, e0 + 1, half, sz);
         }
-        const bool inside = lo >= 0 && lo < n_post;
-        const int v = inside ? docs32[lo] : d_pad;
-        const bool found = ln > 0 && v == ord && lo < end;
-        if (found && in_local)
-          x = __fmul_rn(t_weights[at], inside ? imps[lo] : 0.0f);
-      }
-      for (int h = T_terms >> 1; h > 0; h >>= 1) {
-        const float o = __shfl_down_sync(0xffffffffu, x, h);
-        if (t < h) x = __fadd_rn(x, o);
-      }
-      if (c < C && t == 0) {
-        if (mode & 2) s_exact[c] = x;
-        else exact_out[(long long)b * C + c] = x;
       }
     }
-  } else {
-    for (int c = threadIdx.x; c < C; c += blockDim.x)
-      s_exact[c] = exact_in[(long long)b * C + c];
+    a[g + e0] = x0;
+    a[g + e0 + 1] = x1;
   }
-  if (!(mode & 2)) return;
   __syncthreads();
+  const int per = (n + blockDim.x - 1) / blockDim.x;
+  for (int w = 64; w < n; w <<= 1) {
+    const int o0 = threadIdx.x * per;
+    if (o0 < n) {
+      const int g = o0 / (2 * w), rel = o0 - g * 2 * w;
+      const unsigned long long* A = a + g * 2 * w;
+      const unsigned long long* B = A + w;
+      int lo = max(0, rel - w), hi = min(rel, w);
+      while (lo < hi) {  // A's share of the first rel outputs
+        const int mid = (lo + hi) >> 1;
+        if (A[mid] >= B[rel - mid - 1]) lo = mid + 1;
+        else hi = mid;
+      }
+      int i = lo, j = rel - lo;
+      for (int o = o0; o < o0 + per; ++o) {
+        const bool take_a = j >= w || (i < w && A[i] >= B[j]);
+        b[o] = take_a ? A[i++] : B[j++];
+      }
+    }
+    __syncthreads();
+    unsigned long long* t = a;
+    a = b;
+    b = t;
+  }
+  return a;
+}
+
+// Query b's order: each candidate's key from cand_vals, its score
+// (`exact`, row b's) and gid, sorted in s_order (2 x sort_n u64), the
+// first kk out.
+__device__ __forceinline__ int order_sort_n(int C) {
+  int sort_n = 64;
+  while (sort_n < C) sort_n <<= 1;
+  return sort_n;
+}
+
+__device__ void order_query(const RescoreArgs& a, int b, const float* exact,
+                            unsigned long long* s_order) {
+  const int sort_n = order_sort_n(a.C);
   const float neg_inf = __int_as_float(kNegInfBits);
   const float pos_inf = __int_as_float(0x7f800000);
   for (int c = threadIdx.x; c < sort_n; c += blockDim.x) {
     unsigned long long key = ~0ull;  // past every candidate
-    if (c < C) {
-      const float v = cand_vals[(long long)b * C + c];
-      const float e = v > neg_inf ? s_exact[c] : neg_inf;
+    if (c < a.C) {
+      const long long at = (long long)b * a.C + c;
+      const float v = a.cand_vals[at];
+      const float e = v > neg_inf ? exact[c] : neg_inf;
       const float neg = e > neg_inf ? -e : pos_inf;
       key = ((unsigned long long)sort_order_bits(neg) << 32) |
-            (uint32_t)cand_gids[(long long)b * C + c];
+            (uint32_t)a.cand_gids[at];
     }
-    s_order[c] = ~key;  // bitonic_desc sorts descending
+    s_order[c] = ~key;  // sorted descending
   }
   __syncthreads();
-  bitonic_desc(s_order, sort_n);
-  for (int j = threadIdx.x; j < kk; j += blockDim.x) {
-    const unsigned long long key = ~s_order[j];
+  const unsigned long long* sorted =
+      sort_desc_merge(s_order, s_order + sort_n, sort_n);
+  for (int j = threadIdx.x; j < a.kk; j += blockDim.x) {
+    const unsigned long long key = ~sorted[j];
     const float neg = sort_order_inverse((uint32_t)(key >> 32));
-    out_vals[(long long)b * kk + j] = isinf(neg) ? neg_inf : -neg;
-    out_gids[(long long)b * kk + j] = (long long)(uint32_t)key;
+    a.out_vals[(long long)b * a.kk + j] = isinf(neg) ? neg_inf : -neg;
+    a.out_gids[(long long)b * a.kk + j] = (long long)(uint32_t)key;
   }
+}
+
+// Scores spread over blocks (grid chunks x B): a thread a (candidate,
+// term), 256 / T_terms candidates a block.
+__global__ void __launch_bounds__(kRescoreThreads)
+rescore_score_kernel(RescoreArgs a) {
+  const int b = blockIdx.y;
+  const int L = blockIdx.x * kRescoreThreads + threadIdx.x;
+  const float x = score_sum(a, b, L);
+  const int c = L / a.T_terms;
+  if (c < a.C && L % a.T_terms == 0)
+    a.exact_out[(long long)b * a.C + c] = x;
+}
+
+// The order alone: a block a query over exact_in.
+__global__ void __launch_bounds__(kOrderThreads)
+rescore_order_kernel(RescoreArgs a) {
+  extern __shared__ __align__(16) unsigned long long s_order[];
+  order_query(a, blockIdx.x, a.exact_in + (long long)blockIdx.x * a.C,
+              s_order);
+}
+
+__host__ __device__ __forceinline__ int rescore_order_smem(int C) {
+  int sort_n = 64;
+  while (sort_n < C) sort_n <<= 1;
+  return 16 * sort_n;
 }
 
 // exact_merge then exact_finish over the lanes of kRaw's reader.
@@ -3417,65 +3787,136 @@ int es_raw_merge(const void* docs32, const void* imps, long long n_post,
                             part_base, bad, class_rows, stream);
 }
 
-// Phase A of a pruned tier over B queries of GT slots each (see
-// pruned_candidates_kernel).
+// Phase A of a pruned tier over B queries of GT slots each, as the
+// wrapper planned it (see cand_part_kernel, cand_band_kernel): the part
+// blocks, then the band blocks.
 int es_pruned_candidates(const void* docs32, const void* imps,
                          long long n_post, const void* starts,
                          const void* lengths, const void* weights,
                          const void* rows, int B, int GT, int max_len,
-                         int d_pad, int n_rows, int pack_keys, int window,
-                         const void* row_off, void* items, void* alt,
-                         void* cand_score, void* cand_gid, void* n_cand,
+                         int d_pad, int pack_keys, int window,
+                         long long key_base, const void* plan, int n_parts,
+                         int n_bands, int p_max, int has_shared, int cap,
+                         int part_lanes, void* items, void* alt,
+                         void* alt2,
+                         void* bstart, void* status, void* cand_score,
+                         void* cand_gid, void* n_cand, void* class_rows,
                          void* stream) {
-  const long long top = pack_keys ? (1ll << 32) - 1
-                                  : (long long)n_rows * (d_pad + 1);
-  int key_bits = 0;
-  while (key_bits < 32 && (top >> key_bits) > 0) ++key_bits;
-  const int smem = cand_smem_bytes(GT);
-  cudaError_t err = allow_smem(pruned_candidates_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  pruned_candidates_kernel<<<B, kCandThreads, smem, (cudaStream_t)stream>>>(
-      static_cast<const int*>(docs32), static_cast<const float*>(imps),
-      n_post, static_cast<const int*>(starts),
-      static_cast<const int*>(lengths), static_cast<const float*>(weights),
-      static_cast<const int*>(rows), GT, max_len, d_pad, key_bits,
-      pack_keys, window, static_cast<const long long*>(row_off),
-      static_cast<unsigned long long*>(items),
-      static_cast<unsigned long long*>(alt), static_cast<float*>(cand_score),
-      static_cast<int*>(cand_gid), static_cast<int*>(n_cand));
-  return (int)cudaGetLastError();
+  CandArgs a;
+  a.docs32 = static_cast<const int*>(docs32);
+  a.imps = static_cast<const float*>(imps);
+  a.n_post = n_post;
+  a.starts = static_cast<const int*>(starts);
+  a.lengths = static_cast<const int*>(lengths);
+  a.weights = static_cast<const float*>(weights);
+  a.rows = static_cast<const int*>(rows);
+  a.GT = GT;
+  a.max_len = max_len;
+  a.d_pad = d_pad;
+  a.pack_keys = pack_keys;
+  a.window = window;
+  a.cap = cap;
+  a.part_lanes = part_lanes;
+  a.key_base = key_base;
+  a.row_off = static_cast<const long long*>(plan);
+  a.qinfo = a.row_off + B + 1;
+  a.part_tiles = a.qinfo + 4 * (long long)B;
+  a.band_tiles = a.part_tiles + n_parts;
+  a.items = static_cast<unsigned long long*>(items);
+  a.alt = static_cast<unsigned long long*>(alt);
+  a.alt2 = static_cast<unsigned long long*>(alt2);
+  a.bstart = static_cast<int*>(bstart);
+  a.status = static_cast<unsigned long long*>(status);
+  a.cand_score = static_cast<float*>(cand_score);
+  a.cand_gid = static_cast<int*>(cand_gid);
+  a.n_cand = static_cast<int*>(n_cand);
+  a.class_rows = static_cast<int*>(class_rows);
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaSuccess;
+  if (n_parts > 0) {
+    const int smem = cand_part_smem(GT, part_lanes);
+    err = allow_smem(cand_part_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    cand_part_kernel<<<n_parts, kCandThreads, smem, st>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (n_bands > 0) {
+    const int smem = cand_band_smem(GT, cap, p_max, has_shared);
+    err = allow_smem(cand_band_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    cand_band_kernel<<<n_bands, kCandThreads, smem, st>>>(a);
+    err = cudaGetLastError();
+  }
+  return (int)err;
+}
+
+// Dynamic shared memory of pruned_candidates' part (kernel 0) or band
+// (kernel 1) blocks.
+int es_cand_smem_bytes(int kernel, int GT, int cap, int part_lanes,
+                       int p_max, int has_shared) {
+  return kernel == 0 ? cand_part_smem(GT, part_lanes)
+                     : cand_band_smem(GT, cap, p_max, has_shared);
 }
 
 // Phase B of a pruned tier and its final order (mode bits 1 and 2; see
-// pruned_rescore_kernel).
+// rescore_score_kernel, rescore_order_kernel): with both, the scores go
+// through exact_out to the order.
 int es_pruned_rescore(const void* docs32, const void* imps, long long n_post,
                       const void* cand_gids, int C, const void* t_starts,
                       const void* t_lengths, const void* t_weights, int S_l,
-                      int B, int T_terms, int d_pad, int p_pad, int row_base,
-                      int search_iters, const void* exact_in,
+                      int B, int T_terms, int d_pad, long long p_pad,
+                      int row_base, int search_iters, const void* exact_in,
                       const void* cand_vals, void* exact_out, int kk,
                       void* out_vals, void* out_gids, int mode,
                       void* stream) {
-  if (C > kRescoreCands || T_terms > 32 || (T_terms & (T_terms - 1)))
+  if (C > kRescoreCands ||
+      ((mode & 1) && (T_terms > 32 || T_terms < 1 ||
+                      (T_terms & (T_terms - 1)))))
     return (int)cudaErrorInvalidValue;
-  int sort_n = 1;
-  while (sort_n < C) sort_n <<= 1;
-  const int smem = 8 * sort_n + 4 * C;
-  cudaError_t err = allow_smem(pruned_rescore_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  pruned_rescore_kernel<<<B, kRescoreThreads, smem,
-                          (cudaStream_t)stream>>>(
-      static_cast<const int*>(docs32), static_cast<const float*>(imps),
-      n_post, static_cast<const long long*>(cand_gids), C,
-      static_cast<const int*>(t_starts), static_cast<const int*>(t_lengths),
-      static_cast<const float*>(t_weights), S_l, B, T_terms, d_pad,
-      (long long)p_pad, row_base, search_iters,
-      static_cast<const float*>(exact_in),
-      static_cast<const float*>(cand_vals), static_cast<float*>(exact_out),
-      kk, static_cast<float*>(out_vals), static_cast<long long*>(out_gids),
-      mode);
-  return (int)cudaGetLastError();
+  RescoreArgs a;
+  a.docs32 = static_cast<const int*>(docs32);
+  a.imps = static_cast<const float*>(imps);
+  a.n_post = n_post;
+  a.cand_gids = static_cast<const long long*>(cand_gids);
+  a.C = C;
+  a.t_starts = static_cast<const int*>(t_starts);
+  a.t_lengths = static_cast<const int*>(t_lengths);
+  a.t_weights = static_cast<const float*>(t_weights);
+  a.S_l = S_l;
+  a.B = B;
+  a.T_terms = T_terms;
+  a.d_pad = d_pad;
+  a.p_pad = p_pad;
+  a.row_base = row_base;
+  a.search_iters = search_iters;
+  a.exact_in = static_cast<const float*>(mode & 1 ? exact_out : exact_in);
+  a.cand_vals = static_cast<const float*>(cand_vals);
+  a.exact_out = static_cast<float*>(exact_out);
+  a.kk = kk;
+  a.out_vals = static_cast<float*>(out_vals);
+  a.out_gids = static_cast<long long*>(out_gids);
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaSuccess;
+  if (mode & 1) {
+    const int per_block = kRescoreThreads / T_terms;
+    const dim3 grid((C + per_block - 1) / per_block, B);
+    rescore_score_kernel<<<grid, kRescoreThreads, 0, st>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (mode & 2) {
+    const int smem = rescore_order_smem(C);
+    err = allow_smem(rescore_order_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    rescore_order_kernel<<<B, kOrderThreads, smem, st>>>(a);
+    err = cudaGetLastError();
+  }
+  return (int)err;
 }
+
+// Dynamic shared memory of a pruned_rescore order block of C candidates.
+int es_rescore_order_smem_bytes(int C) { return rescore_order_smem(C); }
 
 // Dynamic shared memory of an exact_merge launch of T slots and windows
 // of window_lanes lanes.
@@ -3485,8 +3926,9 @@ int es_exact_smem_bytes(int window_lanes, int T) {
 
 // Blocks of a kernel resident on one SM at `smem` bytes of dynamic shared
 // memory (0 exact_merge, 1 shard_topk, 2 topk_pass, 3 topk_runs,
-// 4 topk_merge, 5 exact_finish), or -1 with an unknown kernel or a
-// refused size.
+// 4 topk_merge, 5 exact_finish, 6 cand_part, 7 cand_band, 8
+// rescore_score, 9 rescore_order), or -1 with an
+// unknown kernel or a refused size.
 int es_blocks_per_sm(int kernel, int smem) {
   int blocks = -1;
   cudaError_t err = cudaSuccess;
@@ -3502,6 +3944,10 @@ int es_blocks_per_sm(int kernel, int smem) {
     case 3: ES_OCCUPANCY(topk_runs_kernel, kTopThreads) break;
     case 4: ES_OCCUPANCY(topk_merge_kernel, kTopThreads) break;
     case 5: ES_OCCUPANCY(exact_finish_kernel<false>, kExactThreads) break;
+    case 6: ES_OCCUPANCY(cand_part_kernel, kCandThreads) break;
+    case 7: ES_OCCUPANCY(cand_band_kernel, kCandThreads) break;
+    case 8: ES_OCCUPANCY(rescore_score_kernel, kRescoreThreads) break;
+    case 9: ES_OCCUPANCY(rescore_order_kernel, kOrderThreads) break;
     default: break;
   }
 #undef ES_OCCUPANCY

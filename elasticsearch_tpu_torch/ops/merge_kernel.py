@@ -36,6 +36,7 @@ import ctypes
 import threading
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from elasticsearch_tpu_torch.ops import sparse
@@ -136,9 +137,12 @@ _SIGNATURES = {
                      _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                      _P, _P],
     "es_pruned_candidates": [_P, _P, _L, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+                             _I, _I, _L, _P, _I, _I, _I, _I, _I, _I, _P,
+                             _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "es_cand_smem_bytes": [_I, _I, _I, _I, _I, _I],
+    "es_rescore_order_smem_bytes": [_I],
     "es_pruned_rescore": [_P, _P, _L, _P, _I, _P, _P, _P, _I, _I, _I, _I,
-                          _I, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P],
+                          _L, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P],
     "es_blocks_per_sm": [_I, _I],
 }
 
@@ -196,7 +200,8 @@ def _run(lib, kernel: str, events: Optional[list], fn, *args) -> None:
 
 #: the kernels es_blocks_per_sm knows, by its index
 OCCUPANCY_KERNELS = ("exact_merge", "shard_topk", "topk_pass", "topk_runs",
-                     "topk_merge", "exact_finish")
+                     "topk_merge", "exact_finish", "cand_part", "cand_band",
+                     "rescore_score", "rescore_order")
 #: the CUDA kernels a shard_topk launch runs (the last three: the device
 #: class)
 TOPK_KERNELS = OCCUPANCY_KERNELS[1:5]
@@ -867,6 +872,23 @@ def raw_merge_topk(flat_docs, flat_impact, starts, lengths, weights,
 
 #: candidates a pruned_rescore row orders in one block's shared memory
 PRUNED_CAND_LIMIT = 4096
+#: items a block of pruned_candidates sorts in shared memory (16 B each:
+#: the items and a pass buffer): a query of at most this many lanes is
+#: one block that reads them from the streams (the shared class); the
+#: wrapper cuts a longer query into bands of about half as many, and a
+#: band that still holds more is sorted in device memory
+CAND_BAND_CAP = 2048
+#: lanes of one part block of pruned_candidates (16 B each of shared
+#: memory): a banded query's lanes are read and split by band this many
+#: at a time
+CAND_PART_LANES = 2048
+#: the size classes of pruned_candidates (queries per class): one block
+#: (shared), bands each sorted in shared memory (bands), or some band
+#: sorted in device memory (device)
+CAND_CLASSES = ("cand.shared", "cand.bands", "cand.device")
+#: the paths of pruned_rescore (queries per path): scored over several
+#: blocks (spread, then ordered when asked), or ordered alone (order)
+RESCORE_CLASSES = ("rescore.spread", "rescore.order")
 
 
 def pruned_candidates_plain(flat_docs, flat_impact, starts, lengths,
@@ -930,13 +952,18 @@ def _candidates_rows(flat_docs, flat_impact, starts, lengths, weights, rows,
 def pruned_candidates(flat_docs, flat_impact, starts, lengths, weights,
                       rows, *, max_len: int, d_pad: int, t_window: int,
                       k: int, pack_keys: bool = False,
+                      stats: Optional[Dict[str, Any]] = None,
                       events: Optional[list] = None
                       ) -> Tuple[torch.Tensor, ...]:
     """pruned_candidates_plain's function: the plain version for CPU
-    operands; for CUDA operands the pruned_candidates kernel (each
-    query's valid lanes staged as (gid, w·impact) items, radix-sorted by
-    key, run sums and the ok runs as candidates in gid order) and
-    shard_topk over those candidates, or the call raises."""
+    operands; for CUDA operands the pruned_candidates kernels and
+    shard_topk over their candidates, or the call raises. The kernels:
+    each query's valid lanes read once and split by band of the key
+    (part blocks), each band sorted in one block's shared memory with
+    its run sums and its ok runs placed in gid order (band blocks); a
+    query of at most CAND_BAND_CAP lanes takes one band block alone.
+    `stats` receives the queries each class took (CAND_CLASSES), the
+    blocks and their residency; `events` (kernel, start, end)."""
     kw = dict(max_len=max_len, d_pad=d_pad, t_window=t_window, k=k,
               pack_keys=pack_keys)
     if flat_docs.device.type == "cpu":
@@ -947,7 +974,8 @@ def pruned_candidates(flat_docs, flat_impact, starts, lengths, weights,
                          f"got {flat_docs.device}")
     with device_context(flat_docs.device):
         return _launch_candidates(flat_docs, flat_impact, starts, lengths,
-                                  weights, rows, events=events, **kw)
+                                  weights, rows, stats=stats, events=events,
+                                  **kw)
 
 
 def _raw_streams(flat_docs, flat_impact, dev):
@@ -957,9 +985,50 @@ def _raw_streams(flat_docs, flat_impact, dev):
     return n_post
 
 
+def _candidates_plan(caps, key_top, pack_keys):
+    """The blocks of a pruned_candidates launch from each query's lanes
+    (caps) and the launch's key range [0, key_top) → (plan int64 numpy:
+    row_off [B + 1], qinfo [B, 4] = (shift, bands, parts, first band
+    start), part tiles, band tiles (query | index << 32); parts, bands,
+    the most parts of a query, whether a query takes the shared class,
+    band starts). A query of at most CAND_BAND_CAP lanes is one block
+    sorting all key bits (shift = the key's bits); a longer one splits
+    at the key bit that gives bands of about CAND_BAND_CAP / 2 lanes if
+    its lanes spread evenly over its keys (with pack_keys above the
+    16-bit code: a gid's lanes share a band)."""
+    cap = max(1, CAND_BAND_CAP)
+    part_lanes = max(1, CAND_PART_LANES)
+    caps = np.asarray(caps, dtype=np.int64)
+    b = caps.shape[0]
+    kb = int(key_top - 1).bit_length()
+    banded = caps > cap
+    want = np.maximum(-(-caps // max(1, cap // 2)), 1)
+    lw = np.array([int(w - 1).bit_length() for w in want], dtype=np.int64)
+    shift = np.where(banded, np.maximum(kb - lw, 16 if pack_keys else 0),
+                     kb)
+    bands = np.where(banded, ((key_top - 1) >> shift) + 1, 1)
+    parts = np.where(banded, -(-caps // part_lanes), 0)
+    starts = parts * (bands + 1)
+    first = np.concatenate([[0], np.cumsum(starts)[:-1]]).astype(np.int64)
+    q = np.arange(b, dtype=np.int64)
+    part_tiles = np.repeat(q, parts) | (
+        np.arange(int(parts.sum()), dtype=np.int64)
+        - np.repeat(np.cumsum(parts) - parts, parts)) << 32
+    band_tiles = np.repeat(q, bands) | (
+        np.arange(int(bands.sum()), dtype=np.int64)
+        - np.repeat(np.cumsum(bands) - bands, bands)) << 32
+    row_off = np.concatenate([[0], np.cumsum(caps)]).astype(np.int64)
+    qinfo = np.stack([shift, bands, parts, first], axis=1).astype(np.int64)
+    plan = np.concatenate([row_off, qinfo.reshape(-1), part_tiles,
+                           band_tiles])
+    return (plan, len(part_tiles), len(band_tiles),
+            int(parts.max(initial=0)), bool((~banded).any()),
+            int(starts.sum()))
+
+
 def _launch_candidates(flat_docs, flat_impact, starts, lengths, weights,
                        rows, *, max_len, d_pad, t_window, k, pack_keys,
-                       events):
+                       events, stats=None):
     dev = flat_docs.device
     n_post = _raw_streams(flat_docs, flat_impact, dev)
     b, gt = starts.shape
@@ -974,33 +1043,75 @@ def _launch_candidates(flat_docs, flat_impact, starts, lengths, weights,
     if t_window > T_LIMIT or b >= 65536:
         raise ValueError(f"pruned candidates take t_window <= {T_LIMIT} "
                          f"and fewer than 65536 queries")
-    n_rows = int(rows.max()) + 1 if rows.numel() else 1
-    if n_rows * (d_pad + 1) >= 1 << 31:
+    # the one host read: each query's lanes plan the blocks and size the
+    # buffers; the rows bound the key range
+    lanes = lengths.clamp(min=0, max=max_len).sum(dim=1, dtype=torch.int64)
+    if rows.numel():
+        bounds = torch.stack([rows.min(), rows.max(), rows[0, 0]]).to(
+            torch.int64)
+    else:
+        bounds = torch.zeros(3, dtype=torch.int64, device=dev)
+    *caps, row_min, row_max, row_first = torch.cat([lanes, bounds]).tolist()
+    d1 = d_pad + 1
+    if (row_max + 1) * d1 >= 1 << 31 or row_min < 0:
         raise ValueError("pruned candidates keep gids in 31 bits")
+    if pack_keys:
+        key_base = row_first * d1
+        key_top = (max(0, row_max * d1 + d_pad - key_base) + 1) << 16
+        if key_top > 1 << 32:
+            raise ValueError("pruned candidates' packed keys hold a "
+                             "group's gids in 16 bits")
+    else:
+        key_base = row_min * d1
+        key_top = (row_max - row_min + 1) * d1
     kk = min(k, gt * max_len)
     lib = _lib()
-    row_cap = lengths.clamp(min=0, max=max_len).sum(dim=1, dtype=torch.int64)
-    offs = torch.zeros(b + 1, dtype=torch.int64, device=dev)
-    torch.cumsum(row_cap, dim=0, out=offs[1:])
-    caps = row_cap.tolist()
+    plan, n_parts, n_bands, p_max, has_shared, n_starts = _candidates_plan(
+        caps, key_top, pack_keys)
+    plan_t = torch.from_numpy(plan).to(dev)
     total_cap = max(1, sum(caps))
-    items = torch.empty(total_cap, dtype=torch.int64, device=dev)
-    alt = torch.empty(total_cap, dtype=torch.int64, device=dev)
+    lane_bufs = 3 if n_parts else 0     # items, alt, alt2
+    bufs = torch.empty(lane_bufs * total_cap + 1, dtype=torch.int64,
+                       device=dev)
+    items, alt, alt2 = (bufs[j * total_cap:] for j in range(3))
+    # the band blocks' look-back words, then the class counters
+    zeros = torch.zeros(n_bands + 2, dtype=torch.int64, device=dev)
+    class_rows = zeros[n_bands:].view(torch.int32)
+    bstart = torch.empty(max(1, n_starts), dtype=torch.int32, device=dev)
     cand_score = torch.empty(total_cap, dtype=torch.float32, device=dev)
     cand_gid = torch.empty(total_cap, dtype=torch.int32, device=dev)
     n_cand = torch.empty(b, dtype=torch.int32, device=dev)
+    window = 1   # segmented_run_sum's doubling steps reach a power of two
+    while window < t_window:
+        window *= 2
     stream = torch.cuda.current_stream(dev).cuda_stream
+    cap = max(1, CAND_BAND_CAP)
+    part_lanes = max(1, CAND_PART_LANES)
     _run(lib, "pruned_candidates", events, lib.es_pruned_candidates,
          _ptr(flat_docs), _ptr(flat_impact), n_post, _ptr(starts),
          _ptr(lengths), _ptr(weights), _ptr(rows), b, gt, max_len, d_pad,
-         n_rows, int(pack_keys), t_window, _ptr(offs), _ptr(items),
-         _ptr(alt), _ptr(cand_score), _ptr(cand_gid), _ptr(n_cand), stream)
+         int(pack_keys), window, key_base, _ptr(plan_t), n_parts, n_bands,
+         p_max, int(has_shared), cap, part_lanes, _ptr(items), _ptr(alt),
+         _ptr(alt2), _ptr(bstart), _ptr(zeros), _ptr(cand_score),
+         _ptr(cand_gid), _ptr(n_cand), _ptr(class_rows), stream)
     out_vals = torch.empty((b, kk), dtype=torch.float32, device=dev)
     out_gids = torch.empty((b, kk), dtype=torch.int32, device=dev)
-    _topk_rows(lib, cand_score, b, kk, stride=0, row_off=offs[:b],
+    _topk_rows(lib, cand_score, b, kk, stride=0, row_off=plan_t[:b],
                row_n=n_cand, n_all=0, n_max=max(max(caps, default=1), 1),
                out_vals=out_vals, out_pos=None, ids=cand_gid, fill=0,
                out_ids=out_gids, stats=None, events=events)
+    if stats is not None:
+        smem = {name: lib.es_cand_smem_bytes(j, gt, cap, part_lanes, p_max,
+                                             int(has_shared))
+                for j, name in enumerate(("cand_part", "cand_band"))}
+        stats.update(
+            cand_classes=dict(zip(CAND_CLASSES,
+                                  class_rows[:len(CAND_CLASSES)].tolist())),
+            cand_blocks={"cand_part": n_parts, "cand_band": n_bands},
+            cand_smem=smem, lanes=sum(caps), queries=b, slots=gt, kk=kk)
+        stats["cand_blocks_per_sm"] = {
+            name: blocks_per_sm(name, smem[name])
+            for name, n in stats["cand_blocks"].items() if n}
     return out_vals, out_gids.to(torch.int64), n_cand
 
 
@@ -1092,12 +1203,17 @@ def pruned_order_plain(exact, cand_vals, cand_gids, *, k: int):
 def pruned_rescore(ds_docs, ds_impacts, cand_gids, t_starts, t_lengths,
                    t_weights, *, d_pad: int, p_pad: int, row_base: int,
                    search_iters: int, cand_vals=None, k: Optional[int] = None,
+                   stats: Optional[Dict[str, Any]] = None,
                    events: Optional[list] = None):
     """pruned_rescore_plain's function: the plain version for CPU
-    operands; for CUDA operands the pruned_rescore kernel (a block a
-    query: a warp a candidate, its terms' binary searches, the sum in
-    the reference's order, and with cand_vals the final order in shared
-    memory), or the call raises."""
+    operands; for CUDA operands the pruned_rescore kernels, or the call
+    raises. rescore_score spreads each query's candidates over blocks of
+    256 / T_terms, a thread a (candidate, term) walking the reference's
+    fixed-step search in device memory, the terms summed by shuffles in
+    the reference's order. With cand_vals, rescore_order then sorts
+    each query's (-score, gid) keys in shared memory (a block a query)
+    and the first k go out. `stats` receives the queries each path took
+    (RESCORE_CLASSES), the blocks and their residency."""
     kw = dict(d_pad=d_pad, p_pad=p_pad, row_base=row_base,
               search_iters=search_iters, cand_vals=cand_vals, k=k)
     if ds_docs.device.type == "cpu":
@@ -1108,15 +1224,16 @@ def pruned_rescore(ds_docs, ds_impacts, cand_gids, t_starts, t_lengths,
                          f"got {ds_docs.device}")
     with device_context(ds_docs.device):
         return _launch_rescore(ds_docs, ds_impacts, cand_gids, t_starts,
-                               t_lengths, t_weights, None, events=events,
-                               **kw)
+                               t_lengths, t_weights, None, stats=stats,
+                               events=events, **kw)
 
 
 def pruned_order(exact, cand_vals, cand_gids, *, k: int,
+                 stats: Optional[Dict[str, Any]] = None,
                  events: Optional[list] = None):
     """pruned_order_plain's function: the plain version for CPU operands;
-    for CUDA operands the pruned_rescore kernel in its order-only mode,
-    or the call raises."""
+    for CUDA operands pruned_rescore's order kernel alone (a block a
+    query), or the call raises. `stats` as pruned_rescore's."""
     if exact.device.type == "cpu":
         return pruned_order_plain(exact, cand_vals, cand_gids, k=k)
     if exact.device.type != "cuda":
@@ -1126,20 +1243,21 @@ def pruned_order(exact, cand_vals, cand_gids, *, k: int,
         return _launch_rescore(None, None, cand_gids, None, None, None,
                                exact, cand_vals=cand_vals, k=k, d_pad=0,
                                p_pad=0, row_base=0, search_iters=0,
-                               events=events)
+                               stats=stats, events=events)
 
 
 def _launch_rescore(ds_docs, ds_impacts, cand_gids, t_starts, t_lengths,
                     t_weights, exact_in, *, d_pad, p_pad, row_base,
-                    search_iters, cand_vals, k, events):
+                    search_iters, cand_vals, k, events, stats=None):
     """One pruned_rescore launch: mode 1 scores (ds_* given), 2 orders
     (cand_vals given), 3 both."""
     dev = cand_gids.device
     b, c = cand_gids.shape
     _need(cand_gids, "cand_gids", torch.int64, dev)
-    if c > PRUNED_CAND_LIMIT:
+    if c > PRUNED_CAND_LIMIT or b >= 65536:
         raise ValueError(f"pruned rescore orders at most "
-                         f"{PRUNED_CAND_LIMIT} candidates a query, got {c}")
+                         f"{PRUNED_CAND_LIMIT} candidates a query and "
+                         f"fewer than 65536 queries, got {c} and {b}")
     score = ds_docs is not None
     order = cand_vals is not None
     s_l = n_post = t_terms = 0
@@ -1161,7 +1279,8 @@ def _launch_rescore(ds_docs, ds_impacts, cand_gids, t_starts, t_lengths,
         kk = min(k, c)
         out_vals = torch.empty((b, kk), dtype=torch.float32, device=dev)
         out_gids = torch.empty((b, kk), dtype=torch.int64, device=dev)
-    else:
+    # the scores go out, or through exact_out to the order launch
+    if score:
         exact_out = torch.empty((b, c), dtype=torch.float32, device=dev)
     mode = int(score) | int(order) << 1
     lib = _lib()
@@ -1169,12 +1288,28 @@ def _launch_rescore(ds_docs, ds_impacts, cand_gids, t_starts, t_lengths,
         _run(lib, "pruned_rescore", events, lib.es_pruned_rescore,
              _ptr(ds_docs), _ptr(ds_impacts), n_post, _ptr(cand_gids), c,
              _ptr(t_starts), _ptr(t_lengths), _ptr(t_weights), s_l, b,
-             t_terms, d_pad, p_pad, row_base, search_iters, _ptr(exact_in),
-             _ptr(cand_vals), _ptr(exact_out), kk, _ptr(out_vals),
-             _ptr(out_gids), mode, torch.cuda.current_stream(dev).cuda_stream)
+             t_terms, d_pad, p_pad, row_base, search_iters,
+             _ptr(exact_in), _ptr(cand_vals), _ptr(exact_out), kk,
+             _ptr(out_vals), _ptr(out_gids), mode,
+             torch.cuda.current_stream(dev).cuda_stream)
     elif order:
         out_vals.fill_(NEG_INF)
         out_gids.zero_()
     else:
         exact_out.zero_()
+    if stats is not None:
+        path = "rescore.spread" if score else "rescore.order"
+        kernels = {}
+        if score:
+            kernels["rescore_score"] = -(-c // (256 // t_terms)) * b
+        if order:
+            kernels["rescore_order"] = b
+        smem = {name: lib.es_rescore_order_smem_bytes(c)
+                if name == "rescore_order" else 0 for name in kernels}
+        stats.update(
+            rescore_classes={p: b if p == path else 0
+                             for p in RESCORE_CLASSES},
+            rescore_blocks=kernels, rescore_smem=smem,
+            rescore_blocks_per_sm={name: blocks_per_sm(name, smem[name])
+                                   for name in kernels})
     return (out_vals, out_gids) if order else exact_out

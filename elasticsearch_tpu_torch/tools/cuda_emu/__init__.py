@@ -1,7 +1,9 @@
 """Run the merge kernels' CUDA source on the CPU, for rehearsing a kernel
-edit where there is no nvcc and no card. The source holds all seven
-kernels: the five of the fused merge, shard_topk and exact_merge
-(reached through ``merge_kernel._launch_topk`` / ``_launch_exact``).
+edit where there is no nvcc and no card. The source holds every merge
+kernel: the five of the fused merge, shard_topk, exact_merge (also as
+raw_merge), pruned_candidates and pruned_rescore (reached through
+``merge_kernel._launch_topk``, ``_launch_exact``, ``_launch_candidates``
+and ``_launch_rescore``).
 
 ``csrc/merge_topk.cu`` is rewritten into plain C++ against ``emu.h`` (a
 host shim of the CUDA subset the kernels use: each CUDA thread a fiber

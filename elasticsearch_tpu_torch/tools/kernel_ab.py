@@ -18,6 +18,19 @@ size 1000 and at from + size 10,000, and the fixed train's bodies at
 size 10, kernel k 128), each lowered into one train, with its lanes and
 the slots whose lanes reach kernel k (those slot_decode selects in).
 Compare two checkouts within one call, in turns: A, B, B, A.
+
+    python3 elasticsearch_tpu_torch/tools/kernel_ab.py --raw --root DIR
+
+does the same for the pruned tiers' kernels on chip_smoke's raw
+deployment (its corpus over RAW_SHARDS shards: a raw pack): the fixed
+train (the first 128 bodies, kernel k 1024) and chip_smoke's prefix
+probes are recorded through its RawRecorder, and each recorded call is
+timed alone: pruned_candidates on the train's widest phase-A group,
+pruned_order on its widest order-only call and pruned_rescore on the
+probes' widest scoring call (score and order). "ms" is the median of
+TIMED CUDA-event brackets around the wrapper call, "device_ms" the mean
+device time of every kernel the call runs (torch.profiler), and "same"
+says that the call gave the recorded outputs bit for bit.
 """
 
 from __future__ import annotations
@@ -34,6 +47,8 @@ HERE_ROOT = Path(__file__).resolve().parents[2]
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(HERE_ROOT))
+    ap.add_argument("--raw", action="store_true",
+                    help="time the pruned tiers' kernels instead")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -49,6 +64,14 @@ def main() -> int:
     corpus = corpus_mod.generate(cs.N_DOCS, vocab_size=cs.VOCAB,
                                  num_queries=cs.N_QUERIES, seed=cs.SEED)
     svc = GpuSearchService(device="cuda:0", max_batch=128)
+    if args.raw:
+        try:
+            out = raw_calls(svc, mk, cs, corpus)
+        finally:
+            svc.close()
+        print(json.dumps(dict(root=root, device=cs.smi_line(), **out)),
+              flush=True)
+        return 0
     try:
         cs.build_index(svc, cs.INDEX, corpus, cs.N_DOCS, cs.SHARDS)
         bodies = cs.make_bodies(corpus)[:128]
@@ -105,24 +128,93 @@ FUNCTIONS["shard_topk"] = ("shard_topk", "topk_pass", "topk_runs",
 FUNCTIONS["exact_merge"] = ("exact_merge", "exact_finish")
 
 
-def profiled(fn, n):
-    """Mean device ms per call of each merge kernel (all its FUNCTIONS)
-    over n calls of fn, from torch.profiler's CUDA activity."""
+#: profiler sessions tried for one measurement: in a long process a
+#: session sometimes ends with the launches listed but some or all of
+#: the device's kernel records missing, and the next one has them
+PROFILE_TRIES = 3
+
+
+def profiled(fn, n, functions=None):
+    """Mean device ms per call of each merge kernel (all its FUNCTIONS,
+    or of `functions`: name -> CUDA function names, each matched as
+    "<name>_kernel") over n calls of fn, from torch.profiler's CUDA
+    activity ({} when no session of PROFILE_TRIES was whole: every
+    matched kernel with at least n records, one a call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
+    for _ in range(PROFILE_TRIES):
         torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        out, short = {}, False
+        for ev in prof.key_averages():
+            us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+            name = next((k for k, fns in (functions or FUNCTIONS).items()
+                         if any(f"{f}_kernel" in ev.key for f in fns)),
+                        None)
+            if name is not None and us > 0:
+                out[name] = out.get(name, 0.0) + us / 1e3 / n
+                short |= ev.count < n
+        if out and not short:
+            return out
+    return {}
+
+
+def raw_calls(svc, mk, cs, corpus):
+    """The --raw measurement: chip_smoke's raw deployment built through
+    `svc`, its fixed train and prefix probes recorded, and the widest
+    recorded pruned_candidates, pruned_order and pruned_rescore calls
+    timed alone → {entry: {shape, ms, device_ms, same}}."""
+    import torch
+
+    from elasticsearch_tpu_torch.search import dsl
+    from elasticsearch_tpu_torch.search.gpu_service import lower_query
+
+    cs.build_index(svc, cs.RAW_INDEX, corpus, cs.N_DOCS, cs.RAW_SHARDS)
+    mapper = svc._index(cs.RAW_INDEX).mapper
+    flats = [lower_query(dsl.parse_query(b["query"]), mapper)
+             for b in cs.make_bodies(corpus)[:128]]
+    with cs.RawRecorder(mk) as fixed:
+        svc._execute(svc.resident(cs.RAW_INDEX, cs.FIELD), flats, cs.K)
+    with cs.RawRecorder(mk) as probes:
+        cs.drive(svc, cs.RAW_INDEX, cs.raw_probe_bodies(corpus.vocab))
+
+    def widest(calls, name, size):
+        own = [c for c in calls if c[0] == name]
+        return max(own, key=size) if own else None
+
+    picks = {
+        "pruned_candidates": widest(
+            fixed.calls, "pruned_candidates",
+            lambda c: int(c[1][3].clamp(min=0, max=c[2]["max_len"]).sum())),
+        "pruned_order": widest(fixed.calls, "pruned_order",
+                               lambda c: c[1][0].numel()),
+        "pruned_rescore": widest(probes.calls, "pruned_rescore",
+                                 lambda c: c[1][2].numel())}
     out = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0.0))
-        name = next((k for k, fns in FUNCTIONS.items()
-                     if any(f"{f}_kernel" in ev.key for f in fns)), None)
-        if name is not None and us > 0:
-            out[name] = out.get(name, 0.0) + us / 1e3 / n
+    for name, call in picks.items():
+        if call is None:
+            continue
+        _, args, kw, want = call
+        kw = {k: v for k, v in kw.items() if k not in ("stats", "events")}
+        fn = getattr(mk, name)
+        got = fn(*args, **kw)
+        got = got if isinstance(got, tuple) else (got,)
+        same = all(torch.equal(g.view(torch.int32) if g.is_floating_point()
+                               else g, w.view(torch.int32)
+                               if w.is_floating_point() else w)
+                   for g, w in zip(got, want))
+        kernel = "pruned_rescore" if name == "pruned_order" else name
+        out[name] = dict(
+            shape=[list(a.shape) for a in args[:3] if a is not None],
+            ms=cs.time_events(lambda ev: fn(*args, **dict(kw, events=ev)),
+                              cs.TIMED)[kernel],
+            device_ms=profiled(lambda: fn(*args, **kw), cs.TIMED,
+                               {"all": ("",)}).get("all"),
+            same=same)
     return out
 
 

@@ -493,25 +493,33 @@ def test_sorted_merge_topk_packed_takes_the_raw_merge(cuda):
 
 
 @pytest.mark.parametrize("pack_keys", [False, True], ids=["gid", "u32_key"])
-@pytest.mark.parametrize("size", ["small", "full_width"])
+@pytest.mark.parametrize("size", ["small", "full_width", "prefix_wide"])
 def test_pruned_candidates_match_plain(cuda, pack_keys, size):
-    """Phase A of a group: the query's lanes sorted in device memory (a
-    few hundred, or full_width: 2 rows x 32 slots of CHUNK_CAP lanes,
-    ~100,000 lanes a query), run sums, the candidates' top-k."""
+    """Phase A of a group: a few hundred lanes a query (one block each),
+    full_width (2 rows x 32 slots of CHUNK_CAP lanes, ~100,000 lanes a
+    query: part blocks, then a band block per band) or prefix_wide (2
+    rows x 128 slots of 4,096 lanes, up to ~1M lanes a query: hundreds
+    of parts and bands), run sums, the candidates' top-k."""
     rng = np.random.default_rng(106)
     if size == "small":
         arrays, static = cases.candidates_case(rng)
         ks = (9, 200)
-    else:
+    elif size == "full_width":
         arrays, static = cases.candidates_case(
             rng, g=2, t_slots=32, d_pad=20_000, max_len=4096, b=8,
             n_terms=24, max_df=6000)
         ks = (128, 2048)
+    else:
+        arrays, static = cases.candidates_case(
+            rng, g=2, t_slots=128, d_pad=500_096, max_len=4096, b=4,
+            n_terms=128, max_df=8192)
+        ks = (1024,)
     args = [torch.from_numpy(a).to(cuda) for a in arrays]
     for k in ks:
-        kw = dict(static, k=k, pack_keys=pack_keys)
+        kw = dict(static, k=k, pack_keys=pack_keys and size != "prefix_wide")
         before = merge_kernel.LAUNCHES["pruned_candidates"]
-        got = merge_kernel.pruned_candidates(*args, **kw)
+        stats = {}
+        got = merge_kernel.pruned_candidates(*args, stats=stats, **kw)
         torch.cuda.synchronize()
         assert merge_kernel.LAUNCHES["pruned_candidates"] == before + 1
         want = merge_kernel.pruned_candidates_plain(*args, **kw)
@@ -520,9 +528,40 @@ def test_pruned_candidates_match_plain(cuda, pack_keys, size):
         live = want[0] > float("-inf")
         assert torch.equal(got[1][live], want[1][live])
         assert torch.equal(got[2], want[2])
+        if size == "prefix_wide":
+            assert stats["cand_blocks"]["cand_band"] > 500
+            assert stats["cand_classes"]["cand.bands"] >= 1
 
 
-@pytest.mark.parametrize("c", [128, 2048])
+@pytest.mark.parametrize("pack_keys", [False, True], ids=["gid", "u32_key"])
+@pytest.mark.parametrize("sizes", [("bands", (64, 32), (3, 2, 1)),
+                                   ("one_part", (64, 4096), (3, 2, 1))],
+                         ids=lambda s: s[0])
+def test_pruned_candidates_classes_match_plain(cuda, sizes, pack_keys,
+                                               monkeypatch):
+    """The classes at shrunk thresholds on the card, as the emulated
+    test runs them: one block a query, bands in shared memory over
+    several parts, a band past its cap in device memory (the look-back
+    over a query's bands running truly in parallel here)."""
+    _, (cap, part), classes = sizes
+    monkeypatch.setattr(merge_kernel, "CAND_BAND_CAP", cap)
+    monkeypatch.setattr(merge_kernel, "CAND_PART_LANES", part)
+    arrays, static = cases.banded_candidates_case(np.random.default_rng(108))
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    for k in (9, 300):
+        kw = dict(static, k=k, pack_keys=pack_keys)
+        stats = {}
+        got = merge_kernel.pruned_candidates(*args, stats=stats, **kw)
+        want = merge_kernel.pruned_candidates_plain(*args, **kw)
+        assert torch.equal(got[0].view(torch.int32),
+                           want[0].view(torch.int32))
+        live = want[0] > float("-inf")
+        assert torch.equal(got[1][live], want[1][live])
+        assert torch.equal(got[2], want[2])
+        assert tuple(stats["cand_classes"].values()) == classes
+
+
+@pytest.mark.parametrize("c", [40, 128, 2048, 4096])
 @pytest.mark.parametrize("mode", ["score_and_order", "score", "order"])
 def test_pruned_rescore_matches_plain(cuda, mode, c):
     ds, tg, tr, tv, kw = cases.rescore_case(np.random.default_rng(107),
@@ -549,3 +588,25 @@ def test_pruned_rescore_matches_plain(cuda, mode, c):
         assert torch.equal(got[1], want[1])
     torch.cuda.synchronize()
     assert merge_kernel.LAUNCHES["pruned_rescore"] == before + 1
+
+
+@pytest.mark.parametrize("t_terms", [1, 8, 32])
+def test_pruned_rescore_spread_matches_plain(cuda, t_terms):
+    """The scores spread over blocks of 256 / T_terms candidates at one,
+    the service's and the most terms the kernel takes, then the order
+    launch: scores and the (-score, gid) order bit for bit."""
+    ds, tg, tr, tv, kw = cases.rescore_case(
+        np.random.default_rng(111), c=1000, b=8, t_terms=t_terms,
+        n_terms=max(10, t_terms), device=cuda)
+    exact = merge_kernel.pruned_rescore_plain(*ds, tg, *tr, **kw)
+    got = merge_kernel.pruned_rescore(*ds, tg, *tr, **kw)
+    assert torch.equal(got.view(torch.int32), exact.view(torch.int32))
+    stats = {}
+    got = merge_kernel.pruned_rescore(*ds, tg, *tr, cand_vals=tv, k=500,
+                                      stats=stats, **kw)
+    want = merge_kernel.pruned_rescore_plain(*ds, tg, *tr, cand_vals=tv,
+                                             k=500, **kw)
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
+    assert stats["rescore_classes"]["rescore.spread"] == 8
+    assert all(n >= 1 for n in stats["rescore_blocks_per_sm"].values())

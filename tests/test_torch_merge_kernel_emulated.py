@@ -786,3 +786,143 @@ def test_pruned_rescore_matches_plain(emulated, mode):
     np.testing.assert_array_equal(got[0].numpy().view(np.uint32),
                                   want[0].numpy().view(np.uint32))
     np.testing.assert_array_equal(got[1].numpy(), want[1].numpy())
+
+
+#: pruned_candidates' size settings (band cap, part lanes) per case, and
+#: the queries each class takes in banded_candidates_case
+CAND_SIZES = {
+    "one_block": ((4096, 4096), (6, 0, 0)),
+    "bands": ((64, 32), (3, 2, 1)),
+    "one_part": ((64, 4096), (3, 2, 1)),
+}
+
+
+@pytest.mark.parametrize("t_window", [4, 5, 8])
+@pytest.mark.parametrize("pack_keys", [False, True], ids=["gid", "u32_key"])
+@pytest.mark.parametrize("sizes", list(CAND_SIZES))
+def test_pruned_candidates_classes_match_plain(emulated, sizes, pack_keys,
+                                               t_window, monkeypatch):
+    """Phase A's size classes at shrunk settings: one block a query
+    (shared), bands each sorted in shared memory after part blocks split
+    the lanes (bands: many bands, bands of one item and none, keys at a
+    band's edges, several parts a query; one_part: a part a query), and
+    a band past its cap sorted in device memory (device); empty
+    queries, a query of one lane, 8-lane runs (t_window's tree; a
+    window of 5 sums as the doubling steps do, over 8), a padding row,
+    both key modes with ties of the 16-bit codes. Values as uint32,
+    gids (where finite) and totals exactly."""
+    (cap, part), classes = CAND_SIZES[sizes]
+    monkeypatch.setattr(merge_kernel, "CAND_BAND_CAP", cap)
+    monkeypatch.setattr(merge_kernel, "CAND_PART_LANES", part)
+    arrays, static = cases.banded_candidates_case(np.random.default_rng(108))
+    static["t_window"] = t_window
+    args = [torch.from_numpy(a) for a in arrays]
+    lanes = args[3].sum(dim=1)
+    assert lanes[0] == 0 and lanes[1] == 1 and lanes[5] <= 16
+    parts = sum(-(-int(n) // part) for n in lanes if n > cap)
+    for k in (9, 300):
+        kw = dict(static, k=k, pack_keys=pack_keys)
+        stats = {}
+        got = merge_kernel._launch_candidates(*args, events=None,
+                                              stats=stats, **kw)
+        want = merge_kernel.pruned_candidates_plain(*args, **kw)
+        np.testing.assert_array_equal(got[0].numpy().view(np.uint32),
+                                      want[0].numpy().view(np.uint32))
+        live = want[0] > float("-inf")
+        np.testing.assert_array_equal(got[1][live].numpy(),
+                                      want[1][live].numpy())
+        np.testing.assert_array_equal(got[2].numpy(), want[2].numpy())
+        assert tuple(stats["cand_classes"].values()) == classes
+        assert stats["cand_blocks"]["cand_part"] == parts
+    assert int(want[2][2]) > 0 and int(want[2][0]) == 0
+
+
+def test_pruned_candidates_bands_hold_edges(monkeypatch):
+    """The "bands" case's plan reaches what its test means to: many bands
+    a query, bands of no item and of one, keys on both sides of a band
+    edge, several parts a query and a band past the cap."""
+    monkeypatch.setattr(merge_kernel, "CAND_BAND_CAP", 64)
+    monkeypatch.setattr(merge_kernel, "CAND_PART_LANES", 32)
+    arrays, static = cases.banded_candidates_case(np.random.default_rng(108))
+    fd, _, starts, lengths, _, rows = arrays
+    d1 = static["d_pad"] + 1
+    caps = lengths.sum(axis=1)
+    key_top = 2 * d1
+    plan = merge_kernel._candidates_plan(caps.tolist(), key_top, False)[0]
+    qinfo = plan[len(caps) + 1:len(caps) + 1 + 4 * len(caps)].reshape(-1, 4)
+    sizes = []
+    for q in (2, 3, 4):
+        shift, bands, parts = (int(x) for x in qinfo[q, :3])
+        assert bands > 4 and parts > 1
+        keys = np.concatenate([
+            rows[q, j] * d1 + fd[starts[q, j]:starts[q, j] + lengths[q, j]]
+            for j in range(starts.shape[1])])
+        count = np.bincount(keys >> shift, minlength=bands)
+        sizes.extend(count.tolist())
+        if q == 2:   # whole postings: every edge doc is in
+            edge = keys & ((1 << shift) - 1)
+            assert (edge == 0).any() and (edge == (1 << shift) - 1).any()
+    assert 0 in sizes and 1 in sizes and max(sizes) > 64
+
+
+@pytest.mark.parametrize("c", [33, 300], ids=["c33", "c300"])
+@pytest.mark.parametrize("t_terms", [1, 2, 4, 8, 32])
+def test_pruned_rescore_spread_matches_plain(emulated, t_terms, c):
+    """The scores spread over blocks of 256 / T_terms candidates (one
+    block or several, the last one partial), every power-of-two term
+    count the kernel takes, then the order launch: the scores and the
+    (-score, gid) order equal the plain fixed-step loop's bit for bit."""
+    ds, tg, tr, tv, kw = cases.rescore_case(
+        np.random.default_rng(109), c=c, t_terms=t_terms,
+        n_terms=max(10, t_terms))
+    exact = merge_kernel.pruned_rescore_plain(*ds, tg, *tr, **kw)
+    got = merge_kernel._launch_rescore(*ds, tg, *tr, None, cand_vals=None,
+                                       k=None, events=None, **kw)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  exact.numpy().view(np.uint32))
+    want_o = merge_kernel.pruned_rescore_plain(*ds, tg, *tr, cand_vals=tv,
+                                               k=70, **kw)
+    stats = {}
+    got_o = merge_kernel._launch_rescore(*ds, tg, *tr, None, cand_vals=tv,
+                                         k=70, events=None, stats=stats,
+                                         **kw)
+    assert stats["rescore_classes"]["rescore.spread"] == tg.shape[0]
+    assert stats["rescore_blocks"]["rescore_score"] == \
+        -(-c // (256 // t_terms)) * tg.shape[0]
+    np.testing.assert_array_equal(got_o[0].numpy().view(np.uint32),
+                                  want_o[0].numpy().view(np.uint32))
+    np.testing.assert_array_equal(got_o[1].numpy(), want_o[1].numpy())
+
+
+@pytest.mark.parametrize("mode", ["order", "score_and_order"])
+def test_pruned_rescore_full_width_matches_plain(emulated, mode):
+    """C = PRUNED_CAND_LIMIT candidates a query, every one ordered (k =
+    C): scores tied across warps (the many zeros and a tie placed at
+    candidates 31 and 32) broken by gid, -0.0 after +0.0 (their gids in
+    the other order), the -inf candidates last."""
+    c = merge_kernel.PRUNED_CAND_LIMIT
+    ds, tg, tr, tv, kw = cases.rescore_case(np.random.default_rng(110),
+                                            c=c, b=2)
+    if mode == "order":
+        exact = merge_kernel.pruned_rescore_plain(*ds, tg, *tr, **kw)
+        exact[:, 31] = exact[:, 32]
+        tg[:, 31], tg[:, 32] = 9, 5
+        exact[:, 5], exact[:, 6] = -0.0, 0.0
+        tg[:, 5], tg[:, 6] = 3, 4
+        want = merge_kernel.pruned_order_plain(exact, tv, tg, k=c)
+        got = merge_kernel._launch_rescore(None, None, tg, None, None, None,
+                                           exact, cand_vals=tv, k=c,
+                                           d_pad=0, p_pad=0, row_base=0,
+                                           search_iters=0, events=None)
+        zeros = want[0] == 0
+        assert zeros.sum() > 64
+        assert (want[0][zeros].numpy().view(np.uint32) == 0x80000000).any()
+    else:
+        want = merge_kernel.pruned_rescore_plain(*ds, tg, *tr, cand_vals=tv,
+                                                 k=c, **kw)
+        got = merge_kernel._launch_rescore(*ds, tg, *tr, None, cand_vals=tv,
+                                           k=c, events=None, **kw)
+    assert torch.isinf(want[0][:, -7:]).all()
+    np.testing.assert_array_equal(got[0].numpy().view(np.uint32),
+                                  want[0].numpy().view(np.uint32))
+    np.testing.assert_array_equal(got[1].numpy(), want[1].numpy())

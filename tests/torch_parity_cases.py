@@ -496,6 +496,91 @@ def candidates_case(rng, g=3, t_slots=4, d_pad=400, max_len=128, b=5,
     return arrays, dict(max_len=max_len, d_pad=d_pad, t_window=8)
 
 
+def banded_candidates_case(rng, d_pad=2000, t_slots=8, max_len=512):
+    """A phase-A group of 3 rows (row 2 a padding row, as the service
+    pads a group: row 0, length 0) for pruned_candidates' classes at
+    shrunk caps. Queries: 0 empty; 1 one lane; 2 eight terms over rows
+    0 and 1 whose postings share docs (runs of up to 8 lanes) and hold
+    docs at power-of-two gid edges (a band's first and last keys); 3
+    prefixes of the same; 4 lanes packed into 0 .. 150 of row 0 (a band
+    past a small cap; three lone lanes in row 1); 5 sixteen lanes, two
+    gids of two lanes. Impacts take
+    five values, two pairs of which share their 16-bit code (ties of
+    pack_keys' codes) → ([flat docs, flat impacts, starts, lengths,
+    weights, rows] numpy, static keywords)."""
+    d1 = d_pad + 1
+    edges = sorted({(m << s) + e for s in range(5, 12) for m in range(1, 8)
+                    for e in (-1, 0) if 0 <= (m << s) + e < 2 * d1})
+    edge_docs = [[], []]
+    for rel in edges:
+        row, doc = divmod(rel, d1)
+        if doc < d_pad:
+            edge_docs[row].append(doc)
+    shared = rng.choice(d_pad, size=40, replace=False)
+    values = np.array([0.5, 0.5001, 1.25, 1.2501, 2.0], dtype=np.float32)
+    flat_docs, flat_imps, ext = [], [], {}
+    pos = 0
+
+    def add(key, docs):
+        nonlocal pos
+        docs = np.unique(np.asarray(docs, dtype=np.int32))
+        imps = rng.choice(values, size=docs.size)
+        order = np.lexsort((docs, -imps))   # impact order, as a pack
+        flat_docs.append(docs[order])
+        flat_imps.append(imps[order])
+        ext[key] = (pos, docs.size)
+        pos += docs.size
+
+    for row in (0, 1):
+        for t in range(t_slots):
+            own = rng.choice(d_pad, size=int(rng.integers(30, 90)),
+                             replace=False)
+            edge = [d for i, d in enumerate(edge_docs[row])
+                    if i % t_slots == t or i % 3 == 0]
+            add(("term", row, t), np.concatenate(
+                [own, shared[:int(rng.integers(10, 40))], edge]))
+        add(("cluster", row), rng.choice(150, size=110, replace=False)
+            if row == 0 else [100, 900, 1500])   # bands of one and none
+    add(("pair",), [7, 7 + d1 // 2])
+    flat_docs.append(np.full(max_len, d_pad, dtype=np.int32))  # slack
+    flat_imps.append(np.zeros(max_len, dtype=np.float32))
+    fd = np.concatenate(flat_docs)
+    fi = np.concatenate(flat_imps)
+    b, gt = 6, 3 * t_slots
+    starts = np.zeros((b, gt), dtype=np.int32)
+    lengths = np.zeros_like(starts)
+    weights = np.zeros((b, gt), dtype=np.float32)
+    rows = np.zeros((b, gt), dtype=np.int32)
+    rows[:, :2 * t_slots] = np.repeat(np.arange(2, dtype=np.int32), t_slots)
+
+    def slot(q, j, key, length=None, w=1.0):
+        st, ln = ext[key]
+        starts[q, j] = st
+        lengths[q, j] = ln if length is None else min(length, ln)
+        weights[q, j] = w
+
+    slot(1, 3, ("term", 0, 3), length=1, w=0.75)
+    ws = rng.uniform(0.3, 3.0, t_slots).astype(np.float32)
+    for row in (0, 1):
+        for t in range(t_slots):
+            j = row * t_slots + t
+            slot(2, j, ("term", row, t), w=ws[t])
+            slot(3, j, ("term", row, t),
+                 length=int(rng.integers(1, 120)), w=ws[t])
+    slot(4, 0, ("cluster", 0), w=1.5)
+    slot(4, 1, ("term", 0, 1), w=0.5)
+    slot(4, t_slots, ("cluster", 1), w=1.5)
+    slot(5, 2, ("pair",), w=1.0)
+    slot(5, 4, ("term", 0, 4), length=5, w=2.0)
+    slot(5, 5, ("term", 0, 5), length=5, w=2.0)
+    starts[5, 3] = starts[5, 2]     # the pair twice in row 0: runs of 2
+    lengths[5, 3] = 2
+    weights[5, 3] = 0.25
+    slot(5, t_slots + 2, ("pair",), w=0.5)
+    arrays = [fd, fi, starts, lengths, weights, rows]
+    return arrays, dict(max_len=max_len, d_pad=d_pad, t_window=8)
+
+
 def rescore_case(rng, s_l=3, d_pad=300, b=4, t_terms=8, c=100,
                  n_terms=10, max_df=150, device="cpu"):
     """Phase B on a device holding rows 2 .. 2 + s_l of 6: doc-sorted
