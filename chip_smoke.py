@@ -122,10 +122,32 @@ device mesh through the collective tail, and checks:
                  cold pass != top_k_plain
                  (the k 10,000 tie row and an all -inf row among them), or
                  when execute_query on the card != the CPU plain path on
-                 any shard (log bodies: rtol 1e-6) or the response !=
+                 any shard (the log bodies too, bitwise) or the response !=
                  the merge of the card's shard results. The kernels line
                  adds shard_topk on a planner row (~62,600 wide) at k 10
                  and k 10,000
+  delta          streaming appends on the same node (its default chain
+                 settings: 4 deltas, 50,000 docs), after the planner
+                 line and before the DELETE: 5 batches of 10,000 new
+                 corpus docs by _bulk with refresh=true, the 256 bodies
+                 (no _source) after each: chains of 1-4 raw delta packs,
+                 then a fold by the background compactor, the bodies
+                 once more after it; after the fourth batch a probe of
+                 the OR bodies with the full-postings tiers shrunk (the
+                 only route to pruned_candidates' u32-key mode on a
+                 delta). Per run q/s, chain length, delta bytes,
+                 StageTimes and launches (counts reset before each);
+                 per batch the append's and the refresh-to-searchable
+                 seconds, beside the fold's full-build seconds. Fails
+                 unless every kernel of the chain launched, every
+                 recorded launch equals its plain version bit for bit,
+                 the oracle holds on the chain (its own statistics
+                 groups), the probe and the fold, the fold equals a
+                 fresh delta-off build on the card over the same
+                 readers (ids, scores as uint32, totals) and no
+                 compaction failed; one more append leaves a chain for
+                 the DELETE's drain check. The kernels line adds the
+                 u32-key mode's row and every entry's launches_delta
 
   raw            segments past 65,408 docs, which take a raw pack (int32
                  docs and f32 impacts, doc-sorted and impact-sorted) and
@@ -203,7 +225,8 @@ EXACT_BOOST = 1e-15
 TYPED_INDEX = "typed"
 TYPED_DOCS = 100_000    # cut from 1M to keep the smoke inside its limit
 TYPED_SHARDS = 4
-PLANNER_ROUNDS = 5      # the planner's timed window: the mix this many times
+PLANNER_ROUNDS = 2      # the planner's timed window: the mix this many
+                        # times (cut from 5 to make room for the delta line)
 PLANNER_TOPK_LINE = "elasticsearch_tpu/ops/bm25.py:138"
 RAW_INDEX = "msmarco-raw"
 RAW_SHARDS = 2          # ~500,000 docs a segment: MS MARCO passage's width
@@ -239,13 +262,21 @@ RAW_LINES = {"raw_merge": "elasticsearch_tpu/ops/sparse.py:666",
                                   "distributed.py:971",
              "pruned_rescore": "elasticsearch_tpu/parallel/"
                                "distributed.py:1052"}
-#: rtol of scores that pass through a log (field_value_factor's log
-#: modifiers): the card's logf need not round as the CPU's log does
-LOG_RTOL = 1e-6
 #: the kernels each path launches
 MAIN_KERNELS = ("slot_decode", "row_pack", "row_sort", "run_sum",
                 "select_rescore", "shard_topk")
 EXACT_KERNELS = ("exact_merge", "shard_topk")
+#: the delta phase (in the rest node, after the planner): batches of
+#: new corpus docs appended by _bulk with refresh=true, a search round
+#: after each; the node's default chain settings (4 deltas, 50,000 docs)
+DELTA_BATCHES = 5
+DELTA_DOCS = 10_000
+#: one more append after the fold, so that the DELETE meets a chain
+DELTA_TAIL_DOCS = 2_000
+#: the kernels the delta phase must launch: the compressed base's, the
+#: raw deltas' (raw_merge for AND / msm, the full-postings tier for OR),
+#: and pruned_candidates' u32-key mode in the prefix probe
+DELTA_KERNELS = MAIN_KERNELS + RAW_KERNELS + ("pruned_candidates.pack_keys",)
 #: the exact merge's classes the exact phase's rows must take (a row of
 #: one window and a row cut into parts; the radix class takes a row only
 #: when one of its slots' docs descend)
@@ -276,7 +307,12 @@ LIBRARY_OF = {
 }
 
 
+_T0 = time.perf_counter()
+
+
 def log(phase: str, **fields) -> None:
+    """One phase's line; t_s is the seconds since the script started."""
+    fields["t_s"] = time.perf_counter() - _T0
     print(f"{phase}: " + json.dumps(fields, sort_keys=False), flush=True)
 
 
@@ -735,13 +771,17 @@ def kernel_parity(mk, launches):
 
 
 def oracle_check(responses, bodies, corpus, segments, boost=1.0):
-    """Top-10 of sampled queries vs the numpy oracle (per-shard stats,
-    ties toward the lower shard, then the lower doc), its scores times
-    the bodies' `boost` (tolerances scaled with them)."""
+    """Top-10 of sampled queries vs the numpy oracle, its scores times
+    the bodies' `boost` (tolerances scaled with them). `segments` lists
+    the statistics groups in pack-row order: a segment (one shard), or
+    a list of segments that share their statistics (a shard's segments
+    in one pack; a delta chain's groups, pack by pack). Ties go to the
+    earlier group, then segment, then the lower doc."""
     import numpy as np
 
     from elasticsearch_tpu_torch.ops import reference_impl
 
+    groups = [g if isinstance(g, (list, tuple)) else [g] for g in segments]
     n = len(responses)
     sample = list(range(0, n, max(1, n // ORACLE_SAMPLE)))[:ORACLE_SAMPLE]
     for qi in sample:
@@ -750,25 +790,27 @@ def oracle_check(responses, bodies, corpus, segments, boost=1.0):
         need = (len(terms) if spec.get("operator") == "and"
                 else int(spec.get("minimum_should_match", 1)))
         ranked, dense = [], []
-        for si, seg in enumerate(segments):
-            st = seg.field_stats[FIELD]
-            avgdl = st.sum_total_term_freq / st.doc_count
-            dfs = {t: seg.doc_freq(FIELD, t) for t in terms}
-            scores = reference_impl.score_segment(
-                seg, FIELD, terms, doc_count=st.doc_count, avgdl=avgdl,
-                doc_freqs=dfs)
-            cnt = np.zeros(seg.num_docs, dtype=np.int64)
-            for t in terms:
-                entry = seg.postings[FIELD].get(t)
-                if entry is not None:
-                    cnt[entry[0]] += 1
-            scores = np.where(cnt >= need, scores, 0.0).astype(np.float32)
-            dense.append({seg.doc_ids[d]: float(scores[d]) * boost
-                          for d in np.nonzero(scores > 0)[0]})
-            for d, sc in reference_impl.topk_from_scores(scores, 10):
-                ranked.append((-sc, si, d, seg.doc_ids[d]))
+        for gi, group in enumerate(groups):
+            doc_count, avgdl = reference_impl.shard_stats(group, FIELD)
+            dfs = {t: reference_impl.shard_doc_freq(group, FIELD, t)
+                   for t in terms}
+            for si, seg in enumerate(group):
+                scores = reference_impl.score_segment(
+                    seg, FIELD, terms, doc_count=doc_count, avgdl=avgdl,
+                    doc_freqs=dfs)
+                cnt = np.zeros(seg.num_docs, dtype=np.int64)
+                for t in terms:
+                    entry = seg.postings[FIELD].get(t)
+                    if entry is not None:
+                        cnt[entry[0]] += 1
+                scores = np.where(cnt >= need, scores, 0.0).astype(
+                    np.float32)
+                dense.append({seg.doc_ids[d]: float(scores[d]) * boost
+                              for d in np.nonzero(scores > 0)[0]})
+                for d, sc in reference_impl.topk_from_scores(scores, 10):
+                    ranked.append((-sc, gi, si, d, seg.doc_ids[d]))
         ranked.sort()
-        expect = [(doc_id, -neg * boost) for neg, _, _, doc_id in
+        expect = [(doc_id, -neg * boost) for neg, _, _, _, doc_id in
                   ranked[:10]]
         hits = responses[qi]["hits"]["hits"][:10]
         if len(hits) != len(expect):
@@ -1126,31 +1168,322 @@ def typed_bulk_load(host, port, corpus):
     return time.perf_counter() - t0
 
 
-def same_shard_results(got, want, rtol):
+def same_shard_results(got, want):
     """Two execute_query results: ids in order, scores as uint32 and
-    totals (rtol: scores within it, order free among hits within it)."""
+    totals."""
     import numpy as np
     if got.total_hits != want.total_hits or len(got.hits) != len(want.hits):
         return False
     g = np.array([h.score for h in got.hits], dtype=np.float32)
     w = np.array([h.score for h in want.hits], dtype=np.float32)
-    g_ids = [h.doc_id for h in got.hits]
-    w_ids = [h.doc_id for h in want.hits]
-    if rtol == 0:
-        return g_ids == w_ids and np.array_equal(g.view(np.uint32),
-                                                 w.view(np.uint32))
-    if not np.allclose(g, w, rtol=rtol, atol=0):
-        return False
-    groups_g, groups_w, last = [], [], None
-    for gi, wi, sc in zip(g_ids, w_ids, w):
-        if last is not None and abs(sc - last) <= rtol * abs(sc):
-            groups_g[-1].add(gi)
-            groups_w[-1].add(wi)
-        else:
-            groups_g.append({gi})
-            groups_w.append({wi})
-        last = sc
-    return groups_g == groups_w
+    return [h.doc_id for h in got.hits] == [h.doc_id for h in want.hits] \
+        and np.array_equal(g.view(np.uint32), w.view(np.uint32))
+
+
+def chain_groups(chain):
+    """The statistics groups of a delta chain in its union's row order:
+    pack by pack, each of its index shards' segments (oracle_check's
+    `segments`)."""
+    groups = []
+    for part in chain.parts:
+        rows = {}
+        for row, seg in enumerate(part.row_segments):
+            rows.setdefault(part.pack.row_group[row], []).append(seg)
+        groups += [rows[g] for g in sorted(rows)]
+    return groups
+
+
+def delta_append(host, port, docs, first, n):
+    """_bulk n documents (docs(i) the text of the i-th) as ids d{first},
+    d{first + 1}, ...: BULK_DOCS-doc requests, the last with
+    ?refresh=true → (seconds of the whole append, seconds of the last
+    request)."""
+    import http.client
+    conn = http.client.HTTPConnection(host, port, timeout=600)
+    t0 = time.perf_counter()
+    try:
+        for lo in range(0, n, BULK_DOCS):
+            hi = min(n, lo + BULK_DOCS)
+            lines = []
+            for i in range(lo, hi):
+                lines.append('{"index":{"_id":"d%d"}}' % (first + i))
+                lines.append(json.dumps({FIELD: docs(i)}))
+            last = hi == n
+            t_last = time.perf_counter()
+            status, resp = rest_http(
+                host, port, "POST", f"/{REST_INDEX}/_bulk"
+                + ("?refresh=true" if last else ""),
+                raw=("\n".join(lines) + "\n").encode(), conn=conn)
+            if status != 200 or resp.get("errors"):
+                raise AssertionError(f"delta _bulk: {str(resp)[:500]}")
+    finally:
+        conn.close()
+    end = time.perf_counter()
+    return end - t0, end - t_last
+
+
+def delta_phase(host, port, node, corpus, bodies, mk, smi):
+    """_delta_run with a delta-off service of the same mesh beside the
+    node's (the fold's oracle), closed however the run ends."""
+    from elasticsearch_tpu_torch.search.gpu_service import GpuSearchService
+    full = GpuSearchService(mesh=node.gpu_search.mesh, max_batch=128)
+    try:
+        return _delta_run(host, port, node, corpus, bodies, mk, smi, full)
+    finally:
+        full.close()
+
+
+def _delta_run(host, port, node, corpus, bodies, mk, smi, full):
+    """Streaming appends to the rest node's resident 1M-doc index (the
+    node's default delta settings): DELTA_BATCHES batches of DELTA_DOCS
+    new corpus docs (ids past the first million) by _bulk with
+    refresh=true, each followed by the 256 bodies (no _source) from
+    REST_CLIENTS clients: chains of 1-4 raw deltas, then a fifth that
+    crosses max_packs and makes the background compactor fold the chain;
+    the bodies once more after the fold. After the fourth batch, the OR
+    bodies again with the full-postings tiers shrunk (a probe: no body
+    of this traffic reaches the prefix tier on a delta, whose rows hold
+    ~625 docs, so the u32-key mode of pruned_candidates would not run).
+    Counts reset before each run and read after it. Checks: every
+    recorded launch against its plain version bit for bit (fused shapes,
+    raw_merge / pruned_candidates / pruned_rescore calls, every
+    shard_topk); the chain's and the probe's hits against the oracle
+    with the chain's statistics groups; after the fold, the node's hits
+    equal a fresh delta-off build's on the card over the same readers
+    (ids, scores as uint32, totals) and the oracle's; no compaction
+    failure. Leaves one more delta chained, for the DELETE's drain
+    check → (log fields, kernels entries, launches by kernel)."""
+    from concurrent.futures import ThreadPoolExecutor as Pool
+
+    import torch
+
+    from elasticsearch_tpu_torch.benchmark import corpus as corpus_mod
+    from elasticsearch_tpu_torch.search import dsl, gpu_service
+
+    gs = node.gpu_search
+    svc = node.indices.index(REST_INDEX)
+    if not gs.packs.delta_enabled or gs.stats()["deltas"]["packs"]:
+        raise AssertionError("the rest node serves no bare chain: "
+                             f"{gs.stats()['deltas']}")
+    n_new = DELTA_BATCHES * DELTA_DOCS + DELTA_TAIL_DOCS
+    t_phase = t0 = time.perf_counter()
+    new = corpus_mod.generate(n_new, vocab_size=VOCAB, num_queries=1,
+                              seed=SEED + 1)
+    out = {"nvidia_smi": smi, "batches": DELTA_BATCHES,
+           "batch_docs": DELTA_DOCS, "max_packs": gs.packs.delta_max_packs,
+           "max_docs": gs.packs.delta_max_docs,
+           "corpus_s": time.perf_counter() - t0}
+    run_bodies = [dict(b, _source=False) for b in bodies]
+    or_bodies = [b for i, b in enumerate(run_bodies) if i % 4 in (0, 3)]
+    appended = 0
+    total_launches = dict.fromkeys(DELTA_KERNELS, 0)
+    runs = []
+
+    def run(label, these):
+        gs.stages.reset()
+        mk.reset_launches()
+        responses, wall = rest_queries(host, port, these)
+        launches = dict(mk.LAUNCHES)
+        for name in DELTA_KERNELS:
+            total_launches[name] += launches[name]
+        st = gs.stats()["deltas"]
+        runs.append(dict(
+            run=label, queries=len(responses), wall_s=wall,
+            qps=len(responses) / wall, chain_len=st["packs"],
+            delta_bytes=st["bytes"], launches={
+                n: launches[n] for n in DELTA_KERNELS},
+            stage_means_ms={k: v["mean_ms"]
+                            for k, v in gs.stages.snapshot().items()}))
+        return responses
+
+    with LaunchRecorder(mk) as rec, RawRecorder(mk) as raw, \
+            TopkRecorder(mk) as top:
+        for b in range(DELTA_BATCHES):
+            append_s, last_s = delta_append(
+                host, port, lambda i, o=appended: new.doc_text(o + i),
+                N_DOCS + appended, DELTA_DOCS)
+            appended += DELTA_DOCS
+            t1 = time.perf_counter()
+            rest_queries(host, port, run_bodies[:1])   # builds the delta
+            first_s = time.perf_counter() - t1
+            responses = run(f"batch{b + 1}", run_bodies)
+            runs[-1].update(append_s=append_s, docs=appended,
+                            refresh_to_searchable_s=last_s + first_s,
+                            first_search_s=first_s)
+            if b == 3:
+                chain = gs.packs.get_chain(svc, FIELD)
+                groups4 = chain_groups(chain)
+                del chain
+                chain4 = responses
+                # the probe: OR bodies on the prefix tier of each delta
+                saved = gpu_service.FULL_SLOT_BUCKETS
+                gpu_service.FULL_SLOT_BUCKETS = (1,)
+                try:
+                    n_raw = len(raw.calls)
+                    probed = run("probe", or_bodies)
+                finally:
+                    gpu_service.FULL_SLOT_BUCKETS = saved
+                probe_calls = [c for c in raw.calls[n_raw:]
+                               if c[0] == "pruned_candidates"
+                               and c[2].get("pack_keys")]
+        # the oracle of the fold: a fresh delta-off build over the same
+        # readers, built while the compactor folds the chain
+        t3 = time.perf_counter()
+        full.packs.get(svc, FIELD)
+        out["fresh_build_s"] = time.perf_counter() - t3
+        # the fold: the fifth delta crossed max_packs
+        t2 = time.perf_counter()
+        while not (gs.compaction_idle()
+                   and gs.delta_stats.compactions >= 1):
+            if time.perf_counter() - t2 > 600:
+                raise AssertionError("the compactor did not fold the "
+                                     f"chain: {gs.stats()['deltas']}")
+            time.sleep(0.05)
+        wait_s = time.perf_counter() - t2
+        folded = run("after_fold", run_bodies)
+    t_checks = time.perf_counter()
+    ds = gs.stats()["deltas"]
+    out.update(runs=runs, compactions=ds["compactions"],
+               compaction_failures=ds["compaction_failures"],
+               compact_s=ds["compact_seconds"], fold_wait_s=wait_s,
+               full_rebuild_s=ds["compact_seconds"],
+               appends=ds["appends"])
+    if ds["compaction_failures"] or ds["compactions"] != 1 or ds["packs"]:
+        raise AssertionError(f"delta lifecycle: {ds}")
+    if [r["chain_len"] for r in runs[:4]] != [1, 2, 3, 4]:
+        raise AssertionError(f"chain lengths {[r['chain_len'] for r in runs]}")
+    zero = [n for n in DELTA_KERNELS if total_launches[n] <= 0]
+    if zero:
+        raise AssertionError(f"delta phase: kernels not launched: {zero}")
+    # the probe's kernel timed before the checks consume the calls
+    if not probe_calls:
+        raise AssertionError("the probe made no u32-key candidates call")
+    kernels = [pack_keys_entry(mk, max(probe_calls, key=lambda c: int(
+        c[1][3].clamp(min=0, max=c[2]["max_len"]).sum())),
+        runs[4]["launches"]["pruned_candidates.pack_keys"])]
+    del probe_calls
+    # every launch against its plain version
+    shapes = list(rec.shapes.values())
+    rec.shapes.clear()
+    worst = 0.0
+    n_shapes = len(shapes)
+    while shapes:
+        args, kw = shapes.pop()
+        _, err, _ = check_launch(mk, "delta", args, kw)
+        worst = max(worst, err)
+        del args, kw
+    out["parity"] = dict(fused_shapes=n_shapes, max_abs_err=worst,
+                         raw=check_raw_calls(mk, raw.calls),
+                         shard_topk=check_topk_calls(mk, top.calls),
+                         tolerance="bitwise: scores as uint32, docs, gids "
+                                   "and totals exact")
+    # the oracle: the chain of four with its own statistics groups, the
+    # probe's hits likewise (exact scores, their rounding may differ from
+    # the full tier's), the fold with one group a shard
+    segs = [[v.segment for v in svc.shard(s).acquire_searcher().views]
+            for s in range(SHARDS)]
+    t_oracle = time.perf_counter()
+    out["oracle_checked"] = {
+        "chain4": len(oracle_check(chain4, run_bodies, corpus, groups4)),
+        "probe": len(oracle_check(probed, or_bodies, corpus, groups4)),
+        "after_fold": len(oracle_check(folded, run_bodies, corpus, segs))}
+    totals = {id(b): r["hits"]["total"] for b, r in zip(run_bodies, chain4)}
+    if [r["hits"]["total"] for r in probed] != [totals[id(b)]
+                                                  for b in or_bodies]:
+        raise AssertionError("the probe's totals differ from the chain's")
+    out["oracle_s"] = time.perf_counter() - t_oracle
+    del chain4, probed, groups4, segs
+    # the fold against the fresh delta-off build over the same readers
+    def same(body):
+        q = dsl.parse_query(body["query"])
+        return same_flat_result(gs.try_search(svc, q, k=K),
+                                full.try_search(svc, q, k=K))
+
+    with Pool(max_workers=REST_CLIENTS) as pool:
+        equal = list(pool.map(same, run_bodies))
+    differ = [i for i, e in enumerate(equal) if not e]
+    if differ:
+        raise AssertionError(f"queries {differ[:8]}: the fold != a fresh "
+                             f"full build")
+    out["fold_equals_full_build"] = len(equal)
+    full.close()
+    # one more append: the DELETE after this phase meets a chain
+    append_s, last_s = delta_append(
+        host, port, lambda i: new.doc_text(appended + i),
+        N_DOCS + appended, DELTA_TAIL_DOCS)
+    rest_queries(host, port, run_bodies[:8])
+    if gs.stats()["deltas"]["packs"] != 1:
+        raise AssertionError(f"no chain before DELETE: "
+                             f"{gs.stats()['deltas']}")
+    out["tail"] = dict(docs=DELTA_TAIL_DOCS, append_s=append_s,
+                       chain=gs.stats()["deltas"])
+    del new
+    torch.cuda.synchronize()
+    out.update(checks_s=time.perf_counter() - t_checks,
+               seconds=time.perf_counter() - t_phase)
+    return out, kernels, total_launches
+
+
+def same_flat_result(got, want):
+    """Two kernel-path results: ids in order, scores as uint32, totals
+    and their relation."""
+    import numpy as np
+    return (got.total_hits == want.total_hits
+            and got.total_relation == want.total_relation
+            and np.array_equal(got.scores.view(np.uint32),
+                               want.scores.view(np.uint32))
+            and np.array_equal(got.resident.resolve_ids(got.rows, got.ords),
+                               want.resident.resolve_ids(want.rows,
+                                                         want.ords)))
+
+
+def pack_keys_entry(mk, call, launches):
+    """The kernels line's row of pruned_candidates in its u32-key mode
+    (pack_keys), on the probe's widest call: ms, device ms, the plain
+    version, the bytes bound, and a stable torch.sort of the same u32
+    keys (query in the high bits) as the library call."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops import sparse
+
+    _, args, kw, got = call
+    flat_docs, flat_imps, starts, lengths, weights, prow = args
+    max_len, d1 = kw["max_len"], kw["d_pad"] + 1
+    docs = sparse._window(flat_docs, starts, max_len)
+    imps = sparse._window(flat_imps, starts, max_len)
+    valid = (torch.arange(max_len, device=docs.device)[None, None, :]
+             < lengths[:, :, None])
+    grel = (prow.to(torch.int64) - int(prow[0, 0])).clamp(min=0)
+    key = (((grel[:, :, None] * d1 + docs) << 16)
+           | sparse.impact_code16(weights[:, :, None] * imps))
+    qrow = torch.arange(docs.shape[0], device=docs.device)[:, None, None]
+    keys = ((qrow << 32) | key)[valid]
+    del docs, imps, valid, key
+    stats = {}
+    mk.pruned_candidates(*args, **dict(kw, stats=stats))
+    e = timed_entry(
+        "merge_topk.pruned_candidates.pack_keys", "pruned_candidates",
+        lambda ev: mk.pruned_candidates(*args, **dict(kw, events=ev)),
+        ("cand_part_kernel", "cand_band_kernel"),
+        lambda: mk.pruned_candidates_plain(*args, **kw),
+        "pruned_candidates_plain (pack_keys): the group's sort of u32 "
+        "keys, run sums and top-k",
+        time_cuda(lambda: torch.sort(keys, stable=True), TIMED),
+        "torch.sort(stable=True) of the same lanes' u32 keys (group gid "
+        "<< 16 | impact code), the query in the high bits: the sort alone",
+        raw_bytes("pruned_candidates", args, kw, got),
+        group="the delta phase's probe: its widest prefix-16k group on a "
+              "delta",
+        shape={"queries": starts.shape[0], "slots": starts.shape[1],
+               "max_len": max_len, "k": kw["k"], "pack_keys": True,
+               "lanes": int(keys.numel())},
+        size_classes=stats["cand_classes"], blocks=stats["cand_blocks"],
+        smem=stats["cand_smem"], blocks_per_sm=stats["cand_blocks_per_sm"])
+    e.update(route="cuda", source=KERNEL_SOURCE,
+             replaces=RAW_LINES["pruned_candidates"], launches=launches,
+             max_abs_err=0.0, bound_ms=e["bytes"] / HBM_BYTES_PER_S * 1e3,
+             bound_by="bytes")
+    return e
 
 
 def planner_phase(host, port, node, corpus, mk, smi):
@@ -1257,7 +1590,6 @@ def planner_phase(host, port, node, corpus, mk, smi):
         svc = node.indices.index(index)
         query = dsl.parse_query(body["query"])
         size, from_ = body.get("size", 10), body.get("from", 0)
-        rtol = LOG_RTOL if "log" in json.dumps(body) else 0
         merged, total = [], 0
         for si, (_, shard) in enumerate(sorted(svc.shards.items())):
             reader = shard.acquire_searcher()
@@ -1265,7 +1597,7 @@ def planner_phase(host, port, node, corpus, mk, smi):
                       min_score=body.get("min_score"))
             gpu = execute_query(reader, query, device=dev, **kw)
             cpu = execute_query(reader, query, device="cpu", **kw)
-            if not same_shard_results(gpu, cpu, rtol):
+            if not same_shard_results(gpu, cpu):
                 raise AssertionError(f"planner {label}: shard {si} on the "
                                      f"card != the CPU plain path")
             total += gpu.total_hits
@@ -1315,8 +1647,8 @@ def planner_phase(host, port, node, corpus, mk, smi):
                         "after the window"),
         shards_checked=checked,
         parity=("every body and shard: execute_query on the card == the "
-                "CPU plain path (ids, scores as uint32, totals; log "
-                f"bodies rtol {LOG_RTOL}), and the response == the merge "
+                "CPU plain path (ids, scores as uint32, totals; the log "
+                "bodies too), and the response == the merge "
                 "of the card's shard results"))
     return out, kernels
 
@@ -1332,9 +1664,11 @@ def rest_phase(corpus, bodies, mk, smi, e2e_responses, data_root,
     Checks the launches against the plain version (every train's
     shard_topk, every exact merge), the hits against the numpy oracle,
     the two runs against each other and against the in-process e2e run,
-    the exact run against the in-process exact phase, and that deleting
-    the index drains the hbm breaker to 0 and returns
-    torch.cuda.memory_allocated() to its value before the pack."""
+    the exact run against the in-process exact phase; then runs the
+    planner and delta lines on the same node, and checks that deleting
+    the index (a delta chained on it) drains the hbm breaker to 0 and
+    returns torch.cuda.memory_allocated() to its value before the
+    pack."""
     import gc
     import shutil
 
@@ -1464,6 +1798,8 @@ def rest_phase(corpus, bodies, mk, smi, e2e_responses, data_root,
         del runs, segments, svc
         planner, planner_kernels = planner_phase(host, port, node, corpus,
                                                  mk, smi)
+        delta, delta_kernels, delta_launches = delta_phase(
+            host, port, node, corpus, bodies, mk, smi)
         status, resp = rest_http(host, port, "DELETE", f"/{REST_INDEX}")
         if status != 200:
             raise AssertionError(f"DELETE index: {resp}")
@@ -1477,7 +1813,8 @@ def rest_phase(corpus, bodies, mk, smi, e2e_responses, data_root,
             time.sleep(0.1)
         out.update(hbm_after_delete=hbm.used,
                    memory_allocated_before_pack=mem_before,
-                   memory_allocated_after_delete=mem_after)
+                   memory_allocated_after_delete=mem_after,
+                   deltas_at_delete=delta["tail"]["chain"]["packs"])
         if hbm.used != 0:
             raise AssertionError(f"hbm breaker reads {hbm.used} after "
                                  f"DELETE")
@@ -1494,7 +1831,7 @@ def rest_phase(corpus, bodies, mk, smi, e2e_responses, data_root,
         shutil.rmtree(data, ignore_errors=True)
     return out, dict(launches["source"],
                      exact_merge=launches["exact"]["exact_merge"]), \
-        planner, planner_kernels
+        planner, planner_kernels, delta, delta_kernels, delta_launches
 
 
 def time_events(fn, n):
@@ -1848,6 +2185,51 @@ def raw_bytes(name, args, kw, got):
             + b * k * 12)
 
 
+def profiled_ms(fn, fn_names):
+    """Mean device ms a call of fn spends in the named kernels, each
+    launched once a call: the sum of their means per record, since a
+    session may end without some or all of the device's kernel records
+    (up to PROFILE_TRIES sessions until one holds a named kernel), and
+    when none did what the last session listed → (ms, None) or (None,
+    what was seen)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from elasticsearch_tpu_torch.tools.kernel_ab import PROFILE_TRIES
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(TIMED):
+                fn()
+            torch.cuda.synchronize()
+        total, seen = 0.0, {}
+        for ev in prof.key_averages():
+            us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+            seen[ev.key[:120]] = (us, ev.count)
+            if any(f in ev.key for f in fn_names) and ev.count:
+                total += us / 1e3 / ev.count
+        if total:
+            return total, None
+    listed = sorted(seen.items(), key=lambda kv: -kv[1][0])[:8]
+    return None, {"sessions": PROFILE_TRIES, "listed": listed}
+
+
+def timed_entry(name, kernel, run, names, plain, plain_of, library,
+                library_of, nbytes, **extra):
+    """A kernels-line entry of one call: run(events) launches the kernel
+    once; its ms by CUDA events, device ms over the `names` kernels, the
+    plain version's ms and the library call's (measured by the caller)."""
+    dev_ms, seen = profiled_ms(lambda: run(None), names)
+    e = dict(name=name, kernel=kernel, ms=time_events(run, TIMED)[kernel],
+             device_ms=dev_ms, plain_ms=time_cuda(plain, 5),
+             plain_of=plain_of, library_ms=library, library_of=library_of,
+             bytes=nbytes, **extra)
+    if seen is not None:
+        e["device_ms_seen"] = seen
+    return e
+
+
 def raw_kernel_entries(mk, calls, launches, n_trains, rescore_call,
                        tier_calls):
     """The kernels line's raw_merge, pruned_candidates and pruned_rescore
@@ -1861,51 +2243,15 @@ def raw_kernel_entries(mk, calls, launches, n_trains, rescore_call,
     ms, the bytes bound, the library call, and for pruned_candidates the
     classes its queries took, its blocks and their residency."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from elasticsearch_tpu_torch.ops import sparse
 
-    def device_ms(fn, fn_names):
-        """Mean device ms a call of fn spends in the named kernels, each
-        launched once a call: the sum of their means per record, since a
-        session may end without some or all of the device's kernel
-        records (up to PROFILE_TRIES sessions until one holds a named
-        kernel), and when none did what the last session listed."""
-        from elasticsearch_tpu_torch.tools.kernel_ab import PROFILE_TRIES
-        for _ in range(PROFILE_TRIES):
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(TIMED):
-                    fn()
-                torch.cuda.synchronize()
-            total, seen = 0.0, {}
-            for ev in prof.key_averages():
-                us = getattr(ev, "self_device_time_total",
-                             getattr(ev, "self_cuda_time_total", 0.0))
-                seen[ev.key[:120]] = (us, ev.count)
-                if any(f in ev.key for f in fn_names) and ev.count:
-                    total += us / 1e3 / ev.count
-            if total:
-                return total, None
-        listed = sorted(seen.items(), key=lambda kv: -kv[1][0])[:8]
-        return None, {"sessions": PROFILE_TRIES, "listed": listed}
+    entry = timed_entry
 
     def widest(name):
         own = [c for c in calls if c[0] == name]
         return max(own, key=lambda c: c[1][2].numel() * (
             int(c[1][3].clamp(min=0).sum()) if c[1][3] is not None else 1))
-
-    def entry(name, kernel, run, names, plain, plain_of, library,
-              library_of, nbytes, **extra):
-        """run(events) launches the kernel once."""
-        dev_ms, seen = device_ms(lambda: run(None), names)
-        e = dict(name=name, kernel=kernel, ms=time_events(run, TIMED)[kernel],
-                 device_ms=dev_ms, plain_ms=time_cuda(plain, 5),
-                 plain_of=plain_of, library_ms=library,
-                 library_of=library_of, bytes=nbytes, **extra)
-        if seen is not None:
-            e["device_ms_seen"] = seen
-        return e
 
     entries = []
     # raw_merge: the train's exact launch (its AND / msm bodies)
@@ -2548,11 +2894,13 @@ def main() -> int:
             k=big_topk[1], in_kernels_line="merge_topk.shard_topk.k16384"))
         del big_topk
         # -- rest: the node over HTTP, the path users call -------------
-        rest, rest_launches, planner, planner_kernels = rest_phase(
-            corpus, bodies, mk, smi, responses, os.path.join(here, "data"),
-            exact_run, exact_responses)
+        rest, rest_launches, planner, planner_kernels, delta, \
+            delta_kernels, delta_launches = rest_phase(
+                corpus, bodies, mk, smi, responses,
+                os.path.join(here, "data"), exact_run, exact_responses)
         log("rest", **rest)
         log("planner", **planner)
+        log("delta", **delta)
         kernels += planner_kernels
         # -- raw: segments past 65,408 docs, a raw pack, the pruned tiers
         raw, raw_kernels = raw_phase(corpus, bodies, mk, smi, extra_sets,
@@ -2561,7 +2909,12 @@ def main() -> int:
         for entry in kernels:
             entry["launches_rest"] = rest_launches[
                 entry.get("kernel", entry["name"].split(".", 1)[1])]
-        kernels += raw_kernels
+        kernels += raw_kernels + delta_kernels
+        for entry in kernels:
+            name = entry.get("kernel", entry["name"].split(".", 1)[1])
+            entry["launches_delta"] = delta_launches.get(
+                "pruned_candidates.pack_keys"
+                if entry["name"].endswith(".pack_keys") else name, 0)
         print(json.dumps({"kernels": kernels}), flush=True)
     finally:
         svc.close()

@@ -1,9 +1,10 @@
 """InternalEngine — versioned upserts over immutable segments + WAL.
 
 Copy of the reference's ``index/engine.py`` (the per-shard write machine,
-after Elasticsearch's InternalEngine) without its flight-recorder events,
-the recovery audit (``replay_tail``), replica no-ops and the per-segment
-device pack cache. Kept behaviors:
+after Elasticsearch's InternalEngine) without its flight-recorder events
+(``translog.replay``, ``refresh.checkpoint``: they come with the port's
+flight recorder), replica no-ops, the size-tiered merge trigger and the
+per-segment device pack cache. Kept behaviors:
 
   - LiveVersionMap: uid → (seq_no, term, version, deleted) for realtime
     version conflict checks and realtime GET before refresh.
@@ -16,6 +17,14 @@ device pack cache. Kept behaviors:
   - versioning: internal (monotonic per doc) with optional compare-and-set
     via if_seq_no/if_primary_term, and external version mode.
   - merges: a host job re-packing segments in order, purging tombstones.
+  - translog-gated visibility: an op is searchable once a refresh
+    checkpoint covers its seqno (``wait_for_visible``, the REST
+    ``refresh=wait_for``), searchable-durable once its translog sync ran
+    too (``visible_durable_checkpoint``); ``replay_tail`` audits the
+    durable tail above the checkpoint and refreshes. ``live_version``
+    bumps when the live masks of refreshed segments change (tombstones,
+    a merge): the search service's delta chain tells an append from a
+    change of committed rows by it.
 
 A refresh that changes anything swaps in a new ShardReader object; the
 search service's pack cache keys on those reader identities.
@@ -23,9 +32,11 @@ search service's pack cache keys on those reader identities.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
 import threading
+import time
 import uuid
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -107,8 +118,18 @@ class InternalEngine:
         self._committed_segment_names: List[str] = []
         self._commit_file_crcs: Dict[str, int] = {}
         self._unpersisted_seq_nos: List[int] = []
-        # the max seqno whose op is searchable, stamped at refresh
-        self.refresh_checkpoint = NO_OPS_PERFORMED
+        # -- translog-gated visibility state ---------------------------
+        # An op is searchable once a refresh checkpoint at or above its
+        # seqno is stamped, searchable-durable once its translog sync
+        # ran too (the min of the two checkpoints). live_version bumps
+        # when the live masks of refreshed segments change.
+        self._refresh_cond = threading.Condition(self._lock)
+        self._refresh_checkpoint = NO_OPS_PERFORMED
+        self._oldest_unrefreshed_ts: Optional[float] = None
+        self.visible_lag_samples: collections.deque = collections.deque(
+            maxlen=256)
+        self.last_visible_lag_s = 0.0
+        self.live_version = 0
         self.replayed_ops = 0  # translog ops scanned by replay (monotonic)
 
         commit = seg_store.read_commit(config.path)
@@ -180,10 +201,43 @@ class InternalEngine:
         self.replayed_ops += count
         return count
 
+    def replay_tail(self, reason: str = "recovery") -> Dict[str, int]:
+        """Durability audit and repair: re-read the translog tail above
+        the refresh checkpoint, re-apply any op the in-memory state lacks
+        (ops at or below the processed checkpoint are applied already:
+        scanning them proves they survived), then refresh so that every
+        acked op is searchable. → {"scanned", "applied"}. The reference
+        also emits ``translog.replay`` then ``refresh.checkpoint``; the
+        port has no flight recorder yet."""
+        with self._lock:
+            self._ensure_open()
+            scanned = applied = 0
+            for op in self.translog.snapshot(self._refresh_checkpoint + 1):
+                scanned += 1
+                if op.seq_no <= self.tracker.processed_checkpoint:
+                    continue
+                if op.op_type == "index":
+                    self._apply_index(op.doc_id, op.source,
+                                      seq_no=op.seq_no,
+                                      primary_term=op.primary_term,
+                                      version=op.version, log=False)
+                elif op.op_type == "delete":
+                    self._apply_delete(op.doc_id, seq_no=op.seq_no,
+                                       primary_term=op.primary_term,
+                                       version=op.version, log=False)
+                self.tracker.advance_max_seq_no(op.seq_no)
+                self.tracker.mark_processed(op.seq_no)
+                self.tracker.mark_persisted(op.seq_no)
+                applied += 1
+            self.replayed_ops += scanned
+            self.refresh()
+            return {"scanned": scanned, "applied": applied}
+
     def close(self) -> None:
         with self._lock:
             self._closed = True
             self.translog.close()
+            self._refresh_cond.notify_all()  # release wait_for waiters
 
     def _ensure_open(self) -> None:
         if self._closed:
@@ -306,6 +360,7 @@ class InternalEngine:
         if log:
             self.translog.add(TranslogOp("index", seq_no, primary_term,
                                          doc_id, source, version))
+        self._note_unrefreshed()
         existing = self._resolve_version(doc_id)
         if existing is not None and existing.location is not None:
             self._tombstone_location(existing.location)
@@ -314,6 +369,12 @@ class InternalEngine:
             version=version, dv_kinds=self.config.mapper.dv_kinds())
         self._version_map[doc_id] = VersionValue(
             seq_no, primary_term, version, False, ("buffer", ord_))
+
+    def _note_unrefreshed(self) -> None:
+        # the search-visible lag runs from the oldest op awaiting a
+        # refresh; the refresh that covers it clears the stamp
+        if self._oldest_unrefreshed_ts is None:
+            self._oldest_unrefreshed_ts = time.monotonic()
 
     def bulk_index(self, docs: List[Tuple[str, dict]]) -> List[Any]:
         """Primary-path bulk upsert (plain index ops — create/CAS/external
@@ -372,6 +433,7 @@ class InternalEngine:
             for i, parsed, seq_no, primary_term, new_version, is_update \
                     in plan:
                 doc_id = parsed.doc_id
+                self._note_unrefreshed()
                 existing = self._resolve_version(doc_id)
                 if existing is not None and existing.location is not None:
                     self._tombstone_location(existing.location)
@@ -437,6 +499,7 @@ class InternalEngine:
         if log:
             self.translog.add(TranslogOp("delete", seq_no, primary_term,
                                          doc_id, None, version))
+        self._note_unrefreshed()
         existing = self._resolve_version(doc_id)
         if existing is not None and existing.location is not None:
             self._tombstone_location(existing.location)
@@ -539,14 +602,61 @@ class InternalEngine:
                     if seg_name in self._live:
                         self._live[seg_name][ord_] = False
                 self._pending_seg_deletes = []
+                # committed rows changed in place: a device image of
+                # those segments (base or delta chain) is stale
+                self.live_version += 1
                 changed = True
             if changed or self._reader is None:
                 self._reader = ShardReader(
                     [(s, self._live[s.name]) for s in self._segments],
                     self.config.mapper, self.config.k1, self.config.b)
-            self.refresh_checkpoint = max(self.refresh_checkpoint,
-                                          self.tracker.processed_checkpoint)
+                self._reader.live_version = self.live_version
+            self._stamp_refresh_checkpoint()
             return changed
+
+    def _stamp_refresh_checkpoint(self) -> None:
+        """Under the engine lock at the end of every refresh: everything
+        at or below the processed checkpoint is in the new reader, so the
+        visibility watermark advances and wait_for waiters wake."""
+        if self._oldest_unrefreshed_ts is not None:
+            lag = time.monotonic() - self._oldest_unrefreshed_ts
+            self.last_visible_lag_s = lag
+            self.visible_lag_samples.append(lag)
+            self._oldest_unrefreshed_ts = None
+        self._refresh_checkpoint = max(self._refresh_checkpoint,
+                                       self.tracker.processed_checkpoint)
+        self._refresh_cond.notify_all()
+
+    # -- visibility contract -------------------------------------------
+
+    @property
+    def refresh_checkpoint(self) -> int:
+        """Max seqno whose op is searchable (stamped at refresh)."""
+        return self._refresh_checkpoint
+
+    @property
+    def visible_durable_checkpoint(self) -> int:
+        """Max seqno that is both searchable and fsync'd to the translog:
+        under async durability the only watermark a caller may report as
+        searchable-durable."""
+        return min(self._refresh_checkpoint,
+                   self.tracker.persisted_checkpoint)
+
+    def wait_for_visible(self, seq_no: int, timeout_s: float = 10.0) -> bool:
+        """Block until a refresh checkpoint covers ``seq_no`` (the
+        ``refresh=wait_for`` contract: ride the refresh cycle instead of
+        forcing a segment a request). False on timeout or close: the
+        caller then refreshes itself."""
+        deadline = time.monotonic() + timeout_s
+        with self._refresh_cond:
+            while self._refresh_checkpoint < seq_no:
+                if self._closed:
+                    return False
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return False
+                self._refresh_cond.wait(remaining)
+            return True
 
     def flush(self) -> None:
         """Commit: refresh + persist segments + manifest, then roll/trim
@@ -598,9 +708,11 @@ class InternalEngine:
                     ord_ = merged.id_to_ord.get(doc_id)
                     if ord_ is not None:
                         vv.location = ("segment", merged.name, ord_)
+            self.live_version += 1  # the segment set restructured
             self._reader = ShardReader(
                 [(merged, self._live[merged.name])], self.config.mapper,
                 self.config.k1, self.config.b)
+            self._reader.live_version = self.live_version
             return True
 
     # ------------------------------------------------------------------
@@ -627,13 +739,20 @@ class InternalEngine:
 
     def stats(self) -> Dict[str, Any]:
         with self._lock:
+            lag = list(self.visible_lag_samples)
             return {
                 "num_docs": self.num_docs(),
                 "segments": len(self._segments),
                 "max_seq_no": self.tracker.max_seq_no,
                 "local_checkpoint": self.tracker.processed_checkpoint,
                 "persisted_checkpoint": self.tracker.persisted_checkpoint,
-                "refresh_checkpoint": self.refresh_checkpoint,
+                "refresh_checkpoint": self._refresh_checkpoint,
+                "visible_durable_checkpoint":
+                    self.visible_durable_checkpoint,
                 "replayed_ops": self.replayed_ops,
+                "search_visible_lag_seconds": {
+                    "last": self.last_visible_lag_s,
+                    "p99": (float(np.percentile(lag, 99)) if lag else 0.0),
+                },
                 "translog": self.translog.stats(),
             }

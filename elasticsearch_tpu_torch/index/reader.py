@@ -46,6 +46,10 @@ class ShardReader:
         self.mapper = mapper
         self.k1 = k1
         self.b = b
+        # the engine's live_version at this reader's refresh: a delta
+        # chain extends a resident pack only while the old segment set
+        # is a prefix of this reader's and this number is unchanged
+        self.live_version = 0
         self.views: List[SegmentView] = []
         for seg, live in segments:
             live_mask = np.zeros(_pad_to(seg.num_docs), dtype=bool)

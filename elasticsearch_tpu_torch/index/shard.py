@@ -3,7 +3,8 @@
 Copy of the reference's ``index/shard.py`` without the engine-plugin
 factory and primary promotion: routes operations to the engine with
 primary-term/seqno bookkeeping, tracks the replication group on primaries
-(ReplicationTracker), exposes refresh, flush and stats.
+(ReplicationTracker), exposes refresh, the visibility wait and the
+translog-tail replay, flush and stats.
 """
 
 from __future__ import annotations
@@ -96,6 +97,16 @@ class IndexShard:
 
     def refresh(self) -> bool:
         return self.engine.refresh()
+
+    def wait_for_visible(self, seq_no: int, timeout_s: float = 10.0) -> bool:
+        """``refresh=wait_for``: block until a refresh checkpoint covers
+        seq_no (False on timeout: the caller decides whether to force)."""
+        return self.engine.wait_for_visible(seq_no, timeout_s)
+
+    def replay_visibility(self, reason: str = "recovery") -> Dict[str, int]:
+        """Replay the translog tail above the last refresh checkpoint so
+        every acked op is searchable again."""
+        return self.engine.replay_tail(reason=reason)
 
     def flush(self) -> None:
         self.engine.flush()

@@ -4,9 +4,11 @@ Copy of the reference's ``indices/service.py`` (IndexService: settings,
 mapper and local shards of one index; IndicesService: the registry, its
 gateway metadata under ``<data_path>/_state/indices.json`` so a restart
 reopens its indices, and aliases). Routing a document to a shard is the
-port's ``indices/routing.shard_for``, the reference's murmur3. Left out:
-the slow log, search-failure counters, dynamic index settings and the
-close/open lifecycle.
+port's ``indices/routing.shard_for``, the reference's murmur3. Of the
+dynamic index settings only the translog's two are here (durability and
+the async fsync interval; the rest come with the ``_settings`` route).
+Left out: the slow log, search-failure counters and the close/open
+lifecycle.
 """
 
 from __future__ import annotations
@@ -67,6 +69,9 @@ class IndexService:
             raise IllegalArgumentException(
                 f"[index.translog.durability] must be [request] or "
                 f"[async], got [{self._durability}]")
+        # async-durability fsync cadence; <= 0 means the node default
+        self.sync_interval_s = settings.get_float(
+            "index.translog.sync_interval_seconds", -1.0)
 
     def create_shard(self, shard_num: int, *, primary: bool = True,
                      allocation_id: Optional[str] = None) -> IndexShard:
@@ -103,9 +108,56 @@ class IndexService:
     def shard_for_id(self, doc_id: str, routing: Optional[str] = None) -> int:
         return shard_for(routing or doc_id, self.num_shards)
 
+    # -------- dynamic settings (the translog's) --------
+
+    DYNAMIC_KEYS = ("index.translog.durability",
+                    "index.translog.sync_interval_seconds")
+
+    @classmethod
+    def validate_dynamic_settings(cls, changes: Dict[str, Any]) -> None:
+        for key, value in changes.items():
+            if key not in cls.DYNAMIC_KEYS:
+                raise IllegalArgumentException(
+                    f"setting [{key}] is not dynamically updateable" if
+                    key.startswith("index.") else
+                    f"unknown index setting [{key}]")
+            if (key == "index.translog.durability"
+                    and value not in ("request", "async")):
+                raise IllegalArgumentException(
+                    f"[index.translog.durability] must be [request] or "
+                    f"[async], got [{value}]")
+
+    def apply_dynamic_settings(self, changes: Dict[str, Any]) -> None:
+        """Apply validated dynamic changes to this open index."""
+        merged = self.settings.get_as_dict()
+        for key, value in Settings.of(changes).get_as_dict().items():
+            if value is None:
+                merged.pop(key, None)
+            else:
+                merged[key] = value
+        self.settings = Settings(merged)
+        if "index.translog.durability" in changes:
+            self._durability = self.settings.get(
+                "index.translog.durability", self._durability)
+            for s in self.shards.values():
+                s.engine.config.durability = self._durability
+                s.engine.translog.durability = self._durability
+        self.sync_interval_s = self.settings.get_float(
+            "index.translog.sync_interval_seconds", self.sync_interval_s)
+
     def refresh(self) -> None:
         for s in self.shards.values():
             s.refresh()
+
+    def replay_visibility(self, reason: str = "recovery") -> Dict[str, int]:
+        """Replay every local shard's translog tail above its refresh
+        checkpoint, so that every acked write is searchable."""
+        total = {"scanned": 0, "applied": 0}
+        for s in self.shards.values():
+            r = s.replay_visibility(reason=reason)
+            total["scanned"] += r["scanned"]
+            total["applied"] += r["applied"]
+        return total
 
     def flush(self) -> None:
         for s in self.shards.values():

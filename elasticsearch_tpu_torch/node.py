@@ -17,7 +17,15 @@ moves across unchanged:
   search.tpu_serving.batch_window_seconds   0.01
   search.tpu_serving.max_batch              128
   search.tpu_serving.batch_timeout_seconds  30
+  search.tpu_serving.delta.enabled          true
+  search.tpu_serving.delta.max_packs        4
+  search.tpu_serving.delta.max_docs         50,000
   indices.breaker.total.limit_bytes         8 GiB
+
+With the delta settings on (the default, as in the reference), an
+append-only refresh of a resident index rides a small delta pack chained
+on the base pack, and a background thread folds the chain back into one
+base pack (``search/gpu_service.py``).
 
 Run: python -m elasticsearch_tpu_torch.node --port 9200 --data-path ./data
      [--device cpu] [--mesh-shape D,S]
@@ -80,7 +88,15 @@ class Node:
             packed_sort=self.settings.get_bool(
                 "search.tpu_serving.kernel.packed_sort", True),
             compressed_pack=self.settings.get_bool(
-                "search.tpu_serving.kernel.compressed_pack", True))
+                "search.tpu_serving.kernel.compressed_pack", True),
+            delta={
+                "enabled": self.settings.get_bool(
+                    "search.tpu_serving.delta.enabled", True),
+                "max_packs": self.settings.get_int(
+                    "search.tpu_serving.delta.max_packs", 4),
+                "max_docs": self.settings.get_int(
+                    "search.tpu_serving.delta.max_docs", 50_000),
+            })
         self.controller = RestController()
         from elasticsearch_tpu_torch.rest.actions import (admin, document,
                                                           root, search)
@@ -93,6 +109,10 @@ class Node:
         self._sync_interval = self.settings.get_float(
             "index.translog.sync_interval_seconds", 5.0)
         self._refresher: Optional[threading.Timer] = None
+        self._syncer: Optional[threading.Timer] = None
+        # refresh=wait_for waits on the visibility checkpoint only while
+        # the refresh cycle runs (else the handler refreshes itself)
+        self.refresher_active = False
         self._closed = False
 
     # ---------------- index helpers ----------------
@@ -127,9 +147,10 @@ class Node:
     # ---------------- background refresh + translog sync ----------------
 
     def start_refresher(self) -> None:
-        """The 1 s refresh cycle, and the fsync of async-durability
-        translogs every index.translog.sync_interval_seconds."""
-        last_sync = [time.monotonic()]
+        """The refresh cycle (every index.refresh_interval_seconds), and
+        the fsync of async-durability translogs: each index every
+        index.translog.sync_interval_seconds (its own, or the node's)."""
+        self.refresher_active = True
 
         def tick():
             if self._closed:
@@ -138,13 +159,8 @@ class Node:
                 for shard in list(svc.shards.values()):
                     try:
                         shard.refresh()
-                        if (time.monotonic() - last_sync[0]
-                                >= self._sync_interval):
-                            shard.engine.sync_translog()
                     except Exception:  # noqa: BLE001 — background task
                         pass
-            if time.monotonic() - last_sync[0] >= self._sync_interval:
-                last_sync[0] = time.monotonic()
             self._refresher = threading.Timer(self._refresh_interval, tick)
             self._refresher.daemon = True
             self._refresher.start()
@@ -152,12 +168,51 @@ class Node:
         self._refresher.daemon = True
         self._refresher.start()
 
+        last_sync: Dict[str, float] = {}
+
+        def sync_delay() -> float:
+            # the finest configured cadence, so that an index's interval
+            # shorter than the node's is honored too
+            delay = self._sync_interval
+            for svc in list(self.indices.indices.values()):
+                if svc.sync_interval_s > 0:
+                    delay = min(delay, svc.sync_interval_s)
+            return max(0.05, delay)
+
+        def sync_tick():
+            if self._closed:
+                return
+            try:
+                now = time.monotonic()
+                for svc in list(self.indices.indices.values()):
+                    interval = (svc.sync_interval_s
+                                if svc.sync_interval_s > 0
+                                else self._sync_interval)
+                    if now - last_sync.get(svc.name, 0.0) < interval - 1e-3:
+                        continue
+                    last_sync[svc.name] = now
+                    for shard in list(svc.shards.values()):
+                        try:
+                            shard.engine.sync_translog()
+                        except Exception:  # noqa: BLE001 — background
+                            pass
+            finally:  # the cycle survives any error
+                self._syncer = threading.Timer(sync_delay(), sync_tick)
+                self._syncer.daemon = True
+                self._syncer.start()
+        self._syncer = threading.Timer(sync_delay(), sync_tick)
+        self._syncer.daemon = True
+        self._syncer.start()
+
     def close(self) -> None:
         if self._closed:
             return
         self._closed = True
+        self.refresher_active = False
         if self._refresher:
             self._refresher.cancel()
+        if self._syncer:
+            self._syncer.cancel()
         self.gpu_search.close()
         if self._bulk_pool is not None:
             self._bulk_pool.shutdown(wait=True)
@@ -219,13 +274,22 @@ class _Handler(BaseHTTPRequestHandler):
         pass
 
 
+class _Server(ThreadingHTTPServer):
+    """One thread a connection. The listen backlog holds a burst of
+    clients that connect at once (socketserver's default of 5 overflows
+    under 128, and the kernel may then reset connections it could not
+    queue)."""
+
+    daemon_threads = True
+    request_queue_size = 1024
+
+
 def serve(node: Node, host: str = "127.0.0.1", port: int = 9200
           ) -> ThreadingHTTPServer:
     """Serve `node` over HTTP on a daemon thread (port 0: an ephemeral
     port, read back from ``server.server_address``)."""
     handler = type("BoundHandler", (_Handler,), {"node": node})
-    server = ThreadingHTTPServer((host, port), handler)
-    server.daemon_threads = True
+    server = _Server((host, port), handler)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     return server

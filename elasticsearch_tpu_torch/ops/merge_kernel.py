@@ -49,7 +49,10 @@ LAUNCHES: Dict[str, int] = {"slot_decode": 0, "row_pack": 0, "row_sort": 0,
                             "run_sum": 0, "select_rescore": 0,
                             "shard_topk": 0, "exact_merge": 0,
                             "raw_merge": 0, "pruned_candidates": 0,
-                            "pruned_rescore": 0}
+                            "pruned_rescore": 0,
+                            # of pruned_candidates' launches, those in
+                            # its u32-key mode (pack_keys)
+                            "pruned_candidates.pack_keys": 0}
 _LAUNCHES_LOCK = threading.Lock()  # batcher threads of several packs launch
 
 #: widest slot window the slot-decode kernel keeps in shared memory
@@ -1094,6 +1097,9 @@ def _launch_candidates(flat_docs, flat_impact, starts, lengths, weights,
          p_max, int(has_shared), cap, part_lanes, _ptr(items), _ptr(alt),
          _ptr(alt2), _ptr(bstart), _ptr(zeros), _ptr(cand_score),
          _ptr(cand_gid), _ptr(n_cand), _ptr(class_rows), stream)
+    if pack_keys:
+        with _LAUNCHES_LOCK:
+            LAUNCHES["pruned_candidates.pack_keys"] += 1
     out_vals = torch.empty((b, kk), dtype=torch.float32, device=dev)
     out_gids = torch.empty((b, kk), dtype=torch.int32, device=dev)
     _topk_rows(lib, cand_score, b, kk, stride=0, row_off=plan_t[:b],

@@ -28,6 +28,9 @@ kernels (``ops/merge_kernel.py``): the fused merge for
 the raw merge and the shard top-k for ``ref`` and ``packed``; on a CPU
 tensor each runs the plain core below, ``merge_topk_core``, whose top-k
 is ``top_k_plain``.
+
+``union_topk`` merges the per-pack top-k columns of a delta chain on
+the host (numpy), as the reference does.
 """
 
 from __future__ import annotations
@@ -862,3 +865,29 @@ def _merge_topk_core(
     if with_totals:
         return vals, hit_docs, totals
     return vals, hit_docs
+
+
+def union_topk(scores_list, rows_list, ords_list, row_offsets, k: int):
+    """Union of per-pack kernel top-k columns (the streaming delta path).
+
+    The base pack and each delta pack run the kernel on their own; a doc
+    lives in exactly one pack (deltas are append-only: an update of a
+    committed doc forces a full rebuild), so the union is a k-way top-k
+    over disjoint candidates: no dedup, totals add. Rows re-base into
+    the concatenated row space by ``row_offsets`` (each pack's first
+    row). Ties break by (score desc, pack order, in-pack rank): the
+    result is deterministic and the identity for one operand. Host
+    numpy, as the reference's."""
+    scores = np.concatenate([np.asarray(s) for s in scores_list])
+    rows = np.concatenate(
+        [np.asarray(r, dtype=np.int64) + int(off)
+         for r, off in zip(rows_list, row_offsets)])
+    ords = np.concatenate([np.asarray(o) for o in ords_list])
+    pack_tag = np.concatenate(
+        [np.full(len(np.asarray(s)), i, dtype=np.int32)
+         for i, s in enumerate(scores_list)])
+    rank = np.concatenate(
+        [np.arange(len(np.asarray(s)), dtype=np.int32)
+         for s in scores_list])
+    order = np.lexsort((rank, pack_tag, -scores))[:k]
+    return scores[order], rows[order], ords[order]

@@ -111,14 +111,17 @@ def build_stacked_pack(segments: Sequence[Segment], field: str,
                        live_docs: Optional[Sequence[Optional[np.ndarray]]] = None,
                        k1: float = 1.2, b: float = 0.75,
                        row_groups: Optional[Sequence[int]] = None,
-                       pad_shards_to: Optional[int] = None
+                       pad_shards_to: Optional[int] = None,
+                       pad_docs_to: Optional[int] = None,
+                       pad_postings_to: Optional[int] = None
                        ) -> StackedShardPack:
     """Each segment is one pack row. Shapes pad to the max across rows +
     CHUNK_CAP slack so chunk windows never run past the arrays.
     row_groups[i] assigns segment i to a statistics group (one group per
     index shard → per-shard idf/avgdl); omitted → one index-level group.
     pad_shards_to appends empty rows up to that many (a multiple of a
-    mesh's shards axis)."""
+    mesh's shards axis); pad_docs_to / pad_postings_to force the doc and
+    posting axes to at least those sizes (the delta packs' buckets)."""
     from elasticsearch_tpu_torch.index.pack import build_field_pack
 
     s_real = len(segments)
@@ -127,9 +130,18 @@ def build_stacked_pack(segments: Sequence[Segment], field: str,
         raise ValueError(
             f"pad_shards_to={s} < {s_real} segments (would drop shards)")
     d_pad = max(_pad_to(seg.num_docs) for seg in segments)
+    if pad_docs_to is not None:
+        if pad_docs_to < d_pad:
+            raise ValueError(f"pad_docs_to={pad_docs_to} < d_pad={d_pad}")
+        d_pad = pad_docs_to
     packs = [build_field_pack(seg, field, d_pad) for seg in segments]
     p_pad = max((p.flat_docs.shape[0] for p in packs if p is not None),
                 default=LANE) + CHUNK_CAP
+    if pad_postings_to is not None:
+        if pad_postings_to < p_pad:
+            raise ValueError(
+                f"pad_postings_to={pad_postings_to} < p_pad={p_pad}")
+        p_pad = pad_postings_to
     flat_docs = np.full((s, p_pad), d_pad, dtype=np.int32)
     flat_tfs = np.zeros((s, p_pad), dtype=np.int32)
     norms = np.zeros((s, d_pad), dtype=np.uint8)
@@ -201,6 +213,43 @@ def build_stacked_pack(segments: Sequence[Segment], field: str,
                             shard_num_docs, shard_doc_ids, total_docs, avgdl,
                             df, k1, b, row_group=groups, group_df=group_df,
                             group_doc_count=group_doc_count)
+
+
+def _shape_bucket(n: int, floor: int) -> int:
+    """The smallest power-of-two multiple of `floor` that covers n."""
+    b = max(floor, 1)
+    while b < n:
+        b *= 2
+    return b
+
+
+def build_delta_pack(segments: Sequence[Segment], field: str,
+                     live_docs: Optional[Sequence[Optional[np.ndarray]]] = None,
+                     k1: float = 1.2, b: float = 0.75,
+                     pad_shards_to: Optional[int] = None,
+                     row_groups: Optional[Sequence[int]] = None
+                     ) -> StackedShardPack:
+    """A small pack of the streaming delta chain: build_stacked_pack's
+    format with two contracts on top (the reference's build_delta_pack).
+
+    1. The doc axis pads up to a power-of-two multiple of LANE and the
+       posting axis to one of 2·CHUNK_CAP, so that a stream of small
+       deltas keeps to a few shapes.
+    2. The impacts bake group_avgdl[row_group[i]] at build time: a delta
+       scores with the statistics of its own rows only (one group per
+       (delta, shard)). A full rebuild equals base ∪ deltas bit for bit
+       only when its rows are grouped the same way."""
+    from elasticsearch_tpu_torch.index.pack import build_field_pack
+
+    d_raw = max(_pad_to(seg.num_docs) for seg in segments)
+    probe = [build_field_pack(seg, field, d_raw) for seg in segments]
+    p_raw = max((p.flat_docs.shape[0] for p in probe if p is not None),
+                default=LANE) + CHUNK_CAP
+    return build_stacked_pack(
+        segments, field, live_docs=live_docs, k1=k1, b=b,
+        pad_shards_to=pad_shards_to, row_groups=row_groups,
+        pad_docs_to=_shape_bucket(d_raw, LANE),
+        pad_postings_to=_shape_bucket(p_raw, 2 * CHUNK_CAP))
 
 
 @dataclasses.dataclass

@@ -40,11 +40,18 @@ def _refuse_pipeline(pipeline: Optional[str]) -> None:
             f"ported yet")
 
 
-def _apply_refresh(shard, params) -> None:
-    """refresh=true|wait_for on a single-doc write: searchable when the
-    call returns (no background refresh cycle is waited for)."""
-    if params.get("refresh") in ("", "true", "wait_for"):
-        shard.refresh()
+def _apply_refresh(node, shard, params, seq_no: int) -> None:
+    """refresh= on a single-doc write: searchable when the call returns.
+    ``wait_for`` waits on the shard's visibility checkpoint while the
+    node's refresh cycle runs, and refreshes itself when none runs or
+    the wait times out; ``true`` (or a bare ``refresh``) refreshes."""
+    refresh = params.get("refresh")
+    if refresh not in ("", "true", "wait_for"):
+        return
+    if refresh == "wait_for" and getattr(node, "refresher_active", False):
+        if shard.wait_for_visible(seq_no):
+            return
+    shard.refresh()
 
 
 def exec_index_doc(node, index: str, doc_id: Optional[str], body, params,
@@ -66,7 +73,7 @@ def exec_index_doc(node, index: str, doc_id: Optional[str], body, params,
         kwargs["version"] = int(params["version"])
         kwargs["version_type"] = params.get("version_type", "internal")
     result = shard.apply_index_on_primary(created_id, body, **kwargs)
-    _apply_refresh(shard, params)
+    _apply_refresh(node, shard, params, result.seq_no)
     status = 201 if result.created else 200
     return status, {
         "_index": index, "_id": result.doc_id,
@@ -94,7 +101,7 @@ def exec_delete_doc(node, index: str, doc_id: str, params
     svc.check_write_block()
     shard = svc.shard(svc.shard_for_id(doc_id, params.get("routing")))
     result = shard.apply_delete_on_primary(doc_id)
-    _apply_refresh(shard, params)
+    _apply_refresh(node, shard, params, result.seq_no)
     if not result.found:
         return 404, {"_index": index, "_id": doc_id,
                      "result": "not_found", "_version": result.version,
@@ -153,13 +160,17 @@ def parse_bulk_body(raw: str, default_index: Optional[str]
 
 
 def apply_bulk_ops(node, ops: List[Dict[str, Any]], *,
-                   refresh: bool = False) -> List[Dict[str, Any]]:
+                   refresh: bool = False,
+                   wait_for: bool = False) -> List[Dict[str, Any]]:
     """Apply parsed bulk ops against the node's shards; returns response
     items in op order. Per-op failures become error items, never
     exceptions. Maximal runs of plain index ops group per shard and apply
     through the engine's batched path (one lock + one translog append per
     (shard, run), analysis outside the lock); runs keep the total op
-    order, so mixed sequences on one _id keep their semantics."""
+    order, so mixed sequences on one _id keep their semantics. With
+    `refresh`, each written shard is searchable on return: under
+    `wait_for` (and a running refresh cycle) by waiting until its
+    visibility checkpoint covers its local checkpoint."""
     items: List[Optional[Dict[str, Any]]] = [None] * len(ops)
     refresh_shards = set()
     i = 0
@@ -175,6 +186,9 @@ def apply_bulk_ops(node, ops: List[Dict[str, Any]], *,
             i += 1
     if refresh:
         for shard in refresh_shards:
+            if wait_for and getattr(node, "refresher_active", False):
+                if shard.wait_for_visible(shard.local_checkpoint):
+                    continue
             shard.refresh()
     return items  # type: ignore[return-value]
 
@@ -334,7 +348,8 @@ def register(controller: RestController, node) -> None:
         _refuse_pipeline(req.params.get("pipeline"))
         ops = parse_bulk_body(raw, req.param("index"))
         refresh = req.param("refresh") in ("", "true", "wait_for")
-        items = apply_bulk_ops(node, ops, refresh=refresh)
+        items = apply_bulk_ops(node, ops, refresh=refresh,
+                               wait_for=req.param("refresh") == "wait_for")
         return 200, {"took": int((time.perf_counter() - t0) * 1000),
                      "errors": bulk_has_errors(items), "items": items}
 

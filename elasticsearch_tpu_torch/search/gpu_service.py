@@ -40,7 +40,12 @@ visible GPU on the shards axis, the reference's ``(1, n_local_devices)``;
     do). Each pack charges the ``hbm`` breaker with its device bytes
     before the upload and releases them on a rebuild, an invalidate or a
     failed upload; a lookup during another thread's rebuild serves the
-    old pack.
+    old pack. With the delta chain on (``delta=``; the node's default),
+    a refresh that only appends segments builds a raw delta pack of the
+    new segments, which bakes the statistics of its own rows; the base
+    keeps its own until a background compaction folds the chain into a
+    fresh base. A search runs the same lowered query on the base and on
+    every delta and merges their top-k on the host (``union_topk``).
   MicroBatcher — coalesces concurrent queries per pack for a short
     window (or until the batch cap) and runs them as one launch.
   StageTimes — per-stage wall time of the serving path.
@@ -58,6 +63,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import logging
 import threading
 import time
 from concurrent.futures import Future
@@ -77,6 +83,8 @@ from elasticsearch_tpu_torch.parallel.mesh import (DATA_AXIS, SHARD_AXIS,
 from elasticsearch_tpu_torch.search import dsl
 from elasticsearch_tpu_torch.search.query_phase import filter_source
 from elasticsearch_tpu_torch.search.planner import choose_kernel_variant
+
+logger = logging.getLogger("elasticsearch_tpu_torch.search.gpu_service")
 
 #: window floor of the exact and pruned kernels
 _PRUNE_WINDOW = 8
@@ -254,6 +262,11 @@ class ResidentPack:
         default_factory=dict)
 
     @property
+    def n_docs(self) -> int:
+        """Documents in the pack's rows, tombstoned ones included."""
+        return int(sum(self.pack.shard_num_docs))
+
+    @property
     def device_arrays(self) -> Tuple[torch.Tensor, ...]:
         """The tensors of the image, once (one data row of the mesh)."""
         return self.image.row_arrays()
@@ -317,16 +330,114 @@ def place_pack(pack: dist.StackedShardPack, mesh: Mesh,
                         imp_host=imp_host)
 
 
+# -- the streaming delta chain ------------------------------------------------
+#
+# An append-only refresh builds a small delta pack over the new segments
+# only, instead of placing the whole (index, field) image again; a search
+# runs the kernels on the base and on each delta and unions their top-k
+# columns on the host (sparse.union_topk). A background compactor folds
+# the chain back into one base pack. A doc lives in exactly one pack: an
+# update or delete of a committed doc changes a live mask, which bumps
+# the engine's live_version and forces a full rebuild, so the chain is
+# append-only by construction.
+
+#: test seam: each hook is called with the (index, field) key at the top
+#: of every compaction and may block or raise
+COMPACTION_FAULT_HOOKS: List[Any] = []
+
+
+@dataclasses.dataclass
+class DeltaStats:
+    """The service's delta lifecycle counters."""
+
+    appends: int = 0              # delta packs built and placed
+    compactions: int = 0
+    compaction_failures: int = 0
+    compact_seconds: float = 0.0  # wall time folding chains, summed
+
+
+@dataclasses.dataclass
+class _ChainMeta:
+    """What the chain covers, per shard: it serves exactly `reader_key`.
+    A new reader extends it only when every shard's covered segments are
+    a prefix of its segments and its live_version is unchanged."""
+
+    reader_key: Tuple
+    covered: Dict[int, Tuple[str, ...]]
+    live_versions: Dict[int, int]
+    union: Optional["_UnionView"] = None
+
+
+@dataclasses.dataclass
+class PackChain:
+    """One (index, field)'s residency: the base pack, the delta packs
+    chained on it, and the row space its results resolve against (the
+    base itself when the chain is bare)."""
+
+    base: ResidentPack
+    deltas: Tuple[ResidentPack, ...]
+    view: Any
+    reader_key: Tuple
+
+    @property
+    def parts(self) -> Tuple[ResidentPack, ...]:
+        return (self.base,) + self.deltas
+
+
+class _UnionView:
+    """Base and delta packs as ONE concatenated row and id space, for the
+    fetch: pack i's rows start at ``offsets[i]`` (the padded row counts
+    before it) and its ordinals index the concatenated ``row_offset`` /
+    ``id_cat`` tables. Exposes what the serializer reads of a resident
+    (``resolve_ids``, ``row_segments``) and the rest of its resolution
+    tables (``row_origin``, ``row_offset``, ``id_cat``, ``readers``)."""
+
+    def __init__(self, packs: Sequence[ResidentPack], readers):
+        offsets: List[int] = []
+        row_origin: List[Tuple[int, str]] = []
+        row_segments: List[Optional[Segment]] = []
+        off_parts, id_parts = [], []
+        off = id_off = 0
+        for p in packs:
+            s_pad = p.pack.num_shards
+            offsets.append(off)
+            row_origin += list(p.row_origin) + [(-1, "")] * (
+                s_pad - len(p.row_origin))
+            row_segments += list(p.row_segments) + [None] * (
+                s_pad - len(p.row_segments))
+            off_parts.append(p.row_offset + id_off)
+            id_parts.append(p.id_cat)
+            id_off += len(p.id_cat)
+            off += s_pad
+        self.offsets = tuple(offsets)
+        self.row_origin = row_origin
+        self.row_segments = row_segments
+        self.row_offset = np.concatenate(off_parts)
+        self.id_cat = np.concatenate(id_parts)
+        self.readers = dict(readers)
+
+    def resolve_ids(self, rows: np.ndarray, ords: np.ndarray) -> np.ndarray:
+        if len(rows) == 0:
+            return np.empty(0, dtype=object)
+        return self.id_cat[self.row_offset[rows] + ords]
+
+
 class IndexPackCache:
     """The node's resident packs, one per (index, field), keyed on the
     tuple of the index's shard-reader identities (the reference's
-    IndexPackCache without its delta chains, placement groups and heat
-    tracking). Charges the ``hbm`` breaker before each upload; releases
-    a pack's charge when a rebuild replaces it and on invalidate.
+    IndexPackCache without its placement groups and heat tracking).
+    Charges the ``hbm`` breaker before each upload; releases a pack's
+    charge when a rebuild or a compaction replaces it and on invalidate.
     ``on_evict(resident)`` runs for every pack that goes (the service
     retires its batcher queue, whose reference would otherwise keep the
     device arrays alive). kernel_config["compressed_pack"] decides the
-    format of the packs built from then on."""
+    format of the base packs built from then on.
+
+    With ``delta_enabled`` (``get_chain``), a refresh that only appends
+    segments builds a raw delta pack over the new segments and chains it
+    on the base; a chain of more than ``delta_max_packs`` deltas or
+    ``delta_max_docs`` delta docs calls ``on_compact_needed(key)``, and
+    ``compact(key)`` folds it into a fresh base."""
 
     def __init__(self, mesh: Mesh, breaker=None,
                  kernel_config: Optional[Dict[str, bool]] = None):
@@ -346,6 +457,15 @@ class IndexPackCache:
         self.hits = 0          # lookups served by the current pack
         self.misses = 0        # lookups that (re)built a pack
         self.stale_served = 0  # lookups served stale during a rebuild
+        # -- the delta chain ---------------------------------------------
+        self.delta_enabled = False
+        self.delta_max_packs = 4       # deltas past this request a fold
+        self.delta_max_docs = 50_000   # delta docs past this request one
+        self.delta_stats = DeltaStats()
+        self.on_compact_needed = None  # callable(key), set by the service
+        self._deltas: Dict[Tuple[str, str], List[ResidentPack]] = {}
+        self._chain_meta: Dict[Tuple[str, str], _ChainMeta] = {}
+        self._services: Dict[Tuple[str, str], Any] = {}  # for compact()
 
     def stats(self) -> Dict[str, Any]:
         with self._lock:
@@ -353,19 +473,29 @@ class IndexPackCache:
                                         "resident_bytes": e.nbytes_device(),
                                         "compressed": e.streams is not None}
                      for (idx, field), e in self._cache.items()}
+            deltas = {f"{idx}/{field}": {
+                "packs": len(lst),
+                "bytes": sum(int(p.hbm_bytes) for p in lst),
+                "docs": sum(p.n_docs for p in lst)}
+                for (idx, field), lst in self._deltas.items() if lst}
             return {"resident": len(self._cache), "hits": self.hits,
                     "misses": self.misses,
-                    "stale_served": self.stale_served, "packs": packs}
+                    "stale_served": self.stale_served, "packs": packs,
+                    "deltas": deltas}
 
     def residents(self) -> List[ResidentPack]:
+        """The base packs (a chain's deltas are in ``stats()``)."""
         with self._lock:
             return list(self._cache.values())
 
+    @staticmethod
+    def _readers(index_service) -> Tuple[List[Tuple[int, Any]], Tuple]:
+        readers = [(num, shard.acquire_searcher())
+                   for num, shard in sorted(index_service.shards.items())]
+        return readers, tuple(id(r) for _, r in readers)
+
     def get(self, index_service, field: str) -> Optional[ResidentPack]:
-        readers = []
-        for shard_num, shard in sorted(index_service.shards.items()):
-            readers.append((shard_num, shard.acquire_searcher()))
-        reader_key = tuple(id(r) for _, r in readers)
+        readers, reader_key = self._readers(index_service)
         key = (index_service.name, field)
         with self._lock:
             epoch = self._epochs.get(key[0], 0)
@@ -391,31 +521,64 @@ class IndexPackCache:
                 if entry is not None and entry.reader_key == reader_key:
                     self.hits += 1
                     return entry
-                self.misses += 1
-            entry = self._build(readers, field, reader_key)
-            old = None
-            with self._lock:
-                deleted = self._epochs.get(key[0], 0) != epoch
-                if entry is not None:
-                    old = entry if deleted else self._cache.get(key)
-                    if old is not None and self._breaker is not None:
-                        self._breaker.release(old.hbm_bytes)
-                    if not deleted:
-                        self._cache[key] = entry
-            if old is not None and self.on_evict is not None:
-                self.on_evict(old)
-            if deleted:
-                raise IndexNotFound(f"no such index [{key[0]}]")
-            return entry
+            return self._build_and_swap(key, readers, field, reader_key,
+                                        epoch)
         finally:
             build_lock.release()
 
-    def _build(self, readers, field: str,
-               reader_key: Tuple[int, ...]) -> Optional[ResidentPack]:
+    def _build_and_swap(self, key, readers, field: str, reader_key,
+                        epoch: int) -> Optional[ResidentPack]:
+        """A full build swapped in as the key's base, the chain reset.
+        The caller holds the key's build lock."""
+        with self._lock:
+            self.misses += 1
+        entry = self._build(readers, field, reader_key)
+        if self._swap_base(key, entry, readers, reader_key, epoch):
+            raise IndexNotFound(f"no such index [{key[0]}]")
+        return entry
+
+    def _swap_base(self, key, entry, readers, reader_key,
+                   epoch: int) -> bool:
+        """Make `entry` (a full build, or None) the key's base: the old
+        base and every delta are released and evicted (a full build
+        covers all the chain did: the deltas drain to exactly zero).
+        When the index was deleted since `epoch`, `entry` itself goes
+        instead → whether it was."""
+        evicted: List[ResidentPack] = []
+        with self._lock:
+            deleted = self._epochs.get(key[0], 0) != epoch
+            if entry is not None:
+                old = entry if deleted else self._cache.get(key)
+                if old is not None:
+                    evicted.append(old)
+                    if self._breaker is not None:
+                        self._breaker.release(old.hbm_bytes)
+                if not deleted:
+                    self._cache[key] = entry
+                    evicted += self._drop_deltas_locked(key)
+                    self._set_chain_meta_locked(key, readers, reader_key)
+        self._evict(evicted)
+        return deleted
+
+    def _evict(self, packs: Iterable[ResidentPack]) -> None:
+        if self.on_evict is not None:
+            for p in packs:
+                self.on_evict(p)
+
+    def _build(self, readers, field: str, reader_key: Tuple[int, ...],
+               fresh: Optional[Dict[int, List[Any]]] = None
+               ) -> Optional[ResidentPack]:
+        """A pack placed on the mesh, one row a segment with postings of
+        `field`, one statistics group an index shard: of every segment
+        of `readers`, in the configured format; or, with `fresh` ({shard:
+        [SegmentView]}), a raw delta pack of those segments only
+        (``build_delta_pack``'s bucketed shapes)."""
+        delta = fresh is not None
+        views = fresh if delta else {num: r.views for num, r in readers}
         segments, live, groups = [], [], []
         row_origin: List[Tuple[int, str]] = []
-        for group_idx, (shard_num, reader) in enumerate(readers):
-            for view in reader.views:
+        for group_idx, (shard_num, _reader) in enumerate(readers):
+            for view in views.get(shard_num, ()):
                 if field not in view.segment.postings:
                     continue
                 segments.append(view.segment)
@@ -425,35 +588,219 @@ class IndexPackCache:
         if not segments:
             return None
         reader = readers[0][1]
-        pack = dist.build_stacked_pack(segments, field, live_docs=live,
-                                       k1=reader.k1, b=reader.b,
-                                       row_groups=groups,
-                                       pad_shards_to=_pad_rows(
-                                           len(segments), self.mesh))
+        build = dist.build_delta_pack if delta else dist.build_stacked_pack
+        pack = build(segments, field, live_docs=live, k1=reader.k1,
+                     b=reader.b, row_groups=groups,
+                     pad_shards_to=_pad_rows(len(segments), self.mesh))
         return place_pack(pack, self.mesh, row_origin, segments,
                           breaker=self._breaker, reader_key=reader_key,
                           readers=dict(readers),
-                          compressed_pack=self.kernel_config[
-                              "compressed_pack"])
+                          compressed_pack=(not delta and self.kernel_config[
+                              "compressed_pack"]))
+
+    # -- the streaming delta chain -------------------------------------
+
+    def _drop_deltas_locked(self, key) -> List[ResidentPack]:
+        """Release every delta chained on `key` (the caller holds _lock
+        and evicts them after it lets go)."""
+        dropped = self._deltas.pop(key, [])
+        if self._breaker is not None:
+            for p in dropped:
+                self._breaker.release(p.hbm_bytes)
+        meta = self._chain_meta.get(key)
+        if meta is not None:
+            meta.union = None
+        return dropped
+
+    def _set_chain_meta_locked(self, key, readers, reader_key) -> None:
+        if not self.delta_enabled:
+            return
+        self._chain_meta[key] = _ChainMeta(
+            reader_key=tuple(reader_key),
+            covered={num: tuple(v.segment.name for v in r.views)
+                     for num, r in readers},
+            live_versions={num: r.live_version for num, r in readers})
+
+    def _chain_locked(self, key) -> Optional[PackChain]:
+        base = self._cache.get(key)
+        meta = self._chain_meta.get(key)
+        if base is None or meta is None:
+            return None
+        deltas = tuple(self._deltas.get(key, ()))
+        return PackChain(base, deltas, meta.union if deltas else base,
+                         meta.reader_key)
+
+    @staticmethod
+    def _delta_eligible(meta: _ChainMeta, readers
+                        ) -> Optional[Dict[int, List[Any]]]:
+        """The append-only check, per shard: the chain's covered
+        segments are a prefix of the new reader's and its live_version
+        is unchanged. → {shard: [the uncovered SegmentViews]}, or None
+        for a full rebuild."""
+        new = dict(readers)
+        if set(new) != set(meta.covered):
+            return None
+        fresh: Dict[int, List[Any]] = {}
+        for num, r in new.items():
+            names = tuple(v.segment.name for v in r.views)
+            old = meta.covered[num]
+            if names[:len(old)] != old:
+                return None
+            if r.live_version != meta.live_versions.get(num, 0):
+                return None
+            fresh[num] = list(r.views[len(old):])
+        return fresh
+
+    def get_chain(self, index_service, field: str) -> Optional[PackChain]:
+        """Chain-aware residency: like get(), but a refresh that only
+        appended segments builds a small delta pack over the new ones
+        instead of placing the whole image again. A bare chain without
+        delta_enabled."""
+        if not self.delta_enabled:
+            entry = self.get(index_service, field)
+            return None if entry is None else PackChain(
+                entry, (), entry, entry.reader_key)
+        readers, reader_key = self._readers(index_service)
+        key = (index_service.name, field)
+        with self._lock:
+            epoch = self._epochs.get(key[0], 0)
+            self._services[key] = index_service
+            chain = self._chain_locked(key)
+            if chain is None:
+                # a base resident but never chained (built by get())
+                entry = self._cache.get(key)
+                if entry is not None and entry.reader_key == reader_key:
+                    self._set_chain_meta_locked(key, readers, reader_key)
+                    chain = self._chain_locked(key)
+            if chain is not None and chain.reader_key == reader_key:
+                self.hits += 1
+                return chain
+            build_lock = self._build_locks.setdefault(key,
+                                                      threading.Lock())
+        # stale-while-rebuild holds for the chain as for get()
+        if not build_lock.acquire(blocking=False):
+            with self._lock:
+                chain = self._chain_locked(key)
+                if chain is not None:
+                    self.stale_served += 1
+            if chain is not None:
+                return chain
+            build_lock.acquire()
+        try:
+            with self._lock:
+                chain = self._chain_locked(key)
+                if chain is not None and chain.reader_key == reader_key:
+                    self.hits += 1
+                    return chain
+                meta = self._chain_meta.get(key)
+            fresh = (None if chain is None
+                     else self._delta_eligible(meta, readers))
+            if fresh is None:
+                entry = self._build_and_swap(key, readers, field,
+                                             reader_key, epoch)
+                return None if entry is None else PackChain(
+                    entry, (), entry, tuple(reader_key))
+            return self._append_delta(key, fresh, readers, field,
+                                      reader_key, epoch)
+        finally:
+            build_lock.release()
+
+    def _append_delta(self, key, fresh, readers, field: str, reader_key,
+                      epoch: int) -> PackChain:
+        """Build one delta pack of the uncovered segments and chain it on
+        the base. The caller holds the key's build lock."""
+        delta = self._build(readers, field, reader_key, fresh)
+        want_compact = False
+        evicted: List[ResidentPack] = []
+        with self._lock:
+            deleted = self._epochs.get(key[0], 0) != epoch
+            if deleted:
+                if delta is not None:
+                    evicted.append(delta)
+                    if self._breaker is not None:
+                        self._breaker.release(delta.hbm_bytes)
+            else:
+                if delta is not None:
+                    self._deltas.setdefault(key, []).append(delta)
+                    self.delta_stats.appends += 1
+                # even a delta without the field advances the coverage:
+                # the chain now answers for this reader set
+                self._set_chain_meta_locked(key, readers, reader_key)
+                deltas = self._deltas.get(key, [])
+                if deltas:
+                    self._chain_meta[key].union = _UnionView(
+                        [self._cache[key]] + deltas, readers)
+                    want_compact = (
+                        len(deltas) > self.delta_max_packs
+                        or sum(p.n_docs for p in deltas)
+                        > self.delta_max_docs)
+                chain = self._chain_locked(key)
+        self._evict(evicted)
+        if deleted:
+            raise IndexNotFound(f"no such index [{key[0]}]")
+        if want_compact and self.on_compact_needed is not None:
+            self.on_compact_needed(key)
+        return chain
+
+    def compact(self, key) -> bool:
+        """Fold the key's delta chain into a fresh full base pack. The
+        old base and every delta are released exactly; on a failure the
+        chain keeps serving and ``compaction_failures`` counts it.
+        → whether a fold was swapped in."""
+        key = tuple(key)
+        with self._lock:
+            index_service = self._services.get(key)
+            if index_service is None:
+                return False
+            epoch = self._epochs.get(key[0], 0)
+            build_lock = self._build_locks.setdefault(key,
+                                                      threading.Lock())
+        with build_lock:
+            with self._lock:
+                if not self._deltas.get(key):
+                    return False
+            t0 = time.monotonic()
+            try:
+                for hook in list(COMPACTION_FAULT_HOOKS):
+                    hook(key)
+                readers, reader_key = self._readers(index_service)
+                entry = self._build(readers, key[1], reader_key)
+            except Exception:  # noqa: BLE001 — the chain keeps serving
+                logger.exception("delta compaction of %s failed", key)
+                with self._lock:
+                    self.delta_stats.compaction_failures += 1
+                return False
+            deleted = self._swap_base(key, entry, readers, reader_key,
+                                      epoch)
+            with self._lock:
+                self.delta_stats.compactions += 1
+                self.delta_stats.compact_seconds += time.monotonic() - t0
+            return entry is not None and not deleted
 
     def invalidate(self, index_name: str) -> None:
-        """Drop every pack of `index_name` and release its charge."""
-        evicted = []
+        """Drop every pack of `index_name`, its deltas included, and
+        release their charge."""
+        evicted: List[ResidentPack] = []
         with self._lock:
-            for key in [k for k in self._cache if k[0] == index_name]:
-                entry = self._cache.pop(key)
-                if self._breaker is not None:
-                    self._breaker.release(entry.hbm_bytes)
-                evicted.append(entry)
+            keys = {k for k in list(self._cache) + list(self._deltas)
+                    + list(self._chain_meta) if k[0] == index_name}
+            for key in keys:
+                entry = self._cache.pop(key, None)
+                if entry is not None:
+                    if self._breaker is not None:
+                        self._breaker.release(entry.hbm_bytes)
+                    evicted.append(entry)
+                evicted += self._drop_deltas_locked(key)
+                self._chain_meta.pop(key, None)
+                self._services.pop(key, None)
                 self._build_locks.pop(key, None)
             self._epochs[index_name] = self._epochs.get(index_name, 0) + 1
-        if self.on_evict is not None:
-            for entry in evicted:
-                self.on_evict(entry)
+        self._evict(evicted)
 
     def invalidate_all(self) -> None:
         with self._lock:
-            names = sorted({k[0] for k in self._cache})
+            names = sorted({k[0] for k in list(self._cache)
+                            + list(self._deltas)})
         for name in names:
             self.invalidate(name)
 
@@ -599,6 +946,23 @@ def _columnar_results(resident: ResidentPack, vals: np.ndarray,
             float(sc[0]) if m else None, resident=resident,
             total_relation=relation_fn(qi)))
     return out
+
+
+def _union_results(parts: Sequence[FlatQueryResult], chain: PackChain,
+                   k: int) -> FlatQueryResult:
+    """The base's and the deltas' results as one top-k over the chain's
+    concatenated row space. The parts score disjoint docs, so totals
+    add; ties go to the earlier pack, then to the in-pack rank; the
+    total is ``gte`` when any part's is; max_score is the parts' max."""
+    scores, rows, ords = sparse.union_topk(
+        [p.scores for p in parts], [p.rows for p in parts],
+        [p.ords for p in parts], chain.view.offsets, k)
+    maxes = [p.max_score for p in parts if p.max_score is not None]
+    return FlatQueryResult(
+        scores, rows, ords, sum(int(p.total_hits) for p in parts),
+        float(max(maxes)) if maxes else None, resident=chain.view,
+        total_relation=("gte" if any(p.total_relation == "gte"
+                                     for p in parts) else "eq"))
 
 
 def _finish_exact(launch: Dict[str, Any]) -> List[FlatQueryResult]:
@@ -1007,7 +1371,8 @@ class GpuSearchService:
     def __init__(self, device=None, window_s: float = 0.005,
                  max_batch: int = 128, batch_timeout_s: float = 300.0,
                  breaker=None, mesh: Optional[Mesh] = None,
-                 packed_sort: bool = True, compressed_pack: bool = True):
+                 packed_sort: bool = True, compressed_pack: bool = True,
+                 delta: Optional[Dict[str, Any]] = None):
         self.mesh = resolve_mesh(device, mesh)
         self.batch_timeout_s = batch_timeout_s
         self._indices: Dict[str, _Index] = {}
@@ -1035,6 +1400,68 @@ class GpuSearchService:
         #: passed) and results whose total's relation is "gte"
         self.tier_queries: Dict[str, int] = {}
         self.gte_results = 0
+        # the streaming delta chain: opt-in, so a bare GpuSearchService()
+        # keeps rebuild-on-refresh (the reference's bare service does);
+        # the node passes its delta settings, on by default
+        dcfg = dict(delta or {})
+        self.packs.delta_enabled = (delta is not None
+                                    and bool(dcfg.get("enabled", True)))
+        self.packs.delta_max_packs = int(dcfg.get("max_packs", 4))
+        self.packs.delta_max_docs = int(dcfg.get("max_docs", 50_000))
+        self.packs.on_compact_needed = self._request_compaction
+        self.delta_stats = self.packs.delta_stats
+        self._compact_lock = threading.Lock()
+        self._compact_pending: set = set()
+        self._compacting = False
+        self._compact_wakeup = threading.Event()
+        self._compact_closed = False
+        self._compact_thread: Optional[threading.Thread] = None
+
+    # -- background compaction -------------------------------------------
+
+    def _request_compaction(self, key) -> None:
+        """The pack cache's callback: `key`'s chain crossed its fold
+        threshold. Folds run on ONE background thread, started on first
+        demand (a full build at scale takes seconds: never on a serving
+        thread)."""
+        with self._compact_lock:
+            self._compact_pending.add(tuple(key))
+            if self._compact_thread is None and not self._compact_closed:
+                self._compact_thread = threading.Thread(
+                    target=self._compact_loop, daemon=True,
+                    name="delta-compactor")
+                self._compact_thread.start()
+        self._compact_wakeup.set()
+
+    def _compact_loop(self) -> None:
+        while not self._compact_closed:
+            self._compact_wakeup.wait(timeout=1.0)
+            self._compact_wakeup.clear()
+            while True:
+                with self._compact_lock:
+                    if self._compact_closed or not self._compact_pending:
+                        self._compacting = False
+                        break
+                    key = self._compact_pending.pop()
+                    self._compacting = True
+                self.packs.compact(key)  # counts its own failures
+
+    def compaction_idle(self) -> bool:
+        """No fold pending or running: a quiescent point."""
+        with self._compact_lock:
+            return not self._compact_pending and not self._compacting
+
+    def stats(self) -> Dict[str, Any]:
+        """The pack cache's stats, the delta chains' totals and
+        lifecycle counters, and the stage times."""
+        cache = self.packs.stats()
+        chains = cache["deltas"].values()
+        return {"served": self.served, "pack_cache": cache,
+                "deltas": dict(dataclasses.asdict(self.delta_stats),
+                               enabled=self.packs.delta_enabled,
+                               packs=sum(c["packs"] for c in chains),
+                               bytes=sum(c["bytes"] for c in chains)),
+                "stages": self.stages.snapshot()}
 
     # -- indices -----------------------------------------------------------
 
@@ -1187,20 +1614,29 @@ class GpuSearchService:
             self.stages.add("lower", time.perf_counter() - t0)
             raise
         while True:
-            resident = self.packs.get(index_service, flat.field)
+            chain = self.packs.get_chain(index_service, flat.field)
             t1 = time.perf_counter()
-            if resident is None:
+            if chain is None:
                 # the field has postings nowhere: zero hits, kernel-free
                 self.stages.add("lower", t1 - t0)
                 with self._lock:
                     self.served += 1
                 return FlatQueryResult.empty()
-            future = self.batcher.submit(resident, flat, k)
-            if future is not None:
+            # the deltas are operands of the same lowered query: each
+            # batches in its own queue, the columns merge on the host
+            futures = [self.batcher.submit(p, flat, k)
+                       for p in chain.parts]
+            if all(f is not None for f in futures):
                 break
-            # a refresh or delete retired the pack after the lookup
+            # a refresh, fold or delete retired a pack of the chain
+            # after the lookup: resolve the whole chain again
         self.stages.add("lower", t1 - t0)
-        result = future.result(timeout=self.batch_timeout_s)
+        # one deadline shared by the parts
+        deadline = t1 + self.batch_timeout_s
+        parts = [f.result(timeout=max(0.01, deadline - time.perf_counter()))
+                 for f in futures]
+        result = (parts[0] if len(parts) == 1
+                  else _union_results(parts, chain, k))
         self.stages.add("batch_wait", time.perf_counter() - t1)
         with self._lock:
             self.served += 1
@@ -1279,6 +1715,12 @@ class GpuSearchService:
         }
 
     def close(self) -> None:
+        with self._compact_lock:
+            self._compact_closed = True
+            thread = self._compact_thread
+        self._compact_wakeup.set()
+        if thread is not None:
+            thread.join(timeout=30.0)
         self.batcher.close()
         self.packs.invalidate_all()
         for idx in list(self._indices.values()):

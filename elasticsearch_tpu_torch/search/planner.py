@@ -42,6 +42,7 @@ from elasticsearch_tpu_torch.mapping.types import (FieldType,
                                                    KeywordFieldType,
                                                    TextFieldType)
 from elasticsearch_tpu_torch.ops import bm25, sparse
+from elasticsearch_tpu_torch.ops.xla_math import xla_log10f, xla_logf
 from elasticsearch_tpu_torch.ops.smallfloat import (LENGTH_TABLE,
                                                     bm25_norm_cache)
 from elasticsearch_tpu_torch.parallel.device import resolve_device
@@ -449,20 +450,22 @@ class SegmentQueryExecutor:
             * factor
         zero = torch.zeros_like(vals)
         mod = fvf.get("modifier", "none")
+        # XLA:CPU's f32 log, op for op (torch.log is an ulp off on some
+        # inputs)
         if mod == "log":
-            vals = torch.where(vals > 0, torch.log10(
+            vals = torch.where(vals > 0, xla_log10f(
                 torch.clamp(vals, min=1e-9)), zero)
         elif mod == "log1p":
-            vals = torch.log10(torch.clamp(vals, min=0.0) + 1.0)
+            vals = xla_log10f(torch.clamp(vals, min=0.0) + 1.0)
         elif mod == "log2p":
-            vals = torch.log10(torch.clamp(vals, min=0.0) + 2.0)
+            vals = xla_log10f(torch.clamp(vals, min=0.0) + 2.0)
         elif mod == "ln":
-            vals = torch.where(vals > 0, torch.log(
+            vals = torch.where(vals > 0, xla_logf(
                 torch.clamp(vals, min=1e-9)), zero)
         elif mod == "ln1p":
-            vals = torch.log(torch.clamp(vals, min=0.0) + 1.0)
+            vals = xla_logf(torch.clamp(vals, min=0.0) + 1.0)
         elif mod == "ln2p":
-            vals = torch.log(torch.clamp(vals, min=0.0) + 2.0)
+            vals = xla_logf(torch.clamp(vals, min=0.0) + 2.0)
         elif mod == "square":
             vals = vals * vals
         elif mod == "sqrt":

@@ -29,8 +29,8 @@ from elasticsearch_tpu_torch.parallel.mesh import make_mesh
 from elasticsearch_tpu_torch.search import gpu_service
 from elasticsearch_tpu_torch.search.serializer import dumps_response
 
-from torch_parity_cases import (PARITY_BODIES, TRANSCENDENTAL,
-                                TYPED_BODIES, TYPED_MAPPING, bulk_ndjson, make_docs,
+from torch_parity_cases import (PARITY_BODIES, TYPED_BODIES,
+                                TYPED_MAPPING, bulk_ndjson, make_docs,
                                 make_typed_docs)
 
 torch.set_num_threads(1)
@@ -589,42 +589,5 @@ def test_typed_planner_searches_match_reference(pair, typed, name):
     want, got = pair.both("POST", "/typed/_search", TYPED_BODIES[name],
                           mesh=True)
     assert want[0] == 200, want
-    if name in TRANSCENDENTAL:
-        assert_close_response(got, want)
-        assert_close_response(pair.mesh_log[-1][2], want)
-        return
     assert got == want
     assert pair.mesh_log[-1][2] == want
-
-
-def assert_close_response(got, want, rtol=1e-6):
-    """The one exception to bitwise parity: a score that passes through
-    a transcendental (field_value_factor's log modifiers; XLA:CPU's f32
-    log is its own polynomial, not libm). Scores agree to rtol (atol 0),
-    hits come in the same order except among hits whose scores lie
-    within that tolerance, and everything else is byte-equal."""
-    assert got[0] == want[0]
-    g, w = json.loads(got[1]), json.loads(want[1])
-    g_hits, w_hits = g["hits"].pop("hits"), w["hits"].pop("hits")
-    g_max, w_max = g["hits"].pop("max_score"), w["hits"].pop("max_score")
-    assert g == w
-    assert (g_max is None) == (w_max is None)
-    if w_max is not None:
-        assert abs(g_max - w_max) <= rtol * abs(w_max)
-    assert len(g_hits) == len(w_hits)
-    groups_g, groups_w = [], []
-    for gh, wh in zip(g_hits, w_hits):
-        assert abs(gh["_score"] - wh["_score"]) <= rtol * abs(wh["_score"])
-        if groups_w and abs(wh["_score"] - groups_w[-1][-1]["_score"]) \
-                <= rtol * abs(wh["_score"]):
-            groups_w[-1].append(wh)
-            groups_g[-1].append(gh)
-        else:
-            groups_w.append([wh])
-            groups_g.append([gh])
-    for gg, ww in zip(groups_g, groups_w):
-        strip = [{k: v for k, v in h.items() if k != "_score"} for h in gg]
-        want_docs = [{k: v for k, v in h.items() if k != "_score"}
-                     for h in ww]
-        assert sorted(map(json.dumps, strip)) == \
-            sorted(map(json.dumps, want_docs))

@@ -5,11 +5,9 @@ into two-segment shards with tombstones; each query then runs through
 ``SegmentQueryExecutor`` per segment (masks and score bits) and through
 ``execute_query`` / ``execute_fetch`` on the shard (ids, scores as
 uint32, totals, fetched docs), in JAX on the CPU and in torch on the CPU
-(the plain path). Bodies whose scores pass through a log
-(field_value_factor's log modifiers; XLA:CPU's f32 log is its own
-polynomial, not libm) are held to rtol 1e-6 (atol 0), hits in order but
-among hits whose scores lie within that tolerance; ``sqrt`` is held
-bitwise. Also the port copies of the execution cases of
+(the plain path). Every body is held bitwise, those whose scores pass
+through a log (field_value_factor's log modifiers: the port computes
+XLA:CPU's f32 log op for op, ``ops/xla_math.py``) and ``sqrt`` too. Also the port copies of the execution cases of
 ``test_query_dsl.py`` and ``test_dsl_longtail.py`` (with their
 expectations) and of ``test_can_match.py``.
 """
@@ -170,24 +168,6 @@ def hits_of(res):
 
 def scores_of(res):
     return np.array([h.score for h in res.hits], dtype=np.float32)
-
-
-def assert_close_hits(got, want, rtol=1e-6):
-    """Scores within rtol (atol 0); hits in order but among hits whose
-    scores lie within the tolerance."""
-    gs, ws = scores_of(got), scores_of(want)
-    assert len(gs) == len(ws)
-    np.testing.assert_allclose(gs, ws, rtol=rtol, atol=0)
-    groups_g, groups_w, last = [], [], None
-    for g, w, sc in zip(hits_of(got), hits_of(want), ws):
-        if last is not None and abs(sc - last) <= rtol * abs(sc):
-            groups_g[-1].add(g)
-            groups_w[-1].add(w)
-        else:
-            groups_g.append({g})
-            groups_w.append({w})
-        last = sc
-    assert groups_g == groups_w
 
 
 #: query bodies → (kwargs of execute_query); the slice's query types
@@ -352,10 +332,6 @@ QUERIES = {
     "rank_feature_text": {"rank_feature": {"field": "title"}},
 }
 
-#: bodies held to the transcendental tolerance
-TRANSCENDENTAL = {"fs_log1p", "fs_ln", "fs_log_log2p_ln1p_ln2p"}
-
-
 def run_query(readers, body, **kw):
     ref_reader, reader = readers
     want = ref_qp.execute_query(ref_reader, ref_dsl.parse_query(body), **kw)
@@ -374,12 +350,8 @@ def test_executor_masks_and_scores_match_jax(shard, name):
         g_mask, g_score = SegmentQueryExecutor(reader, idx, "cpu").execute(
             dsl.parse_query(QUERIES[name]))
         np.testing.assert_array_equal(g_mask.numpy(), np.asarray(w_mask))
-        if name in TRANSCENDENTAL:
-            np.testing.assert_allclose(g_score.numpy(), np.asarray(w_score),
-                                       rtol=1e-6, atol=0)
-        else:
-            np.testing.assert_array_equal(f32_bits(g_score.numpy()),
-                                          f32_bits(w_score))
+        np.testing.assert_array_equal(f32_bits(g_score.numpy()),
+                                      f32_bits(w_score))
 
 
 @pytest.mark.parametrize("name", sorted(QUERIES))
@@ -387,9 +359,6 @@ def test_execute_query_matches_jax(shard, name):
     """The shard's query phase: ids in order, score bits, totals."""
     got, want = run_query(shard, QUERIES[name], size=40)
     assert got.total_hits == want.total_hits
-    if name in TRANSCENDENTAL:
-        assert_close_hits(got, want)
-        return
     assert hits_of(got) == hits_of(want)
     np.testing.assert_array_equal(f32_bits(scores_of(got)),
                                   f32_bits(scores_of(want)))

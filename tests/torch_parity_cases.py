@@ -420,8 +420,9 @@ TYPED_BODIES = {
         "min_score": 1.2, "size": 30},
 }
 
-#: TYPED_BODIES whose scores pass through a log (held to rtol 1e-6)
-TRANSCENDENTAL = {"fvf_log1p"}
+#: TYPED_BODIES whose scores pass through a log (held bitwise like the
+#: rest: the port computes XLA:CPU's f32 log, ``ops/xla_math.py``)
+LOG_BODIES = {"fvf_log1p"}
 
 
 # ---------------------------------------------------------------------------
