@@ -126,6 +126,35 @@ device mesh through the collective tail, and checks:
                  the merge of the card's shard results. The kernels line
                  adds shard_topk on a planner row (~62,600 wide) at k 10
                  and k 10,000
+  fields         the rarer field types and an analysis chain on the same
+                 node, after planner: a "fields" index of 50,000 docs
+                 (cut from 1M; 4 shards; Rally geonames' location,
+                 http_logs' clientip, nested's objects in an array) by
+                 _bulk, its text under a custom analyzer (standard
+                 tokenizer, lowercase, the corpus's 25 most frequent words
+                 as stop words, 100 synonym rules over band words,
+                 porter_stem), with an ip, a geo_point, an integer and a
+                 date range, a rank_feature, nested comments (1-5), a
+                 completion and a 64-dim dense_vector; a "queries" index
+                 of 1,000 percolator queries. The 256 bodies on the
+                 analyzed field without _source and 64 of them at boost
+                 1e-15 (counts reset just before: the five fused
+                 kernels, exact_merge and shard_topk must launch; every
+                 fused shape, exact merge and shard_topk call against
+                 its plain version bit for bit; the bodies whose terms
+                 the synonyms expand counted, > 0). Then the planner mix
+                 (geo_distance in four units, geo_bounding_box with one
+                 box across the antimeridian, ip term / CIDR / range,
+                 range-field relations, rank_feature saturation with and
+                 without a pivot, log, sigmoid and a bool-should hybrid,
+                 nested in bool with each score_mode, percolate of 4
+                 documents) once cold and once warm: q/s and per-request
+                 ms of the warm pass, the device busy share of one more
+                 pass under the profiler; fails on a body matching
+                 nothing, on a warm response != the cold one, or when
+                 execute_query on the card != the CPU plain path on any
+                 shard or the response != the merge of the shard
+                 results. The kernels line adds launches_fields
   delta          streaming appends on the same node (its default chain
                  settings: 4 deltas, 50,000 docs), after the planner
                  line and before the DELETE: 5 batches of 10,000 new
@@ -228,6 +257,15 @@ TYPED_SHARDS = 4
 PLANNER_ROUNDS = 2      # the planner's timed window: the mix this many
                         # times (cut from 5 to make room for the delta line)
 PLANNER_TOPK_LINE = "elasticsearch_tpu/ops/bm25.py:138"
+FIELDS_INDEX = "fields"
+FIELDS_DOCS = 50_000    # cut from 1M to keep the phase near 120 s
+FIELDS_SHARDS = 4
+FIELDS_STOP = 25        # the corpus's most frequent words, as stop words
+FIELDS_SYNONYMS = 100   # equivalence rules of 3 band words (ids 20-3000)
+FIELDS_EXACT = 64       # bodies of the analyzed field with boost 1e-15
+VEC_DIMS = 64
+QUERIES_INDEX = "queries"
+STORED_QUERIES = 1_000
 RAW_INDEX = "msmarco-raw"
 RAW_SHARDS = 2          # ~500,000 docs a segment: MS MARCO passage's width
                         # at 16 shards, past the 16-bit doc stream
@@ -1006,7 +1044,7 @@ def rest_bulk_load(host, port, corpus, n_docs, index=REST_INDEX):
     return time.perf_counter() - t0
 
 
-def rest_queries(host, port, bodies):
+def rest_queries(host, port, bodies, index=REST_INDEX):
     """`bodies` as POST /{index}/_search from REST_CLIENTS threads, each
     on its own keep-alive connection → (responses in order, wall s)."""
     import http.client
@@ -1019,7 +1057,7 @@ def rest_queries(host, port, bodies):
             conn = local.conn = http.client.HTTPConnection(host, port,
                                                            timeout=600)
         status, resp = rest_http(host, port, "POST",
-                                 f"/{REST_INDEX}/_search", body, conn=conn)
+                                 f"/{index}/_search", body, conn=conn)
         if status != 200:
             raise AssertionError(f"_search {status}: {str(resp)[:500]}")
         return resp
@@ -1486,6 +1524,57 @@ def pack_keys_entry(mk, call, launches):
     return e
 
 
+def search_once(host, port, what, index, label, body):
+    """One POST /{index}/_search from one client → (response, ms);
+    raises on a status other than 200 or a failed shard."""
+    t1 = time.perf_counter()
+    status, resp = rest_http(host, port, "POST", f"/{index}/_search", body)
+    ms = (time.perf_counter() - t1) * 1e3
+    if status != 200:
+        raise AssertionError(f"{what} {label}: {status} {str(resp)[:500]}")
+    if resp["_shards"]["failed"] > 0:
+        raise AssertionError(f"{what} {label}: shard failures "
+                             f"{resp['_shards']}")
+    return resp, ms
+
+
+def check_shards_on_card(node, what, bodies, responses):
+    """Per body (index, label, body) and shard: execute_query on the
+    card against the CPU plain path over the same reader (ids, scores
+    as uint32, totals), and the response against the coordinator's
+    merge of the card's shard results → shards checked."""
+    from elasticsearch_tpu_torch.search import dsl
+    from elasticsearch_tpu_torch.search.query_phase import execute_query
+
+    dev = node.gpu_search.mesh.grid[0][0]
+    checked = 0
+    for (index, label, body), resp in zip(bodies, responses):
+        svc = node.indices.index(index)
+        query = dsl.parse_query(body["query"])
+        size, from_ = body.get("size", 10), body.get("from", 0)
+        merged, total = [], 0
+        for si, (_, shard) in enumerate(sorted(svc.shards.items())):
+            reader = shard.acquire_searcher()
+            kw = dict(size=size + from_, from_=0,
+                      min_score=body.get("min_score"))
+            gpu = execute_query(reader, query, device=dev, **kw)
+            cpu = execute_query(reader, query, device="cpu", **kw)
+            if not same_shard_results(gpu, cpu):
+                raise AssertionError(f"{what} {label}: shard {si} on the "
+                                     f"card != the CPU plain path")
+            total += gpu.total_hits
+            merged += [(-h.score, si, r, h) for r, h in enumerate(gpu.hits)]
+            checked += 1
+        merged.sort(key=lambda t: (t[0], t[1], t[2]))
+        window = merged[from_: from_ + size]
+        got = [(h["_id"], h["_score"]) for h in resp["hits"]["hits"]]
+        want = [(h.doc_id, h.score) for *_, h in window]
+        if got != want or resp["hits"]["total"]["value"] != total:
+            raise AssertionError(f"{what} {label}: the response is not "
+                                 f"the merge of the shard results")
+    return checked
+
+
 def planner_phase(host, port, node, corpus, mk, smi):
     """The planner path over HTTP on the card: the body index (16
     shards of ~62,500 docs, one segment each) and the typed index, from
@@ -1499,12 +1588,8 @@ def planner_phase(host, port, node, corpus, mk, smi):
     over the same reader, and the response's hits against the
     coordinator's merge of the card's shard results. → (line, kernels
     entries)."""
-    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    from elasticsearch_tpu_torch.search import dsl
-    from elasticsearch_tpu_torch.search.query_phase import execute_query
 
     out = {"nvidia_smi": smi, "typed_docs": TYPED_DOCS,
            "typed_shards": TYPED_SHARDS,
@@ -1514,17 +1599,7 @@ def planner_phase(host, port, node, corpus, mk, smi):
     bodies = planner_bodies(corpus)
 
     def send(index, label, body):
-        t1 = time.perf_counter()
-        status, resp = rest_http(host, port, "POST", f"/{index}/_search",
-                                 body)
-        ms = (time.perf_counter() - t1) * 1e3
-        if status != 200:
-            raise AssertionError(f"planner {label}: {status} "
-                                 f"{str(resp)[:500]}")
-        if resp["_shards"]["failed"] > 0:
-            raise AssertionError(f"planner {label}: shard failures "
-                                 f"{resp['_shards']}")
-        return resp, ms
+        return search_once(host, port, "planner", index, label, body)
 
     # cold pass: each body once, every shard_topk recorded
     classes = {}
@@ -1582,34 +1657,7 @@ def planner_phase(host, port, node, corpus, mk, smi):
                              f"({all_inf})")
     out["shard_topk"] = check_topk_calls(mk, top.calls)
 
-    # card against the CPU plain path, shard by shard, and the response
-    # against the merge of the card's results
-    dev = node.gpu_search.mesh.grid[0][0]
-    checked = 0
-    for (index, label, body), resp in zip(bodies, responses):
-        svc = node.indices.index(index)
-        query = dsl.parse_query(body["query"])
-        size, from_ = body.get("size", 10), body.get("from", 0)
-        merged, total = [], 0
-        for si, (_, shard) in enumerate(sorted(svc.shards.items())):
-            reader = shard.acquire_searcher()
-            kw = dict(size=size + from_, from_=0,
-                      min_score=body.get("min_score"))
-            gpu = execute_query(reader, query, device=dev, **kw)
-            cpu = execute_query(reader, query, device="cpu", **kw)
-            if not same_shard_results(gpu, cpu):
-                raise AssertionError(f"planner {label}: shard {si} on the "
-                                     f"card != the CPU plain path")
-            total += gpu.total_hits
-            merged += [(-h.score, si, r, h) for r, h in enumerate(gpu.hits)]
-            checked += 1
-        merged.sort(key=lambda t: (t[0], t[1], t[2]))
-        window = merged[from_: from_ + size]
-        got = [(h["_id"], h["_score"]) for h in resp["hits"]["hits"]]
-        want = [(h.doc_id, h.score) for *_, h in window]
-        if got != want or resp["hits"]["total"]["value"] != total:
-            raise AssertionError(f"planner {label}: the response is not "
-                                 f"the merge of the shard results")
+    checked = check_shards_on_card(node, "planner", bodies, responses)
     kernels = [topk_entry(mk, f"merge_topk.shard_topk.planner_k{k}",
                           rows[k], k, launches, len(times),
                           replaces=PLANNER_TOPK_LINE)
@@ -1651,6 +1699,406 @@ def planner_phase(host, port, node, corpus, mk, smi):
                 "bodies too), and the response == the merge "
                 "of the card's shard results"))
     return out, kernels
+
+
+def fields_analysis(corpus):
+    """The `fields` index's settings: FIELDS_SHARDS shards and the
+    analyzer "chain" (standard tokenizer, lowercase, the corpus's
+    FIELDS_STOP most frequent words as stop words, FIELDS_SYNONYMS
+    equivalence rules of three band words each, porter_stem)."""
+    import numpy as np
+    counts = np.bincount(np.concatenate(corpus.doc_tokens[:FIELDS_DOCS]),
+                         minlength=len(corpus.vocab))
+    stop = [corpus.vocab[int(i)]
+            for i in np.argsort(-counts, kind="stable")[:FIELDS_STOP]]
+    rng = np.random.default_rng(SEED + 2)
+    band = rng.permutation(np.arange(20, 3001))[:3 * FIELDS_SYNONYMS]
+    rules = [", ".join(corpus.vocab[int(w)] for w in band[3 * i: 3 * i + 3])
+             for i in range(FIELDS_SYNONYMS)]
+    return {"number_of_shards": FIELDS_SHARDS,
+            "translog": {"durability": "async"},
+            "analysis": {
+                "filter": {
+                    "corpus_stop": {"type": "stop", "stopwords": stop},
+                    "band_syn": {"type": "synonym", "synonyms": rules}},
+                "analyzer": {"chain": {
+                    "type": "custom", "tokenizer": "standard",
+                    "filter": ["lowercase", "corpus_stop", "band_syn",
+                               "porter_stem"]}}}}
+
+
+#: the `fields` mapping: the corpus text under the custom chain, and a
+#: field of each rarer type (Rally's geonames `location`, http_logs
+#: `clientip`, nested's objects in an array)
+FIELDS_MAPPING = {"properties": {
+    FIELD: {"type": "text", "analyzer": "chain"},
+    "clientip": {"type": "ip"},
+    "location": {"type": "geo_point"},
+    "slots": {"type": "integer_range"},
+    "period": {"type": "date_range"},
+    "pagerank": {"type": "rank_feature"},
+    "comments": {"type": "nested", "properties": {
+        "author": {"type": "keyword"}, "likes": {"type": "long"}}},
+    "suggest": {"type": "completion"},
+    "vec": {"type": "dense_vector", "dims": VEC_DIMS}}}
+
+
+def fields_doc(rng, corpus, i):
+    """Document i of the `fields` index, its values drawn from `rng`:
+    an IPv4 address (one in ten written IPv4-mapped, two in ten IPv6),
+    a point in one of the three input forms, an integer and a date
+    range, a rank feature (absent in one doc of eleven), 1-5 comment
+    objects, a completion and a VEC_DIMS vector."""
+    a, b, c, d = (int(x) for x in rng.integers(0, 256, 4))
+    kind = i % 10
+    if kind < 7:
+        ip = f"{a}.{b}.{c}.{d}"
+    elif kind == 7:
+        ip = f"::ffff:{a}.{b}.{c}.{d}"
+    else:
+        ip = f"2001:db8:{a:x}{b:02x}::{c:x}{d:02x}"
+    lat = round(float(rng.uniform(-90, 90)), 6)
+    lon = round(float(rng.uniform(-180, 180)), 6)
+    location = ({"lat": lat, "lon": lon}, f"{lat},{lon}", [lon, lat])[i % 3]
+    lo = int(rng.integers(0, 1000))
+    start = 1546300800000 + int(rng.integers(0, 6 * 365)) * 86_400_000
+    doc = {FIELD: corpus.doc_text(i), "clientip": ip, "location": location,
+           "slots": {"gte": lo, "lte": lo + int(rng.integers(0, 50))},
+           "period": {"gte": start,
+                      "lt": start + int(rng.integers(1, 90)) * 86_400_000},
+           "comments": [{"author": f"u{int(rng.integers(0, 200))}",
+                         "likes": int(rng.integers(0, 100))}
+                        for _ in range(int(rng.integers(1, 6)))],
+           "suggest": {"input": [corpus.vocab[int(t)]
+                                 for t in corpus.doc_tokens[i][:2]],
+                       "weight": int(rng.integers(1, 100))},
+           "vec": [round(float(x), 3)
+                   for x in rng.standard_normal(VEC_DIMS)]}
+    if i % 11:
+        doc["pagerank"] = round(float(rng.lognormal(0.0, 1.5)) + 1e-3, 4)
+    return doc
+
+
+def fields_bulk_load(host, port, corpus):
+    """The `fields` index (FIELDS_DOCS documents, ids f{i}) by _bulk from
+    BULK_CLIENTS clients, then _refresh → seconds."""
+    import http.client
+    import threading
+
+    import numpy as np
+    starts = list(range(0, FIELDS_DOCS, BULK_DOCS))
+    errors = []
+
+    def client(ci):
+        conn = http.client.HTTPConnection(host, port, timeout=600)
+        try:
+            for si in range(ci, len(starts), BULK_CLIENTS):
+                rng = np.random.default_rng([SEED, 3, si])
+                lines = []
+                for i in range(starts[si],
+                               min(starts[si] + BULK_DOCS, FIELDS_DOCS)):
+                    lines.append('{"index":{"_id":"f%d"}}' % i)
+                    lines.append(json.dumps(fields_doc(rng, corpus, i)))
+                status, resp = rest_http(
+                    host, port, "POST", f"/{FIELDS_INDEX}/_bulk",
+                    raw=("\n".join(lines) + "\n").encode(), conn=conn)
+                if status != 200 or resp.get("errors"):
+                    errors.append(str(resp)[:500])
+                    return
+        finally:
+            conn.close()
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(ci,))
+               for ci in range(BULK_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise AssertionError(f"fields _bulk failed: {errors[0]}")
+    status, resp = rest_http(host, port, "POST", f"/{FIELDS_INDEX}/_refresh")
+    if status != 200:
+        raise AssertionError(f"fields _refresh: {resp}")
+    return time.perf_counter() - t0
+
+
+def stored_queries(corpus):
+    """STORED_QUERIES percolator queries from the seed, in the shapes of
+    the fields line's planner bodies: a match on the analyzed text, a
+    CIDR term, an ip range, a range-field relation, a geo_distance, a
+    bool of a match and a filter."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 4)
+    out = []
+    for i in range(STORED_QUERIES):
+        w = corpus.vocab[int(rng.integers(20, 3000))]
+        kind = i % 6
+        if kind == 0:
+            q = {"match": {FIELD: w}}
+        elif kind == 1:
+            q = {"term": {"clientip": f"{int(rng.integers(0, 256))}.0.0.0/8"}}
+        elif kind == 2:
+            q = {"range": {"clientip": {"gte": "2001:db8::",
+                                        "lt": "2001:db9::"}}}
+        elif kind == 3:
+            lo = int(rng.integers(0, 1000))
+            q = {"range": {"slots": {
+                "gte": lo, "lte": lo + 100,
+                "relation": ("intersects", "within", "contains")[i % 3]}}}
+        elif kind == 4:
+            q = {"geo_distance": {"distance": f"{int(rng.integers(1, 30))}00km",
+                                  "location": [float(rng.uniform(-180, 180)),
+                                               float(rng.uniform(-60, 60))]}}
+        else:
+            q = {"bool": {"must": [{"match": {FIELD: w}}],
+                          "filter": [{"exists": {"field": "pagerank"}}]}}
+        out.append(q)
+    return out
+
+
+def fields_planner_bodies(corpus):
+    """The fields line's planner mix: (index, label, body)."""
+    import numpy as np
+    q0 = corpus.query_text(3)
+    rng = np.random.default_rng(SEED + 5)
+    docs = [fields_doc(rng, corpus, FIELDS_DOCS + j) for j in range(4)]
+    known_ip = fields_doc(np.random.default_rng([SEED, 3, 0]), corpus,
+                          0)["clientip"]
+    nested = {"bool": {"must": [{"term": {"comments.author": "u7"}},
+                                {"range": {"comments.likes": {"gte": 20}}}]}}
+    out = [
+        ("geo_distance_km", {"query": {"geo_distance": {
+            "distance": "300km", "location": {"lat": 48.85, "lon": 2.35}}},
+            "size": 20}),
+        ("geo_distance_mi", {"query": {"geo_distance": {
+            "distance": "250mi", "location": "40.7,-74.0"}}, "size": 20}),
+        ("geo_distance_m", {"query": {"geo_distance": {
+            "distance": "900000m", "location": [0.0, 0.0]}}, "size": 20}),
+        ("geo_distance_nmi", {"query": {"geo_distance": {
+            "distance": "400nmi", "location": "u4pruydqqvj"}},
+            "size": 20}),
+        ("geo_bbox", {"query": {"geo_bounding_box": {"location": {
+            "top_left": {"lat": 60, "lon": -10},
+            "bottom_right": {"lat": 35, "lon": 30}}}}, "size": 20}),
+        ("geo_bbox_antimeridian", {"query": {"geo_bounding_box": {
+            "location": {"top": 20, "left": 170, "bottom": -20,
+                         "right": -170}}}, "size": 20}),
+        ("ip_term", {"query": {"term": {"clientip": known_ip}}}),
+        ("ip_cidr", {"query": {"term": {"clientip": "10.0.0.0/8"}},
+                     "size": 20}),
+        ("ip_cidr_mapped", {"query": {"term": {
+            "clientip": "::ffff:0:0/96"}}, "size": 20}),
+        ("ip_range_v4", {"query": {"range": {"clientip": {
+            "gte": "192.168.0.0", "lt": "193.0.0.0"}}}, "size": 20}),
+        ("ip_range_v6", {"query": {"range": {"clientip": {
+            "gt": "2001:db8:8000::"}}}, "size": 20}),
+        ("range_intersects", {"query": {"range": {"slots": {
+            "gte": 100, "lte": 110}}}, "size": 20}),
+        ("range_within", {"query": {"range": {"slots": {
+            "gte": 0, "lte": 60, "relation": "within"}}}, "size": 20}),
+        ("range_contains", {"query": {"range": {"slots": {
+            "gte": 500, "lte": 502, "relation": "contains"}}},
+            "size": 20}),
+        ("range_date", {"query": {"range": {"period": {
+            "gte": "2021-06-01", "lte": "2021-06-30"}}}, "size": 20}),
+        ("rank_saturation", {"query": {"rank_feature": {
+            "field": "pagerank"}}, "size": 20}),
+        ("rank_saturation_pivot", {"query": {"rank_feature": {
+            "field": "pagerank", "saturation": {"pivot": 2.5}}},
+            "size": 20}),
+        ("rank_log", {"query": {"rank_feature": {
+            "field": "pagerank", "log": {"scaling_factor": 1.5}}},
+            "size": 20}),
+        ("rank_sigmoid", {"query": {"rank_feature": {
+            "field": "pagerank", "sigmoid": {"pivot": 3.0,
+                                             "exponent": 0.6}}},
+            "size": 20}),
+        ("rank_hybrid", {"query": {"bool": {
+            "must": [{"match": {FIELD: q0}}],
+            "should": [{"rank_feature": {"field": "pagerank",
+                                         "saturation": {"pivot": 2.0}}}]}},
+            "size": 20}),
+    ] + [
+        (f"nested_{mode}", {"query": {"bool": {
+            "must": [{"match": {FIELD: q0}}],
+            "should": [{"nested": {"path": "comments", "score_mode": mode,
+                                   "query": nested}}]}}, "size": 20})
+        for mode in ("sum", "avg", "min", "max", "none")]
+    return [(FIELDS_INDEX, label, b) for label, b in out] + [
+        (QUERIES_INDEX, "percolate", {"query": {"percolate": {
+            "field": "query", "documents": docs}}, "size": 50})]
+
+
+def fields_phase(host, port, node, corpus, bodies, mk, smi):
+    """The rarer field types and the analysis chain on the same node:
+    the `fields` index (FIELDS_DOCS docs over FIELDS_SHARDS shards by
+    _bulk, the text under the custom chain) and a `queries` index of
+    STORED_QUERIES percolator queries. The kernel path: the 256 match
+    bodies on the analyzed field (no _source) from REST_CLIENTS clients,
+    then FIELDS_EXACT of them with boost 1e-15, counts reset just before and
+    read just after (the merge kernels, exact_merge and shard_topk must
+    each launch), every fused_merge_topk shape, exact merge and
+    shard_topk call against its plain version bit for bit. The planner
+    path: the mix of fields_planner_bodies once cold and once warm (q/s
+    and per-request ms of the warm pass), the device busy share of one
+    more pass under the profiler; per body and shard execute_query on
+    the card == the CPU plain path, and the response == the merge of
+    the card's shard results → (line, launches of the kernel path)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from elasticsearch_tpu_torch.search import dsl
+    from elasticsearch_tpu_torch.search.gpu_service import lower_query
+
+    t_phase = time.perf_counter()
+    out = {"nvidia_smi": smi, "docs": FIELDS_DOCS, "shards": FIELDS_SHARDS,
+           "stored_queries": STORED_QUERIES,
+           "note": ("cut from 1M documents to 50,000 to keep the phase "
+                    "near 120 s (the analysis chain runs in Python at "
+                    "ingest); shapes from the Rally tracks "
+                    "geonames (location), http_logs (clientip) and nested "
+                    "(objects in an array), data from the seed")}
+    settings = fields_analysis(corpus)
+    for index, mapping, shards in (
+            (FIELDS_INDEX, FIELDS_MAPPING, FIELDS_SHARDS),
+            (QUERIES_INDEX, {"properties": dict(
+                FIELDS_MAPPING["properties"],
+                query={"type": "percolator"})}, 1)):
+        status, resp = rest_http(host, port, "PUT", f"/{index}", {
+            "settings": dict(settings, number_of_shards=shards),
+            "mappings": mapping})
+        if status != 200:
+            raise AssertionError(f"PUT {index}: {resp}")
+    out["ingest_s"] = fields_bulk_load(host, port, corpus)
+    out["ingest_docs_per_s"] = FIELDS_DOCS / out["ingest_s"]
+    lines = []
+    for i, q in enumerate(stored_queries(corpus)):
+        lines += ['{"index":{"_id":"q%d"}}' % i, json.dumps({"query": q})]
+    for raw, path in (("\n".join(lines) + "\n", f"/{QUERIES_INDEX}/_bulk"),
+                      (None, f"/{QUERIES_INDEX}/_refresh")):
+        status, resp = rest_http(host, port, "POST", path,
+                                 raw=raw.encode() if raw else None)
+        if status != 200 or (resp or {}).get("errors"):
+            raise AssertionError(f"{path}: {str(resp)[:500]}")
+
+    out["stored_queries_s"] = time.perf_counter() - t_phase \
+        - out["ingest_s"]
+
+    # -- the kernel path under the chain ---------------------------------
+    t_kernel = time.perf_counter()
+    mapper = node.indices.index(FIELDS_INDEX).mapper
+    expanded = stopped = 0
+    for b in bodies:
+        spec = b["query"]["match"][FIELD]
+        text = spec if isinstance(spec, str) else spec["query"]
+        flat = lower_query(dsl.parse_query(b["query"]), mapper)
+        words = text.split()
+        expanded += len(flat.terms) > len(words)
+        stopped += any(w in settings["analysis"]["filter"]["corpus_stop"][
+            "stopwords"] for w in words)
+    if not expanded:
+        raise AssertionError("no body's terms expand through the synonyms")
+    # without _source: the rest line measures the fetch; here the
+    # ~2 KB sources (a 64-dim vector each) would take most of the run
+    run_bodies = [dict(b, _source=False) for b in bodies]
+    exact_run = exact_bodies(run_bodies[:FIELDS_EXACT])
+    rest_queries(host, port, run_bodies[:8], FIELDS_INDEX)  # builds the pack
+    mk.reset_launches()
+    with LaunchRecorder(mk) as rec, TopkRecorder(mk) as top, \
+            LaunchRecorder(mk, "exact_merge_topk", every=True) as ex:
+        responses, wall = rest_queries(host, port, run_bodies,
+                                       FIELDS_INDEX)
+        exact_resp, exact_wall = rest_queries(host, port, exact_run,
+                                              FIELDS_INDEX)
+        torch.cuda.synchronize()
+    launches = dict(mk.LAUNCHES)
+    zero = [n for n in MAIN_KERNELS + EXACT_KERNELS if launches[n] <= 0]
+    if zero:
+        raise AssertionError(f"fields: kernels not launched on the "
+                             f"analyzed field: {zero}")
+    worst = 0.0
+    shapes = list(rec.shapes.values())
+    for args, kw in shapes:
+        _, err, _ = check_launch(mk, "fields", args, kw)
+        worst = max(worst, err)
+    out["kernel_path"] = dict(
+        queries=len(responses), wall_s=wall, qps=len(responses) / wall,
+        exact_queries=len(exact_resp), exact_wall_s=exact_wall,
+        hits=sum(len(r["hits"]["hits"]) for r in responses),
+        bodies_expanded_by_synonyms=expanded,
+        bodies_with_stop_words=stopped, launches=launches,
+        parity=dict(fused_merge_topk_shapes=len(shapes), max_abs_err=worst,
+                    exact_merge=check_exact_launches(mk, ex.launches),
+                    shard_topk=check_topk_calls(mk, top.calls),
+                    tolerance="bitwise: scores as uint32, docs and "
+                              "totals exact"))
+    del shapes, responses, exact_resp
+    out["kernel_path"]["phase_s"] = time.perf_counter() - t_kernel
+
+    # -- the planner path over the rarer types ---------------------------
+    t_planner = time.perf_counter()
+    mix = fields_planner_bodies(corpus)
+
+    def send(index, label, body):
+        return search_once(host, port, "fields", index, label, body)
+
+    t0 = time.perf_counter()
+    cold = [send(*b) for b in mix]
+    torch.cuda.synchronize()
+    cold_wall = time.perf_counter() - t0
+    responses = [r for r, _ in cold]
+    empty = [label for (_, label, _), r in zip(mix, responses)
+             if not r["hits"]["hits"]]
+    if empty:
+        raise AssertionError(f"fields: bodies matching nothing: {empty}")
+    times = []
+    t0 = time.perf_counter()
+    for (index, label, body), want in zip(mix, responses):
+        resp, ms = send(index, label, body)
+        times.append(ms)
+        if hits_of([resp]) != hits_of([want]) or \
+                resp["hits"]["total"] != want["hits"]["total"]:
+            raise AssertionError(f"fields {label}: the warm pass's hits "
+                                 f"differ from the cold pass's")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in mix:
+            send(*b)
+        torch.cuda.synchronize()
+        busy_wall = time.perf_counter() - t0
+    busy = device_busy_ms(prof)
+
+    t_checks = time.perf_counter()
+    checked = check_shards_on_card(node, "fields", mix, responses)
+    for index in (FIELDS_INDEX, QUERIES_INDEX):
+        status, resp = rest_http(host, port, "DELETE", f"/{index}")
+        if status != 200:
+            raise AssertionError(f"DELETE {index}: {resp}")
+    out["planner"] = dict(
+        requests=len(times), cold_wall_s=cold_wall, wall_s=wall,
+        qps=len(times) / wall,
+        request_ms={"mean": statistics.mean(times),
+                    "p50": statistics.median(times), "max": max(times)},
+        slowest=mix[times.index(max(times))][1],
+        per_body_ms={label: ms for (_, label, _), ms in zip(mix, times)},
+        cold_per_body_ms={label: ms for (_, label, _), (_, ms)
+                          in zip(mix, cold)},
+        totals={label: r["hits"]["total"]["value"]
+                for (_, label, _), r in zip(mix, responses)},
+        device_busy_ms=busy if busy > 0 else "not measured",
+        device_busy_share=(busy / 1e3 / busy_wall) if busy > 0
+        else "not measured",
+        device_busy_of="one more pass of the mix under torch.profiler",
+        shards_checked=checked, checks_s=time.perf_counter() - t_checks,
+        phase_s=time.perf_counter() - t_planner,
+        parity=("every body and shard: execute_query on the card == the "
+                "CPU plain path (ids, scores as uint32, totals), and the "
+                "response == the merge of the card's shard results"))
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, launches
 
 
 def rest_phase(corpus, bodies, mk, smi, e2e_responses, data_root,
@@ -1798,6 +2246,8 @@ def rest_phase(corpus, bodies, mk, smi, e2e_responses, data_root,
         del runs, segments, svc
         planner, planner_kernels = planner_phase(host, port, node, corpus,
                                                  mk, smi)
+        fields, fields_launches = fields_phase(host, port, node, corpus,
+                                               bodies, mk, smi)
         delta, delta_kernels, delta_launches = delta_phase(
             host, port, node, corpus, bodies, mk, smi)
         status, resp = rest_http(host, port, "DELETE", f"/{REST_INDEX}")
@@ -1831,7 +2281,8 @@ def rest_phase(corpus, bodies, mk, smi, e2e_responses, data_root,
         shutil.rmtree(data, ignore_errors=True)
     return out, dict(launches["source"],
                      exact_merge=launches["exact"]["exact_merge"]), \
-        planner, planner_kernels, delta, delta_kernels, delta_launches
+        planner, planner_kernels, delta, delta_kernels, delta_launches, \
+        fields, fields_launches
 
 
 def time_events(fn, n):
@@ -2895,11 +3346,13 @@ def main() -> int:
         del big_topk
         # -- rest: the node over HTTP, the path users call -------------
         rest, rest_launches, planner, planner_kernels, delta, \
-            delta_kernels, delta_launches = rest_phase(
+            delta_kernels, delta_launches, fields, \
+            fields_launches = rest_phase(
                 corpus, bodies, mk, smi, responses,
                 os.path.join(here, "data"), exact_run, exact_responses)
         log("rest", **rest)
         log("planner", **planner)
+        log("fields", **fields)
         log("delta", **delta)
         kernels += planner_kernels
         # -- raw: segments past 65,408 docs, a raw pack, the pruned tiers
@@ -2912,6 +3365,7 @@ def main() -> int:
         kernels += raw_kernels + delta_kernels
         for entry in kernels:
             name = entry.get("kernel", entry["name"].split(".", 1)[1])
+            entry["launches_fields"] = fields_launches.get(name, 0)
             entry["launches_delta"] = delta_launches.get(
                 "pruned_candidates.pack_keys"
                 if entry["name"].endswith(".pack_keys") else name, 0)

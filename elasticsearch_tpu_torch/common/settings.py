@@ -9,7 +9,7 @@ here.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterable, Optional
 
 from elasticsearch_tpu_torch.common.errors import SettingsException
 
@@ -52,6 +52,12 @@ class Settings:
 
     def get(self, key: str, default: Any = None) -> Any:
         return self._map.get(key, default)
+
+    def raw_get(self, key: str) -> Any:
+        return self._map.get(key)
+
+    def keys(self) -> Iterable[str]:
+        return self._map.keys()
 
     def get_as_dict(self) -> Dict[str, Any]:
         return dict(self._map)

@@ -1618,8 +1618,9 @@ select_rescore_kernel(Streams s, Slots p, const float* cand_score,
 // 6. shard_topk: the cross-shard top-k (and the exact merge's final top-k)
 // ---------------------------------------------------------------------------
 
-// A row's finalist key: the value's order bits (NaN above +inf, where a
-// stable descending torch.sort puts it; -0 with +0), then the position
+// A row's finalist key: the value's order bits (the IEEE total order
+// lax.top_k ranks by: -NaN below -inf, +NaN above +inf, -0 below +0),
+// then the position
 // reversed in the low kTopPosBits, so a larger key is a larger value or,
 // between equal values, the earlier position: lax.top_k's order. The
 // keys of a row are unique, and every key is above 0.
@@ -1635,9 +1636,11 @@ constexpr int kTopMaxRuns = 1024; // slices of a device-class row
 // size classes of shard_topk (rows per class)
 enum { kTopStaged = 0, kTopShared, kTopDevice };
 
-// A value's order bits: NaN above +inf, -0 with +0.
+// A value's order bits in the IEEE total order (NaN by its sign bit,
+// -0 below +0).
 __device__ __forceinline__ uint32_t topk_ob(float v) {
-  return v != v ? 0xFFFFFFFFu : order_bits(v);
+  const uint32_t u = __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
 __device__ __forceinline__ unsigned long long topk_key(uint32_t ob, int pos) {

@@ -6,7 +6,8 @@ reads), and ``SegmentPack`` / ``build_segment_pack``, every packed field
 of one segment with its doc-value columns padded to ``d_pad`` (what the
 planner reads; live docs stay with the reader). flat_docs pads with
 d_pad (one past the last real doc row); an i64 column pads with
-MISSING_I64, an f64 one with NaN, an ordinal one with -1. The arrays
+MISSING_I64, an f64 one with NaN, an ordinal one with -1, a dense
+vector's rows with NaN. The arrays
 stay on the host; the planner copies to the card only what a query
 touches.
 """
@@ -63,6 +64,8 @@ class SegmentPack:
     dv_i64: Dict[str, np.ndarray]
     dv_f64: Dict[str, np.ndarray]
     dv_ord: Dict[str, np.ndarray]
+    # dense_vector matrices f32[d_pad, dims] (NaN rows = missing/padding)
+    dv_vec: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
 
 
 def build_field_pack(segment: Segment, field: str,
@@ -105,8 +108,14 @@ def build_segment_pack(segment: Segment) -> SegmentPack:
     dv_i64: Dict[str, np.ndarray] = {}
     dv_f64: Dict[str, np.ndarray] = {}
     dv_ord: Dict[str, np.ndarray] = {}
+    dv_vec: Dict[str, np.ndarray] = {}
     for field, col in segment.doc_values.items():
-        if col.kind == "i64":
+        if col.kind == "vec":
+            a = np.full((d_pad, col.values.shape[1]), np.nan,
+                        dtype=np.float32)
+            a[: segment.num_docs] = col.values
+            dv_vec[field] = a
+        elif col.kind == "i64":
             a = np.full(d_pad, MISSING_I64, dtype=np.int64)
             a[: segment.num_docs] = col.values
             dv_i64[field] = a
@@ -119,7 +128,7 @@ def build_segment_pack(segment: Segment) -> SegmentPack:
             a[: segment.num_docs] = col.values
             dv_ord[field] = a
     return SegmentPack(segment.name, segment.num_docs, d_pad, fields,
-                       dv_i64, dv_f64, dv_ord)
+                       dv_i64, dv_f64, dv_ord, dv_vec)
 
 
 def segment_pack(segment: Segment) -> SegmentPack:

@@ -98,6 +98,13 @@ class ShardReader:
             mask |= ~np.isnan(pack.dv_f64[field])
         if field in pack.dv_ord:
             mask |= pack.dv_ord[field] >= 0
+        # split-column field types store under synthetic suffixes
+        # (geo_point ._lat/._lon; ip is covered by its indexed terms)
+        lat = pack.dv_f64.get(field + "._lat")
+        if lat is not None:
+            mask |= ~np.isnan(lat)
+        if field in pack.dv_vec:
+            mask |= ~np.isnan(pack.dv_vec[field][:, 0])
         self._has_field_cache[key] = mask
         return mask
 

@@ -6,9 +6,10 @@ buffers parsed documents and ``freeze()`` emits a ``Segment`` whose
 per-field postings are (doc ids i32[], tfs i32[]) sorted by doc, with
 SmallFloat-encoded norms, the exact field statistics BM25 needs,
 doc-value columns (``DocValuesColumn``: keyword ordinals, i64 numbers,
-dates and booleans, f64 floats), the text fields' term slots (positions
-for phrase queries, read per candidate doc) and each doc's seq_no, primary term
-and version. ``merge_segments`` concatenates segments in order and
+dates and booleans, f64 floats, f32 dense vectors), the text fields'
+term slots (positions for phrase queries, read per candidate doc), the
+nested objects of each doc (``nested_store``, matched object by object)
+and each doc's seq_no, primary term and version. ``merge_segments`` concatenates segments in order and
 drops tombstoned docs, as the reference's force merge does. Live docs
 are a mask owned by the shard's engine; segments stay immutable.
 ``_build_postings`` is the reference's sort-based builder, verbatim.
@@ -31,9 +32,10 @@ MISSING_I64 = -(2**63)
 
 @dataclasses.dataclass
 class DocValuesColumn:
-    kind: str  # "i64" | "f64" | "ord"
-    # i64 (MISSING_I64 = missing), f64 (NaN = missing) or, for "ord",
-    # i32 ordinals into ord_terms (-1 = missing)
+    kind: str  # "i64" | "f64" | "ord" | "vec"
+    # i64 (MISSING_I64 = missing), f64 (NaN = missing), for "ord" i32
+    # ordinals into ord_terms (-1 = missing), for "vec" f32[n, dims]
+    # (NaN rows = missing)
     values: np.ndarray
     # multi-valued docs: values stores the FIRST value; extra values per doc here
     extra: Dict[int, List[Any]]
@@ -61,8 +63,10 @@ class Segment:
                  seq_nos: Optional[np.ndarray] = None,
                  primary_terms: Optional[np.ndarray] = None,
                  doc_versions: Optional[np.ndarray] = None,
-                 token_slots: Optional[Dict[str, Dict[int, List[List[str]]]]]
-                 = None):
+                 token_slots: Optional[Dict[str, Dict[int, List[list]]]]
+                 = None,
+                 nested_store: Optional[Dict[str, Dict[int, List[Dict[
+                     str, List[Any]]]]]] = None):
         self.name = name
         self.num_docs = num_docs
         self.doc_ids = doc_ids                # local doc ord → external _id
@@ -75,6 +79,8 @@ class Segment:
         # text field → {doc ord: per-value term slots}: the positions
         # phrase queries read
         self.token_slots = token_slots or {}
+        # nested root → {doc ord: [per-object {subfield: [raw values]}]}
+        self.nested_store = nested_store or {}
         self._pack = None   # index/pack.py's SegmentPack, built on first use
         # per-doc write metadata, persisted so versioning survives a restart
         self.seq_nos = seq_nos if seq_nos is not None else \
@@ -119,7 +125,8 @@ class SegmentWriter:
         self.name = name
         self._doc_ids: List[str] = []
         self._doc_terms: Dict[str, List[Tuple[int, List[str]]]] = {}
-        self._doc_slots: Dict[str, Dict[int, List[List[str]]]] = {}
+        self._doc_slots: Dict[str, Dict[int, List[list]]] = {}
+        self._nested: Dict[str, Dict[int, List[Dict[str, List[Any]]]]] = {}
         self._field_lengths: Dict[str, Dict[int, int]] = {}
         self._field_stats: Dict[str, FieldStats] = {}
         self._doc_values: Dict[str, Dict[int, Any]] = {}
@@ -150,6 +157,9 @@ class SegmentWriter:
                 self._doc_terms.setdefault(field, []).append((ord_, terms))
         for field, slot_lists in doc.term_slots.items():
             self._doc_slots.setdefault(field, {})[ord_] = slot_lists
+        for root, objs in doc.nested.items():
+            if objs:
+                self._nested.setdefault(root, {})[ord_] = objs
         for field, length in doc.field_lengths.items():
             self._field_lengths.setdefault(field, {})[ord_] = length
             stats = self._field_stats.setdefault(field, FieldStats())
@@ -189,7 +199,9 @@ class SegmentWriter:
                                               dtype=np.int64),
                        doc_versions=np.array(self._versions, dtype=np.int64),
                        token_slots={f: dict(d)
-                                    for f, d in self._doc_slots.items()})
+                                    for f, d in self._doc_slots.items()},
+                       nested_store={r: dict(d)
+                                     for r, d in self._nested.items()})
 
 
 def _build_postings(entries: List[Tuple[int, List[str]]], n: int
@@ -235,6 +247,13 @@ def _build_dv_column(kind: str, per_doc: Dict[int, Any], n: int
     """A doc-value column of `kind` over n docs: the first value of each
     doc in `values`, the rest in `extra`."""
     extra: Dict[int, List[Any]] = {}
+    if kind == "vec":
+        # one fixed-dim vector per doc: the value is the list
+        dims = len(next(iter(per_doc.values()))) if per_doc else 0
+        values = np.full((n, max(dims, 1)), np.nan, dtype=np.float32)
+        for d, v in per_doc.items():
+            values[d] = np.asarray(v, dtype=np.float32)
+        return DocValuesColumn("vec", values, extra)
     if kind == "ord":
         uniq = set()
         for v in per_doc.values():
@@ -292,7 +311,8 @@ def merge_segments(name: str, segments: List[Segment],
         + [np.zeros(0, dtype=np.int64)])
 
     postings: Dict[str, Dict[str, Tuple[np.ndarray, np.ndarray]]] = {}
-    token_slots: Dict[str, Dict[int, List[List[str]]]] = {}
+    token_slots: Dict[str, Dict[int, List[list]]] = {}
+    nested_store: Dict[str, Dict[int, List[Dict[str, List[Any]]]]] = {}
     for m, seg in zip(remap, segments):
         for field, per_doc in seg.token_slots.items():
             out = token_slots.setdefault(field, {})
@@ -300,6 +320,11 @@ def merge_segments(name: str, segments: List[Segment],
                 nd = int(m[d])
                 if nd >= 0:
                     out[nd] = slot_lists
+        for root, per_doc in seg.nested_store.items():
+            for d, objs in per_doc.items():
+                nd = int(m[d])
+                if nd >= 0:
+                    nested_store.setdefault(root, {})[nd] = objs
     norms: Dict[str, np.ndarray] = {}
     field_stats: Dict[str, FieldStats] = {}
     dv_parts: Dict[str, List[Tuple[int, DocValuesColumn, np.ndarray]]] = {}
@@ -363,6 +388,12 @@ def merge_segments(name: str, segments: List[Segment],
                 new = int(m[old])
                 if new < 0:
                     continue
+                if col.kind == "vec":
+                    row = col.values[old]
+                    if np.isnan(row).any():
+                        continue
+                    per_doc[new] = row
+                    continue
                 if col.kind == "ord":
                     if col.values[old] < 0:
                         continue
@@ -382,7 +413,7 @@ def merge_segments(name: str, segments: List[Segment],
     return Segment(name, n, doc_ids, postings, norms, field_stats, stored,
                    exact_lengths, doc_values=doc_values, seq_nos=seq_nos,
                    primary_terms=primary_terms, doc_versions=doc_versions,
-                   token_slots=token_slots)
+                   token_slots=token_slots, nested_store=nested_store)
 
 
 class TokenSources:

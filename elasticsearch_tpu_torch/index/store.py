@@ -1,7 +1,6 @@
 """Segment persistence: the on-disk commit format.
 
-Copy of the reference's ``index/store.py`` (nested stores left out). A
-commit is:
+Copy of the reference's ``index/store.py``. A commit is:
 
   <dir>/segments/<name>.npz       postings/norms/doc-values arrays
   <dir>/segments/<name>.json      vocab, doc ids, stored sources, the
@@ -52,6 +51,9 @@ def save_segment(path: str, seg: Segment) -> Dict[str, int]:
         "token_slots": {
             f: {str(d): sl for d, sl in per_doc.items()}
             for f, per_doc in seg.token_slots.items()},
+        "nested": {
+            r: {str(d): objs for d, objs in per_doc.items()}
+            for r, per_doc in seg.nested_store.items()},
         "postings_fields": {}, "dv": {},
     }
     for field, terms in seg.postings.items():
@@ -144,7 +146,10 @@ def load_segment(path: str, name: str,
                    token_slots={
                        f: {int(d): sl for d, sl in per_doc.items()}
                        for f, per_doc in meta.get("token_slots",
-                                                  {}).items()})
+                                                  {}).items()},
+                   nested_store={
+                       r: {int(d): objs for d, objs in per_doc.items()}
+                       for r, per_doc in meta.get("nested", {}).items()})
 
 
 def write_commit(path: str, *, segments: List[str],

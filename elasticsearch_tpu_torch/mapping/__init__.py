@@ -4,5 +4,8 @@
 from elasticsearch_tpu_torch.mapping.mapper import (  # noqa: F401
     DocumentMapper, MapperService, ParsedDocument)
 from elasticsearch_tpu_torch.mapping.types import (  # noqa: F401
-    BooleanFieldType, DateFieldType, FieldType, KeywordFieldType,
-    NumberFieldType, TextFieldType, field_type_for, parse_date_millis)
+    BooleanFieldType, CompletionFieldType, DateFieldType,
+    DenseVectorFieldType, FieldType, GeoPointFieldType, IpFieldType,
+    KeywordFieldType, NumberFieldType, PercolatorFieldType,
+    RangeFieldType, RankFeatureFieldType, TextFieldType, field_type_for,
+    parse_date_millis)

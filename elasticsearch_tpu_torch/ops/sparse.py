@@ -378,10 +378,15 @@ def hierarchical_top_k(score: torch.Tensor, k: int
 def top_k_plain(score: torch.Tensor, k: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """hierarchical_top_k as a stable descending sort on whatever device
-    the tensor lies: the plain pipeline's top-k."""
+    the tensor lies: the plain pipeline's top-k. It sorts by the IEEE
+    total order of the f32 bits, as lax.top_k ranks: -NaN below -inf,
+    +NaN above +inf, -0 below +0."""
     kk = min(k, score.shape[1])
-    vals, pos = torch.sort(score, dim=1, descending=True, stable=True)
-    return vals[:, :kk], pos[:, :kk]
+    u = score.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    key = torch.where(u >= 0x80000000, u ^ 0xFFFFFFFF, u | 0x80000000)
+    _, pos = torch.sort(key, dim=1, descending=True, stable=True)
+    pos = pos[:, :kk]
+    return torch.gather(score, 1, pos), pos
 
 
 def _gather(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

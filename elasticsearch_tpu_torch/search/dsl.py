@@ -6,13 +6,13 @@ grammar refuses is a ``parsing_exception``, an unknown query name
 included; a well-formed query the kernel path does not serve is for
 ``lower_query`` (``search/gpu_service.py``) and the coordinator to refuse.
 
-Two parsers lean on modules the port has not got yet, and keep a copy
-of the part they need here: the geo queries parse their points with the
-reference's ``GeoPointFieldType.parse_point`` rules (``_parse_point``),
-and ``script_score`` (the query, and the ``function_score`` function)
-checks the REST script envelope as the reference's ``compile_script``
-does (``_parse_script``), keeping the script's source unparsed: the
-script language itself comes with the script module.
+The geo queries parse their points with ``GeoPointFieldType.parse_point``
+(``mapping/types.py``). ``script_score`` (the query, and the
+``function_score`` function) leans on a module the port has not got
+yet and keeps a copy of the part it needs: it checks the REST script
+envelope as the reference's ``compile_script`` does (``_parse_script``),
+keeping the script's source unparsed; the script language itself comes
+with the script module.
 """
 
 from __future__ import annotations
@@ -722,10 +722,13 @@ def _parse_geo_bounding_box(body) -> GeoBoundingBoxQuery:
     if field is None or not isinstance(spec, dict):
         raise ParsingException(
             "[geo_bounding_box] requires a field with corner points")
+    from elasticsearch_tpu_torch.mapping.types import GeoPointFieldType
     try:
         if "top_left" in spec and "bottom_right" in spec:
-            top, left = _parse_point(spec["top_left"])
-            bottom, right = _parse_point(spec["bottom_right"])
+            # a mapper error stays itself here (it is a ParsingException)
+            top, left = GeoPointFieldType.parse_point(spec["top_left"])
+            bottom, right = GeoPointFieldType.parse_point(
+                spec["bottom_right"])
         elif all(k in spec for k in ("top", "left", "bottom", "right")):
             top, left = float(spec["top"]), float(spec["left"])
             bottom, right = float(spec["bottom"]), float(spec["right"])
@@ -813,7 +816,7 @@ _PARSERS = {
 
 
 # ---------------------------------------------------------------------------
-# copies of what two parsers need from modules the port has not got yet
+# what the script and geo parsers need from other modules
 # ---------------------------------------------------------------------------
 
 #: the script languages the reference's script module implements
@@ -856,73 +859,11 @@ def _parse_script(spec: Any) -> ScriptSpec:
     return ScriptSpec(source, params, lang)
 
 
-_GEOHASH32 = "0123456789bcdefghjkmnpqrstuvwxyz"
-
-
 def _parse_point(value: Any) -> Tuple[float, float]:
-    """The reference's GeoPointFieldType.parse_point: {"lat","lon"},
-    "lat,lon", [lon, lat] (GeoJSON order) or a geohash → (lat, lon)."""
-    if isinstance(value, dict):
-        if "lat" not in value or "lon" not in value:
-            raise ParsingException(
-                "geo_point object must have [lat] and [lon]")
-        lat, lon = _as_float(value["lat"]), _as_float(value["lon"])
-    elif isinstance(value, (list, tuple)):
-        if len(value) != 2:
-            raise ParsingException("geo_point array must be [lon, lat]")
-        lon, lat = _as_float(value[0]), _as_float(value[1])
-    elif isinstance(value, str):
-        if "," in value:
-            parts = value.split(",")
-            if len(parts) != 2:
-                raise ParsingException(
-                    f"failed to parse geo_point [{value}]")
-            try:
-                lat, lon = float(parts[0]), float(parts[1])
-            except ValueError:
-                raise ParsingException(
-                    f"failed to parse geo_point [{value}]") from None
-        else:
-            lat, lon = _geohash_decode(value)
-    else:
-        raise ParsingException(f"failed to parse geo_point [{value!r}]")
-    if not -90.0 <= lat <= 90.0:
-        raise ParsingException(f"latitude [{lat}] out of range [-90, 90]")
-    if not -180.0 <= lon <= 180.0:
-        raise ParsingException(
-            f"longitude [{lon}] out of range [-180, 180]")
-    return lat, lon
-
-
-def _as_float(v: Any) -> float:
-    """float(v), whose error the reference turns into a ParsingException
-    with the error's text."""
+    """GeoPointFieldType.parse_point, its errors as a ParsingException
+    with their text (the reference's parsers do the same)."""
+    from elasticsearch_tpu_torch.mapping.types import GeoPointFieldType
     try:
-        return float(v)
-    except (TypeError, ValueError) as e:
+        return GeoPointFieldType.parse_point(value)
+    except Exception as e:  # noqa: BLE001 — mapper error → parse error
         raise ParsingException(str(e)) from None
-
-
-def _geohash_decode(gh: str) -> Tuple[float, float]:
-    lat_lo, lat_hi = -90.0, 90.0
-    lon_lo, lon_hi = -180.0, 180.0
-    even = True
-    for c in gh.lower():
-        idx = _GEOHASH32.find(c)
-        if idx < 0:
-            raise ParsingException(f"invalid geohash character [{c}]")
-        for bit in (16, 8, 4, 2, 1):
-            if even:
-                mid = (lon_lo + lon_hi) / 2
-                if idx & bit:
-                    lon_lo = mid
-                else:
-                    lon_hi = mid
-            else:
-                mid = (lat_lo + lat_hi) / 2
-                if idx & bit:
-                    lat_lo = mid
-                else:
-                    lat_hi = mid
-            even = not even
-    return (lat_lo + lat_hi) / 2, (lon_lo + lon_hi) / 2

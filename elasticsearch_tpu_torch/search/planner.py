@@ -17,12 +17,18 @@ verification is host-side over the candidate docs, as in the reference.
 
 Also here: ``choose_kernel_variant``, the kernel path's variant choice.
 
-Query types of field types the port does not map yet: geo and nested
-queries match nothing (no such column or store can exist), as the
-reference computes for them; ``percolate`` raises its
-QueryShardException; ``script_score`` (the query, or a function of
-``function_score``), ``knn_score_doc`` and ``rank_feature`` over a
-numeric column raise NotLowerable, naming the queue item they wait for.
+The rarer field types: ``rank_feature`` is column math on the f64 (or
+i64) doc values, its log through ``ops/xla_math.xla_logf`` and its
+sigmoid's power through ``xla_math.xla_powf`` (XLA:CPU's, op for op);
+``geo_distance`` is ``ops/geo.distance_mask`` and ``geo_bounding_box``
+comparisons on the lat/lon columns; an ip range or CIDR term compares
+the (hi, lo) column pair lexicographically, with presence from the
+exists mask; a range field matches by interval relation (intersects,
+within, contains). ``nested`` and ``percolate`` run on the host object
+by object and stored query by stored query, as in the reference, and
+copy their masks to the device. ``script_score`` (the query, or a
+function of ``function_score``) and ``knn_score_doc`` raise
+NotLowerable, naming the queue item they wait for.
 """
 
 from __future__ import annotations
@@ -39,10 +45,17 @@ from elasticsearch_tpu_torch.common.errors import (NotLowerable,
 from elasticsearch_tpu_torch.index.reader import SegmentView, ShardReader
 from elasticsearch_tpu_torch.index.segment import MISSING_I64
 from elasticsearch_tpu_torch.mapping.types import (FieldType,
+                                                   GeoPointFieldType,
+                                                   IpFieldType,
                                                    KeywordFieldType,
+                                                   PercolatorFieldType,
+                                                   RangeFieldType,
+                                                   RankFeatureFieldType,
                                                    TextFieldType)
-from elasticsearch_tpu_torch.ops import bm25, sparse
-from elasticsearch_tpu_torch.ops.xla_math import xla_log10f, xla_logf
+from elasticsearch_tpu_torch.ops import bm25, geo, sparse
+from elasticsearch_tpu_torch.ops.xla_math import (x86_nan_like, xla_ftz,
+                                                  xla_log10f, xla_logf,
+                                                  xla_powf)
 from elasticsearch_tpu_torch.ops.smallfloat import (LENGTH_TABLE,
                                                     bm25_norm_cache)
 from elasticsearch_tpu_torch.parallel.device import resolve_device
@@ -194,6 +207,16 @@ class SegmentQueryExecutor:
         if isinstance(node, dsl.MatchQuery):
             return self._eval_match(node, scoring)
         if isinstance(node, dsl.TermQuery):
+            ft = self.reader.mapper.field_type(node.field)
+            if isinstance(ft, IpFieldType) and "/" in str(node.value):
+                # a CIDR term is an address range
+                lo, hi = IpFieldType.cidr_bounds(node.value)
+                return self._eval_ip_range(node.field, lo, hi, node.boost)
+            if isinstance(ft, RangeFieldType):
+                v = ft.parse_bound(node.value)
+                return self._eval_range_field(
+                    dsl.RangeQuery(field=node.field, gte=v, lte=v,
+                                   boost=node.boost), ft)
             return self._eval_terms(node.field, [node.value], node.boost,
                                     scoring, "or", 1)
         if isinstance(node, dsl.TermsQuery):
@@ -238,16 +261,15 @@ class SegmentQueryExecutor:
         if isinstance(node, dsl.KnnScoreDocQuery):
             raise NotLowerable("a [knn] search (Queue A7)")
         if isinstance(node, dsl.RankFeatureQuery):
-            return self._eval_rank_feature(node)
-        if isinstance(node, (dsl.GeoDistanceQuery, dsl.GeoBoundingBoxQuery,
-                             dsl.NestedQuery)):
-            # no geo_point column and no nested store exist in the port's
-            # segments: the reference's evaluators match nothing there
-            return self._none()
+            return self._eval_rank_feature(node, scoring)
+        if isinstance(node, dsl.GeoDistanceQuery):
+            return self._eval_geo_distance(node)
+        if isinstance(node, dsl.GeoBoundingBoxQuery):
+            return self._eval_geo_bbox(node)
+        if isinstance(node, dsl.NestedQuery):
+            return self._eval_nested(node, scoring)
         if isinstance(node, dsl.PercolateQuery):
-            raise QueryShardException(
-                f"[percolate] field [{node.field}] is not a "
-                f"[percolator] field")
+            return self._eval_percolate(node, scoring)
         raise QueryShardException(f"unsupported query [{node.query_name()}]")
 
     def _eval_multi_match(self, node: dsl.MultiMatchQuery,
@@ -477,14 +499,234 @@ class SegmentQueryExecutor:
             vals = torch.where(vals != 0, 1.0 / vals, zero)
         return vals.to(torch.float32)
 
-    def _eval_rank_feature(self, node: dsl.RankFeatureQuery) -> Pair:
-        """The reference scores a numeric column; without one (the
-        field unmapped, or a text/keyword field) it matches nothing."""
+    # ---- the rarer field types ----
+
+    def _f32(self, value: float) -> torch.Tensor:
+        return torch.tensor(value, dtype=torch.float32, device=self.device)
+
+    def _eval_rank_feature(self, node: dsl.RankFeatureQuery,
+                           scoring: bool) -> Pair:
+        """Feature-value scoring on a numeric column (reference:
+        RankFeatureQuery); docs without a value do not match. Every step
+        in f32 as the reference's weakly typed scalars give it, each
+        denormal result flushed as XLA:CPU flushes it."""
+        vals, present = self._dv_column(node.field)
+        mask = present
+        if not scoring:
+            return mask, torch.zeros(self.d_pad, dtype=torch.float32,
+                                     device=self.device)
+        zero = torch.zeros_like(vals)
+        ft = self.reader.mapper.field_type(node.field)
+        if isinstance(ft, RankFeatureFieldType) \
+                and not ft.positive_score_impact:
+            # negative impact: smaller values score higher
+            vals = torch.where(present, xla_ftz(torch.div(
+                torch.ones_like(vals),
+                torch.maximum(vals, self._f32(1e-9)))), zero)
+        x = torch.where(present, vals, zero)
+        # an arithmetic op reads a denormal x as zero; powf is handed
+        # its bits
+        xa = xla_ftz(x)
+        if node.function == "linear":
+            score = xa
+        elif node.function == "log":
+            score = xla_logf(torch.maximum(
+                self._f32(node.scaling_factor) + xa, self._f32(1e-9)))
+        elif node.function == "sigmoid":
+            xp = xla_powf(x, node.exponent)
+            score = xp / xla_ftz(xp + self._f32(
+                _pow64(node.pivot, node.exponent)))
+        else:  # saturation
+            pivot = node.pivot
+            if pivot is None:
+                pivot = self._rank_feature_default_pivot(node.field)
+            score = xa / xla_ftz(xa + self._f32(pivot))
+        score = xla_ftz(xla_ftz(score) * self._f32(node.boost))
+        # a NaN here (a negative base's power, inf / inf) is the x86
+        # default NaN in the reference; a card's arithmetic makes the
+        # positive one, which top-k ranks at the other end
+        score = torch.where(torch.isnan(score), x86_nan_like(score), score)
+        return mask, torch.where(mask, score, zero)
+
+    def _rank_feature_default_pivot(self, field: str) -> float:
+        """The geometric mean of the shard's positive feature values, in
+        host f64 over the views in order (the reference's rule)."""
+        cache = getattr(self.reader, "_rf_pivot_cache", None)
+        if cache is None:
+            cache = {}
+            self.reader._rf_pivot_cache = cache
+        if field in cache:
+            return cache[field]
+        logs, count = 0.0, 0
+        for v in self.reader.views:
+            col = v.segment.doc_values.get(field)
+            if col is None or col.kind != "f64":
+                continue
+            vals = col.values
+            ok = ~np.isnan(vals) & (vals > 0)
+            if ok.any():
+                logs += float(np.log(vals[ok]).sum())
+                count += int(ok.sum())
+        pivot = float(np.exp(logs / count)) if count else 1.0
+        cache[field] = pivot
+        return pivot
+
+    def _geo_columns(self, field: str):
+        """(lat f64, lon f64) of a geo_point field on the device, or
+        None when this segment has no such columns."""
         pack = self.pack
-        if node.field in pack.dv_f64 or node.field in pack.dv_i64:
-            raise NotLowerable("a [rank_feature] query over a numeric "
-                               "column (Queue A5a-ii)")
-        return self._none()
+        lat_key = field + GeoPointFieldType.LAT_SUFFIX
+        lon_key = field + GeoPointFieldType.LON_SUFFIX
+        if lat_key not in pack.dv_f64 or lon_key not in pack.dv_f64:
+            return None
+        return (self._column("f64", lat_key, lambda: pack.dv_f64[lat_key]),
+                self._column("f64", lon_key, lambda: pack.dv_f64[lon_key]))
+
+    def _eval_geo_distance(self, node: dsl.GeoDistanceQuery) -> Pair:
+        cols = self._geo_columns(node.field)
+        if cols is None:
+            return self._none()
+        mask = geo.distance_mask(cols[0], cols[1], node.lat, node.lon,
+                                 node.distance_m)
+        return mask, self._const(mask, node.boost)
+
+    def _eval_geo_bbox(self, node: dsl.GeoBoundingBoxQuery) -> Pair:
+        cols = self._geo_columns(node.field)
+        if cols is None:
+            return self._none()
+        lat, lon = cols
+        lat_ok = (lat <= node.top) & (lat >= node.bottom)
+        if node.left <= node.right:
+            lon_ok = (lon >= node.left) & (lon <= node.right)
+        else:
+            # a box across the antimeridian
+            lon_ok = (lon >= node.left) | (lon <= node.right)
+        mask = ~torch.isnan(lat) & lat_ok & lon_ok
+        return mask, self._const(mask, node.boost)
+
+    def _eval_percolate(self, node: dsl.PercolateQuery,
+                        scoring: bool) -> Pair:
+        """Every live stored query of this segment against the
+        percolated document(s) (``search/percolator.py``); a matching
+        stored query scores `boost`."""
+        from elasticsearch_tpu_torch.search import percolator as perc
+        ft = self.reader.mapper.field_type(node.field)
+        if not isinstance(ft, PercolatorFieldType):
+            raise QueryShardException(
+                f"[percolate] field [{node.field}] is not a "
+                f"[percolator] field")
+        # the documents' reader is built once a request and a mapper (a
+        # multi-index search parses them per index)
+        readers = getattr(node, "_doc_readers", None)
+        if readers is None:
+            readers = {}
+            node._doc_readers = readers
+        cached = readers.get(id(self.reader.mapper))
+        if cached is None:
+            cached = perc.build_doc_reader(self.reader.mapper,
+                                           node.documents)
+            readers[id(self.reader.mapper)] = cached
+        queries = perc.segment_parsed_queries(self.view.segment,
+                                              node.field)
+        doc_exec = SegmentQueryExecutor(cached, 0, self.device)
+        doc_live = self._dev(cached.views[0].live_mask)
+        live = self.view.live_mask  # tombstoned stored queries are skipped
+        mask = np.zeros(self.d_pad, dtype=bool)
+        for ord_, q in queries.items():
+            if not live[ord_]:
+                continue
+            try:
+                qmask, _ = doc_exec._eval(q, scoring=False)
+            except NotLowerable:
+                raise   # a feature of a later module: typed, not skipped
+            except Exception:  # noqa: BLE001 — one stored query that
+                continue  # raises (a type clash with the document's
+                #           dynamic fields, say) must not fail the search
+            if bool((qmask[: len(doc_live)] & doc_live).any()):
+                mask[ord_] = True
+        m = self._dev(mask)
+        return m, self._const(m, node.boost if scoring else 0.0)
+
+    def _eval_nested(self, node: dsl.NestedQuery, scoring: bool) -> Pair:
+        """Per-object matching over the segment's nested store. Child
+        scores are constant (boost per matching object); score_mode
+        combines them: sum → count · boost, avg/min/max → boost,
+        none → 0."""
+        store = self.view.segment.nested_store.get(node.path)
+        if not store:
+            return self._none()
+        mapper = self.reader.mapper
+        if hasattr(mapper, "mapper"):  # MapperService → DocumentMapper
+            mapper = mapper.mapper
+        mask = np.zeros(self.d_pad, dtype=bool)
+        score = np.zeros(self.d_pad, dtype=np.float32)
+        for ord_, objs in store.items():
+            n_matched = 0
+            for obj in objs:
+                if _nested_object_matches(node.query, obj, mapper,
+                                          node.path):
+                    n_matched += 1
+            if n_matched:
+                mask[ord_] = True
+                if scoring and node.score_mode != "none":
+                    child = float(node.boost)
+                    score[ord_] = (child * n_matched
+                                   if node.score_mode == "sum" else child)
+        return self._dev(mask), self._dev(score)
+
+    def _eval_ip_range(self, field: str, lo128: int, hi128: int,
+                       boost: float) -> Pair:
+        """[lo128, hi128] over the ip field's signed-offset (hi, lo) i64
+        columns: a 128-bit compare as two lexicographic 64-bit ones."""
+        pack = self.pack
+        hk = field + IpFieldType.HI_SUFFIX
+        lk = field + IpFieldType.LO_SUFFIX
+        if hk not in pack.dv_i64 or lk not in pack.dv_i64 or lo128 > hi128:
+            return self._none()
+        h = self._column("i64", hk, lambda: pack.dv_i64[hk])
+        lo = self._column("i64", lk, lambda: pack.dv_i64[lk])
+        lo_h, lo_l = IpFieldType.split128(lo128)
+        hi_h, hi_l = IpFieldType.split128(hi128)
+        # presence from the exists mask, not the i64 sentinel: an
+        # IPv4-mapped address has hi == 0, which is MISSING_I64 after
+        # the signed offset
+        present = self._dev(self.reader.has_field_mask(self.view_idx,
+                                                       field))
+        ge = (h > lo_h) | ((h == lo_h) & (lo >= lo_l))
+        le = (h < hi_h) | ((h == hi_h) & (lo <= hi_l))
+        mask = present & ge & le
+        return mask, self._const(mask, boost)
+
+    def _eval_range_field(self, node: dsl.RangeQuery,
+                          ft: RangeFieldType) -> Pair:
+        """Interval against interval on a range field: relation
+        intersects (the default), within or contains."""
+        pack = self.pack
+        kind = ft.bound_kind
+        cols = pack.dv_i64 if kind == "i64" else pack.dv_f64
+        gk = node.field + RangeFieldType.GTE_SUFFIX
+        lk = node.field + RangeFieldType.LTE_SUFFIX
+        if gk not in cols or lk not in cols:
+            return self._none()
+        g = self._column(kind, gk, lambda: cols[gk])
+        lte = self._column(kind, lk, lambda: cols[lk])
+        q_lo, q_hi = ft.parse_range({k: v for k, v in
+                                     (("gt", node.gt), ("gte", node.gte),
+                                      ("lt", node.lt), ("lte", node.lte))
+                                     if v is not None})
+        present = (g != MISSING_I64) if kind == "i64" else ~torch.isnan(g)
+        relation = (node.relation or "intersects").lower()
+        if relation == "within":
+            hit = (g >= q_lo) & (lte <= q_hi)
+        elif relation == "contains":
+            hit = (g <= q_lo) & (lte >= q_hi)
+        elif relation == "intersects":
+            hit = (g <= q_hi) & (lte >= q_lo)
+        else:
+            raise QueryShardException(
+                f"[range] unknown relation [{relation}]")
+        mask = present & hit
+        return mask, self._const(mask, node.boost)
 
     # ---- bool ----
 
@@ -623,6 +865,20 @@ class SegmentQueryExecutor:
             ft = self._field_type(node.field)
         except _UnmappedField:
             return self._none()
+        if isinstance(ft, IpFieldType):
+            lo = 0
+            hi = (1 << 128) - 1
+            if node.gte is not None:
+                lo = ft.parse_ip(node.gte)
+            elif node.gt is not None:
+                lo = ft.parse_ip(node.gt) + 1
+            if node.lte is not None:
+                hi = ft.parse_ip(node.lte)
+            elif node.lt is not None:
+                hi = ft.parse_ip(node.lt) - 1
+            return self._eval_ip_range(node.field, lo, hi, node.boost)
+        if isinstance(ft, RangeFieldType):
+            return self._eval_range_field(node, ft)
         if isinstance(ft, (TextFieldType, KeywordFieldType)):
             raise QueryShardException(
                 f"range query on [{ft.type_name}] field [{node.field}] "
@@ -733,3 +989,110 @@ def _phrase_freq(plists: List[np.ndarray], slop: int) -> int:
         if ok:
             count += 1
     return count
+
+
+def _pow64(x: float, y: float) -> float:
+    """float64 x ** y through the C library's pow, as XLA:CPU computes
+    ``jnp.power`` of two Python floats (0 ** negative → inf, a negative
+    base with a fractional exponent → NaN)."""
+    try:
+        return math.pow(x, y)
+    except ValueError:
+        return math.inf if x == 0 else math.nan
+    except OverflowError:
+        return math.inf
+
+
+def _nested_object_matches(q: dsl.QueryNode, obj: Dict[str, list],
+                           doc_mapper, path: str) -> bool:
+    """Evaluate an inner nested query against ONE object's flat
+    {absolute subfield path: [raw values]} map — the per-sub-document
+    match the reference gets from indexing each nested object as its own
+    Lucene doc. Field types normalize both sides."""
+    if isinstance(q, dsl.MatchAllQuery):
+        return True
+    if isinstance(q, dsl.BoolQuery):
+        for c in list(q.must) + list(q.filter):
+            if not _nested_object_matches(c, obj, doc_mapper, path):
+                return False
+        for c in q.must_not:
+            if _nested_object_matches(c, obj, doc_mapper, path):
+                return False
+        if q.should:
+            msm = q.minimum_should_match
+            if msm is None:
+                msm = 0 if (q.must or q.filter) else 1
+            if msm > 0:
+                n = sum(1 for c in q.should
+                        if _nested_object_matches(c, obj, doc_mapper, path))
+                if n < msm:
+                    return False
+        return True
+    if isinstance(q, dsl.ConstantScoreQuery):
+        return _nested_object_matches(q.filter_query, obj, doc_mapper, path)
+    if isinstance(q, dsl.NestedQuery):
+        raise QueryShardException(
+            "[nested] within [nested] is not supported yet")
+    if isinstance(q, dsl.ExistsQuery):
+        return bool(obj.get(q.field))
+    if isinstance(q, (dsl.TermQuery, dsl.TermsQuery)):
+        ft = doc_mapper.fields.get(q.field)
+        vals = obj.get(q.field)
+        if ft is None or not vals:
+            return False
+        wants = ([q.value] if isinstance(q, dsl.TermQuery)
+                 else list(q.values))
+        try:
+            want_norm = {ft.normalize_term(w) for w in wants}
+            return any(ft.normalize_term(v) in want_norm for v in vals)
+        except Exception:
+            return False
+    if isinstance(q, dsl.MatchQuery):
+        ft = doc_mapper.fields.get(q.field)
+        vals = obj.get(q.field)
+        if ft is None or not vals:
+            return False
+        if isinstance(ft, TextFieldType):
+            q_terms = _analyzed_terms(ft, q.query)
+            if not q_terms:
+                return False
+            doc_terms = set()
+            for v in vals:
+                doc_terms.update(ft.analyzer.terms(str(v)))
+            hits = sum(1 for t in q_terms if t in doc_terms)
+            if q.operator == "and":
+                return hits == len(q_terms)
+            need = q.minimum_should_match or 1
+            return hits >= need
+        try:
+            want = ft.normalize_term(q.query)
+            return any(ft.normalize_term(v) == want for v in vals)
+        except Exception:
+            return False
+    if isinstance(q, dsl.RangeQuery):
+        ft = doc_mapper.fields.get(q.field)
+        vals = obj.get(q.field)
+        if ft is None or not vals:
+            return False
+        try:
+            for v in vals:
+                dv = ft.doc_value(v) if ft.has_doc_values \
+                    else ft.normalize_range_bound(v)
+                if q.gt is not None and \
+                        not dv > ft.normalize_range_bound(q.gt):
+                    continue
+                if q.gte is not None and \
+                        not dv >= ft.normalize_range_bound(q.gte):
+                    continue
+                if q.lt is not None and \
+                        not dv < ft.normalize_range_bound(q.lt):
+                    continue
+                if q.lte is not None and \
+                        not dv <= ft.normalize_range_bound(q.lte):
+                    continue
+                return True
+        except Exception:
+            return False
+        return False
+    raise QueryShardException(
+        f"[nested] unsupported inner query [{q.query_name()}]")

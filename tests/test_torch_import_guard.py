@@ -19,6 +19,7 @@ NODE_MODULES = [
     "elasticsearch_tpu_torch.common.settings",
     "elasticsearch_tpu_torch.common.breaker",
     "elasticsearch_tpu_torch.analysis.analyzers",
+    "elasticsearch_tpu_torch.analysis.filters",
     "elasticsearch_tpu_torch.mapping.types",
     "elasticsearch_tpu_torch.mapping.mapper",
     "elasticsearch_tpu_torch.index.segment",
@@ -31,9 +32,12 @@ NODE_MODULES = [
     "elasticsearch_tpu_torch.indices.service",
     "elasticsearch_tpu_torch.index.pack",
     "elasticsearch_tpu_torch.ops.bm25",
+    "elasticsearch_tpu_torch.ops.geo",
+    "elasticsearch_tpu_torch.ops.xla_math",
     "elasticsearch_tpu_torch.search.coordinator",
     "elasticsearch_tpu_torch.search.can_match",
     "elasticsearch_tpu_torch.search.planner",
+    "elasticsearch_tpu_torch.search.percolator",
     "elasticsearch_tpu_torch.search.query_phase",
     "elasticsearch_tpu_torch.search.dsl",
     "elasticsearch_tpu_torch.parallel.mesh",
