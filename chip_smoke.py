@@ -155,6 +155,34 @@ device mesh through the collective tail, and checks:
                  execute_query on the card != the CPU plain path on any
                  shard or the response != the merge of the shard
                  results. The kernels line adds launches_fields
+  rest_api       the REST remainder on the same node, after fields and
+                 before delta, on the 1M-doc rest index at full width:
+                 the 256 bodies (no _source) as 4 concurrent _msearch
+                 requests of 64 items, each response's bytes equal to
+                 its items' _search bytes (took at 0) taken just before;
+                 16 boost-1e-15 bodies in one _msearch (exact_merge);
+                 16 _count bodies, each equal to the exact total of its
+                 search; a filtered alias (a term filter) searched and
+                 counted: its bytes == the bool with the filter, per
+                 shard execute_query on the card == the CPU plain path;
+                 _explain of 8 top hits, card == CPU bitwise; one call
+                 each of _field_caps, _validate/query, _termvectors,
+                 _analyze, _stats, _nodes/stats, _cluster/health
+                 ?wait_for_status=green and the _cat tables (text/plain);
+                 then a 20,000-doc, 4-shard index of the line's own (cut
+                 from 1M: close, open, shrink and split rebuild packs and
+                 copy documents on the host): close, a search's
+                 index_closed_exception 400, open, the same bytes as
+                 before the close with one pack charged for the index;
+                 shrink to 1 shard and split to 8 (a write block first),
+                 each target searched (card == CPU per shard, totals
+                 kept); DELETE of every index the line made. Counts reset
+                 just before and read just after (the five fused
+                 kernels, exact_merge and shard_topk must launch), every
+                 recorded launch against its plain version bit for bit;
+                 the hbm breaker before, at its peak and after, and
+                 memory_allocated() back at its value before the line.
+                 The kernels line adds launches_rest_api
   delta          streaming appends on the same node (its default chain
                  settings: 4 deltas, 50,000 docs), after the planner
                  line and before the DELETE: 5 batches of 10,000 new
@@ -223,6 +251,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -315,6 +344,21 @@ DELTA_TAIL_DOCS = 2_000
 #: raw deltas' (raw_merge for AND / msm, the full-postings tier for OR),
 #: and pruned_candidates' u32-key mode in the prefix probe
 DELTA_KERNELS = MAIN_KERNELS + RAW_KERNELS + ("pruned_candidates.pack_keys",)
+#: the rest_api line (in the rest node, after fields, before delta): the
+#: 256 bodies as MSEARCH_CLIENTS concurrent _msearch requests, the
+#: first REST_API_EXACT with boost 1e-15 in one more, REST_API_COUNTS
+#: _count bodies, ALIAS_BODIES searches and counts through a filtered
+#: alias, _explain of REST_API_EXPLAIN top hits; and the lifecycle on a
+#: LIFE_DOCS-doc index of its own (close, open, shrink, split)
+MSEARCH_CLIENTS = 4
+REST_API_EXACT = 16
+REST_API_COUNTS = 16
+REST_API_EXPLAIN = 8
+ALIAS = "msmarco-filtered"
+ALIAS_BODIES = 4
+LIFE_INDEX = "rest-life"
+LIFE_DOCS = 20_000      # cut from 1M: the lifecycle copies docs on the host
+LIFE_SHARDS = 4
 #: the exact merge's classes the exact phase's rows must take (a row of
 #: one window and a row cut into parts; the radix class takes a row only
 #: when one of its slots' docs descend)
@@ -475,13 +519,17 @@ def exact_recorder(merge_kernel):
 class TopkRecorder:
     """Wraps merge_kernel.shard_topk (the cross-shard top-k of every
     train: sparse.hierarchical_top_k calls it) while a path runs and
-    keeps each call's input, k and outputs (device copies)."""
+    keeps each call's input, k and outputs (device copies). With `tag`,
+    a function of no arguments, `tags` holds in step with `calls` what
+    it returned at each call."""
 
-    def __init__(self, merge_kernel, stats=None):
+    def __init__(self, merge_kernel, stats=None, tag=None):
         self.mk = merge_kernel
         self.real = merge_kernel.shard_topk
         self.calls = []
         self.stats = stats   # the size classes of every call, when given
+        self.tag = tag
+        self.tags = []
 
     def __enter__(self):
         def record(vals, k, **kw):
@@ -490,6 +538,8 @@ class TopkRecorder:
             out = self.real(vals, k, **kw)
             self.calls.append((vals.clone(), k, out[0].clone(),
                                out[1].clone()))
+            if self.tag is not None:
+                self.tags.append(self.tag())
             return out
         self.mk.shard_topk = record
         return self
@@ -985,8 +1035,9 @@ def traced_run(svc, bodies, mk):
         top_device_ms=top)
 
 
-def rest_http(host, port, method, path, body=None, raw=None, conn=None):
-    """One request to the node over HTTP/1.1 → (status, parsed body)."""
+def rest_raw(host, port, method, path, body=None, raw=None, conn=None):
+    """One request to the node over HTTP/1.1 → (status, body bytes,
+    content type)."""
     import http.client
     own = conn is None
     if own:
@@ -1000,7 +1051,37 @@ def rest_http(host, port, method, path, body=None, raw=None, conn=None):
     payload = resp.read()
     if own:
         conn.close()
-    return resp.status, (json.loads(payload) if payload else None)
+    return resp.status, payload, resp.getheader("Content-Type")
+
+
+def rest_raw_many(host, port, requests, clients):
+    """(method, path, body, raw) requests from `clients` threads, each on
+    its own keep-alive connection → ([(status, bytes)] in order, wall
+    s)."""
+    import http.client
+    import threading
+    local = threading.local()
+
+    def one(req):
+        conn = getattr(local, "conn", None)
+        if conn is None:
+            conn = local.conn = http.client.HTTPConnection(host, port,
+                                                           timeout=600)
+        method, path, body, raw = req
+        status, data, _ = rest_raw(host, port, method, path, body, raw,
+                                   conn=conn)
+        return status, data
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=clients) as pool:
+        out = list(pool.map(one, requests))
+    return out, time.perf_counter() - t0
+
+
+def rest_http(host, port, method, path, body=None, raw=None, conn=None):
+    """One request to the node over HTTP/1.1 → (status, parsed body)."""
+    status, payload, _ = rest_raw(host, port, method, path, body, raw, conn)
+    return status, (json.loads(payload) if payload else None)
 
 
 def rest_bulk_load(host, port, corpus, n_docs, index=REST_INDEX):
@@ -1047,25 +1128,14 @@ def rest_bulk_load(host, port, corpus, n_docs, index=REST_INDEX):
 def rest_queries(host, port, bodies, index=REST_INDEX):
     """`bodies` as POST /{index}/_search from REST_CLIENTS threads, each
     on its own keep-alive connection → (responses in order, wall s)."""
-    import http.client
-    import threading
-    local = threading.local()
-
-    def one(body):
-        conn = getattr(local, "conn", None)
-        if conn is None:
-            conn = local.conn = http.client.HTTPConnection(host, port,
-                                                           timeout=600)
-        status, resp = rest_http(host, port, "POST",
-                                 f"/{index}/_search", body, conn=conn)
-        if status != 200:
-            raise AssertionError(f"_search {status}: {str(resp)[:500]}")
-        return resp
-
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=REST_CLIENTS) as pool:
-        out = list(pool.map(one, bodies))
-    return out, time.perf_counter() - t0
+    answers, _ = rest_raw_many(
+        host, port, [("POST", f"/{index}/_search", b, None) for b in bodies],
+        REST_CLIENTS)
+    for status, data in answers:
+        if status != 200:
+            raise AssertionError(f"_search {status}: {data[:500]!r}")
+    return [json.loads(d) for _, d in answers], time.perf_counter() - t0
 
 
 def device_busy_ms(prof):
@@ -2101,6 +2171,381 @@ def fields_phase(host, port, node, corpus, bodies, mk, smi):
     return out, launches
 
 
+_TOOK = re.compile(rb'"took": \d+')
+
+
+def took0(data):
+    """Response bytes with every took at 0 (wall-clock time)."""
+    return _TOOK.sub(b'"took": 0', data)
+
+
+def msearch_payload(bodies):
+    return "".join(json.dumps({"index": REST_INDEX}) + "\n" + json.dumps(b)
+                   + "\n" for b in bodies).encode()
+
+
+def msearch_as_searches(host, port, bodies, search_bytes, clients):
+    """`bodies` as `clients` concurrent _msearch requests of
+    len(bodies) / clients items; each response's bytes must equal the
+    items' _search bytes (`search_bytes`, took at 0) spliced into the
+    _msearch envelope → (items, wall s)."""
+    per = len(bodies) // clients
+    reqs = [("POST", "/_msearch", None,
+             msearch_payload(bodies[i * per:(i + 1) * per]))
+            for i in range(clients)]
+    answers, wall = rest_raw_many(host, port, reqs, clients)
+    for ci, (status, data) in enumerate(answers):
+        items = [s[:-1] + b', "status": 200}'
+                 for s in search_bytes[ci * per:(ci + 1) * per]]
+        want = b'{"took": 0, "responses": [' + b", ".join(items) + b"]}"
+        if status != 200 or took0(data) != want:
+            raise AssertionError(f"rest_api: _msearch request {ci} is not "
+                                 f"its items' _search bytes")
+    return per * clients, wall
+
+
+def explain_on_cpu(node, index, doc_id, query):
+    """The planner's score of one document on the CPU plain path."""
+    from elasticsearch_tpu_torch.search.planner import SegmentQueryExecutor
+    svc = node.indices.index(index)
+    reader = svc.shard(svc.shard_for_id(doc_id)).acquire_searcher()
+    for vi, view in enumerate(reader.views):
+        ord_ = view.segment.id_to_ord.get(doc_id)
+        if ord_ is not None and view.live_mask[ord_]:
+            mask, score = SegmentQueryExecutor(reader, vi, "cpu").execute(
+                query)
+            return bool(mask[ord_]), float(score[ord_])
+    raise AssertionError(f"rest_api: {doc_id} is not live in {index}")
+
+
+def rest_api_phase(host, port, node, corpus, bodies, mk, smi):
+    """The REST remainder on the rest node's 1M-doc index and its
+    lifecycle on an index of the line's own; counts reset just before,
+    read just after, every recorded launch against its plain version,
+    the hbm breaker and memory_allocated() back at their values before
+    the line after it deletes what it made → (line, launches)."""
+    import contextlib
+    import gc
+
+    import numpy as np
+    import torch
+
+    from elasticsearch_tpu_torch.search import dsl
+
+    t_phase = time.perf_counter()
+    hbm = node.breakers.get_breaker("hbm")
+    gc.collect()
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated()
+    hbm_before = hbm.used
+    peak = [hbm_before]
+    steps = {}   # seconds of each step of the line
+
+    @contextlib.contextmanager
+    def step(name):
+        t0 = time.perf_counter()
+        yield
+        steps[name] = time.perf_counter() - t0
+        peak[0] = max(peak[0], hbm.used)
+
+    call_s = {}   # seconds of each call (kept: the introspection's)
+
+    def call(method, path, body=None, raw=None, want=200):
+        t0 = time.perf_counter()
+        status, data, ctype = rest_raw(host, port, method, path, body, raw)
+        call_s[f"{method} {path}"] = time.perf_counter() - t0
+        if status != want:
+            raise AssertionError(f"rest_api {method} {path}: {status} "
+                                 f"{data[:500]!r}")
+        return data, ctype
+
+    routes = set()
+    out = {"nvidia_smi": smi, "index": REST_INDEX, "docs": N_DOCS,
+           "shards": SHARDS, "msearch_clients": MSEARCH_CLIENTS,
+           "life_docs": LIFE_DOCS, "life_shards": LIFE_SHARDS,
+           "steps_s": steps,
+           "note": ("close, open, shrink and split on an index of "
+                    f"{LIFE_DOCS} docs built in the line (cut from 1M: "
+                    "they rebuild packs and copy documents on the host)")}
+    try:
+        run_bodies = [dict(b, _source=False) for b in bodies]
+        exact_run = exact_bodies(run_bodies[:REST_API_EXACT])
+        with step("search"):   # the bytes each _msearch item must equal
+            searched = []
+            for group in (run_bodies, exact_run):   # exact trains apart
+                searched += rest_raw_many(
+                    host, port, [("POST", f"/{REST_INDEX}/_search", b,
+                                  None) for b in group], REST_CLIENTS)[0]
+            if any(s != 200 for s, _ in searched):
+                raise AssertionError("rest_api: a _search failed")
+            search_bytes = [took0(d) for _, d in searched]
+            search_resp = [json.loads(d) for d in search_bytes]
+            del searched
+        mk.reset_launches()
+        with LaunchRecorder(mk) as rec, TopkRecorder(mk) as top, \
+                LaunchRecorder(mk, "exact_merge_topk", every=True) as ex:
+            with step("msearch"):
+                items, wall = msearch_as_searches(
+                    host, port, run_bodies,
+                    search_bytes[:len(run_bodies)], MSEARCH_CLIENTS)
+                exact_items, exact_wall = msearch_as_searches(
+                    host, port, exact_run, search_bytes[len(run_bodies):], 1)
+            routes.add("_msearch")
+            out["msearch"] = dict(items=items, requests=MSEARCH_CLIENTS,
+                                  wall_s=wall, items_per_s=items / wall,
+                                  exact_items=exact_items,
+                                  exact_wall_s=exact_wall,
+                                  same_as_search="every item's bytes == its "
+                                                 "_search's, took at 0")
+            with step("count"):   # the exact total of the same query
+                counted = rest_raw_many(host, port, [
+                    ("POST", f"/{REST_INDEX}/_count",
+                     {"query": b["query"]}, None)
+                    for b in run_bodies[:REST_API_COUNTS]],
+                    REST_API_COUNTS)[0]
+                for i, (status, data) in enumerate(counted):
+                    total = search_resp[i]["hits"]["total"]
+                    if status != 200 or total["relation"] != "eq" or \
+                            json.loads(data)["count"] != total["value"]:
+                        raise AssertionError(
+                            f"rest_api: _count of body {i} != its "
+                            f"search's exact total {total}")
+            routes.add("_count")
+            filt = {"term": {FIELD: corpus.vocab[40]}}
+            alias_mix, alias_resp = [], []
+            with step("alias"):
+                call("PUT", f"/{REST_INDEX}/_alias/{ALIAS}",
+                     {"filter": filt})
+                for i in range(ALIAS_BODIES):
+                    body = {"query": run_bodies[i]["query"], "size": 10}
+                    via, _ = call("POST", f"/{ALIAS}/_search", body)
+                    as_bool = {"query": {"bool": {
+                        "must": [body["query"]], "filter": [filt]}},
+                        "size": 10}
+                    direct, _ = call("POST", f"/{REST_INDEX}/_search",
+                                     as_bool)
+                    if took0(via) != took0(direct):
+                        raise AssertionError(f"rest_api: alias search {i} "
+                                             f"!= the bool with its filter")
+                    counted, _ = call("POST", f"/{ALIAS}/_count",
+                                      {"query": body["query"]})
+                    resp = json.loads(via)
+                    if json.loads(counted)["count"] != \
+                            resp["hits"]["total"]["value"]:
+                        raise AssertionError(f"rest_api: alias count {i} "
+                                             f"!= its search's total")
+                    alias_mix.append((REST_INDEX, f"alias{i}", as_bool))
+                    alias_resp.append(resp)
+            routes.update(("_alias", "_count via alias",
+                           "_search via alias"))
+            with step("explain"):   # each body's top hit, card == CPU
+                same_score = 0
+                for i in range(REST_API_EXPLAIN):
+                    top_id = search_resp[i]["hits"]["hits"][0]["_id"]
+                    query = {"query": run_bodies[i]["query"]}
+                    data, _ = call("POST",
+                                   f"/{REST_INDEX}/_explain/{top_id}", query)
+                    got = json.loads(data)
+                    matched, value = explain_on_cpu(
+                        node, REST_INDEX, top_id,
+                        dsl.parse_query(query["query"]))
+                    card = np.float32(got["explanation"]["value"])
+                    if got["matched"] is not matched or card.view(
+                            np.uint32) != np.float32(value).view(np.uint32):
+                        raise AssertionError(f"rest_api: _explain of "
+                                             f"{top_id} on the card != the "
+                                             f"CPU plain path")
+                    same_score += card == np.float32(
+                        search_resp[i]["hits"]["hits"][0]["_score"])
+            routes.add("_explain")
+            out["explain"] = dict(docs=REST_API_EXPLAIN,
+                                  card_equals_cpu="bitwise",
+                                  equal_to_kernel_score=int(same_score))
+            with step("introspection"):
+                call_s.clear()
+                call("GET", f"/{REST_INDEX}/_field_caps")
+                data, _ = call("POST",
+                               f"/{REST_INDEX}/_validate/query?explain",
+                               {"query": run_bodies[0]["query"]})
+                if not json.loads(data)["valid"]:
+                    raise AssertionError("rest_api: _validate/query")
+                data, _ = call("GET", f"/{REST_INDEX}/_termvectors/d0")
+                if not json.loads(data)["found"]:
+                    raise AssertionError("rest_api: _termvectors d0")
+                data, _ = call("POST", f"/{REST_INDEX}/_analyze",
+                               {"field": FIELD, "text": corpus.doc_text(0)})
+                if [t["token"] for t in json.loads(data)["tokens"]] != \
+                        corpus.doc_text(0).split():
+                    raise AssertionError("rest_api: _analyze")
+                data, _ = call("GET", f"/{REST_INDEX}/_stats")
+                if json.loads(data)["_all"]["primaries"]["docs"][
+                        "count"] != N_DOCS:
+                    raise AssertionError("rest_api: _stats docs")
+                data, _ = call("GET", "/_nodes/stats")
+                stats = next(iter(json.loads(data)["nodes"].values()))
+                if "tpu_search" not in stats or stats["breakers"]["hbm"][
+                        "estimated_size_in_bytes"] != hbm.used:
+                    raise AssertionError("rest_api: _nodes/stats")
+                data, _ = call("GET", "/_cluster/health?wait_for_status="
+                                      "green")
+                if json.loads(data)["status"] != "green":
+                    raise AssertionError("rest_api: health")
+                cat = {}
+                for table in ("", "/indices", "/health", "/count",
+                              "/shards", "/nodes", "/aliases", "/master",
+                              "/allocation", "/recovery"):
+                    data, ctype = call("GET", f"/_cat{table}?v")
+                    if not ctype.startswith("text/plain"):
+                        raise AssertionError(f"rest_api: _cat{table} is "
+                                             f"{ctype}")
+                    cat[f"_cat{table}"] = len(data.splitlines())
+                if f" {N_DOCS}".encode() not in call(
+                        "GET", f"/_cat/count/{REST_INDEX}")[0]:
+                    raise AssertionError("rest_api: _cat/count")
+            routes.update(("_field_caps", "_validate/query", "_termvectors",
+                           "_analyze", "_stats", "_nodes/stats",
+                           "_cluster/health", *cat))
+            out["cat_lines"] = cat
+            out["introspection_s"] = dict(call_s)
+            # -- the lifecycle on an index of its own ---------------------
+            with step("life_ingest"):
+                call("PUT", f"/{LIFE_INDEX}", {
+                    "settings": {"number_of_shards": LIFE_SHARDS},
+                    "mappings": {"properties": {FIELD: {"type": "text"}}}})
+                rest_bulk_load(host, port, corpus, LIFE_DOCS,
+                               index=LIFE_INDEX)
+            life_bodies = run_bodies[:16]
+            life_reqs = [("POST", f"/{LIFE_INDEX}/_search", b, None)
+                         for b in life_bodies]
+            life_key = f"{LIFE_INDEX}/{FIELD}"
+            with step("close_open"):
+                before = [took0(d) for _, d in rest_raw_many(
+                    host, port, life_reqs, 16)[0]]
+                peak[0] = max(peak[0], hbm.used)
+                one_pack = node.gpu_search.packs.stats()["packs"][
+                    life_key]["hbm_bytes"]
+                call("POST", f"/{LIFE_INDEX}/_close")
+                closed_hbm = hbm.used
+                data, _ = call("POST", f"/{LIFE_INDEX}/_search",
+                               life_bodies[0], want=400)
+                if json.loads(data)["error"]["type"] != \
+                        "index_closed_exception":
+                    raise AssertionError("rest_api: a closed index's "
+                                         "search")
+                call("POST", f"/{LIFE_INDEX}/_open")
+                after = [took0(d) for _, d in rest_raw_many(
+                    host, port, life_reqs, 16)[0]]
+                if after != before:
+                    raise AssertionError("rest_api: the reopened index "
+                                         "answers other bytes")
+                packs = node.gpu_search.packs.stats()["packs"]
+                life_packs = [k for k in packs
+                              if k.startswith(f"{LIFE_INDEX}/")]
+                reopened = packs[life_key]["hbm_bytes"]
+                if closed_hbm != hbm_before or life_packs != [life_key] or \
+                        hbm.used - hbm_before != reopened:
+                    raise AssertionError(
+                        f"rest_api: after close/open the breaker reads "
+                        f"{hbm.used - hbm_before} for {life_packs}, one "
+                        f"pack is {reopened} (before the close {one_pack},"
+                        f" closed {closed_hbm - hbm_before})")
+            out["lifecycle"] = dict(one_pack_bytes=one_pack,
+                                    hbm_closed=closed_hbm,
+                                    reopened_pack=reopened)
+            call("PUT", f"/{LIFE_INDEX}/_settings",
+                 {"index": {"blocks": {"write": True}}})
+            resize_checks = []   # (mode, mix, responses), checked later
+            for mode, target, n in (("shrink", f"{LIFE_INDEX}-1", 1),
+                                    ("split", f"{LIFE_INDEX}-8", 8)):
+                with step(mode):
+                    data, _ = call("PUT", f"/{LIFE_INDEX}/_{mode}/{target}",
+                                   {"settings": {"index": {
+                                       "number_of_shards": n}}})
+                    copied = json.loads(data)["copied_docs"]
+                with step(f"{mode}_search"):
+                    mix = [(target, f"{target}-{i}", body) for i, (_, _, body)
+                           in enumerate(alias_mix[:2])]
+                    resize_checks.append((mode, mix, [
+                        search_once(host, port, "rest_api", *m)[0]
+                        for m in mix]))
+                    totals = [json.loads(d)["hits"]["total"]["value"]
+                              for _, d in rest_raw_many(host, port, [
+                                  ("POST", f"/{target}/_search", b, None)
+                                  for b in life_bodies], 16)[0]]
+                if copied != LIFE_DOCS or totals != [
+                        json.loads(b)["hits"]["total"]["value"]
+                        for b in before]:
+                    raise AssertionError(f"rest_api: {mode} copied "
+                                         f"{copied} docs or changed a "
+                                         f"total")
+                out["lifecycle"][mode] = dict(target=target, shards=n,
+                                              copied=copied)
+            routes.update(("_close", "_open", "_settings", "_shrink",
+                           "_split", "_bulk", "_search"))
+        launches = dict(mk.LAUNCHES)
+        zero = [n for n in MAIN_KERNELS + EXACT_KERNELS if launches[n] <= 0]
+        if zero:
+            raise AssertionError(f"rest_api: kernels not launched: {zero}")
+        # the checks below launch kernels of their own, after the read
+        with step("resize_checks"):
+            for mode, mix, resps in resize_checks:
+                out["lifecycle"][mode]["shards_checked"] = \
+                    check_shards_on_card(node, "rest_api", mix, resps)
+            del resize_checks
+        with step("deletes"):
+            for index in (LIFE_INDEX, f"{LIFE_INDEX}-1", f"{LIFE_INDEX}-8"):
+                call("DELETE", f"/{index}")
+            call("DELETE", f"/{REST_INDEX}/_alias/{ALIAS}")
+            torch.cuda.synchronize()
+        with step("alias_checks"):
+            out["alias"] = dict(
+                bodies=ALIAS_BODIES, filter=filt,
+                shards_checked=check_shards_on_card(node, "rest_api",
+                                                    alias_mix, alias_resp),
+                parity=("alias search == the bool with its filter (bytes);"
+                        " per shard execute_query on the card == the CPU "
+                        "plain path; the response == the merge of the "
+                        "card's shards"))
+        with step("launch_checks"):
+            worst = 0.0
+            n_shapes = len(rec.shapes)
+            while rec.shapes:   # each launch's operands go once checked
+                args, kw = rec.shapes.popitem()[1]
+                worst = max(worst, check_launch(mk, "rest_api", args,
+                                                kw)[1])
+                del args, kw
+            out["parity"] = dict(
+                fused_merge_topk_shapes=n_shapes, max_abs_err=worst,
+                exact_merge=check_exact_launches(mk, ex.launches),
+                shard_topk=check_topk_calls(mk, top.calls),
+                tolerance="bitwise: scores as uint32, docs and totals exact")
+        with step("drain"):
+            mem_after = None
+            for polls in range(1, 51):   # the retired batchers let go
+                gc.collect()
+                torch.cuda.synchronize()
+                mem_after = torch.cuda.memory_allocated()
+                if mem_after == mem_before and hbm.used == hbm_before:
+                    break
+                time.sleep(0.1)
+        out.update(routes=sorted(routes), launches=launches,
+                   hbm_before=hbm_before, hbm_peak=peak[0],
+                   hbm_after=hbm.used,
+                   memory_allocated_before=mem_before,
+                   memory_allocated_after=mem_after, drain_polls=polls,
+                   phase_s=time.perf_counter() - t_phase)
+        if hbm.used != hbm_before or mem_after != mem_before:
+            raise AssertionError(f"rest_api: hbm {hbm.used} / memory "
+                                 f"{mem_after} after the deletes, "
+                                 f"{hbm_before} / {mem_before} before the "
+                                 f"line")
+    except BaseException:
+        out["phase_s"] = time.perf_counter() - t_phase
+        log("rest_api_failed", **out)
+        raise
+    return out, launches
+
+
 def rest_phase(corpus, bodies, mk, smi, e2e_responses, data_root,
                exact_run, exact_responses):
     """The node over HTTP on the card, on make_mesh() pinned to one card
@@ -2113,7 +2558,8 @@ def rest_phase(corpus, bodies, mk, smi, e2e_responses, data_root,
     shard_topk, every exact merge), the hits against the numpy oracle,
     the two runs against each other and against the in-process e2e run,
     the exact run against the in-process exact phase; then runs the
-    planner and delta lines on the same node, and checks that deleting
+    planner, fields, rest_api and delta lines on the same node, and
+    checks that deleting
     the index (a delta chained on it) drains the hbm breaker to 0 and
     returns torch.cuda.memory_allocated() to its value before the
     pack."""
@@ -2248,6 +2694,9 @@ def rest_phase(corpus, bodies, mk, smi, e2e_responses, data_root,
                                                  mk, smi)
         fields, fields_launches = fields_phase(host, port, node, corpus,
                                                bodies, mk, smi)
+        rest_api, rest_api_launches = rest_api_phase(host, port, node,
+                                                     corpus, bodies, mk,
+                                                     smi)
         delta, delta_kernels, delta_launches = delta_phase(
             host, port, node, corpus, bodies, mk, smi)
         status, resp = rest_http(host, port, "DELETE", f"/{REST_INDEX}")
@@ -2282,7 +2731,7 @@ def rest_phase(corpus, bodies, mk, smi, e2e_responses, data_root,
     return out, dict(launches["source"],
                      exact_merge=launches["exact"]["exact_merge"]), \
         planner, planner_kernels, delta, delta_kernels, delta_launches, \
-        fields, fields_launches
+        fields, fields_launches, rest_api, rest_api_launches
 
 
 def time_events(fn, n):
@@ -3347,12 +3796,13 @@ def main() -> int:
         # -- rest: the node over HTTP, the path users call -------------
         rest, rest_launches, planner, planner_kernels, delta, \
             delta_kernels, delta_launches, fields, \
-            fields_launches = rest_phase(
+            fields_launches, rest_api, rest_api_launches = rest_phase(
                 corpus, bodies, mk, smi, responses,
                 os.path.join(here, "data"), exact_run, exact_responses)
         log("rest", **rest)
         log("planner", **planner)
         log("fields", **fields)
+        log("rest_api", **rest_api)
         log("delta", **delta)
         kernels += planner_kernels
         # -- raw: segments past 65,408 docs, a raw pack, the pruned tiers
@@ -3366,6 +3816,7 @@ def main() -> int:
         for entry in kernels:
             name = entry.get("kernel", entry["name"].split(".", 1)[1])
             entry["launches_fields"] = fields_launches.get(name, 0)
+            entry["launches_rest_api"] = rest_api_launches.get(name, 0)
             entry["launches_delta"] = delta_launches.get(
                 "pruned_candidates.pack_keys"
                 if entry["name"].endswith(".pack_keys") else name, 0)

@@ -136,6 +136,11 @@ class ClusterBlockException(EsException):
     status = 503
 
 
+class IndexClosedException(EsException):
+    """Operation on a closed index (a 400, as in the reference)."""
+    status = 400
+
+
 class IndexBlockException(ClusterBlockException):
     status = 403
 

@@ -1,10 +1,11 @@
 """Flat, typed settings.
 
 Copy of the reference's ``common/settings.py`` ``Settings`` map (the
-typed ``Setting`` registry and the scoped validators are left out): an
-immutable flat key → value map, nested dicts flattened to dotted keys, so
-a node or index configuration written for the reference reads the same
-here.
+typed ``Setting`` registry and the scoped validators are left out): a
+flat key → value map, nested dicts flattened to dotted keys, so a node
+or index configuration written for the reference reads the same here.
+Only the dynamic-settings paths mutate one (``replace_all``,
+``update_dynamic``).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from elasticsearch_tpu_torch.common.errors import SettingsException
 
 
 class Settings:
-    """Immutable flat key→value map. Nested dicts flatten to dotted keys."""
+    """Flat key→value map. Nested dicts flatten to dotted keys."""
 
     EMPTY: "Settings"
 
@@ -49,6 +50,22 @@ class Settings:
         for k, v in Settings._flatten(d or {}).items():
             out[k if k.startswith("index.") else f"index.{k}"] = v
         return out
+
+    def replace_all(self, flat: Dict[str, Any]) -> None:
+        """Swap the whole map in place (the node's dynamic-settings
+        recompute: base config + persistent + transient), so that every
+        holder of this Settings sees the change."""
+        self._map.clear()
+        self._map.update(flat)
+
+    def update_dynamic(self, changes: Dict[str, Any]) -> None:
+        """Apply runtime setting changes in place; a None value clears
+        the key."""
+        for key, value in Settings._flatten(changes).items():
+            if value is None:
+                self._map.pop(key, None)
+            else:
+                self._map[key] = value
 
     def get(self, key: str, default: Any = None) -> Any:
         return self._map.get(key, default)

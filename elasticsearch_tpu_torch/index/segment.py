@@ -117,6 +117,19 @@ class Segment:
         entry = self.postings.get(field, {}).get(term)
         return 0 if entry is None else len(entry[0])
 
+    def ram_bytes_estimate(self) -> int:
+        """Bytes of the postings, norms and doc-value columns (rollover's
+        max_size)."""
+        total = 0
+        for field_postings in self.postings.values():
+            for docs, tfs in field_postings.values():
+                total += docs.nbytes + tfs.nbytes
+        for n in self.norms.values():
+            total += n.nbytes
+        for col in self.doc_values.values():
+            total += col.values.nbytes
+        return total
+
 
 class SegmentWriter:
     """In-memory document buffer; freeze() emits an immutable Segment."""

@@ -3,12 +3,13 @@
 Copy of the reference's ``indices/service.py`` (IndexService: settings,
 mapper and local shards of one index; IndicesService: the registry, its
 gateway metadata under ``<data_path>/_state/indices.json`` so a restart
-reopens its indices, and aliases). Routing a document to a shard is the
-port's ``indices/routing.shard_for``, the reference's murmur3. Of the
-dynamic index settings only the translog's two are here (durability and
-the async fsync interval; the rest come with the ``_settings`` route).
-Left out: the slow log, search-failure counters and the close/open
-lifecycle.
+reopens its indices in their open or closed state, aliases, the
+close/open lifecycle and the per-shard search-failure counters).
+Routing a document to a shard is the port's ``indices/routing.shard_for``,
+the reference's murmur3. The dynamic index settings are the reference's,
+but for two whose modules are not ported: ``index.default_pipeline``
+(ingest) and ``index.search.slowlog.threshold.*`` (the slow log) are
+refused with a 400 that says so.
 """
 
 from __future__ import annotations
@@ -24,7 +25,9 @@ from elasticsearch_tpu_torch.common.errors import (
     IllegalArgumentException,
     IndexAlreadyExistsException,
     IndexBlockException,
+    IndexClosedException,
     IndexNotFoundException,
+    ResourceNotFoundException,
     ShardNotFoundException,
 )
 from elasticsearch_tpu_torch.common.settings import Settings
@@ -49,6 +52,32 @@ def select_write_index(targets: Dict[str, Dict[str, Any]],
         f"over multiple indices needs exactly one is_write_index")
 
 
+def parse_alias_action(action: Dict[str, Any]) -> tuple:
+    """Validate one _aliases action → (kind, index_expr, alias, props)."""
+    if not isinstance(action, dict) or len(action) != 1:
+        raise IllegalArgumentException(
+            "[aliases] each action is one {add|remove: {...}} object")
+    kind, spec = next(iter(action.items()))
+    if kind not in ("add", "remove"):
+        raise IllegalArgumentException(
+            f"[aliases] unknown action [{kind}]")
+    idx_expr = spec.get("index")
+    alias = spec.get("alias")
+    if not idx_expr or not alias:
+        raise IllegalArgumentException(
+            f"[aliases] {kind} requires [index] and [alias]")
+    props: Dict[str, Any] = {}
+    if kind == "add":
+        _validate_index_name(alias)
+        if spec.get("filter") is not None:
+            from elasticsearch_tpu_torch.search import dsl
+            dsl.parse_query(spec["filter"])  # validate at request time
+            props["filter"] = spec["filter"]
+        if spec.get("is_write_index"):
+            props["is_write_index"] = True
+    return kind, idx_expr, alias, props
+
+
 class IndexService:
     """One open index on this node: settings, mapper, local shards."""
 
@@ -62,6 +91,7 @@ class IndexService:
         self.mapper = MapperService(mapping, settings)
         self.data_path = data_path
         self.shards: Dict[int, IndexShard] = {}
+        self.closed = False
         self._k1 = settings.get_float("index.similarity.default.k1", 1.2)
         self._b = settings.get_float("index.similarity.default.b", 0.75)
         self._durability = settings.get("index.translog.durability", "request")
@@ -87,6 +117,8 @@ class IndexService:
         return shard
 
     def shard(self, shard_num: int) -> IndexShard:
+        if self.closed:
+            raise IndexClosedException(f"closed index [{self.name}]")
         s = self.shards.get(shard_num)
         if s is None:
             raise ShardNotFoundException(
@@ -108,19 +140,37 @@ class IndexService:
     def shard_for_id(self, doc_id: str, routing: Optional[str] = None) -> int:
         return shard_for(routing or doc_id, self.num_shards)
 
-    # -------- dynamic settings (the translog's) --------
+    # -------- dynamic settings --------
 
-    DYNAMIC_KEYS = ("index.translog.durability",
+    DYNAMIC_KEYS = ("index.number_of_replicas", "index.blocks.write",
+                    "index.blocks.read_only", "index.translog.durability",
                     "index.translog.sync_interval_seconds")
+    #: dynamic in the reference, refused here: their modules (ingest, the
+    #: search slow log) are not ported
+    UNPORTED_DYNAMIC = (("index.default_pipeline", "ingest pipelines are"),
+                        ("index.search.slowlog.threshold.",
+                         "the search slow log is"))
 
     @classmethod
     def validate_dynamic_settings(cls, changes: Dict[str, Any]) -> None:
         for key, value in changes.items():
+            for prefix, what in cls.UNPORTED_DYNAMIC:
+                if key.startswith(prefix):
+                    raise IllegalArgumentException(
+                        f"setting [{key}]: {what} not ported yet")
             if key not in cls.DYNAMIC_KEYS:
                 raise IllegalArgumentException(
                     f"setting [{key}] is not dynamically updateable" if
                     key.startswith("index.") else
                     f"unknown index setting [{key}]")
+            if key == "index.number_of_replicas" and value is not None:
+                try:
+                    if int(value) < 0:
+                        raise ValueError
+                except (TypeError, ValueError):
+                    raise IllegalArgumentException(
+                        f"[index.number_of_replicas] must be a "
+                        f"non-negative integer, got [{value}]") from None
             if (key == "index.translog.durability"
                     and value not in ("request", "async")):
                 raise IllegalArgumentException(
@@ -129,13 +179,9 @@ class IndexService:
 
     def apply_dynamic_settings(self, changes: Dict[str, Any]) -> None:
         """Apply validated dynamic changes to this open index."""
-        merged = self.settings.get_as_dict()
-        for key, value in Settings.of(changes).get_as_dict().items():
-            if value is None:
-                merged.pop(key, None)
-            else:
-                merged[key] = value
-        self.settings = Settings(merged)
+        self.settings.update_dynamic(changes)
+        self.num_replicas = self.settings.get_int(
+            "index.number_of_replicas", self.num_replicas)
         if "index.translog.durability" in changes:
             self._durability = self.settings.get(
                 "index.translog.durability", self._durability)
@@ -186,7 +232,28 @@ class IndicesService:
         # alias → index → props ({"filter": query-json,
         # "is_write_index": bool})
         self.aliases: Dict[str, Dict[str, Dict[str, Any]]] = {}
+        # (index, shard) → search failures the coordinator's query and
+        # fetch phases captured
+        self._search_failures: Dict[tuple, int] = {}
+        self._failures_lock = threading.Lock()
         self._load_metadata()
+
+    # -------- per-shard search failure accounting --------
+
+    def count_search_failure(self, index: str, shard: int) -> None:
+        key = (index, int(shard))
+        with self._failures_lock:
+            self._search_failures[key] = \
+                self._search_failures.get(key, 0) + 1
+
+    def search_failure_stats(self) -> Dict[str, Dict[str, int]]:
+        """{index: {shard: failures}}."""
+        with self._failures_lock:
+            snap = list(self._search_failures.items())
+        out: Dict[str, Dict[str, int]] = {}
+        for (index, shard), count in snap:
+            out.setdefault(index, {})[str(shard)] = count
+        return out
 
     def _state_path(self) -> str:
         return os.path.join(self.data_path, "_state", "indices.json")
@@ -196,7 +263,8 @@ class IndicesService:
             "indices": {name: {"uuid": svc.index_uuid,
                                "settings": svc.settings.get_as_dict(),
                                "mapping": svc.mapper.to_mapping(),
-                               "state": "open"}
+                               "state": ("close" if svc.closed
+                                         else "open")}
                         for name, svc in self.indices.items()},
             "aliases": self.aliases,
         }
@@ -219,8 +287,11 @@ class IndicesService:
             svc = IndexService(name, m["uuid"], Settings.of(m["settings"]),
                                m.get("mapping"),
                                os.path.join(self.data_path, m["uuid"]))
-            for i in range(svc.num_shards):
-                svc.create_shard(i, primary=True)  # recovers from store
+            if m.get("state") == "close":
+                svc.closed = True  # data stays on disk, shards stay shut
+            else:
+                for i in range(svc.num_shards):
+                    svc.create_shard(i, primary=True)  # recovers from store
             self.indices[name] = svc
 
     def create_index(self, name: str, settings: Optional[Settings] = None,
@@ -266,12 +337,58 @@ class IndicesService:
             self.aliases.setdefault(alias, {})[index] = dict(props or {})
             self._persist_metadata_locked()
 
+    def delete_alias(self, index: str, alias: str) -> None:
+        with self._lock:
+            entry = self.aliases.get(alias)
+            if not entry or index not in entry:
+                raise ResourceNotFoundException(
+                    f"aliases [{alias}] missing on index [{index}]")
+            del entry[index]
+            if not entry:
+                del self.aliases[alias]
+            self._persist_metadata_locked()
+
+    def alias_targets(self, alias: str) -> Optional[Dict[str, Dict]]:
+        return self.aliases.get(alias)
+
     def resolve_write_index(self, name: str) -> str:
         """Writes through an alias land on its write index; a plain
         index name passes through."""
         if name in self.aliases:
-            return select_write_index(self.aliases.get(name) or {}, name)
+            return self.write_index_for(name)
         return name
+
+    def write_index_for(self, alias: str) -> str:
+        return select_write_index(self.aliases.get(alias) or {}, alias)
+
+    # -------- the close/open lifecycle --------
+
+    def close_index(self, name: str) -> None:
+        """Flush and shut the index's shards; the data stays on disk and
+        the index refuses reads and writes until it is opened."""
+        with self._lock:
+            svc = self.indices.get(name)
+            if svc is None:
+                raise IndexNotFoundException(f"no such index [{name}]")
+            if not svc.closed:
+                for s in svc.shards.values():
+                    s.flush()
+                    s.close()
+                svc.shards.clear()
+                svc.closed = True
+                self._persist_metadata_locked()
+
+    def open_index(self, name: str) -> None:
+        """Reopen a closed index from its store."""
+        with self._lock:
+            svc = self.indices.get(name)
+            if svc is None:
+                raise IndexNotFoundException(f"no such index [{name}]")
+            if svc.closed:
+                svc.closed = False
+                for i in range(svc.num_shards):
+                    svc.create_shard(i, primary=True)
+                self._persist_metadata_locked()
 
     def delete_index(self, name: str) -> None:
         with self._lock:

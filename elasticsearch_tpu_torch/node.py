@@ -27,6 +27,16 @@ append-only refresh of a resident index rides a small delta pack chained
 on the base pack, and a background thread folds the chain back into one
 base pack (``search/gpu_service.py``).
 
+Dynamic cluster settings (``PUT /_cluster/settings``) are persistent or
+transient; the node's live settings are its base configuration with the
+persistent ones over it and the transient ones over those, and the
+persistent ones are written atomically under ``_state/`` and read back
+after a restart. Of the reference's dynamic cluster settings the node
+takes ``action.auto_create_index``; ``logger.*`` and ``cluster.remote.*``
+wait for the logging and cross-cluster modules.
+
+The HTTP layer answers JSON, or text/plain for a ``_cat`` table.
+
 Run: python -m elasticsearch_tpu_torch.node --port 9200 --data-path ./data
      [--device cpu] [--mesh-shape D,S]
 """
@@ -47,8 +57,10 @@ from urllib.parse import parse_qs, urlparse
 from elasticsearch_tpu_torch.common.breaker import \
     HierarchyCircuitBreakerService
 from elasticsearch_tpu_torch.common.errors import (
-    IndexAlreadyExistsException, IndexNotFoundException)
+    IllegalArgumentException, IndexAlreadyExistsException,
+    IndexNotFoundException)
 from elasticsearch_tpu_torch.common.settings import Settings
+from elasticsearch_tpu_torch.index.translog import write_atomic
 from elasticsearch_tpu_torch.indices.service import (IndexService,
                                                      IndicesService)
 from elasticsearch_tpu_torch.parallel.device import resolve_device
@@ -57,6 +69,12 @@ from elasticsearch_tpu_torch.parallel.mesh import (Mesh, make_mesh,
 from elasticsearch_tpu_torch.rest.controller import RestController
 from elasticsearch_tpu_torch.search.gpu_service import GpuSearchService
 from elasticsearch_tpu_torch.search.serializer import dumps_response
+
+#: the dynamic cluster settings the node takes
+DYNAMIC_CLUSTER_SETTINGS = ("action.auto_create_index",)
+#: dynamic in the reference, refused here with the module they wait for
+UNPORTED_CLUSTER_PREFIXES = (("logger.", "the logging module"),
+                             ("cluster.remote.", "cross-cluster search"))
 
 
 class Node:
@@ -67,12 +85,18 @@ class Node:
                  device=None, mesh: Optional[Mesh] = None):
         self.settings = Settings((settings or Settings.EMPTY)
                                  .get_as_dict())
+        self._base_settings = self.settings.get_as_dict()
         self.mesh = resolve_mesh(device, mesh)
         self.node_name = node_name
         self.node_id = _load_or_create_node_id(data_path, node_name)
         self.cluster_name = cluster_name
         self.cluster_uuid = uuid.uuid4().hex[:20]
         self.indices = IndicesService(data_path)
+        self.transient_settings: Dict[str, Any] = {}
+        self.persistent_settings: Dict[str, Any] = \
+            self._load_persistent_settings()
+        if self.persistent_settings:
+            self.recompute_settings()
         self.breakers = HierarchyCircuitBreakerService(
             total_limit_bytes=self.settings.get_int(
                 "indices.breaker.total.limit_bytes", 8 << 30))
@@ -98,9 +122,12 @@ class Node:
                     "search.tpu_serving.delta.max_docs", 50_000),
             })
         self.controller = RestController()
-        from elasticsearch_tpu_torch.rest.actions import (admin, document,
-                                                          root, search)
-        for module in (document, search, admin, root):
+        from elasticsearch_tpu_torch.rest.actions import (admin, aliases,
+                                                          cluster, document,
+                                                          introspect, root,
+                                                          search)
+        for module in (document, search, admin, aliases, cluster,
+                       introspect, root):
             module.register(self.controller, self)
         self._bulk_pool: Optional[ThreadPoolExecutor] = None
         self._pool_lock = threading.Lock()
@@ -143,6 +170,57 @@ class Node:
                     max_workers=min(8, max(4, os.cpu_count() or 1)),
                     thread_name_prefix="shard-bulk")
             return self._bulk_pool
+
+    # ---------------- dynamic cluster settings ----------------
+
+    def _cluster_settings_path(self) -> str:
+        return os.path.join(self.indices.data_path, "_state",
+                            "cluster_settings.json")
+
+    def _load_persistent_settings(self) -> Dict[str, Any]:
+        try:
+            with open(self._cluster_settings_path(), "rb") as f:
+                return json.loads(f.read().decode("utf-8"))
+        except (OSError, json.JSONDecodeError):
+            return {}
+
+    def recompute_settings(self) -> None:
+        """settings := base config + persistent + transient, in place
+        (a cleared key reverts to its base value)."""
+        target = dict(self._base_settings)
+        target.update(self.persistent_settings)
+        target.update(self.transient_settings)
+        self.settings.replace_all(target)
+
+    def update_cluster_settings_local(self, persistent: dict,
+                                      transient: dict) -> dict:
+        """PUT /_cluster/settings on one node: validate every key, apply
+        (a None value clears), persist the persistent ones atomically."""
+        flat_p = Settings._flatten(persistent)
+        flat_t = Settings._flatten(transient)
+        for key in list(flat_p) + list(flat_t):
+            for prefix, module in UNPORTED_CLUSTER_PREFIXES:
+                if key.startswith(prefix):
+                    raise IllegalArgumentException(
+                        f"setting [{key}]: {module} is not ported yet")
+            if key not in DYNAMIC_CLUSTER_SETTINGS:
+                raise IllegalArgumentException(
+                    f"setting [{key}] is not dynamically updateable")
+        for store, changes in ((self.persistent_settings, flat_p),
+                               (self.transient_settings, flat_t)):
+            for k, v in changes.items():
+                if v is None:
+                    store.pop(k, None)
+                else:
+                    store[k] = v
+        self.recompute_settings()
+        p = self._cluster_settings_path()
+        os.makedirs(os.path.dirname(p), exist_ok=True)
+        write_atomic(p, json.dumps(self.persistent_settings,
+                                   sort_keys=True).encode("utf-8"))
+        return {"acknowledged": True,
+                "persistent": dict(self.persistent_settings),
+                "transient": dict(self.transient_settings)}
 
     # ---------------- background refresh + translog sync ----------------
 
@@ -225,7 +303,7 @@ class Node:
                body: Any = None, raw_body: bytes = b""):
         if body is None and raw_body:
             text = raw_body.decode("utf-8", errors="replace")
-            if path.endswith("/_bulk"):
+            if path.endswith(("/_bulk", "/_msearch")):
                 body = text  # NDJSON bodies parse per line downstream
             elif text.strip():
                 try:
@@ -251,15 +329,21 @@ class _Handler(BaseHTTPRequestHandler):
                                            None, raw)
         extra_headers = (payload.pop("_headers", None)
                          if isinstance(payload, dict) else None)
-        # dumps_response renders embedded ColumnarHits blocks from their
-        # result columns in one pass (no per-hit dicts for metadata-only
-        # hits); plain payloads serialize as json.dumps
-        t0 = time.perf_counter()
-        data = dumps_response(payload).encode("utf-8")
-        self.node.gpu_search.stages.add("serialize",
-                                        time.perf_counter() - t0)
+        if isinstance(payload, dict) and "_cat" in payload \
+                and len(payload) == 1:
+            data = payload["_cat"].encode("utf-8")
+            ctype = "text/plain; charset=UTF-8"
+        else:
+            # dumps_response renders embedded ColumnarHits blocks from
+            # their result columns in one pass (no per-hit dicts for
+            # metadata-only hits); plain payloads serialize as json.dumps
+            t0 = time.perf_counter()
+            data = dumps_response(payload).encode("utf-8")
+            self.node.gpu_search.stages.add("serialize",
+                                            time.perf_counter() - t0)
+            ctype = "application/json; charset=UTF-8"
         self.send_response(status)
-        self.send_header("Content-Type", "application/json; charset=UTF-8")
+        self.send_header("Content-Type", ctype)
         self.send_header("Content-Length", str(len(data)))
         self.send_header("X-elastic-product", "Elasticsearch-TPU")
         for name, value in (extra_headers or {}).items():

@@ -2,16 +2,19 @@
 
 Copy of the reference's ``rest/actions/document.py`` for ``PUT``/``POST
 /{index}/_doc/{id}``, ``POST /{index}/_doc``, ``GET`` and ``DELETE
-/{index}/_doc/{id}`` and ``_bulk`` with index, create, delete and update
-ops (an update merges its ``doc`` into the stored source, or upserts it
-with ``doc_as_upsert``; a scripted update refuses the whole bulk until
-the script module is ported). The bulk body is NDJSON action/metadata
-lines as in the reference; maximal runs of plain index ops group per
-shard and apply through the engine's batched path, the shards of a run
-on a thread pool (each shard's ops stay in request order, so doc
-ordinals — and with them the tie order of equal scores — are the
-reference's). Left out: cluster routing, indexing pressure, ingest
-pipelines, scripts, the ``_update`` route and ``_mget``.
+/{index}/_doc/{id}``, ``_create/{id}`` (a 409 on an existing id),
+``_update/{id}`` (the doc-merge form, ``doc_as_upsert`` and ``upsert``),
+``_mget`` and ``_bulk`` with index, create, delete and update ops (an
+update merges its ``doc`` into the stored source, or upserts it with
+``doc_as_upsert``). A scripted update waits for the script module: the
+``_update`` route refuses it with a 400, and a bulk that holds one is
+refused whole. The bulk body is NDJSON action/metadata lines as in the
+reference; maximal runs of plain index ops group per shard and apply
+through the engine's batched path, the shards of a run on a thread pool
+(each shard's ops stay in request order, so doc ordinals — and with them
+the tie order of equal scores — are the reference's). Left out: cluster
+routing, indexing pressure, ingest pipelines, scripts, ``_reindex`` and
+the by-query APIs.
 """
 
 from __future__ import annotations
@@ -112,6 +115,52 @@ def exec_delete_doc(node, index: str, doc_id: str, params
                  "_seq_no": result.seq_no,
                  "_primary_term": result.primary_term,
                  "_shards": {"total": 1, "successful": 1, "failed": 0}}
+
+
+def exec_update_doc(node, index: str, doc_id: str, body, params
+                    ) -> Tuple[int, Dict]:
+    """_update: the doc-merge form, doc_as_upsert and upsert; a doc
+    merge that changes nothing is a noop (detect_noop, on by
+    default)."""
+    index = node.indices.resolve_write_index(index)
+    svc = node.indices.index(index)
+    svc.check_write_block()
+    shard = svc.shard(svc.shard_for_id(doc_id, params.get("routing")))
+    body = body or {}
+    partial = body.get("doc")
+    if "script" in body:
+        if partial is not None:
+            raise IllegalArgumentException(
+                "Validation Failed: can't provide both script and doc")
+        raise IllegalArgumentException(
+            "[_update] with a script: the script module is not ported "
+            "yet")
+    if partial is None:
+        raise IllegalArgumentException(
+            "Validation Failed: script or doc is missing")
+    existing = shard.get(doc_id)
+    if existing is None:
+        if body.get("doc_as_upsert"):
+            merged = partial
+        elif "upsert" in body:
+            merged = body["upsert"]
+        else:
+            raise DocumentMissingException(f"[{doc_id}]: document missing")
+    else:
+        base = dict(existing["_source"] or {})
+        merged = _deep_merge(base, partial)
+        if body.get("detect_noop", True) and merged == base:
+            return 200, {"_index": index, "_id": doc_id,
+                         "_version": existing.get("_version", 1),
+                         "result": "noop",
+                         "_shards": {"total": 0, "successful": 0,
+                                     "failed": 0}}
+    result = shard.apply_index_on_primary(doc_id, merged)
+    _apply_refresh(node, shard, params, result.seq_no)
+    return 200, {"_index": index, "_id": doc_id,
+                 "_version": result.version, "result": result.result,
+                 "_seq_no": result.seq_no,
+                 "_primary_term": result.primary_term}
 
 
 # ----------------------------------------------------------------------
@@ -329,6 +378,39 @@ def register(controller: RestController, node) -> None:
         return exec_index_doc(node, req.param("index"), req.param("id"),
                               req.body, req.params, op_type=op_type)
 
+    def create_doc(req: RestRequest):
+        """op_type=create: a 409 if the doc exists, decided inside the
+        engine's write lock so that concurrent creates serialize."""
+        return exec_index_doc(node, req.param("index"), req.param("id"),
+                              req.body, req.params, op_type="create")
+
+    def update_doc(req: RestRequest):
+        return exec_update_doc(node, req.param("index"), req.param("id"),
+                               req.body, req.params)
+
+    def mget(req: RestRequest):
+        body = req.body or {}
+        docs_spec = body.get("docs")
+        default_index = req.param("index")
+        if docs_spec is None and "ids" in body:
+            docs_spec = [{"_id": i} for i in body["ids"]]
+        if docs_spec is None:
+            raise IllegalArgumentException("[_mget] requires docs or ids")
+        out = []
+        for spec in docs_spec:
+            index = spec.get("_index", default_index)
+            doc_id = spec["_id"]
+            try:
+                svc = node.indices.index(index)
+                got = svc.shard(svc.shard_for_id(doc_id)).get(doc_id)
+                if got is not None:
+                    got["_index"] = index
+            except EsException:
+                got = None
+            out.append(got if got is not None else
+                       {"_index": index, "_id": doc_id, "found": False})
+        return 200, {"docs": out}
+
     def post_doc(req: RestRequest):
         return exec_index_doc(node, req.param("index"), None, req.body,
                               req.params)
@@ -355,9 +437,15 @@ def register(controller: RestController, node) -> None:
 
     controller.register("PUT", "/{index}/_doc/{id}", put_doc)
     controller.register("POST", "/{index}/_doc/{id}", put_doc)
+    controller.register("PUT", "/{index}/_create/{id}", create_doc)
+    controller.register("POST", "/{index}/_create/{id}", create_doc)
     controller.register("POST", "/{index}/_doc", post_doc)
     controller.register("GET", "/{index}/_doc/{id}", get_doc)
     controller.register("DELETE", "/{index}/_doc/{id}", delete_doc)
+    controller.register("POST", "/{index}/_update/{id}", update_doc)
     controller.register("POST", "/_bulk", bulk)
     controller.register("PUT", "/_bulk", bulk)
     controller.register("POST", "/{index}/_bulk", bulk)
+    for method in ("GET", "POST"):
+        controller.register(method, "/_mget", mget)
+        controller.register(method, "/{index}/_mget", mget)

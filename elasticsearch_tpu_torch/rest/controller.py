@@ -27,6 +27,12 @@ class RestRequest:
     def param(self, key: str, default: Optional[str] = None) -> Optional[str]:
         return self.params.get(key, default)
 
+    def param_bool(self, key: str, default: bool = False) -> bool:
+        v = self.params.get(key)
+        if v is None:
+            return default
+        return v in ("", "true", "1")
+
 
 Handler = Callable[[RestRequest], Tuple[int, Dict[str, Any]]]
 

@@ -18,6 +18,12 @@ order, shard, rank), fetches the window's winners and renders the
 reference's response. It runs on the first device of the service's
 mesh.
 
+``count`` is the reference's ``_count``: every shard's query phase at
+size 0 (totals only, no top-k) on the device it is given, alias filters
+applied. A closed index is skipped by a wildcard, ``_all`` or an alias,
+and named directly it is the reference's 400 before any shard or pack
+is asked.
+
 Refused typed (``NotLowerable``): the planner features not ported yet
 (sort, search_after, highlight, suggest, rescore, collapse, pit,
 aggregations, knn), and what the reference serves on its kernel path
@@ -36,8 +42,8 @@ import numpy as np
 
 from elasticsearch_tpu_torch.common.errors import (
     CircuitBreakingException, IllegalArgumentException,
-    IndexNotFoundException, NotLowerable, SearchPhaseExecutionException,
-    shard_failure_entry)
+    IndexClosedException, IndexNotFoundException, NotLowerable,
+    SearchPhaseExecutionException, shard_failure_entry)
 from elasticsearch_tpu_torch.search import dsl
 from elasticsearch_tpu_torch.search.can_match import can_match
 from elasticsearch_tpu_torch.search.gpu_service import MAX_K
@@ -92,13 +98,18 @@ def resolve_targets(indices, expression: Optional[str]
                     ) -> Tuple[List[str], Dict[str, List[dict]]]:
     """Wildcard/CSV resolution over index and alias names → (index names,
     {index: [alias filter json, ...]}). An index reached directly (or
-    through an unfiltered alias) in the same expression is unfiltered."""
+    through an unfiltered alias) in the same expression is unfiltered.
+    Closed indices: a wildcard, ``_all`` or an alias skips them; naming
+    one directly raises IndexClosedException."""
     idx_names = sorted(indices.indices.keys())
     alias_map = getattr(indices, "aliases", {})
     alias_names = sorted(alias_map.keys())
     out: List[str] = []
     filters: Dict[str, List[dict]] = {}
     unfiltered: set = set()
+
+    def closed(name: str) -> bool:
+        return getattr(indices.indices.get(name), "closed", False)
 
     def add_index(name: str, filt: Optional[dict]) -> None:
         if name not in out:
@@ -111,18 +122,21 @@ def resolve_targets(indices, expression: Optional[str]
 
     def add_part(part: str) -> None:
         if part in idx_names:
+            if closed(part):
+                raise IndexClosedException(f"closed index [{part}]")
             add_index(part, None)
             return
         if part in alias_names:
             for idx, props in sorted(alias_map[part].items()):
-                if idx in indices.indices:
+                if idx in indices.indices and not closed(idx):
                     add_index(idx, props.get("filter"))
             return
         raise IndexNotFoundException(f"no such index [{part}]")
 
     if expression in (None, "", "_all", "*"):
         for n in idx_names:
-            add_index(n, None)
+            if not closed(n):
+                add_index(n, None)
         return out, filters
     for part in expression.split(","):
         part = part.strip()
@@ -130,7 +144,8 @@ def resolve_targets(indices, expression: Optional[str]
             continue
         if "*" in part or "?" in part:
             for m in fnmatch.filter(idx_names, part):
-                add_index(m, None)
+                if not closed(m):
+                    add_index(m, None)
             for m in fnmatch.filter(alias_names, part):
                 add_part(m)
         else:
@@ -278,6 +293,7 @@ def _search_planner(indices, names: List[str],
                 raise
             except Exception as e:  # noqa: BLE001 — per-shard capture
                 failures.append(shard_failure_entry(name, shard_num, e))
+                indices.count_search_failure(name, shard_num)
                 continue
             shard_results.append((name, shard_num, reader, res))
             total += res.total_hits
@@ -312,6 +328,7 @@ def _search_planner(indices, names: List[str],
             raise
         except Exception as e:  # noqa: BLE001 — per-shard capture
             failures.append(shard_failure_entry(name, shard_num, e))
+            indices.count_search_failure(name, shard_num)
             fetch_failed.add(si)
             fetched = {k: v for k, v in fetched.items() if k[0] != si}
     if fetch_failed:
@@ -434,3 +451,24 @@ def _assemble_hits(name: str, resident, scores, rows, ords, source,
     """Columnar window → response hit dicts (the materialized form)."""
     return assemble_hits_list(name, resident, scores, rows, ords, source,
                               version, seq_no_primary_term)
+
+
+def count(indices, index_expr: Optional[str],
+          body: Optional[Dict[str, Any]], device) -> Dict[str, Any]:
+    """``_count``: the query phase of every shard at size 0 on `device`
+    (no top-k: only the totals), alias filters applied."""
+    names, alias_filters = resolve_targets(indices, index_expr)
+    query = dsl.parse_query((body or {}).get("query") or {"match_all": {}})
+    total = 0
+    n_shards = 0
+    for name in names:
+        svc = indices.index(name)
+        eff_query = with_alias_filters(query, alias_filters.get(name))
+        for _, shard in sorted(svc.shards.items()):
+            reader = shard.acquire_searcher()
+            res = execute_query(reader, eff_query, size=0, device=device)
+            total += res.total_hits
+            n_shards += 1
+    return {"count": total,
+            "_shards": {"total": n_shards, "successful": n_shards,
+                        "skipped": 0, "failed": 0}}

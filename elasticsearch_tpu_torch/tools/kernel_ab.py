@@ -30,7 +30,15 @@ pruned_order on its widest order-only call and pruned_rescore on the
 probes' widest scoring call (score and order). "ms" is the median of
 TIMED CUDA-event brackets around the wrapper call, "device_ms" the mean
 device time of every kernel the call runs (torch.profiler), and "same"
-says that the call gave the recorded outputs bit for bit.
+says that the call gave the recorded outputs bit for bit. Under
+"shard_topk.phase_a", shard_topk on the widest row phase A gave it (the
+top-k over the shards' candidate lists, inside a pruned tier) in those
+calls and in chip_smoke's from + size 10,000 stop-word bodies, timed as
+chip_smoke's kernels line times shard_topk: its ms and device ms, the
+plain stable sort's and torch.topk's ms on the same tensor, the bytes
+bound; "widths" counts the drives' shard_topk calls by drive (the
+fixed train, the probes, the stop-word bodies), tier ("outside a tier":
+an exact launch's cross-shard top-k, not phase A's), shape and k.
 """
 
 from __future__ import annotations
@@ -177,10 +185,30 @@ def raw_calls(svc, mk, cs, corpus):
     mapper = svc._index(cs.RAW_INDEX).mapper
     flats = [lower_query(dsl.parse_query(b["query"]), mapper)
              for b in cs.make_bodies(corpus)[:128]]
-    with cs.RawRecorder(mk) as fixed:
+    topk_calls = []   # (drive, tier or None, (vals, k, got_v, got_p))
+
+    def phase_a(drive, raw):
+        """shard_topk recorded while `raw` runs, tagged with the drive and
+        the pruned tier it ran in (None: outside one, not phase A)."""
+        return cs.TopkRecorder(mk, tag=lambda: (drive, getattr(
+            raw.tier, "name", None)))
+
+    def keep(top):
+        topk_calls.extend((*tag, call) for tag, call
+                          in zip(top.tags, top.calls))
+
+    with cs.RawRecorder(mk) as fixed, phase_a("fixed", fixed) as top:
         svc._execute(svc.resident(cs.RAW_INDEX, cs.FIELD), flats, cs.K)
-    with cs.RawRecorder(mk) as probes:
+    keep(top)
+    with cs.RawRecorder(mk) as probes, phase_a("probes", probes) as top:
         cs.drive(svc, cs.RAW_INDEX, cs.raw_probe_bodies(corpus.vocab))
+    keep(top)
+    (_, _, k10000), = [e for e in extra_bodies(
+        corpus.vocab, cs.FIELD, cs.K, cs.MAX_K, []) if e[0] == "k10000"]
+    with cs.RawRecorder(mk) as wide, phase_a("k10000", wide) as top:
+        cs.drive(svc, cs.RAW_INDEX, k10000)
+    keep(top)
+    del top
 
     def widest(calls, name, size):
         own = [c for c in calls if c[0] == name]
@@ -215,6 +243,21 @@ def raw_calls(svc, mk, cs, corpus):
             device_ms=profiled(lambda: fn(*args, **kw), cs.TIMED,
                                {"all": ("",)}).get("all"),
             same=same)
+    widths = {}
+    for drive, tier, (vals, k, *_) in topk_calls:
+        key = (f"{drive} {tier or 'outside a tier'} "
+               f"[{vals.shape[0]}, {vals.shape[1]}] k {k}")
+        widths[key] = widths.get(key, 0) + 1
+    in_tier = [c for _, tier, c in topk_calls if tier is not None]
+    vals, k, got_v, got_p = max(in_tier, key=lambda c: c[0].shape[1])
+    want_v, want_p = mk.shard_topk_plain(vals, k)
+    entry = cs.topk_entry(mk, "merge_topk.shard_topk.phase_a", vals, k,
+                          {"shard_topk": len(in_tier)}, 1)
+    entry.update(same=bool(torch.equal(got_v.view(torch.int32),
+                                       want_v.view(torch.int32))
+                           and torch.equal(got_p, want_p)),
+                 widths=dict(sorted(widths.items())))
+    out["shard_topk.phase_a"] = entry
     return out
 
 

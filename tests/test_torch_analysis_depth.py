@@ -5,11 +5,8 @@ chains through mapping, search and phrase positions.
 The filter functions are held against the reference's on the same
 inputs (and the reference file's expectations); the end-to-end cases
 send every request to the reference node and the port node
-(``torch_rest_pair``) and compare status and bytes. Left out, each for
-its queue: the ``_analyze`` API cases
-``test_analyze_api_stacked_positions`` and ``test_analyze_api_porter``
-(Queue A4a; their chains are held through the index's analyzer
-registry instead, ``test_registry_chains_match_reference``), and
+(``torch_rest_pair``) and compare status and bytes, the ``_analyze``
+API cases among them. Left out, for its queue:
 ``test_highlight_unaffected_for_plain_analyzer`` (highlighting, Queue
 A5c).
 """
@@ -285,6 +282,21 @@ class TestEndToEnd:
             "query": {"match_phrase": {"t": "running shoes"}}})
         assert _ids(res) == ["1"]
 
+    def test_analyze_api_stacked_positions(self, pair):
+        _index(pair, "an_syn", {})
+        s, res = pair.same("GET", "/an_syn/_analyze",
+                           {"analyzer": "syn", "text": "fast car"})
+        toks = [(t["token"], t["position"]) for t in res["tokens"]]
+        assert ("fast", 0) in toks and ("quick", 0) in toks \
+            and ("rapid", 0) in toks and ("car", 1) in toks
+
+    def test_analyze_api_porter(self, pair):
+        _index(pair, "an_porter", {})
+        s, res = pair.same("GET", "/an_porter/_analyze",
+                           {"analyzer": "english_stem",
+                            "text": "relational databases"})
+        assert [t["token"] for t in res["tokens"]] == ["relat", "databas"]
+
     def test_shingle_end_to_end(self, pair):
         _index(pair, "sh", {"t": {"type": "text", "analyzer": "shingled"}})
         pair.same("PUT", "/sh/_doc/1", {"t": "quick brown fox"},
@@ -381,8 +393,7 @@ REGISTRY_TEXTS = ["fast car", "relational databases", "quick brown fox",
 
 
 def test_registry_chains_match_reference(pair):
-    """The chains of an index's settings (those the reference's
-    ``_analyze`` cases run, Queue A4a) analyze to the reference's
+    """The chains of an index's settings analyze to the reference's
     slots, tokens and positions."""
     _index(pair, "an", {})
     port = pair.port.indices.index("an").mapper.analyzers

@@ -5,7 +5,9 @@ CPU, and when the planner path runs on the card (its segment top-k the
 shard_topk kernel) and on the CPU; deleting the index drains the
 ``hbm`` breaker to 0 and returns ``torch.cuda.memory_allocated()`` to
 its value before the pack. shard_topk on dense segment rows (ties,
--inf) against its plain version, bit for bit.
+-inf) against its plain version, bit for bit. The REST remainder
+(_msearch, _count, _explain, a filtered alias) gives the CPU node's
+bytes.
 
 Marked gpu: skips without a CUDA device. On the card:
 ``python -m pytest --noconftest -p no:cacheprovider
@@ -14,6 +16,7 @@ tests/test_torch_node_gpu.py -q``.
 
 import gc
 import json
+import re
 import time
 
 import pytest
@@ -186,3 +189,54 @@ def test_delete_drains_breaker_and_device_memory(tmp_path):
         assert after == before
     finally:
         node.close()
+
+
+def _took0(text):
+    return re.sub(r'"took": \d+', '"took": 0', text)
+
+
+def _ndjson(*objs):
+    return ("\n".join(json.dumps(o) for o in objs) + "\n").encode()
+
+
+#: the REST remainder on the card: _msearch items on the kernel path and
+#: the planner, _count, _explain and a filtered alias (planner on the
+#: card, its segment top-k shard_topk)
+REST_API_REQUESTS = {
+    "msearch": ("POST", "/_msearch", None, _ndjson(
+        *[x for b in PARITY_BODIES[:6] for x in ({"index": "corpus"}, b)],
+        *[x for b in list(TYPED_BODIES.values())[:2]
+          for x in ({"index": "typed"}, b)])),
+    "count": ("POST", "/corpus/_count",
+              {"query": {"match": {"body": "alpha beta"}}}, None),
+    "count_typed": ("POST", "/typed/_count",
+                    TYPED_BODIES["range_long"], None),
+    "explain": ("POST", "/corpus/_explain/d3",
+                {"query": {"match": {"body": "alpha beta gamma"}}}, None),
+    "alias_search": ("POST", "/corpus-filtered/_search",
+                     {"query": {"match": {"body": "alpha"}}, "size": 20},
+                     None),
+    "alias_count": ("POST", "/corpus-filtered/_count", None, None),
+}
+
+
+@pytest.fixture
+def filtered_alias(nodes):
+    """`corpus-filtered` over corpus on both nodes for one test, deleted
+    after it, so that no other test sees it."""
+    for node in nodes:
+        status, _ = call(node, "PUT", "/corpus/_alias/corpus-filtered",
+                         {"filter": {"term": {"body": "beta"}}})
+        assert status == 200
+    yield nodes
+    for node in nodes:
+        call(node, "DELETE", "/corpus/_alias/corpus-filtered")
+
+
+@pytest.mark.parametrize("name", sorted(REST_API_REQUESTS))
+def test_rest_remainder_card_bytes_match_cpu_bytes(filtered_alias, name):
+    method, path, body, raw = REST_API_REQUESTS[name]
+    gpu, cpu = (call(node, method, path, body, raw)
+                for node in filtered_alias)
+    assert gpu[0] == 200, gpu
+    assert _took0(gpu[1]) == _took0(cpu[1])

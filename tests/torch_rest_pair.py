@@ -1,12 +1,17 @@
 """A reference node and a port node driven with the same requests.
 
 ``Pair.both`` sends one ``node.handle(...)`` request to each and returns
-both answers as the bytes the HTTP layer sends (``dumps_response``),
-with ``took`` set to 0. The reference node runs its fused kernel in
-interpret mode on the CPU; the port node runs on the CPU (its plain
-path)."""
+both answers as the bytes the HTTP layer sends (``dumps_response``, or
+the text of a ``_cat`` table), with ``took`` set to 0 and the fields of
+``MASKED`` masked. The reference node runs its fused kernel in interpret
+mode on the CPU; the port node runs on the CPU (its plain path). Both
+nodes get the same node id (written into each data path before the
+node starts), so that the ids in ``_nodes/stats``, ``_cluster/state``
+and ``_cat/master`` compare as they are."""
 
 import json
+import os
+import re
 
 from elasticsearch_tpu.common.settings import Settings as RefSettings
 from elasticsearch_tpu.node import Node as RefNode
@@ -19,6 +24,60 @@ from elasticsearch_tpu_torch.search.serializer import dumps_response
 REF_SETTINGS = {"search.tpu_serving.kernel.pallas": True,
                 "search.flight_recorder.enabled": False}
 
+NODE_ID = "pairnode0000000000id"
+
+#: the fields that differ between two nodes whatever the port does, each
+#: with its reason. A key's scalar value is masked wherever it appears;
+#: everything else is compared byte for byte.
+MASKED = {
+    "took": "wall-clock time (each _msearch item carries its own)",
+    "uuid": "an index's uuid is drawn at random by each node",
+    "creation_date": "the wall clock when the index was created",
+    "allocation_id": "a shard copy's id is drawn at random",
+    "cluster_uuid": "drawn at random by each node",
+    "search_visible_lag_seconds": "wall-clock time from a write to its "
+                                  "refresh",
+    "max_rss_bytes": "the test process's memory, not the node's",
+}
+#: blocks of _nodes/stats masked whole, with their reasons
+MASKED_NODE_BLOCKS = {
+    "tpu_search": "the device block: the reference's TpuSearchService "
+                  "against the port's GpuSearchService.stats()",
+    "thread_pool": "thread pools are not ported yet",
+    "indexing_pressure": "indexing pressure is not ported yet",
+    "search_backpressure": "search backpressure is not ported yet",
+    "tenants": "tenancy is not ported yet",
+}
+_SCALAR = r'("(?:[^"\\]|\\.)*"|-?[0-9][0-9.eE+-]*|null|true|false)'
+_MASK_RE = re.compile(r'"(%s)": ?%s' % ("|".join(MASKED), _SCALAR))
+_UUID_RE = re.compile(r"[0-9a-f]{8}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{4}-"
+                      r"[0-9a-f]{12}")
+#: a _cat table's epoch and wall-clock columns (_cat/health, _cat/count)
+_CLOCK_RE = re.compile(r"^\d{10} \d\d:\d\d:\d\d", re.M)
+
+
+def _mask_tree(obj):
+    if isinstance(obj, dict):
+        return {k: "<masked>" if k in MASKED else _mask_tree(v)
+                for k, v in obj.items() if k not in MASKED_NODE_BLOCKS}
+    if isinstance(obj, list):
+        return [_mask_tree(v) for v in obj]
+    return obj
+
+
+def masked(text):
+    """`text` with the MASKED fields replaced: in JSON by key; in a _cat
+    table the uuid and clock columns, by same-width placeholders (so the
+    column widths still compare). _nodes/stats, plain json.dumps on both
+    sides, is masked on its parsed body, where the MASKED_NODE_BLOCKS go
+    and a masked key's value may be an object."""
+    if text.startswith("{"):
+        if text.startswith('{"_nodes": '):
+            return json.dumps(_mask_tree(json.loads(text)))
+        return _MASK_RE.sub(lambda m: f'"{m.group(1)}": "<masked>"', text)
+    text = _UUID_RE.sub("u" * 36, text)
+    return _CLOCK_RE.sub("e" * 10 + " " + "t" * 8, text)
+
 
 def call(node, dumps, method, path, body=None, raw=None, params=None):
     """One request through node.handle → (status, response bytes with
@@ -29,6 +88,8 @@ def call(node, dumps, method, path, body=None, raw=None, params=None):
                                   raw)
     if isinstance(payload, dict) and "took" in payload:
         payload["took"] = 0
+    if isinstance(payload, dict) and list(payload) == ["_cat"]:
+        return status, payload["_cat"]
     return status, dumps(payload)
 
 
@@ -39,9 +100,15 @@ class Pair:
     def __init__(self, root, settings=None):
         self.root = root
         self.settings = dict(settings or {})
-        self.ref = RefNode(str(root / "ref"), settings=RefSettings.of(
-            dict(REF_SETTINGS, **self.settings)))
+        for side in ("ref", "port"):
+            os.makedirs(root / side / "_state", exist_ok=True)
+            (root / side / "_state" / "node_id").write_text(NODE_ID)
+        self.ref = self._ref_node()
         self.port = self._port_node()
+
+    def _ref_node(self):
+        return RefNode(str(self.root / "ref"), settings=RefSettings.of(
+            dict(REF_SETTINGS, **self.settings)))
 
     def _port_node(self):
         return Node(str(self.root / "port"), device="cpu",
@@ -52,7 +119,7 @@ class Pair:
         want = call(self.ref, ref_dumps, method, path, body, raw, params)
         got = call(self.port, dumps_response, method, path, body, raw,
                    params)
-        return want, got
+        return (want[0], masked(want[1])), (got[0], masked(got[1]))
 
     def same(self, method, path, body=None, raw=None, params=None):
         """Send to both, assert the same bytes, return the parsed
@@ -65,6 +132,12 @@ class Pair:
         """Close the port node and open a new one on its data path."""
         self.port.close()
         self.port = self._port_node()
+
+    def restart(self):
+        """Close both nodes and open new ones on their data paths."""
+        self.ref.close()
+        self.ref = self._ref_node()
+        self.restart_port()
 
     def close(self):
         self.port.close()
