@@ -182,7 +182,37 @@ device mesh through the collective tail, and checks:
                  recorded launch against its plain version bit for bit;
                  the hbm breaker before, at its peak and after, and
                  memory_allocated() back at its value before the line.
+                 Its _cat/indices lists the lifecycle index (a 1M-doc
+                 index's listing walks every translog op: ~5.5 s).
                  The kernels line adds launches_rest_api
+  search_features
+                 the planner path's search features, in two parts on
+                 indices other lines built: on the planner line's typed
+                 index before its DELETE, sort (views desc, published
+                 asc, tag), 5 search_after pages of 100 (== one window
+                 of 500), collapse on tag, rescore (window 100),
+                 highlight, the term and phrase suggesters, a
+                 script_score with log and pow, a scroll over one tag's
+                 docs (~2,000) in pages of 500 (every _id once, the count
+                 == _count) then cleared, a PIT whose search_after pages
+                 == the sorted from/size windows then closed (the hbm
+                 breaker and memory_allocated() back at their values
+                 before the contexts), _rank_eval of 2 requests; on the
+                 fields line's index before its DELETE, script_score
+                 with cosineSimilarity and l2norm over the 64-dim
+                 vectors and the completion suggester. Each body once
+                 cold, then FEATURE_ROUNDS warm rounds from one client
+                 (the phrase suggester's host scans: one). Counts reset
+                 before each part and read after it (shard_topk must
+                 launch); every shard_topk call == its plain version,
+                 and per body and shard the coordinator's shard query
+                 phase under the body's features on the card == the CPU
+                 plain path (ids, scores, sort values, totals).
+                 Per-feature ms (mean, p50, max), the line's seconds.
+                 The rest node's heap is frozen after its ingest
+                 (gc.freeze), so the drains' collections skip the 1M
+                 docs' objects. The kernels line adds
+                 launches_search_features
   delta          streaming appends on the same node (its default chain
                  settings: 4 deltas, 50,000 docs), after the planner
                  line and before the DELETE: 5 batches of 10,000 new
@@ -286,6 +316,11 @@ TYPED_SHARDS = 4
 PLANNER_ROUNDS = 2      # the planner's timed window: the mix this many
                         # times (cut from 5 to make room for the delta line)
 PLANNER_TOPK_LINE = "elasticsearch_tpu/ops/bm25.py:138"
+FEATURE_ROUNDS = 3      # warm rounds of the search_features bodies
+FEATURE_PAGES = 5       # search_after pages of the sort body
+FEATURE_RESCORE_WINDOW = 100
+FEATURE_TAG = "t3"      # ~2,000 of the typed index's docs
+FEATURE_SCROLL_PAGE = 500
 FIELDS_INDEX = "fields"
 FIELDS_DOCS = 50_000    # cut from 1M to keep the phase near 120 s
 FIELDS_SHARDS = 4
@@ -1645,7 +1680,7 @@ def check_shards_on_card(node, what, bodies, responses):
     return checked
 
 
-def planner_phase(host, port, node, corpus, mk, smi):
+def planner_phase(host, port, node, corpus, mk, smi, features):
     """The planner path over HTTP on the card: the body index (16
     shards of ~62,500 docs, one segment each) and the typed index, from
     one client. A cold pass sends each body once (it builds the host
@@ -1733,6 +1768,12 @@ def planner_phase(host, port, node, corpus, mk, smi):
                           replaces=PLANNER_TOPK_LINE)
                for k in sorted(rows)]
     del rows
+    # the search_features line's typed part (`features`: the line's
+    # record, which the fields line completes and logs)
+    t_feat = time.perf_counter()
+    features["typed"], features["launches"] = features_typed(
+        host, port, node, corpus, mk)
+    features["seconds"] = {"typed": time.perf_counter() - t_feat}
     for index in (TYPED_INDEX,):
         status, resp = rest_http(host, port, "DELETE", f"/{index}")
         if status != 200:
@@ -1769,6 +1810,325 @@ def planner_phase(host, port, node, corpus, mk, smi):
                 "bodies too), and the response == the merge "
                 "of the card's shard results"))
     return out, kernels
+
+
+def feature_bodies(corpus):
+    """The search_features line's bodies on the typed index: (label,
+    body). Word ids 20-3000 are generator words (neither stop words nor
+    hapaxes)."""
+    q0 = corpus.query_text(0)
+    words = " ".join(corpus.vocab[t] for t in (31, 57, 1234))
+    return [
+        # every doc sorted by its fields, as Rally's desc_sort_* tasks
+        ("sort", {"query": {"match_all": {}}, "size": 100, "sort": [
+            {"views": "desc"}, {"published": "asc"},
+            {"tag": {"order": "asc", "missing": "_first"}}]}),
+        ("collapse", {"query": {"match": {FIELD: q0}}, "size": 20,
+                      "collapse": {"field": "tag"}}),
+        ("rescore", {"query": {"match": {FIELD: q0}}, "size": 20,
+                     "rescore": {"window_size": FEATURE_RESCORE_WINDOW,
+                                 "query": {"rescore_query": {"range": {
+                                     "views": {"gte": 3}}},
+                                     "rescore_query_weight": 2.0}}}),
+        ("highlight", {"query": {"match": {FIELD: words}}, "size": 20,
+                       "highlight": {"fields": {FIELD: {
+                           "fragment_size": 60}}}}),
+        ("script_score", {"query": {"script_score": {
+            "query": {"match": {FIELD: q0}},
+            "script": {"source": "Math.log(2 + doc['views'].value) "
+                                 "* Math.pow(_score, 0.5)"}}},
+            "size": 20}),
+        ("term_suggest", {"size": 0, "suggest": {"fix": {
+            "text": "w1243x w57x",
+            "term": {"field": FIELD, "prefix_length": 3}}}}),
+        # the phrase suggester scans every term of the field a token
+        # (a Python edit distance each, as the reference's): two tokens
+        ("phrase_suggest", {"query": {"match": {FIELD: words}},
+                            "size": 10, "suggest": {"fix": {
+                                "text": "w57x w1234",
+                                "phrase": {"field": FIELD}}}}),
+    ]
+
+
+def check_feature_shards(node, what, index, bodies):
+    """Per body (label, body) and shard: the coordinator's shard query
+    phase under the body's features (sort and search_after, collapse,
+    the rescore chain) on the card against the CPU plain path over the
+    same reader: ids, scores, sort values and totals exactly → shards
+    checked."""
+    from elasticsearch_tpu_torch.search import coordinator, dsl
+
+    dev = node.gpu_search.mesh.grid[0][0]
+    svc = node.indices.index(index)
+    checked = 0
+    for label, body in bodies:
+        features = coordinator.Features.of(body)
+        query = dsl.parse_query(body.get("query") or {"match_all": {}})
+        size, from_ = body.get("size", 10), body.get("from", 0)
+        for num, shard in sorted(svc.shards.items()):
+            reader = shard.acquire_searcher()
+            res = [coordinator.query_shard(
+                reader, query, features, size=size, from_=from_,
+                min_score=body.get("min_score"), device=d)
+                for d in (dev, "cpu")]
+            got, want = ([(h.doc_id, h.score, h.sort_values)
+                          for h in r.hits] + [r.total_hits] for r in res)
+            if got != want:
+                raise AssertionError(f"{what} {label}: shard {num} on the "
+                                     f"card != the CPU plain path")
+            checked += 1
+    return checked
+
+
+def features_typed(host, port, node, corpus, mk):
+    """The search features on the planner line's typed index, before its
+    DELETE: each feature body once cold, then FEATURE_ROUNDS warm rounds
+    from one client; search_after paging; a scroll and a PIT over one
+    tag's documents, then the contexts freed; _rank_eval. Counts reset
+    just before and read just after; every recorded shard_topk against
+    its plain version; per body and shard, the card against the CPU
+    plain path → (line, launches)."""
+    import gc
+
+    import torch
+
+    hbm = node.breakers.get_breaker("hbm")
+    out = {}
+    bodies = feature_bodies(corpus)
+
+    def send(label, body, path=f"/{TYPED_INDEX}/_search", params=""):
+        t0 = time.perf_counter()
+        status, resp = rest_http(host, port, "POST", path + params, body)
+        ms = (time.perf_counter() - t0) * 1e3
+        if status != 200:
+            raise AssertionError(f"search_features {label}: {status} "
+                                 f"{str(resp)[:500]}")
+        if "_shards" in resp and resp["_shards"]["failed"] > 0:
+            raise AssertionError(f"search_features {label}: shard "
+                                 f"failures {resp['_shards']}")
+        return resp, ms
+
+    mk.reset_launches()
+    with TopkRecorder(mk) as top:
+        cold = {label: send(label, body) for label, body in bodies}
+        times = {label: [] for label, _ in bodies}
+        for r in range(FEATURE_ROUNDS):
+            for label, body in bodies:
+                if label == "phrase_suggest" and r > 0:
+                    continue   # one warm request: seconds of host scans
+                resp, ms = send(label, body)
+                times[label].append(ms)
+                if hits_of([resp]) != hits_of([cold[label][0]]) or \
+                        resp.get("suggest") != cold[label][0].get("suggest"):
+                    raise AssertionError(f"search_features {label}: a warm "
+                                         f"answer differs from the cold one")
+        # search_after: FEATURE_PAGES pages of the sort body, equal to one
+        # window of their length
+        sort_body = dict(bodies[0][1])
+        pages, sa_cursor, t_pages = [], None, []
+        for _ in range(FEATURE_PAGES):
+            b = dict(sort_body)
+            if sa_cursor is not None:
+                b["search_after"] = sa_cursor
+            resp, ms = send("search_after", b)
+            t_pages.append(ms)
+            if len(resp["hits"]["hits"]) != sort_body["size"]:
+                raise AssertionError(f"search_features: a search_after page "
+                                     f"of {len(resp['hits']['hits'])} hits")
+            pages += resp["hits"]["hits"]
+            sa_cursor = resp["hits"]["hits"][-1]["sort"]
+        window, _ = send("search_after_window", dict(
+            sort_body, size=FEATURE_PAGES * sort_body["size"]))
+        if [(h["_id"], h["sort"]) for h in pages] != \
+                [(h["_id"], h["sort"]) for h in window["hits"]["hits"]]:
+            raise AssertionError("search_features: the search_after pages "
+                                 "!= the sorted window")
+        times["search_after_page"] = t_pages
+        # the contexts: a scroll and a PIT over one tag's documents
+        n_calls = len(top.calls)
+        gc.collect()
+        torch.cuda.synchronize()
+        mem_before, hbm_before = torch.cuda.memory_allocated(), hbm.used
+        tag_query = {"term": {"tag": FEATURE_TAG}}
+        status, counted = rest_http(host, port, "POST",
+                                    f"/{TYPED_INDEX}/_count",
+                                    {"query": tag_query})
+        n_tag = counted["count"]
+        page, ms = send("scroll", {"query": tag_query,
+                                   "size": FEATURE_SCROLL_PAGE},
+                        params="?scroll=1m")
+        t_scroll = [ms]
+        sid = page["_scroll_id"]
+        scrolled = [h["_id"] for h in page["hits"]["hits"]]
+        while page["hits"]["hits"]:
+            page, ms = send("scroll_page", {"scroll": "1m",
+                                            "scroll_id": sid},
+                            path="/_search/scroll")
+            t_scroll.append(ms)
+            scrolled += [h["_id"] for h in page["hits"]["hits"]]
+        if len(scrolled) != n_tag or len(set(scrolled)) != n_tag:
+            raise AssertionError(f"search_features: the scroll gave "
+                                 f"{len(scrolled)} ids ({len(set(scrolled))}"
+                                 f" distinct) of {n_tag}")
+        status, freed = rest_http(host, port, "DELETE", "/_search/scroll",
+                                  {"scroll_id": sid})
+        if status != 200 or freed["num_freed"] != 1:
+            raise AssertionError(f"search_features: clear scroll {freed}")
+        status, opened = rest_http(host, port, "POST",
+                                   f"/{TYPED_INDEX}/_pit?keep_alive=1m")
+        pid = opened["id"]
+        pit_sort = [{"published": "asc"}, {"views": "desc"}]
+        cursor, t_pit, n_pit = None, [], 0
+        for i in range(-(-n_tag // FEATURE_SCROLL_PAGE) + 1):
+            b = {"query": tag_query, "size": FEATURE_SCROLL_PAGE,
+                 "sort": pit_sort, "pit": {"id": pid}}
+            if cursor is not None:
+                b["search_after"] = cursor
+            resp, ms = send("pit_page", b, path="/_search")
+            t_pit.append(ms)
+            want, _ = send("pit_window", {
+                "query": tag_query, "sort": pit_sort,
+                "from": i * FEATURE_SCROLL_PAGE,
+                "size": FEATURE_SCROLL_PAGE})
+            if hits_of([resp]) != hits_of([want]):
+                raise AssertionError(f"search_features: PIT page {i} != "
+                                     f"the sorted from/size window")
+            hits = resp["hits"]["hits"]
+            n_pit += len(hits)
+            if not hits:
+                break
+            cursor = hits[-1]["sort"]
+        if n_pit != n_tag:
+            raise AssertionError(f"search_features: the PIT pages held "
+                                 f"{n_pit} of {n_tag}")
+        status, closed = rest_http(host, port, "DELETE", "/_pit",
+                                   {"id": pid})
+        if status != 200 or closed["num_freed"] != 1:
+            raise AssertionError(f"search_features: close PIT {closed}")
+        # the contexts' shard_topk calls are checked here and their
+        # recorded copies dropped: the drain check sees what the
+        # contexts held, not what the recorder keeps
+        context_calls = top.calls[n_calls:]
+        del top.calls[n_calls:]
+        out["shard_topk_contexts"] = check_topk_calls(mk, context_calls)
+        mem_after = None
+        for polls in range(1, 51):
+            gc.collect()
+            torch.cuda.synchronize()
+            mem_after = torch.cuda.memory_allocated()
+            if mem_after == mem_before and hbm.used == hbm_before:
+                break
+            time.sleep(0.1)
+        if mem_after != mem_before or hbm.used != hbm_before:
+            raise AssertionError(f"search_features: hbm {hbm.used} / memory "
+                                 f"{mem_after} after the contexts, "
+                                 f"{hbm_before} / {mem_before} before")
+        times["scroll_page"] = t_scroll
+        times["pit_page"] = t_pit
+        # _rank_eval: two rated requests
+        ranked = [h["_id"] for h in cold["script_score"][0]["hits"]["hits"]]
+        rank_body = {"requests": [
+            {"id": "script", "request": bodies[4][1],
+             "ratings": [{"_id": d, "rating": 3 - i}
+                         for i, d in enumerate(ranked[:3])]},
+            {"id": "rescore", "request": bodies[2][1],
+             "ratings": [{"_id": d, "rating": 1} for d in ranked[3:8]]}],
+            "metric": {"dcg": {"k": 10, "normalize": True}}}
+        rank, ms = send("rank_eval", rank_body,
+                        path=f"/{TYPED_INDEX}/_rank_eval")
+        times["rank_eval"] = [ms]
+    launches = dict(mk.LAUNCHES)
+    if launches["shard_topk"] <= 0:
+        raise AssertionError("search_features launched no shard_topk")
+    out["shard_topk"] = check_topk_calls(mk, top.calls)
+    shard_bodies = [(label, body) for label, body in bodies
+                    if body.get("size", 10) > 0]
+    shard_bodies.append(("search_after", dict(sort_body,
+                                              search_after=sa_cursor)))
+    shard_bodies.append(("scroll", {"query": tag_query,
+                                    "size": FEATURE_SCROLL_PAGE}))
+    out["shards_checked"] = check_feature_shards(
+        node, "search_features", TYPED_INDEX, shard_bodies)
+    out.update(
+        per_feature_ms={label: {"mean": statistics.mean(ts),
+                                "p50": statistics.median(ts),
+                                "max": max(ts), "requests": len(ts)}
+                        for label, ts in times.items()},
+        cold_ms={label: ms for label, (_, ms) in cold.items()},
+        hits={label: len(r["hits"]["hits"]) for label, (r, _)
+              in cold.items()},
+        search_after=dict(pages=FEATURE_PAGES, page_size=sort_body["size"],
+                          equal_to_window=True),
+        scroll=dict(query=tag_query, matching=n_tag,
+                    page_size=FEATURE_SCROLL_PAGE, pages=len(t_scroll),
+                    every_id_once=True, count_equals=True),
+        pit=dict(pages=len(t_pit), sort=pit_sort,
+                 equal_to_windows=True),
+        contexts_memory=dict(hbm_before=hbm_before, hbm_after=hbm.used,
+                             memory_allocated_before=mem_before,
+                             memory_allocated_after=mem_after,
+                             drain_polls=polls),
+        rank_eval=dict(requests=2, metric_score=rank["metric_score"]),
+        launches=launches)
+    return out, launches
+
+
+def features_fields(host, port, node, mk):
+    """The search features on the fields line's index, before its
+    DELETE: script_score with cosineSimilarity and l2norm over the
+    64-dim `vec`, and the completion suggester on `suggest`; timed as
+    features_typed does, every shard_topk against its plain version, per
+    body and shard the card against the CPU plain path → (line,
+    launches)."""
+    import numpy as np
+    q = [round(float(x), 3) for x in
+         np.random.default_rng([SEED, 9]).standard_normal(VEC_DIMS)]
+    bodies = [
+        ("cosine", {"query": {"script_score": {
+            "query": {"match_all": {}},
+            "script": {"source": "cosineSimilarity(params.q, 'vec') + 1.0",
+                       "params": {"q": q}}}}, "size": 20}),
+        ("l2norm", {"query": {"script_score": {
+            "query": {"exists": {"field": "pagerank"}},
+            "script": {"source": "1 / (1 + l2norm(params.q, 'vec'))",
+                       "params": {"q": q}}}}, "size": 20}),
+        ("completion", {"size": 0, "suggest": {"c": {
+            "prefix": "w12", "completion": {"field": "suggest",
+                                            "size": 10}}}}),
+    ]
+    mk.reset_launches()
+    times = {label: [] for label, _ in bodies}
+    with TopkRecorder(mk) as top:
+        cold = {}
+        for r in range(FEATURE_ROUNDS + 1):
+            for label, body in bodies:
+                resp, ms = search_once(host, port, "search_features",
+                                       FIELDS_INDEX, label, body)
+                if r == 0:
+                    cold[label] = (resp, ms)
+                elif hits_of([resp]) != hits_of([cold[label][0]]) or \
+                        resp.get("suggest") != cold[label][0].get("suggest"):
+                    raise AssertionError(f"search_features {label}: a warm "
+                                         f"answer differs from the cold one")
+                else:
+                    times[label].append(ms)
+    launches = dict(mk.LAUNCHES)
+    if launches["shard_topk"] <= 0:
+        raise AssertionError("search_features (fields) launched no "
+                             "shard_topk")
+    options = cold["completion"][0]["suggest"]["c"][0]["options"]
+    if not options:
+        raise AssertionError("search_features: no completion option")
+    out = {"shard_topk": check_topk_calls(mk, top.calls),
+           "shards_checked": check_feature_shards(
+               node, "search_features", FIELDS_INDEX, bodies[:2]),
+           "per_feature_ms": {label: {"mean": statistics.mean(ts),
+                                      "p50": statistics.median(ts),
+                                      "max": max(ts), "requests": len(ts)}
+                              for label, ts in times.items()},
+           "cold_ms": {label: ms for label, (_, ms) in cold.items()},
+           "completion_options": len(options), "launches": launches}
+    return out, launches
 
 
 def fields_analysis(corpus):
@@ -2000,7 +2360,7 @@ def fields_planner_bodies(corpus):
             "field": "query", "documents": docs}}, "size": 50})]
 
 
-def fields_phase(host, port, node, corpus, bodies, mk, smi):
+def fields_phase(host, port, node, corpus, bodies, mk, smi, features):
     """The rarer field types and the analysis chain on the same node:
     the `fields` index (FIELDS_DOCS docs over FIELDS_SHARDS shards by
     _bulk, the text under the custom chain) and a `queries` index of
@@ -2143,6 +2503,20 @@ def fields_phase(host, port, node, corpus, bodies, mk, smi):
 
     t_checks = time.perf_counter()
     checked = check_shards_on_card(node, "fields", mix, responses)
+    # the search_features line's fields part, then the line
+    t_feat = time.perf_counter()
+    feat_fields, feat_launches = features_fields(host, port, node, mk)
+    features["seconds"]["fields"] = time.perf_counter() - t_feat
+    features["launches"] = {name: n + feat_launches.get(name, 0)
+                            for name, n in features["launches"].items()}
+    log("search_features", nvidia_smi=smi, typed=features["typed"],
+        fields=feat_fields, launches=features["launches"],
+        seconds=dict(features["seconds"],
+                     line=sum(features["seconds"].values())),
+        parity=("every body and shard: the shard query phase under the "
+                "body's features on the card == the CPU plain path (ids, "
+                "scores, sort values, totals); every shard_topk == its "
+                "plain version bit for bit"))
     for index in (FIELDS_INDEX, QUERIES_INDEX):
         status, resp = rest_http(host, port, "DELETE", f"/{index}")
         if status != 200:
@@ -2391,7 +2765,9 @@ def rest_api_phase(host, port, node, corpus, bodies, mk, smi):
                 if json.loads(data)["status"] != "green":
                     raise AssertionError("rest_api: health")
                 cat = {}
-                for table in ("", "/indices", "/health", "/count",
+                # (_cat/indices walks every translog op of the tables
+                # it lists: it runs on the lifecycle's index, below)
+                for table in ("", "/health", "/count",
                               "/shards", "/nodes", "/aliases", "/master",
                               "/allocation", "/recovery"):
                     data, ctype = call("GET", f"/_cat{table}?v")
@@ -2414,6 +2790,13 @@ def rest_api_phase(host, port, node, corpus, bodies, mk, smi):
                     "mappings": {"properties": {FIELD: {"type": "text"}}}})
                 rest_bulk_load(host, port, corpus, LIFE_DOCS,
                                index=LIFE_INDEX)
+                data, ctype = call("GET", f"/_cat/indices/{LIFE_INDEX}?v")
+                if not ctype.startswith("text/plain") or \
+                        LIFE_INDEX.encode() not in data:
+                    raise AssertionError(f"rest_api: _cat/indices is "
+                                         f"{ctype}")
+                cat["_cat/indices"] = len(data.splitlines())
+                routes.add("_cat/indices")
             life_bodies = run_bodies[:16]
             life_reqs = [("POST", f"/{LIFE_INDEX}/_search", b, None)
                          for b in life_bodies]
@@ -2603,6 +2986,10 @@ def rest_phase(corpus, bodies, mk, smi, e2e_responses, data_root,
         segments = [svc.shard(s).acquire_searcher().views[0].segment
                     for s in range(SHARDS)]
         gc.collect()
+        # the 1M documents' objects live until the node closes: frozen,
+        # the later collections of the drain checks skip them (each full
+        # collection over them took ~5.7 s)
+        gc.freeze()
         torch.cuda.synchronize()
         mem_before = torch.cuda.memory_allocated()
         hbm = node.breakers.get_breaker("hbm")
@@ -2690,10 +3077,11 @@ def rest_phase(corpus, bodies, mk, smi, e2e_responses, data_root,
                               "last score")
         out["native"] = native.used()
         del runs, segments, svc
+        features = {}
         planner, planner_kernels = planner_phase(host, port, node, corpus,
-                                                 mk, smi)
+                                                 mk, smi, features)
         fields, fields_launches = fields_phase(host, port, node, corpus,
-                                               bodies, mk, smi)
+                                               bodies, mk, smi, features)
         rest_api, rest_api_launches = rest_api_phase(host, port, node,
                                                      corpus, bodies, mk,
                                                      smi)
@@ -2724,6 +3112,7 @@ def rest_phase(corpus, bodies, mk, smi, e2e_responses, data_root,
         log("rest_failed", **out)
         raise
     finally:
+        gc.unfreeze()
         server.shutdown()
         server.server_close()
         node.close()
@@ -2731,7 +3120,8 @@ def rest_phase(corpus, bodies, mk, smi, e2e_responses, data_root,
     return out, dict(launches["source"],
                      exact_merge=launches["exact"]["exact_merge"]), \
         planner, planner_kernels, delta, delta_kernels, delta_launches, \
-        fields, fields_launches, rest_api, rest_api_launches
+        fields, fields_launches, rest_api, rest_api_launches, \
+        features["launches"]
 
 
 def time_events(fn, n):
@@ -3796,7 +4186,8 @@ def main() -> int:
         # -- rest: the node over HTTP, the path users call -------------
         rest, rest_launches, planner, planner_kernels, delta, \
             delta_kernels, delta_launches, fields, \
-            fields_launches, rest_api, rest_api_launches = rest_phase(
+            fields_launches, rest_api, rest_api_launches, \
+            features_launches = rest_phase(
                 corpus, bodies, mk, smi, responses,
                 os.path.join(here, "data"), exact_run, exact_responses)
         log("rest", **rest)
@@ -3817,6 +4208,8 @@ def main() -> int:
             name = entry.get("kernel", entry["name"].split(".", 1)[1])
             entry["launches_fields"] = fields_launches.get(name, 0)
             entry["launches_rest_api"] = rest_api_launches.get(name, 0)
+            entry["launches_search_features"] = features_launches.get(
+                name, 0)
             entry["launches_delta"] = delta_launches.get(
                 "pruned_candidates.pack_keys"
                 if entry["name"].endswith(".pack_keys") else name, 0)

@@ -67,6 +67,7 @@ from elasticsearch_tpu_torch.parallel.device import resolve_device
 from elasticsearch_tpu_torch.parallel.mesh import (Mesh, make_mesh,
                                                    resolve_mesh)
 from elasticsearch_tpu_torch.rest.controller import RestController
+from elasticsearch_tpu_torch.search.contexts import SearchContextManager
 from elasticsearch_tpu_torch.search.gpu_service import GpuSearchService
 from elasticsearch_tpu_torch.search.serializer import dumps_response
 
@@ -121,6 +122,9 @@ class Node:
                 "max_docs": self.settings.get_int(
                     "search.tpu_serving.delta.max_docs", 50_000),
             })
+        # scroll and PIT contexts (their pinned readers), swept on the
+        # refresh cycle
+        self.search_contexts = SearchContextManager()
         self.controller = RestController()
         from elasticsearch_tpu_torch.rest.actions import (admin, aliases,
                                                           cluster, document,
@@ -239,6 +243,10 @@ class Node:
                         shard.refresh()
                     except Exception:  # noqa: BLE001 — background task
                         pass
+            try:  # expired contexts must not pin readers on an idle node
+                self.search_contexts.reap()
+            except Exception:  # noqa: BLE001 — background task
+                pass
             self._refresher = threading.Timer(self._refresh_interval, tick)
             self._refresher.daemon = True
             self._refresher.start()

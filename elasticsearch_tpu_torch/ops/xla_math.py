@@ -25,7 +25,8 @@ on a card. Every other step is float32. ``jnp.log10(x)`` lowers to
 ``log(x) * 0.434294492f``; ``xla_log10f`` is that product.
 
 Special values follow the reference: 0 or a denormal (XLA:CPU flushes
-them) → -inf, a negative normal or NaN input → NaN, +inf → +inf.
+them) → -inf, a negative normal or NaN input → the all-ones NaN
+(0xFFFFFFFF), +inf → +inf.
 
 ``xla_powf`` is the C library's ``powf``, which XLA:CPU calls for f32
 ``pow`` (see its section below), and ``xla_ftz`` the flush to zero that
@@ -81,8 +82,31 @@ def xla_logf(t: torch.Tensor) -> torch.Tensor:
     r = torch.where(t.abs() < _MIN_NORM, torch.full_like(r, float("-inf")),
                     r)
     r = torch.where(t == float("inf"), torch.full_like(r, float("inf")), r)
+    # a negative normal or NaN input: Eigen's all-ones NaN (the result
+    # or-ed with the invalid mask)
     return torch.where((t <= -_MIN_NORM) | torch.isnan(t),
-                       torch.full_like(r, float("nan")), r)
+                       _bits_like(r, -1), r)
+
+
+def _bits_like(t: torch.Tensor, bits: int) -> torch.Tensor:
+    """A float32 tensor of `t`'s shape and device whose every element has
+    the int32 bit pattern `bits`."""
+    return torch.full(t.shape, bits, dtype=torch.int32,
+                      device=t.device).view(torch.float32)
+
+
+def x86_nan(res: torch.Tensor, *operands) -> torch.Tensor:
+    """`res` with its NaNs given the bits x86 arithmetic gives them: the
+    first NaN operand, quieted, else the default NaN (0xFFC00000). A
+    card makes its own canonical NaN, so an op whose NaN bits matter
+    passes its result through here on every device."""
+    fill = x86_nan_like(res)
+    for op in reversed(operands):
+        if isinstance(op, torch.Tensor) and op.is_floating_point():
+            op = op.to(torch.float32)
+            quiet = (op.view(torch.int32) | 0x400000).view(torch.float32)
+            fill = torch.where(torch.isnan(op), quiet, fill)
+    return torch.where(torch.isnan(res), fill, res)
 
 
 def xla_ftz(t: torch.Tensor) -> torch.Tensor:
@@ -104,7 +128,8 @@ def x86_nan_like(t: torch.Tensor) -> torch.Tensor:
 def xla_log10f(t: torch.Tensor) -> torch.Tensor:
     """Base-10 log of a float32 tensor, bit for bit as XLA:CPU's
     ``jnp.log10``: ``log(x) * 0.434294492f``."""
-    return xla_logf(t) * _LOG10_E
+    r = xla_logf(t)
+    return torch.where(torch.isnan(r), r, r * _LOG10_E)
 
 
 # ---------------------------------------------------------------------------
@@ -201,17 +226,22 @@ def _fma64(a, b, c) -> torch.Tensor:
     return th + bits.view(torch.float64)
 
 
-def xla_powf(t: torch.Tensor, y: float) -> torch.Tensor:
-    """``t ** y`` for a float32 tensor and a scalar exponent, bit for
-    bit as XLA:CPU's f32 ``pow`` (the C library's ``powf``): y is
-    rounded to float32 first, as ``jnp.power`` does with a Python
-    float."""
+def xla_powf(t: torch.Tensor, y) -> torch.Tensor:
+    """``t ** y`` for a float32 tensor and a scalar or float32 tensor
+    exponent, bit for bit as XLA:CPU's f32 ``pow`` (the C library's
+    ``powf``): a scalar y is rounded to float32 first, as ``jnp.power``
+    does with a Python float."""
     import numpy as np
     x = t.to(torch.float32)
-    yf = float(np.float32(y))
     dev = x.device
-    if yf == 0.0:
-        return torch.ones_like(x)
+    if isinstance(y, torch.Tensor):
+        yt = y.to(torch.float32)
+        x, yt = torch.broadcast_tensors(x, yt)
+        yf = yt.to(torch.float64)
+    else:
+        yf = float(np.float32(y))
+        if yf == 0.0:
+            return torch.ones_like(x)
     ix = x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
     neg = ix >= 0x80000000
     ix = ix & 0x7FFFFFFF
@@ -259,6 +289,18 @@ def xla_powf(t: torch.Tensor, y: float) -> torch.Tensor:
     out = torch.where(ylogx <= -150.0, torch.zeros_like(out), out)
     # x = ±0, ±inf, NaN: x·x, or its reciprocal for a negative y
     sq = x * x
+    if isinstance(yf, torch.Tensor):
+        out = torch.where(special, torch.where(yf < 0, 1.0 / sq, sq), out)
+        # a negative x: NaN unless y is an integer, negated when y is
+        # odd (every float32 of magnitude 2^24 or more is even)
+        integral = yf == torch.trunc(yf)
+        odd = integral & (torch.fmod(yf, 2.0) != 0)
+        out = torch.where(neg & odd, -out, out)
+        out = torch.where(neg & ~special & ~integral, x86_nan_like(out),
+                          out)
+        # y = 0 and x = 1 give 1 whatever the other operand
+        return torch.where((yf == 0) | (x == 1.0), torch.ones_like(out),
+                           out)
     out = torch.where(special, 1.0 / sq if yf < 0 else sq, out)
     # a negative x: NaN unless y is an integer, negated when y is odd
     if yf == int(yf):
@@ -268,3 +310,222 @@ def xla_powf(t: torch.Tensor, y: float) -> torch.Tensor:
         # the C library's 0/0: the x86 default NaN
         out = torch.where(neg & ~special, x86_nan_like(out), out)
     return out
+
+
+# ---------------------------------------------------------------------------
+# float32 exp
+# ---------------------------------------------------------------------------
+#
+# XLA:CPU lowers f32 ``exp`` to its own Cephes-style polynomial (no
+# library call): the input clamped to [-87.8, 88.8], n = floor(x·log2e
+# + 1/2) clamped to [-127, 127], r = x - n·C1 - n·C2 (ln 2 in two
+# parts), a degree-5 Horner chain in r, then (p·r² + r) + 1 scaled by
+# 2^n built from the exponent bits. Its machine code fuses every
+# multiply-add of the chain; the product r·r and the last +1 and ·2^n
+# are single float32 ops.
+
+_EXP_LO = _h("-0x1.5f3334p+6")
+_EXP_HI = _h("0x1.633334p+6")
+_EXP_LOG2E = _h("0x1.715476p+0")
+_EXP_C1 = _h("0x1.63p-1")
+_EXP_C2 = _h("-0x1.bd0106p-13")
+_EXP_POLY = tuple(_h(c) for c in (
+    "0x1.a0d2cep-13", "0x1.6e879cp-10", "0x1.111210p-7", "0x1.555382p-5",
+    "0x1.555554p-3", "0x1p-1"))
+
+
+def xla_expf(t: torch.Tensor) -> torch.Tensor:
+    """Natural exponential of a float32 tensor, bit for bit as
+    XLA:CPU's ``jnp.exp``."""
+    x = torch.clamp(t.to(torch.float32), _EXP_LO, _EXP_HI)
+    n = torch.clamp(torch.floor(_fma(x, _EXP_LOG2E, 0.5)), -127.0, 127.0)
+    r = _fma(n, -_EXP_C1, x)
+    r = _fma(n, -_EXP_C2, r)
+    y = _fma(r, _EXP_POLY[0], _EXP_POLY[1])
+    for c in _EXP_POLY[2:]:
+        y = _fma(y, r, c)
+    y = _fma(y, r * r, r) + 1.0
+    scale = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    return xla_ftz(y * scale)
+
+
+# ---------------------------------------------------------------------------
+# float32 sin, cos, tan
+# ---------------------------------------------------------------------------
+#
+# XLA:CPU lowers f32 ``sin``, ``cos`` and ``tan`` to calls of the C
+# library's ``sinf``, ``cosf`` and ``tanf``. The reference's host (glibc
+# 2.36 on x86-64 with FMA) computes sinf and cosf with the ARM
+# optimized-routines algorithm: the argument in float64, reduced by one
+# fused n·(pi/2) step below 120 or by an integer product with 4/pi's
+# bits above, then a polynomial in float64 (its multiply-adds fused),
+# one rounding to float32. Its tanf reduces the same way and evaluates
+# fdlibm's float32 kernel (``__kernel_tanf``, no fused ops) on the
+# reduced pair. The functions below are those algorithms in torch ops,
+# float64 products fused by ``_fma64``, so the CPU and a card give the
+# same bits, and those of the reference.
+
+_PI63 = _h("0x1.921fb54442d18p-62")        # 2pi · 2^-64
+_HPI = _h("0x1.921fb54442d18p0")
+_HPI_INV = _h("0x1.45f306dc9c883p+23")     # 2/pi · 2^24
+#: (c0, c1, c2, c3, c4, s1, s2, s3): the cosine and sine polynomials, the
+#: cosine's negated in the second table
+_SINCOS_TABLES = tuple(tuple(_h(c) for c in t) for t in (
+    ("0x1p0", "-0x1.ffffffd0c621cp-2", "0x1.55553e1068f19p-5",
+     "-0x1.6c087e89a359dp-10", "0x1.99343027bf8c3p-16",
+     "-0x1.555545995a603p-3", "0x1.1107605230bc4p-7",
+     "-0x1.994eb3774cf24p-13"),
+    ("-0x1p0", "0x1.ffffffd0c621cp-2", "-0x1.55553e1068f19p-5",
+     "0x1.6c087e89a359dp-10", "-0x1.99343027bf8c3p-16",
+     "-0x1.555545995a603p-3", "0x1.1107605230bc4p-7",
+     "-0x1.994eb3774cf24p-13")))
+#: 4/pi to 192 bits, 8 new bits an entry
+_INV_PIO4 = (
+    0xa2, 0xa2f9, 0xa2f983, 0xa2f9836e, 0xf9836e4e, 0x836e4e44,
+    0x6e4e4415, 0x4e441529, 0x441529fc, 0x1529fc27, 0x29fc2757,
+    0xfc2757d1, 0x2757d1f5, 0x57d1f534, 0xd1f534dd, 0xf534ddc0,
+    0x34ddc0db, 0xddc0db62, 0xc0db6295, 0xdb629599, 0x6295993c,
+    0x95993c43, 0x993c4390, 0x3c439041)
+# the top 12 bits (exponent and 3 mantissa bits) of |pi/4|, 2^-12, 120
+# and infinity as float32s: the C code's branch thresholds
+_TOP12_PIO4, _TOP12_TINY, _TOP12_120, _TOP12_INF = 0x3f4, 0x39800000 >> 20, \
+    0x42f00000 >> 20, 0x7f800000 >> 20
+
+
+def _sincos_reduce(y: torch.Tensor):
+    """(r f64, n int64, the float's bits as int64): y = r + n·pi/2, |r|
+    <= pi/4, the C library's reduction (fast below 120, else the 4/pi
+    bit product, its sign restored)."""
+    bits = y.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    x = y.to(torch.float64)
+    # fast: n = round(x · 2/pi) from the 2^24-scaled product's int32
+    n_fast = (((x * _HPI_INV).to(torch.int32).to(torch.int64)
+               + 0x800000) >> 24)
+    r_fast = _fma64(-n_fast.to(torch.float64), _HPI, x)
+    # large: a 32×96-bit product with 4/pi's bits, the quadrant in the
+    # top two bits (int64 arithmetic wraps as the C code's uint64 does)
+    arr = torch.tensor(_INV_PIO4, dtype=torch.int64, device=y.device)
+    idx = (bits >> 26) & 15
+    m = ((bits & 0xFFFFFF) | 0x800000) << ((bits >> 23) & 7)
+    res0 = (m * arr[idx]) & 0xFFFFFFFF
+    res0 = ((m * arr[idx + 8]) >> 32) | (res0 << 32)
+    res0 = res0 + m * arr[idx + 4]
+    n_large = ((res0 + (1 << 61)) >> 62) & 3
+    r_large = (res0 - (n_large << 62)).to(torch.float64) * _PI63
+    fast = ((bits >> 20) & 0x7FF) < _TOP12_120
+    return (torch.where(fast, r_fast, r_large),
+            torch.where(fast, n_fast, n_large), bits, fast)
+
+
+def _sincos_poly(x, x2, odd, tab):
+    """The C library's sinf_poly: the sine polynomial, or the cosine's
+    where `odd`, every multiply-add fused."""
+    c0, c1, c2, c3, c4, s1, s2, s3 = (tab[..., i] for i in range(8))
+    x3 = x * x2
+    sin = _fma64(x3 * x2, _fma64(x2, s3, s2), _fma64(x3, s1, x))
+    x4 = x2 * x2
+    cos = _fma64(x4 * x2, _fma64(x2, c4, c3),
+                 _fma64(x4, c2, _fma64(x2, c1, c0)))
+    return torch.where(odd, cos, sin)
+
+
+def _sincosf(t: torch.Tensor, cos: bool) -> torch.Tensor:
+    y = t.to(torch.float32)
+    r, n, bits, fast = _sincos_reduce(y)
+    x = y.to(torch.float64)
+    tables = torch.tensor(_SINCOS_TABLES, dtype=torch.float64,
+                          device=y.device)
+    top12 = (bits >> 20) & 0x7FF
+    # the quadrant's sign and table (the large path adds the sign bit)
+    q = torch.where(fast, n, n + (bits >> 31)) & 3
+    sign = torch.tensor([1.0, -1.0, -1.0, 1.0], dtype=torch.float64,
+                        device=y.device)[q]
+    odd = ((n ^ int(cos)) & 1) == 1
+    out = _sincos_poly(r * sign, r * r, odd, tables[(q >> 1) & 1])
+    small = top12 < _TOP12_PIO4
+    out = torch.where(small, _sincos_poly(
+        x, x * x, torch.full_like(small, cos), tables[0].expand(
+            *x.shape, 8)), out)
+    tiny = top12 < _TOP12_TINY
+    out = torch.where(tiny, torch.ones_like(x) if cos else x, out)
+    out = out.to(torch.float32)
+    # inf or NaN: y - y (the C code's invalid result)
+    return torch.where(top12 >= _TOP12_INF, y - y, out)
+
+
+def libm_sinf(t: torch.Tensor) -> torch.Tensor:
+    """sin of a float32 tensor, bit for bit as the C library's sinf."""
+    return _sincosf(t, cos=False)
+
+
+def libm_cosf(t: torch.Tensor) -> torch.Tensor:
+    """cos of a float32 tensor, bit for bit as the C library's cosf."""
+    return _sincosf(t, cos=True)
+
+
+#: fdlibm's __kernel_tanf coefficients (float32)
+_TANF_T = tuple(_h(c) for c in (
+    "0x1.555556p-2", "0x1.111112p-3", "0x1.ba1ba2p-5", "0x1.664f48p-6",
+    "0x1.226e3ep-7", "0x1.d6d22cp-9", "0x1.7dbc9p-10", "0x1.344d9p-11",
+    "0x1.026f72p-12", "0x1.47e88ap-14", "0x1.2b80f4p-14",
+    "-0x1.375cbep-16", "0x1.b2a708p-16"))
+_TANF_PIO4 = _h("0x1.921fb4p-1")
+_TANF_PIO4LO = _h("0x1.4442dp-25")
+
+
+def _kernel_tanf(x, y, iy):
+    """fdlibm's float32 __kernel_tanf: tan(x + y), or -1/tan(x + y)
+    where iy is -1, for |x + y| <= pi/4."""
+    f = torch.float32
+    hx = x.view(torch.int32)
+    ix = hx & 0x7FFFFFFF
+    big = ix >= 0x3F2CA140                 # |x| >= 0.6744
+    neg = hx < 0
+    xb = (_TANF_PIO4 - torch.where(neg, -x, x)) \
+        + (_TANF_PIO4LO - torch.where(neg, -y, y))
+    x2 = torch.where(big, xb, x)
+    y2 = torch.where(big, torch.zeros_like(y), y)
+    T = _TANF_T
+    z = x2 * x2
+    w = z * z
+    r = T[1] + w * (T[3] + w * (T[5] + w * (T[7] + w * (T[9] + w * T[11]))))
+    v = z * (T[2] + w * (T[4] + w * (T[6] + w * (T[8] + w * (
+        T[10] + w * T[12])))))
+    s = z * x2
+    r = y2 + z * (s * (r + v) + y2)
+    r = r + T[0] * s
+    w = x2 + r
+    ivf = iy.to(f)
+    sgn = (1 - ((hx >> 30) & 2)).to(f)
+    out_big = sgn * (ivf - 2.0 * (x2 - (w * w / (w + ivf) - r)))
+    # -1/(x + r), to full accuracy by a split of w and of its reciprocal
+    zh = (w.view(torch.int32) & -4096).view(f)
+    vv = r - (zh - x2)
+    a = -1.0 / w
+    th = (a.view(torch.int32) & -4096).view(f)
+    out_neg = th + a * ((1.0 + th * zh) + th * vv)
+    out = torch.where(big, out_big, torch.where(iy == 1, w, out_neg))
+    # |x| < 2^-13: x, or -1/x
+    out = torch.where(ix < 0x39000000,
+                      torch.where(iy == 1, x, -1.0 / x), out)
+    # the big branch's reduced value under 2^-13
+    near = big & (xb.abs() < 2.0 ** -13)
+    return torch.where(near, sgn * ivf * (1.0 - 2 * ivf * xb), out)
+
+
+def libm_tanf(t: torch.Tensor) -> torch.Tensor:
+    """tan of a float32 tensor, bit for bit as the C library's tanf: the
+    sinf reduction to a float32 pair (y0, y1) and fdlibm's kernel."""
+    x = t.to(torch.float32)
+    r, n, bits, fast = _sincos_reduce(x)
+    # the large path's remainder carries no sign: the argument's
+    r = torch.where(fast | ((bits >> 31) == 0), r, -r)
+    y0 = r.to(torch.float32)
+    y1 = (r - y0.to(torch.float64)).to(torch.float32)
+    ix = x.view(torch.int32) & 0x7FFFFFFF
+    nored = ix <= 0x3F490FDA               # |x| ~<= pi/4
+    y0 = torch.where(nored, x, y0)
+    y1 = torch.where(nored, torch.zeros_like(y1), y1)
+    n = torch.where(nored, torch.zeros_like(n), n)
+    out = _kernel_tanf(y0, y1, (1 - ((n & 1) << 1)).to(torch.int32))
+    return torch.where(ix >= 0x7F800000, x - x, out)

@@ -3,22 +3,24 @@
 Copy of the reference's ``rest/actions/document.py`` for ``PUT``/``POST
 /{index}/_doc/{id}``, ``POST /{index}/_doc``, ``GET`` and ``DELETE
 /{index}/_doc/{id}``, ``_create/{id}`` (a 409 on an existing id),
-``_update/{id}`` (the doc-merge form, ``doc_as_upsert`` and ``upsert``),
-``_mget`` and ``_bulk`` with index, create, delete and update ops (an
-update merges its ``doc`` into the stored source, or upserts it with
-``doc_as_upsert``). A scripted update waits for the script module: the
-``_update`` route refuses it with a 400, and a bulk that holds one is
-refused whole. The bulk body is NDJSON action/metadata lines as in the
+``_update/{id}`` (the doc merge, ``doc_as_upsert``, ``upsert``, and a
+script: ``ctx._source`` mutation, ``ctx.op`` noop or delete,
+``scripted_upsert``), ``_mget`` and ``_bulk`` with index, create, delete
+and update ops (an update merges its ``doc`` into the stored source,
+upserts it with ``doc_as_upsert``, or runs its script). Scripts run on
+the script module's scalar interpreter (``script/__init__.py``). The
+bulk body is NDJSON action/metadata lines as in the
 reference; maximal runs of plain index ops group per shard and apply
 through the engine's batched path, the shards of a run on a thread pool
 (each shard's ops stay in request order, so doc ordinals — and with them
 the tie order of equal scores — are the reference's). Left out: cluster
-routing, indexing pressure, ingest pipelines, scripts, ``_reindex`` and
-the by-query APIs.
+routing, indexing pressure, ingest pipelines, ``_reindex`` and the
+by-query APIs.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import time
 import uuid
@@ -30,6 +32,7 @@ from elasticsearch_tpu_torch.common.errors import (DocumentMissingException,
 from elasticsearch_tpu_torch.rest.controller import (RestController,
                                                      RestRequest,
                                                      error_status)
+from elasticsearch_tpu_torch.script import ScriptException, compile_script
 
 
 def _auto_id() -> str:
@@ -117,44 +120,104 @@ def exec_delete_doc(node, index: str, doc_id: str, params
                  "_shards": {"total": 1, "successful": 1, "failed": 0}}
 
 
+def run_update_script(script, source: Dict[str, Any],
+                      *, op: str = "index") -> Tuple[str, Dict[str, Any]]:
+    """Run an update script on a `ctx` holding a copy of `_source` and
+    `op` (the reference's UpdateHelper) → (op, new source), op one of
+    index, none, delete, create."""
+    ctx = {"_source": copy.deepcopy(source), "op": op,
+           "_now": int(time.time() * 1000)}
+    try:
+        script.execute({"ctx": ctx})
+    except ScriptException as e:
+        raise IllegalArgumentException(
+            f"failed to execute script: "
+            f"{e.args[0] if e.args else e}") from None
+    out_op = ctx.get("op", "index")
+    if out_op in ("noop", "none"):
+        out_op = "none"
+    elif out_op not in ("index", "delete", "create"):
+        raise IllegalArgumentException(
+            f"Operation type [{out_op}] not allowed, only "
+            f"[create, index, noop, delete] are allowed")
+    new_source = ctx.get("_source")
+    if not isinstance(new_source, dict):
+        raise IllegalArgumentException(
+            "update script removed [ctx._source]")
+    return out_op, new_source
+
+
+def _compile_update_script(body: Dict[str, Any]):
+    """The body's script compiled, or None without one; a script beside
+    a doc, or one that does not compile, is a 400."""
+    if "script" not in body:
+        return None
+    if body.get("doc") is not None:
+        raise IllegalArgumentException(
+            "Validation Failed: can't provide both script and doc")
+    try:
+        return compile_script(body["script"])
+    except ScriptException as e:
+        raise IllegalArgumentException(
+            str(e.args[0] if e.args else e)) from None
+
+
 def exec_update_doc(node, index: str, doc_id: str, body, params
                     ) -> Tuple[int, Dict]:
-    """_update: the doc-merge form, doc_as_upsert and upsert; a doc
-    merge that changes nothing is a noop (detect_noop, on by
-    default)."""
+    """_update: the doc merge (a merge that changes nothing is a noop,
+    detect_noop being on by default), doc_as_upsert, upsert, and a
+    script (ctx._source mutation, ctx.op noop or delete,
+    scripted_upsert)."""
     index = node.indices.resolve_write_index(index)
     svc = node.indices.index(index)
     svc.check_write_block()
     shard = svc.shard(svc.shard_for_id(doc_id, params.get("routing")))
     body = body or {}
     partial = body.get("doc")
-    if "script" in body:
-        if partial is not None:
-            raise IllegalArgumentException(
-                "Validation Failed: can't provide both script and doc")
-        raise IllegalArgumentException(
-            "[_update] with a script: the script module is not ported "
-            "yet")
-    if partial is None:
+    script = _compile_update_script(body)
+    if partial is None and script is None:
         raise IllegalArgumentException(
             "Validation Failed: script or doc is missing")
     existing = shard.get(doc_id)
     if existing is None:
-        if body.get("doc_as_upsert"):
-            merged = partial
+        if script is not None:
+            if "upsert" not in body:
+                raise DocumentMissingException(
+                    f"[{doc_id}]: document missing")
+            base = body["upsert"]
+            if body.get("scripted_upsert"):
+                op, merged = run_update_script(script, base, op="create")
+                if op == "delete":   # deleting a doc that never existed
+                    op = "none"
+            else:
+                op, merged = "index", base
+        elif body.get("doc_as_upsert"):
+            op, merged = "index", partial
         elif "upsert" in body:
-            merged = body["upsert"]
+            op, merged = "index", body["upsert"]
         else:
             raise DocumentMissingException(f"[{doc_id}]: document missing")
     else:
         base = dict(existing["_source"] or {})
-        merged = _deep_merge(base, partial)
-        if body.get("detect_noop", True) and merged == base:
-            return 200, {"_index": index, "_id": doc_id,
-                         "_version": existing.get("_version", 1),
-                         "result": "noop",
-                         "_shards": {"total": 0, "successful": 0,
-                                     "failed": 0}}
+        if script is not None:
+            op, merged = run_update_script(script, base)
+        else:
+            merged = _deep_merge(base, partial)
+            op = "none" if (body.get("detect_noop", True)
+                            and merged == base) else "index"
+    if op == "none":
+        return 200, {"_index": index, "_id": doc_id,
+                     "_version": (existing or {}).get("_version", 1),
+                     "result": "noop",
+                     "_shards": {"total": 0, "successful": 0,
+                                 "failed": 0}}
+    if op == "delete":
+        result = shard.apply_delete_on_primary(doc_id)
+        _apply_refresh(node, shard, params, result.seq_no)
+        return 200, {"_index": index, "_id": doc_id,
+                     "_version": result.version, "result": "deleted",
+                     "_seq_no": result.seq_no,
+                     "_primary_term": result.primary_term}
     result = shard.apply_index_on_primary(doc_id, merged)
     _apply_refresh(node, shard, params, result.seq_no)
     return 200, {"_index": index, "_id": doc_id,
@@ -197,11 +260,6 @@ def parse_bulk_body(raw: str, default_index: Optional[str]
                     "Validation Failed: bulk source line missing")
             source = json.loads(lines[i])
             i += 1
-        if (op == "update" and isinstance(source, dict)
-                and "script" in source and source.get("doc") is None):
-            raise IllegalArgumentException(
-                "bulk action [update] with a script: the script module is "
-                "not ported yet")
         ops.append({"op": op, "index": index,
                     "id": doc_id or _auto_id(),
                     "routing": meta.get("routing"), "source": source})
@@ -327,15 +385,30 @@ def _apply_one_op(node, entry: Dict[str, Any],
                 "status": 200 if r.found else 404}}
         if op == "update":
             body = entry["source"] or {}
-            if "script" in body:    # with a doc: parse_bulk_body let it by
-                raise IllegalArgumentException(
-                    "Validation Failed: can't provide both script and doc")
+            script = _compile_update_script(body)
             existing = shard.get(the_id)
             if existing is None and not body.get("doc_as_upsert"):
                 raise DocumentMissingException(
                     f"[{the_id}]: document missing")
             base = dict((existing or {}).get("_source") or {})
-            merged = _deep_merge(base, body.get("doc") or {})
+            if script is not None:
+                upd_op, merged = run_update_script(script, base)
+            else:
+                upd_op, merged = "index", _deep_merge(base,
+                                                      body.get("doc") or {})
+            if upd_op == "none":
+                return {"update": {
+                    "_index": index, "_id": the_id,
+                    "_version": (existing or {}).get("_version", 1),
+                    "result": "noop", "status": 200}}
+            if upd_op == "delete":
+                r = shard.apply_delete_on_primary(the_id)
+                refresh_shards.add(shard)
+                return {"update": {
+                    "_index": index, "_id": the_id,
+                    "_version": r.version, "result": "deleted",
+                    "_seq_no": r.seq_no,
+                    "_primary_term": r.primary_term, "status": 200}}
             r = shard.apply_index_on_primary(the_id, merged)
             refresh_shards.add(shard)
             return {"update": {

@@ -1,16 +1,16 @@
 """Search, count, multi-search and analyze REST actions.
 
 Copy of the reference's ``rest/actions/search.py`` for one node:
-``_search`` (the coordinator picks the kernel path or the planner),
-``_count`` (the query phase at size 0 on the node's first device),
-``_msearch`` (NDJSON header/body pairs, each item through the same
-search function as ``_search``, one after another as in the reference;
-a failed item is its own error body with its status) and ``_analyze``
-(the built-in analyzers, an index's own registry, a field's analyzer).
-Scroll, PIT and ``_rank_eval`` need the reader contexts and the ranking
-evaluation, which are not ported yet: they are refused typed
-(``NotLowerable``), as the coordinator refuses the other planner
-features it lacks.
+``_search`` (the coordinator picks the kernel path or the planner; a
+``pit`` body searches that context, ``?scroll=`` opens a scroll),
+``_search/scroll`` (the next page, or a clear with DELETE), ``_pit``
+(open with POST, close with DELETE), ``_count`` (the query phase at
+size 0 on the node's first device), ``_msearch`` (NDJSON header/body
+pairs, each item through the same search function as ``_search``, one
+after another as in the reference; a failed item is its own error body
+with its status), ``_rank_eval`` (each rated request through the
+coordinator) and ``_analyze`` (the built-in analyzers, an index's own
+registry, a field's analyzer).
 """
 
 from __future__ import annotations
@@ -18,13 +18,13 @@ from __future__ import annotations
 import json
 
 from elasticsearch_tpu_torch.analysis import AnalysisRegistry
-from elasticsearch_tpu_torch.common.errors import (IllegalArgumentException,
-                                                   NotLowerable)
+from elasticsearch_tpu_torch.common.errors import IllegalArgumentException
 from elasticsearch_tpu_torch.common.settings import Settings
 from elasticsearch_tpu_torch.rest.controller import (RestController,
                                                      RestRequest, error_body,
                                                      error_status)
-from elasticsearch_tpu_torch.search import coordinator
+from elasticsearch_tpu_torch.search import coordinator, rank_eval
+from elasticsearch_tpu_torch.search import scroll as scroll_mod
 
 
 def register(controller: RestController, node) -> None:
@@ -37,7 +37,10 @@ def register(controller: RestController, node) -> None:
             raise IllegalArgumentException(
                 "unknown search body keys ['_knn_docs']")
         if "pit" in body:
-            raise NotLowerable("a point-in-time search")
+            if not isinstance(body["pit"], dict):
+                raise IllegalArgumentException(
+                    "[pit] must be an object with an [id]")
+            return scroll_mod.search_pit(node, body, params)
         return coordinator.search(indices, index, body, params,
                                   node.gpu_search)
 
@@ -46,13 +49,48 @@ def register(controller: RestController, node) -> None:
         if not isinstance(body, dict):
             raise IllegalArgumentException("request body must be an object")
         if req.params.get("scroll"):
-            raise NotLowerable("a scroll search")
+            return 200, scroll_mod.start_scroll(node, req.param("index"),
+                                                body, req.params)
         return 200, execute_search(req.param("index"), body, req.params)
 
-    def refuse(what):
-        def handler(req: RestRequest):
-            raise NotLowerable(what)
-        return handler
+    def scroll_page(req: RestRequest):
+        body = req.body or {}
+        scroll_id = (req.param("scroll_id") or body.get("scroll_id")
+                     or req.params.get("scroll_id"))
+        if not scroll_id:
+            raise IllegalArgumentException("[scroll_id] is required")
+        keep = body.get("scroll") or req.params.get("scroll")
+        return 200, scroll_mod.next_page(node, scroll_id, keep)
+
+    def clear_scroll(req: RestRequest):
+        body = req.body or {}
+        ids = req.param("scroll_id") or body.get("scroll_id")
+        if isinstance(ids, str):
+            ids = [ids]
+        return 200, scroll_mod.clear(node, ids)
+
+    def open_pit(req: RestRequest):
+        keep = req.params.get("keep_alive")
+        if not keep:
+            raise IllegalArgumentException(
+                "[open_point_in_time] requires [keep_alive]")
+        return 200, scroll_mod.open_pit(node, req.param("index"), keep)
+
+    def close_pit(req: RestRequest):
+        pit_id = (req.body or {}).get("id")
+        if not pit_id:
+            raise IllegalArgumentException(
+                "[close_point_in_time] requires [id]")
+        return 200, scroll_mod.close_pit(node, pit_id)
+
+    def do_rank_eval(req: RestRequest):
+        index_expr = req.param("index")
+
+        def run(search_body):
+            return coordinator.search(indices, index_expr, search_body, {},
+                                      node.gpu_search)
+
+        return 200, rank_eval.evaluate(run, req.body or {})
 
     def do_count(req: RestRequest):
         return 200, coordinator.count(indices, req.param("index"),
@@ -130,12 +168,10 @@ def register(controller: RestController, node) -> None:
         controller.register(method, "/_analyze", do_analyze)
         controller.register(method, "/{index}/_analyze", do_analyze)
         for path in ("/_search/scroll", "/_search/scroll/{scroll_id}"):
-            controller.register(method, path, refuse("a scroll search"))
-        for path in ("/_rank_eval", "/{index}/_rank_eval"):
-            controller.register(method, path,
-                                refuse("the ranking evaluation API"))
+            controller.register(method, path, scroll_page)
+        controller.register(method, "/_rank_eval", do_rank_eval)
+        controller.register(method, "/{index}/_rank_eval", do_rank_eval)
     for path in ("/_search/scroll", "/_search/scroll/{scroll_id}"):
-        controller.register("DELETE", path, refuse("a scroll search"))
-    controller.register("POST", "/{index}/_pit",
-                        refuse("a point-in-time search"))
-    controller.register("DELETE", "/_pit", refuse("a point-in-time search"))
+        controller.register("DELETE", path, clear_scroll)
+    controller.register("POST", "/{index}/_pit", open_pit)
+    controller.register("DELETE", "/_pit", close_pit)

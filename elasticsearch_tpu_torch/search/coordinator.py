@@ -9,12 +9,16 @@ through ``GpuSearchService.try_search``, merges across indices (score
 desc, index order, kernel rank) and assembles columnar hits
 (``ColumnarHits`` / ``SplicedHits``); a ``_source`` list or tuple
 filters each hit's source. The planner path (``_search_planner``) takes
-every request the reference hands to its planner: a filtered alias,
-from + size of 0 or above 10,000, ``min_score``, or a query outside the
-kernel's lowering subset (``NotLowerable(planner=True)``). It skips
-shards ``can_match`` rules out, runs ``execute_query`` on each shard's
-reader under per-shard failure capture, merges by (score desc, index
-order, shard, rank), fetches the window's winners and renders the
+every request the reference hands to its planner: a filtered alias, a
+scroll or PIT context's pinned readers, from + size of 0 or above
+10,000, ``min_score``, a query outside the kernel's lowering subset
+(``NotLowerable(planner=True)``), and the planner features: ``sort``
+with ``search_after``, ``collapse``, ``rescore``, ``highlight`` and
+``suggest``. It skips shards ``can_match`` rules out, runs each shard's
+query phase under per-shard failure capture (``execute_query``, sorted
+or not, then the rescore chain; or ``collapse_top_groups``), merges by
+sort key or (score desc, index order, shard, rank), collapses by key,
+fetches the window's winners, highlights them and renders the
 reference's response. It runs on the first device of the service's
 mesh.
 
@@ -25,8 +29,7 @@ and named directly it is the reference's 400 before any shard or pack
 is asked.
 
 Refused typed (``NotLowerable``): the planner features not ported yet
-(sort, search_after, highlight, suggest, rescore, collapse, pit,
-aggregations, knn), and what the reference serves on its kernel path
+(aggregations, knn), and what the reference serves on its kernel path
 but the port's does not take yet (``planner=False``: rows of more than
 1024 slots). Unlike the reference, a fault of the kernel path
 is not retried on the planner: it reaches the client as a 5xx.
@@ -34,7 +37,9 @@ is not retried on the planner: it reaches the client as a 5xx.
 
 from __future__ import annotations
 
+import dataclasses
 import fnmatch
+import math
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -44,12 +49,22 @@ from elasticsearch_tpu_torch.common.errors import (
     CircuitBreakingException, IllegalArgumentException,
     IndexClosedException, IndexNotFoundException, NotLowerable,
     SearchPhaseExecutionException, shard_failure_entry)
+from elasticsearch_tpu_torch.index.segment import MISSING_I64
 from elasticsearch_tpu_torch.search import dsl
+from elasticsearch_tpu_torch.search import sort as sort_mod
 from elasticsearch_tpu_torch.search.can_match import can_match
+from elasticsearch_tpu_torch.search.collapse import collapse_top_groups
 from elasticsearch_tpu_torch.search.gpu_service import MAX_K
-from elasticsearch_tpu_torch.search.query_phase import (ShardHit,
+from elasticsearch_tpu_torch.search.highlight import (HighlightSpec,
+                                                      build_highlights)
+from elasticsearch_tpu_torch.search.query_phase import (QuerySearchResult,
+                                                        ShardHit,
                                                         execute_fetch,
                                                         execute_query)
+from elasticsearch_tpu_torch.search.rescore import (RescoreSpec,
+                                                    parse_rescore,
+                                                    rescore_shard_hits)
+from elasticsearch_tpu_torch.search.suggest import run_suggest
 from elasticsearch_tpu_torch.search.serializer import (ColumnarHits,
                                                        SplicedHits,
                                                        assemble_hits_list)
@@ -60,9 +75,10 @@ KNOWN_KEYS = frozenset({
     "track_total_hits", "sort", "search_after", "timeout", "pit",
     "profile", "highlight", "suggest", "version", "seq_no_primary_term",
     "rescore", "collapse", "knn"})
-#: body keys of planner features the port does not serve yet
+#: body keys of the planner features: a body holding one runs the
+#: planner path, as in the reference
 PLANNER_KEYS = ("sort", "search_after", "highlight", "suggest", "rescore",
-                "collapse", "pit")
+                "collapse")
 
 #: failures that abort the whole request rather than degrade to a
 #: per-shard failure: a breaker trip is a 429 before work is admitted,
@@ -203,7 +219,8 @@ def with_alias_filters(query: dsl.QueryNode,
 
 def parse_search_body(body: Optional[Dict[str, Any]]):
     """→ (query node, body). Unknown keys are a 400, as in the
-    reference; planner features the port does not serve raise
+    reference, and so are a malformed rescore or collapse; planner
+    features the port does not serve yet (aggregations, knn) raise
     NotLowerable."""
     body = body or {}
     if "script_fields" in body:
@@ -214,8 +231,7 @@ def parse_search_body(body: Optional[Dict[str, Any]]):
     if unknown:
         raise IllegalArgumentException(
             f"unknown search body keys {sorted(unknown)}")
-    planner = [k for k in PLANNER_KEYS if k in body]
-    planner += [k for k in ("aggs", "aggregations") if body.get(k)]
+    planner = [k for k in ("aggs", "aggregations") if body.get(k)]
     planner += [k for k in ("knn",) if body.get(k) is not None]
     if planner:
         raise NotLowerable(f"search options {planner}")
@@ -224,17 +240,66 @@ def parse_search_body(body: Optional[Dict[str, Any]]):
             raise IllegalArgumentException(
                 f"[{key}] is not ported yet to the GPU search path")
     query = dsl.parse_query(body.get("query") or {"match_all": {}})
+    if body.get("rescore") is not None:
+        parse_rescore(body["rescore"])  # a malformed rescore is a 400
+    if body.get("collapse") is not None:
+        spec = body["collapse"]
+        if not isinstance(spec, dict) or not spec.get("field"):
+            raise IllegalArgumentException("[collapse] requires [field]")
+        if spec.get("inner_hits") is not None:
+            raise IllegalArgumentException(
+                "[collapse] inner_hits is not supported yet")
+        if body.get("sort") is not None or body.get("rescore") is not None:
+            raise IllegalArgumentException(
+                "[collapse] cannot be combined with [sort]/[rescore] yet")
     return query, body
+
+
+@dataclasses.dataclass
+class Features:
+    """A request's planner features: the sort and its cursor, the
+    highlighter, the rescore chain and the collapse field."""
+    sort_specs: List[sort_mod.SortSpec]
+    search_after: Optional[List[Any]]
+    highlight: Optional[HighlightSpec]
+    rescore: Optional[List[RescoreSpec]]
+    collapse_field: Optional[str]
+
+    @classmethod
+    def of(cls, body: Dict[str, Any]) -> "Features":
+        """A parsed body's features (400s for a malformed sort, a cursor
+        without a sort, or a malformed highlight or rescore)."""
+        sort_specs = sort_mod.parse_sort(body.get("sort"))
+        search_after = body.get("search_after")
+        if search_after is not None and not sort_specs:
+            raise IllegalArgumentException(
+                "[search_after] requires a [sort] specification")
+        return cls(
+            sort_specs, search_after,
+            HighlightSpec(body["highlight"])
+            if body.get("highlight") is not None else None,
+            parse_rescore(body["rescore"])
+            if body.get("rescore") is not None else None,
+            (body.get("collapse") or {}).get("field")
+            if body.get("collapse") else None)
 
 
 def search(indices, index_expr: Optional[str],
            body: Optional[Dict[str, Any]],
-           params: Optional[Dict[str, str]], gpu_search) -> Dict[str, Any]:
+           params: Optional[Dict[str, str]], gpu_search, *,
+           pinned: Optional[Dict[Tuple[str, int], Any]] = None,
+           names_override: Optional[List[str]] = None) -> Dict[str, Any]:
     """One ``_search`` over the indices `index_expr` names: the kernel
-    path where the reference takes it, else the planner path."""
+    path where the reference takes it, else the planner path. `pinned`
+    maps (index, shard) to the reader snapshot of a scroll or PIT
+    context (the planner path over those readers, `names_override` its
+    indices)."""
     t0 = time.perf_counter()
     params = params or {}
-    names, alias_filters = resolve_targets(indices, index_expr)
+    if names_override is not None:
+        names, alias_filters = list(names_override), {}
+    else:
+        names, alias_filters = resolve_targets(indices, index_expr)
     query, body = parse_search_body(body)
     size = int(params.get("size", body.get("size", 10)))
     from_ = int(params.get("from", body.get("from", 0)))
@@ -245,8 +310,11 @@ def search(indices, index_expr: Optional[str],
     if params.get("timeout") is not None:
         raise IllegalArgumentException(
             "[timeout] is not ported yet to the GPU search path")
-    if not alias_filters:
-        # filtered aliases run the planner, as in the reference
+    features = Features.of(body)
+    if (pinned is None and not alias_filters
+            and not any(k in body for k in PLANNER_KEYS)):
+        # filtered aliases, contexts and the planner features run the
+        # planner, as in the reference
         try:
             return _search_fast(indices, names, query, gpu_search,
                                 size=size, from_=from_,
@@ -256,39 +324,83 @@ def search(indices, index_expr: Optional[str],
         except NotLowerable as exc:
             if not exc.planner:
                 raise
-    return _search_planner(indices, names, alias_filters, query, params,
-                           size=size, from_=from_, min_score=min_score,
-                           source=source, t0=t0, version=version,
-                           seq_no_primary_term=seq_no_primary_term,
-                           device=gpu_search.mesh.grid[0][0])
+    out = _search_planner(indices, names, alias_filters, query, params,
+                          features, size=size, from_=from_,
+                          min_score=min_score, source=source, t0=t0,
+                          version=version,
+                          seq_no_primary_term=seq_no_primary_term,
+                          device=gpu_search.mesh.grid[0][0], pinned=pinned)
+    if body.get("suggest") is not None:
+        out["suggest"] = run_suggest(indices, names, body["suggest"])
+    return out
+
+
+def query_shard(reader, shard_query: dsl.QueryNode, features: Features,
+                 *, size: int, from_: int, min_score, device):
+    """One shard's query phase under the request's features: the
+    collapsed groups, or the (sorted) query phase with the rescore
+    window and chain."""
+    if features.collapse_field:
+        # the exact grouped top-N (no candidate cap: a dominating key
+        # cannot starve later groups)
+        pairs, total_sh = collapse_top_groups(
+            reader, shard_query, features.collapse_field, size + from_,
+            device=device)
+        return QuerySearchResult([h for h, _ in pairs], total_sh,
+                                 pairs[0][0].score if pairs else None)
+    k_shard = size + from_
+    if features.rescore:
+        # the rescore window may exceed the response window
+        k_shard = max(k_shard, max(s.window_size for s in features.rescore))
+    res = execute_query(reader, shard_query, size=k_shard, from_=0,
+                        min_score=min_score,
+                        sort_specs=features.sort_specs or None,
+                        search_after=features.search_after, device=device)
+    if features.rescore:
+        res.hits = rescore_shard_hits(reader, res.hits, features.rescore,
+                                      device=device)
+    return res
 
 
 def _search_planner(indices, names: List[str],
                     alias_filters: Dict[str, List[dict]],
-                    query: dsl.QueryNode, params: Dict[str, str], *,
+                    query: dsl.QueryNode, params: Dict[str, str],
+                    features: Features, *,
                     size: int, from_: int, min_score, source, t0: float,
                     version: bool, seq_no_primary_term: bool,
-                    device) -> Dict[str, Any]:
+                    device, pinned=None) -> Dict[str, Any]:
     """The planner path: per-shard query phase under failure capture,
-    the merge, the fetch phase, the response."""
+    the merge (by sort key, or score; collapsed by key), the fetch phase
+    with highlighting, the response."""
     shard_results = []   # (index name, shard num, reader, result)
     failures: List[Dict[str, Any]] = []
     allow_partial = allow_partial_results(params)
     total = 0
     skipped = 0
-    n_shards_expected = sum(len(indices.index(n).shards) for n in names)
+    sort_specs = features.sort_specs
+    if pinned is not None:
+        # a context's accounting is over its snapshot's shards
+        name_set = set(names)
+        n_shards_expected = sum(1 for (n, _s) in pinned if n in name_set)
+    else:
+        n_shards_expected = sum(len(indices.index(n).shards) for n in names)
     for name in names:
         svc = indices.index(name)
         eff_query = with_alias_filters(query, alias_filters.get(name))
         for shard_num, shard in sorted(svc.shards.items()):
+            if pinned is not None:
+                reader = pinned.get((name, shard_num))
+                if reader is None:
+                    continue  # not part of the pinned snapshot
             try:
-                reader = shard.acquire_searcher()
+                if pinned is None:
+                    reader = shard.acquire_searcher()
                 if not can_match(reader, eff_query, svc.mapper):
                     skipped += 1
                     continue
-                res = execute_query(reader, eff_query, size=size + from_,
-                                    from_=0, min_score=min_score,
-                                    device=device)
+                res = query_shard(reader, eff_query, features, size=size,
+                                   from_=from_, min_score=min_score,
+                                   device=device)
             except _NON_DEGRADABLE:
                 raise
             except Exception as e:  # noqa: BLE001 — per-shard capture
@@ -300,17 +412,43 @@ def _search_planner(indices, names: List[str],
     check_shard_failures(failures, len(shard_results) + skipped,
                          allow_partial, "query")
 
-    # merge: score desc, ties toward the lower index/shard order, then
-    # the shard's rank
-    merged: List[Tuple[float, int, int, ShardHit]] = []
+    # merge: by sort key when sorting, else score desc; ties toward the
+    # lower index/shard order, then the shard's rank
+    merged: List[Tuple[Any, int, int, ShardHit]] = []
     for si, (_, _, _, res) in enumerate(shard_results):
         for rank, hit in enumerate(res.hits):
-            merged.append((-hit.score, si, rank, hit))
+            key = (sort_mod.sort_key(sort_specs, hit.sort_values or [])
+                   if sort_specs else -hit.score)
+            merged.append((key, si, rank, hit))
     merged.sort(key=lambda t: (t[0], t[1], t[2]))
-    window = merged[from_: from_ + size]
+    hit_keys: Dict[int, Any] = {}
+    if features.collapse_field:
+        # the best hit per key down the merged ranking; docs without a
+        # key are not collapsed together
+        seen_keys: set = set()
+        collapsed = []
+        for entry in merged:
+            _, si, _, hit = entry
+            key = _collapse_key(shard_results[si][2], hit,
+                                features.collapse_field)
+            if key is not None:
+                if key in seen_keys:
+                    continue
+                seen_keys.add(key)
+            hit_keys[id(hit)] = key
+            collapsed.append(entry)
+            if len(collapsed) >= from_ + size:
+                break
+        window = collapsed[from_: from_ + size]
+    else:
+        window = merged[from_: from_ + size]
 
     # fetch: only the shards that own winners, on the reader the query
-    # phase scored
+    # phase scored; the highlighter reads _source even when the
+    # response leaves it out
+    fetch_source = source
+    if features.highlight is not None and source is False:
+        fetch_source = True
     by_shard: Dict[int, List[ShardHit]] = {}
     for _, si, _, hit in window:
         by_shard.setdefault(si, []).append(hit)
@@ -320,9 +458,18 @@ def _search_planner(indices, names: List[str],
         name, shard_num, reader, _ = shard_results[si]
         try:
             for hit, doc in zip(hits, execute_fetch(
-                    reader, hits, source, version=version,
+                    reader, hits, fetch_source, version=version,
                     seq_no_primary_term=seq_no_primary_term)):
                 doc["_index"] = name
+                if features.highlight is not None:
+                    # the request's query only: alias filters select
+                    # docs, they are not what the user searched
+                    hl = build_highlights(query, doc.get("_source"),
+                                          features.highlight)
+                    if hl:
+                        doc["highlight"] = hl
+                    if source is False:
+                        doc.pop("_source", None)
                 fetched[(si, hit.doc_id)] = doc
         except _NON_DEGRADABLE:
             raise
@@ -341,8 +488,25 @@ def _search_planner(indices, names: List[str],
     hits_json = []
     for _, si, _, hit in window:
         doc = fetched.get((si, hit.doc_id), {"_id": hit.doc_id})
-        doc["_score"] = hit.score
+        doc["_score"] = (None if (sort_specs and hit.sort_values)
+                         else hit.score)
+        if hit.sort_values is not None:
+            doc["sort"] = hit.sort_values
+        if features.collapse_field:
+            key = hit_keys.get(id(hit))
+            if key is not None:
+                doc["fields"] = {features.collapse_field: [key]}
         hits_json.append(doc)
+    if sort_specs:
+        # max_score is null under a field sort
+        only_score = all(s.field == "_score" for s in sort_specs)
+        max_score = (max((h.score for _, _, _, h in merged), default=None)
+                     if only_score else None)
+        if only_score:
+            for doc, (_, _, _, hit) in zip(hits_json, window):
+                doc["_score"] = hit.score
+    else:
+        max_score = -merged[0][0] if merged else None
     shards_json: Dict[str, Any] = {
         "total": n_shards_expected,
         "successful": len(shard_results) - len(fetch_failed) + skipped,
@@ -355,9 +519,26 @@ def _search_planner(indices, names: List[str],
         "timed_out": False,
         "_shards": shards_json,
         "hits": {"total": {"value": total, "relation": "eq"},
-                 "max_score": -merged[0][0] if merged else None,
+                 "max_score": max_score,
                  "hits": hits_json},
     }
+
+
+def _collapse_key(reader, hit: ShardHit, field: str):
+    """A hit's collapse key: the first doc value of `field` (None when
+    missing: the hit is collapsed with nothing)."""
+    for v in reader.views:
+        if v.segment.name == hit.ref.segment:
+            col = v.segment.doc_values.get(field)
+            if col is None:
+                return None
+            raw = col.values[hit.ref.ord]
+            if col.kind == "ord":
+                return None if raw < 0 else col.ord_terms[int(raw)]
+            if col.kind == "i64":
+                return None if raw == MISSING_I64 else int(raw)
+            return None if math.isnan(raw) else float(raw)
+    return None
 
 
 def _search_fast(indices, names: List[str], query: dsl.QueryNode,

@@ -8,11 +8,9 @@ included; a well-formed query the kernel path does not serve is for
 
 The geo queries parse their points with ``GeoPointFieldType.parse_point``
 (``mapping/types.py``). ``script_score`` (the query, and the
-``function_score`` function) leans on a module the port has not got
-yet and keeps a copy of the part it needs: it checks the REST script
-envelope as the reference's ``compile_script`` does (``_parse_script``),
-keeping the script's source unparsed; the script language itself comes
-with the script module.
+``function_score`` function) compiles its script with the script module
+at parse time, as the reference does: a script that does not compile is
+a ``parsing_exception``.
 """
 
 from __future__ import annotations
@@ -171,7 +169,7 @@ class ScoreFunction:
     filter_query: Optional[QueryNode] = None
     weight: Optional[float] = None
     field_value_factor: Optional[Dict[str, Any]] = None
-    script_score: Optional[Any] = None  # ScriptSpec
+    script_score: Optional[Any] = None  # CompiledScript
 
 
 @dataclasses.dataclass
@@ -182,7 +180,7 @@ class ScriptScoreQuery(QueryNode):
     one array program over all candidates, SURVEY.md §2.1#42)."""
 
     query: QueryNode = None  # type: ignore[assignment]
-    script: Any = None       # ScriptSpec
+    script: Any = None       # CompiledScript
     min_score: Optional[float] = None
 
     def query_name(self) -> str:
@@ -819,44 +817,15 @@ _PARSERS = {
 # what the script and geo parsers need from other modules
 # ---------------------------------------------------------------------------
 
-#: the script languages the reference's script module implements
-_SUPPORTED_LANGS = ("painless", "expression")
-
-
-@dataclasses.dataclass
-class ScriptSpec:
-    """A script as the REST grammar gives it: source, params, lang."""
-
-    source: str
-    params: Dict[str, Any]
-    lang: str
-
-
-def _parse_script(spec: Any) -> ScriptSpec:
-    """The reference's compile_script checks of the REST script grammar
-    (a bare string, or {"source": ..., "lang": ..., "params": {...}});
-    its messages come out as ParsingException, as the parsers that call
-    it give them."""
-    if isinstance(spec, str):
-        return ScriptSpec(spec, {}, "painless")
-    if not isinstance(spec, dict):
-        raise ParsingException(
-            "script must be a string or an object with [source]")
-    if "id" in spec:
-        raise ParsingException(
-            "stored scripts are not supported; inline [source] only")
-    source = spec.get("source", spec.get("inline"))
-    if not isinstance(source, str):
-        raise ParsingException("script requires a [source] string")
-    lang = spec.get("lang", "painless")
-    if lang not in _SUPPORTED_LANGS:
-        raise ParsingException(
-            f"unsupported script lang [{lang}]; this build implements "
-            f"a restricted expression subset under {_SUPPORTED_LANGS}")
-    params = spec.get("params") or {}
-    if not isinstance(params, dict):
-        raise ParsingException("[params] must be an object")
-    return ScriptSpec(source, params, lang)
+def _parse_script(spec: Any):
+    """The REST script grammar compiled by the script module; its
+    errors are the parsers' ParsingException, as in the reference."""
+    from elasticsearch_tpu_torch.script import (ScriptException,
+                                                compile_script)
+    try:
+        return compile_script(spec)
+    except ScriptException as e:
+        raise ParsingException(str(e)) from None
 
 
 def _parse_point(value: Any) -> Tuple[float, float]:

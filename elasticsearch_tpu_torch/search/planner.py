@@ -27,8 +27,10 @@ exists mask; a range field matches by interval relation (intersects,
 within, contains). ``nested`` and ``percolate`` run on the host object
 by object and stored query by stored query, as in the reference, and
 copy their masks to the device. ``script_score`` (the query, or a
-function of ``function_score``) and ``knn_score_doc`` raise
-NotLowerable, naming the queue item they wait for.
+function of ``function_score``) runs the script module's vector
+interpreter over the segment's doc-value and ``dense_vector`` columns
+on the device; ``knn_score_doc`` raises NotLowerable, naming the queue
+item it waits for.
 """
 
 from __future__ import annotations
@@ -53,12 +55,14 @@ from elasticsearch_tpu_torch.mapping.types import (FieldType,
                                                    RankFeatureFieldType,
                                                    TextFieldType)
 from elasticsearch_tpu_torch.ops import bm25, geo, sparse
-from elasticsearch_tpu_torch.ops.xla_math import (x86_nan_like, xla_ftz,
+from elasticsearch_tpu_torch.ops.xla_math import (x86_nan, x86_nan_like,
+                                                  xla_ftz,
                                                   xla_log10f, xla_logf,
                                                   xla_powf)
 from elasticsearch_tpu_torch.ops.smallfloat import (LENGTH_TABLE,
                                                     bm25_norm_cache)
 from elasticsearch_tpu_torch.parallel.device import resolve_device
+from elasticsearch_tpu_torch.script import FieldColumn, ScriptException
 from elasticsearch_tpu_torch.search import dsl
 
 MAX_SLOTS_PER_PASS = 32
@@ -256,8 +260,7 @@ class SegmentQueryExecutor:
         if isinstance(node, dsl.FunctionScoreQuery):
             return self._eval_function_score(node, scoring)
         if isinstance(node, dsl.ScriptScoreQuery):
-            raise NotLowerable("a [script_score] query needs the script "
-                               "module (Queue A5c)")
+            return self._eval_script_score(node, scoring)
         if isinstance(node, dsl.KnnScoreDocQuery):
             raise NotLowerable("a [knn] search (Queue A7)")
         if isinstance(node, dsl.RankFeatureQuery):
@@ -372,9 +375,6 @@ class SegmentQueryExecutor:
 
     def _eval_function_score(self, node: dsl.FunctionScoreQuery,
                              scoring: bool) -> Pair:
-        if any(fn.script_score is not None for fn in node.functions):
-            raise NotLowerable("a [function_score] with [script_score] "
-                               "needs the script module (Queue A5c)")
         mask, score = self._eval(node.query, scoring)
         if not scoring:
             return mask, score
@@ -389,8 +389,11 @@ class SegmentQueryExecutor:
             if fn.field_value_factor is not None:
                 factor = factor * self._field_value_factor(
                     fn.field_value_factor)
+            if fn.script_score is not None:
+                scripted = self._run_score_script(fn.script_score, score)
+                factor = x86_nan(factor * scripted, factor, scripted)
             if fn.weight is not None:
-                factor = factor * fn.weight
+                factor = x86_nan(factor * fn.weight, factor)
             if fn.filter_query is not None:
                 fmask, _ = self._eval(fn.filter_query, scoring=False)
             else:
@@ -411,38 +414,42 @@ class SegmentQueryExecutor:
                 if combined is None:
                     combined = term
                 elif mode == "multiply":
-                    combined = combined * term
+                    combined = x86_nan(combined * term, combined, term)
                 else:
-                    combined = combined + term
+                    combined = x86_nan(combined + term, combined, term)
             if mode == "avg":
-                combined = combined / torch.clamp(n_applied, min=1)
+                combined = x86_nan(combined / torch.clamp(n_applied, min=1),
+                                   combined)
         else:
             fill = float("-inf") if mode == "max" else float("inf")
             pick = torch.maximum if mode == "max" else torch.minimum
             combined = None
             for f, a in zip(factors, applies):
                 term = torch.where(a, f, torch.full_like(f, fill))
-                combined = term if combined is None else pick(combined,
-                                                              term)
+                combined = term if combined is None else _nan_pick(
+                    pick, combined, term)
         combined = torch.where(n_applied > 0, combined,
                                torch.ones_like(combined))
         if node.max_boost is not None:
-            combined = torch.minimum(combined, torch.tensor(
-                node.max_boost, dtype=torch.float32, device=self.device))
+            combined = _nan_pick(torch.minimum, combined, torch.full_like(
+                combined, node.max_boost))
+        # a script function's NaN keeps its x86 bits on every device
         bm = node.boost_mode
         if bm == "multiply":
-            final = score * combined
+            final = x86_nan(score * combined, score, combined)
         elif bm == "sum":
-            final = score + combined
+            final = x86_nan(score + combined, score, combined)
         elif bm == "replace":
             final = combined
         elif bm == "avg":
-            final = (score + combined) / 2.0
+            final = x86_nan(x86_nan(score + combined, score, combined)
+                            / 2.0, combined)
         elif bm == "max":
-            final = torch.maximum(score, combined)
+            final = _nan_pick(torch.maximum, score, combined)
         else:  # min
-            final = torch.minimum(score, combined)
-        return mask, torch.where(mask, final * node.boost, zero)
+            final = _nan_pick(torch.minimum, score, combined)
+        return mask, torch.where(mask, x86_nan(final * node.boost, final),
+                                 zero)
 
     def _dv_column(self, field: str) -> Pair:
         """A numeric doc-value column → (values f32, present mask)."""
@@ -458,6 +465,56 @@ class SegmentQueryExecutor:
                             device=self.device),
                 torch.zeros(self.d_pad, dtype=torch.bool,
                             device=self.device))
+
+    # ---- score scripts (the script module's vector interpreter) ----
+
+    def _script_resolver(self, field: str) -> FieldColumn:
+        """doc['field'] in a score script: the numeric doc-value column,
+        missing values 0 beside the presence mask (lang-expression)."""
+        vals, present = self._dv_column(field)
+        return FieldColumn(torch.where(present, vals,
+                                       torch.zeros_like(vals)), present)
+
+    def _vec_column(self, field: str) -> torch.Tensor:
+        """A dense_vector matrix f32[d_pad, dims] on the device (NaN rows
+        missing); an unknown field is a 400."""
+        mat = self.pack.dv_vec.get(field)
+        if mat is None:
+            raise ScriptException(f"[{field}] is not a dense_vector field")
+        return self._column("vec", field, lambda: mat)
+
+    def _run_score_script(self, script, base_score: torch.Tensor
+                          ) -> torch.Tensor:
+        try:
+            return script.score_vector(self._script_resolver, base_score,
+                                       vec_resolver=self._vec_column)
+        except ScriptException:
+            raise
+        except Exception as e:  # noqa: BLE001 — surfaces as a 400
+            raise ScriptException(f"runtime error in score script "
+                                  f"[{script.source[:80]}]: {e}") from None
+
+    def _eval_script_score(self, node: dsl.ScriptScoreQuery,
+                           scoring: bool) -> Pair:
+        # min_score prunes matches, so it runs in filter context too (a
+        # filter-placed script_score matches what a query-placed one
+        # does)
+        needs_script = scoring or node.min_score is not None
+        mask, score = self._eval(node.query, scoring or needs_script)
+        if not needs_script:
+            return mask, score
+        scripted = self._run_score_script(node.script, score)
+        # negative script scores are refused (since 7.x): clamped to 0,
+        # a NaN kept as it is
+        zero = torch.zeros_like(scripted)
+        scripted = torch.where(torch.isnan(scripted), scripted,
+                               torch.maximum(scripted, zero))
+        if node.min_score is not None:
+            mask = mask & (scripted >= node.min_score)
+        if not scoring:
+            return mask, zero
+        return mask, torch.where(
+            mask, x86_nan(scripted * node.boost, scripted), zero)
 
     def _field_value_factor(self, fvf: dict) -> torch.Tensor:
         """Per-doc factor from a doc-value column (the reference's
@@ -967,6 +1024,13 @@ class SegmentQueryExecutor:
                 denom = freq + k1 * (1 - b + b * dl / (avgdl or 1.0))
                 score[d] = node.boost * idf_sum * (k1 + 1.0) * freq / denom
         return self._dev(mask), self._dev(score)
+
+
+def _nan_pick(pick, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """torch.maximum / minimum with a NaN operand passed through as it
+    is, the first one first (jnp's max and min propagate NaN)."""
+    return torch.where(torch.isnan(a), a,
+                       torch.where(torch.isnan(b), b, pick(a, b)))
 
 
 def _phrase_freq(plists: List[np.ndarray], slop: int) -> int:

@@ -4,7 +4,11 @@ Copy of the reference's ``search/query_phase.py``: the query phase runs
 ``SegmentQueryExecutor`` over each segment of a ShardReader on a device,
 masks tombstoned docs, takes each segment's top-k (``ops/bm25.topk``:
 the ``shard_topk`` kernel on a CUDA tensor) and merges them by (score
-desc, segment, doc); it returns doc refs and scores only. The fetch
+desc, segment, doc); it returns doc refs and scores only. Under a
+``sort`` it is the reference's sorted query phase: the query's mask and
+scores come to the host once per segment, and the doc-value keys are
+ordered there by the reference's numpy ``lexsort`` (``search/sort.py``),
+``search_after`` a mask over the same keys. The fetch
 phase resolves the winners' ``_source`` (``filter_source`` for a list),
 ``_version`` and ``_seq_no``/``_primary_term``. Like every entry point
 of the port it runs on ``cuda:0`` unless the caller asks for the CPU.
@@ -22,6 +26,7 @@ from elasticsearch_tpu_torch.index.reader import ShardReader
 from elasticsearch_tpu_torch.ops import bm25
 from elasticsearch_tpu_torch.parallel.device import resolve_device
 from elasticsearch_tpu_torch.search import dsl
+from elasticsearch_tpu_torch.search import sort as sort_mod
 from elasticsearch_tpu_torch.search.planner import SegmentQueryExecutor
 
 
@@ -36,6 +41,7 @@ class ShardHit:
     doc_id: str
     score: float
     ref: ShardDocRef
+    sort_values: Optional[List] = None  # set under a field sort
 
 
 @dataclasses.dataclass
@@ -50,11 +56,20 @@ class QuerySearchResult:
 def execute_query(reader: ShardReader, query: dsl.QueryNode, *,
                   size: int = 10, from_: int = 0,
                   min_score: Optional[float] = None,
+                  sort_specs: Optional[List] = None,
+                  search_after: Optional[List] = None,
                   device=None) -> QuerySearchResult:
-    """The unsorted query phase over every segment of `reader` on
-    `device` (default: cuda:0; "cpu" for the plain path). min_score
-    filters the match set, totals included."""
+    """The query phase over every segment of `reader` on `device`
+    (default: cuda:0; "cpu" for the plain path). min_score filters the
+    match set, totals included; `sort_specs` (parsed ``sort.SortSpec``)
+    sorts by fields, with per-hit sort values, after the `search_after`
+    cursor."""
     dev = resolve_device(device)
+    if sort_specs:
+        return _execute_sorted_query(reader, query, size=size, from_=from_,
+                                     min_score=min_score,
+                                     sort_specs=sort_specs,
+                                     search_after=search_after, device=dev)
     k = size + from_
     per_segment: List[Tuple[int, np.ndarray, np.ndarray]] = []
     total = 0
@@ -89,6 +104,67 @@ def execute_query(reader: ShardReader, query: dsl.QueryNode, *,
         hits.append(ShardHit(seg.doc_ids[ord_], score,
                              ShardDocRef(seg.name, ord_)))
     max_score = merged[0][0] if merged else None
+    return QuerySearchResult(hits, total, max_score)
+
+
+def _execute_sorted_query(reader: ShardReader, query: dsl.QueryNode, *,
+                          size: int, from_: int, min_score,
+                          sort_specs: List, search_after,
+                          device) -> QuerySearchResult:
+    """The field-sorted query phase: per segment, the query on the
+    device, its mask and scores to the host once, a lexsort of the
+    matching docs' sort keys (numeric values, keyword ordinals); then a
+    merge across segments on value tuples."""
+    k = size + from_
+    total = 0
+    merged: List[Tuple[Tuple, int, int, float, List]] = []
+    for idx, view in enumerate(reader.views):
+        executor = SegmentQueryExecutor(reader, idx, device)
+        mask, score = executor.execute(query)
+        live = torch.as_tensor(view.live_mask).to(device)
+        n = view.segment.num_docs
+        final_mask = (mask & live).cpu().numpy()[:n]
+        scores_np = bm25.mask_scores(score[None, :], mask[None, :],
+                                     live)[0].cpu().numpy()[:n]
+        if min_score is not None:
+            final_mask = final_mask & (scores_np >= min_score)
+        total += int(final_mask.sum())
+        columns = sort_mod.segment_sort_values(reader, idx, sort_specs,
+                                               scores_np)
+        # one rank/adjust pass per column, shared by the cursor mask and
+        # the lexsort keys
+        ranks = [sort_mod.column_ranks(spec, col)
+                 for spec, col in zip(sort_specs, columns)]
+        if search_after is not None:
+            final_mask = final_mask & sort_mod.after_mask(
+                sort_specs, columns, search_after, ranks=ranks)
+        ords = np.nonzero(final_mask)[0]
+        if len(ords) == 0:
+            continue
+        keys = []
+        for rank, adj in ranks:
+            keys.append(rank[ords])
+            keys.append(adj[ords])
+        # np.lexsort's last key is the primary: (doc, ..., spec 0)
+        order = np.lexsort((ords,) + tuple(reversed(keys)))
+        top_ords = ords[order[:k]] if k > 0 else ords[:0]
+        # keyword ordinals become terms for the winners only
+        for o in top_ords:
+            vals = [col.resolve(int(o)) for col in columns]
+            merged.append((sort_mod.sort_key(sort_specs, vals), idx, int(o),
+                           float(scores_np[o]), vals))
+    merged.sort(key=lambda t: (t[0], t[1], t[2]))
+    window = merged[from_: from_ + size] if size > 0 else []
+    hits = []
+    for _key, seg_idx, ord_, score_v, vals in window:
+        seg = reader.views[seg_idx].segment
+        hits.append(ShardHit(
+            seg.doc_ids[ord_], score_v, ShardDocRef(seg.name, ord_),
+            sort_values=[sort_mod.plain_value(v) for v in vals]))
+    # max_score is null under a field sort (without track_scores)
+    only_score = all(s.field == "_score" for s in sort_specs)
+    max_score = (max((h.score for h in hits), default=None)
+                 if only_score else None)
     return QuerySearchResult(hits, total, max_score)
 
 

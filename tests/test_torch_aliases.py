@@ -4,7 +4,6 @@ resolution, filtered aliases, write indices and the ``_cat`` tables.
 Every request goes to the reference node and the port node
 (``torch_rest_pair``); status and response bytes must be equal (``took``
 at 0, ``torch_rest_pair.MASKED`` masked). Left out, for its queue:
-``test_alias_filter_not_highlighted`` (highlighting, Queue A5c), and
 from the ``_cat`` case the ``plugins`` and ``tasks`` tables (Queues A15
 and A4b), which the port does not register yet.
 """
@@ -98,6 +97,17 @@ class TestCrud:
         _, r = logs.same("POST", "/cnt/_search",
                          {"query": {"match_all": {}}})
         assert c["count"] == r["hits"]["total"]["value"] == 3
+
+    def test_alias_filter_not_highlighted(self, logs):
+        logs.same("PUT", "/logs-02/_alias/hlf",
+                  {"filter": {"term": {"level": "error"}}})
+        # the alias filter's term "error" must not highlight: only the
+        # request's query does
+        _, res = logs.same("POST", "/hlf/_search", {
+            "query": {"range": {"n": {"gte": 0}}},
+            "highlight": {"require_field_match": False,
+                          "fields": {"level": {}}}})
+        assert all("highlight" not in h for h in res["hits"]["hits"])
 
     def test_get_index_shows_aliases(self, logs):
         logs.same("PUT", "/logs-01/_alias/shown")

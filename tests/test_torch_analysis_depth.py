@@ -6,9 +6,8 @@ The filter functions are held against the reference's on the same
 inputs (and the reference file's expectations); the end-to-end cases
 send every request to the reference node and the port node
 (``torch_rest_pair``) and compare status and bytes, the ``_analyze``
-API cases among them. Left out, for its queue:
-``test_highlight_unaffected_for_plain_analyzer`` (highlighting, Queue
-A5c).
+API cases and ``test_highlight_unaffected_for_plain_analyzer`` among
+them.
 """
 
 import pytest
@@ -296,6 +295,15 @@ class TestEndToEnd:
                            {"analyzer": "english_stem",
                             "text": "relational databases"})
         assert [t["token"] for t in res["tokens"]] == ["relat", "databas"]
+
+    def test_highlight_unaffected_for_plain_analyzer(self, pair):
+        pair.same("PUT", "/hl/_doc/1", {"t": "quick brown fox"},
+                  params={"refresh": "true"})
+        _, res = pair.same("POST", "/hl/_search", {
+            "query": {"match": {"t": "fox"}},
+            "highlight": {"fields": {"t": {}}}})
+        assert "<em>fox</em>" in \
+            res["hits"]["hits"][0]["highlight"]["t"][0]
 
     def test_shingle_end_to_end(self, pair):
         _index(pair, "sh", {"t": {"type": "text", "analyzer": "shingled"}})

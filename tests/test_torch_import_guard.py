@@ -40,6 +40,16 @@ NODE_MODULES = [
     "elasticsearch_tpu_torch.search.percolator",
     "elasticsearch_tpu_torch.search.query_phase",
     "elasticsearch_tpu_torch.search.dsl",
+    "elasticsearch_tpu_torch.script",
+    "elasticsearch_tpu_torch.search.sort",
+    "elasticsearch_tpu_torch.search.sort_keys",
+    "elasticsearch_tpu_torch.search.collapse",
+    "elasticsearch_tpu_torch.search.rescore",
+    "elasticsearch_tpu_torch.search.highlight",
+    "elasticsearch_tpu_torch.search.suggest",
+    "elasticsearch_tpu_torch.search.scroll",
+    "elasticsearch_tpu_torch.search.contexts",
+    "elasticsearch_tpu_torch.search.rank_eval",
     "elasticsearch_tpu_torch.parallel.mesh",
     "elasticsearch_tpu_torch.parallel.distributed",
     "elasticsearch_tpu_torch.search.serializer",

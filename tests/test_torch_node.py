@@ -329,24 +329,29 @@ def test_bulk_updated_docs_search_as_reference(pair, updated, text):
     assert got == want
 
 
-def test_scripted_bulk_update_is_refused_whole(pair, updated):
-    """A scripted update needs the script module (not ported): the port
-    refuses the whole bulk with a 400, and none of its items applies
-    (the reference applies them)."""
+def test_scripted_bulk_update_matches_reference(pair, updated):
+    """A bulk with a scripted update item, and a scripted _update with
+    params and ctx.op = 'noop': the reference's bytes, and the documents
+    read back as the reference's."""
     raw = ndjson({"index": {"_index": "upd", "_id": "s1"}},
                  {"body": "alpha scripted"},
                  {"update": {"_index": "upd", "_id": "b1"}},
                  {"script": {"source": "ctx._source.x = 1"}})
-    status, text = call(pair.port, dumps_response, "POST", "/_bulk",
-                        raw=raw)
-    err = json.loads(text)
-    assert status == 400
-    assert err["error"]["type"] == "illegal_argument_exception"
-    assert "script module is not ported" in err["error"]["reason"]
-    status, text = call(pair.port, dumps_response, "GET", "/upd/_doc/s1")
-    assert status == 404 and not json.loads(text)["found"]
-    status, text = call(pair.port, dumps_response, "GET", "/upd/_doc/b1")
-    assert "x" not in json.loads(text)["_source"]
+    want, got = pair.both("POST", "/_bulk", raw=raw)
+    assert want[0] == 200, want
+    assert got == want
+    for body in ({"script": {"source": "ctx._source.x += params.n",
+                             "params": {"n": 4}}},
+                 {"script": "if (ctx._source.x > 100) { ctx._source.x = 0 }"
+                            " else { ctx.op = 'noop' }"}):
+        want, got = pair.both("POST", "/upd/_update/b1", body)
+        assert want[0] == 200, want
+        assert got == want
+    assert json.loads(want[1])["result"] == "noop"
+    for doc_id in ("s1", "b1"):
+        want, got = pair.both("GET", f"/upd/_doc/{doc_id}")
+        assert want[0] == 200 and got == want
+    assert json.loads(got[1])["_source"]["x"] == 5
 
 
 def test_serve_returns_the_bytes_of_handle(pair):
@@ -432,17 +437,19 @@ PLANNER_SERVED = {
     "k_10001": {"query": {"match": {"body": "alpha"}}, "size": 10001},
     "from_9995": {"query": {"match": {"body": "alpha"}}, "from": 9995,
                   "size": 10},
+    # served since the sorted query phase and the search contexts came
+    # (Queue A5c); a PIT id no node opened is the reference's 404
+    "sort": {"query": {"match": {"body": "alpha"}}, "sort": ["_score"]},
+    "pit": {"query": {"match": {"body": "alpha"}},
+            "pit": {"id": "abc"}},
 }
 
 #: planner features the port does not serve yet: a typed 400
 PLANNER_BOUND = {
-    "sort": {"query": {"match": {"body": "alpha"}}, "sort": ["_score"]},
     "aggs": {"query": {"match": {"body": "alpha"}},
              "aggs": {"n": {"value_count": {"field": "body"}}}},
     "knn": {"knn": {"field": "v", "query_vector": [1.0], "k": 1,
                     "num_candidates": 1}},
-    "pit": {"query": {"match": {"body": "alpha"}},
-            "pit": {"id": "abc"}},
 }
 
 
@@ -470,27 +477,36 @@ def test_planner_bound_requests_get_a_typed_400(pair, name):
 
 
 def test_scroll_filtered_alias_and_wide_rows_get_a_typed_400(pair):
+    """Rows of more than 1,024 slots get a typed 400. A scroll and a
+    sort on a filtered alias, refused until Queue A5c, are served: the
+    reference's bytes (the scroll id aside)."""
     port = pair.port
-    bodies = [("/corpus/_search", {"scroll": "1m"},
-               {"query": {"match": {"body": "alpha"}}})]
-    port.indices.put_alias("corpus", "filtered400",
-                           {"filter": {"term": {"body": "beta"}}})
-    # a filtered alias now runs the planner; a sort on it still waits
-    bodies.append(("/filtered400/_search", {},
-                   {"query": {"match": {"body": "alpha"}},
-                    "sort": ["_score"]}))
+    for node in (pair.ref, port):
+        node.indices.put_alias("corpus", "filtered400",
+                               {"filter": {"term": {"body": "beta"}}})
+    for path, params, body in (
+            ("/corpus/_search", {"scroll": "1m"},
+             {"query": {"match": {"body": "alpha"}}}),
+            ("/filtered400/_search", {},
+             {"query": {"match": {"body": "alpha"}}, "sort": ["_score"]})):
+        want, got = (json.loads(text) for _, text in (
+            call(pair.ref, ref_dumps, "POST", path, body, params=params),
+            call(port, dumps_response, "POST", path, body,
+                 params=params)))
+        assert want.pop("_scroll_id", None) is not None or not params
+        assert got.pop("_scroll_id", None) is not None or not params
+        assert got == want
+        assert got["hits"]["hits"]
     # one document of 1100 distinct words: a terms query of all of them
     # needs more than the kernel's 1024 slots a row
     words = [f"w{i}" for i in range(1100)]
     call(port, dumps_response, "PUT", "/wide/_doc/1",
          {"body": " ".join(words)}, params={"refresh": "true"})
-    bodies.append(("/wide/_search", {}, {"query": {"terms": {"body": words}}}))
-    for path, params, body in bodies:
-        status, text = call(port, dumps_response, "POST", path, body,
-                            params=params)
-        err = json.loads(text)
-        assert status == 400, (path, err)
-        assert err["error"]["type"] == "not_lowerable", (path, err)
+    status, text = call(port, dumps_response, "POST", "/wide/_search",
+                        {"query": {"terms": {"body": words}}})
+    err = json.loads(text)
+    assert status == 400, err
+    assert err["error"]["type"] == "not_lowerable", err
 
 
 @pytest.mark.parametrize("body", [

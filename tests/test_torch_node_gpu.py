@@ -7,7 +7,8 @@ shard_topk kernel) and on the CPU; deleting the index drains the
 its value before the pack. shard_topk on dense segment rows (ties,
 -inf) against its plain version, bit for bit. The REST remainder
 (_msearch, _count, _explain, a filtered alias) gives the CPU node's
-bytes.
+bytes, and so do the search features (sort, search_after, collapse,
+rescore, highlight, suggest, score scripts).
 
 Marked gpu: skips without a CUDA device. On the card:
 ``python -m pytest --noconftest -p no:cacheprovider
@@ -115,6 +116,77 @@ def test_typed_planner_card_bytes_match_cpu_bytes(nodes, name):
     gpu, cpu = nodes
     got = call(gpu, "POST", "/typed/_search", TYPED_BODIES[name])
     want = call(cpu, "POST", "/typed/_search", TYPED_BODIES[name])
+    assert got[0] == 200, got
+    assert got == want
+
+
+#: the planner path's search features over TYPED_MAPPING fields: sort
+#: and search_after, collapse, rescore, highlight, suggesters, and score
+#: scripts whose transcendentals, NaNs and vector sums must give the
+#: same bits on the card as on the CPU
+FEATURE_BODIES = {
+    "sort": {"query": {"match_all": {}}, "size": 30, "sort": [
+        {"views": "desc"}, {"published": "asc"},
+        {"tag": {"order": "desc", "missing": "_first"}}]},
+    "search_after": {"query": {"match_all": {}}, "size": 20,
+                     "sort": [{"price": "asc"}, {"views": "desc"}],
+                     "search_after": [100.0, 3]},
+    "collapse": {"query": {"match": {"body": "alpha beta"}}, "size": 20,
+                 "collapse": {"field": "tag"}},
+    "rescore": {"query": {"match": {"body": "alpha"}}, "size": 20,
+                "rescore": {"window_size": 40, "query": {
+                    "rescore_query": {"range": {"views": {"gte": 3}}},
+                    "score_mode": "multiply"}}},
+    "highlight": {"query": {"match": {"body": "alpha gamma"}},
+                  "highlight": {"fields": {"body": {}}}},
+    "suggest": {"query": {"match": {"body": "alpha"}}, "suggest": {
+        "t": {"text": "alpah gama", "term": {"field": "body"}},
+        "p": {"text": "alpah beta", "phrase": {"field": "body"}}}},
+    "script_log_pow": {"query": {"script_score": {
+        "query": {"match": {"body": "alpha"}}, "script": {
+            "source": "Math.log(2 + doc['views'].value) "
+                      "* Math.pow(_score, 0.5) + exp(-_score)"}}},
+        "size": 30},
+    "script_trig": {"query": {"script_score": {
+        "query": {"match_all": {}}, "script": {
+            "source": "sin(doc['price'].value) + cos(_score) "
+                      "+ tan(doc['views'].value) + 2 "
+                      "+ sqrt(doc['views'].value) % 3"}}}, "size": 30},
+    "script_weak_scalars": {"query": {"script_score": {
+        "query": {"match_all": {}}, "script": {
+            "source": "log(0.1) * _score + pow(2, 0.5) + max(2, 3.5) "
+                      "+ pow(3, 2) + (doc['price'].empty ? 0.5 : 2) "
+                      "+ doc['views'].size() + (params.f ? 1.5 : 2.5)",
+            "params": {"f": True}}}}, "size": 30},
+    "script_nan": {"query": {"script_score": {
+        "query": {"match_all": {}}, "script": {
+            "source": "Math.log(doc['price'].value - 200)"}}}, "size": 60},
+    "function_score_script": {"query": {"function_score": {
+        "query": {"match": {"body": "alpha beta"}},
+        "functions": [{"script_score": {"script": "pow(doc['views'].value,"
+                                                  " 2) + 1"}},
+                      {"filter": {"term": {"flag": True}}, "weight": 3}],
+        "score_mode": "sum"}}, "size": 30},
+    "function_score_nan": {"query": {"function_score": {
+        "query": {"match_all": {}}, "score_mode": "max",
+        "boost_mode": "multiply", "functions": [
+            {"script_score": {"script": "Math.log(doc['price'].value - 200)"}},
+            {"filter": {"term": {"flag": True}}, "weight": 3}]}},
+        "size": 60},
+}
+
+
+@pytest.mark.parametrize("name", sorted(FEATURE_BODIES))
+def test_search_features_card_bytes_match_cpu_bytes(nodes, name):
+    gpu, cpu = nodes
+    body = FEATURE_BODIES[name]
+    before = merge_kernel.LAUNCHES["shard_topk"]
+    got = call(gpu, "POST", "/typed/_search", body)
+    # a sort orders on the host and collapse groups there: no top-k
+    if body.get("size", 10) and "sort" not in body \
+            and "collapse" not in body:
+        assert merge_kernel.LAUNCHES["shard_topk"] > before
+    want = call(cpu, "POST", "/typed/_search", body)
     assert got[0] == 200, got
     assert got == want
 

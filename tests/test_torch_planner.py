@@ -451,16 +451,18 @@ def test_thirty_two_term_pass_is_served():
 
 @pytest.mark.parametrize("body,reason", [
     ({"script_score": {"query": {"match_all": {}},
-                       "script": {"source": "_score * 2"}}}, "A5c"),
+                       "script": {"source": "_score * 2"}}}, None),
     ({"function_score": {"query": {"match_all": {}},
-                         "script_score": {"script": "_score"}}}, "A5c"),
+                         "script_score": {"script": "_score"}}}, None),
     ({"rank_feature": {"field": "views"}}, None),
 ], ids=["script_score", "fs_script_score", "rank_feature_numeric"])
 def test_refused_branches_raise_not_lowerable(shard, body, reason):
     """The branches that wait for a later module raise NotLowerable
-    naming it; a rank_feature over a numeric column, refused until the
-    rarer field types came (Queue A5a-ii), is served: the reference's
-    hits and score bits."""
+    naming it. None is left here: a rank_feature over a numeric column
+    (refused until the rarer field types came, Queue A5a-ii) and
+    script_score, the query and the function_score function (refused
+    until the script module came, Queue A5c), are served: the
+    reference's hits and score bits."""
     if reason is None:
         got, want = run_query(shard, body, size=40)
         assert got.total_hits == want.total_hits
@@ -490,12 +492,14 @@ def test_query_phase_runs_on_the_card_unless_asked_for_the_cpu(
 
 
 def test_sort_and_aggs_are_refused():
-    """The coordinator refuses sort and aggs before any shard runs the
-    query phase (Queue A5c, A8): typed, with "planner path" in the
-    reason."""
-    for body, key in (({"sort": [{"views": "desc"}]}, "sort"),
-                      ({"aggs": {"n": {"max": {"field": "views"}}}},
-                       "aggs")):
+    """The coordinator refuses aggs before any shard runs the query
+    phase (Queue A8): typed, with "planner path" in the reason. A sort,
+    refused until the sorted query phase came (Queue A5c), now parses."""
+    query, body = coordinator.parse_search_body({"sort": [{"views": "desc"}]})
+    assert isinstance(query, dsl.MatchAllQuery)
+    assert body["sort"] == [{"views": "desc"}]
+    for body, key in (({"aggs": {"n": {"max": {"field": "views"}}}},
+                       "aggs"),):
         with pytest.raises(NotLowerable) as err:
             coordinator.parse_search_body(body)
         assert key in str(err.value)

@@ -1,5 +1,6 @@
 """``ops/xla_math.py`` against XLA:CPU's own f32 ``log`` and ``log10``,
-bit for bit.
+``exp``, ``pow`` with a tensor exponent, and ``sin``, ``cos`` and ``tan``
+(the C library's, which XLA:CPU calls), bit for bit.
 
 The reference's planner scores field_value_factor's log modifiers with
 ``jnp.log`` / ``jnp.log10``; XLA:CPU lowers them to its own polynomial
@@ -17,7 +18,10 @@ import numpy as np
 import pytest
 import torch
 
-from elasticsearch_tpu_torch.ops.xla_math import xla_log10f, xla_logf
+from elasticsearch_tpu_torch.ops.xla_math import (libm_cosf, libm_sinf,
+                                                  libm_tanf, xla_expf,
+                                                  xla_log10f, xla_logf,
+                                                  xla_powf)
 
 
 def _sweep():
@@ -76,6 +80,68 @@ def test_torch_log_differs():
     XLA:CPU's on some of these inputs (so this sweep can see a fault)."""
     x = torch.from_numpy(SWEEP["integers"])
     assert _same_bits(torch.log(x).numpy(), xla_logf(x).numpy()) > 0
+
+
+@pytest.mark.parametrize("name", sorted(SWEEP))
+def test_expf_matches_xla_cpu_bitwise(name):
+    """XLA:CPU's own exp polynomial (the score scripts' `exp`)."""
+    import jax
+    import jax.numpy as jnp
+    x = np.concatenate([SWEEP[name], -SWEEP[name][:200_000],
+                        np.float32(1e-3) * SWEEP[name][:200_000]])
+    want = np.asarray(jax.jit(jnp.exp)(x))
+    assert _same_bits(xla_expf(torch.from_numpy(x)).numpy(), want) == 0
+
+
+def _trig_sweep():
+    rng = np.random.default_rng(20261019)
+    return np.concatenate([
+        rng.uniform(-1.0, 1.0, 100_000), rng.uniform(-150, 150, 300_000),
+        rng.uniform(-1e7, 1e7, 50_000), rng.uniform(-1e-3, 1e-3, 5_000),
+        SWEEP["bit_patterns"][:100_000], -SWEEP["bit_patterns"][:100_000],
+        SWEEP["special"]]).astype(np.float32)
+
+
+@pytest.mark.parametrize("fn,name", [(libm_sinf, "sin"), (libm_cosf, "cos"),
+                                     (libm_tanf, "tan")],
+                         ids=["sin", "cos", "tan"])
+def test_trig_matches_xla_cpu_bitwise(fn, name):
+    """The C library's sinf / cosf / tanf, which XLA:CPU calls: small,
+    medium (the fused reduction) and large (4/pi's bits) arguments."""
+    import jax
+    import jax.numpy as jnp
+    x = _trig_sweep()
+    want = np.asarray(jax.jit(getattr(jnp, name))(x))
+    assert _same_bits(fn(torch.from_numpy(x)).numpy(), want) == 0
+
+
+def test_powf_with_a_tensor_exponent_matches_xla_cpu_bitwise():
+    """`pow` of two columns: the C library's powf element by element,
+    negative bases with integral and fractional exponents among them."""
+    import jax.numpy as jnp
+    rng = np.random.default_rng(7)
+    x = rng.uniform(-5, 5, 200_000).astype(np.float32)
+    y = rng.uniform(-4, 4, 200_000).astype(np.float32)
+    y[:20_000] = np.round(y[:20_000])
+    y[20_000:21_000] = 0.0
+    x[21_000:22_000] = 1.0
+    want = np.asarray(jnp.power(x, y))
+    got = xla_powf(torch.from_numpy(x), torch.from_numpy(y)).numpy()
+    assert _same_bits(got, want) == 0
+
+
+@pytest.mark.gpu
+def test_transcendentals_on_the_card_match_cpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = torch.from_numpy(_trig_sweep())
+    y = torch.from_numpy(np.random.default_rng(7).uniform(
+        -4, 4, x.numel()).astype(np.float32))
+    for fn in (xla_expf, libm_sinf, libm_cosf, libm_tanf,
+               lambda t: xla_powf(t.abs(), 0.5),
+               lambda t: xla_powf(t, y.to(t.device))):
+        assert _same_bits(fn(x.to("cuda")).cpu().numpy(),
+                          fn(x).numpy()) == 0
 
 
 @pytest.mark.gpu

@@ -38,6 +38,10 @@ MASKED = {
     "search_visible_lag_seconds": "wall-clock time from a write to its "
                                   "refresh",
     "max_rss_bytes": "the test process's memory, not the node's",
+    "_scroll_id": "a scroll context's id: uuid4, drawn by each node",
+    "pit_id": "a point-in-time context's id: uuid4, drawn by each node",
+    "id": "a point-in-time context's id (the open response): uuid4, "
+          "drawn by each node",
 }
 #: blocks of _nodes/stats masked whole, with their reasons
 MASKED_NODE_BLOCKS = {
@@ -105,6 +109,9 @@ class Pair:
             (root / side / "_state" / "node_id").write_text(NODE_ID)
         self.ref = self._ref_node()
         self.port = self._port_node()
+        # context ids: the reference's → the port's, and back
+        self._port_ids = {}
+        self._ref_ids = {}
 
     def _ref_node(self):
         return RefNode(str(self.root / "ref"), settings=RefSettings.of(
@@ -127,6 +134,50 @@ class Pair:
         want, got = self.both(method, path, body, raw, params)
         assert got == want, (method, path, want, got)
         return want[0], json.loads(want[1])
+
+    def handle(self, method, path, params=None, body=None, raw=None):
+        """``same`` for a test that carries a scroll or PIT id from one
+        answer into its next request: the caller sees and sends the
+        reference's ids, the port's request carries the port's own id
+        for each, and the port's answer has its ids put back before the
+        bytes are compared. → (status, parsed reference answer)."""
+        port_args = [self._translate(v, self._port_ids)
+                     for v in (path, body, params)]
+        want = call(self.ref, ref_dumps, method, path, body, raw, params)
+        got = call(self.port, dumps_response, method, port_args[0],
+                   port_args[1], raw, port_args[2])
+        self._learn_ids(want[1], got[1])
+        got = (got[0], self._translate(got[1], self._ref_ids))
+        assert (got[0], masked(got[1])) == (want[0], masked(want[1])), \
+            (method, path, want, got)
+        return want[0], json.loads(want[1])
+
+    #: the answers' keys that hold a context id
+    _ID_KEYS = ("_scroll_id", "id", "pit_id")
+
+    def _learn_ids(self, want_text, got_text):
+        if not (want_text.startswith("{") and got_text.startswith("{")):
+            return
+        want, got = json.loads(want_text), json.loads(got_text)
+        for key in self._ID_KEYS:
+            a, b = want.get(key), got.get(key)
+            if isinstance(a, str) and isinstance(b, str):
+                self._port_ids[a] = b
+                self._ref_ids[b] = a
+
+    @staticmethod
+    def _translate(value, ids):
+        """`value` (a path, a body, params or an answer's text) with every
+        id of `ids` replaced by its counterpart."""
+        if isinstance(value, str):
+            for old, new in ids.items():
+                value = value.replace(old, new)
+            return value
+        if isinstance(value, dict):
+            return {k: Pair._translate(v, ids) for k, v in value.items()}
+        if isinstance(value, list):
+            return [Pair._translate(v, ids) for v in value]
+        return value
 
     def restart_port(self):
         """Close the port node and open a new one on its data path."""
