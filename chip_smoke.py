@@ -272,6 +272,41 @@ device mesh through the collective tail, and checks:
                  score-and-order call (with its device ms at each
                  staged-levels setting) and on the fixed train's widest
                  order-only call
+  service        the kernel path's remainder, one line a part as it
+                 ends (part wide_rows, rest, raw) and a summary of
+                 their seconds after raw. Rows past 1,024 slots on the e2e
+                 service's 1M-doc pack (after exact): terms over 1,100
+                 and 3,000 mid-frequency words (T 2048, 4096; windows
+                 past 1,024 terms) and a match of the most frequent
+                 words that push a row past 1,024 slots, each at size
+                 10 and 1,000 and at boost 1e-15 (exact_merge), one
+                 train each, counts reset just before; every launch
+                 against the plain version bit for bit (its rows with
+                 slots and one padding row, whose outputs every padding
+                 row must repeat), each launch's T, window and size
+                 classes, the size-1,000 bodies' top-10 against the
+                 oracle. On the raw pack (in raw): a match of its most
+                 frequent words, as many as fill more than 1,024 and
+                 2,048 slots a row (the exact ref launch: raw_merge at
+                 T 2048 and 4096), checked the same way. On the rest node (after
+                 its waves and exact run, before planner): prewarm of
+                 the 1M-doc index (its seconds, signatures, a request
+                 sent while it runs answered by the planner), three
+                 `profile: true` bodies (the kernel section's variant
+                 and plan-cache outcome; the response the wave's),
+                 `timeout: 10s` (the kernel), a planner body at
+                 `timeout: 0ms` (timed out, == the same request on the
+                 CPU), the slow log at 0 ms (one line a shard) and
+                 after its reset (none). The rest line gains each
+                 wave's plan-cache hits and misses (every body of the
+                 second wave hits), the most trains in flight at once
+                 (a launch begun, its finish not ended; each wave must
+                 reach 2) and
+                 the batch_wait split's means. The
+                 kernels line adds the fused train, exact_merge and
+                 raw_merge at T 2048 and 4096 (CUDA-event and device
+                 ms, the plain version on the checked rows, the bytes
+                 bound, a stable torch.sort of the same keys)
 
 The last line is {"ok": true, "device": {...}}; any failure exits
 non-zero without it. Without a CUDA device the script exits 2 at once.
@@ -280,6 +315,7 @@ non-zero without it. Without a CUDA device the script exits 2 at once.
 from __future__ import annotations
 
 import json
+import logging
 import os
 import re
 import statistics
@@ -313,8 +349,9 @@ EXACT_BOOST = 1e-15
 TYPED_INDEX = "typed"
 TYPED_DOCS = 100_000    # cut from 1M to keep the smoke inside its limit
 TYPED_SHARDS = 4
-PLANNER_ROUNDS = 2      # the planner's timed window: the mix this many
-                        # times (cut from 5 to make room for the delta line)
+PLANNER_ROUNDS = 1      # the planner's timed window: the mix this many
+                        # times (cut from 5 for the delta line, from 2 for
+                        # the service line)
 PLANNER_TOPK_LINE = "elasticsearch_tpu/ops/bm25.py:138"
 FEATURE_ROUNDS = 3      # warm rounds of the search_features bodies
 FEATURE_PAGES = 5       # search_after pages of the sort body
@@ -368,6 +405,9 @@ RAW_LINES = {"raw_merge": "elasticsearch_tpu/ops/sparse.py:666",
 MAIN_KERNELS = ("slot_decode", "row_pack", "row_sort", "run_sum",
                 "select_rescore", "shard_topk")
 EXACT_KERNELS = ("exact_merge", "shard_topk")
+#: the five kernels of one fused merge launch
+FUSED_KERNELS = ("slot_decode", "row_pack", "row_sort", "run_sum",
+                 "select_rescore")
 #: the delta phase (in the rest node, after the planner): batches of
 #: new corpus docs appended by _bulk with refresh=true, a search round
 #: after each; the node's default chain settings (4 deltas, 50,000 docs)
@@ -397,6 +437,25 @@ LIFE_SHARDS = 4
 #: the exact merge's classes the exact phase's rows must take (a row of
 #: one window and a row cut into parts; the radix class takes a row only
 #: when one of its slots' docs descend)
+#: the service line's wide rows: terms bodies over this many mid-frequency
+#: words from vocabulary rank WIDE_FIRST_RANK (one slot a term a row:
+#: T 2048, T 4096), and the raw pack's most frequent words (past 8 terms:
+#: the exact ref launch), as many as fill more than each of
+#: WIDE_RAW_SLOTS slots a row: raw_merge at T 2048 and 4096
+SERVICE_BUDGET_S = 30   # the service line's parts together
+WIDE_TERMS = (1100, 3000)
+WIDE_FIRST_RANK = 200
+WIDE_RAW_SLOTS = (1024, 2048)
+WIDE_TIMED_SLOTS = (2048, 4096)
+WIDE_TIMED = 3          # timed launches of a wide kernels-line entry
+WIDE_PLAIN_ROWS = 4     # rows of a wide launch the plain version takes at once
+WIDE_ROW_OPERANDS = ("res_starts", "res_lens", "blk_starts", "slot_terms",
+                     "dbs_starts", "dlo_starts")
+WIDE_FN = {"fused": "fused_merge_topk", "exact": "exact_merge_topk",
+           "raw": "raw_merge_topk"}
+WIDE_PLAIN = {"fused": "fused_merge_topk_plain",
+              "exact": "exact_merge_topk_plain",
+              "raw": "raw_merge_topk_plain"}
 EXACT_REQUIRED = ("exact.merge", "exact.parts")
 #: window caps (lanes) at which the kernels line also times exact_merge
 EXACT_WINDOW_CAPS = (1024, 2048, 4096, 8192)
@@ -425,11 +484,27 @@ LIBRARY_OF = {
 
 
 _T0 = time.perf_counter()
+#: the cyclic collector's full (generation 2) collections: count and
+#: seconds since the start (a pause stops every serving thread)
+GC_FULL = {"count": 0, "seconds": 0.0}
+_GC_START = []
+
+
+def _gc_timer(phase, info):
+    if info.get("generation") != 2:
+        return
+    if phase == "start":
+        _GC_START.append(time.perf_counter())
+    elif _GC_START:
+        GC_FULL["count"] += 1
+        GC_FULL["seconds"] += time.perf_counter() - _GC_START.pop()
 
 
 def log(phase: str, **fields) -> None:
-    """One phase's line; t_s is the seconds since the script started."""
+    """One phase's line; t_s is the seconds since the script started,
+    gc_full the full collections so far (count, seconds)."""
     fields["t_s"] = time.perf_counter() - _T0
+    fields["gc_full"] = dict(GC_FULL)
     print(f"{phase}: " + json.dumps(fields, sort_keys=False), flush=True)
 
 
@@ -738,12 +813,16 @@ def mesh_phase(segments, bodies, mk, e2e_responses):
             return out
         return call
 
+    spent = {}
+    t_phase = time.perf_counter()
     try:
         svc.create_index(INDEX, SHARDS,
                          {"properties": {FIELD: {"type": "text"}}})
         for s, seg in enumerate(segments):
             svc.add_segment(INDEX, s, seg)
+        t_warm = time.perf_counter()
         drive(svc, INDEX, bodies[:8])   # places the pack
+        spent["warm_s"] = time.perf_counter() - t_warm
         for name in calls:
             setattr(nccl, name, counted(name))
         mk.reset_launches()
@@ -757,7 +836,10 @@ def mesh_phase(segments, bodies, mk, e2e_responses):
     finally:
         for name, fn in saved.items():
             setattr(nccl, name, fn)
+        t_close = time.perf_counter()
         svc.close()
+        spent["close_s"] = time.perf_counter() - t_close
+    spent["phase_s"] = time.perf_counter() - t_phase
     zero = [n for n in MAIN_KERNELS if launches[n] <= 0]
     if zero:
         raise AssertionError(f"kernels not launched on the mesh path: "
@@ -786,7 +868,8 @@ def mesh_phase(segments, bodies, mk, e2e_responses):
                qps=len(responses) / wall, nccl_calls=calls,
                collective_tail=tail,
                launches=launches, shard_topk=check_topk_calls(mk, top.calls),
-               hits_equal_e2e="bit for bit: ids and scores in order")
+               hits_equal_e2e="bit for bit: ids and scores in order",
+               **spent)
     if cards > 1:
         out["note"] = (f"the machine shows {cards} cards; this phase used "
                        f"one (cuda:0)")
@@ -995,7 +1078,7 @@ def traced_run(svc, bodies, mk):
     marks, alive = {}, []
     current = threading.local()
     real_search, real_submit = svc.search, svc.batcher.submit
-    real_execute = svc.batcher.execute
+    real_launch, real_finish = svc.batcher.launch, svc.batcher.finish
 
     def search(name, body):
         t = time.perf_counter()
@@ -1010,16 +1093,26 @@ def traced_run(svc, bodies, mk):
         marks[id(flat)] = {"submit": time.perf_counter()}
         return real_submit(resident, flat, k)
 
-    def execute(resident, flats, k):
+    # a train: its launch (on the pack's launch worker) to its finish
+    # (on the completion thread); trains overlap, their halves are summed
+    def launch(resident, flats, k):
+        t = time.perf_counter()
+        st = real_launch(resident, flats, k)
+        with lock:
+            spent["execute"] += time.perf_counter() - t
+        st["trace_start"] = t
+        return st
+
+    def finish(st):
         t = time.perf_counter()
         try:
-            return real_execute(resident, flats, k)
+            return real_finish(st)
         finally:
             t_end = time.perf_counter()
             with lock:
                 spent["execute"] += t_end - t
-            for f in flats:
-                marks[id(f)].update(start=t, end=t_end)
+            for f in st["flats"]:
+                marks[id(f)].update(start=st["trace_start"], end=t_end)
 
     patches = [(dist, "prepare_query_batch", "prepare", False),
                (mk, "fused_merge_topk", "kernel_call", True),
@@ -1029,9 +1122,10 @@ def traced_run(svc, bodies, mk):
         setattr(obj, attr, timed(name, getattr(obj, attr), sync))
     saved += [(svc, "search", real_search),
               (svc.batcher, "submit", real_submit),
-              (svc.batcher, "execute", real_execute)]
+              (svc.batcher, "launch", real_launch),
+              (svc.batcher, "finish", real_finish)]
     svc.search, svc.batcher.submit = search, submit
-    svc.batcher.execute = execute
+    svc.batcher.launch, svc.batcher.finish = launch, finish
     try:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -3010,10 +3104,13 @@ def rest_phase(corpus, bodies, mk, smi, e2e_responses, data_root,
                 run_bodies = [dict(b, _source=source) for b in bodies]
                 node.gpu_search.stages.reset()
                 mk.reset_launches()
+                plans0 = node.gpu_search.plans.stats()
+                node.gpu_search.batcher.max_inflight = 0
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     responses, wall = rest_queries(host, port, run_bodies)
                     torch.cuda.synchronize()
                 launches[label] = dict(mk.LAUNCHES)
+                plans1 = node.gpu_search.plans.stats()
                 busy = device_busy_ms(prof)
                 stages = node.gpu_search.stages.snapshot()
                 runs[label] = responses
@@ -3025,11 +3122,22 @@ def rest_phase(corpus, bodies, mk, smi, e2e_responses, data_root,
                     stages=stages,
                     device_busy_ms=busy if busy > 0 else "not measured",
                     device_idle_share=(1.0 - busy / 1e3 / wall) if busy > 0
-                    else "not measured")
+                    else "not measured",
+                    plan_cache={n: plans1[n] - plans0[n]
+                                for n in ("hits", "misses")},
+                    max_inflight=node.gpu_search.batcher.max_inflight,
+                    batch_wait_split_mean_ms={
+                        part: stages.get(f"batch_wait.{part}",
+                                         {}).get("mean_ms")
+                        for part in ("queue", "window", "dispatch",
+                                     "completion")})
                 zero = [n for n in MAIN_KERNELS if launches[label][n] <= 0]
                 if zero:
                     raise AssertionError(f"{label}: kernels not launched "
                                          f"through REST: {zero}")
+                if out[label]["max_inflight"] < 2:
+                    raise AssertionError(f"{label}: no train launched while "
+                                         "another was in flight")
             shapes = list(rec.shapes.values())
             rec.shapes.clear()
         mk.reset_launches()
@@ -3076,6 +3184,14 @@ def rest_phase(corpus, bodies, mk, smi, e2e_responses, data_root,
         out["same_as_e2e"] = ("scores bit for bit, ids up to ties at the "
                               "last score")
         out["native"] = native.used()
+        # the plan key ignores _source: every body of the second wave
+        # hits the plan the first one cached
+        if out["nosource"]["plan_cache"] != {"hits": len(bodies),
+                                             "misses": 0}:
+            raise AssertionError(f"the second wave's plan cache: "
+                                 f"{out['nosource']['plan_cache']}")
+        out["service"] = service_rest(host, port, node, bodies, runs, smi)
+        log("service", part="rest", **out["service"])
         del runs, segments, svc
         features = {}
         planner, planner_kernels = planner_phase(host, port, node, corpus,
@@ -3112,11 +3228,11 @@ def rest_phase(corpus, bodies, mk, smi, e2e_responses, data_root,
         log("rest_failed", **out)
         raise
     finally:
-        gc.unfreeze()
         server.shutdown()
         server.server_close()
         node.close()
         shutil.rmtree(data, ignore_errors=True)
+        gc.unfreeze()
     return out, dict(launches["source"],
                      exact_merge=launches["exact"]["exact_merge"]), \
         planner, planner_kernels, delta, delta_kernels, delta_launches, \
@@ -3326,6 +3442,480 @@ def newer_kernel_entries(mk, svc, topk_calls, exact_bodies_128, launches,
         "blocks_per_sm": stats["exact_blocks_per_sm"],
         "by_window_cap": by_cap})
     return entries
+
+
+# ---------------------------------------------------------------------------
+# service: rows past 1,024 slots, the plan cache, prewarm, profile,
+# timeout, the slow log and the pipelined batcher
+# ---------------------------------------------------------------------------
+
+def wide_slots(svc, index, words):
+    """The slots the widest pack row of a query of `words` needs (the
+    service's own count: Σ ceil(postings / CHUNK_CAP), a slot at least a
+    term)."""
+    from elasticsearch_tpu_torch.search import gpu_service as gs
+    return gs._slots_needed(svc.resident(index, FIELD),
+                            gs.FlatQuery(FIELD, list(words), 1.0, 1))
+
+
+def wide_bodies(svc, vocab):
+    """[(label, body, words, boost)]: terms over WIDE_TERMS mid-frequency
+    words (one slot a term a row: T 2048, T 4096) and a match of the most
+    frequent words, as many as push a row past 1,024 slots; each at size
+    10 and K, and at K with boost EXACT_BOOST (the exact merge)."""
+    queries = []
+    for n in WIDE_TERMS:
+        words = list(vocab[WIDE_FIRST_RANK: WIDE_FIRST_RANK + n])
+        queries.append((f"terms{n}", words, "terms"))
+    n = 2
+    while wide_slots(svc, INDEX, vocab[:n]) <= 1024:
+        n += 8
+    queries.append((f"match{n}", list(vocab[:n]), "match"))
+    out = []
+    for label, words, kind in queries:
+        for size, boost in ((10, 1.0), (K, 1.0), (K, EXACT_BOOST)):
+            if kind == "terms":
+                query = {"terms": {FIELD: words}}
+                if boost != 1.0:
+                    query["terms"]["boost"] = boost
+            else:
+                query = {"match": {FIELD: {"query": " ".join(words)}}}
+                if boost != 1.0:
+                    query["match"][FIELD]["boost"] = boost
+            tag = "boost" if boost != 1.0 else f"size{size}"
+            out.append((f"{label}.{tag}", {"query": query, "size": size},
+                        words, boost))
+    return out
+
+
+def wide_rows(args, kw, rows):
+    """A launch's operands restricted to `rows` (the merge kernels'
+    rows are independent: a row's outputs depend on its own slots)."""
+    import torch
+    idx = torch.as_tensor(rows, device=args[2].device)
+    sub = list(args[:2]) + [a[idx] for a in args[2:6]]
+    return sub, {n: (v[idx] if n in WIDE_ROW_OPERANDS and v is not None
+                     else v) for n, v in kw.items()}
+
+
+def wide_plain(mk, kind, args, kw, rows):
+    """The plain version of a wide launch on `rows`, WIDE_PLAIN_ROWS rows
+    a call (a whole launch of T 4096 × 4096 lanes × 128 rows does not fit
+    the card's memory in the plain version's dense layout)."""
+    import torch
+    plain = getattr(mk, WIDE_PLAIN[kind])
+    outs = []
+    for a in range(0, len(rows), WIDE_PLAIN_ROWS):
+        sub, skw = wide_rows(args, kw, rows[a: a + WIDE_PLAIN_ROWS])
+        outs.append(plain(*sub, **skw))
+    return [torch.cat([o[i] for o in outs]) for i in range(len(outs[0]))]
+
+
+def wide_check_rows(args):
+    """The rows a wide launch's check takes: every row with slots (its
+    queries'), and the first row without (a padding query's), which
+    stands for the other padding rows: their operands hold no lane."""
+    import torch
+    live = args[3].clamp(min=0).sum(dim=1) > 0
+    rows = torch.nonzero(live).flatten().tolist()
+    empty = torch.nonzero(~live).flatten().tolist()
+    return rows + empty[:1], empty
+
+
+def check_wide_launch(mk, kind, label, args, kw, got):
+    """One recorded wide launch (its outputs `got`) against the plain
+    version: its rows with slots and one padding row bit for bit, every
+    padding row's outputs equal to that one's; the launch again with
+    stats for its size classes → log entry; raises on a mismatch."""
+    import torch
+    rows, empty = wide_check_rows(args)
+    want = wide_plain(mk, kind, args, kw, rows)
+    idx = torch.as_tensor(rows, device=got[0].device)
+    same, err = bitwise_equal([o[idx] for o in got], want)
+    for o in got:
+        if empty and not torch.equal(
+                o[empty].view(torch.int32) if o.dtype == torch.float32
+                else o[empty],
+                (o[empty[:1]].view(torch.int32)
+                 if o.dtype == torch.float32 else o[empty[:1]]).expand(
+                    len(empty), *o.shape[1:])):
+            same = False
+    r, t = args[2].shape
+    if not same:
+        raise AssertionError(f"{kind} wide launch {label} (R{r} T{t}) != "
+                             f"plain, max_abs_err {err}")
+    stats = {}
+    getattr(mk, WIDE_FN[kind])(*args, **dict(kw, stats=stats))
+    torch.cuda.synchronize()
+    classes = stats.get("classes") or stats.get("exact_classes")
+    return dict(launch=label, kernel=kind, rows=r, slots=t,
+                t_window=kw["t_window"], k=kw["k"],
+                lanes=stats["lanes"], rows_checked=len(rows),
+                padding_rows=len(empty), bitwise=True,
+                size_classes={c: n for c, n in classes.items() if n},
+                table_blocks=stats.get("table_blocks")), err
+
+
+def wide_lane_keys(args, kw, raw):
+    """Every valid lane's (row << 32 | doc) of a launch, gathered lane by
+    lane (not through the dense [R, T, max_len] decode): the input of
+    the stable torch.sort that stands as the exact and raw merges'
+    library call."""
+    import torch
+    starts = args[2].to(torch.int64)
+    lengths = args[3].clamp(min=0).to(torch.int64)
+    r, t = lengths.shape
+    dev = lengths.device
+    flat_len = lengths.flatten()
+    n = int(flat_len.sum())
+    slot = torch.repeat_interleave(torch.arange(r * t, device=dev),
+                                   flat_len)
+    first = torch.cumsum(flat_len, 0) - flat_len
+    lane = torch.arange(n, device=dev) - first[slot]
+    pos = starts.flatten()[slot] + lane
+    if raw:
+        doc = args[0][pos].to(torch.int64)
+    elif kw.get("doc_bases") is not None:
+        base = (kw["dbs_starts"].flatten()[slot].to(torch.int64)
+                + (kw["dlo_starts"].flatten()[slot].to(torch.int64)
+                   + lane) // 128)
+        doc = ((kw["doc_bases"].view(torch.int16)[base].to(torch.int64)
+                & 0xFFFF) + args[0][pos].to(torch.int64))
+    else:
+        doc = args[0].view(torch.int16)[pos].to(torch.int64) & 0xFFFF
+    return ((slot // t) << 32) | doc
+
+
+def wide_entry(mk, kind, name, label, args, kw, launches, doc_bytes,
+               err):
+    """A kernels-line entry of one wide launch: CUDA-event ms (summed
+    over the kind's kernels) and device ms, the plain version's ms on
+    the checked rows, the bytes bound and the stable torch.sort of the
+    same lanes' keys."""
+    import torch
+
+    from elasticsearch_tpu_torch.tools.kernel_ab import profiled
+    fn = getattr(mk, WIDE_FN[kind])
+    stats = {}
+    fn(*args, **dict(kw, stats=stats))
+    r, t = args[2].shape
+    names = (FUSED_KERNELS if kind == "fused"
+             else ("raw_merge",) if kind == "raw" else ("exact_merge",))
+    per = time_events(lambda ev: fn(*args, **dict(kw, events=ev)),
+                      WIDE_TIMED)
+    functions = {"fused": ("slot_decode", "row_pack", "pack_table",
+                           "row_sort", "run_sum", "select_rescore"),
+                 "exact": ("exact_merge", "exact_finish"),
+                 "raw": ("exact_merge", "exact_finish")}
+    device = profiled(lambda: fn(*args, **kw), WIDE_TIMED,
+                      {kind: functions[kind]}).get(kind)
+    rows, _ = wide_check_rows(args)
+    plain_ms = time_cuda(lambda: wide_plain(mk, kind, args, kw, rows), 1)
+    if kind == "fused":
+        bound = sum(kernel_bounds(stats, doc_bytes).values())
+        keys = library_sort_input(stats.pop("sort_input"))
+        library = time_cuda(lambda: [torch.sort(k) for k in keys],
+                            WIDE_TIMED)
+        library_of = ("torch.sort of the row sort's keys (row << 32 | "
+                      "key), each key set")
+    else:
+        bound = (stats["lanes"] * (4 + 4 if kind == "raw"
+                                   else doc_bytes + 2)
+                 + r * t * 24 + stats["candidates"] * 8 + r * 4)
+        keys = [wide_lane_keys(args, kw, kind == "raw")]
+        library = time_cuda(lambda: torch.sort(keys[0], stable=True),
+                            WIDE_TIMED)
+        library_of = ("torch.sort(stable=True) of the same lanes' (row << "
+                      "32 | doc) keys")
+    del keys
+    return {
+        "name": name, "kernel": names[0] if kind != "fused" else "fused",
+        "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": RAW_LINES["raw_merge"] if kind == "raw"
+        else EXACT_LINE if kind == "exact" else PALLAS_LINE,
+        "launches": launches[names[-1]], "max_abs_err": err,
+        "ms": sum(per.get(n, 0.0) for n in names),
+        "ms_by_kernel": {n: per.get(n) for n in names},
+        "device_ms": device, "plain_ms": plain_ms,
+        "plain_of": (f"the plain version on the launch's {len(rows)} "
+                     f"checked rows (its rows with slots and one padding "
+                     f"row), {WIDE_PLAIN_ROWS} rows a call"),
+        "bound_ms": bound / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "bytes": bound, "library_ms": library, "library_of": library_of,
+        "launch": label, "shape": {"rows": r, "slots": t,
+                                   "t_window": kw["t_window"],
+                                   "max_len": kw["max_len"], "k": kw["k"]},
+        "lanes": stats["lanes"],
+        "size_classes": {c: n for c, n in (
+            stats.get("classes") or stats.get("exact_classes")).items()
+            if n}}
+
+
+def wide_phase(svc, mk, corpus, segments, doc_bytes):
+    """Rows past 1,024 slots on the e2e service's 1M-doc compressed pack:
+    wide_bodies one train each, the launch counts reset just before and
+    read just after; every fused and exact launch against the plain
+    version (check_wide_launch), the top-10 of the size-K and boosted
+    bodies against the oracle (terms as the same words' OR match), the
+    size-10 hits a prefix of the size-K ones → (log fields, kernels-line
+    entries)."""
+    t0 = time.perf_counter()
+    bodies = wide_bodies(svc, corpus.vocab)
+    mk.reset_launches()
+    with LaunchRecorder(mk, every=True) as fused, \
+            LaunchRecorder(mk, "exact_merge_topk", every=True) as exact:
+        answered = {label: svc.search(INDEX, body)
+                    for label, body, _, _ in bodies}
+    launches = dict(mk.LAUNCHES)
+    zero = [n for n in MAIN_KERNELS + EXACT_KERNELS if launches[n] <= 0]
+    if zero:
+        raise AssertionError(f"wide rows: kernels not launched: {zero}")
+    checked, worst, timed = [], 0.0, {}
+    for kind, rec in (("fused", fused), ("exact", exact)):
+        labels = [label for label, body, _, boost in bodies
+                  if (boost != 1.0) == (kind == "exact")]
+        if len(rec.launches) != len(labels):
+            raise AssertionError(f"wide rows: {len(rec.launches)} {kind} "
+                                 f"launches for {labels}")
+        for label, (args, kw, got) in zip(labels, rec.launches):
+            entry, err = check_wide_launch(mk, kind, label, args, kw, got)
+            checked.append(entry)
+            worst = max(worst, err)
+            if entry["slots"] <= 1024 or kw["t_window"] <= 1024 and \
+                    label.startswith("terms"):
+                raise AssertionError(f"wide rows: {entry} is not wide")
+            if label.endswith(f"size{K}") or label.endswith("boost"):
+                timed.setdefault((kind, entry["slots"]),
+                                 (label, args, kw, err))
+        rec.launches.clear()
+    for label, body, words, boost in bodies:
+        resp = answered[label]
+        if label.endswith("size10"):
+            big = answered[label.replace("size10", f"size{K}")]
+            if hits_of([resp])[0][1] != hits_of([big])[0][1][:10]:
+                raise AssertionError(f"{label}: size 10 is not the size "
+                                     f"{K} answer's head")
+        elif boost == 1.0:   # the boosted bodies: bitwise above
+            oracle_check([resp], [{"query": {"match": {FIELD: {
+                "query": " ".join(words)}}}}], corpus, segments)
+    entries = []
+    for (kind, t), (label, args, kw, err) in sorted(timed.items()):
+        if t in WIDE_TIMED_SLOTS:
+            entries.append(wide_entry(
+                mk, kind, f"merge_topk.{kind}.T{t}", label, args, kw,
+                launches, doc_bytes, err))
+    del timed
+    out = dict(bodies=[dict(label=label, terms=len(words),
+                            slots=wide_slots(svc, INDEX, words),
+                            total=answered[label]["hits"]["total"])
+                       for label, _, words, _ in bodies],
+               launches=launches, checked=checked, max_abs_err=worst,
+               tolerance="bitwise: scores as uint32, docs and totals "
+                         "exact",
+               seconds=time.perf_counter() - t0)
+    return out, entries
+
+
+def wide_raw(svc, mk, corpus, segments):
+    """The raw pack's most frequent words, as many as fill more than
+    each of WIDE_RAW_SLOTS slots a row (past 8 terms: the exact ref
+    launch, through raw_merge at T 2048 and 4096) at size K, each launch
+    against the plain version, the top-10 against the oracle → (log
+    fields, kernels-line entries)."""
+    t0 = time.perf_counter()
+    words = []
+    for slots in WIDE_RAW_SLOTS:
+        n = 9
+        while wide_slots(svc, RAW_INDEX, corpus.vocab[:n]) <= slots:
+            n += 1
+        words.append(n)
+    mk.reset_launches()
+    bodies = [{"query": {"match": {FIELD: {
+        "query": " ".join(corpus.vocab[:n])}}}, "size": K} for n in words]
+    with LaunchRecorder(mk, "raw_merge_topk", every=True) as rec:
+        answered = [svc.search(RAW_INDEX, b) for b in bodies]
+    launches = dict(mk.LAUNCHES)
+    if len(rec.launches) != len(bodies):
+        raise AssertionError(f"wide raw: {len(rec.launches)} raw_merge "
+                             f"launches for {len(bodies)} bodies")
+    checked, entries, worst = [], [], 0.0
+    for n, (args, kw, got) in zip(words, rec.launches):
+        entry, err = check_wide_launch(mk, "raw", f"match{n}", args, kw,
+                                       got)
+        checked.append(entry)
+        worst = max(worst, err)
+        if entry["slots"] not in WIDE_TIMED_SLOTS:
+            raise AssertionError(f"wide raw: {entry} is not at T 2048 or "
+                                 f"4096")
+        entries.append(wide_entry(mk, "raw",
+                                  f"merge_topk.raw_merge.T{entry['slots']}",
+                                  f"match{n}", args, kw, launches, 4, err))
+    rec.launches.clear()
+    oracle_check(answered, bodies, corpus, segments)
+    return dict(words=words, launches=launches,
+                checked=checked, max_abs_err=worst,
+                totals=[r["hits"]["total"] for r in answered],
+                seconds=time.perf_counter() - t0), entries
+
+
+def close_up_to_ties(got, want, rtol=1e-5):
+    """One response's (ids, scores) against another's from a path that
+    sums in another order: each rank's score within rtol, and the same
+    ids above the last score's tie group."""
+    g_ids, g_sc = got
+    w_ids, w_sc = want
+    if len(g_sc) != len(w_sc):
+        return False
+    if any(abs(a - b) > rtol * abs(b) + 1e-6 for a, b in zip(g_sc, w_sc)):
+        return False
+    if not w_sc:
+        return True
+    cut = w_sc[-1] * (1 + rtol) + 1e-6
+    head = sum(1 for sc in w_sc if sc > cut)
+    return set(g_ids[:head]) == set(w_ids[:head])
+
+
+class SlowLogCounter(logging.Handler):
+    """Counts the records of the search slow log's channel."""
+
+    def __init__(self):
+        super().__init__()
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record.getMessage())
+
+
+def service_rest(host, port, node, bodies, runs, smi):
+    """The node's serving features on the 1M-doc index after the REST
+    waves: prewarm (a request sent while it runs goes to the planner and
+    gives the kernel's hits up to ties), three `profile: true` bodies
+    (the kernel section; the response the wave's without `profile`),
+    `timeout: 10s` (the kernel, not timed out), a planner body at
+    `timeout: 0ms` (timed out, equal to the same request on the CPU), a
+    slow-log threshold of 0ms (one line a shard of a planner body; none
+    after the reset) → log fields."""
+    import threading
+
+    from elasticsearch_tpu_torch.common.logging import SEARCH_SLOWLOG
+    from elasticsearch_tpu_torch.search import coordinator
+    from elasticsearch_tpu_torch.search.gpu_service import GpuSearchService
+
+    t_start = time.perf_counter()
+    gpu = node.gpu_search
+    idx = node.indices.index(REST_INDEX)
+    out = {"nvidia_smi": smi}
+    path = f"/{REST_INDEX}/_search"
+    # -- prewarm, and a request while it runs
+    mid = None
+    for attempt in range(3):
+        fallback0 = gpu.fallback
+        result = {}
+        t0 = time.perf_counter()
+        thread = threading.Thread(
+            target=lambda: result.update(gpu.prewarm(idx, FIELD)))
+        thread.start()
+        while gpu.stats()["prewarm"]["state"] != "warming" and \
+                thread.is_alive():
+            time.sleep(0.0005)
+        status, mid = rest_http(host, port, "POST", path,
+                                dict(bodies[0], _source=False))
+        thread.join()
+        if status != 200:
+            raise AssertionError(f"mid-warm request: {status} {mid}")
+        if gpu.fallback > fallback0:
+            break
+    else:
+        raise AssertionError("no request landed inside the prewarm")
+    if not close_up_to_ties(hits_of([mid])[0],
+                            hits_of([runs["nosource"][0]])[0]):
+        raise AssertionError("the planner's mid-warm answer differs from "
+                             "the kernel's")
+    errors = [e for e in result["compiled"] if e.get("error")]
+    if errors:
+        raise AssertionError(f"prewarm signatures failed: {errors}")
+    out["prewarm"] = dict(
+        seconds=time.perf_counter() - t0, attempts=attempt + 1,
+        total_seconds=result["total_seconds"],
+        pack_seconds=result["pack_seconds"],
+        signatures=len(result["compiled"]),
+        compiled=result["compiled"], progress=gpu.stats()["prewarm"],
+        mid_warm_request="the planner (fallback +1): the kernel's ids up "
+                         "to ties, scores within rel 1e-5 (the planner "
+                         "sums a doc's terms in another order)")
+    # -- profile: true on three bodies
+    profiles = []
+    for i in range(3):
+        status, resp = rest_http(host, port, "POST", path,
+                                 dict(bodies[i], _source=False,
+                                      profile=True))
+        if status != 200:
+            raise AssertionError(f"profile body {i}: {status}")
+        tpu = resp["profile"]["tpu"][0]
+        if hits_of([resp]) != hits_of([runs["nosource"][i]]) or (
+                resp["hits"]["total"]
+                != runs["nosource"][i]["hits"]["total"]):
+            raise AssertionError(f"profile body {i}'s response differs "
+                                 f"from the wave's")
+        if resp["profile"]["shards"][0]["searches"][0]["collector"][0][
+                "name"] != "TpuKernelTopK":
+            raise AssertionError("the profile body left the kernel path")
+        profiles.append(dict(variant=tpu["variant"],
+                             plan_cache=tpu["plan_cache"],
+                             stages_ms=tpu["stages_ms"]))
+    out["profile"] = profiles
+    # -- timeout: 10s on the kernel path; 0ms on a planner body
+    served = gpu.served
+    status, resp = rest_http(host, port, "POST", path,
+                             dict(bodies[3], _source=False,
+                                  timeout="10s"))
+    if status != 200 or resp["timed_out"] or gpu.served != served + 1:
+        raise AssertionError(f"timeout 10s: {status}, timed_out "
+                             f"{resp.get('timed_out')}, served "
+                             f"{gpu.served - served}")
+    planner_body = {"query": {"match": {FIELD: bodies[4]["query"]["match"][
+        FIELD]}}, "sort": ["_score"], "size": 10, "timeout": "0ms"}
+    status, resp = rest_http(host, port, "POST", path, planner_body)
+    cpu = GpuSearchService(device="cpu")
+    try:
+        want = coordinator.search(node.indices, REST_INDEX,
+                                  dict(planner_body), {}, cpu)
+    finally:
+        cpu.close()
+    resp["took"] = want["took"] = 0
+    if status != 200 or not resp["timed_out"] or json.dumps(resp) != \
+            json.dumps(want):
+        raise AssertionError(f"timeout 0ms: {status} {resp} vs CPU {want}")
+    out["timeout"] = {"10s": "kernel, timed_out false",
+                      "0ms": dict(timed_out=resp["timed_out"],
+                                  total=resp["hits"]["total"],
+                                  shards=resp["_shards"],
+                                  card_equals_cpu=True)}
+    # -- the slow log: 0 ms, one line a shard of a planner body, reset
+    counter = SlowLogCounter()
+    logging.getLogger(SEARCH_SLOWLOG).addHandler(counter)
+    try:
+        key = "index.search.slowlog.threshold.query.warn"
+        lines = []
+        for value in ("0ms", None):
+            status, resp = rest_http(host, port, "PUT",
+                                     f"/{REST_INDEX}/_settings",
+                                     {key: value})
+            if status != 200:
+                raise AssertionError(f"slow log setting: {resp}")
+            before = len(counter.records)
+            status, _ = rest_http(host, port, "POST", path,
+                                  dict(planner_body, timeout="60s"))
+            lines.append(len(counter.records) - before)
+        if lines != [SHARDS, 0]:
+            raise AssertionError(f"slow log lines {lines}, expected "
+                                 f"[{SHARDS}, 0]")
+    finally:
+        logging.getLogger(SEARCH_SLOWLOG).removeHandler(counter)
+    out["slow_log"] = dict(lines_at_0ms=lines[0], lines_after_reset=lines[1],
+                           first=counter.records[0][:200])
+    out["seconds"] = time.perf_counter() - t_start
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3920,6 +4510,8 @@ def raw_phase(corpus, bodies, mk, smi, extra_sets, data_root):
             oracle_tolerance="top-10 ids, scores rel=1e-5 abs=1e-6",
             tolerance="bitwise: scores as uint32, gids and totals exact")
         del responses, extra, probed
+        out["wide"], wide_entries = wide_raw(svc, mk, corpus, segments)
+        log("service", part="raw", **out["wide"])
         # the fixed train: the first 128 bodies as one train of k 1000
         mapper = svc._index(RAW_INDEX).mapper
         flats = [lower_query(dsl.parse_query(b["query"]), mapper)
@@ -3928,7 +4520,7 @@ def raw_phase(corpus, bodies, mk, smi, extra_sets, data_root):
             svc._execute(svc.resident(RAW_INDEX, FIELD), flats, K)
         kernels = raw_kernel_entries(mk, fixed.calls, launches,
                                      sum(trains.values()), rescore_call,
-                                     tier_calls)
+                                     tier_calls) + wide_entries
         fixed.calls.clear()
         del rescore_call, tier_calls
         svc.delete_index(RAW_INDEX)
@@ -3965,6 +4557,8 @@ def main() -> int:
               f"beside this script ({exc})", file=sys.stderr)
         return 3
 
+    import gc
+    gc.callbacks.append(_gc_timer)
     smi = smi_line()
     log("device", nvidia_smi=smi, torch=torch.__version__,
         cuda=torch.version.cuda, name=torch.cuda.get_device_name(0),
@@ -4105,6 +4699,12 @@ def main() -> int:
                                        extra_sets[0][2])
         log("exact", **exact_log)
 
+        # -- service: rows past 1,024 slots on the same pack --------------
+        service = {}
+        service["wide_rows"], wide_entries = wide_phase(
+            svc, mk, corpus, segments, 1 if resident.streams.delta else 2)
+        log("service", part="wide_rows", **service["wide_rows"])
+
         # -- mesh: the mesh step on one card, through the NCCL tail ------
         log("mesh", **mesh_phase(segments, bodies, mk, responses))
 
@@ -4190,7 +4790,7 @@ def main() -> int:
             features_launches = rest_phase(
                 corpus, bodies, mk, smi, responses,
                 os.path.join(here, "data"), exact_run, exact_responses)
-        log("rest", **rest)
+        log("rest", **{k: v for k, v in rest.items() if k != "service"})
         log("planner", **planner)
         log("fields", **fields)
         log("rest_api", **rest_api)
@@ -4199,7 +4799,12 @@ def main() -> int:
         # -- raw: segments past 65,408 docs, a raw pack, the pruned tiers
         raw, raw_kernels = raw_phase(corpus, bodies, mk, smi, extra_sets,
                                      os.path.join(here, "data"))
+        service["rest"] = rest.pop("service")
+        service["raw"] = raw.pop("wide")
         log("raw", **raw)
+        seconds = {part: v["seconds"] for part, v in service.items()}
+        log("service", part="summary", seconds=seconds,
+            total_s=sum(seconds.values()), budget_s=SERVICE_BUDGET_S)
         for entry in kernels:
             entry["launches_rest"] = rest_launches[
                 entry.get("kernel", entry["name"].split(".", 1)[1])]
@@ -4213,6 +4818,7 @@ def main() -> int:
             entry["launches_delta"] = delta_launches.get(
                 "pruned_candidates.pack_keys"
                 if entry["name"].endswith(".pack_keys") else name, 0)
+        kernels += wide_entries
         print(json.dumps({"kernels": kernels}), flush=True)
     finally:
         svc.close()

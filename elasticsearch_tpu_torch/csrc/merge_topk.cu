@@ -219,7 +219,14 @@ constexpr int kRunThreads = 256;     // threads of run_sum
 constexpr int kRunWarps = kRunThreads / 32;
 constexpr int kRunItems = kTile / kRunThreads;    // consecutive keys a thread
 constexpr int kRunStack = 10;        // TreeUp stack (runs up to 2**10)
-constexpr int kMaxSlots = 1024;      // T_LIMIT: slots per row
+constexpr int kWideRunStack = 14;    // the same past a window of 2**10
+                                     // terms (runs up to 2**14)
+constexpr int kWindowLimit = 1 << kWideRunStack;  // t_window, any kernel
+constexpr int kSoffShared = 1024;    // select_rescore's slot prefix in
+                                     // static shared memory up to here
+// dynamic shared memory a block may opt in to (227 KB), less what the
+// kernels hold statically
+constexpr int kSmemOptIn = 232448 - 9 * 1024;
 constexpr int kSortThreads = 512;    // threads of row_sort
 constexpr int kSortWarps = kSortThreads / 32;
 constexpr int kSortItems = 4;        // keys per lane per round of a pass
@@ -299,9 +306,12 @@ __device__ __forceinline__ int doc_at(const Streams& s, const Slots& p,
 // the end). Nodes pair (b, b + d) at stride d = 1, 2, 4, ...; addition is
 // commutative, so only the grouping has to match, and it does. The stack
 // is a shift register (s[0] its top, every index a constant), so it stays
-// in registers; a run of n <= 2**kRunStack lanes holds popcount(n) nodes.
+// in registers; a run of n <= 2**kDepth lanes holds popcount(n) nodes.
+// kDepth follows the launch's window: kRunStack up to 2**10 terms, else
+// kWideRunStack.
+template <int kDepth>
 struct TreeUp {
-  float s[kRunStack];
+  float s[kDepth];
   int sp = 0;
   int n = 0;
   __device__ __forceinline__ void push(float v) {
@@ -309,19 +319,19 @@ struct TreeUp {
     while (q & 1) {
       v = __fadd_rn(s[0], v);
 #pragma unroll
-      for (int j = 0; j + 1 < kRunStack; ++j) s[j] = s[j + 1];
+      for (int j = 0; j + 1 < kDepth; ++j) s[j] = s[j + 1];
       --sp;
       q >>= 1;
     }
 #pragma unroll
-    for (int j = kRunStack - 1; j > 0; --j) s[j] = s[j - 1];
+    for (int j = kDepth - 1; j > 0; --j) s[j] = s[j - 1];
     s[0] = v;
     ++sp;
   }
   __device__ __forceinline__ float result() const {
     float acc = s[0];
 #pragma unroll
-    for (int j = 1; j < kRunStack; ++j)
+    for (int j = 1; j < kDepth; ++j)
       if (j < sp) acc = __fadd_rn(s[j], acc);
     return acc;
   }
@@ -723,89 +733,181 @@ __device__ __forceinline__ int2 block_tile(const int* tile_rq, int R) {
   return make_int2(rq & 0xFFFF, rq >> 16);
 }
 
+// A row's slot table for row_pack: the prefix of the lengths (T + 1;
+// pref[T] the row's lanes), clamped starts, weights, delta bases; for
+// the skip each slot's term bound, whether it is its term's first slot,
+// its upper bound, term and k-th lower bound; then the skip's total and
+// threshold. In shared memory while it fits, else in device memory.
+struct PackTable {
+  int* pref;
+  int* eff;
+  float* w;
+  int* dbs;
+  int* dlo;
+  float* tu;
+  int* first;
+  float* ub;
+  int* term;
+  float* kth;
+  float* total_thr;  // [2]
+};
+
+__host__ __device__ __forceinline__ long long pack_table_words(int T) {
+  return 10LL * T + 3;
+}
+
+__device__ __forceinline__ PackTable pack_table(int* base, int T) {
+  PackTable tb;
+  tb.pref = base;
+  tb.eff = tb.pref + T + 1;
+  tb.w = reinterpret_cast<float*>(tb.eff + T);
+  tb.dbs = reinterpret_cast<int*>(tb.w + T);
+  tb.dlo = tb.dbs + T;
+  tb.tu = reinterpret_cast<float*>(tb.dlo + T);
+  tb.first = reinterpret_cast<int*>(tb.tu + T);
+  tb.ub = reinterpret_cast<float*>(tb.first + T);
+  tb.term = reinterpret_cast<int*>(tb.ub + T);
+  tb.kth = reinterpret_cast<float*>(tb.term + T);
+  tb.total_thr = tb.kth + T;
+  return tb;
+}
+
+// Row r's slots into its table: clamped starts, weights, delta bases,
+// the skip's per-slot operands and the prefix of the lengths (a block
+// scan per kPackThreads slots).
+__device__ void pack_table_slots(const Streams& s, const Slots& p, int r,
+                                 int do_skip, const int* slot_terms,
+                                 const float* kth, const float* slot_ub,
+                                 const PackTable& tb, int* s_warp) {
+  const int T = p.T, tid = threadIdx.x;
+  const bool delta = s.docs8 != nullptr;
+  const int nb_slice = p.max_len / kLaneBlock + 2;
+  int carry = 0;
+  for (int base = 0; base < T; base += kPackThreads) {
+    const int t = base + tid;
+    const int rt = r * T + t;
+    int len = 0;
+    if (t < T) {
+      len = max(p.lengths[rt], 0);
+      tb.eff[t] = (int)clampll(p.starts[rt], 0, s.n_post - p.max_len);
+      tb.w[t] = p.weights[rt];
+      if (delta) {
+        tb.dbs[t] = (int)clampll(p.dbs[rt], 0, s.n_bases - nb_slice);
+        tb.dlo[t] = p.dlo[rt];
+      }
+      if (do_skip) {
+        tb.ub[t] = slot_ub[rt];
+        tb.term[t] = slot_terms != nullptr ? slot_terms[rt] : t;
+        tb.kth[t] = kth[rt];
+      }
+    }
+    int tile = 0;
+    const int x = block_excl_scan(len, s_warp, &tile);
+    if (t < T) tb.pref[t] = carry + x;
+    carry += tile;
+  }
+  if (tid == 0) tb.pref[T] = carry;
+}
+
+// The skip's part of the table (its slots part complete): a slot's term
+// bound is the max over its term's slots; the first slot of each term
+// carries it into the sum of every term's bound; the threshold is the
+// largest k-th bound of a slot of at least kk lanes (-inf under msm).
+__device__ void pack_table_skip(const Slots& p, int r, int with_counts,
+                                int kk, bool by_term, const PackTable& tb) {
+  const int T = p.T, tid = threadIdx.x;
+  for (int t = tid; t < T; t += kPackThreads) {
+    float tu = tb.ub[t];
+    bool first = true;
+    if (by_term) {
+      const int term = tb.term[t];
+      tu = 0.0f;
+      for (int u = 0; u < T; ++u)
+        if (tb.term[u] == term) {
+          tu = fmaxf(tu, tb.ub[u]);
+          if (u < t) first = false;
+        }
+    }
+    tb.tu[t] = tu;
+    tb.first[t] = first;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    // summed serially in slot order, as the reference adds them
+    float total = 0.0f;
+    float thr = __int_as_float(kNegInfBits);
+#pragma unroll 4
+    for (int t = 0; t < T; ++t) {
+      total = __fadd_rn(total, tb.first[t] ? tb.tu[t] : 0.0f);
+      if (tb.pref[t + 1] - tb.pref[t] >= kk) thr = fmaxf(thr, tb.kth[t]);
+    }
+    tb.total_thr[0] = total;
+    tb.total_thr[1] = with_counts && p.min_count[r] > 1
+                          ? __int_as_float(kNegInfBits) : thr;
+  }
+  __syncthreads();
+}
+
+// Rows whose table does not fit in shared memory: one block a row
+// builds the row's table in device memory once, for every tile block of
+// the row (row_pack's launch runs it first).
+__global__ void __launch_bounds__(kPackThreads)
+pack_table_kernel(Streams s, Slots p, int do_skip, int with_counts, int kk,
+                  const int* slot_terms, const float* kth,
+                  const float* slot_ub, int* tables) {
+  __shared__ int s_warp[33];
+  const int r = blockIdx.x;
+  const PackTable tb =
+      pack_table(tables + r * pack_table_words(p.T), p.T);
+  pack_table_slots(s, p, r, do_skip, slot_terms, kth, slot_ub, tb, s_warp);
+  __syncthreads();
+  if (do_skip) pack_table_skip(p, r, with_counts, kk, slot_terms != nullptr,
+                               tb);
+}
+
 // One block per tile of kTile lanes of a row; a row's valid lanes are
-// its slots back to back (slot t from s_pref[t]), a row longer than one
+// its slots back to back (slot t from pref[t]), a row longer than one
 // tile is split over several blocks. Each block stages its row's slot
-// table in shared memory, recomputes the skip threshold and the "other
-// terms" bounds there, issues every lane load of its tile before it uses
-// one, and compacts its keys in lane order; a one-tile row writes its
-// counts, a split row's blocks take their slots with one global atomic
-// per key set.
+// table in shared memory (or reads the one pack_table_kernel built in
+// device memory for a row too wide), recomputes the skip threshold and
+// the "other terms" bounds there, issues every lane load of its tile
+// before it uses one, and compacts its keys in lane order; a one-tile
+// row writes its counts, a split row's blocks take their slots with one
+// global atomic per key set.
 __global__ void __launch_bounds__(kPackThreads)
 row_pack_kernel(Streams s, Slots p, int R, int do_skip, int with_counts,
                 int kk, const int* slot_terms, const float* kth,
                 const float* grp_ub, const float* slot_ub,
                 const long long* row_off, const int* tile_rq,
                 uint32_t* keys, int* n_keys, uint32_t* ckeys, int* n_ckeys,
-                int* class_rows) {
+                int* class_rows, int* tables) {
   extern __shared__ __align__(16) int s_slot[];
   __shared__ int s_cnt[2][kPackItems * kPackWarps];
   __shared__ int s_warp[33];
-  __shared__ float s_total, s_thr;
   const int T = p.T;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n_grp = (p.max_len + kLaneBlock - 1) / kLaneBlock;
   const bool delta = s.docs8 != nullptr;
   const bool want_count = ckeys != nullptr;
-  // the row's slot table: prefix of the lengths, clamped starts, weights,
-  // delta bases; for the skip each slot's term bound, whether it is its
-  // term's first slot, its upper bound, term and k-th lower bound
-  int* s_pref = s_slot;                                         // T + 1
-  int* s_eff = s_pref + T + 1;
-  float* s_w = reinterpret_cast<float*>(s_eff + T);
-  int* s_dbs = reinterpret_cast<int*>(s_w + T);
-  int* s_dlo = s_dbs + T;
-  float* s_tu = reinterpret_cast<float*>(s_dlo + T);
-  int* s_first = reinterpret_cast<int*>(s_tu + T);
-  float* s_ub = reinterpret_cast<float*>(s_first + T);
-  int* s_term = reinterpret_cast<int*>(s_ub + T);
-  float* s_kth = reinterpret_cast<float*>(s_term + T);
-
   const int2 rq = block_tile(tile_rq, R);
   const int r = rq.x, q = rq.y;
-  const bool msm = with_counts && p.min_count[r] > 1;
-  const int nb_slice = p.max_len / kLaneBlock + 2;
-  for (int t = tid; t < T; t += kPackThreads) {
-    const int rt = r * T + t;
-    s_eff[t] = (int)clampll(p.starts[rt], 0, s.n_post - p.max_len);
-    s_w[t] = p.weights[rt];
-    if (delta) {
-      s_dbs[t] = (int)clampll(p.dbs[rt], 0, s.n_bases - nb_slice);
-      s_dlo[t] = p.dlo[rt];
-    }
-    if (do_skip) {
-      s_ub[t] = slot_ub[rt];
-      s_term[t] = slot_terms != nullptr ? slot_terms[rt] : t;
-      s_kth[t] = kth[rt];
-    }
-  }
-  // lengths -> s_pref: each thread sums kMaxSlots / kPackThreads
-  // consecutive slots, one block scan
-  constexpr int kSlotsPer = kMaxSlots / kPackThreads;
-  int len[kSlotsPer];
-  int mine = 0;
-#pragma unroll
-  for (int j = 0; j < kSlotsPer; ++j) {
-    const int t = tid * kSlotsPer + j;
-    len[j] = t < T ? max(p.lengths[r * T + t], 0) : 0;
-    mine += len[j];
-  }
-  int row_lanes = 0;
-  int at = block_excl_scan(mine, s_warp, &row_lanes);
-#pragma unroll
-  for (int j = 0; j < kSlotsPer; ++j) {
-    const int t = tid * kSlotsPer + j;
-    if (t < T) s_pref[t] = at;
-    at += len[j];
-  }
+  const PackTable tb = pack_table(
+      tables != nullptr ? tables + r * pack_table_words(T) : s_slot, T);
+  if (tables == nullptr)
+    pack_table_slots(s, p, r, do_skip, slot_terms, kth, slot_ub, tb,
+                     s_warp);
+  __syncthreads();  // the table
+  const int row_lanes = tb.pref[T];
   const bool split = row_lanes > kTile;
-  if (tid == 0) {
-    s_pref[T] = row_lanes;
-    if (class_rows != nullptr && q == 0)
-      atomicAdd(&class_rows[split ? kPackSplit : kPackSingle], 1);
-  }
+  if (tid == 0 && class_rows != nullptr && q == 0)
+    atomicAdd(&class_rows[split ? kPackSplit : kPackSingle], 1);
   if (row_lanes == 0) return;  // the row's counts stay 0
-  __syncthreads();  // s_pref
+  const int* s_pref = tb.pref;
+  const int* s_eff = tb.eff;
+  const float* s_w = tb.w;
+  const int* s_dbs = tb.dbs;
+  const int* s_dlo = tb.dlo;
+  const float* s_tu = tb.tu;
 
   // the tile's lanes, striped: item i of thread tid is lane
   // q * kTile + i * kPackThreads + tid of the row; every load is
@@ -846,41 +948,10 @@ row_pack_kernel(Streams s, Slots p, int R, int do_skip, int with_counts,
     slot[i] = t;
   }
 
-  if (do_skip) {
-    // a slot's term bound is the max over its term's slots; the first
-    // slot of each term carries it into the sum of every term's bound
-    for (int t = tid; t < T; t += kPackThreads) {
-      float tu = s_ub[t];
-      bool first = true;
-      if (slot_terms != nullptr) {
-        const int term = s_term[t];
-        tu = 0.0f;
-        for (int u = 0; u < T; ++u)
-          if (s_term[u] == term) {
-            tu = fmaxf(tu, s_ub[u]);
-            if (u < t) first = false;
-          }
-      }
-      s_tu[t] = tu;
-      s_first[t] = first;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      // summed serially in slot order, as the reference adds them
-      float total = 0.0f;
-      float thr = __int_as_float(kNegInfBits);
-#pragma unroll 4
-      for (int t = 0; t < T; ++t) {
-        total = __fadd_rn(total, s_first[t] ? s_tu[t] : 0.0f);
-        if (s_pref[t + 1] - s_pref[t] >= kk) thr = fmaxf(thr, s_kth[t]);
-      }
-      s_total = total;
-      s_thr = msm ? __int_as_float(kNegInfBits) : thr;
-    }
-    __syncthreads();
-  }
-  const float total = do_skip ? s_total : 0.0f;
-  const float thr = do_skip ? s_thr : 0.0f;
+  if (do_skip && tables == nullptr)
+    pack_table_skip(p, r, with_counts, kk, slot_terms != nullptr, tb);
+  const float total = do_skip ? tb.total_thr[0] : 0.0f;
+  const float thr = do_skip ? tb.total_thr[1] : 0.0f;
   uint32_t key[kPackItems];
   unsigned keep = 0, real = 0;  // bit i: item i
   // items past the row's lanes for the whole warp take no work
@@ -1143,10 +1214,11 @@ __device__ __forceinline__ int pad(int x) { return x + (x >> 5); }
 
 // The run ending at tile position x (row index i) walked back in shared
 // memory: its sum through TreeUp (→ *n, its lanes within the window).
+template <int kDepth>
 __device__ __forceinline__ float run_total(const uint32_t* sk, int x, int i,
                                            uint32_t doc, int window,
                                            int* n) {
-  TreeUp tree;
+  TreeUp<kDepth> tree;
   for (int d = 0; d < window && i - d >= 0; ++d) {
     const uint32_t kd = sk[pad(x - d)];
     if ((kd >> 16) != doc) break;
@@ -1178,6 +1250,7 @@ __device__ __forceinline__ int run_lanes(const uint32_t* sc, int x, int i,
 // Candidates leave in key order: a scan of the threads' counts, and a
 // decoupled look-back over the row's earlier tiles for their candidates
 // and matching count-key runs.
+template <int kDepth>
 __global__ void __launch_bounds__(kRunThreads)
 run_sum_kernel(const uint32_t* keys, const int* n_keys,
                const uint32_t* ckeys, const int* n_ckeys,
@@ -1273,7 +1346,7 @@ run_sum_kernel(const uint32_t* keys, const int* n_keys,
         int m = 0;
         if (i < n && (i == n - 1 || next != doc)) {
           if (st[j] >= 0) m = min(j - st[j] + 1, window);
-          else y[j] = run_total(sk, x0 + j, i, doc, window, &m);
+          else y[j] = run_total<kDepth>(sk, x0 + j, i, doc, window, &m);
           if (y[j] > 0.0f && (!with_counts || (float)m >= mc)) take |= 1u << j;
         }
         st[j] = m;  // now the run's clause count
@@ -1416,16 +1489,20 @@ select_rescore_kernel(Streams s, Slots p, const float* cand_score,
                       const int* n_cand, const long long* row_off, int kc,
                       int kk, int smem_bytes, uint32_t* scr_hi,
                       uint32_t* scr_lo, float* out_vals, int* out_docs,
-                      int* class_rows) {
+                      int* class_rows, int* soff_dev) {
   extern __shared__ __align__(16) unsigned char s_raw[];
   __shared__ int s_hist[256];
   __shared__ int s_wsum[8];
   __shared__ int s_pick[2];
   __shared__ int s_warp[33];
   __shared__ int s_count;
-  __shared__ int s_soff[kMaxSlots + 1];
+  __shared__ int s_soff_sh[kSoffShared + 1];
   const int r = blockIdx.x;
   const int T = p.T;
+  // the slots' lane prefix: static shared memory, or device memory for a
+  // wider row
+  int* s_soff = soff_dev != nullptr ? soff_dev + (long long)r * (T + 1)
+                                    : s_soff_sh;
   const long long off = row_off[r];
   const int n = n_cand[r];
   const float* sc = cand_score + off;
@@ -2192,7 +2269,9 @@ constexpr int kExactThreads = 256;
 constexpr int kExactBlocksPerSm = 6;  // bounds its registers a thread
 constexpr int kExactWarps = kExactThreads / 32;
 constexpr int kExactBatch = 4;  // lanes a thread decodes at once
-constexpr int kExactSlotsPerThread = kMaxSlots / kExactThreads;
+// the most items a merge window stages (two buffers of 8 B each in
+// shared memory); a row of more slots goes to the radix class
+constexpr int kExactMaxItems = 12288;
 constexpr int kNoNext = 0x7fffffff;  // a slot with no lane past its chunk
 // size classes of exact_merge (rows per class)
 enum { kExactMerge = 0, kExactParts, kExactRadix };
@@ -2445,6 +2524,7 @@ __device__ unsigned long long* merge_runs(unsigned long long* src,
 // takes a contiguous segment of the items and parks its candidates, as
 // (score bits << 32 | doc), in `scratch` (not src: a run's tree may read
 // an earlier segment) from its segment's start *lo on → how many.
+template <int kDepth>
 __device__ int park_runs(const unsigned long long* src, int n, int window,
                          int with_counts, int need, int d_pad,
                          unsigned long long* scratch, int* lo_out) {
@@ -2458,7 +2538,7 @@ __device__ int park_runs(const unsigned long long* src, int n, int window,
     float total = __uint_as_float((uint32_t)src[i]);
     int lanes = 1;  // a run of one lane: its tree is its leaf
     if (i > 0 && item_doc(src[i - 1]) == doc) {
-      TreeUp tree;
+      TreeUp<kDepth> tree;
       for (int d = 0; d < window && i - d >= 0; ++d) {
         const unsigned long long it = src[i - d];
         if (item_doc(it) != doc) break;
@@ -2479,14 +2559,15 @@ __device__ int park_runs(const unsigned long long* src, int n, int window,
 // park_runs, then one block scan places the candidates: in doc order
 // after the `found` already written, to cand_score and cand_doc, or
 // packed as (score bits << 32 | doc) when `packed` is given.
+template <int kDepth>
 __device__ void emit_runs(const unsigned long long* src, int n, int window,
                           int with_counts, int need, int d_pad,
                           unsigned long long* scratch, float* cand_score,
                           int* cand_doc, unsigned long long* packed,
                           int* found, int* s_warp) {
   int lo = 0;
-  const int kept = park_runs(src, n, window, with_counts, need, d_pad,
-                             scratch, &lo);
+  const int kept = park_runs<kDepth>(src, n, window, with_counts, need,
+                                     d_pad, scratch, &lo);
   int tile = 0;
   const int at = *found + block_excl_scan(kept, s_warp, &tile);
   for (int j = 0; j < kept; ++j) {
@@ -2560,37 +2641,48 @@ __device__ int warp_lower_bound(const Streams& s, const Slots& p,
 // share an SM when their windows fit (2048 lanes, 33 KB each). kRaw: the
 // raw merge, the same design over a raw pack's int32 docs and f32
 // impacts (docs up to 2**31, which the items' 32 doc bits hold).
-template <bool kRaw>
+// Wide rows: the slot table lives in shared memory while it fits beside
+// the windows; past that (`tables` given) each block keeps it in its own
+// slice of device memory and the grid, one block per table slice, walks
+// the n_blocks rows and parts. A row of more slots than S (a window
+// stages a lane of every slot) goes whole to exact_finish's radix class.
+template <bool kRaw, int kDepth>
 __global__ void __launch_bounds__(kExactThreads, kExactBlocksPerSm)
 exact_merge_kernel(Streams s, Slots p, const long long* row_off,
                    const int* part_rq, const int* row_parts, int R,
                    int with_counts, int window, int S, float* cand_score,
                    int* cand_doc, int* n_cand, unsigned long long* parked,
                    int* part_found, int* part_base, int* bad,
-                   int* class_rows) {
+                   int* class_rows, int n_blocks,
+                   unsigned long long* tables, long long tab_words) {
   extern __shared__ __align__(16) unsigned long long s_dyn[];
   __shared__ int s_wsum[8];
   __shared__ int s_warp[33];
   __shared__ int s_d1;
   __shared__ int s_more;
-  const bool first = blockIdx.x < R;
-  const int e = first ? 0 : (int)blockIdx.x - R;
-  const int r = first ? (int)blockIdx.x : part_rq[e] & 0xFFFF;
-  const int q = first ? 0 : part_rq[e] >> 16;
-  const int P = row_parts[r];
   const int T = p.T;
   const int tid = threadIdx.x;
   const int d_pad = p.d_pad;
   unsigned long long* s_src = s_dyn;
   unsigned long long* s_dst = s_dyn + S;
-  const ExactTable tb = exact_table(s_dyn + 2 * S, T);
-  load_slot_table<kRaw>(s, p, tb, r);
+  const ExactTable tb = exact_table(
+      tables != nullptr ? tables + blockIdx.x * tab_words : s_dyn + 2 * S,
+      T);
+  for (int vb = blockIdx.x; vb < n_blocks; vb += gridDim.x) {
+  __syncthreads();  // the previous row's table and windows are spent
+  const bool first = vb < R;
+  const int e = first ? 0 : vb - R;
+  const int r = first ? vb : part_rq[e] & 0xFFFF;
+  const int q = first ? 0 : part_rq[e] >> 16;
+  const int P = row_parts[r];
+  const bool fits = T <= S;
+  if (fits) load_slot_table<kRaw>(s, p, tb, r);
   __syncthreads();
   // the part's lanes of each slot: [cur, len) between the binary searches
   // of its doc bounds (monotone in the bound even where docs descend, so
   // the parts of a slot tile it); the lane before the start is checked
-  bool bad_here = false;
-  if (P > 1) {
+  bool bad_here = !fits;
+  if (fits && P > 1) {
     const int d_lo = (int)((long long)q * d_pad / P);
     const int d_hi = (int)((long long)(q + 1) * d_pad / P);
     // a warp a search: slot t's lower (item 2t) and upper (2t + 1) bound,
@@ -2619,7 +2711,7 @@ exact_merge_kernel(Streams s, Slots p, const long long* row_off,
   }
   bool radix = __syncthreads_or(bad_here);
   int lanes_before = 0;  // the row's lanes of the parts before this one
-  if (q > 0) {
+  if (q > 0 && !radix) {
     int mine = 0;
     for (int t = tid; t < T; t += blockDim.x) mine += tb.cur[t];
     block_excl_scan(mine, s_warp, &lanes_before);
@@ -2660,21 +2752,18 @@ exact_merge_kernel(Streams s, Slots p, const long long* row_off,
       s_more = 0;
     }
     const int staged = slot_scan(tb.chunk, tb.cpre, T, s_warp);
-    // 2. stage the chunks; each slot's next unstaged doc bounds D1 (its
-    // load issued first, used after the staging)
-    int next[kExactSlotsPerThread];
-#pragma unroll
-    for (int u = 0; u < kExactSlotsPerThread; ++u) {
-      const int t = tid + u * kExactThreads;
-      const bool has = t < T && tb.cur[t] + tb.chunk[t] < tb.len[t];
-      next[u] = has ? lane_doc<kRaw>(s, p, tb, t, tb.cur[t] + tb.chunk[t])
-                    : kNoNext;
+    // 2. stage the chunks; each slot's next unstaged doc bounds D1 (read
+    // into the table's `take`, free until step 4, by the thread that
+    // owns the slot there)
+    for (int t = tid; t < T; t += blockDim.x) {
+      const bool has = tb.cur[t] + tb.chunk[t] < tb.len[t];
+      tb.take[t] = has ? lane_doc<kRaw>(s, p, tb, t, tb.cur[t] + tb.chunk[t])
+                       : kNoNext;
     }
     stage_items<kRaw>(s, p, tb, tb.cpre, tb.cur, staged, s_src);
-#pragma unroll
-    for (int u = 0; u < kExactSlotsPerThread; ++u) {
-      if (next[u] != kNoNext) {
-        atomicMin(&s_d1, next[u]);
+    for (int t = tid; t < T; t += blockDim.x) {
+      if (tb.take[t] != kNoNext) {
+        atomicMin(&s_d1, tb.take[t]);
         s_more = 1;
       }
     }
@@ -2689,11 +2778,9 @@ exact_merge_kernel(Streams s, Slots p, const long long* row_off,
         descends |= b < d_pad && item_doc(s_src[i - 1]) >= b;
       }
     }
-#pragma unroll
-    for (int u = 0; u < kExactSlotsPerThread; ++u) {
-      const int t = tid + u * kExactThreads;
-      if (t < T && tb.chunk[t] > 0 && next[u] < d_pad)
-        descends |= item_doc(s_src[tb.cpre[t + 1] - 1]) >= next[u];
+    for (int t = tid; t < T; t += blockDim.x) {
+      if (tb.chunk[t] > 0 && tb.take[t] < d_pad)
+        descends |= item_doc(s_src[tb.cpre[t + 1] - 1]) >= tb.take[t];
     }
     radix = __syncthreads_or(descends);
     if (radix) break;
@@ -2710,7 +2797,7 @@ exact_merge_kernel(Streams s, Slots p, const long long* row_off,
     unsigned long long* merged =
         merge_runs(s_src, s_dst, tb.tpre, tb.cpre, T, taken);
     // 6. the window's run ends; the cursors move on
-    emit_runs(merged, taken, window, with_counts, need, d_pad,
+    emit_runs<kDepth>(merged, taken, window, with_counts, need, d_pad,
               merged == s_src ? s_dst : s_src, cand_score + off,
               cand_doc + off,
               q > 0 ? parked + off + lanes_before : nullptr, &found,
@@ -2721,14 +2808,15 @@ exact_merge_kernel(Streams s, Slots p, const long long* row_off,
     if (!more && d1 >= d_pad) break;  // every lane was staged and taken
   }
   if (tid == 0) {
-    part_found[blockIdx.x] = found;
-    part_base[blockIdx.x] = lanes_before;
+    part_found[vb] = found;
+    part_base[vb] = lanes_before;
     if (radix) {
       bad[r] = 1;
     } else if (P == 1) {
       n_cand[r] = found;
       if (class_rows != nullptr) atomicAdd(&class_rows[kExactMerge], 1);
     }
+  }
   }
 }
 
@@ -2740,7 +2828,7 @@ exact_merge_kernel(Streams s, Slots p, const long long* row_off,
 // moves the parked candidates of the later part part_rq[e] of a good row
 // after those of the row's earlier parts (part_rq holds a row's parts in
 // order), and the last part writes the row's count (class "parts").
-template <bool kRaw>
+template <bool kRaw, int kDepth>
 __global__ void __launch_bounds__(kExactThreads)
 exact_finish_kernel(Streams s, Slots p, const long long* row_off,
                     const int* part_rq, const int* row_parts, int R,
@@ -2748,15 +2836,20 @@ exact_finish_kernel(Streams s, Slots p, const long long* row_off,
                     const int* part_base, const int* bad,
                     unsigned long long* items, unsigned long long* alt,
                     float* cand_score, int* cand_doc, int* n_cand,
-                    int* class_rows) {
+                    int* class_rows, int n_blocks,
+                    unsigned long long* tables, long long tab_words) {
   extern __shared__ __align__(16) unsigned long long s_tab[];
   __shared__ int s_cnt[kExactWarps][256];
   __shared__ int s_wsum[8];
   __shared__ int s_warp[33];
-  if (blockIdx.x >= R) {
-    const int e = blockIdx.x - R;
+  const ExactTable tb = exact_table(
+      tables != nullptr ? tables + blockIdx.x * tab_words : s_tab, p.T);
+  for (int vb = blockIdx.x; vb < n_blocks; vb += gridDim.x) {
+  __syncthreads();  // the previous row's table and counts are spent
+  if (vb >= R) {
+    const int e = vb - R;
     const int r = part_rq[e] & 0xFFFF, q = part_rq[e] >> 16;
-    if (bad[r]) return;
+    if (bad[r]) continue;
     int at = part_found[r];  // part 0
     for (int j = e - q + 1; j < e; ++j) at += part_found[R + j];
     const int m = part_found[R + e];
@@ -2771,11 +2864,10 @@ exact_finish_kernel(Streams s, Slots p, const long long* row_off,
       n_cand[r] = at + m;
       if (class_rows != nullptr) atomicAdd(&class_rows[kExactParts], 1);
     }
-    return;
+    continue;
   }
-  const int r = blockIdx.x;
-  if (!bad[r]) return;
-  const ExactTable tb = exact_table(s_tab, p.T);
+  const int r = vb;
+  if (!bad[r]) continue;
   load_slot_table<kRaw>(s, p, tb, r);
   for (int i = threadIdx.x; i < kExactWarps * 256; i += blockDim.x)
     (&s_cnt[0][0])[i] = 0;
@@ -2796,12 +2888,14 @@ exact_finish_kernel(Streams s, Slots p, const long long* row_off,
     }
   }
   int found = 0;
-  emit_runs(src, n, window, with_counts, with_counts ? p.min_count[r] : 0,
-            p.d_pad, dst, cand_score + off, cand_doc + off, nullptr, &found,
-            s_warp);
+  emit_runs<kDepth>(src, n, window, with_counts,
+                    with_counts ? p.min_count[r] : 0, p.d_pad, dst,
+                    cand_score + off, cand_doc + off, nullptr, &found,
+                    s_warp);
   if (threadIdx.x == 0) {
     n_cand[r] = found;
     if (class_rows != nullptr) atomicAdd(&class_rows[kExactRadix], 1);
+  }
   }
 }
 
@@ -3160,7 +3254,8 @@ cand_band_kernel(CandArgs a) {
     __syncthreads();
   }
   int lo = 0;
-  const int kept = park_runs(src, n, a.window, 0, 0, 0x7fffffff, dst, &lo);
+  const int kept =
+      park_runs<kRunStack>(src, n, a.window, 0, 0, 0x7fffffff, dst, &lo);
   int found = 0;
   const int at = block_excl_scan(kept, s_warp, &found);
   if (threadIdx.x < 32) {
@@ -3466,37 +3561,61 @@ __host__ __device__ __forceinline__ int rescore_order_smem(int C) {
 }
 
 // exact_merge then exact_finish over the lanes of kRaw's reader.
-template <bool kRaw>
-int launch_exact(const Streams& s, const Slots& p, int R,
-                 const void* row_off, const void* part_rq,
-                 const void* row_parts, int n_extra, int with_counts,
-                 int window, int window_lanes, void* items, void* alt,
-                 void* cand_score, void* cand_doc, void* n_cand,
-                 void* part_found, void* part_base, void* bad,
-                 void* class_rows, void* stream) {
+// A launch's merge window: at least one lane of every slot, at most
+// kExactMaxItems (a row of more slots takes the radix class).
+int exact_window(int window_lanes, int T) {
+  const int S = window_lanes > T ? window_lanes : T;
+  return S < kExactMaxItems ? S : kExactMaxItems;
+}
+
+// Bytes of one block's device-memory slot table, or 0 when the table
+// fits in shared memory beside the windows.
+long long exact_table_bytes(int window_lanes, int T) {
+  const int S = exact_window(window_lanes, T);
+  if (exact_smem_bytes(S, T) <= kSmemOptIn) return 0;
+  return ((long long)exact_smem_bytes(0, T) + 7) / 8 * 8;
+}
+
+template <bool kRaw, int kDepth>
+int launch_exact_depth(const Streams& s, const Slots& p, int R,
+                       const void* row_off, const void* part_rq,
+                       const void* row_parts, int n_extra, int with_counts,
+                       int window, int window_lanes, void* items, void* alt,
+                       void* cand_score, void* cand_doc, void* n_cand,
+                       void* part_found, void* part_base, void* bad,
+                       void* class_rows, void* tables, int n_tables,
+                       void* stream) {
   const int T = p.T;
   cudaStream_t st = (cudaStream_t)stream;
-  // a window stages at least one lane of every slot
-  const int S = window_lanes > T ? window_lanes : T;
-  const int smem = exact_smem_bytes(S, T);
-  auto merge = exact_merge_kernel<kRaw>;
-  auto finish = exact_finish_kernel<kRaw>;
+  const int S = exact_window(window_lanes, T);
+  const long long tab_bytes = exact_table_bytes(window_lanes, T);
+  const int n_blocks = R + n_extra;
+  unsigned long long* tabs = nullptr;
+  int grid = n_blocks;
+  if (tab_bytes > 0) {  // the tables in device memory, a slice a block
+    if (tables == nullptr || n_tables < 1) return (int)cudaErrorInvalidValue;
+    tabs = static_cast<unsigned long long*>(tables);
+    grid = n_blocks < n_tables ? n_blocks : n_tables;
+  }
+  const int smem = tabs != nullptr ? 16 * S : exact_smem_bytes(S, T);
+  auto merge = exact_merge_kernel<kRaw, kDepth>;
+  auto finish = exact_finish_kernel<kRaw, kDepth>;
   cudaError_t err = allow_smem(merge, smem);
   if (err != cudaSuccess) return (int)err;
-  merge<<<R + n_extra, kExactThreads, smem, st>>>(
+  merge<<<grid, kExactThreads, smem, st>>>(
       s, p, static_cast<const long long*>(row_off),
       static_cast<const int*>(part_rq), static_cast<const int*>(row_parts),
       R, with_counts, window, S, static_cast<float*>(cand_score),
       static_cast<int*>(cand_doc), static_cast<int*>(n_cand),
       static_cast<unsigned long long*>(alt), static_cast<int*>(part_found),
       static_cast<int*>(part_base), static_cast<int*>(bad),
-      static_cast<int*>(class_rows));
+      static_cast<int*>(class_rows), n_blocks, tabs, tab_bytes / 8);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int table = exact_smem_bytes(0, T);
+  const int table = tabs != nullptr ? 0 : exact_smem_bytes(0, T);
   err = allow_smem(finish, table);
   if (err != cudaSuccess) return (int)err;
-  finish<<<R + n_extra, kExactThreads, table, st>>>(
+  finish<<<grid, kExactThreads, table, st>>>(
       s, p, static_cast<const long long*>(row_off),
       static_cast<const int*>(part_rq), static_cast<const int*>(row_parts),
       R, with_counts, window, static_cast<const int*>(part_found),
@@ -3504,8 +3623,28 @@ int launch_exact(const Streams& s, const Slots& p, int R,
       static_cast<unsigned long long*>(items),
       static_cast<unsigned long long*>(alt), static_cast<float*>(cand_score),
       static_cast<int*>(cand_doc), static_cast<int*>(n_cand),
-      static_cast<int*>(class_rows));
+      static_cast<int*>(class_rows), n_blocks, tabs, tab_bytes / 8);
   return (int)cudaGetLastError();
+}
+
+// The exact merge's two launches, their run trees as deep as the window.
+template <bool kRaw>
+int launch_exact(const Streams& s, const Slots& p, int R,
+                 const void* row_off, const void* part_rq,
+                 const void* row_parts, int n_extra, int with_counts,
+                 int window, int window_lanes, void* items, void* alt,
+                 void* cand_score, void* cand_doc, void* n_cand,
+                 void* part_found, void* part_base, void* bad,
+                 void* class_rows, void* tables, int n_tables,
+                 void* stream) {
+  if (window > kWindowLimit) return (int)cudaErrorInvalidValue;
+  auto run = window <= (1 << kRunStack)
+                 ? launch_exact_depth<kRaw, kRunStack>
+                 : launch_exact_depth<kRaw, kWideRunStack>;
+  return run(s, p, R, row_off, part_rq, row_parts, n_extra, with_counts,
+             window, window_lanes, items, alt, cand_score, cand_doc, n_cand,
+             part_found, part_base, bad, class_rows, tables, n_tables,
+             stream);
 }
 
 
@@ -3517,6 +3656,19 @@ int launch_exact(const Streams& s, const Slots& p, int R,
 // ---------------------------------------------------------------------------
 
 extern "C" {
+
+// Bytes of one row's row_pack slot table in device memory, or 0 when it
+// stays in shared memory: up to kSoffShared slots. A wider row's table
+// is built once (pack_table_kernel) and read by every tile block of the
+// row: the skip's term bounds compare every slot with every other, which
+// per tile block was most of a wide row's time.
+long long es_pack_table_bytes(int T) {
+  return T <= kSoffShared ? 0 : pack_table_words(T) * (long long)sizeof(int);
+}
+
+// Slots whose prefix select_rescore keeps in static shared memory; a
+// launch of more takes a device-memory prefix of R * (T + 1) ints.
+int es_soff_shared() { return kSoffShared; }
 
 int es_slot_decode(const void* docs8, const void* docs16, const void* codes,
                    const void* ranks, long long n_post,
@@ -3561,21 +3713,39 @@ int es_row_pack(const void* docs8, const void* docs16, const void* codes,
                 const void* kth, const void* grp_ub, const void* slot_ub,
                 const void* row_off, const void* tile_rq, int n_tiles,
                 void* keys, void* n_keys, void* ckeys, void* n_ckeys,
-                void* class_rows, void* stream) {
+                void* class_rows, void* tables, void* stream) {
   Streams s = make_streams(docs8, docs16, codes, ranks, n_post, doc_bases,
                            n_bases, res_vals, n_res);
   Slots p = make_slots(starts, lengths, weights, min_count, res_starts,
                        res_lens, dbs, dlo, T, max_len, d_pad);
-  // the slot table: under 48 KB for T <= kMaxSlots, no opt-in needed
-  const int smem = (10 * T + 1) * (int)sizeof(int);
-  row_pack_kernel<<<n_tiles, kPackThreads, smem, (cudaStream_t)stream>>>(
+  cudaStream_t st = (cudaStream_t)stream;
+  // the slot table: in shared memory while it fits, else each row's in
+  // device memory (`tables`, es_pack_table_bytes each), built first
+  const long long tab_bytes = es_pack_table_bytes(T);
+  int* tabs = nullptr;
+  int smem = (int)(pack_table_words(T) * (long long)sizeof(int));
+  cudaError_t err = cudaSuccess;
+  if (tab_bytes > 0) {
+    if (tables == nullptr) return (int)cudaErrorInvalidValue;
+    tabs = static_cast<int*>(tables);
+    smem = 0;
+    pack_table_kernel<<<R, kPackThreads, 0, st>>>(
+        s, p, do_skip, with_counts, kk,
+        static_cast<const int*>(slot_terms), static_cast<const float*>(kth),
+        static_cast<const float*>(slot_ub), tabs);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  err = allow_smem(row_pack_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  row_pack_kernel<<<n_tiles, kPackThreads, smem, st>>>(
       s, p, R, do_skip, with_counts, kk, static_cast<const int*>(slot_terms),
       static_cast<const float*>(kth), static_cast<const float*>(grp_ub),
       static_cast<const float*>(slot_ub),
       static_cast<const long long*>(row_off),
       static_cast<const int*>(tile_rq), static_cast<uint32_t*>(keys),
       static_cast<int*>(n_keys), static_cast<uint32_t*>(ckeys),
-      static_cast<int*>(n_ckeys), static_cast<int*>(class_rows));
+      static_cast<int*>(n_ckeys), static_cast<int*>(class_rows), tabs);
   return (int)cudaGetLastError();
 }
 
@@ -3601,12 +3771,19 @@ int es_run_sum(const void* keys, const void* n_keys, const void* ckeys,
                int window, void* status, void* cand_score, void* cand_doc,
                void* cand_cnt, void* n_cand, void* totals, void* class_rows,
                void* stream) {
+  if (window > kWindowLimit) return (int)cudaErrorInvalidValue;
   const int halo = window > 1 ? window - 1 : 1;
-  // the two key sets, whose space then stages the candidates (< 26 KB)
+  // the two key sets, whose space then stages the candidates (< 26 KB up
+  // to a window of 1024, 152 KB at kWindowLimit)
   const int span = halo + (halo >> 5) + 1 + kTile + (kTile >> 5) + 1;
   const int words = 2 * span > 3 * kTile ? 2 * span : 3 * kTile;
   const int smem = words * (int)sizeof(uint32_t);
-  run_sum_kernel<<<n_tiles, kRunThreads, smem, (cudaStream_t)stream>>>(
+  // the run trees as deep as the window
+  auto run_sum = window <= (1 << kRunStack) ? run_sum_kernel<kRunStack>
+                                            : run_sum_kernel<kWideRunStack>;
+  const cudaError_t err = allow_smem(run_sum, smem);
+  if (err != cudaSuccess) return (int)err;
+  run_sum<<<n_tiles, kRunThreads, smem, (cudaStream_t)stream>>>(
       static_cast<const uint32_t*>(keys), static_cast<const int*>(n_keys),
       static_cast<const uint32_t*>(ckeys), static_cast<const int*>(n_ckeys),
       static_cast<const long long*>(row_off),
@@ -3635,11 +3812,12 @@ int es_select_rescore(const void* docs8, const void* docs16,
                       const void* n_cand, const void* row_off, int kc,
                       int kk, int smem_bytes, void* scr_hi, void* scr_lo,
                       void* out_vals, void* out_docs, void* class_rows,
-                      void* stream) {
+                      void* soff, void* stream) {
   Streams s = make_streams(docs8, docs16, codes, ranks, n_post, doc_bases,
                            n_bases, res_vals, n_res);
   Slots p = make_slots(starts, lengths, weights, min_count, res_starts,
                        res_lens, dbs, dlo, T, max_len, d_pad);
+  if (T > kSoffShared && soff == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       select_rescore_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes);
@@ -3652,7 +3830,8 @@ int es_select_rescore(const void* docs8, const void* docs16,
       static_cast<const long long*>(row_off), kc, kk, smem_bytes,
       static_cast<uint32_t*>(scr_hi), static_cast<uint32_t*>(scr_lo),
       static_cast<float*>(out_vals), static_cast<int*>(out_docs),
-      static_cast<int*>(class_rows));
+      static_cast<int*>(class_rows),
+      T > kSoffShared ? static_cast<int*>(soff) : nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -3757,7 +3936,8 @@ int es_exact_merge(const void* docs8, const void* docs16, const void* codes,
                    int with_counts, int window, int window_lanes,
                    void* items, void* alt, void* cand_score, void* cand_doc,
                    void* n_cand, void* part_found, void* part_base,
-                   void* bad, void* class_rows, void* stream) {
+                   void* bad, void* class_rows, void* tables, int n_tables,
+                   void* stream) {
   Streams s = make_streams(docs8, docs16, codes, ranks, n_post, doc_bases,
                            n_bases, res_vals, n_res);
   Slots p = make_slots(starts, lengths, weights, min_count, res_starts,
@@ -3765,7 +3945,8 @@ int es_exact_merge(const void* docs8, const void* docs16, const void* codes,
   return launch_exact<false>(s, p, R, row_off, part_rq, row_parts, n_extra,
                              with_counts, window, window_lanes, items, alt,
                              cand_score, cand_doc, n_cand, part_found,
-                             part_base, bad, class_rows, stream);
+                             part_base, bad, class_rows, tables, n_tables,
+                             stream);
 }
 
 // The raw merge: exact_merge over a raw pack (int32 docs, f32 impacts).
@@ -3777,7 +3958,8 @@ int es_raw_merge(const void* docs32, const void* imps, long long n_post,
                  int with_counts, int window, int window_lanes,
                  void* items, void* alt, void* cand_score, void* cand_doc,
                  void* n_cand, void* part_found, void* part_base,
-                 void* bad, void* class_rows, void* stream) {
+                 void* bad, void* class_rows, void* tables, int n_tables,
+                 void* stream) {
   Streams s = make_streams(nullptr, nullptr, nullptr, nullptr, n_post,
                            nullptr, 0, nullptr, 0);
   s.docs32 = static_cast<const int*>(docs32);
@@ -3787,7 +3969,8 @@ int es_raw_merge(const void* docs32, const void* imps, long long n_post,
   return launch_exact<true>(s, p, R, row_off, part_rq, row_parts, n_extra,
                             with_counts, window, window_lanes, items, alt,
                             cand_score, cand_doc, n_cand, part_found,
-                            part_base, bad, class_rows, stream);
+                            part_base, bad, class_rows, tables, n_tables,
+                            stream);
 }
 
 // Phase A of a pruned tier over B queries of GT slots each, as the
@@ -3924,8 +4107,18 @@ int es_rescore_order_smem_bytes(int C) { return rescore_order_smem(C); }
 // Dynamic shared memory of an exact_merge launch of T slots and windows
 // of window_lanes lanes.
 int es_exact_smem_bytes(int window_lanes, int T) {
-  return exact_smem_bytes(window_lanes > T ? window_lanes : T, T);
+  const int S = exact_window(window_lanes, T);
+  return exact_table_bytes(window_lanes, T) > 0 ? 16 * S
+                                                 : exact_smem_bytes(S, T);
 }
+
+// Bytes of an exact_merge block's device-memory slot table (0: the table
+// stays in shared memory), and the merge window's most items (a row of
+// more slots takes the radix class).
+long long es_exact_table_bytes(int window_lanes, int T) {
+  return exact_table_bytes(window_lanes, T);
+}
+int es_exact_max_items() { return kExactMaxItems; }
 
 // Blocks of a kernel resident on one SM at `smem` bytes of dynamic shared
 // memory (0 exact_merge, 1 shard_topk, 2 topk_pass, 3 topk_runs,
@@ -3941,12 +4134,18 @@ int es_blocks_per_sm(int kernel, int smem) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn,       \
                                                         threads, smem);
   switch (kernel) {
-    case 0: ES_OCCUPANCY(exact_merge_kernel<false>, kExactThreads) break;
+    case 0: {
+      auto fn = exact_merge_kernel<false, kRunStack>;
+      ES_OCCUPANCY(fn, kExactThreads)
+    } break;
     case 1: ES_OCCUPANCY(shard_topk_kernel, kTopThreads) break;
     case 2: ES_OCCUPANCY(topk_pass_kernel, kTopThreads) break;
     case 3: ES_OCCUPANCY(topk_runs_kernel, kTopThreads) break;
     case 4: ES_OCCUPANCY(topk_merge_kernel, kTopThreads) break;
-    case 5: ES_OCCUPANCY(exact_finish_kernel<false>, kExactThreads) break;
+    case 5: {
+      auto fn = exact_finish_kernel<false, kRunStack>;
+      ES_OCCUPANCY(fn, kExactThreads)
+    } break;
     case 6: ES_OCCUPANCY(cand_part_kernel, kCandThreads) break;
     case 7: ES_OCCUPANCY(cand_band_kernel, kCandThreads) break;
     case 8: ES_OCCUPANCY(rescore_score_kernel, kRescoreThreads) break;

@@ -7,9 +7,10 @@ reopens its indices in their open or closed state, aliases, the
 close/open lifecycle and the per-shard search-failure counters).
 Routing a document to a shard is the port's ``indices/routing.shard_for``,
 the reference's murmur3. The dynamic index settings are the reference's,
-but for two whose modules are not ported: ``index.default_pipeline``
-(ingest) and ``index.search.slowlog.threshold.*`` (the slow log) are
-refused with a 400 that says so.
+the slow log's ``index.search.slowlog.threshold.*`` included (a
+``SlowLog`` per index, rebuilt on update), but for one whose module is
+not ported: ``index.default_pipeline`` (ingest) is refused with a 400
+that says so.
 """
 
 from __future__ import annotations
@@ -30,7 +31,9 @@ from elasticsearch_tpu_torch.common.errors import (
     ResourceNotFoundException,
     ShardNotFoundException,
 )
+from elasticsearch_tpu_torch.common.logging import SlowLog
 from elasticsearch_tpu_torch.common.settings import Settings
+from elasticsearch_tpu_torch.common.units import parse_seconds
 from elasticsearch_tpu_torch.index.shard import IndexShard, ShardId
 from elasticsearch_tpu_torch.index.translog import write_atomic
 from elasticsearch_tpu_torch.indices.routing import shard_for
@@ -102,6 +105,7 @@ class IndexService:
         # async-durability fsync cadence; <= 0 means the node default
         self.sync_interval_s = settings.get_float(
             "index.translog.sync_interval_seconds", -1.0)
+        self.search_slowlog = SlowLog(name, settings)
 
     def create_shard(self, shard_num: int, *, primary: bool = True,
                      allocation_id: Optional[str] = None) -> IndexShard:
@@ -142,14 +146,13 @@ class IndexService:
 
     # -------- dynamic settings --------
 
+    DYNAMIC_PREFIXES = ("index.search.slowlog.threshold.",)
     DYNAMIC_KEYS = ("index.number_of_replicas", "index.blocks.write",
                     "index.blocks.read_only", "index.translog.durability",
                     "index.translog.sync_interval_seconds")
-    #: dynamic in the reference, refused here: their modules (ingest, the
-    #: search slow log) are not ported
-    UNPORTED_DYNAMIC = (("index.default_pipeline", "ingest pipelines are"),
-                        ("index.search.slowlog.threshold.",
-                         "the search slow log is"))
+    #: dynamic in the reference, refused here: its module (ingest) is not
+    #: ported
+    UNPORTED_DYNAMIC = (("index.default_pipeline", "ingest pipelines are"),)
 
     @classmethod
     def validate_dynamic_settings(cls, changes: Dict[str, Any]) -> None:
@@ -158,6 +161,10 @@ class IndexService:
                 if key.startswith(prefix):
                     raise IllegalArgumentException(
                         f"setting [{key}]: {what} not ported yet")
+            if any(key.startswith(p) for p in cls.DYNAMIC_PREFIXES):
+                if value is not None:
+                    parse_seconds(value)  # a malformed duration is a 400
+                continue
             if key not in cls.DYNAMIC_KEYS:
                 raise IllegalArgumentException(
                     f"setting [{key}] is not dynamically updateable" if
@@ -190,6 +197,7 @@ class IndexService:
                 s.engine.translog.durability = self._durability
         self.sync_interval_s = self.settings.get_float(
             "index.translog.sync_interval_seconds", self.sync_interval_s)
+        self.search_slowlog = SlowLog(self.name, self.settings)
 
     def refresh(self) -> None:
         for s in self.shards.values():

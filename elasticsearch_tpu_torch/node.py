@@ -32,8 +32,9 @@ transient; the node's live settings are its base configuration with the
 persistent ones over it and the transient ones over those, and the
 persistent ones are written atomically under ``_state/`` and read back
 after a restart. Of the reference's dynamic cluster settings the node
-takes ``action.auto_create_index``; ``logger.*`` and ``cluster.remote.*``
-wait for the logging and cross-cluster modules.
+takes ``action.auto_create_index`` and ``logger.*`` (per-logger levels,
+``common/logging.configure``, applied at construction and on every
+change); ``cluster.remote.*`` waits for the cross-cluster module.
 
 The HTTP layer answers JSON, or text/plain for a ``_cat`` table.
 
@@ -59,6 +60,7 @@ from elasticsearch_tpu_torch.common.breaker import \
 from elasticsearch_tpu_torch.common.errors import (
     IllegalArgumentException, IndexAlreadyExistsException,
     IndexNotFoundException)
+from elasticsearch_tpu_torch.common.logging import configure, level_of
 from elasticsearch_tpu_torch.common.settings import Settings
 from elasticsearch_tpu_torch.index.translog import write_atomic
 from elasticsearch_tpu_torch.indices.service import (IndexService,
@@ -71,11 +73,11 @@ from elasticsearch_tpu_torch.search.contexts import SearchContextManager
 from elasticsearch_tpu_torch.search.gpu_service import GpuSearchService
 from elasticsearch_tpu_torch.search.serializer import dumps_response
 
-#: the dynamic cluster settings the node takes
+#: the dynamic cluster settings the node takes, by name and by prefix
 DYNAMIC_CLUSTER_SETTINGS = ("action.auto_create_index",)
+DYNAMIC_CLUSTER_PREFIXES = ("logger.",)
 #: dynamic in the reference, refused here with the module they wait for
-UNPORTED_CLUSTER_PREFIXES = (("logger.", "the logging module"),
-                             ("cluster.remote.", "cross-cluster search"))
+UNPORTED_CLUSTER_PREFIXES = (("cluster.remote.", "cross-cluster search"),)
 
 
 class Node:
@@ -96,8 +98,9 @@ class Node:
         self.transient_settings: Dict[str, Any] = {}
         self.persistent_settings: Dict[str, Any] = \
             self._load_persistent_settings()
-        if self.persistent_settings:
-            self.recompute_settings()
+        # logging is part of the node's construction (owner-scoped, so
+        # two nodes of one process keep their own overrides)
+        self.recompute_settings()
         self.breakers = HierarchyCircuitBreakerService(
             total_limit_bytes=self.settings.get_int(
                 "indices.breaker.total.limit_bytes", 8 << 30))
@@ -114,6 +117,8 @@ class Node:
                 "search.tpu_serving.kernel.packed_sort", True),
             compressed_pack=self.settings.get_bool(
                 "search.tpu_serving.kernel.compressed_pack", True),
+            prewarm_concurrency=self.settings.get_int(
+                "search.tpu_serving.prewarm_concurrency", 4),
             delta={
                 "enabled": self.settings.get_bool(
                     "search.tpu_serving.delta.enabled", True),
@@ -195,6 +200,7 @@ class Node:
         target.update(self.persistent_settings)
         target.update(self.transient_settings)
         self.settings.replace_all(target)
+        configure(self.settings, owner=id(self))
 
     def update_cluster_settings_local(self, persistent: dict,
                                       transient: dict) -> dict:
@@ -207,6 +213,11 @@ class Node:
                 if key.startswith(prefix):
                     raise IllegalArgumentException(
                         f"setting [{key}]: {module} is not ported yet")
+            if any(key.startswith(p) for p in DYNAMIC_CLUSTER_PREFIXES):
+                value = flat_p.get(key, flat_t.get(key))
+                if value is not None:
+                    level_of(value)  # an unknown level is a 400
+                continue
             if key not in DYNAMIC_CLUSTER_SETTINGS:
                 raise IllegalArgumentException(
                     f"setting [{key}] is not dynamically updateable")

@@ -60,8 +60,17 @@ MAX_LEN_LIMIT = 4096
 #: largest kernel k (from + size 10,000 buckets to 16,384): the select
 #: kernel sorts its kk finalists, 8 B each, in shared memory
 K_LIMIT = 16384
-#: slots per row the per-row kernels hold in shared memory
-T_LIMIT = 1024
+#: slots per row the merge kernels take: their slot tables sit in shared
+#: memory up to 1,024 slots and in device memory past that (row_pack's a
+#: row, built once; select_rescore's prefix), exact_merge's while it fits
+#: beside windows of T lanes (a block's slice past that)
+T_LIMIT = 16384
+#: the longest run window (t_window, rounded up to a power of two) the
+#: run trees take: 10 levels up to 1024 terms, 14 past that (the
+#: kernels' kWindowLimit)
+WINDOW_LIMIT = 16384
+#: the pruned kernels' window (a pruned tier takes at most 8 terms)
+PRUNED_WINDOW_LIMIT = 1024
 #: the select kernel's dynamic shared memory below the finalists' need
 SELECT_BASE_SMEM = 32768
 #: size classes the row pack, row sort, run sum and select kernels report
@@ -99,9 +108,9 @@ TOPK_CLASSES = ("shard_topk.staged", "shard_topk.shared",
 #: each); the launch's window is the longest row rounded up to 1024 lanes,
 #: at most this
 EXACT_WINDOW_CAP = 2048
-#: slots per row the raw merge takes (its block's slot table, four
-#: slots a thread): 1024 slots of CHUNK_CAP lanes, 4M postings a row
-RAW_T_LIMIT = 1024
+#: slots per row the raw merge takes (exact_merge's tables): 16,384 slots
+#: of CHUNK_CAP lanes, 64M postings a row
+RAW_T_LIMIT = 16384
 #: the size classes of exact_merge (rows per class): merged in one
 #: window, in several parts by doc (a row of more lanes than the window:
 #: a block a part), or (a slot whose docs descend) radix-sorted in
@@ -118,7 +127,9 @@ _SIGNATURES = {
                                                    _I, _P, _P, _P, _P, _P],
     "es_row_pack": _STREAM_ARGS + _SLOT_ARGS + [_I, _I, _I, _P, _P, _P, _P,
                                                 _P, _P, _I, _P, _P, _P, _P,
-                                                _P, _P],
+                                                _P, _P, _P],
+    "es_pack_table_bytes": [_I],
+    "es_soff_shared": [],
     "es_row_sort": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P],
     "es_run_sum": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P,
                    _P, _P, _P, _P, _P],
@@ -126,7 +137,7 @@ _SIGNATURES = {
     "es_slot_warp_lanes": [],
     "es_select_rescore": _STREAM_ARGS + _SLOT_ARGS + [_P, _P, _P, _P, _P,
                                                       _I, _I, _I, _P, _P,
-                                                      _P, _P, _P, _P],
+                                                      _P, _P, _P, _P, _P],
     "es_shard_topk": [_P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                       _P, _P, _P, _P, _P, _I, _P, _P, _P],
     "es_topk_row_bytes": [],
@@ -134,11 +145,14 @@ _SIGNATURES = {
     "es_topk_max_runs": [],
     "es_exact_merge": _STREAM_ARGS + _SLOT_ARGS + [_P, _P, _P, _I, _I, _I,
                                                    _I, _P, _P, _P, _P, _P,
-                                                   _P, _P, _P, _P, _P],
+                                                   _P, _P, _P, _P, _P, _I,
+                                                   _P],
     "es_exact_smem_bytes": [_I, _I],
+    "es_exact_table_bytes": [_I, _I],
+    "es_exact_max_items": [],
     "es_raw_merge": [_P, _P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
                      _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                     _P, _P],
+                     _P, _P, _I, _P],
     "es_pruned_candidates": [_P, _P, _L, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _L, _P, _I, _I, _I, _I, _I, _I, _P,
                              _P, _P, _P, _P, _P, _P, _P, _P, _P],
@@ -148,6 +162,8 @@ _SIGNATURES = {
                           _L, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P],
     "es_blocks_per_sm": [_I, _I],
 }
+#: the C entries that return a long long
+_LONG_RESULTS = ("es_pack_table_bytes", "es_exact_table_bytes")
 
 
 def reset_launches() -> None:
@@ -162,11 +178,19 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_es_typed", False):
         for fn, args in _SIGNATURES.items():
             getattr(lib, fn).argtypes = args
-            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).restype = (ctypes.c_longlong
+                                        if fn in _LONG_RESULTS
+                                        else ctypes.c_int)
         lib.es_error_string.argtypes = [ctypes.c_int]
         lib.es_error_string.restype = ctypes.c_char_p
         lib._es_typed = True
     return lib
+
+
+def build() -> None:
+    """Build the kernel library from csrc/ (nvcc, at first use) and load
+    it."""
+    _lib()
 
 
 def tile_lanes() -> int:
@@ -217,6 +241,15 @@ def blocks_per_sm(kernel: str, smem: int) -> int:
     return _lib().es_blocks_per_sm(OCCUPANCY_KERNELS.index(kernel), smem)
 
 
+def _table_blocks(dev: torch.device) -> int:
+    """Blocks of a launch whose slot tables live in device memory, one
+    table slice each: two an SM of a card; 3 where the launch is
+    emulated on the host, so that blocks walk several rows."""
+    if dev.type == "cuda":
+        return 2 * torch.cuda.get_device_properties(dev).multi_processor_count
+    return 3
+
+
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
@@ -254,8 +287,8 @@ def _check_operands(what, flat_docs, flat_impact, starts, lengths, weights,
     if not 1 <= t <= T_LIMIT or not 1 <= r < 65536:
         raise ValueError(f"{what} takes 1 ≤ T ≤ {T_LIMIT} slots and "
                          f"R < 65536 rows, got R={r}, T={t}")
-    if t_window > T_LIMIT:  # the run trees hold runs of ≤ 1024 lanes
-        raise ValueError(f"{what} takes t_window ≤ {T_LIMIT}, got "
+    if t_window > WINDOW_LIMIT:  # the run trees' depth
+        raise ValueError(f"{what} takes t_window ≤ {WINDOW_LIMIT}, got "
                          f"{t_window}")
     if k > K_LIMIT:
         raise ValueError(f"{what} takes k ≤ {K_LIMIT}, got {k}")
@@ -301,8 +334,8 @@ def _check_raw_operands(flat_docs, flat_impact, starts, lengths, weights,
     if not 1 <= t <= RAW_T_LIMIT or not 1 <= r < 65536:
         raise ValueError(f"raw merge takes 1 ≤ T ≤ {RAW_T_LIMIT} slots "
                          f"and R < 65536 rows, got R={r}, T={t}")
-    if t_window > T_LIMIT:
-        raise ValueError(f"raw merge takes t_window ≤ {T_LIMIT}, got "
+    if t_window > WINDOW_LIMIT:
+        raise ValueError(f"raw merge takes t_window ≤ {WINDOW_LIMIT}, got "
                          f"{t_window}")
     if k > K_LIMIT or d_pad >= 1 << 31:
         raise ValueError(f"raw merge takes k ≤ {K_LIMIT} and d_pad < 2**31")
@@ -535,11 +568,17 @@ def _launch(flat_docs, flat_impact, starts, lengths, weights, min_count, *,
             stats["slot_decode_output"] = dict(
                 kth=kth.clone(), grp_ub=grp_ub.clone(),
                 slot_ub=slot_ub.clone())
+    # a row's slot table past shared memory: each row's in device memory
+    tab_bytes = lib.es_pack_table_bytes(t)
+    pack_tables = (torch.empty(r * tab_bytes // 4, **i32) if tab_bytes
+                   else None)
     _run(lib, "row_pack", events, lib.es_row_pack,
          *streams, *slots, int(do_skip), int(with_counts), kk,
          _ptr(slot_terms) if do_skip else None, _ptr(kth), _ptr(grp_ub),
          _ptr(slot_ub), _ptr(row_off), _ptr(tile_rq), n_tiles, _ptr(keys),
-         _ptr(n_keys), _ptr(ckeys), _ptr(n_ckeys), _ptr(class_rows), stream)
+         _ptr(n_keys), _ptr(ckeys), _ptr(n_ckeys), _ptr(class_rows),
+         _ptr(pack_tables), stream)
+    del pack_tables
     if stats is not None:
         stats["sort_input"] = dict(
             keys=keys.clone(), n_keys=n_keys.clone(), row_off=row_off,
@@ -563,11 +602,15 @@ def _launch(flat_docs, flat_impact, starts, lengths, weights, min_count, *,
             totals=totals.clone())
     # the keys and their sort scratch are spent: the select kernel keeps
     # its candidate list and rescored keys in them
+    # the slots' lane prefix of a row wider than the select kernel's
+    # static table, in device memory
+    soff = (torch.empty(r * (t + 1), **i32) if t > lib.es_soff_shared()
+            else None)
     _run(lib, "select_rescore", events, lib.es_select_rescore,
          *streams, *slots, _ptr(cand_score), _ptr(cand_doc), _ptr(cand_cnt),
          _ptr(n_cand), _ptr(row_off), kc, kk, select_smem, _ptr(keys),
          _ptr(alt), _ptr(out_vals), _ptr(out_docs), _ptr(class_rows),
-         stream)
+         _ptr(soff), stream)
     if stats is not None:
         kth_lanes = (lengths * (lengths >= kk)).sum() if do_skip else 0
         stats.update(lanes=int(row_cap.sum()), kth_lanes=int(kth_lanes),
@@ -768,7 +811,11 @@ def _launch_exact(flat_docs, flat_impact, starts, lengths, weights,
     # longer row is cut into parts of about a window, a block each
     window_lanes = min(EXACT_WINDOW_CAP, -(-max(longest_row, 1) // 1024)
                        * 1024)
-    parts = [max(1, -(-c // window_lanes)) for c in caps]
+    # a window stages a lane of every slot: a launch of more slots than
+    # a window holds takes the radix class whole, one part a row
+    radix_only = t > lib.es_exact_max_items()
+    parts = [1 if radix_only else max(1, -(-c // window_lanes))
+             for c in caps]
     part_rq = [row | q << 16 for row, n_parts in enumerate(parts)
                for q in range(1, n_parts)]
     row_parts = torch.tensor(parts, dtype=torch.int32).to(dev)
@@ -784,11 +831,18 @@ def _launch_exact(flat_docs, flat_impact, starts, lengths, weights,
     bad = torch.zeros(r, dtype=torch.int32, device=dev)
     class_rows = (torch.zeros(len(EXACT_CLASSES), dtype=torch.int32,
                               device=dev) if stats is not None else None)
+    # the slot tables past shared memory: one device slice a block, the
+    # grid capped at the slices (its blocks walk the rows and parts)
+    tab_bytes = lib.es_exact_table_bytes(window_lanes, t)
+    n_tables = (min(r + len(part_rq), _table_blocks(dev)) if tab_bytes
+                else 0)
+    tables = (torch.empty(n_tables * tab_bytes // 8, dtype=torch.int64,
+                          device=dev) if n_tables else None)
     tail = (_ptr(row_off), _ptr(part_rq_t), _ptr(row_parts), len(part_rq),
             int(with_counts), window, window_lanes, _ptr(items), _ptr(alt),
             _ptr(cand_score), _ptr(cand_doc), _ptr(n_cand),
             _ptr(part_found), _ptr(part_base), _ptr(bad), _ptr(class_rows),
-            stream)
+            _ptr(tables), n_tables, stream)
     if raw:
         _run(lib, "raw_merge", events, lib.es_raw_merge, _ptr(flat_docs),
              _ptr(flat_impact), flat_docs.shape[0], _ptr(starts),
@@ -803,6 +857,7 @@ def _launch_exact(flat_docs, flat_impact, starts, lengths, weights,
             dlo_starts=dlo_starts)
         _run(lib, "exact_merge", events, lib.es_exact_merge, *streams,
              *slots, *tail)
+    del tables
     out_vals = torch.empty((r, kk), dtype=torch.float32, device=dev)
     out_docs = torch.empty((r, kk), dtype=torch.int32, device=dev)
     _topk_rows(lib, cand_score, r, kk, stride=0, row_off=row_off,
@@ -816,7 +871,7 @@ def _launch_exact(flat_docs, flat_impact, starts, lengths, weights,
                      delta=int(delta),
                      exact_classes=dict(zip(EXACT_CLASSES,
                                             class_rows.tolist())),
-                     window_lanes=window_lanes,
+                     window_lanes=window_lanes, table_blocks=n_tables,
                      exact_smem=lib.es_exact_smem_bytes(window_lanes, t))
         stats["exact_blocks_per_sm"] = blocks_per_sm("exact_merge",
                                                      stats["exact_smem"])
@@ -1043,8 +1098,9 @@ def _launch_candidates(flat_docs, flat_impact, starts, lengths, weights,
         raise ValueError(f"pruned candidates take windows of 1..."
                          f"{MAX_LEN_LIMIT} lanes inside the streams, got "
                          f"{max_len} over {n_post} postings")
-    if t_window > T_LIMIT or b >= 65536:
-        raise ValueError(f"pruned candidates take t_window <= {T_LIMIT} "
+    if t_window > PRUNED_WINDOW_LIMIT or b >= 65536:
+        raise ValueError(f"pruned candidates take t_window <= "
+                         f"{PRUNED_WINDOW_LIMIT} "
                          f"and fewer than 65536 queries")
     # the one host read: each query's lanes plan the blocks and size the
     # buffers; the rows bound the key range

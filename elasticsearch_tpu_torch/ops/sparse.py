@@ -429,11 +429,17 @@ def segmented_run_sum(sk: torch.Tensor, sv: torch.Tensor,
     total = sv
     step = 1
     while step < t_window:
-        shifted_t = torch.nn.functional.pad(total, (step, 0))[:, :length]
-        shifted_k = torch.nn.functional.pad(sk, (step, 0),
-                                            value=-1)[:, :length]
-        total = total + torch.where(shifted_k == sk, shifted_t,
-                                    torch.zeros_like(shifted_t))
+        # lane i adds lane i - step when that lane is in its run, else
+        # +0.0 (the reference adds the zero too: -0.0 becomes +0.0); the
+        # shifted operands are slices, not padded copies
+        nxt = torch.empty_like(total)
+        head = min(step, length)
+        torch.add(total[:, :head], 0.0, out=nxt[:, :head])
+        if step < length:
+            torch.add(total[:, step:], torch.where(
+                sk[:, :-step] == sk[:, step:], total[:, :-step], 0.0),
+                out=nxt[:, step:])
+        total = nxt
         step *= 2
     return total
 

@@ -94,11 +94,12 @@ def register(controller: RestController, node) -> None:
         return (200, {}) if names else (404, {})
 
     def put_mapping(req: RestRequest):
-        # the reference also drops the index's lowered plans here; the
-        # port keeps no plan cache yet, and a new field's first search
-        # builds its own (index, field) pack
         for name in resolve_indices(indices, req.param("index")):
             indices.index(name).mapper.merge(req.body or {})
+            # lowered plans key on the mapping generation: purge the
+            # entries it made unreachable (a new field's first search
+            # builds its own (index, field) pack)
+            node.gpu_search.invalidate_plans(name)
         indices.persist_metadata()
         return 200, {"acknowledged": True}
 

@@ -28,11 +28,24 @@ applied. A closed index is skipped by a wildcard, ``_all`` or an alias,
 and named directly it is the reference's 400 before any shard or pack
 is asked.
 
+``timeout`` (the body key or the query parameter, the reference's
+duration grammar; -1 is none) makes a ``SearchContext``: the planner
+checks it between shards and between segments and returns what it has
+with ``"timed_out": true`` and the total's relation ``gte``; the kernel
+path bounds its batch wait by it, and a deadline that expires there
+hands the request to the planner under the same, expired, context.
+``profile: true`` keeps the kernel path, whose response gains a kernel
+section per index (the reference's ``"tpu"`` key and
+``TpuKernelTopK`` collector); on the planner path each shard's query
+and fetch times (``build_profile``). Each index's search slow log
+(``index.search.slowlog.threshold.query.*``) logs a shard's query phase
+on the planner path and an index's kernel search.
+
 Refused typed (``NotLowerable``): the planner features not ported yet
 (aggregations, knn), and what the reference serves on its kernel path
-but the port's does not take yet (``planner=False``: rows of more than
-1024 slots). Unlike the reference, a fault of the kernel path
-is not retried on the planner: it reaches the client as a 5xx.
+but the port's does not take (``planner=False``: rows of more than
+T_LIMIT, 16,384, slots). Unlike the reference, a fault of the kernel
+path is not retried on the planner: it reaches the client as a 5xx.
 """
 
 from __future__ import annotations
@@ -49,6 +62,7 @@ from elasticsearch_tpu_torch.common.errors import (
     CircuitBreakingException, IllegalArgumentException,
     IndexClosedException, IndexNotFoundException, NotLowerable,
     SearchPhaseExecutionException, shard_failure_entry)
+from elasticsearch_tpu_torch.common.units import parse_seconds
 from elasticsearch_tpu_torch.index.segment import MISSING_I64
 from elasticsearch_tpu_torch.search import dsl
 from elasticsearch_tpu_torch.search import sort as sort_mod
@@ -58,6 +72,7 @@ from elasticsearch_tpu_torch.search.gpu_service import MAX_K
 from elasticsearch_tpu_torch.search.highlight import (HighlightSpec,
                                                       build_highlights)
 from elasticsearch_tpu_torch.search.query_phase import (QuerySearchResult,
+                                                        SearchContext,
                                                         ShardHit,
                                                         execute_fetch,
                                                         execute_query)
@@ -235,10 +250,6 @@ def parse_search_body(body: Optional[Dict[str, Any]]):
     planner += [k for k in ("knn",) if body.get(k) is not None]
     if planner:
         raise NotLowerable(f"search options {planner}")
-    for key in ("profile", "timeout"):
-        if body.get(key) is not None and body.get(key) is not False:
-            raise IllegalArgumentException(
-                f"[{key}] is not ported yet to the GPU search path")
     query = dsl.parse_query(body.get("query") or {"match_all": {}})
     if body.get("rescore") is not None:
         parse_rescore(body["rescore"])  # a malformed rescore is a 400
@@ -253,6 +264,18 @@ def parse_search_body(body: Optional[Dict[str, Any]]):
             raise IllegalArgumentException(
                 "[collapse] cannot be combined with [sort]/[rescore] yet")
     return query, body
+
+
+def parse_timeout_s(body: Dict[str, Any],
+                    params: Dict[str, str]) -> Optional[float]:
+    """The ``timeout`` query parameter or body key → seconds, or None
+    (absent, or -1, the reference's "no timeout"). A malformed duration
+    is a 400."""
+    raw = params.get("timeout", body.get("timeout"))
+    if raw is None:
+        return None
+    seconds = parse_seconds(raw)
+    return None if seconds < 0 else seconds
 
 
 @dataclasses.dataclass
@@ -307,9 +330,8 @@ def search(indices, index_expr: Optional[str],
     min_score = body.get("min_score")
     version = bool(body.get("version"))
     seq_no_primary_term = bool(body.get("seq_no_primary_term"))
-    if params.get("timeout") is not None:
-        raise IllegalArgumentException(
-            "[timeout] is not ported yet to the GPU search path")
+    ctx = SearchContext(parse_timeout_s(body, params))
+    profile = bool(body.get("profile"))
     features = Features.of(body)
     if (pinned is None and not alias_filters
             and not any(k in body for k in PLANNER_KEYS)):
@@ -320,7 +342,8 @@ def search(indices, index_expr: Optional[str],
                                 size=size, from_=from_,
                                 min_score=min_score, source=source, t0=t0,
                                 version=version,
-                                seq_no_primary_term=seq_no_primary_term)
+                                seq_no_primary_term=seq_no_primary_term,
+                                ctx=ctx, profile=profile)
         except NotLowerable as exc:
             if not exc.planner:
                 raise
@@ -329,14 +352,15 @@ def search(indices, index_expr: Optional[str],
                           min_score=min_score, source=source, t0=t0,
                           version=version,
                           seq_no_primary_term=seq_no_primary_term,
-                          device=gpu_search.mesh.grid[0][0], pinned=pinned)
+                          device=gpu_search.mesh.grid[0][0], pinned=pinned,
+                          ctx=ctx, profile=profile, body=body)
     if body.get("suggest") is not None:
         out["suggest"] = run_suggest(indices, names, body["suggest"])
     return out
 
 
 def query_shard(reader, shard_query: dsl.QueryNode, features: Features,
-                 *, size: int, from_: int, min_score, device):
+                 *, size: int, from_: int, min_score, device, ctx=None):
     """One shard's query phase under the request's features: the
     collapsed groups, or the (sorted) query phase with the rescore
     window and chain."""
@@ -355,7 +379,8 @@ def query_shard(reader, shard_query: dsl.QueryNode, features: Features,
     res = execute_query(reader, shard_query, size=k_shard, from_=0,
                         min_score=min_score,
                         sort_specs=features.sort_specs or None,
-                        search_after=features.search_after, device=device)
+                        search_after=features.search_after, device=device,
+                        ctx=ctx)
     if features.rescore:
         res.hits = rescore_shard_hits(reader, res.hits, features.rescore,
                                       device=device)
@@ -368,15 +393,21 @@ def _search_planner(indices, names: List[str],
                     features: Features, *,
                     size: int, from_: int, min_score, source, t0: float,
                     version: bool, seq_no_primary_term: bool,
-                    device, pinned=None) -> Dict[str, Any]:
-    """The planner path: per-shard query phase under failure capture,
+                    device, pinned=None, ctx: Optional[SearchContext] = None,
+                    profile: bool = False,
+                    body: Optional[Dict[str, Any]] = None
+                    ) -> Dict[str, Any]:
+    """The planner path: per-shard query phase under failure capture
+    (stopped at the request's deadline: partial results, ``timed_out``),
     the merge (by sort key, or score; collapsed by key), the fetch phase
-    with highlighting, the response."""
+    with highlighting, the response (with the shards' profile)."""
     shard_results = []   # (index name, shard num, reader, result)
     failures: List[Dict[str, Any]] = []
     allow_partial = allow_partial_results(params)
     total = 0
     skipped = 0
+    timed_out = False
+    query_nanos: Dict[Tuple[str, int], int] = {}
     sort_specs = features.sort_specs
     if pinned is not None:
         # a context's accounting is over its snapshot's shards
@@ -388,6 +419,9 @@ def _search_planner(indices, names: List[str],
         svc = indices.index(name)
         eff_query = with_alias_filters(query, alias_filters.get(name))
         for shard_num, shard in sorted(svc.shards.items()):
+            if ctx is not None and ctx.should_stop():
+                timed_out = True
+                break
             if pinned is not None:
                 reader = pinned.get((name, shard_num))
                 if reader is None:
@@ -398,17 +432,27 @@ def _search_planner(indices, names: List[str],
                 if not can_match(reader, eff_query, svc.mapper):
                     skipped += 1
                     continue
+                q0 = time.perf_counter()
                 res = query_shard(reader, eff_query, features, size=size,
                                    from_=from_, min_score=min_score,
-                                   device=device)
+                                   device=device, ctx=ctx)
             except _NON_DEGRADABLE:
                 raise
             except Exception as e:  # noqa: BLE001 — per-shard capture
                 failures.append(shard_failure_entry(name, shard_num, e))
                 indices.count_search_failure(name, shard_num)
                 continue
+            elapsed = time.perf_counter() - q0
+            query_nanos[(name, shard_num)] = int(elapsed * 1e9)
+            if svc.search_slowlog.enabled:
+                svc.search_slowlog.maybe_log(elapsed, shard_num,
+                                             source=body,
+                                             total_hits=res.total_hits)
+            timed_out = timed_out or res.timed_out
             shard_results.append((name, shard_num, reader, res))
             total += res.total_hits
+        if timed_out:
+            break
     check_shard_failures(failures, len(shard_results) + skipped,
                          allow_partial, "query")
 
@@ -454,8 +498,10 @@ def _search_planner(indices, names: List[str],
         by_shard.setdefault(si, []).append(hit)
     fetched: Dict[Tuple[int, str], Dict[str, Any]] = {}
     fetch_failed: set = set()
+    fetch_nanos: Dict[Tuple[str, int], int] = {}
     for si, hits in by_shard.items():
         name, shard_num, reader, _ = shard_results[si]
+        f0 = time.perf_counter()
         try:
             for hit, doc in zip(hits, execute_fetch(
                     reader, hits, fetch_source, version=version,
@@ -478,6 +524,9 @@ def _search_planner(indices, names: List[str],
             indices.count_search_failure(name, shard_num)
             fetch_failed.add(si)
             fetched = {k: v for k, v in fetched.items() if k[0] != si}
+            continue
+        fetch_nanos[(name, shard_num)] = int(
+            (time.perf_counter() - f0) * 1e9)
     if fetch_failed:
         # a shard that lost its fetch contributes no hits and counts
         # failed, though its query phase ran
@@ -514,13 +563,101 @@ def _search_planner(indices, names: List[str],
         "failed": len(failures)}
     if failures:
         shards_json["failures"] = failures
-    return {
+    out: Dict[str, Any] = {
         "took": int((time.perf_counter() - t0) * 1000),
-        "timed_out": False,
+        "timed_out": timed_out,
         "_shards": shards_json,
-        "hits": {"total": {"value": total, "relation": "eq"},
+        "hits": {"total": {"value": total,
+                           "relation": "gte" if timed_out else "eq"},
                  "max_score": max_score,
                  "hits": hits_json},
+    }
+    if profile:
+        out["profile"] = {"shards": build_profile(
+            query, shard_results, query_nanos, fetch_nanos)}
+    return out
+
+
+def build_profile(query, shard_results, query_nanos, fetch_nanos
+                  ) -> List[Dict[str, Any]]:
+    """The planner path's profile: one entry a shard with its query's
+    time and its fetch phase's (the reference's shape: the dense-mask
+    engine runs the whole query as one program a segment, so the
+    breakdown reports that one node)."""
+    shards = []
+    for name, shard_num, _reader, _res in shard_results:
+        qn = query_nanos.get((name, shard_num), 0)
+        shards.append({
+            "id": f"[{name}][{shard_num}]",
+            "searches": [{
+                "query": [{
+                    "type": type(query).__name__,
+                    "description": query.query_name(),
+                    "time_in_nanos": qn,
+                    "breakdown": {
+                        "score": qn, "build_scorer": 0,
+                        "create_weight": 0, "next_doc": 0, "advance": 0,
+                        "match": 0,
+                    },
+                }],
+                "rewrite_time": 0,
+                "collector": [{
+                    "name": "DenseMaskTopK",
+                    "reason": "search_top_hits",
+                    "time_in_nanos": qn,
+                }],
+            }],
+            "aggregations": [],
+            "fetch": {
+                "type": "fetch",
+                "description": "",
+                "time_in_nanos": fetch_nanos.get((name, shard_num), 0),
+            },
+        })
+    return shards
+
+
+def _tpu_profile_section(gpu_search, sink: Dict[str, Any]
+                         ) -> Dict[str, Any]:
+    """The kernel section of one (index, query): what try_search measured
+    for this request (variant, plan-cache outcome, stage ms with the
+    batch_wait split), and the service's device-stage distributions
+    (the stages named ``device_wait`` or ``batch_decode``; a train's
+    device time is not the request's own)."""
+    out = dict(sink)
+    snap = gpu_search.stages.snapshot()
+    out["device_stages"] = {
+        name: st for name, st in snap.items()
+        if "device_wait" in name or name == "batch_decode"}
+    return out
+
+
+def build_kernel_profile_shard(query, name: str, elapsed_s: float,
+                               tpu: Dict[str, Any]) -> Dict[str, Any]:
+    """One profile entry for an index served by the kernel path, shaped
+    as build_profile's entries, with the kernel section under the
+    reference's key, "tpu"."""
+    qn = int(elapsed_s * 1e9)
+    return {
+        "id": f"[{name}][kernel]",
+        "searches": [{
+            "query": [{
+                "type": type(query).__name__,
+                "description": query.query_name(),
+                "time_in_nanos": qn,
+                "breakdown": {"score": qn, "build_scorer": 0,
+                              "next_doc": 0},
+            }],
+            "rewrite_time": 0,
+            "collector": [{
+                "name": "TpuKernelTopK",
+                "reason": "search_top_hits",
+                "time_in_nanos": qn,
+            }],
+        }],
+        "aggregations": [],
+        "fetch": {"type": "fetch", "description": "", "time_in_nanos": 0},
+        "tpu": tpu,
     }
 
 
@@ -544,12 +681,15 @@ def _collapse_key(reader, hit: ShardHit, field: str):
 def _search_fast(indices, names: List[str], query: dsl.QueryNode,
                  gpu_search, *, size: int, from_: int, min_score, source,
                  t0: float, version: bool = False,
-                 seq_no_primary_term: bool = False) -> Dict[str, Any]:
+                 seq_no_primary_term: bool = False,
+                 ctx: Optional[SearchContext] = None,
+                 profile: bool = False) -> Dict[str, Any]:
     """Kernel-path query phase + columnar response assembly. Raises
     NotLowerable(planner=True) where the reference's fast path declines
     and its planner answers: from + size outside the kernel's window,
-    min_score (the kernel counts totals before it), or a query of any
-    target index outside the lowering subset."""
+    min_score (the kernel counts totals before it), a query of any
+    target index outside the lowering subset, a prewarm in progress, or
+    a request deadline that expired in the batcher."""
     k = from_ + size
     if k <= 0 or k > MAX_K:
         raise NotLowerable(f"from + size = {k} is outside (0, {MAX_K}], "
@@ -557,11 +697,28 @@ def _search_fast(indices, names: List[str], query: dsl.QueryNode,
     if min_score is not None:
         raise NotLowerable("min_score")
     per_index = []
+    profile_entries: List[Dict[str, Any]] = []
     n_shards_total = 0
     for name in names:
         svc = indices.index(name)
         n_shards_total += len(svc.shards)
-        res = gpu_search.try_search(svc, query, k=k)
+        q0 = time.perf_counter()
+        sink: Optional[Dict[str, Any]] = {} if profile else None
+        res = gpu_search.try_search(
+            svc, query, k=k,
+            timeout_s=ctx.remaining_s() if ctx is not None else None,
+            profile_sink=sink)
+        if res is None:
+            raise NotLowerable("the kernel path did not serve the request")
+        q_elapsed = time.perf_counter() - q0
+        if svc.search_slowlog.enabled:
+            svc.search_slowlog.maybe_log(
+                q_elapsed, "kernel", source={"query": query.query_name()},
+                total_hits=res.total_hits)
+        if profile:
+            profile_entries.append(build_kernel_profile_shard(
+                query, name, q_elapsed,
+                _tpu_profile_section(gpu_search, sink or {})))
         per_index.append((name, svc, res))
 
     t_asm = time.perf_counter()
@@ -615,7 +772,7 @@ def _search_fast(indices, names: List[str], query: dsl.QueryNode,
         hits_json = SplicedHits(merged)
         max_score = float(all_scores[order[0]]) if len(order) else None
     gpu_search.stages.add("assemble", time.perf_counter() - t_asm)
-    return {
+    out = {
         "took": int((time.perf_counter() - t0) * 1000),
         "timed_out": False,
         "_shards": {"total": n_shards_total, "successful": n_shards_total,
@@ -624,6 +781,10 @@ def _search_fast(indices, names: List[str], query: dsl.QueryNode,
                  "max_score": max_score,
                  "hits": hits_json},
     }
+    if profile:
+        out["profile"] = {"shards": profile_entries,
+                          "tpu": [e["tpu"] for e in profile_entries]}
+    return out
 
 
 def _assemble_hits(name: str, resident, scores, rows, ords, source,

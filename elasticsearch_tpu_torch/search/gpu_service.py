@@ -4,10 +4,12 @@ kernel.
 Counterpart of the reference's ``search/tpu_service.py`` for the main
 path. A ``_search`` body goes:
 
-  parse_query → lower_query → MicroBatcher (8 / 64 / 128 query buckets)
-  → the train's routing (execute_flat_batch) → prepare_query_batch →
-  the kernels on every device of the mesh → all-gather, totals sum and
-  cross-shard top-k (shard_topk) → decode → hits response.
+  parse_query → the plan cache (or lower_query) → MicroBatcher (8 / 64 /
+  128 query buckets; a pack's trains pipelined: launch_flat_batch on a
+  launch worker, finish_flat_batch on a completion thread) → the train's
+  routing → prepare_query_batch → the kernels on every device of the
+  mesh → all-gather, totals sum and cross-shard top-k (shard_topk) →
+  decode → hits response.
 
 A pack is resident in the compressed format (the default) when every
 shard's flats compress (``sparse.compress_reason``), else in the RAW
@@ -46,17 +48,22 @@ visible GPU on the shards axis, the reference's ``(1, n_local_devices)``;
     keeps its own until a background compaction folds the chain into a
     fresh base. A search runs the same lowered query on the base and on
     every delta and merges their top-k on the host (``union_topk``).
+  PlanCache — the lowering memoized per (index, mapping generation,
+    query), revalidated against the pack chain's reader key.
   MicroBatcher — coalesces concurrent queries per pack for a short
-    window (or until the batch cap) and runs them as one launch.
+    window (or until the batch cap) and runs them as trains, up to
+    PIPELINE_DEPTH in flight a pack.
   StageTimes — per-stage wall time of the serving path.
   GpuSearchService — ``try_search`` over a node's IndexService (the
-    reference's TpuSearchService.try_search), and a bare service of its
-    own: create_index / index / refresh / search.
+    reference's TpuSearchService.try_search, with ``timeout`` and
+    ``profile``), ``prewarm``, and a bare service of its own:
+    create_index / index / refresh / search, through the same
+    ``try_search``.
 
-A query outside the lowering subset raises ``NotLowerable`` from
-``lower_query``; the planner path that answers it in the reference
-comes with a later slice. Nothing here falls back: a fault of the
-kernel path reaches the caller.
+A query outside the lowering subset raises ``NotLowerable`` (the
+coordinator's planner answers it); the prewarm's grace and an expired
+request deadline return None (the planner answers too). Nothing else
+falls back: a fault of the kernel path reaches the caller.
 """
 
 from __future__ import annotations
@@ -64,15 +71,18 @@ from __future__ import annotations
 import collections
 import dataclasses
 import logging
+import queue
 import threading
 import time
 from concurrent.futures import Future
+from concurrent.futures import TimeoutError as FuturesTimeout
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from elasticsearch_tpu_torch.common.errors import IndexNotFound, NotLowerable
+from elasticsearch_tpu_torch.index.reader import ShardReader
 from elasticsearch_tpu_torch.index.segment import Segment, SegmentWriter
 from elasticsearch_tpu_torch.indices.routing import shard_for
 from elasticsearch_tpu_torch.mapping import MapperService, TextFieldType
@@ -102,12 +112,15 @@ PRUNE_MAX_TERMS = 8  # more terms → the exact launch
 
 class StageTimes:
     """Per-stage wall time on the serving path (the reference's
-    StageTimes, without its trace exemplars). Stages: ``lower`` (parse,
-    lowering and the resident-pack lookup), ``batch_wait`` (submit to
-    result: the batching window, the queue and the train), ``train``
-    (one launch + finish, per train) and ``assemble`` (the coordinator's
-    hits block). Each stage keeps its running totals and a bounded ring
-    of recent samples for percentiles."""
+    StageTimes, without its trace exemplars). Stages: ``lower`` (the
+    plan-cache lookup or the lowering), ``pack_get`` (the resident-pack
+    lookup), ``batch_wait`` (submit to result: the batching window, the
+    queue and the train) and its split ``batch_wait.{queue, window,
+    dispatch, completion}`` (each also under ``.<variant>``, the
+    reference's names), ``train`` (a train's launch to its finish) and
+    ``assemble`` (the coordinator's hits block). Each stage keeps its
+    running totals and a bounded ring of recent samples for
+    percentiles."""
 
     RING_SIZE = 4096
 
@@ -134,8 +147,8 @@ class StageTimes:
             self._rings.clear()
 
     def snapshot(self) -> Dict[str, Dict[str, float]]:
-        """{stage: {seconds, count, mean_ms, p50_ms, p99_ms, max_ms}};
-        the percentiles are over the ring's recent samples."""
+        """{stage: {seconds, count, mean_ms, p50_ms, p95_ms, p99_ms,
+        max_ms}}; the percentiles are over the ring's recent samples."""
         with self._lock:
             rows = {s: (self.seconds[s], self.counts[s],
                         sorted(self._rings[s])) for s in sorted(self.seconds)}
@@ -145,6 +158,8 @@ class StageTimes:
                       "mean_ms": sec / count * 1e3 if count else 0.0}
             if ring:
                 out[s]["p50_ms"] = ring[len(ring) // 2] * 1e3
+                out[s]["p95_ms"] = ring[min(len(ring) - 1,
+                                            int(len(ring) * 0.95))] * 1e3
                 out[s]["p99_ms"] = ring[min(len(ring) - 1,
                                             int(len(ring) * 0.99))] * 1e3
                 out[s]["max_ms"] = ring[-1] * 1e3
@@ -171,9 +186,13 @@ def lower_query(query: dsl.QueryNode, mapper) -> FlatQuery:
     kernel does not serve (the reference hands it to its planner)."""
     flat = _lower(query, mapper)
     if flat is None:
-        raise NotLowerable(f"[{query.query_name()}] query does not lower "
-                           f"to the merge kernel")
+        raise _not_lowerable(query)
     return flat
+
+
+def _not_lowerable(query: dsl.QueryNode) -> NotLowerable:
+    return NotLowerable(f"[{query.query_name()}] query does not lower to "
+                        f"the merge kernel")
 
 
 def _lower(query: dsl.QueryNode, mapper) -> Optional[FlatQuery]:
@@ -227,6 +246,104 @@ def _lower(query: dsl.QueryNode, mapper) -> Optional[FlatQuery]:
         return FlatQuery(fields.pop(), terms, query.boost * subs[0].boost,
                          msm)
     return None
+
+
+# ---------------------------------------------------------------------------
+# the lowered-plan cache
+# ---------------------------------------------------------------------------
+
+def plan_key(query: dsl.QueryNode) -> Optional[Tuple]:
+    """A canonical hashable key of a parsed query tree, or None when the
+    tree holds something unhashable (such a query is not cached). Equal
+    bodies parse to equal trees, so the key is "same shape, same
+    values"; traffic repeats shapes, which is what makes memoizing the
+    lowering pay."""
+    try:
+        key = _plan_key_node(query)
+        hash(key)
+        return key
+    except TypeError:
+        return None
+
+
+def _plan_key_node(value: Any) -> Any:
+    if isinstance(value, dsl.QueryNode):
+        parts = [type(value).__name__]
+        for f in dataclasses.fields(value):
+            parts.append(_plan_key_node(getattr(value, f.name)))
+        return tuple(parts)
+    if isinstance(value, (list, tuple)):
+        return tuple(_plan_key_node(v) for v in value)
+    if isinstance(value, dict):
+        return tuple(sorted((k, _plan_key_node(v))
+                            for k, v in value.items()))
+    return value
+
+
+#: the cached "does not lower": the negative is cached as the positive is
+NOT_LOWERABLE = object()
+
+
+class PlanCache:
+    """LRU memo of the lowering, keyed on (index, mapping generation,
+    plan key) (the reference's PlanCache). An entry remembers the reader
+    key of the pack chain it was validated against, so a rebuilt pack
+    (a refresh or merge mid-traffic) lowers again; a mapping update
+    changes the generation, which makes every old entry unreachable (the
+    invalidation seams also purge them)."""
+
+    def __init__(self, max_entries: int = 2048):
+        self.max_entries = max_entries
+        self._lock = threading.Lock()
+        self._entries: "collections.OrderedDict[Tuple, Any]" = \
+            collections.OrderedDict()
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+        self.invalidations = 0
+
+    def get(self, key: Tuple) -> Any:
+        """→ (FlatQuery, reader key) | NOT_LOWERABLE | None (a miss)."""
+        with self._lock:
+            entry = self._entries.get(key)
+            if entry is None:
+                self.misses += 1
+                return None
+            self._entries.move_to_end(key)
+            self.hits += 1
+            return entry
+
+    def put(self, key: Tuple, value: Any) -> None:
+        with self._lock:
+            self._entries[key] = value
+            self._entries.move_to_end(key)
+            while len(self._entries) > self.max_entries:
+                self._entries.popitem(last=False)
+                self.evictions += 1
+
+    def invalidate_index(self, index_name: str) -> None:
+        with self._lock:
+            stale = [k for k in self._entries if k[0] == index_name]
+            for k in stale:
+                del self._entries[k]
+            self.invalidations += len(stale)
+
+    def clear(self) -> None:
+        with self._lock:
+            self.invalidations += len(self._entries)
+            self._entries.clear()
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    def stats(self) -> Dict[str, Any]:
+        with self._lock:
+            return {"size": len(self._entries),
+                    "max_entries": self.max_entries,
+                    "hits": self.hits, "misses": self.misses,
+                    "evictions": self.evictions,
+                    "invalidations": self.invalidations}
 
 
 # ---------------------------------------------------------------------------
@@ -777,9 +894,11 @@ class IndexPackCache:
                 self.delta_stats.compact_seconds += time.monotonic() - t0
             return entry is not None and not deleted
 
-    def invalidate(self, index_name: str) -> None:
+    def invalidate(self, index_name: str, deleted: bool = True) -> None:
         """Drop every pack of `index_name`, its deltas included, and
-        release their charge."""
+        release their charge. deleted=False (its segments changed, the
+        index stays): a build in flight is still cached, and rebuilt at
+        the next lookup, whose readers differ."""
         evicted: List[ResidentPack] = []
         with self._lock:
             keys = {k for k in list(self._cache) + list(self._deltas)
@@ -793,8 +912,11 @@ class IndexPackCache:
                 evicted += self._drop_deltas_locked(key)
                 self._chain_meta.pop(key, None)
                 self._services.pop(key, None)
-                self._build_locks.pop(key, None)
-            self._epochs[index_name] = self._epochs.get(index_name, 0) + 1
+                if deleted:
+                    self._build_locks.pop(key, None)
+            if deleted:
+                self._epochs[index_name] = \
+                    self._epochs.get(index_name, 0) + 1
         self._evict(evicted)
 
     def invalidate_all(self) -> None:
@@ -821,6 +943,8 @@ class FlatQueryResult:
     max_score: Optional[float]
     resident: Optional[ResidentPack] = None
     total_relation: str = "eq"
+    #: the kernel variant of the launch that scored it
+    variant: Optional[str] = None
 
     @classmethod
     def empty(cls) -> "FlatQueryResult":
@@ -870,13 +994,16 @@ def _data_bucket(resident: ResidentPack, n: int) -> int:
 
 
 def _launch_exact(resident: ResidentPack, flats: Sequence[FlatQuery],
-                  k: int, packed_sort: bool = True) -> Dict[str, Any]:
+                  k: int, packed_sort: bool = True,
+                  variant: Optional[str] = None) -> Dict[str, Any]:
     """Host prep + device dispatch of one micro-batch through the exact
     variants: bucketed batch (8/64/pow2), kernel k (128/1024/pow2), slot
-    count (pow2 ≥ 8), window (≥ 8) and chunk length (pinned CHUNK_CAP),
-    as the reference pins them. A compressed pack takes "compressed" or
-    "compressed_exact", a raw one "packed" or "ref" (the raw merge).
-    Returns the launch state for _finish_exact."""
+    count (pow2 ≥ 8, up to T_LIMIT: a row of more slots is the typed
+    400), window (≥ 8) and chunk length (pinned CHUNK_CAP), as the
+    reference pins them. A compressed pack takes "compressed" or
+    "compressed_exact", a raw one "packed" or "ref" (the raw merge);
+    `variant` forces one (the prewarm's signatures). Returns the launch
+    state for _finish_exact."""
     pack = resident.pack
     compressed = resident.streams is not None
     batch = dist.prepare_query_batch(
@@ -906,9 +1033,10 @@ def _launch_exact(resident: ResidentPack, flats: Sequence[FlatQuery],
             batch, starts=np.pad(batch.starts, pad),
             lengths=np.pad(batch.lengths, pad),
             weights=np.pad(batch.weights, pad), t_slots=t_pin, **extra)
-    variant = choose_kernel_variant(pack.d_pad, batch.weights,
-                                    enabled=packed_sort,
-                                    compressed=compressed)
+    if variant is None:
+        variant = choose_kernel_variant(pack.d_pad, batch.weights,
+                                        enabled=packed_sort,
+                                        compressed=compressed)
     vals, gids, totals = dist.distributed_search_raw(
         pack, batch, _kernel_k(k), resident.image.mesh,
         device_arrays=resident.image,
@@ -916,13 +1044,22 @@ def _launch_exact(resident: ResidentPack, flats: Sequence[FlatQuery],
         variant=variant)
     return {"resident": resident, "n": len(flats), "k": k, "vals": vals,
             "gids": gids, "totals": totals, "variant": variant,
-            "bucket": batch.starts.shape[1], "t_slots": batch.t_slots}
+            "bucket": batch.starts.shape[1], "t_slots": batch.t_slots,
+            "window": batch.window}
+
+
+def _execute_exact(resident: ResidentPack, flats: Sequence[FlatQuery],
+                   k: int, variant: Optional[str] = None
+                   ) -> List[FlatQueryResult]:
+    return _finish_exact(_launch_exact(resident, flats, k, variant=variant))
 
 
 def _columnar_results(resident: ResidentPack, vals: np.ndarray,
                       gids: np.ndarray, totals: np.ndarray,
                       n_queries: int, relation_fn,
-                      k_cap: Optional[int] = None) -> List[FlatQueryResult]:
+                      k_cap: Optional[int] = None,
+                      variant: Optional[str] = None
+                      ) -> List[FlatQueryResult]:
     """Decode a batch's [B, k'] output into columnar per-query results,
     each with its total's relation, relation_fn(query index). Sentinel
     lanes (-inf score, ordinal d_pad, padding rows) sort to the tail, so
@@ -944,7 +1081,7 @@ def _columnar_results(resident: ResidentPack, vals: np.ndarray,
         out.append(FlatQueryResult(
             sc, rows[qi, :m], ords[qi, :m], int(totals[qi]),
             float(sc[0]) if m else None, resident=resident,
-            total_relation=relation_fn(qi)))
+            total_relation=relation_fn(qi), variant=variant))
     return out
 
 
@@ -962,16 +1099,75 @@ def _union_results(parts: Sequence[FlatQueryResult], chain: PackChain,
         scores, rows, ords, sum(int(p.total_hits) for p in parts),
         float(max(maxes)) if maxes else None, resident=chain.view,
         total_relation=("gte" if any(p.total_relation == "gte"
-                                     for p in parts) else "eq"))
+                                     for p in parts) else "eq"),
+        variant=parts[0].variant)
 
 
-def _finish_exact(launch: Dict[str, Any]) -> List[FlatQueryResult]:
-    vals = launch["vals"].cpu().numpy()
-    gids = launch["gids"].cpu().numpy()
-    totals = launch["totals"].cpu().numpy()
+#: each thread's copy stream of a device (the completion threads')
+_COPY_STREAMS = threading.local()
+
+
+def _ready_events(tensors: Iterable[torch.Tensor]) -> Dict[Any, Any]:
+    """An event on the current stream of every CUDA device `tensors` lie
+    on, recorded after a train's last launch: what that train's copies
+    wait for."""
+    out: Dict[Any, Any] = {}
+    for t in tensors:
+        if t.device.type == "cuda" and t.device not in out:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(t.device))
+            out[t.device] = ev
+    return out
+
+
+def _to_host(tensors: Sequence[torch.Tensor],
+             ready: Optional[Dict[Any, Any]] = None) -> List[np.ndarray]:
+    """A train's device outputs as numpy. On a card they are copied on a
+    stream of the calling thread's own, after the train's ready event
+    (or the current stream's work so far) and into pinned memory: a copy
+    on the legacy default stream would wait for every train launched
+    after this one. This call returns only once the copies have ended,
+    and `tensors` are held until then, so no block is handed out again
+    while the copy stream still reads it (``record_stream`` would keep
+    each block counted as allocated until the allocator's next poll of
+    its events)."""
+    out: List[Any] = [None] * len(tensors)
+    done = []
+    for i, t in enumerate(tensors):
+        if t.device.type != "cuda":
+            out[i] = t.numpy()
+            continue
+        streams = getattr(_COPY_STREAMS, "by_device", None)
+        if streams is None:
+            streams = _COPY_STREAMS.by_device = {}
+        stream = streams.get(t.device)
+        if stream is None:
+            stream = streams[t.device] = torch.cuda.Stream(t.device)
+        ev = (ready or {}).get(t.device)
+        if ev is None:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(t.device))
+        with torch.cuda.stream(stream):
+            stream.wait_event(ev)
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            end = torch.cuda.Event()
+            end.record(stream)
+        done.append(end)
+        out[i] = host
+    for end in done:
+        end.synchronize()
+    return [o if isinstance(o, np.ndarray) else o.numpy() for o in out]
+
+
+def _finish_exact(launch: Dict[str, Any],
+                  ready: Optional[Dict[Any, Any]] = None
+                  ) -> List[FlatQueryResult]:
+    vals, gids, totals = _to_host(
+        [launch["vals"], launch["gids"], launch["totals"]], ready)
     return _columnar_results(launch["resident"], vals, gids, totals,
                              launch["n"], lambda qi: "eq",
-                             k_cap=launch["k"])
+                             k_cap=launch["k"], variant=launch["variant"])
 
 
 def _prune_t_slots(prefix_cap: int) -> int:
@@ -1070,7 +1266,8 @@ def _launch_pruned(resident: ResidentPack, flats: Sequence[FlatQuery],
             "packed": packed, "variant": variant}
 
 
-def _finish_pruned(launch: Dict[str, Any]
+def _finish_pruned(launch: Dict[str, Any],
+                   ready: Optional[Dict[Any, Any]] = None
                    ) -> Tuple[List[Optional[FlatQueryResult]], List[int]]:
     """Decode a pruned launch and check the WAND validity bound: a doc
     outside the candidates scores below cutoff + β (a cut candidate) or β
@@ -1079,10 +1276,11 @@ def _finish_pruned(launch: Dict[str, Any]
     index listed) and escalates."""
     resident, flats, k = launch["resident"], launch["flats"], launch["k"]
     vals, gids, totals, cutoff, beta = dist.unpack_pruned(
-        launch["packed"].cpu().numpy())
+        _to_host([launch["packed"]], ready)[0])
     decoded = _columnar_results(
         resident, vals, gids.astype(np.int64), totals, len(flats),
-        lambda qi: "gte" if beta[qi] > 0.0 else "eq")
+        lambda qi: "gte" if beta[qi] > 0.0 else "eq",
+        variant=launch["variant"])
     results: List[Optional[FlatQueryResult]] = []
     invalid: List[int] = []
     for qi, res in enumerate(decoded):
@@ -1115,23 +1313,17 @@ TIERS = tuple(f"full-{b}" for b in FULL_SLOT_BUCKETS) + (
     "prefix-16k", "escalated-64k", "exact")
 
 
-def execute_flat_batch(resident: ResidentPack, flats: Sequence[FlatQuery],
-                       k: int, packed_sort: bool = True,
-                       tiers: Optional[Dict[str, int]] = None,
-                       variants: Optional[Dict[str, int]] = None,
-                       shapes: Optional[Dict[Tuple[int, int, int], int]]
-                       = None) -> List[FlatQueryResult]:
-    """Run one micro-batch, the reference's r5 routing. On a raw pack an
+def launch_flat_batch(resident: ResidentPack, flats: Sequence[FlatQuery],
+                      k: int, packed_sort: bool = True) -> Dict[str, Any]:
+    """The first half of a train, the reference's r5 routing: host prep
+    and every device launch of the train's first pass. On a raw pack an
     OR query (min_count 1) of at most PRUNE_MAX_TERMS terms with k ≤
     PRUNE_MAX_K takes the smallest full-postings tier that holds its
     postings (a tier of fewer than 16 queries joins the next wider one
     when that one launches anyway), else the prefix tier at PREFIX_CAP2;
-    queries whose validity bound fails escalate to PREFIX_CAP3, then to
-    the exact launch, which also takes every other query (and every query
-    of a compressed pack). `tiers` counts the queries each tier of TIERS
-    took (an escalated query in each tier it passed), `variants` the
-    exact launches by variant and `shapes` by (batch bucket, slots,
-    kernel k)."""
+    the exact launch takes every other query (and every query of a
+    compressed pack). → the state finish_flat_batch completes, with the
+    events its copies wait for ("ready")."""
     raw = resident.imp_host is not None
     pruned_idx = [i for i, f in enumerate(flats)
                   if raw and f.min_count == 1 and k <= PRUNE_MAX_K
@@ -1151,25 +1343,60 @@ def execute_flat_batch(resident: ResidentPack, flats: Sequence[FlatQuery],
         if 0 < len(full_groups[b]) < 16 and full_groups[buckets[bi + 1]]:
             full_groups[buckets[bi + 1]].extend(full_groups[b])
             full_groups[b] = []
+    st: Dict[str, Any] = {"resident": resident, "flats": flats, "k": k,
+                          "packed_sort": packed_sort,
+                          "full_groups": full_groups, "hot_idx": hot_idx,
+                          "exact_idx": exact_idx}
+    outputs: List[torch.Tensor] = []
+    for b, idxs in full_groups.items():
+        if idxs:
+            launch = st[f"full_launch_{b}"] = _launch_pruned(
+                resident, [flats[i] for i in idxs], k, full_slots=b,
+                packed_sort=packed_sort)
+            outputs.append(launch["packed"])
+    if hot_idx:
+        launch = st["hot_launch"] = _launch_pruned(
+            resident, [flats[i] for i in hot_idx], k,
+            prefix_cap=PREFIX_CAP2, packed_sort=packed_sort)
+        outputs.append(launch["packed"])
+    if exact_idx:
+        launch = st["exact_launch"] = _launch_exact(
+            resident, [flats[i] for i in exact_idx], k,
+            packed_sort=packed_sort)
+        outputs += [launch["vals"], launch["gids"], launch["totals"]]
+    st["ready"] = _ready_events(outputs)
+    return st
+
+
+def finish_flat_batch(st: Dict[str, Any],
+                      tiers: Optional[Dict[str, int]] = None,
+                      variants: Optional[Dict[str, int]] = None,
+                      shapes: Optional[Dict[Tuple[int, int, int], int]]
+                      = None) -> List[FlatQueryResult]:
+    """The second half of a train: its results to the host; queries
+    whose validity bound fails escalate to PREFIX_CAP3, then to the exact
+    launch. `tiers` counts the queries each tier of TIERS took (an
+    escalated query in each tier it passed), `variants` the exact
+    launches by variant and `shapes` by (batch bucket, slots, kernel
+    k)."""
+    resident, flats, k = st["resident"], st["flats"], st["k"]
+    packed_sort, ready = st["packed_sort"], st["ready"]
     out: List[Optional[FlatQueryResult]] = [None] * len(flats)
     taken: Dict[str, int] = {}
     escalate: List[int] = []
-    for b, idxs in full_groups.items():
+    for b, idxs in st["full_groups"].items():
         if not idxs:
             continue
-        results, invalid = _execute_pruned(
-            resident, [flats[i] for i in idxs], k, full_slots=b,
-            packed_sort=packed_sort)
+        results, invalid = _finish_pruned(st[f"full_launch_{b}"], ready)
         for j, i in enumerate(idxs):
             out[i] = results[j]
         taken[f"full-{b}"] = len(idxs)
         # full-postings runs are exact (beta 0, never invalid); should
         # that ever break, escalate rather than fail the train
         escalate.extend(idxs[j] for j in invalid)
+    hot_idx = st["hot_idx"]
     if hot_idx:
-        results, invalid = _execute_pruned(
-            resident, [flats[i] for i in hot_idx], k,
-            prefix_cap=PREFIX_CAP2, packed_sort=packed_sort)
+        results, invalid = _finish_pruned(st["hot_launch"], ready)
         for j, i in enumerate(hot_idx):
             out[i] = results[j]
         taken["prefix-16k"] = len(hot_idx)
@@ -1183,18 +1410,21 @@ def execute_flat_batch(resident: ResidentPack, flats: Sequence[FlatQuery],
             out[i] = results[j]
         taken["escalated-64k"] = len(escalate)
         tier3_idx = [escalate[j] for j in invalid]
-    for idxs in (exact_idx, tier3_idx):
-        if not idxs:
-            continue
-        launch = _launch_exact(resident, [flats[i] for i in idxs], k,
-                               packed_sort=packed_sort)
+    exact_launches = []
+    if st["exact_idx"]:
+        exact_launches.append((st["exact_idx"], st["exact_launch"], ready))
+    if tier3_idx:
+        exact_launches.append((tier3_idx, _launch_exact(
+            resident, [flats[i] for i in tier3_idx], k,
+            packed_sort=packed_sort), None))
+    for idxs, launch, events in exact_launches:
         if variants is not None:
             v = launch["variant"]
             variants[v] = variants.get(v, 0) + 1
         if shapes is not None:
             shape = (launch["bucket"], launch["t_slots"], _kernel_k(k))
             shapes[shape] = shapes.get(shape, 0) + 1
-        results = _finish_exact(launch)
+        results = _finish_exact(launch, events)
         for j, i in enumerate(idxs):
             out[i] = results[j]
         taken["exact"] = taken.get("exact", 0) + len(idxs)
@@ -1204,20 +1434,55 @@ def execute_flat_batch(resident: ResidentPack, flats: Sequence[FlatQuery],
     return out  # type: ignore[return-value]
 
 
+def execute_flat_batch(resident: ResidentPack, flats: Sequence[FlatQuery],
+                       k: int, packed_sort: bool = True,
+                       tiers: Optional[Dict[str, int]] = None,
+                       variants: Optional[Dict[str, int]] = None,
+                       shapes: Optional[Dict[Tuple[int, int, int], int]]
+                       = None) -> List[FlatQueryResult]:
+    """One train, launched and finished in the caller's thread."""
+    return finish_flat_batch(
+        launch_flat_batch(resident, flats, k, packed_sort=packed_sort),
+        tiers=tiers, variants=variants, shapes=shapes)
+
+
 # ---------------------------------------------------------------------------
 # micro-batching
 # ---------------------------------------------------------------------------
+
+#: a query whose rows need more posting slots than this rides trains of
+#: its own: its launch takes T 2048 and more, 20-50x a narrow train's
+#: kernel time, which would hold every narrow query sharing the train
+WIDE_SLOTS = 1024
+
 
 @dataclasses.dataclass
 class _Pending:
     flat: FlatQuery
     k: int
     future: Future
+    wide: bool = False
+    # batch_wait's marks (perf_counter): submit on the request thread,
+    # the train's cycle, take and launch by the launch worker; the
+    # request thread reads them after the result, so the four parts of
+    # the split sum to its batch_wait
+    t_submit: float = 0.0
+    t_cycle: float = 0.0
+    t_take: float = 0.0
+    t_launched: float = 0.0
 
 
 class _PackQueue:
-    """One pack's pending queries and the worker thread that launches
-    them in trains."""
+    """One pack's pending queries, a launch worker and a completion
+    thread. Launch and completion are split, so train N+1 is prepared
+    and launched while train N runs on the device and comes back; at
+    most PIPELINE_DEPTH trains are in flight (the launch worker blocks
+    past that). A train takes the oldest waiting query and those of its
+    class (narrow or wide, WIDE_SLOTS) behind it, up to max_batch, once
+    max_batch wait or the oldest has waited window_s: queries that
+    queued while the worker launched the last train go at once."""
+
+    PIPELINE_DEPTH = 3
 
     def __init__(self, batcher: "MicroBatcher", resident: ResidentPack):
         self.batcher = batcher
@@ -1225,6 +1490,14 @@ class _PackQueue:
         self.cv = threading.Condition()
         self.pendings: List[_Pending] = []
         self.closed = False
+        # trains launched and not yet finished
+        self.n_inflight = 0
+        self.inflight: "queue.Queue" = queue.Queue(
+            maxsize=self.PIPELINE_DEPTH)
+        self.completer = threading.Thread(target=self._complete,
+                                          daemon=True,
+                                          name="gpu-micro-batcher-complete")
+        self.completer.start()
         self.thread = threading.Thread(target=self._run, daemon=True,
                                        name="gpu-micro-batcher")
         self.thread.start()
@@ -1243,91 +1516,189 @@ class _PackQueue:
             self.cv.notify_all()
 
     def _run(self) -> None:
+        try:
+            while True:
+                with self.cv:
+                    while not self.pendings and not self.closed:
+                        self.cv.wait()
+                    if self.closed and not self.pendings:
+                        return
+                    taken = self._gather()
+                self._launch(taken)
+        finally:
+            self.inflight.put(None)  # stops the completer
+            self.completer.join()
+
+    def _gather(self) -> List[_Pending]:
+        """One train's queries (the caller holds cv, and pendings is not
+        empty): the window from the oldest query's submit, then the
+        oldest query's class in arrival order."""
         batcher = self.batcher
-        while True:
-            with self.cv:
-                while not self.pendings and not self.closed:
-                    self.cv.wait()
-                if self.closed and not self.pendings:
-                    return
-                deadline = time.monotonic() + batcher.window_s
-                while len(self.pendings) < batcher.max_batch:
-                    left = deadline - time.monotonic()
-                    if left <= 0 or self.closed:
-                        break
-                    self.cv.wait(timeout=left)
-                taken = self.pendings[:batcher.max_batch]
-                self.pendings = self.pendings[batcher.max_batch:]
-            self._launch(taken)
+        t_cycle = time.perf_counter()
+        deadline = self.pendings[0].t_submit + batcher.window_s
+        while len(self.pendings) < batcher.max_batch and not self.closed:
+            left = deadline - time.perf_counter()
+            if left <= 0:
+                break
+            self.cv.wait(timeout=left)
+        wide = self.pendings[0].wide
+        taken: List[_Pending] = []
+        rest: List[_Pending] = []
+        for p in self.pendings:
+            (taken if p.wide == wide and len(taken) < batcher.max_batch
+             else rest).append(p)
+        self.pendings = rest
+        t_take = time.perf_counter()
+        for p in taken:
+            p.t_cycle = t_cycle
+            p.t_take = t_take
+        return taken
 
     def _launch(self, taken: List[_Pending]) -> None:
-        """Run one train. When it fails, run each of its queries alone,
-        so that a fault of one request reaches no other client."""
+        """Launch one train and hand it to the completion thread (this
+        blocks while PIPELINE_DEPTH trains are in flight)."""
+        batcher = self.batcher
+        batcher.train_began()
+        try:
+            st = batcher.launch(self.resident, [p.flat for p in taken],
+                                max(p.k for p in taken))
+        except Exception as exc:  # noqa: BLE001 — handed to the futures
+            self._fail(taken, exc)
+            batcher.train_ended()
+            return
+        t_launched = time.perf_counter()
+        for p in taken:
+            p.t_launched = t_launched
+        with self.cv:
+            self.n_inflight += 1
+        self.inflight.put((st, taken))
+
+    def _complete(self) -> None:
+        while True:
+            item = self.inflight.get()
+            if item is None:
+                return
+            self._finish(*item)
+            # nothing of the train stays referenced while this thread
+            # waits: its device outputs go back to the allocator now
+            del item
+
+    def _finish(self, st: Dict[str, Any], taken: List[_Pending]) -> None:
         batcher = self.batcher
         try:
-            results = batcher.execute(self.resident,
-                                      [p.flat for p in taken],
-                                      max(p.k for p in taken))
+            results = batcher.finish(st)
         except Exception as exc:  # noqa: BLE001 — handed to the futures
-            if len(taken) == 1:
-                taken[0].future.set_exception(exc)
-            else:
-                for p in taken:
-                    self._launch([p])
+            self._fail(taken, exc)
+        else:
+            batcher.record(len(taken))
+            for p, res in zip(taken, results):
+                p.future.set_result(res)
+        finally:
+            with self.cv:
+                self.n_inflight -= 1
+            batcher.train_ended()
+
+    def _fail(self, taken: List[_Pending], exc: BaseException) -> None:
+        """A train that failed: its one query gets the error, or each of
+        its queries runs alone, so that a fault of one request reaches no
+        other client."""
+        if len(taken) == 1:
+            taken[0].future.set_exception(exc)
             return
-        batcher.record(len(taken))
-        for p, res in zip(taken, results):
-            p.future.set_result(res)
+        batcher = self.batcher
+        for p in taken:
+            try:
+                res = batcher.finish(batcher.launch(self.resident,
+                                                    [p.flat], p.k))[0]
+            except Exception as exc1:  # noqa: BLE001 — to its future
+                p.future.set_exception(exc1)
+            else:
+                batcher.record(1)
+                p.future.set_result(res)
 
 
 class MicroBatcher:
-    """Coalesces concurrent queries per resident pack into single
-    launches: queries arriving within window_s (or until max_batch) share
-    one; k pads to the max requested."""
+    """Coalesces concurrent queries per resident pack into trains:
+    queries arriving within window_s (or until max_batch) share one; k
+    pads to the max requested. `launch(resident, flats, k)` starts a
+    train and `finish(state)` completes it; each pack's queue runs them
+    on two threads, so its trains pipeline."""
 
-    def __init__(self, execute, window_s: float = 0.005,
+    def __init__(self, launch, finish, window_s: float = 0.005,
                  max_batch: int = 128):
-        self.execute = execute
+        self.launch = launch
+        self.finish = finish
         self.window_s = window_s
         self.max_batch = max_batch
         self._lock = threading.Lock()
         self._queues: Dict[int, _PackQueue] = {}
         self._closed = False
         self.batch_sizes: Dict[int, int] = {}  # queries per train → trains
+        #: trains between the start of their launch and the end of their
+        #: finish, now and at most: past 1, a train was launching while
+        #: another one's results came back
+        self.active = 0
+        self.max_inflight = 0
 
     def record(self, n: int) -> None:
         with self._lock:
             self.batch_sizes[n] = self.batch_sizes.get(n, 0) + 1
 
+    def train_began(self) -> None:
+        with self._lock:
+            self.active += 1
+            self.max_inflight = max(self.max_inflight, self.active)
+
+    def train_ended(self) -> None:
+        with self._lock:
+            self.active -= 1
+
     def submit(self, resident: ResidentPack, flat: FlatQuery,
                k: int) -> Optional[Future]:
-        """The future of `flat`'s result, or None when `resident` was
-        retired: the caller looks its pack up again."""
-        pending = _Pending(flat, k, Future())
+        """The future of `flat`'s result (its `_Pending`, with the
+        batch_wait marks, rides on it as `.pending`), or None when
+        `resident` was retired: the caller looks its pack up again."""
+        if resident.retired:
+            return None
+        pending = _Pending(flat, k, Future(),
+                           wide=_slots_needed(resident, flat) > WIDE_SLOTS,
+                           t_submit=time.perf_counter())
+        pending.future.pending = pending  # type: ignore[attr-defined]
         while True:
             with self._lock:
                 if self._closed:
                     raise RuntimeError("micro-batcher is closed")
                 if resident.retired:
                     return None
-                queue = self._queues.get(id(resident))
-                if queue is None:
-                    queue = self._queues[id(resident)] = _PackQueue(
+                queue_ = self._queues.get(id(resident))
+                if queue_ is None:
+                    queue_ = self._queues[id(resident)] = _PackQueue(
                         self, resident)
-            if queue.submit(pending):
+            if queue_.submit(pending):
                 return pending.future
+            # the queue closed after the lookup: look again
 
     def retire(self, resident: ResidentPack) -> Optional[threading.Thread]:
         """Refuse new work for `resident`; its queue drains what it holds
-        and its thread ends. → that thread (None without a queue): until
-        it ends it holds `resident` and so its device arrays."""
+        and its threads end. → its launch worker (None without a queue),
+        which ends after its completion thread: until then they hold
+        `resident` and so its device arrays."""
         with self._lock:
             resident.retired = True
-            queue = self._queues.pop(id(resident), None)
-        if queue is None:
+            queue_ = self._queues.pop(id(resident), None)
+        if queue_ is None:
             return None
-        queue.close()
-        return queue.thread
+        queue_.close()
+        return queue_.thread
+
+    def queue_depths(self) -> Dict[str, int]:
+        """Queues, waiting queries and trains in flight, now."""
+        with self._lock:
+            queues = list(self._queues.values())
+        return {"queues": len(queues),
+                "pending": sum(len(q.pendings) for q in queues),
+                "inflight": sum(q.n_inflight for q in queues),
+                "max_inflight": self.max_inflight}
 
     def close(self) -> None:
         with self._lock:
@@ -1344,18 +1715,49 @@ class MicroBatcher:
 # the service
 # ---------------------------------------------------------------------------
 
+class _BareShard:
+    """A shard of one of the service's own indices: its frozen segments,
+    read through one ShardReader until they change (the pack cache keys
+    on the readers' identities, as it does for an IndexShard's)."""
+
+    def __init__(self, mapper: MapperService):
+        self.mapper = mapper
+        self.segments: List[Segment] = []
+        self._reader: Optional[ShardReader] = None
+        # concurrent first searches must share one reader: a reader each
+        # would give each its own pack key, and each would build a pack
+        self._lock = threading.Lock()
+
+    def add(self, segment: Segment) -> None:
+        with self._lock:
+            self.segments.append(segment)
+            self._reader = None
+
+    def acquire_searcher(self) -> ShardReader:
+        with self._lock:
+            if self._reader is None:
+                self._reader = ShardReader(
+                    [(seg, None) for seg in self.segments], self.mapper)
+            return self._reader
+
+
 class _Index:
+    """One of the service's own indices, shaped as the node's
+    IndexService is where the serving path reads it (name, mapper with
+    its generation, shards with acquire_searcher): try_search, the pack
+    cache, the plan cache and the prewarm take it as they take an
+    IndexService."""
+
     def __init__(self, name: str, number_of_shards: int,
                  mapping: Optional[dict]):
         self.name = name
         self.num_shards = number_of_shards
         self.mapper = MapperService(mapping)
         self.writers: Dict[int, SegmentWriter] = {}
-        self.segments: Dict[int, List[Segment]] = {
-            s: [] for s in range(number_of_shards)}
+        self.shards: Dict[int, _BareShard] = {
+            s: _BareShard(self.mapper) for s in range(number_of_shards)}
         self.ids: set = set()
         self.generation = 0
-        self.packs: Dict[str, ResidentPack] = {}
         self.lock = threading.Lock()
 
 
@@ -1363,16 +1765,18 @@ class GpuSearchService:
     """The kernel path of ``_search`` over a mesh (``make_mesh()``: every
     visible GPU on the shards axis; ``device=``: a (1, 1) mesh of that
     device, ``device="cpu"`` the plain path): ``try_search`` over a
-    node's IndexService, through the IndexPackCache (charged to
-    `breaker`, the node's ``hbm`` breaker) and the micro-batcher; and
-    create_index / index / refresh / search / delete_index over indices
-    of its own, whose packs charge the same breaker."""
+    node's IndexService, through the plan cache, the IndexPackCache
+    (charged to `breaker`, the node's ``hbm`` breaker) and the pipelined
+    micro-batcher; ``prewarm`` of an (index, field); and create_index /
+    index / refresh / search / delete_index over indices of its own,
+    which go through the same ``try_search``."""
 
     def __init__(self, device=None, window_s: float = 0.005,
                  max_batch: int = 128, batch_timeout_s: float = 300.0,
                  breaker=None, mesh: Optional[Mesh] = None,
                  packed_sort: bool = True, compressed_pack: bool = True,
-                 delta: Optional[Dict[str, Any]] = None):
+                 delta: Optional[Dict[str, Any]] = None,
+                 prewarm_concurrency: int = 4):
         self.mesh = resolve_mesh(device, mesh)
         self.batch_timeout_s = batch_timeout_s
         self._indices: Dict[str, _Index] = {}
@@ -1384,13 +1788,23 @@ class GpuSearchService:
         #: raw pack's launches take "packed"
         self.kernel_config = {"packed_sort": bool(packed_sort),
                               "compressed_pack": bool(compressed_pack)}
-        self.batcher = MicroBatcher(self._execute, window_s=window_s,
-                                    max_batch=max_batch)
+        self.batcher = MicroBatcher(self._launch_train, self._finish_train,
+                                    window_s=window_s, max_batch=max_batch)
         self._breaker = breaker
         self.packs = IndexPackCache(self.mesh, breaker, self.kernel_config)
-        self.packs.on_evict = self.batcher.retire
+        self.packs.on_evict = self._on_evict
+        # the launch workers of retired packs: delete_index joins them
+        self._retired_threads: List[threading.Thread] = []
+        self.plans = PlanCache()
         self.stages = StageTimes()
         self.served = 0
+        #: requests try_search did not serve: a query outside the
+        #: lowering subset, traffic during a prewarm, a request deadline
+        #: that expired in the batcher
+        self.fallback = 0
+        #: batch waits that outlived their deadline (request or service)
+        self.timeouts = 0
+        self.last_error: Optional[str] = None
         #: exact launches by kernel variant (compressed: the fused merge
         #: kernel; compressed_exact: the exact merge, for unpackable
         #: weights; ref / packed: the raw merge)
@@ -1400,6 +1814,13 @@ class GpuSearchService:
         #: passed) and results whose total's relation is "gte"
         self.tier_queries: Dict[str, int] = {}
         self.gte_results = 0
+        # the prewarm: its grace (traffic goes to the planner while it
+        # runs) and its progress
+        self.prewarm_concurrency = max(1, int(prewarm_concurrency))
+        self._warming = False
+        self._prewarm_lock = threading.Lock()
+        self._prewarm_progress: Dict[str, Any] = {
+            "state": "idle", "total": 0, "done": 0, "seconds": 0.0}
         # the streaming delta chain: opt-in, so a bare GpuSearchService()
         # keeps rebuild-on-refresh (the reference's bare service does);
         # the node passes its delta settings, on by default
@@ -1452,15 +1873,26 @@ class GpuSearchService:
             return not self._compact_pending and not self._compacting
 
     def stats(self) -> Dict[str, Any]:
-        """The pack cache's stats, the delta chains' totals and
-        lifecycle counters, and the stage times."""
+        """The counters, the plan and pack caches, the delta chains'
+        totals, the prewarm's progress, the batcher's queues and the
+        stage times (the reference's shape, less its supervision,
+        watchdog and device blocks)."""
         cache = self.packs.stats()
         chains = cache["deltas"].values()
-        return {"served": self.served, "pack_cache": cache,
+        with self._prewarm_lock:
+            prewarm = dict(self._prewarm_progress)
+        return {"served": self.served, "fallback": self.fallback,
+                "timeouts": self.timeouts, "last_error": self.last_error,
+                "batches": sum(self.batcher.batch_sizes.values()),
+                "batched_queries": sum(
+                    n * c for n, c in self.batcher.batch_sizes.items()),
+                "plan_cache": self.plans.stats(), "pack_cache": cache,
                 "deltas": dict(dataclasses.asdict(self.delta_stats),
                                enabled=self.packs.delta_enabled,
                                packs=sum(c["packs"] for c in chains),
                                bytes=sum(c["bytes"] for c in chains)),
+                "prewarm": prewarm,
+                "queue": self.batcher.queue_depths(),
                 "stages": self.stages.snapshot()}
 
     # -- indices -----------------------------------------------------------
@@ -1481,7 +1913,7 @@ class GpuSearchService:
     def index(self, name: str, docs: Iterable[Tuple[str, dict]]) -> int:
         """Buffer (id, source) documents, routed to shards by the
         reference's murmur3 of the id; visible after refresh(). Updates
-        of an existing id come with a later slice."""
+        of an existing id are refused."""
         idx = self._index(name)
         n = 0
         with idx.lock:
@@ -1507,8 +1939,8 @@ class GpuSearchService:
         idx = self._index(name)
         with idx.lock:
             idx.ids.update(segment.doc_ids)
-            idx.segments[shard].append(segment)
-            self._drop_packs(idx)
+            idx.shards[shard].add(segment)
+        self.packs.invalidate(name, deleted=False)
 
     def refresh(self, name: str) -> None:
         """Freeze every shard's buffered documents into one new segment
@@ -1517,32 +1949,30 @@ class GpuSearchService:
         with idx.lock:
             for shard, writer in sorted(idx.writers.items()):
                 if writer.num_docs:
-                    idx.segments[shard].append(writer.freeze())
+                    idx.shards[shard].add(writer.freeze())
             idx.writers.clear()
             idx.generation += 1
-            self._drop_packs(idx)
+        self.packs.invalidate(name, deleted=False)
 
-    def _drop_packs(self, idx: _Index) -> List[threading.Thread]:
-        """Retire and uncharge the index's packs → their batcher threads."""
-        threads = []
-        for resident in idx.packs.values():
-            thread = self.batcher.retire(resident)
+    def _on_evict(self, resident: ResidentPack) -> None:
+        """The pack cache evicted `resident`: retire its batcher queue;
+        its launch worker is kept for delete_index to join."""
+        thread = self.batcher.retire(resident)
+        with self._lock:
+            self._retired_threads = [t for t in self._retired_threads
+                                     if t.is_alive()]
             if thread is not None:
-                threads.append(thread)
-            if self._breaker is not None:
-                self._breaker.release(resident.hbm_bytes)
-        idx.packs.clear()
-        return threads
+                self._retired_threads.append(thread)
 
     def delete_index(self, name: str) -> None:
-        """Drop an index of the service's own, its resident packs and
-        their breaker charge. Returns once the packs' batcher threads
-        have ended, so that their device arrays are freed."""
-        idx = self._index(name)
-        with idx.lock:
-            threads = self._drop_packs(idx)
+        """Drop an index of the service's own, its resident packs, their
+        plans and their breaker charge. Returns once the packs' batcher
+        threads have ended, so that their device arrays are freed."""
+        self._index(name)
+        self.invalidate_index(name)
         with self._lock:
             self._indices.pop(name, None)
+            threads = list(self._retired_threads)
         for thread in threads:
             if thread is not threading.current_thread():
                 thread.join()
@@ -1550,42 +1980,25 @@ class GpuSearchService:
     def resident(self, name: str, field: str) -> Optional[ResidentPack]:
         """The field's resident pack, built and placed on first use; None
         when no segment holds postings of the field."""
-        idx = self._index(name)
-        with idx.lock:
-            entry = idx.packs.get(field)
-            if entry is not None:
-                return entry
-            segments, groups, origin = [], [], []
-            for shard in range(idx.num_shards):
-                for seg in idx.segments[shard]:
-                    if field not in seg.postings:
-                        continue
-                    segments.append(seg)
-                    groups.append(shard)
-                    origin.append((shard, seg.name))
-            if not segments:
-                return None
-            pack = dist.build_stacked_pack(
-                segments, field, row_groups=groups,
-                pad_shards_to=_pad_rows(len(segments), self.mesh))
-            entry = place_pack(
-                pack, self.mesh, origin, segments, breaker=self._breaker,
-                compressed_pack=self.kernel_config["compressed_pack"])
-            idx.packs[field] = entry
-            return entry
+        return self.packs.get(self._index(name), field)
 
-    # -- search ------------------------------------------------------------
+    # -- trains ------------------------------------------------------------
 
-    def _execute(self, resident: ResidentPack, flats: Sequence[FlatQuery],
-                 k: int) -> List[FlatQueryResult]:
+    def _launch_train(self, resident: ResidentPack,
+                      flats: Sequence[FlatQuery], k: int) -> Dict[str, Any]:
         t0 = time.perf_counter()
+        st = launch_flat_batch(
+            resident, flats, k,
+            packed_sort=self.kernel_config["packed_sort"])
+        st["t0"] = t0
+        return st
+
+    def _finish_train(self, st: Dict[str, Any]) -> List[FlatQueryResult]:
         tiers: Dict[str, int] = {}
         variants: Dict[str, int] = {}
         shapes: Dict[Tuple[int, int, int], int] = {}
-        out = execute_flat_batch(
-            resident, flats, k,
-            packed_sort=self.kernel_config["packed_sort"], tiers=tiers,
-            variants=variants, shapes=shapes)
+        out = finish_flat_batch(st, tiers=tiers, variants=variants,
+                                shapes=shapes)
         with self._lock:
             for mine, total in ((tiers, self.tier_queries),
                                 (variants, self.variant_launches),
@@ -1593,37 +2006,94 @@ class GpuSearchService:
                 for key, n in mine.items():
                     total[key] = total.get(key, 0) + n
             self.gte_results += sum(r.total_relation == "gte" for r in out)
-        self.stages.add("train", time.perf_counter() - t0)
+        self.stages.add("train", time.perf_counter() - st["t0"])
         return out
+
+    def _execute(self, resident: ResidentPack, flats: Sequence[FlatQuery],
+                 k: int) -> List[FlatQueryResult]:
+        """One train launched and finished in the caller's thread (its
+        tiers, variants and stage time counted as a queue's train's)."""
+        return self._finish_train(self._launch_train(resident, flats, k))
 
     # -- the node's path (the reference's TpuSearchService.try_search) -----
 
     def try_search(self, index_service, query: dsl.QueryNode, *,
-                   k: int) -> FlatQueryResult:
+                   k: int, timeout_s: Optional[float] = None,
+                   profile_sink: Optional[Dict[str, Any]] = None
+                   ) -> Optional[FlatQueryResult]:
         """The kernel result of `query` over `index_service` (k = from +
         size, the window the coordinator needs, which checks it against
-        MAX_K). Raises lower_query's NotLowerable where the reference
-        hands the query to its planner; a fault of the kernel path (or a
-        batch that outlives the wait) reaches the caller."""
+        MAX_K), or None where the reference's planner answers instead
+        and the coordinator runs the port's: traffic during a prewarm,
+        and a request deadline (`timeout_s`) that expired in the
+        batcher. A query outside the lowering subset raises
+        NotLowerable (the negative is cached too). `profile_sink` (a
+        ``profile: true`` search) receives the variant, the plan cache's
+        outcome and this request's stage times.
+
+        Unlike the reference, a fault of the kernel path, or a batch
+        that outlives the service's cap, reaches the caller: its
+        catch-all fallback to the planner and its tripped breaker are not
+        ported, because they would hide a kernel fault."""
         if k <= 0 or k > MAX_K:
             raise ValueError(f"k = {k} is outside (0, {MAX_K}]")
+        if self._warming:
+            # the prewarm's grace: the planner answers until it ends
+            with self._lock:
+                self.fallback += 1
+            return None
         t0 = time.perf_counter()
-        try:
-            flat = lower_query(query, index_service.mapper)
-        except NotLowerable:
+        pkey = plan_key(query)
+        cache_key = None
+        if pkey is not None:
+            cache_key = (index_service.name,
+                         getattr(index_service.mapper, "generation", 0),
+                         pkey)
+        cached = self.plans.get(cache_key) if cache_key is not None else None
+        cached_rk = None
+        if cached is None:
+            flat = _lower(query, index_service.mapper)
+        elif cached is NOT_LOWERABLE:
+            flat = None
+        else:
+            flat, cached_rk = cached
+        if flat is None:
+            if cache_key is not None and cached is None:
+                self.plans.put(cache_key, NOT_LOWERABLE)
             self.stages.add("lower", time.perf_counter() - t0)
-            raise
+            with self._lock:
+                self.fallback += 1
+            raise _not_lowerable(query)
+        t1 = time.perf_counter()
         while True:
             chain = self.packs.get_chain(index_service, flat.field)
-            t1 = time.perf_counter()
+            t2 = time.perf_counter()
             if chain is None:
                 # the field has postings nowhere: zero hits, kernel-free
                 self.stages.add("lower", t1 - t0)
+                self.stages.add("pack_get", t2 - t1)
                 with self._lock:
                     self.served += 1
+                if profile_sink is not None:
+                    profile_sink["empty_pack"] = True
                 return FlatQueryResult.empty()
+            # a plan validates against the chain's reader key: the base
+            # keeps its older key while deltas cover the newer segments
+            outcome = ("uncacheable" if cache_key is None
+                       else "hit" if cached is not None else "miss")
+            if cache_key is not None:
+                if cached is None:
+                    self.plans.put(cache_key, (flat, chain.reader_key))
+                elif cached_rk != chain.reader_key:
+                    # the pack was rebuilt since the plan was cached:
+                    # lower again against it, and pin the entry to it
+                    outcome = "revalidated"
+                    flat = lower_query(query, index_service.mapper)
+                    self.plans.put(cache_key, (flat, chain.reader_key))
+                    cached_rk = chain.reader_key
             # the deltas are operands of the same lowered query: each
             # batches in its own queue, the columns merge on the host
+            t_sub = time.perf_counter()
             futures = [self.batcher.submit(p, flat, k)
                        for p in chain.parts]
             if all(f is not None for f in futures):
@@ -1631,27 +2101,243 @@ class GpuSearchService:
             # a refresh, fold or delete retired a pack of the chain
             # after the lookup: resolve the whole chain again
         self.stages.add("lower", t1 - t0)
-        # one deadline shared by the parts
-        deadline = t1 + self.batch_timeout_s
-        parts = [f.result(timeout=max(0.01, deadline - time.perf_counter()))
-                 for f in futures]
+        self.stages.add("pack_get", t2 - t1)
+        # the wait: the service's cap, or the request's deadline when
+        # that is shorter; one deadline shared by the chain's parts
+        wait = self.batch_timeout_s
+        deadline_limited = (timeout_s is not None
+                            and timeout_s < self.batch_timeout_s)
+        if deadline_limited:
+            wait = max(0.05, timeout_s)
+        deadline = t_sub + wait
+        try:
+            parts = [f.result(timeout=max(0.01,
+                                          deadline - time.perf_counter()))
+                     for f in futures]
+        except FuturesTimeout:
+            with self._lock:
+                self.timeouts += 1
+                if deadline_limited:
+                    self.fallback += 1
+                    self.last_error = "request deadline during kernel batch"
+            if deadline_limited:
+                return None
+            raise
         result = (parts[0] if len(parts) == 1
                   else _union_results(parts, chain, k))
-        self.stages.add("batch_wait", time.perf_counter() - t1)
+        t_done = time.perf_counter()
+        self.stages.add("batch_wait", t_done - t_sub)
+        split = self._record_batch_wait_split(
+            getattr(futures[0], "pending", None), t_sub, t_done,
+            result.variant)
         with self._lock:
             self.served += 1
+        if profile_sink is not None:
+            profile_sink.update({
+                "variant": result.variant,
+                "plan_cache": outcome,
+                "stages_ms": {"lower": round((t1 - t0) * 1e3, 4),
+                              "pack_get": round((t2 - t1) * 1e3, 4),
+                              "batch_wait": round((t_done - t_sub) * 1e3,
+                                                  4)}})
+            if split:
+                profile_sink["stages_ms"]["batch_wait_split"] = {
+                    name: round(dt * 1e3, 4) for name, dt in split.items()}
         return result
 
+    def _record_batch_wait_split(self, pending, t_sub: float,
+                                 t_done: float, variant: Optional[str]
+                                 ) -> Optional[Dict[str, float]]:
+        """One query's batch_wait in four parts, from the marks its
+        train's workers stamped: queue (submit to the train's cycle),
+        window (the batching window), dispatch (the launch's host work)
+        and completion (the device, the copy back and the decode); they
+        sum to batch_wait by construction."""
+        if pending is None or not pending.t_take or not pending.t_launched:
+            return None
+        t_c, t_t, t_l = pending.t_cycle, pending.t_take, pending.t_launched
+        split = {"queue": max(0.0, t_c - t_sub),
+                 "window": max(0.0, t_t - max(t_sub, t_c)),
+                 "dispatch": max(0.0, t_l - t_t),
+                 "completion": max(0.0, t_done - t_l)}
+        for name, dt in split.items():
+            self.stages.add(f"batch_wait.{name}", dt)
+            if variant:
+                self.stages.add(f"batch_wait.{name}.{variant}", dt)
+        return split
+
     def invalidate_index(self, name: str) -> None:
-        """Drop the index's resident packs, their breaker charge and
-        their batcher queues (index delete)."""
+        """Drop the index's resident packs, their breaker charge, their
+        batcher queues and its lowered plans (index delete or close)."""
         self.packs.invalidate(name)
+        self.plans.invalidate_index(name)
+
+    def invalidate_plans(self, name: str) -> None:
+        """Drop the index's lowered plans only (a mapping update: the
+        generation in the key already makes them unreachable; this keeps
+        the LRU from carrying them)."""
+        self.plans.invalidate_index(name)
+
+    # -- prewarm -----------------------------------------------------------
+
+    def prewarm(self, index_service, field: str,
+                concurrency: Optional[int] = None) -> Dict[str, Any]:
+        """Make the (index, field) pack resident and run every
+        steady-state serving signature once, now, instead of on the first
+        requests (the reference's index warmer). On a card that builds
+        the kernel library (nvcc at first use), places the pack and runs
+        one warm train a deduped signature (batch bucket × kernel-k
+        bucket × width or prefix × variant), on `concurrency` threads.
+        Traffic that arrives meanwhile goes to the planner (try_search's
+        `_warming` grace); the library is built before the grace opens,
+        since that planner launches shard_topk from the same library."""
+        t0 = time.perf_counter()
+        workers = max(1, concurrency or self.prewarm_concurrency)
+        if any(d.type == "cuda" for row in self.mesh.grid for d in row):
+            merge_kernel.build()
+        with self._prewarm_lock:
+            self._prewarm_progress = {"state": "warming", "total": 0,
+                                      "done": 0, "seconds": 0.0}
+        self._warming = True
+        try:
+            resident = self.packs.get(index_service, field)
+            t_pack = time.perf_counter() - t0
+            compiled: List[Dict[str, Any]] = []
+            if resident is not None:
+                self._compile_signatures(resident, field, compiled,
+                                         workers)
+            return {"pack_seconds": round(t_pack, 2), "compiled": compiled,
+                    "total_seconds": round(time.perf_counter() - t0, 2)}
+        finally:
+            self._warming = False
+            with self._prewarm_lock:
+                self._prewarm_progress["state"] = "done"
+                self._prewarm_progress["seconds"] = round(
+                    time.perf_counter() - t0, 2)
+
+    def prewarm_async(self, index_service, field: str,
+                      concurrency: Optional[int] = None
+                      ) -> threading.Thread:
+        """prewarm on a thread of its own; try_search sends traffic to
+        the planner until it ends; stats()["prewarm"] shows progress."""
+        t = threading.Thread(
+            target=lambda: self.prewarm(index_service, field,
+                                        concurrency=concurrency),
+            daemon=True, name="gpu-prewarm")
+        t.start()
+        return t
+
+    def _compile_signatures(self, resident: ResidentPack, field: str,
+                            compiled: List[Dict[str, Any]],
+                            workers: int) -> None:
+        """The reference's signature table, deduped the same way, each
+        signature's warm train run once (best effort: a failure is
+        recorded on its entry, and after three in a row the rest are
+        skipped)."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        terms: List[str] = []
+        for v in resident.pack.vocabs:
+            if v:
+                terms = [next(iter(v))]
+                break
+        flat = FlatQuery(field, terms or ["_warm_"], 1.0, 1)
+        buckets = sorted({8, 64, _serving_bucket(self.batcher.max_batch)})
+        table = []   # (batch, k, slots | None, prefix | None)
+        for b_bucket in buckets:
+            for k in (10, PRUNE_MAX_K):
+                for slots in FULL_SLOT_BUCKETS:
+                    table.append((b_bucket, k, slots, None))
+                table.append((b_bucket, k, None, PREFIX_CAP2))
+        # the PREFIX_CAP3 escalation runs inside a train's completion
+        for b_bucket in buckets:
+            for k in (10, PRUNE_MAX_K):
+                table.append((b_bucket, k, None, PREFIX_CAP3))
+        packed_sort = self.kernel_config["packed_sort"]
+        compressed = resident.streams is not None
+        # a compressed pack has no impact-sorted copy: no pruned tier
+        if compressed:
+            pruned_variants: Tuple[str, ...] = ()
+            exact_variants: Tuple[str, ...] = ("compressed",
+                                               "compressed_exact")
+        else:
+            pruned_variants = ("packed", "ref") if packed_sort else ("ref",)
+            exact_variants = (("packed", "ref")
+                              if packed_sort
+                              and sparse.packable(resident.pack.d_pad)
+                              else ("ref",))
+        seen = set()
+        jobs = []  # (entry, run)
+        for b_bucket, k, slots, cap in table:
+            for variant in pruned_variants:
+                sig = (b_bucket, _candidate_k(k), slots, cap, variant)
+                if sig in seen:
+                    continue
+                seen.add(sig)
+                jobs.append(({"batch": b_bucket, "k": k, "slots": slots,
+                              "prefix": cap, "variant": variant},
+                             lambda b_bucket=b_bucket, k=k, slots=slots,
+                             cap=cap, variant=variant: _execute_pruned(
+                                 resident, [flat] * b_bucket, k,
+                                 prefix_cap=cap or PREFIX_CAP2,
+                                 full_slots=slots,
+                                 packed_sort=variant == "packed")))
+        # the exact launch (msm/AND, the escalation's last tier) at its
+        # common signatures; with counts through min_count 2
+        flat_and = FlatQuery(flat.field, flat.terms * 2, 1.0, 2)
+        for b_bucket, k in ((8, 10), (64, PRUNE_MAX_K)):
+            for variant in exact_variants:
+                jobs.append(({"batch": b_bucket, "k": k, "exact": True,
+                              "variant": variant},
+                             lambda b_bucket=b_bucket, k=k,
+                             variant=variant: _execute_exact(
+                                 resident, [flat_and] * b_bucket, k,
+                                 variant=variant)))
+        with self._prewarm_lock:
+            self._prewarm_progress["total"] += len(jobs)
+        fail_lock = threading.Lock()
+        consecutive_failures = [0]
+
+        def warm_one(entry, run):
+            with fail_lock:
+                skip = consecutive_failures[0] >= 3
+            t1 = time.perf_counter()
+            if skip:
+                entry["error"] = "skipped: systemic prewarm failure"
+            else:
+                try:
+                    run()
+                    with fail_lock:
+                        consecutive_failures[0] = 0
+                except Exception as exc:  # noqa: BLE001 — record, go on
+                    entry["error"] = f"{type(exc).__name__}: {exc}"[:160]
+                    with fail_lock:
+                        consecutive_failures[0] += 1
+                    logger.warning("prewarm %s failed: %s", entry, exc)
+                entry["seconds"] = round(time.perf_counter() - t1, 2)
+            compiled.append(entry)
+            with self._prewarm_lock:
+                self._prewarm_progress["done"] += 1
+
+        if workers <= 1 or len(jobs) <= 1:
+            for entry, run in jobs:
+                warm_one(entry, run)
+            return
+        with ThreadPoolExecutor(max_workers=workers,
+                                thread_name_prefix="gpu-prewarm") as pool:
+            for f in [pool.submit(warm_one, entry, run)
+                      for entry, run in jobs]:
+                f.result()
+
+    # -- the service's own indices ------------------------------------------
 
     def search(self, name: str, body: Optional[dict] = None) -> dict:
-        """``_search`` over one index → {"took", "timed_out", "_shards",
-        "hits": {"total": {"value", "relation"}, "max_score", "hits":
-        [{"_index", "_id", "_score", "_source"}]}}. Raises NotLowerable
-        for a query or body outside the device path's subset."""
+        """``_search`` over one index of the service's own, through
+        try_search → {"took", "timed_out", "_shards", "hits": {"total":
+        {"value", "relation"}, "max_score", "hits": [{"_index", "_id",
+        "_score", "_source"}]}}. Raises NotLowerable for a query or body
+        outside the device path's subset (this service has no planner),
+        and while a prewarm runs."""
         t0 = time.perf_counter()
         idx = self._index(name)
         body = dict(body or {})
@@ -1670,20 +2356,9 @@ class GpuSearchService:
             # reference hands such a request to its planner)
             raise NotLowerable(f"from + size = {k} is outside (0, "
                                f"{MAX_K}], the device path's window")
-        flat = lower_query(query, idx.mapper)
-        while True:
-            resident = self.resident(name, flat.field)
-            t1 = time.perf_counter()
-            if resident is None:
-                res = FlatQueryResult.empty()
-                break
-            future = self.batcher.submit(resident, flat, k)
-            if future is not None:
-                self.stages.add("lower", t1 - t0)
-                res = future.result(timeout=self.batch_timeout_s)
-                self.stages.add("batch_wait", time.perf_counter() - t1)
-                break
-            # a refresh retired the pack after the lookup
+        res = self.try_search(idx, query, k=k)
+        if res is None:
+            raise NotLowerable("the kernel path is warming")
         scores = res.scores[from_: from_ + size]
         rows = res.rows[from_: from_ + size]
         ords = res.ords[from_: from_ + size]
@@ -1723,6 +2398,3 @@ class GpuSearchService:
             thread.join(timeout=30.0)
         self.batcher.close()
         self.packs.invalidate_all()
-        for idx in list(self._indices.values()):
-            with idx.lock:
-                self._drop_packs(idx)

@@ -10,13 +10,16 @@ scores come to the host once per segment, and the doc-value keys are
 ordered there by the reference's numpy ``lexsort`` (``search/sort.py``),
 ``search_after`` a mask over the same keys. The fetch
 phase resolves the winners' ``_source`` (``filter_source`` for a list),
-``_version`` and ``_seq_no``/``_primary_term``. Like every entry point
+``_version`` and ``_seq_no``/``_primary_term``. A ``SearchContext``
+carries a request's deadline: the query phase checks it between
+segments and returns what it has, ``timed_out``. Like every entry point
 of the port it runs on ``cuda:0`` unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -47,10 +50,40 @@ class ShardHit:
 @dataclasses.dataclass
 class QuerySearchResult:
     """A shard's query-phase result: top-k (doc ref, score), total hits;
-    no _source yet."""
+    no _source yet. timed_out: the request's deadline stopped it before
+    its last segment."""
     hits: List[ShardHit]
     total_hits: int
     max_score: Optional[float]
+    timed_out: bool = False
+
+
+class SearchContext:
+    """A search request's deadline and cancellation (the reference's
+    SearchContext), checked between segments, the unit of work the
+    engine schedules: a passed deadline gives partial results with
+    ``"timed_out": true``; a cancelled task raises out of the request
+    (`task` stays None until the task manager is ported)."""
+
+    def __init__(self, timeout_s: Optional[float] = None, task=None):
+        self.deadline = (time.monotonic() + timeout_s
+                         if timeout_s is not None else None)
+        self.task = task
+        self.timed_out = False
+
+    def remaining_s(self) -> Optional[float]:
+        if self.deadline is None:
+            return None
+        return max(0.0, self.deadline - time.monotonic())
+
+    def should_stop(self) -> bool:
+        """True: stop collecting and return the partial result."""
+        if self.task is not None:
+            self.task.ensure_not_cancelled()  # raises when cancelled
+        if self.deadline is not None and time.monotonic() >= self.deadline:
+            self.timed_out = True
+            return True
+        return False
 
 
 def execute_query(reader: ShardReader, query: dsl.QueryNode, *,
@@ -58,22 +91,29 @@ def execute_query(reader: ShardReader, query: dsl.QueryNode, *,
                   min_score: Optional[float] = None,
                   sort_specs: Optional[List] = None,
                   search_after: Optional[List] = None,
-                  device=None) -> QuerySearchResult:
+                  device=None,
+                  ctx: Optional[SearchContext] = None) -> QuerySearchResult:
     """The query phase over every segment of `reader` on `device`
     (default: cuda:0; "cpu" for the plain path). min_score filters the
     match set, totals included; `sort_specs` (parsed ``sort.SortSpec``)
     sorts by fields, with per-hit sort values, after the `search_after`
-    cursor."""
+    cursor; `ctx`'s deadline, checked between segments, stops it with
+    the partial result (timed_out)."""
     dev = resolve_device(device)
     if sort_specs:
         return _execute_sorted_query(reader, query, size=size, from_=from_,
                                      min_score=min_score,
                                      sort_specs=sort_specs,
-                                     search_after=search_after, device=dev)
+                                     search_after=search_after, device=dev,
+                                     ctx=ctx)
     k = size + from_
     per_segment: List[Tuple[int, np.ndarray, np.ndarray]] = []
     total = 0
+    timed_out = False
     for idx, view in enumerate(reader.views):
+        if ctx is not None and ctx.should_stop():
+            timed_out = True
+            break
         executor = SegmentQueryExecutor(reader, idx, dev)
         mask, score = executor.execute(query)
         live = torch.as_tensor(view.live_mask).to(dev)
@@ -104,21 +144,26 @@ def execute_query(reader: ShardReader, query: dsl.QueryNode, *,
         hits.append(ShardHit(seg.doc_ids[ord_], score,
                              ShardDocRef(seg.name, ord_)))
     max_score = merged[0][0] if merged else None
-    return QuerySearchResult(hits, total, max_score)
+    return QuerySearchResult(hits, total, max_score, timed_out=timed_out)
 
 
 def _execute_sorted_query(reader: ShardReader, query: dsl.QueryNode, *,
                           size: int, from_: int, min_score,
                           sort_specs: List, search_after,
-                          device) -> QuerySearchResult:
+                          device, ctx: Optional[SearchContext] = None
+                          ) -> QuerySearchResult:
     """The field-sorted query phase: per segment, the query on the
     device, its mask and scores to the host once, a lexsort of the
     matching docs' sort keys (numeric values, keyword ordinals); then a
     merge across segments on value tuples."""
     k = size + from_
     total = 0
+    timed_out = False
     merged: List[Tuple[Tuple, int, int, float, List]] = []
     for idx, view in enumerate(reader.views):
+        if ctx is not None and ctx.should_stop():
+            timed_out = True
+            break
         executor = SegmentQueryExecutor(reader, idx, device)
         mask, score = executor.execute(query)
         live = torch.as_tensor(view.live_mask).to(device)
@@ -165,7 +210,7 @@ def _execute_sorted_query(reader: ShardReader, query: dsl.QueryNode, *,
     only_score = all(s.field == "_score" for s in sort_specs)
     max_score = (max((h.score for h in hits), default=None)
                  if only_score else None)
-    return QuerySearchResult(hits, total, max_score)
+    return QuerySearchResult(hits, total, max_score, timed_out=timed_out)
 
 
 def execute_fetch(reader: ShardReader, hits: List[ShardHit],

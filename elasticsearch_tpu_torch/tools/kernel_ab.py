@@ -11,9 +11,11 @@ prints one JSON line: the card, the launch's lane and key counts, and
 the median ms of each kernel over chip_smoke's TIMED launches (CUDA
 events around each launch, so a launch the device waits for counts its
 wait), under "device_ms" each kernel's mean device time over the same
-number of launches from torch.profiler (no wait counted); under "extra"
-the same for the launches past the main traffic
-(extra_bodies: a match of the corpus's most frequent terms at from +
+number of launches from torch.profiler (no wait counted); under "exact"
+the same for exact_merge on the train's bodies at boost 1e-15
+(chip_smoke's exact_bodies: one exact launch, its top-k apart); under
+"extra" the same for the launches past the main traffic (extra_bodies:
+a match of the corpus's most frequent terms at from +
 size 1000 and at from + size 10,000, and the fixed train's bodies at
 size 10, kernel k 128), each lowered into one train, with its lanes and
 the slots whose lanes reach kernel k (those slot_decode selects in).
@@ -94,6 +96,17 @@ def main() -> int:
             cs.TIMED)
         device_ms = profiled(lambda: mk.fused_merge_topk(*launch, **kw),
                              cs.TIMED)
+        ex_args, ex_kw = fixed_train(svc, mk, cs.exact_recorder, cs.INDEX,
+                                     cs.FIELD, cs.K, cs.exact_bodies(bodies))
+        for _ in range(3):
+            mk.exact_merge_topk(*ex_args, **ex_kw)
+        exact = dict(
+            rows=ex_args[2].shape[0], slots=ex_args[2].shape[1],
+            ms=cs.time_events(lambda ev: mk.exact_merge_topk(
+                *ex_args, **dict(ex_kw, events=ev)), cs.TIMED)["exact_merge"],
+            device_ms=profiled(lambda: mk.exact_merge_topk(*ex_args, **ex_kw),
+                               cs.TIMED).get("exact_merge"))
+        del ex_args, ex_kw
         extra = {}
         for label, size, queries in extra_bodies(corpus.vocab, cs.FIELD,
                                                  cs.K, cs.MAX_K, bodies):
@@ -121,7 +134,8 @@ def main() -> int:
         "keys": stats["keys"],
         "count_keys": stats["count_keys"],
         "candidates": stats["candidates"], "ms": ms,
-        "device_ms": device_ms, "extra": extra}), flush=True)
+        "device_ms": device_ms, "exact": exact, "extra": extra}),
+          flush=True)
     return 0
 
 

@@ -502,3 +502,24 @@ def test_pack_rebuilt_when_its_readers_are_replaced(tmp_path, seeded_np):
     finally:
         gpu.close()
         indices.close()
+
+
+def test_bare_service_concurrent_first_searches_build_one_pack():
+    """Searches that arrive together at a fresh index of the service's
+    own share one reader per shard, so one pack is built, not one each."""
+    from concurrent.futures import ThreadPoolExecutor
+    gpu = GpuSearchService(device="cpu", window_s=0.0)
+    body = {"query": {"match": {"body": "alpha"}}, "size": 5}
+    try:
+        gpu.create_index("fresh", number_of_shards=4, mapping=MAPPING)
+        gpu.index("fresh", [(f"d{i}", {"body": "alpha beta"})
+                            for i in range(40)])
+        gpu.refresh("fresh")
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            totals = list(pool.map(
+                lambda _: gpu.search("fresh", body)["hits"]["total"][
+                    "value"], range(8)))
+        assert totals == [40] * 8
+        assert gpu.packs.misses == 1
+    finally:
+        gpu.close()

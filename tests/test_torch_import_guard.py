@@ -18,6 +18,7 @@ NODE_MODULES = [
     "elasticsearch_tpu_torch.common.errors",
     "elasticsearch_tpu_torch.common.settings",
     "elasticsearch_tpu_torch.common.breaker",
+    "elasticsearch_tpu_torch.common.logging",
     "elasticsearch_tpu_torch.analysis.analyzers",
     "elasticsearch_tpu_torch.analysis.filters",
     "elasticsearch_tpu_torch.mapping.types",

@@ -312,13 +312,11 @@ class TestIndexSettings:
         assert res["d3"]["settings"]["index"]["number_of_replicas"] == "2"
         pair.same("GET", "/d3")
 
-    @pytest.mark.parametrize("key", [
-        "index.search.slowlog.threshold.query.warn",
-        "index.default_pipeline"])
+    @pytest.mark.parametrize("key", ["index.default_pipeline"])
     def test_unported_dynamic_settings_are_refused(self, pair, key):
-        """The reference takes these; their modules (the slow log,
-        ingest) are not ported, so the port refuses them with a 400
-        that says so and leaves the index as it was."""
+        """The reference takes this one; its module (ingest) is not
+        ported, so the port refuses it with a 400 that says so and
+        leaves the index as it was."""
         pair.same("PUT", "/d4/_doc/1", {"m": "x"})
         status, text = call(pair.port, dumps_response, "PUT",
                             "/d4/_settings", {key: "0ms"})
@@ -358,8 +356,7 @@ class TestClusterSettings:
         s, res = pair.same("GET", "/_cluster/settings")
         assert s == 200 and set(res) == {"persistent", "transient"}
 
-    @pytest.mark.parametrize("key", ["logger.elasticsearch_tpu.restarted",
-                                     "cluster.remote.other.seeds"])
+    @pytest.mark.parametrize("key", ["cluster.remote.other.seeds"])
     def test_unported_cluster_settings_are_refused(self, pair, key):
         status, text = call(pair.port, dumps_response, "PUT",
                             "/_cluster/settings",

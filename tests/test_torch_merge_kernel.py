@@ -168,7 +168,7 @@ def test_full_slot_rows_match_plain(cuda, n_terms):
 
 
 def test_thousand_short_slots_match_plain(cuda):
-    """T = T_LIMIT = 1024 slots of 64 lanes (16 terms of 4096 docs in
+    """T = 1024 slots of 64 lanes (16 terms of 4096 docs in
     64-lane chunks, 64 chunks a term): row_pack's skip preamble over the
     whole slot table (each slot's term bound, first-slot flags, the
     serial sum) in every one of a row's 32 blocks, and an msm row."""
@@ -180,7 +180,7 @@ def test_thousand_short_slots_match_plain(cuda):
             [(ext[t][0], ext[t][1], ws[t], t) for t in range(0, 16, 2)]]
     pos, extra, static = cases.kernel_args(fd, fi, rows, [1, 3], d_pad, ext,
                                            chunk_cap=64)
-    assert pos[2].shape[1] == merge_kernel.T_LIMIT
+    assert pos[2].shape[1] == 1024
     assert static["max_len"] == 64
     for k in (10, 64, 1000):
         for with_totals in (True, False):
@@ -610,3 +610,64 @@ def test_pruned_rescore_spread_matches_plain(cuda, t_terms):
     assert torch.equal(got[1], want[1])
     assert stats["rescore_classes"]["rescore.spread"] == 8
     assert all(n >= 1 for n in stats["rescore_blocks_per_sm"].values())
+
+
+# ---------------------------------------------------------------------------
+# rows past 1,024 slots
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("t_slots,cap", [(2048, 64), (4096, 64),
+                                         (8192, 8), (16384, 8)])
+def test_wide_rows_match_plain(cuda, t_slots, cap):
+    """The fused kernels on rows of 1,100 terms (doc 0's run of 1,100
+    lanes: the 14-level run trees, the 11th doubling step): row_pack's
+    slot table built once a row in device memory, select_rescore's
+    prefix in device memory; k 10 runs the skip's term bounds over the
+    whole table."""
+    rng = np.random.default_rng(t_slots)
+    fd, fi, rows, mins, d_pad, ext = cases.make_wide_case(rng, t_slots,
+                                                          chunk_cap=cap)
+    pos, extra, static = cases.kernel_args(fd, fi, rows, mins, d_pad, ext,
+                                           chunk_cap=cap)
+    assert pos[2].shape == (2, t_slots) and static["t_window"] == 1100
+    for k in (10, 1000):
+        got, want = run_pair(pos, extra, static, k, cuda)
+        cases.assert_bitwise(got, want, f"T={t_slots} k={k}")
+        assert int(got[1][0][0]) == 0 and int(got[2][1]) == 1
+
+
+@pytest.mark.parametrize("t_slots,cap", [(2048, 64), (4096, 64),
+                                         (16384, 8)])
+@pytest.mark.parametrize("raw", [False, True], ids=["exact", "raw"])
+def test_wide_exact_and_raw_merge_match_plain(cuda, t_slots, cap, raw):
+    """exact_merge (boost 1e-15) and raw_merge on rows of 1,100 terms:
+    the slot table beside the windows (T 2048), a device-memory slice a
+    block with the grid walking the rows (T 4096), the radix class past
+    the window's items (T 16,384)."""
+    rng = np.random.default_rng(t_slots + 7)
+    fd, fi, rows, mins, d_pad, ext = cases.make_wide_case(rng, t_slots,
+                                                          chunk_cap=cap)
+    if raw:
+        pos, static = cases.raw_args(fd, fi, rows, mins, d_pad,
+                                     chunk_cap=cap)
+        extra = {}
+    else:
+        rows = [[(s, n, w * 1e-15, t) for s, n, w, t in row]
+                for row in rows]
+        pos, extra, static = cases.kernel_args(fd, fi, rows, mins, d_pad,
+                                               ext, chunk_cap=cap)
+    tpos = cases.to_torch(pos, cuda)
+    kw = dict(static, k=1000, with_totals=True,
+              **cases.to_torch(extra, cuda))
+    stats = {}
+    if raw:
+        got = merge_kernel.raw_merge_topk(*tpos, stats=stats, **kw)
+        want = merge_kernel.raw_merge_topk_plain(*tpos, **kw)
+    else:
+        got = merge_kernel.exact_merge_topk(*tpos, stats=stats, **kw)
+        want = merge_kernel.exact_merge_topk_plain(*tpos, **kw)
+    torch.cuda.synchronize()
+    cases.assert_bitwise(got, want, f"T={t_slots}")
+    assert int(got[1][0][0]) == 0 and int(got[2][1]) == 1
+    assert (stats["exact_classes"]["exact.radix"] == 2) == (t_slots == 16384)
+    assert (stats["table_blocks"] > 0) == (t_slots >= 4096)

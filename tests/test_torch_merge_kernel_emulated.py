@@ -420,9 +420,9 @@ def test_slot_decode_outputs_match_plain(emulated, kind, k):
 
 
 def test_slot_decode_thousand_short_slots_match_plain(emulated):
-    """T = T_LIMIT = 1024 slots of 64 lanes (64 chunks of each of 16
-    terms), many slots to one bounds block, every full slot selecting
-    at k = 10, and the slots past a row's terms empty."""
+    """T = 1024 slots of 64 lanes (64 chunks of each of 16 terms), many
+    slots to one bounds block, every full slot selecting at k = 10, and
+    the slots past a row's terms empty."""
     rng = np.random.default_rng(331)
     d_pad = 9000
     fd, fi, ext = cases.make_heavy_flat(rng, d_pad, [4096] * 16, skew=2.0)
@@ -431,7 +431,7 @@ def test_slot_decode_thousand_short_slots_match_plain(emulated):
             [(ext[t][0], ext[t][1], ws[t], t) for t in range(0, 16, 3)]]
     pos, extra, static = cases.kernel_args(fd, fi, rows, [1, 1], d_pad, ext,
                                            chunk_cap=64)
-    assert pos[2].shape[1] == merge_kernel.T_LIMIT
+    assert pos[2].shape[1] == 1024
     got, want, stats = run_pair(pos, extra, static, 10)
     cases.assert_bitwise(got, want)
     assert_slot_decode_matches_plain(pos, extra, static, 10, stats)
@@ -455,8 +455,9 @@ def test_slot_decode_outside_the_code_domain_matches_plain(emulated,
 
 @pytest.mark.parametrize("fault", ["k", "length", "t_window"])
 def test_launch_refuses_what_the_kernels_do_not_take(emulated, fault):
-    """k past K_LIMIT, or a slot longer than max_len (the lane decode and
-    the staged rescore window hold max_len lanes), raise before a launch."""
+    """k past K_LIMIT, a slot longer than max_len (the lane decode and
+    the staged rescore window hold max_len lanes), or a window past the
+    run trees' depth (WINDOW_LIMIT), raise before a launch."""
     rng = np.random.default_rng(5)
     fd, fi, rows, mins, d_pad, k, ext = cases.make_case(rng)
     pos, extra, static = cases.kernel_args(fd, fi, rows, mins, d_pad, ext,
@@ -464,7 +465,7 @@ def test_launch_refuses_what_the_kernels_do_not_take(emulated, fault):
     if fault == "k":
         k, match = merge_kernel.K_LIMIT + 1, "k ≤"
     elif fault == "t_window":
-        static = dict(static, t_window=merge_kernel.T_LIMIT + 1)
+        static = dict(static, t_window=merge_kernel.WINDOW_LIMIT + 1)
         match = "t_window"
     else:
         pos[3] = pos[3].copy()
@@ -926,3 +927,69 @@ def test_pruned_rescore_full_width_matches_plain(emulated, mode):
     np.testing.assert_array_equal(got[0].numpy().view(np.uint32),
                                   want[0].numpy().view(np.uint32))
     np.testing.assert_array_equal(got[1].numpy(), want[1].numpy())
+
+
+# ---------------------------------------------------------------------------
+# rows past 1,024 slots
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("t_slots,k", [(2048, 10), (2048, 1000),
+                                       (4096, 1000), (8192, 1000)])
+def test_wide_rows_match_plain(emulated, t_slots, k):
+    """The fused kernels on rows of 1,100 terms at chunk_cap 64 (T 2048,
+    4096, 8192; the windows past 1,024 terms take the 14-level run
+    trees, doc 0's run of 1,100 lanes the 11th doubling step): row_pack's
+    slot table built once a row in device memory (pack_table_kernel),
+    select_rescore's slot prefix in device memory past 1,024 slots, and
+    at k 10 the skip's term bounds over the whole table. Scores as uint32, docs and totals exactly. Past T
+    2048 chunks of 8 lanes keep the rows' lanes few."""
+    rng = np.random.default_rng(t_slots)
+    cap = 64 if t_slots == 2048 else 8
+    fd, fi, rows, mins, d_pad, ext = cases.make_wide_case(rng, t_slots,
+                                                          chunk_cap=cap)
+    pos, extra, static = cases.kernel_args(fd, fi, rows, mins, d_pad, ext,
+                                           chunk_cap=cap)
+    assert pos[2].shape == (2, t_slots) and static["t_window"] == 1100
+    got, want, stats = run_pair(pos, extra, static, k)
+    cases.assert_bitwise(got, want, f"T={t_slots} k={k}")
+    assert int(got[1][0][0]) == 0 and int(got[2][1]) == 1
+    assert stats["do_skip"] == int(k <= static["max_len"])
+    assert stats["slots"] == t_slots
+    assert stats["run_sum_output"]["n_cand"].tolist()[1] == 1
+
+
+@pytest.mark.parametrize("t_slots", [2048, 4096, 16384])
+@pytest.mark.parametrize("raw", [False, True], ids=["exact", "raw"])
+def test_wide_exact_and_raw_merge_match_plain(emulated, t_slots, raw):
+    """exact_merge (boost 1e-15: unpackable weights) and raw_merge on
+    rows of 1,100 terms: the slot table beside the windows in shared
+    memory (T 2048), in device memory a block slice with the grid
+    walking the rows (T 4096), and past the merge window's items (T
+    16,384) the radix class for every row. Chunks of 8 lanes keep the
+    rows' lanes (and the emulator's windows) few."""
+    rng = np.random.default_rng(t_slots + 7)
+    fd, fi, rows, mins, d_pad, ext = cases.make_wide_case(rng, t_slots,
+                                                          chunk_cap=8)
+    if raw:
+        pos, static = cases.raw_args(fd, fi, rows, mins, d_pad, chunk_cap=8)
+        extra = {}
+    else:
+        rows = unpackable(rows, 1e-15)
+        pos, extra, static = cases.kernel_args(fd, fi, rows, mins, d_pad,
+                                               ext, chunk_cap=8)
+    assert pos[2].shape == (2, t_slots)
+    tpos = cases.to_torch(pos)
+    kw = dict(static, k=1000, with_totals=True, **cases.to_torch(extra))
+    stats = {}
+    got = merge_kernel._launch_exact(*tpos, stats=stats, events=None,
+                                     raw=raw, **kw)
+    plain = (merge_kernel.raw_merge_topk_plain if raw
+             else merge_kernel.exact_merge_topk_plain)
+    cases.assert_bitwise(got, plain(*tpos, **kw), f"T={t_slots}")
+    assert int(got[1][0][0]) == 0 and int(got[2][1]) == 1
+    classes = stats["exact_classes"]
+    if t_slots == 16384:
+        assert classes["exact.radix"] == 2
+    else:
+        assert classes["exact.radix"] == 0
+    assert (stats["table_blocks"] > 0) == (t_slots >= 4096)

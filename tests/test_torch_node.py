@@ -22,6 +22,7 @@ import torch
 
 from elasticsearch_tpu.common.settings import Settings as RefSettings
 from elasticsearch_tpu.node import Node as RefNode
+from elasticsearch_tpu.parallel.mesh import make_mesh as ref_make_mesh
 from elasticsearch_tpu.search.serializer import dumps_response as ref_dumps
 
 from elasticsearch_tpu_torch.node import Node, serve
@@ -477,9 +478,11 @@ def test_planner_bound_requests_get_a_typed_400(pair, name):
 
 
 def test_scroll_filtered_alias_and_wide_rows_get_a_typed_400(pair):
-    """Rows of more than 1,024 slots get a typed 400. A scroll and a
-    sort on a filtered alias, refused until Queue A5c, are served: the
-    reference's bytes (the scroll id aside)."""
+    """A scroll and a sort on a filtered alias, refused until Queue A5c,
+    are served: the reference's bytes (the scroll id aside). Rows of
+    more than 1,024 slots, a typed 400 until Queue A3, are served by the
+    kernel path on both nodes (a compressed pack): the reference's
+    bytes."""
     port = pair.port
     for node in (pair.ref, port):
         node.indices.put_alias("corpus", "filtered400",
@@ -497,16 +500,44 @@ def test_scroll_filtered_alias_and_wide_rows_get_a_typed_400(pair):
         assert got.pop("_scroll_id", None) is not None or not params
         assert got == want
         assert got["hits"]["hits"]
-    # one document of 1100 distinct words: a terms query of all of them
-    # needs more than the kernel's 1024 slots a row
+    # one document of 1,100 distinct words: a terms query of all of them
+    # fills 1,100 slots a row (T 2048), past the 1,024 the kernels held
+    # before; a train of it takes ~20 s on the reference's interpreted
+    # kernel and ~60 s on the port's plain version here, so both waits
+    # are raised for it
     words = [f"w{i}" for i in range(1100)]
-    call(port, dumps_response, "PUT", "/wide/_doc/1",
-         {"body": " ".join(words)}, params={"refresh": "true"})
-    status, text = call(port, dumps_response, "POST", "/wide/_search",
-                        {"query": {"terms": {"body": words}}})
-    err = json.loads(text)
-    assert status == 400, err
-    assert err["error"]["type"] == "not_lowerable", err
+    pair.both("PUT", "/wide/_doc/1", {"body": " ".join(words)},
+              params={"refresh": "true"})
+    pair.both("PUT", "/wide/_doc/2", {"body": "w0 w7 w1099"},
+              params={"refresh": "true"})
+    # the reference's packs on one device of its CPU mesh while it runs
+    # (the tests' 8 virtual devices would pad the one shard's rows to 8:
+    # ~10 GB), then back on the whole mesh
+    tpu = pair.ref.tpu_search
+    saved = (tpu.batch_timeout_s, port.gpu_search.batch_timeout_s,
+             tpu.packs.mesh)
+    tpu.batch_timeout_s = 600.0
+    port.gpu_search.batch_timeout_s = 600.0
+    tpu.packs.invalidate_all()
+    tpu.packs.set_mesh(ref_make_mesh(
+        shape=(1, 1), devices=ref_make_mesh().devices.flat[:1]))
+    tpu.batcher.mesh = tpu.packs.mesh
+    try:
+        shapes = dict(port.gpu_search.launch_shapes)
+        want, got = pair.both("POST", "/wide/_search",
+                              {"query": {"terms": {"body": words}}},
+                              kernel=True)
+    finally:
+        tpu.batch_timeout_s, port.gpu_search.batch_timeout_s = saved[:2]
+        tpu.packs.invalidate_all()
+        tpu.packs.set_mesh(saved[2])
+        tpu.batcher.mesh = saved[2]
+    assert want[0] == 200, want
+    assert got == want
+    assert json.loads(got[1])["hits"]["total"]["value"] == 2
+    grown = {s: n - shapes.get(s, 0)
+             for s, n in port.gpu_search.launch_shapes.items()}
+    assert grown.get((8, 2048, 128)) == 1
 
 
 @pytest.mark.parametrize("body", [

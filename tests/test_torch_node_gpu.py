@@ -312,3 +312,62 @@ def test_rest_remainder_card_bytes_match_cpu_bytes(filtered_alias, name):
                 for node in filtered_alias)
     assert gpu[0] == 200, gpu
     assert _took0(gpu[1]) == _took0(cpu[1])
+
+
+#: the timing fields of a `profile` answer, masked on both nodes
+PROFILE_TIMING = ("took", "time_in_nanos", "breakdown", "stages_ms",
+                  "device_stages", "batch_wait_split")
+
+
+def mask_profile(text):
+    def walk(obj):
+        if isinstance(obj, dict):
+            return {k: "<timing>" if k in PROFILE_TIMING else walk(v)
+                    for k, v in obj.items()}
+        if isinstance(obj, list):
+            return [walk(v) for v in obj]
+        return obj
+    return json.dumps(walk(json.loads(text)))
+
+
+@pytest.mark.parametrize("boost", [1.0, 1e-15], ids=["fused", "exact"])
+def test_wide_rows_card_bytes_match_cpu_bytes(nodes, boost):
+    """A terms query over 1,100 words of one document: rows of 1,100
+    slots (T 2048) and a run of 1,100 lanes, through the fused kernels or
+    (boost 1e-15) exact_merge on the card, the plain versions on the
+    CPU (a train of ~1 min there: both nodes wait up to 600 s)."""
+    gpu, cpu = nodes
+    words = [f"w{i}" for i in range(1100)]
+    for node in (gpu, cpu):
+        node.gpu_search.batch_timeout_s = 600.0
+        call(node, "PUT", "/wide/_doc/1", {"body": " ".join(words)})
+        call(node, "PUT", "/wide/_doc/2", {"body": "w0 w7 w1099"})
+        call(node, "POST", "/wide/_refresh")
+    body = {"query": {"terms": {"body": words, "boost": boost}}}
+    kernel = "exact_merge" if boost != 1.0 else "select_rescore"
+    before = merge_kernel.LAUNCHES[kernel]
+    got = call(gpu, "POST", "/wide/_search", body)
+    assert merge_kernel.LAUNCHES[kernel] == before + 1
+    want = call(cpu, "POST", "/wide/_search", body)
+    assert got[0] == 200, got
+    assert got == want
+    assert gpu.gpu_search.launch_shapes.get((8, 2048, 128))
+
+
+def test_profile_and_timeout_card_bytes_match_cpu_bytes(nodes):
+    """A `profile: true` body (the kernel section; timing fields masked
+    by name on both nodes) and a planner body at `timeout: 0ms` (timed
+    out before any shard) give the CPU node's bytes."""
+    gpu, cpu = nodes
+    profile = {"query": {"match": {"body": "alpha beta"}}, "profile": True}
+    got = call(gpu, "POST", "/corpus/_search", profile)
+    want = call(cpu, "POST", "/corpus/_search", profile)
+    assert got[0] == want[0] == 200
+    assert mask_profile(got[1]) == mask_profile(want[1])
+    assert json.loads(got[1])["profile"]["tpu"][0]["variant"] == \
+        "compressed"
+    timed = {"query": {"match": {"body": "alpha"}}, "sort": ["_score"],
+             "timeout": "0ms"}
+    got = call(gpu, "POST", "/corpus/_search", timed)
+    assert got == call(cpu, "POST", "/corpus/_search", timed)
+    assert json.loads(got[1])["timed_out"] is True

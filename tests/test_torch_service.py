@@ -207,16 +207,16 @@ def test_failed_train_fails_only_its_culprit(both):
         texts = ["alpha beta", "gamma zeta", "delta", "epsilon eta"]
         flats = [lower_query(dsl.parse_query({"match": {"body": t}}),
                              mapper) for t in texts]
-        real = svc.batcher.execute
+        real = svc.batcher.launch
         trains = []
 
-        def execute(resident, batch, k):
+        def launch(resident, batch, k):
             trains.append(len(batch))
             if any("zeta" in f.terms for f in batch):
                 raise RuntimeError("poisoned train")
             return real(resident, batch, k)
 
-        svc.batcher.execute = execute
+        svc.batcher.launch = launch
         futures = [svc.batcher.submit(resident, f, 10) for f in flats]
         with pytest.raises(RuntimeError, match="poisoned"):
             futures[1].result(timeout=60)
@@ -249,23 +249,54 @@ def test_routing_matches_reference(shards):
         [ref_shard(i, shards) for i in ids]
 
 
-def test_too_many_slots_refused():
-    """A query whose rows need more posting slots than the merge kernel
-    holds is refused with the typed error on every device."""
+def test_wide_rows_match_reference(tmp_path):
+    """A terms query over the 1,100 distinct words of one document: its
+    rows fill 1,100 slots (T 2048), and the document's run of 1,100 lanes
+    takes the doubling run sum's 11th step. The reference's kernel path
+    serves it (not its planner), and so does the port's, with the
+    reference's answer; a query past T_LIMIT slots is still the typed
+    400 on every device."""
     from elasticsearch_tpu_torch.ops import merge_kernel
-    words = [f"w{i}" for i in range(merge_kernel.T_LIMIT + 8)]
-    svc = GpuSearchService(device="cpu", window_s=0.0)
+    words = [f"w{i}" for i in range(1100)]
+    docs = [("d0", {"body": " ".join(words)}), ("d1", {"body": "w0 w1"}),
+            ("d2", {"body": " ".join(words[::3])})]
+    body = {"query": {"terms": {"body": words}}, "size": 10}
+    saved = dict(jax_tpu.KERNEL_CONFIG)
+    ref = IndicesService(str(tmp_path / "ref"))
+    idx = ref.create_index("wide", Settings.of(
+        {"index": {"number_of_shards": 1}}), MAPPING)
+    for doc_id, src in docs:
+        idx.shard(0).apply_index_on_primary(doc_id, src)
+    idx.refresh()
+    # one device of the reference's CPU mesh: the 8 virtual devices the
+    # tests give JAX would pad the one shard's rows to 8 and take ~10 GB
+    from elasticsearch_tpu.parallel.mesh import make_mesh as ref_make_mesh
+    one = ref_make_mesh(shape=(1, 1), devices=ref_make_mesh().devices.flat[:1])
+    tpu = TpuSearchService(window_s=0.0, batch_timeout_s=600.0, pallas=True,
+                           mesh=one)
+    svc = GpuSearchService(device="cpu", window_s=0.0,
+                           batch_timeout_s=600.0)
     try:
+        want = coordinator.search(ref, "wide", dict(body), tpu_search=tpu)
+        assert tpu.served == 1 and tpu.fallback == 0
         svc.create_index("wide", 1, MAPPING)
-        svc.index("wide", [("d0", {"body": " ".join(words)}),
-                           ("d1", {"body": "w0 w1"})])
+        svc.index("wide", docs)
+        svc.refresh("wide")
+        got = svc.search("wide", dict(body))
+        assert svc.launch_shapes == {(8, 2048, 128): 1}
+        assert_same_response(want, got)
+        assert [h["_id"] for h in got["hits"]["hits"]] == ["d0", "d2", "d1"]
+        too_wide = [f"x{i}" for i in range(merge_kernel.T_LIMIT + 8)]
+        svc.index("wide", [("d3", {"body": " ".join(too_wide)})])
         svc.refresh("wide")
         with pytest.raises(NotLowerable, match="slots"):
-            svc.search("wide", {"query": {"terms": {"body": words}}})
-        got = svc.search("wide", {"query": {"match": {"body": "w1"}}})
-        assert got["hits"]["total"]["value"] == 2
+            svc.search("wide", {"query": {"terms": {"body": too_wide}}})
     finally:
         svc.close()
+        tpu.close()
+        ref.close()
+        jax_tpu.KERNEL_CONFIG.clear()
+        jax_tpu.KERNEL_CONFIG.update(saved)
 
 
 #: bodies whose slot weights fail packable(): boost 1e-15 puts

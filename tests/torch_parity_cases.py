@@ -159,6 +159,41 @@ def make_full_slot_case(rng, n_terms, df=32768, d_pad=60000, skew=1.0):
     return fd, fi, rows, [1, 2], d_pad, ext
 
 
+#: wide-row cases (rows past 1,024 slots) at chunk_cap 64: the slots a
+#: term takes → the launch's T (1,100 terms: 1,100 slots → T 2048; 3,300
+#: → T 4096; 4,400 → T 8192; 8,800 → T 16,384)
+WIDE_SLOTS = {2048: 1, 4096: 3, 8192: 4, 16384: 8}
+WIDE_TERMS = 1100
+
+
+def make_wide_case(rng, t_slots, n_terms=WIDE_TERMS, d_pad=3000,
+                   chunk_cap=64):
+    """n_terms postings whose every row holds doc 0 (a run of n_terms
+    lanes: the doubling tree's 11th step at 1,100) and doc 1 in every
+    other term, each term `WIDE_SLOTS[t_slots]` chunks long → (flat docs,
+    flat impacts, rows, mins, d_pad, ext). Rows: every term (OR), and
+    every term at min_count 600 (doc 1's 550 terms fall short)."""
+    per = WIDE_SLOTS[t_slots]
+    lo, hi = (per - 1) * chunk_cap + 1, per * chunk_cap
+    docs_all, imps_all, ext = [], [], []
+    pos = 0
+    for t in range(n_terms):
+        df = int(rng.integers(max(lo, 3), hi + 1))
+        fixed = [0, 1] if t % 2 == 0 else [0]
+        rest = rng.choice(np.arange(2, d_pad), size=df - len(fixed),
+                          replace=False)
+        ds = np.sort(np.concatenate([fixed, rest])).astype(np.int32)
+        docs_all.append(ds)
+        imps_all.append(rng.uniform(0.1, 1.0, size=df).astype(np.float32))
+        ext.append((pos, df))
+        pos += df
+    flat_docs = np.concatenate(docs_all + [np.full(SLACK, d_pad, np.int32)])
+    flat_imp = np.concatenate(imps_all + [np.zeros(SLACK, np.float32)])
+    ws = [float(w) for w in rng.uniform(0.5, 3.0, size=n_terms)]
+    rows = [[(ext[t][0], ext[t][1], ws[t], t) for t in range(n_terms)]] * 2
+    return flat_docs, flat_imp, rows, [1, 600], d_pad, ext
+
+
 def make_tie_heavy_full_case(rng, df=32768, d_pad=60000):
     """Two full-slot terms with impacts on an eighths grid and unit
     weights: ~50,000 candidate docs per OR row whose quantized scores
