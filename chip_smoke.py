@@ -308,6 +308,40 @@ device mesh through the collective tail, and checks:
                  ms, the plain version on the checked rows, the bytes
                  bound, a stable torch.sort of the same keys)
 
+  knn            kNN on the card (the knn_scores kernel, csrc/knn.cu,
+                 then shard_topk), in parts. mesh (in process, before
+                 rest): a StackedVectorPack of 1,000,000 docs x 768 dims
+                 (Rally so_vector's vector width; its 2M docs cut to 1M
+                 for the time limit) over 16 shards, seeded gaussian rows
+                 (~1 % without a vector, ~1 % deleted; the rows made unit
+                 on the card for dot_product), placed without an ingest;
+                 64 queries at k 10 and 100 for each similarity through
+                 distributed_knn on the (1, 1) mesh and with no mesh,
+                 counts reset just before and read just after: mesh ==
+                 no mesh bit for bit, 8 sampled queries' top 10 against
+                 a float64 numpy oracle up to ties, the first launch of
+                 each similarity (its 8 sampled rows) and the timed
+                 cosine launch (whole) against the plain version bit for
+                 bit; q/s and ms a batch. rest (in fields, before its
+                 DELETE): the fields index's 64-dim cosine `vec` and a
+                 `kind` keyword; 8 bodies each of knn alone (k 10,
+                 num_candidates 100), hybrid with a match, a keyword
+                 filter, a similarity cutoff, two clauses (boosts 0.3,
+                 0.7), k 100 with num_candidates 1,000, and a 16-item
+                 _msearch, from one client after a warm request: per
+                 shape ms (mean, p50, max); every knn_scores launch and
+                 shard_topk call against the plain version bit for bit,
+                 per shape's first body the candidate phase and the shard
+                 query phase on the card == the CPU plain path, the hbm
+                 breaker and memory_allocated() back after it. A summary
+                 part gives both parts' seconds beside KNN_BUDGET_S
+                 (logged with within_budget, not asserted). The
+                 kernels line adds knn_scores (the cosine launch of 64
+                 queries over the 1M rows: CUDA-event and device ms, the
+                 plain version's ms, the bound (the larger of the bytes
+                 at 3.35 TB/s and the FP32 operations at 67 TFLOP/s),
+                 torch.matmul at full FP32 as the yardstick)
+
 The last line is {"ok": true, "device": {...}}; any failure exits
 non-zero without it. Without a CUDA device the script exits 2 at once.
 """
@@ -365,6 +399,29 @@ FIELDS_STOP = 25        # the corpus's most frequent words, as stop words
 FIELDS_SYNONYMS = 100   # equivalence rules of 3 band words (ids 20-3000)
 FIELDS_EXACT = 64       # bodies of the analyzed field with boost 1e-15
 VEC_DIMS = 64
+#: the knn line: REST bodies on the fields index (KNN_QUERIES seeded query
+#: vectors, KNN_SHAPE_QUERIES a body shape, the rest in one _msearch) and,
+#: in process, a StackedVectorPack of KNN_DOCS x KNN_DIMS (Rally
+#: so_vector's vector width; its 2M docs cut to 1M for the time limit)
+#: over KNN_SHARDS shards through distributed_knn, KNN_BATCH queries a
+#: batch, KNN_SAMPLE of them held against the plain version and a float64
+#: numpy oracle
+KNN_QUERIES = 64
+KNN_SHAPE_QUERIES = 8
+KNN_MSEARCH = 16
+KNN_DOCS = 1_000_000
+KNN_DIMS = 768
+KNN_SHARDS = 16
+KNN_BATCH = 64
+KNN_SAMPLE = 8
+KNN_MISSING = 0.01      # rows without a vector
+KNN_DELETED = 0.01      # deleted docs
+KNN_BUDGET_S = 45
+KNN_SOURCE = "elasticsearch_tpu_torch/csrc/knn.cu"
+KNN_LINE = ("elasticsearch_tpu/search/knn.py:100; "
+            "elasticsearch_tpu/parallel/distributed.py:1347")
+#: H100 SXM FP32 outside the tensor cores (NVIDIA data sheet)
+FP32_FLOPS_PER_S = 67e12
 QUERIES_INDEX = "queries"
 STORED_QUERIES = 1_000
 RAW_INDEX = "msmarco-raw"
@@ -498,6 +555,22 @@ def _gc_timer(phase, info):
     elif _GC_START:
         GC_FULL["count"] += 1
         GC_FULL["seconds"] += time.perf_counter() - _GC_START.pop()
+
+
+class gc_paused:
+    """The cyclic collector off for a block (an ingest whose objects live
+    on: each full collection its growth sets off would scan them all),
+    back on after it."""
+
+    def __enter__(self):
+        import gc
+        self.was = gc.isenabled()
+        gc.disable()
+
+    def __exit__(self, *exc):
+        import gc
+        if self.was:
+            gc.enable()
 
 
 def log(phase: str, **fields) -> None:
@@ -1787,6 +1860,8 @@ def planner_phase(host, port, node, corpus, mk, smi, features):
     over the same reader, and the response's hits against the
     coordinator's merge of the card's shard results. → (line, kernels
     entries)."""
+    import gc
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1794,7 +1869,12 @@ def planner_phase(host, port, node, corpus, mk, smi, features):
            "typed_shards": TYPED_SHARDS,
            "typed_note": ("the typed index is cut from 1M documents to "
                           "100,000 to keep the smoke inside its limit")}
-    out["typed_ingest_s"] = typed_bulk_load(host, port, corpus)
+    with gc_paused():
+        out["typed_ingest_s"] = typed_bulk_load(host, port, corpus)
+    # the typed documents live until the rest line's end: frozen, the
+    # collections of the lines after skip them (rest_phase thaws them
+    # after its DELETE)
+    gc.freeze()
     bodies = planner_bodies(corpus)
 
     def send(index, label, body):
@@ -2264,6 +2344,7 @@ FIELDS_MAPPING = {"properties": {
     "comments": {"type": "nested", "properties": {
         "author": {"type": "keyword"}, "likes": {"type": "long"}}},
     "suggest": {"type": "completion"},
+    "kind": {"type": "keyword"},
     "vec": {"type": "dense_vector", "dims": VEC_DIMS}}}
 
 
@@ -2296,6 +2377,7 @@ def fields_doc(rng, corpus, i):
            "suggest": {"input": [corpus.vocab[int(t)]
                                  for t in corpus.doc_tokens[i][:2]],
                        "weight": int(rng.integers(1, 100))},
+           "kind": f"k{i % 4}",
            "vec": [round(float(x), 3)
                    for x in rng.standard_normal(VEC_DIMS)]}
     if i % 11:
@@ -2469,6 +2551,8 @@ def fields_phase(host, port, node, corpus, bodies, mk, smi, features):
     more pass under the profiler; per body and shard execute_query on
     the card == the CPU plain path, and the response == the merge of
     the card's shard results → (line, launches of the kernel path)."""
+    import gc
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2494,8 +2578,10 @@ def fields_phase(host, port, node, corpus, bodies, mk, smi, features):
             "mappings": mapping})
         if status != 200:
             raise AssertionError(f"PUT {index}: {resp}")
-    out["ingest_s"] = fields_bulk_load(host, port, corpus)
+    with gc_paused():
+        out["ingest_s"] = fields_bulk_load(host, port, corpus)
     out["ingest_docs_per_s"] = FIELDS_DOCS / out["ingest_s"]
+    gc.freeze()   # as the typed index's (planner_phase)
     lines = []
     for i, q in enumerate(stored_queries(corpus)):
         lines += ['{"index":{"_id":"q%d"}}' % i, json.dumps({"query": q})]
@@ -2603,6 +2689,10 @@ def fields_phase(host, port, node, corpus, bodies, mk, smi, features):
     features["seconds"]["fields"] = time.perf_counter() - t_feat
     features["launches"] = {name: n + feat_launches.get(name, 0)
                             for name, n in features["launches"].items()}
+    # the knn line's REST part, on this index before its DELETE
+    knn = knn_rest(host, port, node, corpus, mk)
+    log("knn", part="rest", nvidia_smi=smi, **knn)
+    features["knn_rest"] = knn
     log("search_features", nvidia_smi=smi, typed=features["typed"],
         fields=feat_fields, launches=features["launches"],
         seconds=dict(features["seconds"],
@@ -3067,7 +3157,11 @@ def rest_phase(corpus, bodies, mk, smi, e2e_responses, data_root,
             "mappings": {"properties": {FIELD: {"type": "text"}}}})
         if status != 200:
             raise AssertionError(f"PUT index: {resp}")
-        ingest_s = rest_bulk_load(host, port, corpus, N_DOCS)
+        # the collector paused while the 1M documents' objects pile up
+        # (their growth set off 27 full collections, ~61 s, with it on);
+        # collected once and frozen after the ingest
+        with gc_paused():
+            ingest_s = rest_bulk_load(host, port, corpus, N_DOCS)
         t0 = time.perf_counter()
         for method, path in (("POST", f"/{REST_INDEX}/_forcemerge"),
                              ("POST", f"/{REST_INDEX}/_refresh")):
@@ -3206,6 +3300,9 @@ def rest_phase(corpus, bodies, mk, smi, e2e_responses, data_root,
         status, resp = rest_http(host, port, "DELETE", f"/{REST_INDEX}")
         if status != 200:
             raise AssertionError(f"DELETE index: {resp}")
+        # thaw what the line froze: the drain's collections reach the
+        # deleted indices' cycles (a retired batcher thread's among them)
+        gc.unfreeze()
         mem_after = None
         for _ in range(50):   # the retired batcher thread lets go
             gc.collect()
@@ -3236,8 +3333,7 @@ def rest_phase(corpus, bodies, mk, smi, e2e_responses, data_root,
     return out, dict(launches["source"],
                      exact_merge=launches["exact"]["exact_merge"]), \
         planner, planner_kernels, delta, delta_kernels, delta_launches, \
-        fields, fields_launches, rest_api, rest_api_launches, \
-        features["launches"]
+        fields, fields_launches, rest_api, rest_api_launches, features
 
 
 def time_events(fn, n):
@@ -4539,6 +4635,483 @@ def raw_phase(corpus, bodies, mk, smi, extra_sets, data_root):
     return out, kernels
 
 
+# ---------------------------------------------------------------------------
+# the knn line
+# ---------------------------------------------------------------------------
+
+def knn_bodies(corpus):
+    """The REST part's bodies on the fields index: {shape: [body]} from
+    KNN_QUERIES seeded query vectors (no _source: the hits' ~2 KB
+    sources are the fields line's business)."""
+    import numpy as np
+    rng = np.random.default_rng([SEED, 16])
+    vectors = iter([[round(float(x), 3) for x in rng.standard_normal(
+        VEC_DIMS)] for _ in range(KNN_QUERIES)])
+
+    def knn(**kw):
+        return dict({"field": "vec", "query_vector": next(vectors),
+                     "k": 10, "num_candidates": 100}, **kw)
+
+    n = KNN_SHAPE_QUERIES
+    words = corpus.vocab
+    shapes = {
+        "alone": [{"knn": knn()} for _ in range(n)],
+        "hybrid": [{"query": {"match": {
+            FIELD: f"{words[40 + i]} {words[300 + i]}"}}, "knn": knn()}
+            for i in range(n)],
+        "filter": [{"knn": knn(filter={"term": {"kind": f"k{i % 4}"}})}
+                   for i in range(n)],
+        "cutoff": [{"knn": knn(similarity=0.3)} for _ in range(n)],
+        "two_clauses": [{"knn": [knn(boost=0.3), knn(boost=0.7)]}
+                        for _ in range(n // 2)],
+        "k100": [{"knn": knn(k=100, num_candidates=1000), "size": 100}
+                 for _ in range(n)],
+        "msearch": [{"knn": knn()} for _ in range(KNN_MSEARCH)],
+    }
+    return {shape: [dict(b, _source=False) for b in bodies]
+            for shape, bodies in shapes.items()}
+
+
+class KnnRecorder:
+    """Wraps knn_kernel.knn_scores while a path runs and keeps each call's
+    operands and output (its first `rows` query rows, a copy), or only the
+    first call of each similarity with `first`."""
+
+    def __init__(self, kk, rows=None, first=False):
+        self.kk = kk
+        self.real = kk.knn_scores
+        self.rows = rows
+        self.first = first
+        self.calls = []
+
+    def __enter__(self):
+        def record(vectors, queries, kind, **kw):
+            out = self.real(vectors, queries, kind, **kw)
+            if not self.first or kind not in {c[2] for c in self.calls}:
+                r = self.rows or queries.shape[0]
+                self.calls.append((vectors, queries[:r].clone(), kind, kw,
+                                   out[:r].clone()))
+            return out
+        self.kk.knn_scores = record
+        return self
+
+    def __exit__(self, *exc):
+        self.kk.knn_scores = self.real
+
+
+def check_knn_calls(kk, calls, device=None):
+    """Every recorded knn_scores launch against the plain version on its
+    operands, bit for bit; raises on a mismatch. Launches over equal
+    vectors with the same similarity, formula, mask and cutoff (a
+    segment's, request after request) take one plain call over their
+    queries stacked: each row of the plain version depends on its query
+    alone. The plain version runs on `device` (default: the operands').
+    Empties `calls` → {launches, plain_calls, shapes}."""
+    import torch
+    groups = []   # [vectors, kind, kw, [(queries, got)]]
+    shapes = {}
+    n = 0
+    while calls:
+        vectors, queries, kind, kw, got = calls.pop()
+        kw = {k: v for k, v in kw.items() if k not in ("stats", "events")}
+        if device is not None:
+            vectors, queries, got = (t.to(device)
+                                     for t in (vectors, queries, got))
+            if kw.get("ok") is not None:
+                kw["ok"] = kw["ok"].to(device)
+        key = (f"{kind}.{kw.get('formula', 'segment')}.B{queries.shape[0]}"
+               f"xN{vectors.shape[0]}xD{vectors.shape[1]}")
+        shapes[key] = shapes.get(key, 0) + 1
+        n += 1
+        for group in groups:
+            g_vectors, g_kind, g_kw, members = group
+            if (g_kind == kind and g_vectors.shape == vectors.shape
+                    and {k: v for k, v in g_kw.items() if k != "ok"}
+                    == {k: v for k, v in kw.items() if k != "ok"}
+                    and (g_kw.get("ok") is None) == (kw.get("ok") is None)
+                    and (kw.get("ok") is None
+                         or torch.equal(g_kw["ok"], kw["ok"]))
+                    and torch.equal(g_vectors.nan_to_num(), vectors.nan_to_num())
+                    and torch.equal(g_vectors.isnan(), vectors.isnan())):
+                members.append((queries, got))
+                break
+        else:
+            groups.append([vectors, kind, kw, [(queries, got)]])
+    for vectors, kind, kw, members in groups:
+        want = kk.knn_scores_plain(vectors, torch.cat([q for q, _ in members]),
+                                   kind, **kw)
+        got = torch.cat([g for _, g in members])
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"knn_scores != plain ({kind}, "
+                                 f"{kw.get('formula', 'segment')}, "
+                                 f"N {vectors.shape[0]})")
+    return {"launches": n, "plain_calls": len(groups), "shapes": shapes,
+            "tolerance": "bitwise: scores as uint32"}
+
+
+def knn_shards_on_card(node, bodies):
+    """Per body (label, body) and shard: the knn candidate phase on the
+    card against the CPU plain path over the same pinned readers
+    (every clause's winners: segments, ords, scores exactly), then the
+    shard query phase of the union query on both → shards checked."""
+    from elasticsearch_tpu_torch.search import coordinator, dsl
+    from elasticsearch_tpu_torch.search import knn as knn_mod
+
+    dev = node.gpu_search.mesh.grid[0][0]
+    svc = node.indices.index(FIELDS_INDEX)
+    pinned = {(FIELDS_INDEX, num): shard.acquire_searcher()
+              for num, shard in sorted(svc.shards.items())}
+
+    def plain(wrap):
+        return {key: [({seg: (o.tolist(), sc.view("uint32").tolist())
+                        for seg, (o, sc) in seg_map.items()}, boost)
+                      for seg_map, boost in sets]
+                for key, sets in wrap.items()}
+
+    checked = 0
+    for label, body in bodies:
+        specs = knn_mod.parse_knn(body["knn"])
+        wraps = [coordinator.knn_candidate_phase(
+            node.indices, [FIELDS_INDEX], {}, specs, pinned, d)
+            for d in (dev, "cpu")]
+        if plain(wraps[0]) != plain(wraps[1]):
+            raise AssertionError(f"knn {label}: the candidate phase on the "
+                                 f"card != the CPU plain path")
+        features = coordinator.Features.of(body)
+        base = dsl.parse_query(body["query"]) if "query" in body else None
+        size = body.get("size", 10)
+        for key, reader in pinned.items():
+            res = []
+            for d, wrap in zip((dev, "cpu"), wraps):
+                sets = wrap.get(key, [])
+                if base is None and not sets:
+                    res.append(None)
+                    continue
+                r = coordinator.query_shard(
+                    reader, knn_mod.wrap_query(base, sets), features,
+                    size=size, from_=0, min_score=None, device=d)
+                res.append([(h.doc_id, h.score) for h in r.hits]
+                           + [r.total_hits])
+            if res[0] != res[1]:
+                raise AssertionError(f"knn {label}: shard {key[1]} on the "
+                                     f"card != the CPU plain path")
+            checked += 1
+    return checked
+
+
+def knn_rest(host, port, node, corpus, mk):
+    """The knn line's REST part on the fields index (before its DELETE):
+    each body shape of knn_bodies from one client after one warm request,
+    and the _msearch shape as one request; counts reset just before and
+    read just after (knn_scores and shard_topk must launch); every
+    knn_scores launch and every shard_topk call against its plain
+    version bit for bit; per shape's first body, the candidate phase and
+    the shard query phase on the card == the CPU plain path; the hbm
+    breaker and memory_allocated() back at their values before → the
+    part's record."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops import knn_kernel as kk
+
+    t_part = time.perf_counter()
+    shapes = knn_bodies(corpus)
+    hbm = node.breakers.get_breaker("hbm")
+    torch.cuda.synchronize()
+    mem_before, hbm_before = torch.cuda.memory_allocated(), hbm.used
+    search_once(host, port, "knn", FIELDS_INDEX, "warm",
+                shapes["alone"][0])
+    kk.reset_launches()
+    mk.reset_launches()
+    times, hits = {}, {}
+    with KnnRecorder(kk) as rec, TopkRecorder(mk) as top:
+        for shape, bodies in shapes.items():
+            if shape == "msearch":
+                continue
+            search_once(host, port, "knn", FIELDS_INDEX, shape, bodies[0])
+            times[shape], hits[shape] = [], 0
+            for body in bodies:
+                resp, ms = search_once(host, port, "knn", FIELDS_INDEX,
+                                       shape, body)
+                times[shape].append(ms)
+                hits[shape] += len(resp["hits"]["hits"])
+                if not resp["hits"]["hits"]:
+                    raise AssertionError(f"knn {shape}: no hits")
+        t0 = time.perf_counter()
+        status, resp = rest_http(host, port, "POST",
+                                 f"/{FIELDS_INDEX}/_msearch",
+                                 raw="".join(json.dumps(b) + "\n" for b in (
+                                     x for b in shapes["msearch"]
+                                     for x in ({}, b))).encode())
+        times["msearch"] = [(time.perf_counter() - t0) * 1e3]
+        if status != 200 or any("error" in r or not r["hits"]["hits"]
+                                for r in resp["responses"]):
+            raise AssertionError(f"knn _msearch: {str(resp)[:500]}")
+        hits["msearch"] = sum(len(r["hits"]["hits"])
+                              for r in resp["responses"])
+        torch.cuda.synchronize()
+    launches = dict(kk.LAUNCHES, shard_topk=mk.LAUNCHES["shard_topk"])
+    if launches["knn_scores"] <= 0 or launches["shard_topk"] <= 0:
+        raise AssertionError(f"knn: kernels not launched: {launches}")
+    t_checks = time.perf_counter()
+    out = {"index": FIELDS_INDEX, "docs": FIELDS_DOCS,
+           "shards": FIELDS_SHARDS, "dims": VEC_DIMS,
+           "similarity": "cosine", "launches": launches,
+           "knn_scores": check_knn_calls(kk, rec.calls, device="cpu"),
+           "shard_topk": check_topk_calls(mk, top.calls),
+           "shards_checked": knn_shards_on_card(
+               node, [(shape, bodies[0]) for shape, bodies in shapes.items()
+                      if shape != "msearch"]),
+           "per_shape_ms": {shape: {"mean": statistics.mean(ts),
+                                    "p50": statistics.median(ts),
+                                    "max": max(ts), "requests": len(ts)}
+                            for shape, ts in times.items()},
+           "msearch_items": len(shapes["msearch"]), "hits": hits}
+    del rec, top
+    torch.cuda.synchronize()
+    out.update(memory_allocated_before=mem_before,
+               memory_allocated_after=torch.cuda.memory_allocated(),
+               hbm_before=hbm_before, hbm_after=hbm.used)
+    if (out["memory_allocated_after"], hbm.used) != (mem_before,
+                                                    hbm_before):
+        raise AssertionError(f"knn: memory_allocated / hbm "
+                             f"{out['memory_allocated_after']} / "
+                             f"{hbm.used} after the part, {mem_before} / "
+                             f"{hbm_before} before")
+    out["checks_s"] = time.perf_counter() - t_checks
+    out["seconds"] = time.perf_counter() - t_part
+    return out
+
+
+def knn_oracle_top10(vectors, live, queries, per):
+    """The float64 numpy oracle over the gaussian pack for the sampled
+    queries → {similarity: [(top-10 (shard, ord) keys, their scores)] a
+    query}, by (1 + cos) / 2 (cosine; dot_product's unit rows and queries
+    give the same cosines) and 1 / (1 + ||d - q||²) (l2_norm)."""
+    import numpy as np
+    q = queries.astype(np.float64)
+    q2 = (q * q).sum(axis=1)
+    cands = {"cosine": [[] for _ in q], "l2_norm": [[] for _ in q]}
+
+    def shard(s):
+        v = vectors[s, :per].astype(np.float64)
+        ok = live[s, :per] & ~np.isnan(v[:, 0])
+        v[~ok] = 1.0
+        dots = v @ q.T                                    # [per, B]
+        n2 = np.einsum("ij,ij->i", v, v)
+        scores = {
+            "cosine": (1.0 + dots / np.sqrt(n2[:, None] * q2[None, :]))
+            / 2.0,
+            "l2_norm": 1.0 / (1.0 + np.maximum(
+                n2[:, None] - 2 * dots + q2[None, :], 0.0))}
+        top = {}
+        for name, sc in scores.items():
+            sc = np.where(ok[:, None], sc, -np.inf)
+            top[name] = [[(float(sc[o, qi]), (s, int(o))) for o in ords]
+                         for qi, ords in enumerate(np.argsort(
+                             -sc, axis=0, kind="stable")[:10].T)]
+        return top
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        for top in pool.map(shard, range(vectors.shape[0])):
+            for name, per_query in top.items():
+                for qi, c in enumerate(per_query):
+                    cands[name][qi] += c
+    out = {}
+    for name, per_query in cands.items():
+        out[name] = []
+        for c in per_query:
+            top = sorted(c, key=lambda t: (-t[0], t[1]))[:10]
+            out[name].append(([key for _, key in top], [sc for sc, _ in top]))
+    return out
+
+
+def knn_inprocess(smi):
+    """The knn line's in-process part: a StackedVectorPack of KNN_DOCS x
+    KNN_DIMS seeded gaussian vectors over KNN_SHARDS shards (KNN_MISSING
+    rows without a vector, KNN_DELETED deleted docs), and its rows made
+    unit for dot_product, placed on the card without an ingest; KNN_BATCH
+    queries at k 10 and 100 for each similarity through distributed_knn
+    on the (1, 1) mesh and with no mesh, counts reset just before and
+    read just after. Checks: mesh == no mesh bit for bit; the sampled
+    queries' top 10 against a float64 numpy oracle up to ties; the first
+    launch of each similarity (KNN_SAMPLE query rows; cosine's whole, the
+    timed entry's) against the plain version bit for bit → (the part's
+    record, the kernels line's knn_scores entry)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from elasticsearch_tpu_torch.index.pack import _pad_to
+    from elasticsearch_tpu_torch.ops import knn_kernel as kk
+    from elasticsearch_tpu_torch.ops import merge_kernel as mk
+    from elasticsearch_tpu_torch.parallel import distributed as dist
+    from elasticsearch_tpu_torch.parallel.mesh import make_mesh
+    from elasticsearch_tpu_torch.tools.kernel_ab import profiled
+
+    t_part = time.perf_counter()
+    per = KNN_DOCS // KNN_SHARDS
+    d_pad = _pad_to(per)
+    rng = np.random.default_rng([SEED, 17])
+    # a seeded generator a shard, the shards drawn in threads
+    vectors = np.empty((KNN_SHARDS, d_pad, KNN_DIMS), dtype=np.float32)
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        list(pool.map(lambda s: np.random.default_rng(
+            [SEED, 17, s]).standard_normal(dtype=np.float32,
+                                           out=vectors[s]),
+            range(KNN_SHARDS)))
+    vectors[:, per:] = np.nan
+    body = vectors[:, :per]
+    body[rng.random((KNN_SHARDS, per)) < KNN_MISSING] = np.nan
+    live = np.zeros((KNN_SHARDS, d_pad), dtype=bool)
+    live[:, :per] = rng.random((KNN_SHARDS, per)) >= KNN_DELETED
+    queries = rng.standard_normal((KNN_BATCH, KNN_DIMS), dtype=np.float32)
+    ids = [[f"v{s}-{i}" for i in range(per)] for s in range(KNN_SHARDS)]
+    base = dist.StackedVectorPack("vec", KNN_SHARDS, d_pad, KNN_DIMS,
+                                  vectors, live, ids, "cosine")
+    mesh = make_mesh([torch.device("cuda", 0)])
+    image = dist.device_put_vector_pack(base, mesh)
+    # the unit rows and queries for dot_product, made on the card
+    g = image.parts[0][0]
+    unit = dist.VectorImage(mesh, [(g / torch.linalg.vector_norm(
+        g, dim=2, keepdim=True), image.parts[0][1])])
+    q_unit = queries / np.linalg.norm(queries, axis=1, keepdims=True)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t_part
+    marks = {}
+    runs = {"cosine": (base, image, queries),
+            "l2_norm": (dataclasses.replace(base, similarity="l2_norm"),
+                        image, queries),
+            "dot_product": (dataclasses.replace(base, similarity=
+                                                "dot_product"),
+                            unit, q_unit.astype(np.float32))}
+
+    kk.reset_launches()
+    mk.reset_launches()
+    results, batch_ms = {}, {}
+    with KnnRecorder(kk, rows=KNN_SAMPLE, first=True) as rec:
+        t0 = time.perf_counter()
+        for sim, (pack, img, q) in runs.items():
+            for k in (10, 100):
+                for label, m in (("mesh", mesh), ("single", None)):
+                    t1 = time.perf_counter()
+                    results[(sim, k, label)] = dist.distributed_knn(
+                        pack, q, k, m, device_arrays=img)
+                    batch_ms[f"{sim}.k{k}.{label}"] = \
+                        (time.perf_counter() - t1) * 1e3
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(kk.LAUNCHES, shard_topk=mk.LAUNCHES["shard_topk"])
+    if launches["knn_scores"] != len(results) or \
+            launches["shard_topk"] <= 0:
+        raise AssertionError(f"knn: launches {launches} for "
+                             f"{len(results)} batches")
+    for sim in runs:
+        for k in (10, 100):
+            (vm, rm), (vs, rs) = (results[(sim, k, label)]
+                                  for label in ("mesh", "single"))
+            if not (np.array_equal(vm.view(np.uint32), vs.view(np.uint32))
+                    and rm == rs):
+                raise AssertionError(f"knn {sim} k{k}: the mesh != no mesh")
+    # the oracle: KNN_SAMPLE queries spread over the batch
+    sample = np.linspace(0, KNN_BATCH - 1, KNN_SAMPLE).astype(int)
+    t_oracle = time.perf_counter()
+    oracle = knn_oracle_top10(vectors, live, queries[sample], per)
+    oracle["dot_product"] = oracle["cosine"]
+    agree = 0
+    for sim in runs:
+        _, refs = results[(sim, 10, "mesh")]
+        for qi, want in zip(sample, oracle[sim]):
+            got = ([(s, o) for _, s, o in refs[qi]],
+                   [sc for sc, _, _ in refs[qi]])
+            if not close_up_to_ties(got, want):
+                raise AssertionError(f"knn {sim} query {qi}: top 10 != the "
+                                     f"float64 oracle")
+            agree += 1
+    oracle_s = time.perf_counter() - t_oracle
+    # the timed entry: cosine's launch at the batch's full shape; its
+    # plain version once, which is also the whole launch's parity check
+    t_timing = time.perf_counter()
+    flat = image.parts[0][0].reshape(-1, KNN_DIMS)
+    ok = image.parts[0][1].reshape(-1)
+    q_dev = torch.from_numpy(queries).cuda()
+
+    def launch(events=None):
+        return kk.knn_scores(flat, q_dev, "cosine", formula="mesh", ok=ok,
+                             events=events)
+    stats = {}
+    kk.knn_scores(flat, q_dev, "cosine", formula="mesh", ok=ok,
+                  stats=stats)
+    ms = time_events(lambda ev: launch(ev), 20)["knn_scores"]
+    device_ms = profiled(launch, 20, {"knn_scores": ("knn_scores",)}).get(
+        "knn_scores")
+    got = launch()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = kk.knn_scores_plain(flat, q_dev, "cosine", formula="mesh", ok=ok)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError("knn_scores != plain on the timed launch")
+    del got, want
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    safe = torch.nan_to_num(flat)
+    library_ms = time_cuda(lambda: torch.matmul(q_dev, safe.T), 20)
+    torch.backends.cuda.matmul.allow_tf32 = saved
+    del safe
+    marks["timing_s"] = time.perf_counter() - t_timing
+    n = flat.shape[0]
+    nbytes = n * KNN_DIMS * 4 + KNN_BATCH * n * 4
+    flops = 2 * KNN_BATCH * n * KNN_DIMS
+    bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": flops / FP32_FLOPS_PER_S * 1e3}
+    bound_by = max(bound, key=bound.get)
+    t_sampled = time.perf_counter()
+    # cosine's first launch is the timed one, checked whole above
+    sampled = check_knn_calls(kk, [c for c in rec.calls
+                                   if c[2] != "cosine"])
+    marks["sampled_checks_s"] = time.perf_counter() - t_sampled
+    entry = {"name": "knn.knn_scores", "kernel": "knn_scores",
+             "route": "cuda", "source": KNN_SOURCE, "replaces": KNN_LINE,
+             "launches": launches["knn_scores"], "max_abs_err": 0.0,
+             "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+             "plain_of": "knn_scores_plain on the same inputs, on the card",
+             "bound_ms": bound[bound_by], "bound_by": bound_by,
+             "bound_bytes_ms": bound["bytes"],
+             "bound_operations_ms": bound["operations"],
+             "library_ms": library_ms,
+             "library_of": "torch.matmul(queries, nan_to_num(vectors).T), "
+                           "allow_tf32 off: the same products in another "
+                           "association, no norms, formula or mask",
+             "shape": {"queries": KNN_BATCH, "rows": n, "dims": KNN_DIMS,
+                       "similarity": "cosine", "formula": "mesh"},
+             "bytes": nbytes, "operations": flops, "stats": stats}
+    record = {"nvidia_smi": smi, "docs": KNN_DOCS, "dims": KNN_DIMS,
+              "shards": KNN_SHARDS, "d_pad": d_pad,
+              "missing_rows": int(np.isnan(body[:, :, 0]).sum()),
+              "deleted": int((~live[:, :per]).sum()),
+              "batch": KNN_BATCH, "batches": len(results),
+              "wall_s": wall, "qps": len(results) * KNN_BATCH / wall,
+              "batch_ms": batch_ms, "launches": launches,
+              "mesh_equals_single": "bitwise: scores as uint32, refs",
+              "oracle_checked": agree, "oracle_s": oracle_s,
+              "oracle": "float64 numpy, top-10 (shard, ord) up to ties, "
+                        "scores rel 1e-5 abs 1e-6",
+              "knn_scores_sampled": sampled,
+              "generate_s": gen_s, **marks,
+              "note": ("Rally so_vector's 768-dim vectors; its 2M docs cut "
+                       "to 1M for the time limit")}
+    del image, unit, flat, ok, q_dev, g, vectors, body, runs, base
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    record["seconds"] = time.perf_counter() - t_part
+    return record, entry
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4578,6 +5151,10 @@ def main() -> int:
         t2 = time.perf_counter()
         segments = build_index(svc, INDEX, corpus, N_DOCS, SHARDS)
         seg_s = time.perf_counter() - t2
+        # the corpus and the segments live to the end: frozen (rest_phase
+        # thaws the heap at its end)
+        gc.collect()
+        gc.freeze()
         t3 = time.perf_counter()
         resident = svc.resident(INDEX, FIELD)
         torch.cuda.synchronize()
@@ -4783,11 +5360,14 @@ def main() -> int:
             rows=big_topk[0].shape[0], width=big_topk[0].shape[1],
             k=big_topk[1], in_kernels_line="merge_topk.shard_topk.k16384"))
         del big_topk
+        # -- knn (in process): the mesh kNN step at so_vector's width ----
+        knn_mesh, knn_entry = knn_inprocess(smi)
+        log("knn", part="mesh", **knn_mesh)
         # -- rest: the node over HTTP, the path users call -------------
         rest, rest_launches, planner, planner_kernels, delta, \
             delta_kernels, delta_launches, fields, \
             fields_launches, rest_api, rest_api_launches, \
-            features_launches = rest_phase(
+            features = rest_phase(
                 corpus, bodies, mk, smi, responses,
                 os.path.join(here, "data"), exact_run, exact_responses)
         log("rest", **{k: v for k, v in rest.items() if k != "service"})
@@ -4813,12 +5393,21 @@ def main() -> int:
             name = entry.get("kernel", entry["name"].split(".", 1)[1])
             entry["launches_fields"] = fields_launches.get(name, 0)
             entry["launches_rest_api"] = rest_api_launches.get(name, 0)
-            entry["launches_search_features"] = features_launches.get(
-                name, 0)
+            entry["launches_search_features"] = features[
+                "launches"].get(name, 0)
             entry["launches_delta"] = delta_launches.get(
                 "pruned_candidates.pack_keys"
                 if entry["name"].endswith(".pack_keys") else name, 0)
-        kernels += wide_entries
+        knn_entry["launches_rest"] = features["knn_rest"]["launches"][
+            "knn_scores"]
+        kernels += wide_entries + [knn_entry]
+        knn_seconds = {"mesh": knn_mesh["seconds"],
+                       "rest": features["knn_rest"]["seconds"]}
+        # the budget is logged, not asserted (as the service line's): the
+        # line's seconds follow the host's speed, the smoke's limit holds
+        knn_total = sum(knn_seconds.values())
+        log("knn", part="summary", seconds=knn_seconds, total_s=knn_total,
+            budget_s=KNN_BUDGET_S, within_budget=knn_total <= KNN_BUDGET_S)
         print(json.dumps({"kernels": kernels}), flush=True)
     finally:
         svc.close()

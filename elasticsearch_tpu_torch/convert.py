@@ -1,7 +1,8 @@
 """Carry pack state across from the JAX package.
 
-``pack_from_reference`` and ``streams_from_reference`` take the fields of
-the reference's ``StackedShardPack`` / ``CompressedStreams`` as plain
+``pack_from_reference``, ``streams_from_reference`` and
+``vector_pack_from_reference`` take the fields of the reference's
+``StackedShardPack`` / ``CompressedStreams`` / ``StackedVectorPack`` as plain
 data (numpy arrays, lists, dicts — e.g. ``{f.name: getattr(pack, f.name)
 for f in dataclasses.fields(pack)}``) and build the port's dataclasses,
 so both packages can run on identical pack state. Nothing here imports
@@ -16,7 +17,7 @@ from typing import Any, Dict
 import numpy as np
 
 from elasticsearch_tpu_torch.parallel.distributed import (
-    CompressedStreams, StackedShardPack)
+    CompressedStreams, StackedShardPack, StackedVectorPack)
 
 
 def _build(cls, fields: Dict[str, Any]):
@@ -52,3 +53,9 @@ def pack_from_reference(fields: Dict[str, Any]) -> StackedShardPack:
 def streams_from_reference(fields: Dict[str, Any]) -> CompressedStreams:
     """The reference CompressedStreams's fields → the port's streams."""
     return _build(CompressedStreams, fields)
+
+
+def vector_pack_from_reference(fields: Dict[str, Any]) -> StackedVectorPack:
+    """The reference StackedVectorPack's fields → the port's vector pack
+    (the same vectors, live docs and doc ids)."""
+    return _build(StackedVectorPack, fields)

@@ -529,3 +529,90 @@ def libm_tanf(t: torch.Tensor) -> torch.Tensor:
     n = torch.where(nored, torch.zeros_like(n), n)
     out = _kernel_tanf(y0, y1, (1 - ((n & 1) << 1)).to(torch.int32))
     return torch.where(ix >= 0x7F800000, x - x, out)
+
+
+# ---------------------------------------------------------------------------
+# XLA:CPU's sums: the gemv tiling and the windowed row sum
+# ---------------------------------------------------------------------------
+
+def xla_fmaf(a64: torch.Tensor, b64: torch.Tensor,
+             c: torch.Tensor) -> torch.Tensor:
+    """float32 ``a·b + c`` rounded once, as a hardware FMA rounds it, with
+    XLA:CPU's flush of a denormal result. `a64`, `b64` are float32
+    values held in float64 (their product is exact there), `c` float32.
+    The float64 sum is rounded to odd (an inexact sum with an even last
+    bit moves one ulp toward the exact value), so its rounding to
+    float32 is the single rounding of the exact sum."""
+    p = a64 * b64
+    c64 = c.to(torch.float64)
+    s = p + c64
+    bb = s - p
+    e = (p - (s - bb)) + (c64 - bb)
+    bits = s.view(torch.int64)
+    step = torch.where((e > 0) == (s > 0), 1, -1)
+    fix = (e != 0) & ((bits & 1) == 0) & torch.isfinite(s)
+    bits = torch.where(fix, bits + step, bits)
+    return xla_ftz(bits.view(torch.float64).to(torch.float32))
+
+
+def xla_gemv(mat: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """`mat @ q` for f32[n, dims] × f32[dims] (→ [n]) or × f32[b, dims]
+    (→ [b, n], one gemv a query) in XLA:CPU's association, its row-major
+    gemv tiling: eight lane accumulators, lane j a fused multiply-add
+    chain over columns j, j+8, ...; the lanes summed
+    ((l0+l1)+(l2+l3))+((l4+l5)+(l6+l7)); then the fused chain of the
+    columns past the last multiple of eight, from 0, added to that.
+    Every step flushes a denormal result.
+
+    XLA:CPU's gemv keeps this association only for the rows up to the
+    last multiple of 8; the rows past it are summed in another, so `n`
+    must be a multiple of 8 (a segment's d_pad always is)."""
+    n, dims = mat.shape
+    if n % 8:
+        raise ValueError(f"xla_gemv takes a multiple of 8 rows (XLA:CPU "
+                         f"sums the rows past one in another order), got "
+                         f"{n}")
+    full = (dims // 8) * 8
+    m64 = mat.to(torch.float64)
+    q64 = q.to(torch.float64)
+    zero = torch.zeros(q.shape[:-1] + (n,), dtype=torch.float32,
+                       device=mat.device)
+
+    def chain(cols):
+        acc = zero
+        for k in cols:
+            acc = xla_fmaf(q64[..., k, None], m64[:, k], acc)
+        return acc
+    tail = chain(range(full, dims))
+    if not full:
+        return tail
+    lanes = [chain(range(j, full, 8)) for j in range(8)]
+
+    def add(x, y):
+        return xla_ftz(x + y)
+    tree = add(add(add(lanes[0], lanes[1]), add(lanes[2], lanes[3])),
+               add(add(lanes[4], lanes[5]), add(lanes[6], lanes[7])))
+    return add(tree, tail)
+
+
+def xla_row_sum(x: torch.Tensor) -> torch.Tensor:
+    """`jnp.sum(x, axis=-1)` of f32[..., K] in XLA:CPU's association: a
+    row longer than 32 is cut into windows of 32 (zero-padded, the pad
+    split low = total // 2, high = the rest), each summed left to right
+    from 0; the window sums are reduced again the same way."""
+    while x.shape[-1] > 32:
+        k = x.shape[-1]
+        nw = -(-k // 32)
+        pad = nw * 32 - k
+        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+        x = xla_seq_sum(x.reshape(*x.shape[:-1], nw, 32))
+    return xla_seq_sum(x)
+
+
+def xla_seq_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the last axis left to right from 0, each step
+    flushed."""
+    acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    for k in range(x.shape[-1]):
+        acc = xla_ftz(acc + x[..., k])
+    return acc

@@ -36,6 +36,11 @@ takes the global top-c; phase B rescores every candidate exactly by a
 binary search of each term's doc-sorted postings and orders them by
 (−score, gid) (the ``pruned_rescore`` kernel).
 
+A dense_vector field's shards serve the exact kNN step
+(``make_distributed_knn``, ``distributed_knn``): each column scores its
+shards' vectors with the ``knn_scores`` kernel, takes its local top-k,
+and the row gathers and merges as the BM25 step's tail does.
+
 Global doc identity: shard s, local ordinal d → s * (d_pad + 1) + d,
 decoded host-side by ``decode_refs``.
 """
@@ -54,8 +59,9 @@ import torch
 
 from elasticsearch_tpu_torch.index.pack import LANE, _pad_to
 from elasticsearch_tpu_torch.index.segment import Segment
-from elasticsearch_tpu_torch.ops import sparse
-from elasticsearch_tpu_torch.parallel.device import device_context
+from elasticsearch_tpu_torch.ops import knn_kernel, sparse
+from elasticsearch_tpu_torch.parallel.device import (device_context,
+                                                     resolve_device)
 from elasticsearch_tpu_torch.parallel.mesh import (DATA_AXIS, SHARD_AXIS,
                                                    Mesh)
 
@@ -666,9 +672,10 @@ def _compressed_operands(comp, starts, r: int, t: int):
     return extra
 
 
-def _merge_topk(vals_b, gids_b, k: int):
-    """Cross-shard top-k, earliest index first among equal scores."""
-    top_vals, pos = sparse.hierarchical_top_k(
+def _merge_topk(vals_b, gids_b, k: int, topk=None):
+    """Cross-shard top-k, earliest index first among equal scores
+    (`topk`: the top-k function, default sparse.hierarchical_top_k)."""
+    top_vals, pos = (topk or sparse.hierarchical_top_k)(
         vals_b, min(k, vals_b.shape[1]))
     return top_vals, torch.gather(gids_b, 1, pos)
 
@@ -702,12 +709,17 @@ def _gather_row(outs, cuda: bool):
     [B_l, S_l·k'], gids_b, totals_b) → the row's [B_l, S·k'] values and
     ids in column order and its summed totals, on column 0's device. On
     CUDA devices an NCCL all_gather and all_reduce (one process, every
-    device of the row: torch.cuda.nccl); on CPU entries cat and sum."""
+    device of the row: torch.cuda.nccl); on CPU entries cat and sum.
+    Columns' (vals_b, gids_b) pairs without totals (the kNN step) →
+    the gathered pair."""
+    with_totals = len(outs[0]) == 3
     if not cuda:
-        return (torch.cat([o[0] for o in outs], dim=1),
-                torch.cat([o[1] for o in outs], dim=1),
-                torch.stack([o[2] for o in outs]).sum(dim=0,
-                                                      dtype=torch.int32))
+        pair = (torch.cat([o[0] for o in outs], dim=1),
+                torch.cat([o[1] for o in outs], dim=1))
+        if not with_totals:
+            return pair
+        return pair + (torch.stack([o[2] for o in outs]).sum(
+            dim=0, dtype=torch.int32),)
     from torch.cuda import nccl
     n = len(outs)
     gathered = []
@@ -718,6 +730,8 @@ def _gather_row(outs, cuda: bool):
         nccl.all_gather(ins, outs_j)
         b_l = ins[0].shape[0]
         gathered.append(outs_j[0].permute(1, 0, 2).reshape(b_l, -1))
+    if not with_totals:
+        return gathered[0], gathered[1]
     totals = [o[2].contiguous() for o in outs]
     nccl.all_reduce(totals)
     return gathered[0], gathered[1], totals[0]
@@ -1222,3 +1236,189 @@ def resolve_hits(pack: StackedShardPack,
                              "_score": score})
         out.append(hits)
     return out
+
+
+# ---------------------------------------------------------------------------
+# distributed kNN: exact similarity top-k over the docs axis
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class StackedVectorPack:
+    """S doc-axis shards of one dense_vector field as an f32 [S, D_pad,
+    dims] array (NaN rows: missing docs) with the live docs bool [S,
+    D_pad], laid over the mesh's shards axis (host arrays)."""
+
+    field: str
+    num_shards: int
+    d_pad: int
+    dims: int
+    vectors: np.ndarray          # f32[S, D_pad, dims]
+    live: np.ndarray             # bool[S, D_pad]
+    shard_doc_ids: List[List[str]]
+    similarity: str = "cosine"
+
+
+def build_stacked_vector_pack(segments: Sequence[Segment], field: str,
+                              live_docs: Optional[
+                                  Sequence[Optional[np.ndarray]]] = None,
+                              similarity: str = "cosine",
+                              pad_shards_to: Optional[int] = None
+                              ) -> StackedVectorPack:
+    """Each segment is one doc-axis shard; shapes pad to the widest."""
+    dims = 0
+    for seg in segments:
+        col = seg.doc_values.get(field)
+        if col is not None and col.kind == "vec":
+            dims = max(dims, col.values.shape[1])
+    if dims == 0:
+        raise ValueError(f"no dense_vector column [{field}] in segments")
+    d_pad = _pad_to(max((s.num_docs for s in segments), default=1))
+    s = len(segments)
+    s_pad = max(pad_shards_to or s, s)
+    vectors = np.full((s_pad, d_pad, dims), np.nan, dtype=np.float32)
+    live = np.zeros((s_pad, d_pad), dtype=bool)
+    doc_ids: List[List[str]] = []
+    for i, seg in enumerate(segments):
+        col = seg.doc_values.get(field)
+        if col is not None and col.kind == "vec":
+            vectors[i, : seg.num_docs, : col.values.shape[1]] = col.values
+        if live_docs is not None and live_docs[i] is not None:
+            live[i, : seg.num_docs] = live_docs[i]
+        else:
+            live[i, : seg.num_docs] = True
+        doc_ids.append(list(seg.doc_ids))
+    return StackedVectorPack(field, s_pad, d_pad, dims, vectors, live,
+                             doc_ids, similarity)
+
+
+@dataclasses.dataclass
+class VectorImage:
+    """A StackedVectorPack placed over a mesh's first data row: column c
+    holds shards [c·S_l, (c+1)·S_l) as (vectors f32 [S_l, D_pad, dims],
+    live bool [S_l, D_pad]) on its device."""
+
+    mesh: Mesh
+    parts: List[Tuple[torch.Tensor, torch.Tensor]]
+
+
+def device_put_vector_pack(pack: StackedVectorPack, mesh: Mesh
+                           ) -> VectorImage:
+    """Lay the pack's shards over the mesh's shards axis. The step's
+    output is the same on every data row, so one row holds the pack."""
+    n_cols = mesh.shape[SHARD_AXIS]
+    if pack.num_shards % n_cols:
+        raise ValueError(f"{pack.num_shards} shards do not split over "
+                         f"{n_cols} columns (pad_shards_to)")
+    s_l = pack.num_shards // n_cols
+    parts = []
+    for c, dev in enumerate(mesh.grid[0]):
+        ss = slice(c * s_l, (c + 1) * s_l)
+        parts.append((torch.from_numpy(pack.vectors[ss]).to(dev),
+                      torch.from_numpy(pack.live[ss]).to(dev)))
+    return VectorImage(mesh, parts)
+
+
+def _knn_local_body(vectors, live, queries, *, similarity: str, k: int,
+                    d_pad: int, first_shard: int):
+    """One device's scores over its [s_l, D_pad, dims] block: the
+    knn_scores kernel (the mesh formulas) over the flattened [s_l·D_pad,
+    dims] rows, masked by missing vectors and the live docs, then the
+    local top-k with global ids (the BM25 step's scheme: shard ·
+    (d_pad + 1) + ord; -1 for a -inf entry)."""
+    s_l = vectors.shape[0]
+    flat = vectors.reshape(s_l * d_pad, -1)
+    scores = knn_kernel.knn_scores(flat, queries, similarity,
+                                   formula="mesh",
+                                   ok=live.reshape(s_l * d_pad))
+    vals, flat_idx = knn_kernel.knn_topk(scores, min(k, s_l * d_pad))
+    j = torch.div(flat_idx, d_pad, rounding_mode="floor")
+    ords = flat_idx % d_pad
+    gids = (first_shard + j) * (d_pad + 1) + ords
+    gids = torch.where(vals == NEG_INF, torch.full_like(gids, -1), gids)
+    return vals, gids
+
+
+@functools.lru_cache(maxsize=32)
+def make_distributed_knn(mesh: Mesh, *, d_pad: int, dims: int, k: int,
+                         similarity: str):
+    """The kNN step over the (data, shards) mesh: each column of the first
+    data row scores its shards' vectors and takes its local top-k (global
+    ids from first_shard = c·S_l); the row gathers the columns' lists in
+    column order (NCCL on CUDA devices) and takes the global top-k on
+    column 0's device: the reference's shard_map of _knn_local_body,
+    all_gather and _merge_topk. The step takes a VectorImage and f32 [B,
+    dims] host queries and returns (vals [B, k'], gids [B, k'])."""
+
+    def run_body(dev, part, q, first_shard):
+        with device_context(dev):
+            vectors, live = part
+            return _knn_local_body(
+                vectors, live, torch.from_numpy(q).to(dev),
+                similarity=similarity, k=k, d_pad=d_pad,
+                first_shard=first_shard)
+
+    def step(image: VectorImage, queries: np.ndarray):
+        q = np.ascontiguousarray(queries, dtype=np.float32)
+        if q.shape[1] != dims:
+            raise ValueError(f"queries have {q.shape[1]} dims, the pack "
+                             f"{dims}")
+        s_l = image.parts[0][0].shape[0]
+        row = mesh.grid[0]
+        outs = _run_bodies([functools.partial(run_body, dev,
+                                              image.parts[c], q, c * s_l)
+                            for c, dev in enumerate(row)])
+        lock = (DEVICE_DISPATCH_LOCK if len(mesh.devices) > 1
+                else contextlib.nullcontext())
+        with device_context(row[0]):
+            with lock:
+                vals, gids = _gather_row(outs, mesh.is_cuda)
+            return _merge_topk(vals, gids, k, topk=knn_kernel.knn_topk)
+
+    return step
+
+
+def distributed_knn(pack: StackedVectorPack, queries: np.ndarray, k: int,
+                    mesh: Optional[Mesh] = None,
+                    device_arrays: Optional[VectorImage] = None,
+                    device=None):
+    """Batched exact kNN: queries [B, dims] → (scores [B, k'] numpy,
+    refs [[(score, shard, ord), ...]]). With no mesh, the one-device
+    path on `device` (default cuda:0), or over the one part of a (1, 1)
+    mesh's `device_arrays`: the local body over every shard and the same
+    top-k, the same bits as a mesh's."""
+    q = np.asarray(queries, dtype=np.float32)
+    if q.ndim == 1:
+        q = q[None, :]
+    if mesh is not None:
+        step = make_distributed_knn(mesh, d_pad=pack.d_pad, dims=pack.dims,
+                                    k=k, similarity=pack.similarity)
+        image = (device_arrays if device_arrays is not None
+                 else device_put_vector_pack(pack, mesh))
+        vals, gids = step(image, q)
+    else:
+        if device_arrays is not None:
+            (vectors, live), = device_arrays.parts
+        else:
+            dev = resolve_device(device)
+            vectors = torch.from_numpy(pack.vectors).to(dev)
+            live = torch.from_numpy(pack.live).to(dev)
+        dev = vectors.device
+        with device_context(dev):
+            vals, gids = _knn_local_body(
+                vectors, live, torch.from_numpy(q).to(dev),
+                similarity=pack.similarity, k=k, d_pad=pack.d_pad,
+                first_shard=0)
+            vals, gids = _merge_topk(vals, gids, k,
+                                     topk=knn_kernel.knn_topk)
+    vals = vals.cpu().numpy()
+    gids = gids.cpu().numpy()
+    refs = []
+    for qi in range(vals.shape[0]):
+        row = []
+        for v, gid in zip(vals[qi], gids[qi]):
+            if v == NEG_INF or gid < 0:
+                continue
+            shard, ord_ = divmod(int(gid), pack.d_pad + 1)
+            row.append((float(v), shard, ord_))
+        refs.append(row)
+    return vals, refs

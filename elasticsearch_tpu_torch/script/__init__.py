@@ -36,8 +36,9 @@ from elasticsearch_tpu_torch.common.errors import EsException
 from elasticsearch_tpu_torch.ops.xla_math import (libm_cosf, libm_sinf,
                                                   libm_tanf, x86_nan,
                                                   x86_nan_like, xla_expf,
-                                                  xla_ftz, xla_log10f,
-                                                  xla_logf, xla_powf)
+                                                  xla_ftz, xla_gemv,
+                                                  xla_log10f, xla_logf,
+                                                  xla_powf, xla_row_sum)
 
 
 class ScriptException(EsException):
@@ -677,7 +678,7 @@ def _method(recv, name, args):
 #   `sqrt` is correctly rounded; `sin`, `cos` and `tan` are the C
 #   library's float functions, which XLA:CPU calls;
 # * `cosineSimilarity`, `dotProduct` and `l2norm` sum in XLA:CPU's
-#   association (`_gemv`, `_xla_row_sum`).
+#   association (`xla_math.xla_gemv`, `xla_row_sum`).
 
 class FieldColumn:
     """What `doc['field']` yields in vector mode: a doc-values column
@@ -927,54 +928,6 @@ def _vec_minmax(name: str, a, b, device):
     return _Weak(pick(x, y))
 
 
-def _gemv(mat: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """`mat @ q` for f32[n, dims] × f32[dims] in XLA:CPU's association
-    (its row-major gemv tiling): eight lane accumulators, lane j a
-    fused multiply-add chain over columns j, j+8, ...; the lanes summed
-    ((l0+l1)+(l2+l3))+((l4+l5)+(l6+l7)); then the fused chain of the
-    columns past the last multiple of eight added to that."""
-    n, dims = mat.shape
-    full = (dims // 8) * 8
-    m64 = mat.to(torch.float64)
-    q64 = q.to(torch.float64)
-    zero = torch.zeros(n, dtype=torch.float32, device=mat.device)
-
-    def chain(cols):
-        acc = zero
-        for k in cols:
-            acc = xla_ftz((m64[:, k] * q64[k] + acc.to(torch.float64))
-                          .to(torch.float32))
-        return acc
-    tail = chain(range(full, dims))
-    if not full:
-        return tail
-    lanes = [chain(range(j, full, 8)) for j in range(8)]
-    tree = ((lanes[0] + lanes[1]) + (lanes[2] + lanes[3])) \
-        + ((lanes[4] + lanes[5]) + (lanes[6] + lanes[7]))
-    return xla_ftz(tree + tail)
-
-
-def _xla_row_sum(x: torch.Tensor) -> torch.Tensor:
-    """`jnp.sum(x, axis=-1)` of f32[..., K] in XLA:CPU's association: a
-    row longer than 32 is cut into windows of 32 (zero-padded, the pad
-    split low = total // 2, high = the rest), each summed left to right
-    from 0; the window sums are reduced again the same way."""
-    while x.shape[-1] > 32:
-        k = x.shape[-1]
-        nw = -(-k // 32)
-        pad = nw * 32 - k
-        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
-        x = _seq_sum(x.reshape(*x.shape[:-1], nw, 32))
-    return _seq_sum(x)
-
-
-def _seq_sum(x: torch.Tensor) -> torch.Tensor:
-    acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
-    for k in range(x.shape[-1]):
-        acc = xla_ftz(acc + x[..., k])
-    return acc
-
-
 class _VectorEval:
     """Expression-only evaluation producing one tensor per AST node.
     Statements other than a single trailing `return` are rejected —
@@ -1171,14 +1124,14 @@ class _VectorEval:
         q = xla_ftz(q)
         if name == "l2norm":
             d = xla_ftz(safe - q[None, :])
-            return torch.sqrt(_xla_row_sum(xla_ftz(d * d))
+            return torch.sqrt(xla_row_sum(xla_ftz(d * d))
                               .to(torch.float64)).to(torch.float32)
-        dot = _gemv(safe, q)
+        dot = xla_gemv(safe, q)
         if name == "dotProduct":
             return dot
-        norms = torch.sqrt(_xla_row_sum(xla_ftz(safe * safe))
+        norms = torch.sqrt(xla_row_sum(xla_ftz(safe * safe))
                            .to(torch.float64)).to(torch.float32)
-        qn = torch.sqrt(_xla_row_sum(xla_ftz(q * q))
+        qn = torch.sqrt(xla_row_sum(xla_ftz(q * q))
                         .to(torch.float64)).to(torch.float32)
         return xla_ftz(dot / torch.clamp(xla_ftz(norms * qn), min=1e-12))
 

@@ -41,8 +41,13 @@ and fetch times (``build_profile``). Each index's search slow log
 (``index.search.slowlog.threshold.query.*``) logs a shard's query phase
 on the planner path and an index's kernel search.
 
-Refused typed (``NotLowerable``): the planner features not ported yet
-(aggregations, knn), and what the reference serves on its kernel path
+A ``knn`` section (``search/knn.py``) runs its candidate phase on the
+service's first device over readers pinned a shard (a scroll's or PIT's,
+or acquired here), then the planner path, each shard's query the union
+of the text query and its winners; the internal ``_knn_docs`` key (the
+winners resolved elsewhere) takes the same path.
+
+Refused typed (``NotLowerable``): aggregations, not ported yet, and what the reference serves on its kernel path
 but the port's does not take (``planner=False``: rows of more than
 T_LIMIT, 16,384, slots). Unlike the reference, a fault of the kernel
 path is not retried on the planner: it reaches the client as a 5xx.
@@ -71,6 +76,9 @@ from elasticsearch_tpu_torch.search.collapse import collapse_top_groups
 from elasticsearch_tpu_torch.search.gpu_service import MAX_K
 from elasticsearch_tpu_torch.search.highlight import (HighlightSpec,
                                                       build_highlights)
+from elasticsearch_tpu_torch.search.knn import (KnnSpec, global_topk,
+                                                parse_knn, shard_candidates,
+                                                wrap_query)
 from elasticsearch_tpu_torch.search.query_phase import (QuerySearchResult,
                                                         SearchContext,
                                                         ShardHit,
@@ -89,7 +97,7 @@ KNOWN_KEYS = frozenset({
     "query", "aggs", "aggregations", "size", "from", "_source", "min_score",
     "track_total_hits", "sort", "search_after", "timeout", "pit",
     "profile", "highlight", "suggest", "version", "seq_no_primary_term",
-    "rescore", "collapse", "knn"})
+    "rescore", "collapse", "knn", "_knn_docs"})
 #: body keys of the planner features: a body holding one runs the
 #: planner path, as in the reference
 PLANNER_KEYS = ("sort", "search_after", "highlight", "suggest", "rescore",
@@ -234,9 +242,9 @@ def with_alias_filters(query: dsl.QueryNode,
 
 def parse_search_body(body: Optional[Dict[str, Any]]):
     """→ (query node, body). Unknown keys are a 400, as in the
-    reference, and so are a malformed rescore or collapse; planner
-    features the port does not serve yet (aggregations, knn) raise
-    NotLowerable."""
+    reference, and so are a malformed knn, rescore or collapse and knn
+    with sort or collapse; aggregations, which the port does not serve
+    yet, raise NotLowerable."""
     body = body or {}
     if "script_fields" in body:
         raise IllegalArgumentException(
@@ -247,9 +255,14 @@ def parse_search_body(body: Optional[Dict[str, Any]]):
         raise IllegalArgumentException(
             f"unknown search body keys {sorted(unknown)}")
     planner = [k for k in ("aggs", "aggregations") if body.get(k)]
-    planner += [k for k in ("knn",) if body.get(k) is not None]
     if planner:
         raise NotLowerable(f"search options {planner}")
+    if body.get("knn") is not None:
+        parse_knn(body["knn"])  # a malformed knn section is a 400
+        if body.get("sort") is not None or body.get("collapse"):
+            raise IllegalArgumentException(
+                "[knn] cannot be combined with [sort]/[collapse]: knn "
+                "results are relevance-ranked")
     query = dsl.parse_query(body.get("query") or {"match_all": {}})
     if body.get("rescore") is not None:
         parse_rescore(body["rescore"])  # a malformed rescore is a 400
@@ -264,6 +277,67 @@ def parse_search_body(body: Optional[Dict[str, Any]]):
             raise IllegalArgumentException(
                 "[collapse] cannot be combined with [sort]/[rescore] yet")
     return query, body
+
+
+def encode_knn_docs(knn_wrap: Dict[Tuple[str, int], List[Tuple[Any, float]]]
+                    ) -> Dict[str, Any]:
+    """Per-shard knn winners → the JSON-serializable `_knn_docs` body key
+    (the wire form of a candidate phase resolved elsewhere)."""
+    out: Dict[str, Any] = {}
+    for (name, shard_num), sets in knn_wrap.items():
+        entry = []
+        for seg_map, boost in sets:
+            entry.append({
+                "boost": boost,
+                "segments": {seg: [list(map(int, ords)),
+                                   list(map(float, scores))]
+                             for seg, (ords, scores) in seg_map.items()}})
+        out[f"{name}#{shard_num}"] = entry
+    return out
+
+
+def decode_knn_docs(encoded: Dict[str, Any]
+                    ) -> Dict[Tuple[str, int], List[Tuple[Any, float]]]:
+    out: Dict[Tuple[str, int], List[Tuple[Any, float]]] = {}
+    for key, sets in encoded.items():
+        name, _, shard_s = key.rpartition("#")
+        decoded = []
+        for entry in sets:
+            seg_map = {
+                seg: (np.asarray(ords, dtype=np.int64),
+                      np.asarray(scores, dtype=np.float32))
+                for seg, (ords, scores) in entry["segments"].items()}
+            decoded.append((seg_map, float(entry["boost"])))
+        out[(name, int(shard_s))] = decoded
+    return out
+
+
+def knn_candidate_phase(indices, names: List[str],
+                        alias_filters: Dict[str, List[dict]],
+                        specs: List[KnnSpec],
+                        pinned: Dict[Tuple[str, int], Any], device
+                        ) -> Dict[Tuple[str, int], List[Tuple[Any, float]]]:
+    """Each knn clause → its GLOBAL top-k winners over the pinned readers
+    (an index's alias filters folded into the clause's filter), grouped
+    by shard as (segment → (ords, scores), boost) entries."""
+    knn_wrap: Dict[Tuple[str, int], List[Tuple[Any, float]]] = {}
+    for spec in specs:
+        per_shard = {}
+        for (name, shard_num), reader in pinned.items():
+            if name not in names:
+                continue
+            eff_spec = spec
+            afilts = alias_filters.get(name)
+            if afilts:
+                base_filt = spec.filter_query or dsl.MatchAllQuery()
+                eff_spec = dataclasses.replace(
+                    spec, filter_query=with_alias_filters(base_filt,
+                                                          afilts))
+            per_shard[(name, shard_num)] = shard_candidates(
+                reader, eff_spec, device=device)
+        for shard_key, seg_map in global_topk(per_shard, spec.k).items():
+            knn_wrap.setdefault(shard_key, []).append((seg_map, spec.boost))
+    return knn_wrap
 
 
 def parse_timeout_s(body: Dict[str, Any],
@@ -333,9 +407,25 @@ def search(indices, index_expr: Optional[str],
     ctx = SearchContext(parse_timeout_s(body, params))
     profile = bool(body.get("profile"))
     features = Features.of(body)
-    if (pinned is None and not alias_filters
+    device = gpu_search.mesh.grid[0][0]
+    # the knn candidate phase: each clause's global winners, over readers
+    # pinned a shard so that the query phase scores the same view
+    knn_wrap: Optional[Dict[Tuple[str, int], List[Tuple[Any, float]]]] = None
+    knn_only = "query" not in body
+    if body.get("_knn_docs") is not None:
+        knn_wrap = decode_knn_docs(body["_knn_docs"])
+    elif body.get("knn") is not None:
+        if pinned is None:
+            pinned = {(name, shard_num): shard.acquire_searcher()
+                      for name in names
+                      for shard_num, shard in sorted(
+                          indices.index(name).shards.items())}
+        knn_wrap = knn_candidate_phase(indices, names, alias_filters,
+                                       parse_knn(body["knn"]), pinned,
+                                       device)
+    if (pinned is None and not alias_filters and knn_wrap is None
             and not any(k in body for k in PLANNER_KEYS)):
-        # filtered aliases, contexts and the planner features run the
+        # filtered aliases, contexts, knn and the planner features run the
         # planner, as in the reference
         try:
             return _search_fast(indices, names, query, gpu_search,
@@ -352,8 +442,9 @@ def search(indices, index_expr: Optional[str],
                           min_score=min_score, source=source, t0=t0,
                           version=version,
                           seq_no_primary_term=seq_no_primary_term,
-                          device=gpu_search.mesh.grid[0][0], pinned=pinned,
-                          ctx=ctx, profile=profile, body=body)
+                          device=device, pinned=pinned, ctx=ctx,
+                          profile=profile, body=body, knn_wrap=knn_wrap,
+                          knn_only=knn_only)
     if body.get("suggest") is not None:
         out["suggest"] = run_suggest(indices, names, body["suggest"])
     return out
@@ -395,10 +486,14 @@ def _search_planner(indices, names: List[str],
                     version: bool, seq_no_primary_term: bool,
                     device, pinned=None, ctx: Optional[SearchContext] = None,
                     profile: bool = False,
-                    body: Optional[Dict[str, Any]] = None
-                    ) -> Dict[str, Any]:
+                    body: Optional[Dict[str, Any]] = None,
+                    knn_wrap: Optional[Dict[Tuple[str, int],
+                                            List[Tuple[Any, float]]]] = None,
+                    knn_only: bool = False) -> Dict[str, Any]:
     """The planner path: per-shard query phase under failure capture
-    (stopped at the request's deadline: partial results, ``timed_out``),
+    (stopped at the request's deadline: partial results, ``timed_out``;
+    with knn winners each shard's query unions them, and a knn-only
+    request skips a shard that has none),
     the merge (by sort key, or score; collapsed by key), the fetch phase
     with highlighting, the response (with the shards' profile)."""
     shard_results = []   # (index name, shard num, reader, result)
@@ -429,11 +524,19 @@ def _search_planner(indices, names: List[str],
             try:
                 if pinned is None:
                     reader = shard.acquire_searcher()
-                if not can_match(reader, eff_query, svc.mapper):
+                shard_query = eff_query
+                if knn_wrap is not None:
+                    sets = knn_wrap.get((name, shard_num), [])
+                    if knn_only and not sets:
+                        skipped += 1  # nothing can match on this shard
+                        continue
+                    shard_query = wrap_query(None if knn_only else eff_query,
+                                             sets)
+                elif not can_match(reader, eff_query, svc.mapper):
                     skipped += 1
                     continue
                 q0 = time.perf_counter()
-                res = query_shard(reader, eff_query, features, size=size,
+                res = query_shard(reader, shard_query, features, size=size,
                                    from_=from_, min_score=min_score,
                                    device=device, ctx=ctx)
             except _NON_DEGRADABLE:
@@ -627,9 +730,14 @@ def _tpu_profile_section(gpu_search, sink: Dict[str, Any]
     out = dict(sink)
     snap = gpu_search.stages.snapshot()
     out["device_stages"] = {
-        name: st for name, st in snap.items()
+        name: {key: st[key] for key in _PROFILE_STAGE_KEYS if key in st}
+        for name, st in snap.items()
         if "device_wait" in name or name == "batch_decode"}
     return out
+
+
+#: a device stage's fields in the kernel section, the reference's
+_PROFILE_STAGE_KEYS = ("seconds", "count", "p50_ms", "p95_ms", "p99_ms")
 
 
 def build_kernel_profile_shard(query, name: str, elapsed_s: float,

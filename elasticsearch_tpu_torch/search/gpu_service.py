@@ -117,8 +117,12 @@ class StageTimes:
     lookup), ``batch_wait`` (submit to result: the batching window, the
     queue and the train) and its split ``batch_wait.{queue, window,
     dispatch, completion}`` (each also under ``.<variant>``, the
-    reference's names), ``train`` (a train's launch to its finish) and
-    ``assemble`` (the coordinator's hits block). Each stage keeps its
+    reference's names), ``train`` (a train's launch to its finish),
+    ``assemble`` (the coordinator's hits block) and the launches' own,
+    the reference's: ``exact_prep``, ``exact_dispatch.{variant}``,
+    ``exact_device_wait.{variant}``, ``batch_prep``,
+    ``batch_dispatch[.{variant}]``, ``batch_device_wait[.{variant}]``,
+    ``batch_decode`` and ``exact_batch``. Each stage keeps its
     running totals and a bounded ring of recent samples for
     percentiles."""
 
@@ -995,15 +999,18 @@ def _data_bucket(resident: ResidentPack, n: int) -> int:
 
 def _launch_exact(resident: ResidentPack, flats: Sequence[FlatQuery],
                   k: int, packed_sort: bool = True,
-                  variant: Optional[str] = None) -> Dict[str, Any]:
+                  variant: Optional[str] = None,
+                  stages: Optional["StageTimes"] = None) -> Dict[str, Any]:
     """Host prep + device dispatch of one micro-batch through the exact
     variants: bucketed batch (8/64/pow2), kernel k (128/1024/pow2), slot
     count (pow2 ≥ 8, up to T_LIMIT: a row of more slots is the typed
     400), window (≥ 8) and chunk length (pinned CHUNK_CAP), as the
     reference pins them. A compressed pack takes "compressed" or
     "compressed_exact", a raw one "packed" or "ref" (the raw merge);
-    `variant` forces one (the prewarm's signatures). Returns the launch
-    state for _finish_exact."""
+    `variant` forces one (the prewarm's signatures). `stages` records
+    the reference's ``exact_prep`` and ``exact_dispatch.{variant}``.
+    Returns the launch state for _finish_exact."""
+    t_prep = time.perf_counter()
     pack = resident.pack
     compressed = resident.streams is not None
     batch = dist.prepare_query_batch(
@@ -1037,11 +1044,15 @@ def _launch_exact(resident: ResidentPack, flats: Sequence[FlatQuery],
         variant = choose_kernel_variant(pack.d_pad, batch.weights,
                                         enabled=packed_sort,
                                         compressed=compressed)
+    t_disp = time.perf_counter()
     vals, gids, totals = dist.distributed_search_raw(
         pack, batch, _kernel_k(k), resident.image.mesh,
         device_arrays=resident.image,
         t_window=max(_PRUNE_WINDOW, batch.window), materialize=False,
         variant=variant)
+    if stages is not None:
+        stages.add("exact_prep", t_disp - t_prep)
+        stages.add(f"exact_dispatch.{variant}", time.perf_counter() - t_disp)
     return {"resident": resident, "n": len(flats), "k": k, "vals": vals,
             "gids": gids, "totals": totals, "variant": variant,
             "bucket": batch.starts.shape[1], "t_slots": batch.t_slots,
@@ -1161,10 +1172,15 @@ def _to_host(tensors: Sequence[torch.Tensor],
 
 
 def _finish_exact(launch: Dict[str, Any],
-                  ready: Optional[Dict[Any, Any]] = None
+                  ready: Optional[Dict[Any, Any]] = None,
+                  stages: Optional["StageTimes"] = None
                   ) -> List[FlatQueryResult]:
+    t_dev = time.perf_counter()
     vals, gids, totals = _to_host(
         [launch["vals"], launch["gids"], launch["totals"]], ready)
+    if stages is not None:
+        stages.add(f"exact_device_wait.{launch['variant']}",
+                   time.perf_counter() - t_dev)
     return _columnar_results(launch["resident"], vals, gids, totals,
                              launch["n"], lambda qi: "eq",
                              k_cap=launch["k"], variant=launch["variant"])
@@ -1223,11 +1239,15 @@ def _full_bucket(slots: int) -> Optional[int]:
 def _launch_pruned(resident: ResidentPack, flats: Sequence[FlatQuery],
                    k: int, prefix_cap: int = PREFIX_CAP,
                    full_slots: Optional[int] = None,
-                   packed_sort: bool = True) -> Dict[str, Any]:
+                   packed_sort: bool = True,
+                   stages: Optional["StageTimes"] = None) -> Dict[str, Any]:
     """One pruned launch over a raw pack: with full_slots=N the
     full-postings tier at N slots (its run totals are the exact scores:
     no rescore, exact totals); else the prefix tier (each term's first
-    prefix_cap impact-sorted entries, the exact rescore on the device)."""
+    prefix_cap impact-sorted entries, the exact rescore on the device).
+    `stages` records the reference's ``batch_prep`` and
+    ``batch_dispatch[.{variant}]``."""
+    t_prep = time.perf_counter()
     pack = resident.pack
     imp_impacts = resident.imp_host[1]
     k_cand = _candidate_k(k)
@@ -1260,23 +1280,37 @@ def _launch_pruned(resident: ResidentPack, flats: Sequence[FlatQuery],
         p_pad=pack.p_pad, c_cand=k_cand, k_out=k_out,
         t_window=max(_PRUNE_WINDOW, batch.window), t_terms=PRUNE_MAX_TERMS,
         with_rescore=with_rescore, variant=variant, pack_keys=pack_keys)
-    packed = step(resident.image,
-                  dist.pack_pruned_operands(batch, *ranges))
+    ops = dist.pack_pruned_operands(batch, *ranges)
+    t_disp = time.perf_counter()
+    packed = step(resident.image, ops)
+    if stages is not None:
+        t_dev = time.perf_counter()
+        stages.add("batch_prep", t_disp - t_prep)
+        stages.add("batch_dispatch", t_dev - t_disp)
+        stages.add(f"batch_dispatch.{variant}", t_dev - t_disp)
     return {"resident": resident, "flats": flats, "k": k,
             "packed": packed, "variant": variant}
 
 
 def _finish_pruned(launch: Dict[str, Any],
-                   ready: Optional[Dict[Any, Any]] = None
+                   ready: Optional[Dict[Any, Any]] = None,
+                   stages: Optional["StageTimes"] = None
                    ) -> Tuple[List[Optional[FlatQueryResult]], List[int]]:
     """Decode a pruned launch and check the WAND validity bound: a doc
     outside the candidates scores below cutoff + β (a cut candidate) or β
     (tail only); a query whose k-th score is below that, or that has
     fewer than k hits while its postings were cut, is invalid (None, its
-    index listed) and escalates."""
+    index listed) and escalates. `stages` records the reference's
+    ``batch_device_wait[.{variant}]`` and ``batch_decode``."""
     resident, flats, k = launch["resident"], launch["flats"], launch["k"]
+    t_dev = time.perf_counter()
     vals, gids, totals, cutoff, beta = dist.unpack_pruned(
         _to_host([launch["packed"]], ready)[0])
+    t_decode = time.perf_counter()
+    if stages is not None:
+        stages.add("batch_device_wait", t_decode - t_dev)
+        stages.add(f"batch_device_wait.{launch['variant']}",
+                   t_decode - t_dev)
     decoded = _columnar_results(
         resident, vals, gids.astype(np.int64), totals, len(flats),
         lambda qi: "gte" if beta[qi] > 0.0 else "eq",
@@ -1299,13 +1333,16 @@ def _finish_pruned(launch: Dict[str, Any],
                 invalid.append(qi)
                 continue
         results.append(res)
+    if stages is not None:
+        stages.add("batch_decode", time.perf_counter() - t_decode)
     return results, invalid
 
 
 def _execute_pruned(resident: ResidentPack, flats: Sequence[FlatQuery],
-                    k: int, **kw
+                    k: int, stages: Optional["StageTimes"] = None, **kw
                     ) -> Tuple[List[Optional[FlatQueryResult]], List[int]]:
-    return _finish_pruned(_launch_pruned(resident, flats, k, **kw))
+    return _finish_pruned(_launch_pruned(resident, flats, k, stages=stages,
+                                         **kw), stages=stages)
 
 
 #: the routes a query of a train can take (execute_flat_batch's tiers)
@@ -1314,7 +1351,9 @@ TIERS = tuple(f"full-{b}" for b in FULL_SLOT_BUCKETS) + (
 
 
 def launch_flat_batch(resident: ResidentPack, flats: Sequence[FlatQuery],
-                      k: int, packed_sort: bool = True) -> Dict[str, Any]:
+                      k: int, packed_sort: bool = True,
+                      stages: Optional["StageTimes"] = None
+                      ) -> Dict[str, Any]:
     """The first half of a train, the reference's r5 routing: host prep
     and every device launch of the train's first pass. On a raw pack an
     OR query (min_count 1) of at most PRUNE_MAX_TERMS terms with k ≤
@@ -1323,7 +1362,9 @@ def launch_flat_batch(resident: ResidentPack, flats: Sequence[FlatQuery],
     when that one launches anyway), else the prefix tier at PREFIX_CAP2;
     the exact launch takes every other query (and every query of a
     compressed pack). → the state finish_flat_batch completes, with the
-    events its copies wait for ("ready")."""
+    events its copies wait for ("ready"). The train's launches and
+    finishes record the reference's stages into `stages` (kept in the
+    state as "stages") where it is given."""
     raw = resident.imp_host is not None
     pruned_idx = [i for i, f in enumerate(flats)
                   if raw and f.min_count == 1 and k <= PRUNE_MAX_K
@@ -1344,7 +1385,7 @@ def launch_flat_batch(resident: ResidentPack, flats: Sequence[FlatQuery],
             full_groups[buckets[bi + 1]].extend(full_groups[b])
             full_groups[b] = []
     st: Dict[str, Any] = {"resident": resident, "flats": flats, "k": k,
-                          "packed_sort": packed_sort,
+                          "packed_sort": packed_sort, "stages": stages,
                           "full_groups": full_groups, "hot_idx": hot_idx,
                           "exact_idx": exact_idx}
     outputs: List[torch.Tensor] = []
@@ -1352,17 +1393,17 @@ def launch_flat_batch(resident: ResidentPack, flats: Sequence[FlatQuery],
         if idxs:
             launch = st[f"full_launch_{b}"] = _launch_pruned(
                 resident, [flats[i] for i in idxs], k, full_slots=b,
-                packed_sort=packed_sort)
+                packed_sort=packed_sort, stages=stages)
             outputs.append(launch["packed"])
     if hot_idx:
         launch = st["hot_launch"] = _launch_pruned(
             resident, [flats[i] for i in hot_idx], k,
-            prefix_cap=PREFIX_CAP2, packed_sort=packed_sort)
+            prefix_cap=PREFIX_CAP2, packed_sort=packed_sort, stages=stages)
         outputs.append(launch["packed"])
     if exact_idx:
         launch = st["exact_launch"] = _launch_exact(
             resident, [flats[i] for i in exact_idx], k,
-            packed_sort=packed_sort)
+            packed_sort=packed_sort, stages=stages)
         outputs += [launch["vals"], launch["gids"], launch["totals"]]
     st["ready"] = _ready_events(outputs)
     return st
@@ -1381,13 +1422,15 @@ def finish_flat_batch(st: Dict[str, Any],
     k)."""
     resident, flats, k = st["resident"], st["flats"], st["k"]
     packed_sort, ready = st["packed_sort"], st["ready"]
+    stages = st["stages"]
     out: List[Optional[FlatQueryResult]] = [None] * len(flats)
     taken: Dict[str, int] = {}
     escalate: List[int] = []
     for b, idxs in st["full_groups"].items():
         if not idxs:
             continue
-        results, invalid = _finish_pruned(st[f"full_launch_{b}"], ready)
+        results, invalid = _finish_pruned(st[f"full_launch_{b}"], ready,
+                                          stages)
         for j, i in enumerate(idxs):
             out[i] = results[j]
         taken[f"full-{b}"] = len(idxs)
@@ -1396,27 +1439,32 @@ def finish_flat_batch(st: Dict[str, Any],
         escalate.extend(idxs[j] for j in invalid)
     hot_idx = st["hot_idx"]
     if hot_idx:
-        results, invalid = _finish_pruned(st["hot_launch"], ready)
+        results, invalid = _finish_pruned(st["hot_launch"], ready, stages)
         for j, i in enumerate(hot_idx):
             out[i] = results[j]
         taken["prefix-16k"] = len(hot_idx)
         escalate.extend(hot_idx[j] for j in invalid)
     tier3_idx: List[int] = []
     if escalate:
+        if stages is not None:
+            stages.add("pruned_invalid_t2", 0.0, n=len(escalate))
         results, invalid = _execute_pruned(
-            resident, [flats[i] for i in escalate], k,
+            resident, [flats[i] for i in escalate], k, stages=stages,
             prefix_cap=PREFIX_CAP3, packed_sort=packed_sort)
         for j, i in enumerate(escalate):
             out[i] = results[j]
         taken["escalated-64k"] = len(escalate)
         tier3_idx = [escalate[j] for j in invalid]
+        if invalid and stages is not None:
+            stages.add("pruned_invalid_t3", 0.0, n=len(invalid))
     exact_launches = []
     if st["exact_idx"]:
         exact_launches.append((st["exact_idx"], st["exact_launch"], ready))
+    t_tier3 = time.perf_counter()
     if tier3_idx:
         exact_launches.append((tier3_idx, _launch_exact(
             resident, [flats[i] for i in tier3_idx], k,
-            packed_sort=packed_sort), None))
+            packed_sort=packed_sort, stages=stages), None))
     for idxs, launch, events in exact_launches:
         if variants is not None:
             v = launch["variant"]
@@ -1424,10 +1472,13 @@ def finish_flat_batch(st: Dict[str, Any],
         if shapes is not None:
             shape = (launch["bucket"], launch["t_slots"], _kernel_k(k))
             shapes[shape] = shapes.get(shape, 0) + 1
-        results = _finish_exact(launch, events)
+        results = _finish_exact(launch, events, stages)
         for j, i in enumerate(idxs):
             out[i] = results[j]
         taken["exact"] = taken.get("exact", 0) + len(idxs)
+        if idxs is tier3_idx and stages is not None:
+            stages.add("exact_batch", time.perf_counter() - t_tier3,
+                       n=len(tier3_idx))
     if tiers is not None:
         for name, n in taken.items():
             tiers[name] = tiers.get(name, 0) + n
@@ -1989,7 +2040,8 @@ class GpuSearchService:
         t0 = time.perf_counter()
         st = launch_flat_batch(
             resident, flats, k,
-            packed_sort=self.kernel_config["packed_sort"])
+            packed_sort=self.kernel_config["packed_sort"],
+            stages=self.stages)
         st["t0"] = t0
         return st
 

@@ -29,8 +29,10 @@ by object and stored query by stored query, as in the reference, and
 copy their masks to the device. ``script_score`` (the query, or a
 function of ``function_score``) runs the script module's vector
 interpreter over the segment's doc-value and ``dense_vector`` columns
-on the device; ``knn_score_doc`` raises NotLowerable, naming the queue
-item it waits for.
+on the device. ``knn_score_doc`` (a ``knn`` search's winners on this
+segment) sums the clauses' boosted scores on the host in numpy float32,
+as the reference does, and adds them to the base query's on the
+device.
 """
 
 from __future__ import annotations
@@ -262,7 +264,7 @@ class SegmentQueryExecutor:
         if isinstance(node, dsl.ScriptScoreQuery):
             return self._eval_script_score(node, scoring)
         if isinstance(node, dsl.KnnScoreDocQuery):
-            raise NotLowerable("a [knn] search (Queue A7)")
+            return self._eval_knn_score_doc(node, scoring)
         if isinstance(node, dsl.RankFeatureQuery):
             return self._eval_rank_feature(node, scoring)
         if isinstance(node, dsl.GeoDistanceQuery):
@@ -493,6 +495,33 @@ class SegmentQueryExecutor:
         except Exception as e:  # noqa: BLE001 — surfaces as a 400
             raise ScriptException(f"runtime error in score script "
                                   f"[{script.source[:80]}]: {e}") from None
+
+    def _eval_knn_score_doc(self, node: dsl.KnnScoreDocQuery,
+                            scoring: bool) -> Pair:
+        """The base query unioned with the pinned knn winners: a doc
+        matches if the query matches or it is a winner; it scores
+        query_score + Σ knn_score·boost (the reference's hybrid rule). A
+        knn-only node scores 0 in filter context."""
+        seg_name = self.view.segment.name
+        knn_mask = np.zeros(self.d_pad, dtype=bool)
+        knn_score = np.zeros(self.d_pad, dtype=np.float32)
+        for doc_set, boost in zip(node.doc_sets, node.boosts):
+            entry = doc_set.get(seg_name)
+            if entry is None:
+                continue
+            ords, scores = entry
+            knn_mask[ords] = True
+            knn_score[ords] += scores * boost
+        kmask = self._dev(knn_mask)
+        kscore = self._dev(knn_score)
+        if node.query is None:
+            return kmask, (kscore if scoring else torch.zeros_like(kscore))
+        bmask, bscore = self._eval(node.query, scoring)
+        mask = bmask | kmask
+        if not scoring:
+            return mask, torch.zeros_like(kscore)
+        return mask, xla_ftz(torch.where(bmask, bscore,
+                                         torch.zeros_like(bscore)) + kscore)
 
     def _eval_script_score(self, node: dsl.ScriptScoreQuery,
                            scoring: bool) -> Pair:

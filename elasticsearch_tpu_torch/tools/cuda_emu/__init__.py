@@ -1,9 +1,11 @@
-"""Run the merge kernels' CUDA source on the CPU, for rehearsing a kernel
-edit where there is no nvcc and no card. The source holds every merge
-kernel: the five of the fused merge, shard_topk, exact_merge (also as
-raw_merge), pruned_candidates and pruned_rescore (reached through
-``merge_kernel._launch_topk``, ``_launch_exact``, ``_launch_candidates``
-and ``_launch_rescore``).
+"""Run the kernels' CUDA sources on the CPU, for rehearsing a kernel
+edit where there is no nvcc and no card. ``csrc/merge_topk.cu`` holds
+every merge kernel: the five of the fused merge, shard_topk, exact_merge
+(also as raw_merge), pruned_candidates and pruned_rescore (reached
+through ``merge_kernel._launch_topk``, ``_launch_exact``,
+``_launch_candidates`` and ``_launch_rescore``); ``csrc/knn.cu`` the kNN
+similarity kernel (``emulated(build_dir, "knn")``:
+``knn_kernel._launch``).
 
 ``csrc/merge_topk.cu`` is rewritten into plain C++ against ``emu.h`` (a
 host shim of the CUDA subset the kernels use: each CUDA thread a fiber
@@ -31,7 +33,8 @@ import types
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
-SOURCE = HERE.parent.parent / "csrc" / "merge_topk.cu"
+CSRC = HERE.parent.parent / "csrc"
+SOURCE = CSRC / "merge_topk.cu"
 
 
 def translate(src: str) -> str:
@@ -47,13 +50,14 @@ def translate(src: str) -> str:
     return re.sub(r"(\w+)<<<", r"emu_launch(\1, ", src).replace(">>>(", ", ")
 
 
-def build(build_dir: Path) -> Path:
-    """g++ the translated source into build_dir → the library's path."""
+def build(build_dir: Path, name: str = "merge_topk") -> Path:
+    """g++ the translated csrc/<name>.cu into build_dir → the library's
+    path."""
     build_dir = Path(build_dir)
     build_dir.mkdir(parents=True, exist_ok=True)
-    cpp = build_dir / "merge_topk_emu.cpp"
-    cpp.write_text(translate(SOURCE.read_text()))
-    lib = build_dir / "libmerge_topk_emu.so"
+    cpp = build_dir / f"{name}_emu.cpp"
+    cpp.write_text(translate((CSRC / f"{name}.cu").read_text()))
+    lib = build_dir / f"lib{name}_emu.so"
     subprocess.run(["g++", "-std=c++17", "-O1", "-ffp-contract=off",
                     "-fPIC", "-shared", f"-I{HERE}", "-o",
                     str(lib), str(cpp)], check=True)
@@ -61,24 +65,27 @@ def build(build_dir: Path) -> Path:
 
 
 @contextlib.contextmanager
-def emulated(build_dir: Path):
-    """merge_kernel's launches go to the emulated library for the block;
-    CPU tensors then reach merge_kernel._launch (not fused_merge_topk,
-    which sends them to the plain version)."""
+def emulated(build_dir: Path, name: str = "merge_topk"):
+    """The wrapper module's launches (merge_kernel's for csrc/merge_topk.cu,
+    knn_kernel's for csrc/knn.cu) go to the emulated library for the
+    block; CPU tensors then reach merge_kernel._launch or
+    knn_kernel._launch (not fused_merge_topk or knn_scores, which send
+    them to the plain version)."""
     import torch
 
-    from elasticsearch_tpu_torch.ops import merge_kernel as mk
-    lib = ctypes.CDLL(str(build(build_dir)))
-    for fn, args in mk._SIGNATURES.items():
+    from elasticsearch_tpu_torch.ops import knn_kernel, merge_kernel
+    module = {"merge_topk": merge_kernel, "knn": knn_kernel}[name]
+    lib = ctypes.CDLL(str(build(build_dir, name)))
+    for fn, args in module._SIGNATURES.items():
         getattr(lib, fn).argtypes = args
         getattr(lib, fn).restype = ctypes.c_int
     lib.es_error_string.argtypes = [ctypes.c_int]
     lib.es_error_string.restype = ctypes.c_char_p
-    saved = mk._lib, torch.cuda.current_stream
-    mk._lib = lambda: lib
+    saved = module._lib, torch.cuda.current_stream
+    module._lib = lambda: lib
     torch.cuda.current_stream = lambda dev=None: types.SimpleNamespace(
         cuda_stream=0)
     try:
         yield lib
     finally:
-        mk._lib, torch.cuda.current_stream = saved
+        module._lib, torch.cuda.current_stream = saved

@@ -116,9 +116,12 @@ inline uint32_t __float_as_uint(float f) { uint32_t u; std::memcpy(&u, &f, 4); r
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
+inline float __fdiv_rn(float a, float b) { volatile float r = a / b; return r; }
+inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
+inline float __fsqrt_rn(float a) { return std::sqrt(a); }
 template <class T> inline T min(T a, T b) { return a < b ? a : b; }
 template <class T> inline T max(T a, T b) { return a > b ? a : b; }
-using std::isinf; using std::fmaxf;
+using std::isinf; using std::isnan; using std::fmaxf;
 
 // The kernel and its arguments, for the fibers' entry (makecontext
 // passes only ints).

@@ -35,6 +35,7 @@ NODE_MODULES = [
     "elasticsearch_tpu_torch.ops.bm25",
     "elasticsearch_tpu_torch.ops.geo",
     "elasticsearch_tpu_torch.ops.xla_math",
+    "elasticsearch_tpu_torch.ops.knn_kernel",
     "elasticsearch_tpu_torch.search.coordinator",
     "elasticsearch_tpu_torch.search.can_match",
     "elasticsearch_tpu_torch.search.planner",
@@ -51,6 +52,7 @@ NODE_MODULES = [
     "elasticsearch_tpu_torch.search.scroll",
     "elasticsearch_tpu_torch.search.contexts",
     "elasticsearch_tpu_torch.search.rank_eval",
+    "elasticsearch_tpu_torch.search.knn",
     "elasticsearch_tpu_torch.parallel.mesh",
     "elasticsearch_tpu_torch.parallel.distributed",
     "elasticsearch_tpu_torch.search.serializer",

@@ -445,13 +445,17 @@ PLANNER_SERVED = {
             "pit": {"id": "abc"}},
 }
 
-#: planner features the port does not serve yet: a typed 400
+#: bodies answered with a typed 400: a planner feature the port does not
+#: serve yet (not_lowerable), or (since Queue A7 served kNN) a knn body
+#: on a field that is not a dense_vector, the reference's own 400
 PLANNER_BOUND = {
     "aggs": {"query": {"match": {"body": "alpha"}},
              "aggs": {"n": {"value_count": {"field": "body"}}}},
     "knn": {"knn": {"field": "v", "query_vector": [1.0], "k": 1,
                     "num_candidates": 1}},
 }
+#: of PLANNER_BOUND, the bodies whose 400 is the reference node's bytes
+REFERENCE_400 = {"knn"}
 
 
 @pytest.mark.parametrize("name", sorted(PLANNER_SERVED))
@@ -468,6 +472,12 @@ def test_planner_served_requests_match_reference(pair, name):
 
 @pytest.mark.parametrize("name", sorted(PLANNER_BOUND))
 def test_planner_bound_requests_get_a_typed_400(pair, name):
+    if name in REFERENCE_400:
+        want, got = pair.both("POST", "/corpus/_search",
+                              PLANNER_BOUND[name])
+        assert got == want
+        assert want[0] == 400, want
+        return
     status, text = call(pair.port, dumps_response, "POST",
                         "/corpus/_search", PLANNER_BOUND[name])
     err = json.loads(text)

@@ -219,7 +219,7 @@ class TestServingCacheCoherence:
         gpu = service()
         calls = []
 
-        def boom(resident, flats, k, packed_sort=True):
+        def boom(resident, flats, k, **kw):
             calls.append(len(flats))
             raise RuntimeError("injected kernel failure")
 

@@ -8,8 +8,9 @@ same bytes but for the timing fields, masked by name in both answers:
 ``took``, ``time_in_nanos`` (a shard's or an index's query and fetch
 time), ``breakdown`` (its ``score`` is the query's time again),
 ``stages_ms`` (the kernel section's host stage times, the
-batch_wait split among them), ``device_stages`` (the service's stage
-distributions) and ``batch_wait_split``. The reference runs its kernel
+batch_wait split among them), the timing values inside
+``device_stages`` (each stage's ``seconds`` and percentiles: its name
+and ``count`` are compared) and ``batch_wait_split``. The reference runs its kernel
 path compiled by XLA (no interpreted Pallas), so that both name the
 variant "compressed"; its Pallas interpreter spells the same kernel
 "pallas".
@@ -42,16 +43,27 @@ torch.set_num_threads(1)
 
 #: the timing fields masked in both answers, by key, wherever they are
 TIMING_KEYS = ("took", "time_in_nanos", "breakdown", "stages_ms",
-               "device_stages", "batch_wait_split")
+               "batch_wait_split")
+#: inside ``device_stages`` (a stage name → its distribution), the timing
+#: values; the stages' names and counts are compared
+STAGE_TIMING_KEYS = ("seconds", "p50_ms", "p95_ms", "p99_ms")
 
 
 def mask_timing(obj):
     if isinstance(obj, dict):
-        return {k: "<timing>" if k in TIMING_KEYS else mask_timing(v)
+        return {k: "<timing>" if k in TIMING_KEYS
+                else mask_stages(v) if k == "device_stages"
+                else mask_timing(v)
                 for k, v in obj.items()}
     if isinstance(obj, list):
         return [mask_timing(v) for v in obj]
     return obj
+
+
+def mask_stages(stages):
+    return {name: {k: "<timing>" if k in STAGE_TIMING_KEYS else v
+                   for k, v in st.items()}
+            for name, st in stages.items()}
 
 
 def same(pair, method, path, body=None, params=None, raw=None):
@@ -161,6 +173,33 @@ class TestProfile:
         # the second equal body hits the plan cache
         _, again = same(pair, "POST", "/p/_search", dict(body, profile=True))
         assert again["profile"]["tpu"][0]["plan_cache"] == "hit"
+
+    def test_device_stages_name_the_launches(self, pair):
+        """The kernel section's ``device_stages`` lists the reference's
+        stages with their counts (only the timing values masked): a
+        one-shard index of three docs, a match gives
+        ``exact_device_wait.compressed``, the same match at boost 1e-15
+        (weights past what the compressed kernel packs) adds
+        ``exact_device_wait.compressed_exact``."""
+        pair.both("PUT", "/tri", {"settings": {"number_of_shards": 1},
+                                  "mappings": {"properties": {
+                                      "t": {"type": "text"}}}})
+        for i, text in enumerate(("quick fox", "lazy dog", "quick dog")):
+            pair.both("PUT", f"/tri/_doc/{i}", {"t": text},
+                      params={"refresh": "true"})
+        _, res = same(pair, "POST", "/tri/_search", {
+            "query": {"match": {"t": "quick dog"}}, "profile": True})
+        stages = res["profile"]["tpu"][0]["device_stages"]
+        assert {k: v["count"] for k, v in stages.items()} == {
+            "exact_device_wait.compressed": 1}
+        _, res = same(pair, "POST", "/tri/_search", {
+            "query": {"match": {"t": {"query": "quick dog",
+                                      "boost": 1e-15}}},
+            "profile": True})
+        stages = res["profile"]["tpu"][0]["device_stages"]
+        assert {k: v["count"] for k, v in stages.items()} == {
+            "exact_device_wait.compressed": 1,
+            "exact_device_wait.compressed_exact": 1}
 
     def test_msearch_items_take_profile_and_timeout(self, pair):
         seed(pair)
