@@ -340,7 +340,13 @@ device mesh through the collective tail, and checks:
                  queries over the 1M rows: CUDA-event and device ms, the
                  plain version's ms, the bound (the larger of the bytes
                  at 3.35 TB/s and the FP32 operations at 67 TFLOP/s),
-                 torch.matmul at full FP32 as the yardstick)
+                 torch.matmul at full FP32 as the yardstick; the launch's
+                 instance, tile, blocks and blocks per SM), and under
+                 one_query the REST path's launch, one query over one
+                 shard's 62,592 rows for cosine and l2_norm (the segment
+                 formula), each bit for bit against the plain version,
+                 beside its bytes bound and torch.matmul of [1, 768] x
+                 [768, rows]
 
 The last line is {"ok": true, "device": {...}}; any failure exits
 non-zero without it. Without a CUDA device the script exits 2 at once.
@@ -4947,7 +4953,8 @@ def knn_inprocess(smi):
     from elasticsearch_tpu_torch.ops import merge_kernel as mk
     from elasticsearch_tpu_torch.parallel import distributed as dist
     from elasticsearch_tpu_torch.parallel.mesh import make_mesh
-    from elasticsearch_tpu_torch.tools.kernel_ab import profiled
+    from elasticsearch_tpu_torch.tools.kernel_ab import (KNN_FUNCTIONS,
+                                                        knn_entry, profiled)
 
     t_part = time.perf_counter()
     per = KNN_DOCS // KNN_SHARDS
@@ -5043,8 +5050,7 @@ def knn_inprocess(smi):
     kk.knn_scores(flat, q_dev, "cosine", formula="mesh", ok=ok,
                   stats=stats)
     ms = time_events(lambda ev: launch(ev), 20)["knn_scores"]
-    device_ms = profiled(launch, 20, {"knn_scores": ("knn_scores",)}).get(
-        "knn_scores")
+    device_ms = profiled(launch, 20, KNN_FUNCTIONS).get("knn_scores")
     got = launch()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -5063,6 +5069,15 @@ def knn_inprocess(smi):
     library_ms = time_cuda(lambda: torch.matmul(q_dev, safe.T), 20)
     torch.backends.cuda.matmul.allow_tf32 = saved
     del safe
+    # the REST path's launch: one query over one shard's d_pad rows (a
+    # segment of the pack, its live docs as ok), the segment formula
+    one_query = {}
+    for kind in ("cosine", "l2_norm"):
+        one_query[kind] = knn_entry(sys.modules[__name__], kk, flat[:d_pad],
+                                    q_dev[:1], kind, "segment", ok[:d_pad])
+        if not one_query[kind]["same"]:
+            raise AssertionError(f"knn_scores != plain on the one-query "
+                                 f"{kind} segment")
     marks["timing_s"] = time.perf_counter() - t_timing
     n = flat.shape[0]
     nbytes = n * KNN_DIMS * 4 + KNN_BATCH * n * 4
@@ -5089,7 +5104,8 @@ def knn_inprocess(smi):
                            "association, no norms, formula or mask",
              "shape": {"queries": KNN_BATCH, "rows": n, "dims": KNN_DIMS,
                        "similarity": "cosine", "formula": "mesh"},
-             "bytes": nbytes, "operations": flops, "stats": stats}
+             "bytes": nbytes, "operations": flops, "stats": stats,
+             "one_query": one_query}
     record = {"nvidia_smi": smi, "docs": KNN_DOCS, "dims": KNN_DIMS,
               "shards": KNN_SHARDS, "d_pad": d_pad,
               "missing_rows": int(np.isnan(body[:, :, 0]).sum()),

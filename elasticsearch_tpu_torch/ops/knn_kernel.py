@@ -22,9 +22,10 @@ document is masked. Two formulas:
 Both sum in XLA:CPU's association (``ops/xla_math.xla_gemv``,
 ``xla_row_sum``) with its flush of denormals, so the per-segment scores
 are the reference's bits. On a CUDA tensor the wrapper launches
-``csrc/knn.cu`` (one launch a call) or raises; on a CPU tensor it runs
-``knn_scores_plain``, which the tests and ``chip_smoke.py`` hold the
-kernel against. ``LAUNCHES["knn_scores"]`` counts the launches.
+``csrc/knn.cu`` (its queries' norms, then the tile or row instance, by
+B) or raises; on a CPU tensor it runs ``knn_scores_plain``, which the
+tests and ``chip_smoke.py`` hold the kernel against.
+``LAUNCHES["knn_scores"]`` counts the calls that launched it.
 
 ``knn_topk`` is the top-k after it: ``merge_kernel.shard_topk`` (the IEEE
 total order, ties to the lower position), in stages where a row or k is
@@ -43,7 +44,7 @@ import torch
 
 from elasticsearch_tpu_torch.ops import merge_kernel
 from elasticsearch_tpu_torch.ops.xla_math import (xla_ftz, xla_gemv,
-                                                  xla_row_sum)
+                                                  xla_mulf, xla_row_sum)
 from elasticsearch_tpu_torch.parallel.device import device_context
 
 #: the similarities, in the kernel's order
@@ -61,10 +62,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "es_knn_scores": [_P, ctypes.c_longlong, _I, _P, _I, _P, _I, _I, _I,
-                      ctypes.c_float, _P, _I, _P],
-    "es_knn_smem": [_I, _I],
-    "es_knn_blocks_per_sm": [_I, _I],
+                      ctypes.c_float, _P, _P, _P],
+    "es_knn_plan": [ctypes.c_longlong, _I, _I, _I, _P],
+    "es_knn_blocks_per_sm": [_I],
 }
+#: csrc/knn.cu's instances (es_knn_plan's first entry)
+INSTANCES = ("tile", "row", "row_one_query")
 
 
 def reset_launches() -> None:
@@ -127,14 +130,14 @@ def similarity_scores_plain(vectors: torch.Tensor, queries: torch.Tensor,
     raw = torch.empty((q.shape[0], vectors.shape[0]), dtype=torch.float32,
                       device=vectors.device)
     score = torch.empty_like(raw)
-    qn = _sqrt(xla_row_sum(xla_ftz(q * q))) if kind == "cosine" else None
+    qn = _sqrt(xla_row_sum(xla_mulf(q, q))) if kind == "cosine" else None
     for lo in range(0, vectors.shape[0], PLAIN_ROWS):
         v = xla_ftz(vectors[lo: lo + PLAIN_ROWS].to(torch.float32))
         sl = slice(lo, lo + v.shape[0])
         if kind == "l2_norm":
             for b in range(q.shape[0]):
                 d = xla_ftz(v - q[b][None, :])
-                d2 = xla_row_sum(xla_ftz(d * d))
+                d2 = xla_row_sum(xla_mulf(d, d))
                 raw[b, sl] = -_sqrt(d2)
                 score[b, sl] = xla_ftz(1.0 / xla_ftz(1.0 + d2))
             continue
@@ -142,8 +145,8 @@ def similarity_scores_plain(vectors: torch.Tensor, queries: torch.Tensor,
         if kind == "dot_product":
             raw[:, sl] = dot
         else:
-            norms = _sqrt(xla_row_sum(xla_ftz(v * v)))
-            den = _max(xla_ftz(norms[None, :] * qn[:, None]), 1e-12)
+            norms = _sqrt(xla_row_sum(xla_mulf(v, v)))
+            den = _max(xla_mulf(norms[None, :], qn[:, None]), 1e-12)
             raw[:, sl] = xla_ftz(dot / den)
         score[:, sl] = _half_of_one_plus(raw[:, sl])
     if one:
@@ -159,7 +162,7 @@ def mesh_scores_plain(vectors: torch.Tensor, queries: torch.Tensor,
     if kind not in KINDS:
         raise ValueError(f"unknown similarity [{kind}]")
     q = xla_ftz(queries.to(torch.float32))
-    qss = xla_row_sum(xla_ftz(q * q))
+    qss = xla_row_sum(xla_mulf(q, q))
     out = torch.empty((q.shape[0], vectors.shape[0]), dtype=torch.float32,
                       device=vectors.device)
     for lo in range(0, vectors.shape[0], PLAIN_ROWS):
@@ -170,13 +173,13 @@ def mesh_scores_plain(vectors: torch.Tensor, queries: torch.Tensor,
         if kind == "dot_product":
             out[:, sl] = _half_of_one_plus(dot)
             continue
-        dss = xla_row_sum(xla_ftz(safe * safe))
+        dss = xla_row_sum(xla_mulf(safe, safe))
         if kind == "l2_norm":
-            d2 = xla_ftz(xla_ftz(dss[None, :] - xla_ftz(2.0 * dot))
+            d2 = xla_ftz(xla_ftz(dss[None, :] - xla_mulf(2.0, dot))
                          + qss[:, None])
             out[:, sl] = xla_ftz(1.0 / xla_ftz(1.0 + _max(d2, 0.0)))
         else:
-            den = _max(xla_ftz(_sqrt(qss)[:, None] * _sqrt(dss)[None, :]),
+            den = _max(xla_mulf(_sqrt(qss)[:, None], _sqrt(dss)[None, :]),
                        1e-12)
             out[:, sl] = _half_of_one_plus(xla_ftz(dot / den))
     return out, ~torch.isnan(vectors[:, 0])
@@ -226,8 +229,9 @@ def knn_scores(vectors: torch.Tensor, queries: torch.Tensor, kind: str, *,
     against `vectors` f32 [N, dims] (N a multiple of 8): the plain
     version for CPU tensors; for CUDA tensors the kernel launches or the
     call raises. `ok` bool or uint8 [N]; `similarity` the cutoff (segment
-    formula only). `stats` receives the launch's shape and blocks per SM;
-    `events` a (kernel, start, end) pair of CUDA events."""
+    formula only). `stats` receives the launch's shape, instance, tile,
+    blocks and blocks per SM; `events` a (kernel, start, end) pair of CUDA
+    events."""
     if kind not in KINDS:
         raise ValueError(f"unknown similarity [{kind}]")
     if formula not in FORMULAS:
@@ -266,7 +270,9 @@ def _launch(vectors, queries, kind, formula, ok, similarity, stats,
             ok = ok.view(torch.uint8)
         merge_kernel._need(ok, "ok", torch.uint8, dev, (n,))
     out = torch.empty((b, n), dtype=torch.float32, device=dev)
-    qb = 8 if b >= 8 else 1
+    mesh = formula == "mesh"
+    # scratch for the queries' sums of squares, made once a launch
+    qss = torch.empty(b, dtype=torch.float32, device=dev)
     thr = _threshold(kind, similarity)
     lib = _lib()
     if events is not None:
@@ -275,9 +281,9 @@ def _launch(vectors, queries, kind, formula, ok, similarity, stats,
         start.record()
     err = lib.es_knn_scores(
         vectors.data_ptr(), n, dims, queries.data_ptr(), b,
-        None if ok is None else ok.data_ptr(), KINDS.index(kind),
-        int(formula == "mesh"), int(thr is not None),
-        0.0 if thr is None else thr, out.data_ptr(), qb,
+        None if ok is None else ok.data_ptr(), KINDS.index(kind), int(mesh),
+        int(thr is not None), 0.0 if thr is None else thr,
+        qss.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if events is not None:
         end.record()
@@ -289,9 +295,14 @@ def _launch(vectors, queries, kind, formula, ok, similarity, stats,
     with _LAUNCHES_LOCK:
         LAUNCHES["knn_scores"] += 1
     if stats is not None:
-        stats.update(rows=n, queries=b, dims=dims, queries_a_block=qb,
-                     blocks=-(-n // 128) * -(-b // qb),
-                     blocks_per_sm=lib.es_knn_blocks_per_sm(qb, dims))
+        plan = (ctypes.c_longlong * 6)()
+        lib.es_knn_plan(n, b, KINDS.index(kind), int(mesh), plan)
+        inst, tile_docs, tile_queries, smem, tiles, blocks = plan
+        stats.update(rows=n, queries=b, dims=dims,
+                     instance=INSTANCES[inst],
+                     tile={"documents": tile_docs, "queries": tile_queries},
+                     tiles=tiles, blocks=blocks, shared_memory_bytes=smem,
+                     blocks_per_sm=lib.es_knn_blocks_per_sm(inst))
     return out
 
 

@@ -535,14 +535,44 @@ def libm_tanf(t: torch.Tensor) -> torch.Tensor:
 # XLA:CPU's sums: the gemv tiling and the windowed row sum
 # ---------------------------------------------------------------------------
 
+def xla_round(x64: torch.Tensor) -> torch.Tensor:
+    """A float64 result rounded to float32 as XLA:CPU rounds an op's
+    result: to nearest, then flushed to a zero of its sign where it is
+    tiny after rounding, x86's rule under FTZ: its value rounded to 24
+    bits with an unbounded exponent below the smallest normal. That
+    flushes results in [2^-126 - 2^-150, 2^-126 - 2^-151), which round
+    to 2^-126 on float32's subnormal grid (where ``xla_ftz`` of a float32
+    op's result keeps them); an H100's ``.ftz`` operations follow the same
+    rule (``tools/ftz_probe.py``). Only a product or a fused
+    multiply-add reaches that band: a sum of normal values that is
+    below 2^-126 is exact, and a quotient near 2^-126 lies a multiple of
+    ulp(a) / b > 2^-150 from it. `x64` is the exact result, or a fused
+    sum rounded to odd (``xla_fmaf``)."""
+    r = x64.to(torch.float32)
+    tiny = (x64 * 2.0 ** 64).to(torch.float32).abs() < 2.0 ** -62
+    return torch.where(tiny, r * 0.0, r)
+
+
+def _wide(v):
+    """A float32 tensor (its denormals read as zeros, XLA:CPU's DAZ) or a
+    Python float, in float64."""
+    return xla_ftz(v).to(torch.float64) if isinstance(v, torch.Tensor) \
+        else float(v)
+
+
+def xla_mulf(a, b) -> torch.Tensor:
+    """float32 ``a * b`` as XLA:CPU computes it (``xla_round``)."""
+    return xla_round(_wide(a) * _wide(b))
+
+
 def xla_fmaf(a64: torch.Tensor, b64: torch.Tensor,
              c: torch.Tensor) -> torch.Tensor:
     """float32 ``a·b + c`` rounded once, as a hardware FMA rounds it, with
-    XLA:CPU's flush of a denormal result. `a64`, `b64` are float32
-    values held in float64 (their product is exact there), `c` float32.
-    The float64 sum is rounded to odd (an inexact sum with an even last
-    bit moves one ulp toward the exact value), so its rounding to
-    float32 is the single rounding of the exact sum."""
+    XLA:CPU's flush (``xla_round``). `a64`, `b64` are float32 values held
+    in float64 (their product is exact there), `c` float32. The float64
+    sum is rounded to odd (an inexact sum with an even last bit moves one
+    ulp toward the exact value), so its rounding to float32 is the single
+    rounding of the exact sum."""
     p = a64 * b64
     c64 = c.to(torch.float64)
     s = p + c64
@@ -552,7 +582,7 @@ def xla_fmaf(a64: torch.Tensor, b64: torch.Tensor,
     step = torch.where((e > 0) == (s > 0), 1, -1)
     fix = (e != 0) & ((bits & 1) == 0) & torch.isfinite(s)
     bits = torch.where(fix, bits + step, bits)
-    return xla_ftz(bits.view(torch.float64).to(torch.float32))
+    return xla_round(bits.view(torch.float64))
 
 
 def xla_gemv(mat: torch.Tensor, q: torch.Tensor) -> torch.Tensor:

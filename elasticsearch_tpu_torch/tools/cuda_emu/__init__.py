@@ -7,11 +7,13 @@ through ``merge_kernel._launch_topk``, ``_launch_exact``,
 similarity kernel (``emulated(build_dir, "knn")``:
 ``knn_kernel._launch``).
 
-``csrc/merge_topk.cu`` is rewritten into plain C++ against ``emu.h`` (a
-host shim of the CUDA subset the kernels use: each CUDA thread a fiber
-of one OS thread, switched at every block or warp barrier, blocks one
-after another), compiled with g++ into a shared library with the same C
-entry points, and put in place of the nvcc-built library::
+A source is rewritten into plain C++ against ``emu.h`` (a host shim of
+the CUDA subset the kernels use: each CUDA thread a fiber of one OS
+thread, switched at every block or warp barrier, blocks one after
+another; cp.async a copy that lands at once; knn.cu's ``.ftz`` PTX
+operations by x86's flush rule, the card's), compiled with g++ into a
+shared library with the same C entry points, and put in place of the
+nvcc-built library::
 
     from elasticsearch_tpu_torch.tools import cuda_emu
     with cuda_emu.emulated(build_dir):
@@ -38,8 +40,10 @@ SOURCE = CSRC / "merge_topk.cu"
 
 
 def translate(src: str) -> str:
-    """The CUDA source as C++ over emu.h."""
+    """The CUDA source as C++ over emu.h (a source's ``// <ptx>`` ...
+    ``// </ptx>`` block of inline-PTX helpers is emu.h's to give)."""
     src = src.replace("#include <cuda_runtime.h>", '#include "emu.h"')
+    src = re.sub(r"// <ptx>\n.*?// </ptx>\n", "", src, flags=re.S)
     src = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?([\w ]+?) "
                  r"(\w+)\[\];",
                  r"\1* \2 = reinterpret_cast<\1*>(g_smem);", src)
@@ -59,6 +63,7 @@ def build(build_dir: Path, name: str = "merge_topk") -> Path:
     cpp.write_text(translate((CSRC / f"{name}.cu").read_text()))
     lib = build_dir / f"lib{name}_emu.so"
     subprocess.run(["g++", "-std=c++17", "-O1", "-ffp-contract=off",
+                    "-fno-strict-aliasing",
                     "-fPIC", "-shared", f"-I{HERE}", "-o",
                     str(lib), str(cpp)], check=True)
     return lib

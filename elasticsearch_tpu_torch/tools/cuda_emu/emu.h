@@ -1,7 +1,8 @@
-// Host emulation of the CUDA subset used by csrc/merge_topk.cu (see
-// __init__.py): each CUDA thread is a fiber (ucontext) of one OS thread,
-// switched at every barrier, blocks one after another. One core, no
-// spinning: the emulation does not slow what runs beside it.
+// Host emulation of the CUDA subset used by csrc/merge_topk.cu and
+// csrc/knn.cu (see __init__.py): each CUDA thread is a fiber (ucontext) of
+// one OS thread, switched at every barrier, blocks one after another. One
+// core, no spinning: the emulation does not slow what runs beside it.
+#include <float.h>
 #include <ucontext.h>
 
 #include <algorithm>
@@ -14,13 +15,19 @@
 
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 struct int2 { int x, y; };
+struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(8) float2 { float x, y; };
 inline int2 make_int2(int a, int b) { return int2{a, b}; }
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <class F> int cudaFuncSetAttribute(F, int, int v) { return v > 232448 ? 1 : 0; }
 inline int cudaGetLastError() { return 0; }
-template <class F> int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) { *n = 0; return 0; }
+// one block an SM on two SMs: a persistent kernel's blocks walk several tiles
+template <class F> int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) { *n = 1; return 0; }
+enum { cudaDevAttrMultiProcessorCount = 16 };
+inline int cudaGetDevice(int* d) { *d = 0; return 0; }
+inline int cudaDeviceGetAttribute(int* v, int, int) { *v = 2; return 0; }
 #define __host__
 inline const char* cudaGetErrorString(int) { return "emu"; }
 
@@ -119,6 +126,40 @@ inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
 inline float __fdiv_rn(float a, float b) { volatile float r = a / b; return r; }
 inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
 inline float __fsqrt_rn(float a) { return std::sqrt(a); }
+
+// csrc/knn.cu's <ptx> block. The .rn.ftz.f32 operations: a subnormal
+// operand read as a zero, the result rounded once and flushed to a zero of
+// its sign where, rounded to 24 bits with an unbounded exponent, it is
+// below FLT_MIN (x86's rule, the card's). emu_ftz takes the exact result or
+// one rounded to odd in double (innocuous for the one rounding to float).
+inline float emu_daz(float x) { return std::fabs(x) < FLT_MIN ? std::copysign(0.0f, x) : x; }
+inline float emu_ftz(double x) {
+  const float scaled = (float)(x * 0x1p64);  // 24 bits, the exponent unbounded
+  return std::fabs(scaled) < 0x1p-62f ? std::copysign(0.0f, (float)x) : (float)x;
+}
+inline double emu_odd_sum(double p, double c) {  // p + c rounded to odd
+  const double s = p + c, bb = s - p;
+  const double e = (p - (s - bb)) + (c - bb);
+  uint64_t bits; std::memcpy(&bits, &s, 8);
+  if (e != 0 && std::isfinite(s) && !(bits & 1)) bits += ((e > 0) == (s > 0)) ? 1 : (uint64_t)-1;
+  double r; std::memcpy(&r, &bits, 8); return r;
+}
+inline float fma_z(float a, float b, float c) {
+  return emu_ftz(emu_odd_sum((double)emu_daz(a) * emu_daz(b), emu_daz(c))); }
+inline float add_z(float a, float b) { return emu_ftz((double)emu_daz(a) + emu_daz(b)); }
+inline float sub_z(float a, float b) { return emu_ftz((double)emu_daz(a) - emu_daz(b)); }
+inline float mul_z(float a, float b) { return emu_ftz((double)emu_daz(a) * emu_daz(b)); }
+inline float div_z(float a, float b) { return emu_ftz((double)emu_daz(a) / emu_daz(b)); }
+inline float sqrt_z(float a) { return emu_ftz(std::sqrt((double)emu_daz(a))); }
+// cp.async as a plain copy (zeros past `bytes`), landed at once: the waits
+// have nothing to wait for
+inline void cp_async16(float* dst, const float* src, int bytes) {
+  std::memset(dst, 0, 16); std::memcpy(dst, src, bytes); }
+inline void cp_async4(float* dst, const float* src, int bytes) {
+  std::memset(dst, 0, 4); std::memcpy(dst, src, bytes); }
+inline void cp_async_commit() {}
+template <int N> inline void cp_async_wait() {}
+
 template <class T> inline T min(T a, T b) { return a < b ? a : b; }
 template <class T> inline T max(T a, T b) { return a > b ? a : b; }
 using std::isinf; using std::isnan; using std::fmaxf;

@@ -21,6 +21,21 @@ size 10, kernel k 128), each lowered into one train, with its lanes and
 the slots whose lanes reach kernel k (those slot_decode selects in).
 Compare two checkouts within one call, in turns: A, B, B, A.
 
+    python3 elasticsearch_tpu_torch/tools/kernel_ab.py --knn --root DIR
+
+times DIR's knn_scores on chip_smoke's knn line's real calls, its pack
+made here the same way (KNN_SHARDS seeded shards of KNN_DOCS x KNN_DIMS
+rows padded to d_pad with NaN rows, KNN_MISSING rows without a vector,
+KNN_DELETED deleted; KNN_BATCH seeded queries): "mesh_cosine" the timed
+launch (the KNN_BATCH queries against the whole pack, cosine, the mesh
+formula), "segment_cosine" and "segment_l2_norm" one query against one
+shard's d_pad rows (a segment of the REST path, its live docs as `ok`),
+the segment formula. Each gives "ms" (the median of KNN_TIMED CUDA-event
+brackets), "device_ms" (torch.profiler, the mean of every kernel a call
+runs), "same" (bit for bit against DIR's knn_scores_plain on the card),
+the plain version's ms, the bound (bytes or operations) and
+"library_ms", torch.matmul of the same shapes at full FP32.
+
     python3 elasticsearch_tpu_torch/tools/kernel_ab.py --raw --root DIR
 
 does the same for the pruned tiers' kernels on chip_smoke's raw
@@ -59,6 +74,8 @@ def main() -> int:
     ap.add_argument("--root", default=str(HERE_ROOT))
     ap.add_argument("--raw", action="store_true",
                     help="time the pruned tiers' kernels instead")
+    ap.add_argument("--knn", action="store_true",
+                    help="time knn_scores on the knn line's calls instead")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -67,6 +84,10 @@ def main() -> int:
         print("kernel_ab: no CUDA device available", file=sys.stderr)
         return 2
     import chip_smoke as cs
+    if args.knn:
+        print(json.dumps(dict(root=root, device=cs.smi_line(),
+                              **knn_calls(cs))), flush=True)
+        return 0
     from elasticsearch_tpu_torch.benchmark import corpus as corpus_mod
     from elasticsearch_tpu_torch.ops import merge_kernel as mk
     from elasticsearch_tpu_torch.search.gpu_service import GpuSearchService
@@ -272,6 +293,104 @@ def raw_calls(svc, mk, cs, corpus):
                            and torch.equal(got_p, want_p)),
                  widths=dict(sorted(widths.items())))
     out["shard_topk.phase_a"] = entry
+    return out
+
+
+#: CUDA-event brackets a knn entry
+KNN_TIMED = 20
+#: the CUDA functions of a knn_scores call, this tree's and earlier ones
+KNN_FUNCTIONS = {"knn_scores": ("knn_scores", "knn_tile", "knn_row",
+                                "knn_qss")}
+
+
+def knn_pack(cs):
+    """chip_smoke's knn pack on the card: (vectors f32[shards * d_pad,
+    dims], live bool[shards * d_pad], queries f32[batch, dims], d_pad)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from elasticsearch_tpu_torch.index.pack import _pad_to
+    per = cs.KNN_DOCS // cs.KNN_SHARDS
+    d_pad = _pad_to(per)
+    rng = np.random.default_rng([cs.SEED, 17])
+    vectors = np.empty((cs.KNN_SHARDS, d_pad, cs.KNN_DIMS), dtype=np.float32)
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        list(pool.map(lambda s: np.random.default_rng(
+            [cs.SEED, 17, s]).standard_normal(dtype=np.float32,
+                                              out=vectors[s]),
+            range(cs.KNN_SHARDS)))
+    vectors[:, per:] = np.nan
+    body = vectors[:, :per]
+    body[rng.random((cs.KNN_SHARDS, per)) < cs.KNN_MISSING] = np.nan
+    live = np.zeros((cs.KNN_SHARDS, d_pad), dtype=bool)
+    live[:, :per] = rng.random((cs.KNN_SHARDS, per)) >= cs.KNN_DELETED
+    queries = rng.standard_normal((cs.KNN_BATCH, cs.KNN_DIMS),
+                                  dtype=np.float32)
+    dev = torch.device("cuda", 0)
+    return (torch.from_numpy(vectors).to(dev).reshape(-1, cs.KNN_DIMS),
+            torch.from_numpy(live).to(dev).reshape(-1),
+            torch.from_numpy(queries).to(dev), d_pad)
+
+
+def knn_entry(cs, kk, vectors, queries, kind, formula, ok):
+    """One knn_scores call timed (ms, device ms), held against the plain
+    version, beside its bound and torch.matmul's time."""
+    import torch
+
+    def launch(events=None):
+        return kk.knn_scores(vectors, queries, kind, formula=formula, ok=ok,
+                             events=events)
+    stats = {}
+    kk.knn_scores(vectors, queries, kind, formula=formula, ok=ok,
+                  stats=stats)
+    ms = cs.time_events(lambda ev: launch(ev), KNN_TIMED)["knn_scores"]
+    device_ms = profiled(launch, KNN_TIMED, KNN_FUNCTIONS).get("knn_scores")
+    got = launch()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = kk.knn_scores_plain(vectors, queries, kind, formula=formula,
+                               ok=ok)
+    end.record()
+    torch.cuda.synchronize()
+    same = bool(torch.equal(got.view(torch.int32), want.view(torch.int32)))
+    del got, want
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    safe = torch.nan_to_num(vectors)
+    library_ms = cs.time_cuda(lambda: torch.matmul(queries, safe.T),
+                              KNN_TIMED)
+    torch.backends.cuda.matmul.allow_tf32 = saved
+    del safe
+    n, dims = vectors.shape
+    b = queries.shape[0]
+    bound = {"bytes": (n * dims * 4 + b * n * 4) / cs.HBM_BYTES_PER_S * 1e3,
+             "operations": 2 * b * n * dims / cs.FP32_FLOPS_PER_S * 1e3}
+    bound_by = max(bound, key=bound.get)
+    return {"shape": {"queries": b, "rows": n, "dims": dims, "kind": kind,
+                      "formula": formula},
+            "ms": ms, "device_ms": device_ms, "same": same,
+            "plain_ms": start.elapsed_time(end), "bound_ms": bound[bound_by],
+            "bound_by": bound_by, "library_ms": library_ms, "stats": stats}
+
+
+def knn_calls(cs):
+    """The --knn measurement → {entry: knn_entry}."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops import knn_kernel as kk
+    vectors, live, queries, d_pad = knn_pack(cs)
+    out = {"mesh_cosine": knn_entry(cs, kk, vectors, queries, "cosine",
+                                    "mesh", live)}
+    for kind in ("cosine", "l2_norm"):
+        out[f"segment_{kind}"] = knn_entry(
+            cs, kk, vectors[:d_pad], queries[:1], kind, "segment",
+            live[:d_pad])
+    del vectors, live, queries
+    torch.cuda.empty_cache()
     return out
 
 

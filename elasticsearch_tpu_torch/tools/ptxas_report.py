@@ -1,13 +1,15 @@
-"""Registers, shared memory and spills of each merge kernel, as ptxas
-reports them for the package's build flags.
+"""Registers, shared memory and spills of each kernel, as ptxas reports
+them for the package's build flags.
 
     python3 elasticsearch_tpu_torch/tools/ptxas_report.py [--root DIR]
+        [--source merge_topk|knn]
 
-compiles DIR's ``elasticsearch_tpu_torch/csrc/merge_topk.cu`` (the default
-is this checkout) with ``_build.NVCC_FLAGS`` plus ``-Xptxas -v`` into a
-temporary file and prints one JSON line: per kernel, its registers per
-thread, spill stores and loads (bytes), stack frame and static shared
-memory (bytes). Needs nvcc; run it on the machine with the card.
+compiles DIR's ``elasticsearch_tpu_torch/csrc/<source>.cu`` (the default
+is this checkout's merge_topk.cu) with ``_build.NVCC_FLAGS`` plus
+``-Xptxas -v`` into a temporary file and prints one JSON line: per
+kernel, its registers per thread, spill stores and loads (bytes), stack
+frame and static shared memory (bytes). Needs nvcc; run it on the
+machine with the card.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ from pathlib import Path
 HERE_ROOT = Path(__file__).resolve().parents[2]
 KERNELS = ("slot_decode", "row_pack", "row_sort", "run_sum",
            "select_rescore", "shard_topk", "topk_pass", "topk_runs",
-           "topk_merge", "exact_merge", "exact_finish")
+           "topk_merge", "exact_merge", "exact_finish", "knn_tile",
+           "knn_row", "knn_qss", "knn_scores")
 
 
 def parse(text: str) -> dict:
@@ -63,10 +66,13 @@ def parse(text: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(HERE_ROOT))
+    ap.add_argument("--source", default="merge_topk",
+                    choices=("merge_topk", "knn"))
     args = ap.parse_args()
     sys.path.insert(0, str(HERE_ROOT))
     from elasticsearch_tpu_torch.ops import _build
-    src = Path(args.root) / "elasticsearch_tpu_torch" / "csrc" / "merge_topk.cu"
+    src = (Path(args.root) / "elasticsearch_tpu_torch" / "csrc"
+           / f"{args.source}.cu")
     with tempfile.TemporaryDirectory() as tmp:
         cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
                "-o", str(Path(tmp) / "lib.so"), str(src)]
