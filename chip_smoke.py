@@ -347,6 +347,45 @@ device mesh through the collective tail, and checks:
                  formula), each bit for bit against the plain version,
                  beside its bytes bound and torch.matmul of [1, 768] x
                  [768, rows]
+  aggs           the aggregations (search/aggregations over the three
+                 kernels of csrc/aggs.cu: agg_bucket_counts,
+                 agg_masked_stats, agg_ord_stats), in parts. inprocess
+                 (after knn's mesh part): seeded columns at one shard of
+                 Rally nyc_taxis' shape, 10,000,000 rows (cut from the
+                 track's ~165M docs for the time limit; payment_type and
+                 vendor_id ordinals, a Zipf 65,536-value ordinal column,
+                 total_amount and trip_distance f64 with 1 % missing,
+                 pickup_datetime i64 over 2015 with 1 % missing, a 50 %
+                 mask) placed on the card without an ingest; terms on
+                 three ordinal columns, presence, a 5.0-wide histogram,
+                 months, stats of two columns and total_amount per
+                 payment_type through the wrappers, counts reset just
+                 before and read just after, each output == its plain
+                 version on CPU copies bit for bit, then each timed; the
+                 memory back after it. rest (in planner, on the typed
+                 index before its DELETE): terms with avg and max under
+                 it, date_histogram by month and 7d, histogram, stats /
+                 sum / avg / value_count, cardinality, range + filters +
+                 missing + global, composite (tag, month), percentiles
+                 and top_hits under terms, derivative / cumulative_sum /
+                 bucket_script under months with an avg_bucket, a match
+                 and a sort with aggs: each body once cold, then, counts
+                 reset and every launch recorded, AGG_ROUNDS warm rounds
+                 (== the cold answers) and an _msearch of 8 of them (==
+                 the items' _search bytes); every launch == its plain
+                 version bit for bit, per body and shard the query phase
+                 with its aggregations on the card == the CPU plain
+                 path and the response == the reduce of the card's
+                 shard parts; per body ms (mean, p50, max); after the
+                 DELETE no agg column cached and the card's memory at
+                 most its value before the part. A summary gives both
+                 parts' seconds beside AGG_BUDGET_S. The kernels line
+                 adds the three kernels (each in-process call: median
+                 ms of TIMED CUDA-event brackets, device ms, the plain
+                 version's ms on the card, the bytes bound at 3.35 TB/s,
+                 one PyTorch call as the yardstick: torch.bincount,
+                 torch.sum + torch.aminmax, index_add_ +
+                 scatter_reduce_), launches from the REST part
 
 The last line is {"ok": true, "device": {...}}; any failure exits
 non-zero without it. Without a CUDA device the script exits 2 at once.
@@ -424,6 +463,26 @@ KNN_MISSING = 0.01      # rows without a vector
 KNN_DELETED = 0.01      # deleted docs
 KNN_BUDGET_S = 45
 KNN_SOURCE = "elasticsearch_tpu_torch/csrc/knn.cu"
+AGG_ROUNDS = 3          # warm rounds of the aggs line's REST bodies
+AGG_MSEARCH = 8         # of them, the items of its one _msearch
+AGG_ROWS = 10_000_000   # one shard of Rally nyc_taxis, cut from ~165M docs
+AGG_HIGH_CARD = 65_536  # the Zipf ordinal column's values
+AGG_BUDGET_S = 40       # the aggs line's parts together (logged)
+AGG_SOURCE = "elasticsearch_tpu_torch/csrc/aggs.cu"
+_AGG_DEVICE = "elasticsearch_tpu/search/aggregations/device.py"
+AGG_LINES = {"agg_bucket_counts": f"{_AGG_DEVICE}:91; :119; :199; :229",
+             "agg_masked_stats": f"{_AGG_DEVICE}:162",
+             "agg_ord_stats": f"{_AGG_DEVICE}:274"}
+#: each kernel's CUDA functions, for torch.profiler's device ms
+AGG_FUNCTIONS = {
+    "agg_bucket_counts": ["bucket_counts"],
+    "agg_masked_stats": ["set_keys", "stats_first_level", "stats_level",
+                         "stats_finish"],
+    "agg_ord_stats": ["ord_chunk_count", "ord_column_scan", "ord_starts",
+                      "ord_place", "ord_chain"]}
+#: the in-process calls that give each kernel's main kernels-line row
+AGG_MAIN_CALLS = ("terms_payment_type", "stats_total_amount",
+                  "total_amount_per_payment_type")
 KNN_LINE = ("elasticsearch_tpu/search/knn.py:100; "
             "elasticsearch_tpu/parallel/distributed.py:1347")
 #: H100 SXM FP32 outside the tensor cores (NVIDIA data sheet)
@@ -1954,10 +2013,15 @@ def planner_phase(host, port, node, corpus, mk, smi, features):
     features["typed"], features["launches"] = features_typed(
         host, port, node, corpus, mk)
     features["seconds"] = {"typed": time.perf_counter() - t_feat}
+    # the aggs line's REST part (`features["aggs_rest"]`), on the typed
+    # index before its DELETE
+    features["aggs_rest"] = aggs_rest(host, port, node, corpus)
     for index in (TYPED_INDEX,):
         status, resp = rest_http(host, port, "DELETE", f"/{index}")
         if status != 200:
             raise AssertionError(f"DELETE {index}: {resp}")
+    aggs_after_delete(features["aggs_rest"])
+    log("aggs", part="rest", nvidia_smi=smi, **features["aggs_rest"])
     n = len(bodies)
     out.update(
         cold={"requests": n, "wall_s": cold_wall,
@@ -5128,6 +5192,521 @@ def knn_inprocess(smi):
     return record, entry
 
 
+# ---------------------------------------------------------------------------
+# aggs: the aggregation framework and its three kernels (csrc/aggs.cu)
+# ---------------------------------------------------------------------------
+
+class AggRecorder:
+    """Wraps agg_kernel's three wrappers while a path runs and keeps each
+    call on CUDA tensors: (kernel, operands, keywords, outputs)."""
+
+    KERNEL_OF = {"bucket_counts": "agg_bucket_counts",
+                 "masked_stats": "agg_masked_stats",
+                 "ord_stats": "agg_ord_stats"}
+
+    def __init__(self, ak):
+        self.ak = ak
+        self.real = {fn: getattr(ak, fn) for fn in self.KERNEL_OF}
+        self.calls = []
+
+    def __enter__(self):
+        for fn, kernel in self.KERNEL_OF.items():
+            def record(*args, _real=self.real[fn], _kernel=kernel, **kw):
+                out = _real(*args, **kw)
+                if args[0].device.type == "cuda":
+                    self.calls.append((_kernel, args, kw, out))
+                return out
+            setattr(self.ak, fn, record)
+        return self
+
+    def __exit__(self, *exc):
+        for fn, real in self.real.items():
+            setattr(self.ak, fn, real)
+
+
+def agg_plain(ak, kernel, args, kw):
+    """The plain version of one recorded call on CPU copies of its
+    operands → its outputs, a list."""
+    import torch
+    cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+    if kernel == "agg_bucket_counts":
+        bounds = kw.get("bounds")
+        return [ak.bucket_counts_plain(
+            *cpu, kw.get("base", 0.0), kw.get("interval", 1.0),
+            None if bounds is None else bounds.cpu())]
+    if kernel == "agg_masked_stats":
+        return list(ak.masked_stats_plain(*cpu))
+    return list(ak.ord_stats_plain(*cpu))
+
+
+def agg_outputs(out):
+    return list(out) if isinstance(out, tuple) else [out]
+
+
+def same_agg_outputs(got, want):
+    """Equal dtypes and bits, output by output."""
+    return len(got) == len(want) and all(
+        g.dtype == w.dtype and g.cpu().numpy().tobytes()
+        == w.cpu().numpy().tobytes() for g, w in zip(got, want))
+
+
+def check_agg_calls(ak, calls):
+    """Every recorded launch against its plain version on the same
+    operands, bit for bit; raises on a mismatch. Empties `calls` →
+    {kernel: launches checked}."""
+    checked = {}
+    while calls:
+        kernel, args, kw, out = calls.pop()
+        if not same_agg_outputs(agg_outputs(out),
+                                agg_plain(ak, kernel, args, kw)):
+            raise AssertionError(f"aggs: a {kernel} launch != its plain "
+                                 f"version")
+        checked[kernel] = checked.get(kernel, 0) + 1
+    return checked
+
+
+def agg_bodies(corpus):
+    """The aggs line's REST bodies on the typed index → [(label, body)];
+    the first 8 also go as one _msearch."""
+    month = {"date_histogram": {"field": "published",
+                                "calendar_interval": "month"}}
+    word = corpus.vocab[40]
+    return [
+        ("terms_metrics", {"size": 0, "aggs": {"t": {
+            "terms": {"field": "tag"},
+            "aggs": {"a": {"avg": {"field": "views"}},
+                     "m": {"max": {"field": "views"}}}}}}),
+        ("month", {"size": 0, "aggs": {"m": month}}),
+        ("fixed_7d", {"size": 0, "aggs": {"w": {"date_histogram": {
+            "field": "published", "fixed_interval": "7d"}}}}),
+        ("histogram", {"size": 0, "aggs": {"h": {"histogram": {
+            "field": "views", "interval": 1000, "min_doc_count": 1}}}}),
+        ("metrics", {"size": 0, "aggs": {
+            "s": {"stats": {"field": "views"}},
+            "sum": {"sum": {"field": "views"}},
+            "avg": {"avg": {"field": "views"}},
+            "n": {"value_count": {"field": "views"}}}}),
+        ("cardinality", {"size": 0, "aggs": {"c": {"cardinality": {
+            "field": "tag"}}}}),
+        ("match_aggs", {"query": {"match": {FIELD: word}}, "size": 10,
+                        "aggs": {"t": {"terms": {"field": "tag"}},
+                                 "s": {"stats": {"field": "views"}}}}),
+        ("sort_aggs", {"query": {"match_all": {}}, "size": 10,
+                       "sort": [{"views": "desc"}],
+                       "aggs": {"m": month,
+                                "s": {"sum": {"field": "views"}}}}),
+        ("range_filters", {"size": 0, "aggs": {
+            "r": {"range": {"field": "views", "ranges": [
+                {"to": 10}, {"from": 10, "to": 1000}, {"from": 1000}]}},
+            "f": {"filters": {"filters": {
+                "flag": {"term": {"flag": True}},
+                "word": {"match": {FIELD: word}}}}},
+            "missing": {"missing": {"field": "views"}},
+            "g": {"global": {}, "aggs": {"n": {"value_count": {
+                "field": "views"}}}}}}),
+        ("composite", {"size": 0, "aggs": {"c": {"composite": {
+            "size": 50, "sources": [
+                {"tag": {"terms": {"field": "tag"}}},
+                {"month": month}]}}}}),
+        ("percentiles_top_hits", {"size": 0, "aggs": {"t": {
+            "terms": {"field": "tag", "size": 5},
+            "aggs": {"p": {"percentiles": {"field": "views"}},
+                     "top": {"top_hits": {"size": 2, "_source": False}}}}}}),
+        ("pipelines", {"size": 0, "aggs": {
+            "m": dict(month, aggs={
+                "v": {"sum": {"field": "views"}},
+                "d": {"derivative": {"buckets_path": "v"}},
+                "cs": {"cumulative_sum": {"buckets_path": "v"}},
+                "per_doc": {"bucket_script": {
+                    "buckets_path": {"v": "v", "c": "_count"},
+                    "script": "params.v / params.c"}}}),
+            "avg_v": {"avg_bucket": {"buckets_path": "m>v"}}}}),
+    ]
+
+
+def check_agg_shards(node, bodies, responses):
+    """Per body and shard (those can_match keeps, as the coordinator
+    does): the coordinator's shard query phase with the body's
+    aggregations and features on the card against the CPU plain path
+    (hits, totals, the shard's rendered aggregations); and the response's
+    aggregations == build_response of the card's shard parts reduced →
+    shards checked."""
+    from elasticsearch_tpu_torch.search import coordinator
+    from elasticsearch_tpu_torch.search.aggregations import (
+        AggregatorFactories, build_response)
+    from elasticsearch_tpu_torch.search.can_match import can_match
+    from elasticsearch_tpu_torch.search.serializer import dumps_response
+
+    dev = node.gpu_search.mesh.grid[0][0]
+    svc = node.indices.index(TYPED_INDEX)
+    checked = 0
+    for (label, body), resp in zip(bodies, responses):
+        query, aggs, _ = coordinator.parse_search_body(dict(body))
+        features = coordinator.Features.of(body)
+        size, from_ = body.get("size", 10), body.get("from", 0)
+        parts = []
+        for num, shard in sorted(svc.shards.items()):
+            reader = shard.acquire_searcher()
+            if not can_match(reader, query, svc.mapper):
+                continue
+            res = [coordinator.query_shard(
+                reader, query, features, size=size, from_=from_,
+                min_score=body.get("min_score"), device=d, aggs=aggs)
+                for d in (dev, "cpu")]
+            got, want = ([(h.doc_id, h.score, h.sort_values)
+                          for h in r.hits] + [r.total_hits,
+                          repr(AggregatorFactories.to_response(
+                              r.aggregations))] for r in res)
+            if got != want:
+                raise AssertionError(f"aggs {label}: shard {num} on the "
+                                     f"card != the CPU plain path")
+            parts.append(res[0].aggregations)
+            checked += 1
+        merged = json.loads(dumps_response({"a": build_response(
+            aggs, AggregatorFactories.reduce(parts))}))["a"]
+        if merged != resp["aggregations"]:
+            raise AssertionError(f"aggs {label}: the response's "
+                                 f"aggregations are not the reduce of "
+                                 f"the card's shard parts")
+    return checked
+
+
+def aggs_rest(host, port, node, corpus):
+    """The aggs line's REST part on the typed index (before its DELETE),
+    from one client: each body once cold, then, counts reset just
+    before and read just after and every launch recorded, AGG_ROUNDS
+    warm rounds (each response's aggregations and hits == the cold
+    pass's) and one _msearch of the first 8 bodies (its bytes == the
+    items' _search bytes, took at 0). Every agg_kernel launch == its plain
+    version bit for bit; per body and shard the query phase with its
+    aggregations on the card == the CPU plain path → the part's
+    record."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops import agg_kernel as ak
+    from elasticsearch_tpu_torch.search.aggregations import \
+        device as agg_device
+
+    t_part = time.perf_counter()
+    bodies = agg_bodies(corpus)
+    mem_before = torch.cuda.memory_allocated()
+    cached_before = agg_device.cached_bytes()
+
+    def send(label, body):
+        return search_once(host, port, "aggs", TYPED_INDEX, label, body)
+
+    cold = [send(label, body) for label, body in bodies]
+    responses = [r for r, _ in cold]
+    times = {label: [] for label, _ in bodies}
+    ak.reset_launches()
+    with AggRecorder(ak) as rec:
+        for _ in range(AGG_ROUNDS):
+            for (label, body), want in zip(bodies, responses):
+                resp, ms = send(label, body)
+                times[label].append(ms)
+                if resp.get("aggregations") != want.get("aggregations") \
+                        or hits_of([resp]) != hits_of([want]):
+                    raise AssertionError(f"aggs {label}: a warm response "
+                                         f"differs from the cold one")
+        items = bodies[:AGG_MSEARCH]
+        search_bytes = []
+        for label, body in items:
+            status, data, _ = rest_raw(host, port, "POST",
+                                       f"/{TYPED_INDEX}/_search", body)
+            if status != 200:
+                raise AssertionError(f"aggs {label}: {status}")
+            search_bytes.append(took0(data))
+        payload = "".join(json.dumps({"index": TYPED_INDEX}) + "\n"
+                          + json.dumps(body) + "\n"
+                          for _, body in items).encode()
+        t_ms = time.perf_counter()
+        status, data, _ = rest_raw(host, port, "POST", "/_msearch",
+                                   raw=payload)
+        msearch_ms = (time.perf_counter() - t_ms) * 1e3
+        want = (b'{"took": 0, "responses": ['
+                + b", ".join(s[:-1] + b', "status": 200}'
+                             for s in search_bytes) + b"]}")
+        if status != 200 or took0(data) != want:
+            raise AssertionError("aggs: the _msearch is not its items' "
+                                 "_search bytes")
+        torch.cuda.synchronize()
+    launches = dict(ak.LAUNCHES)
+    zero = [k for k in ak.KERNELS if launches[k] <= 0]
+    if zero:
+        raise AssertionError(f"aggs: kernels not launched on the REST "
+                             f"path: {zero}")
+    recorded = len(rec.calls)
+    checked_calls = check_agg_calls(ak, rec.calls)
+    shards = check_agg_shards(node, bodies, responses)
+    all_ms = [ms for v in times.values() for ms in v]
+    return {
+        "index": TYPED_INDEX, "docs": TYPED_DOCS, "shards": TYPED_SHARDS,
+        "bodies": len(bodies), "rounds": AGG_ROUNDS,
+        "request_ms": {"mean": statistics.mean(all_ms),
+                       "p50": statistics.median(all_ms),
+                       "max": max(all_ms)},
+        "per_body_ms": {label: {"mean": statistics.mean(v),
+                                "p50": statistics.median(v),
+                                "max": max(v)}
+                        for label, v in times.items()},
+        "cold_ms": {label: ms for (label, _), (_, ms) in zip(bodies, cold)},
+        "msearch": {"items": len(items), "ms": msearch_ms},
+        "launches": launches, "launches_checked": checked_calls,
+        "launches_recorded": recorded, "shards_checked": shards,
+        "memory": {"before": mem_before,
+                   "after": torch.cuda.memory_allocated(),
+                   "agg_columns_bytes": agg_device.cached_bytes()
+                   - cached_before},
+        "parity": ("every agg_kernel launch == its plain version bit for "
+                   "bit; per body and shard the query phase with its "
+                   "aggregations on the card == the CPU plain path; the "
+                   "response == build_response of the card's shard parts"),
+        "seconds": time.perf_counter() - t_part}
+
+
+def aggs_after_delete(record):
+    """After the typed index's DELETE: its cached columns are gone and
+    the card's memory is at most its value before the aggs part."""
+    import torch
+
+    from elasticsearch_tpu_torch.search.aggregations import \
+        device as agg_device
+    after = torch.cuda.memory_allocated()
+    record["memory"].update(after_delete=after,
+                            agg_columns_after_delete=agg_device
+                            .cached_bytes())
+    if agg_device.cached_bytes() != 0 or after > record["memory"]["before"]:
+        raise AssertionError(f"aggs: DELETE left agg columns "
+                             f"({agg_device.cached_bytes()} bytes) or "
+                             f"memory ({after} > "
+                             f"{record['memory']['before']})")
+
+
+def nyc_taxis_columns():
+    """Seeded columns at one shard of Rally nyc_taxis' shape (AGG_ROWS
+    rows): payment_type and vendor_id ordinals (6 and 3 values), a Zipf
+    high_card ordinal column of AGG_HIGH_CARD values, total_amount and
+    trip_distance f64 (1 % NaN: missing), pickup_datetime i64 epoch ms
+    over 2015 (1 % MISSING_I64), a 50 % match mask → {name: numpy}."""
+    import numpy as np
+    n = AGG_ROWS
+    rng = np.random.default_rng([SEED, 18])
+    cols = {
+        "payment_type": rng.integers(0, 6, n, dtype=np.int32),
+        "vendor_id": rng.integers(0, 3, n, dtype=np.int32),
+        "high_card": (np.minimum(rng.zipf(1.3, n), AGG_HIGH_CARD) - 1)
+        .astype(np.int32),
+        "total_amount": np.round(rng.gamma(2.0, 9.0, n), 2),
+        "trip_distance": np.round(rng.exponential(3.0, n), 2),
+        "pickup_datetime": 1_420_070_400_000
+        + rng.integers(0, 365 * 86_400_000, n),
+        "mask": rng.random(n) < 0.5}
+    for name in ("total_amount", "trip_distance"):
+        cols[name][rng.random(n) < 0.01] = np.nan
+    cols["pickup_datetime"][rng.random(n) < 0.01] = -(2 ** 63)
+    return cols
+
+
+def agg_inprocess_calls(host, dev):
+    """nyc_taxis_columns (`host`) on `dev` and the in-process part's
+    calls → [(label, kernel, wrapper name, operands, keywords)]: terms on
+    payment_type, vendor_id and high_card, presence of high_card, a
+    5.0-wide histogram of total_amount (its span from the column's min
+    and max), the months of 2015 on pickup_datetime, stats of
+    total_amount and trip_distance, total_amount per payment_type."""
+    import datetime
+
+    import numpy as np
+    import torch
+
+    from elasticsearch_tpu_torch.search.aggregations.device import _pow2
+    col = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    mask = col["mask"]
+    total = host["total_amount"]
+    lo = int(np.floor(np.nanmin(total) / 5.0))
+    hi = int(np.floor(np.nanmax(total) / 5.0))
+    months = [int(datetime.datetime(2015 + m // 12, m % 12 + 1, 1,
+                                    tzinfo=datetime.timezone.utc)
+                  .timestamp() * 1000) for m in range(13)]
+    bounds = np.full(_pow2(len(months)), float(np.iinfo(np.int64).max))
+    bounds[: len(months)] = months
+    bounds_t = torch.from_numpy(bounds).to(dev)
+    return [
+        ("terms_payment_type", "agg_bucket_counts", "bucket_counts",
+         (mask, col["payment_type"], "terms", 16), {}),
+        ("terms_vendor_id", "agg_bucket_counts", "bucket_counts",
+         (mask, col["vendor_id"], "terms", 16), {}),
+        ("terms_high_card", "agg_bucket_counts", "bucket_counts",
+         (mask, col["high_card"], "terms", AGG_HIGH_CARD), {}),
+        ("presence_high_card", "agg_bucket_counts", "bucket_counts",
+         (mask, col["high_card"], "presence", AGG_HIGH_CARD), {}),
+        ("histogram_total_amount_5", "agg_bucket_counts", "bucket_counts",
+         (mask, col["total_amount"], "histogram", _pow2(hi - lo + 1)),
+         {"base": lo * 5.0, "interval": 5.0}),
+        ("months_pickup_datetime", "agg_bucket_counts", "bucket_counts",
+         (mask, col["pickup_datetime"], "bounded", len(bounds)),
+         {"bounds": bounds_t}),
+        ("stats_total_amount", "agg_masked_stats", "masked_stats",
+         (mask, col["total_amount"]), {}),
+        ("stats_trip_distance", "agg_masked_stats", "masked_stats",
+         (mask, col["trip_distance"]), {}),
+        ("total_amount_per_payment_type", "agg_ord_stats", "ord_stats",
+         (mask, col["payment_type"], col["total_amount"], 16), {}),
+    ]
+
+
+def aggs_inprocess(smi):
+    """The aggs line's in-process part: nyc_taxis_columns on the card (no
+    ingest), each kernel called through its wrapper as the device
+    collectors call it: terms on payment_type, vendor_id and high_card
+    (K1 in shared and in device memory), presence of high_card, a
+    5.0-wide histogram of total_amount, months of pickup_datetime (K1
+    bounded), stats of total_amount and trip_distance (K2) and
+    total_amount per payment_type (K3). Counts reset just before the
+    calls and read just after; each call's outputs == its plain version
+    on CPU copies, bit for bit; then each timed (median of TIMED CUDA
+    event brackets, the profiler's device ms), its plain version on the
+    card and one PyTorch call of the same function (library) → (the
+    part's record, the kernels line's entries)."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops import agg_kernel as ak
+    from elasticsearch_tpu_torch.tools.kernel_ab import profiled
+
+    t_part = time.perf_counter()
+    mem_before = torch.cuda.memory_allocated()
+    host = nyc_taxis_columns()
+    calls = agg_inprocess_calls(host, torch.device("cuda", 0))
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t_part
+    n = AGG_ROWS
+    ak.reset_launches()
+    outs = [getattr(ak, fn)(*args, **kw) for _, _, fn, args, kw in calls]
+    torch.cuda.synchronize()
+    launches = dict(ak.LAUNCHES)
+    zero = [k for k in ak.KERNELS if launches[k] <= 0]
+    if zero:
+        raise AssertionError(f"aggs: kernels not launched in process: "
+                             f"{zero}")
+    for (label, kernel, _, args, kw), out in zip(calls, outs):
+        if not same_agg_outputs(agg_outputs(out),
+                                agg_plain(ak, kernel, args, kw)):
+            raise AssertionError(f"aggs {label}: the launch != its plain "
+                                 f"version")
+    del outs
+    entries, per_call = [], {}
+    for label, kernel, fn, args, kw in calls:
+        wrapper = getattr(ak, fn)
+        plain = getattr(ak, f"{fn}_plain")
+        ms = time_events(lambda ev: wrapper(*args, **dict(kw, events=ev)),
+                         TIMED)[kernel]
+        by_function = profiled(lambda: wrapper(*args, **kw), TIMED,
+                               {f: [f] for f in AGG_FUNCTIONS[kernel]})
+        device_ms = sum(by_function.values()) if by_function else None
+        if fn == "bucket_counts":
+            plain_ms = time_cuda(lambda: plain(
+                *args, kw.get("base", 0.0), kw.get("interval", 1.0),
+                kw.get("bounds")), 3)
+        else:
+            plain_ms = time_cuda(lambda: plain(*args), 3)
+        library_ms, library_of, nbytes = agg_library(fn, args, kw)
+        entry = {
+            "name": f"aggs.{kernel}" + ("" if label in AGG_MAIN_CALLS
+                                        else f".{label}"),
+            "kernel": kernel, "route": "cuda", "source": AGG_SOURCE,
+            "replaces": AGG_LINES[kernel],
+            "max_abs_err": 0.0, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms,
+            "plain_of": f"agg_kernel.{fn}_plain on the card",
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "bytes": nbytes,
+            "library_ms": library_ms, "library_of": library_of,
+            "shape": {"rows": n, "call": label},
+            "device_ms_by_function": by_function,
+            "launches_inprocess": launches[kernel]}
+        entries.append(entry)
+        per_call[label] = {k: entry[k] for k in (
+            "ms", "device_ms", "device_ms_by_function", "plain_ms",
+            "bound_ms", "library_ms")}
+    # the loop's last operands and closures hold columns too
+    del calls, args, kw, wrapper, plain, out
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mem_after = torch.cuda.memory_allocated()
+    if mem_after != mem_before:
+        raise AssertionError(f"aggs: the in-process part left "
+                             f"{mem_after - mem_before} bytes allocated")
+    record = {
+        "rows": n, "columns": sorted(k for k in host if k != "mask"),
+        "shape_of": ("one shard of Rally nyc_taxis (2015 yellow cab "
+                     "trips): AGG_ROWS rows cut from the track's ~165M "
+                     "docs for the time limit"),
+        "generate_s": gen_s, "launches": launches, "calls": per_call,
+        "parity": ("each call's outputs == its plain version on CPU "
+                   "copies of the operands, bit for bit"),
+        "memory": {"before": mem_before, "after": mem_after},
+        "nvidia_smi": smi, "seconds": time.perf_counter() - t_part}
+    return record, entries
+
+
+def agg_library(fn, args, kw):
+    """One PyTorch call of the same function on the same inputs, its
+    operand (the masked ids or values) made before the timing → (ms,
+    what it is, the bytes the kernel must move: mask and columns read
+    once, outputs written once)."""
+    import torch
+    mask = args[0]
+    n = mask.numel()
+    if fn == "bucket_counts":
+        col, mode, n_out = args[1], args[2], args[3]
+        if mode in ("terms", "presence"):
+            ids = col[mask & (col >= 0)].long()
+        elif mode == "histogram":
+            v = col.to(torch.float64)
+            keep = mask & valid_of(col)
+            ids = torch.floor((v[keep] - kw["base"]) / kw["interval"]).long()
+        else:
+            keep = mask & valid_of(col)
+            ids = torch.searchsorted(kw["bounds"], col[keep].to(
+                torch.float64), right=True) - 1
+        ms = time_cuda(lambda: torch.bincount(ids, minlength=n_out), TIMED)
+        out_bytes = n_out * (4 if mode == "presence" else 8)
+        nbytes = n + n * col.element_size() + out_bytes + (
+            n_out * 8 if mode == "bounded" else 0)
+        return ms, "torch.bincount of the masked ids", nbytes
+    if fn == "masked_stats":
+        col = args[1]
+        vals = col[mask & valid_of(col)]
+        ms = time_cuda(lambda: (torch.sum(vals), torch.aminmax(vals)),
+                       TIMED)
+        return ms, "torch.sum + torch.aminmax of the masked column", \
+            n + n * col.element_size() + 32
+    ords, col, n_out = args[1], args[2], args[3]
+    keep = mask & valid_of(col) & (ords >= 0)
+    idx, vals = ords[keep].long(), col[keep].to(torch.float64)
+
+    def library():
+        s = torch.zeros(n_out, dtype=torch.float64, device=vals.device)
+        s.index_add_(0, idx, vals)
+        lo = torch.full_like(s, float("inf")).scatter_reduce_(
+            0, idx, vals, "amin")
+        hi = torch.full_like(s, float("-inf")).scatter_reduce_(
+            0, idx, vals, "amax")
+        return s, lo, hi
+    ms = time_cuda(library, TIMED)
+    return ms, ("index_add_ + scatter_reduce_ (amin, amax) of the masked "
+                "values"), n + n * (4 + col.element_size()) + n_out * 32
+
+
+def valid_of(col):
+    """The present mask of a numeric column (NaN or MISSING_I64
+    missing)."""
+    import torch
+    if col.dtype == torch.float64:
+        return ~torch.isnan(col)
+    return col != -(2 ** 63)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5379,6 +5958,9 @@ def main() -> int:
         # -- knn (in process): the mesh kNN step at so_vector's width ----
         knn_mesh, knn_entry = knn_inprocess(smi)
         log("knn", part="mesh", **knn_mesh)
+        # -- aggs (in process): the kernels at one nyc_taxis shard -------
+        aggs_proc, agg_entries = aggs_inprocess(smi)
+        log("aggs", part="inprocess", **aggs_proc)
         # -- rest: the node over HTTP, the path users call -------------
         rest, rest_launches, planner, planner_kernels, delta, \
             delta_kernels, delta_launches, fields, \
@@ -5417,6 +5999,18 @@ def main() -> int:
         knn_entry["launches_rest"] = features["knn_rest"]["launches"][
             "knn_scores"]
         kernels += wide_entries + [knn_entry]
+        # the aggs line's kernels: launches from its REST run (the main
+        # path), timings from its in-process part
+        aggs_rest_part = features["aggs_rest"]
+        for entry in agg_entries:
+            entry["launches"] = aggs_rest_part["launches"][entry["kernel"]]
+            entry["launches_rest"] = entry["launches"]
+        kernels += agg_entries
+        agg_seconds = {"inprocess": aggs_proc["seconds"],
+                       "rest": aggs_rest_part["seconds"]}
+        agg_total = sum(agg_seconds.values())
+        log("aggs", part="summary", seconds=agg_seconds, total_s=agg_total,
+            budget_s=AGG_BUDGET_S, within_budget=agg_total <= AGG_BUDGET_S)
         knn_seconds = {"mesh": knn_mesh["seconds"],
                        "rest": features["knn_rest"]["seconds"]}
         # the budget is logged, not asserted (as the service line's): the

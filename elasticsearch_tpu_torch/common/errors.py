@@ -155,9 +155,8 @@ class NotLowerable(IllegalArgumentException):
     (``search/planner.py`` + ``search/query_phase.py``): the kernel path
     raises it for a query outside its lowering subset, and the
     coordinator then runs the port's planner; what reaches the client is
-    a planner feature the port has not got yet (sort, search_after,
-    highlight, suggest, rescore, collapse, aggregations, knn, scroll,
-    PIT, and the query types of field types it does not map). With
+    a planner feature the port has not got yet (the query types of field
+    types it does not map). With
     ``planner=False`` it is one the reference serves on its kernel path
     and the port's kernel path does not take yet: more slots per row
     than the merge kernels hold. The REST

@@ -15,7 +15,7 @@ touches.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -66,6 +66,9 @@ class SegmentPack:
     dv_ord: Dict[str, np.ndarray]
     # dense_vector matrices f32[d_pad, dims] (NaN rows = missing/padding)
     dv_vec: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
+    # an ordinal column's terms, by ordinal
+    dv_ord_terms: Dict[str, List[str]] = dataclasses.field(
+        default_factory=dict)
 
 
 def build_field_pack(segment: Segment, field: str,
@@ -109,6 +112,7 @@ def build_segment_pack(segment: Segment) -> SegmentPack:
     dv_f64: Dict[str, np.ndarray] = {}
     dv_ord: Dict[str, np.ndarray] = {}
     dv_vec: Dict[str, np.ndarray] = {}
+    dv_ord_terms: Dict[str, List[str]] = {}
     for field, col in segment.doc_values.items():
         if col.kind == "vec":
             a = np.full((d_pad, col.values.shape[1]), np.nan,
@@ -127,8 +131,9 @@ def build_segment_pack(segment: Segment) -> SegmentPack:
             a = np.full(d_pad, -1, dtype=np.int32)
             a[: segment.num_docs] = col.values
             dv_ord[field] = a
+            dv_ord_terms[field] = list(col.ord_terms or [])
     return SegmentPack(segment.name, segment.num_docs, d_pad, fields,
-                       dv_i64, dv_f64, dv_ord, dv_vec)
+                       dv_i64, dv_f64, dv_ord, dv_vec, dv_ord_terms)
 
 
 def segment_pack(segment: Segment) -> SegmentPack:

@@ -218,7 +218,12 @@ class IndexService:
             s.flush()
 
     def close(self) -> None:
+        from elasticsearch_tpu_torch.search.aggregations import device
         for s in self.shards.values():
+            # the aggregations' device columns of the shard's segments
+            reader = s.engine._reader
+            for view in reader.views if reader is not None else ():
+                device.release(view.segment)
             s.close()
 
     def stats(self) -> Dict[str, Any]:

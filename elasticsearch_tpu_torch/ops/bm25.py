@@ -29,6 +29,7 @@ from typing import Tuple
 import torch
 
 from elasticsearch_tpu_torch.ops import sparse
+from elasticsearch_tpu_torch.ops.xla_math import xla_divf, xla_ftz, xla_mulf
 
 NEG_INF = float("-inf")
 
@@ -74,7 +75,9 @@ def score_and_mask(flat_docs: torch.Tensor, flat_tfs: torch.Tensor,
         safe_docs = torch.clamp(docs, max=d_pad - 1)
         denom_add = norm_cache[norms[safe_docs]]                   # [B, L]
         tf = tfs.to(torch.float32)
-        impact = w[:, None] * tf / (tf + denom_add)
+        # each op rounded and flushed as XLA:CPU does (FTZ / DAZ)
+        impact = xla_divf(xla_mulf(w[:, None], tf),
+                          xla_ftz(tf + denom_add))
         hit = tfs > 0
         impact = torch.where(hit, impact, torch.zeros_like(impact))
         scores.index_put_((rows, docs), impact, accumulate=True)

@@ -544,10 +544,10 @@ def xla_round(x64: torch.Tensor) -> torch.Tensor:
     to 2^-126 on float32's subnormal grid (where ``xla_ftz`` of a float32
     op's result keeps them); an H100's ``.ftz`` operations follow the same
     rule (``tools/ftz_probe.py``). Only a product or a fused
-    multiply-add reaches that band: a sum of normal values that is
-    below 2^-126 is exact, and a quotient near 2^-126 lies a multiple of
-    ulp(a) / b > 2^-150 from it. `x64` is the exact result, or a fused
-    sum rounded to odd (``xla_fmaf``)."""
+    multiply-add or a quotient reaches that band (``xla_mulf``,
+    ``xla_fmaf``, ``xla_divf``): a sum of normal values that is below
+    2^-126 is exact. `x64` is the exact result, a quotient rounded once
+    in float64, or a fused sum rounded to odd (``xla_fmaf``)."""
     r = x64.to(torch.float32)
     tiny = (x64 * 2.0 ** 64).to(torch.float32).abs() < 2.0 ** -62
     return torch.where(tiny, r * 0.0, r)
@@ -563,6 +563,13 @@ def _wide(v):
 def xla_mulf(a, b) -> torch.Tensor:
     """float32 ``a * b`` as XLA:CPU computes it (``xla_round``)."""
     return xla_round(_wide(a) * _wide(b))
+
+
+def xla_divf(a, b) -> torch.Tensor:
+    """float32 ``a / b`` as XLA:CPU computes it (``xla_round`` of the
+    float64 quotient: rounding that to 24 bits gives the exact quotient's
+    rounding, 53 >= 2 * 24 + 2 bits, so the flush sees the exact value)."""
+    return xla_round(_wide(a) / _wide(b))
 
 
 def xla_fmaf(a64: torch.Tensor, b64: torch.Tensor,

@@ -36,8 +36,9 @@ from elasticsearch_tpu_torch.common.errors import EsException
 from elasticsearch_tpu_torch.ops.xla_math import (libm_cosf, libm_sinf,
                                                   libm_tanf, x86_nan,
                                                   x86_nan_like, xla_expf,
-                                                  xla_ftz, xla_gemv,
-                                                  xla_log10f, xla_logf,
+                                                  xla_divf, xla_ftz,
+                                                  xla_gemv, xla_log10f,
+                                                  xla_logf, xla_mulf,
                                                   xla_powf, xla_row_sum)
 
 
@@ -726,6 +727,16 @@ def _weak_of(v):
     return v
 
 
+def _f32_operand(v):
+    """A float32 operand of xla_mulf / xla_divf: a Python number
+    converted to float32 first, as torch and jnp convert a weak scalar,
+    its subnormal read as a zero (DAZ)."""
+    if isinstance(v, torch.Tensor):
+        return v
+    f = float(np.float32(v))
+    return math.copysign(0.0, f) if abs(f) < 2.0 ** -126 else f
+
+
 def _to_f32(v):
     """An operand in float32 arithmetic: tensors converted and flushed,
     Python numbers left for torch to convert, as jnp converts weak
@@ -791,6 +802,10 @@ def _vec_binop(op: str, a, b):
             if not isinstance(y, torch.Tensor):
                 y = torch.tensor(y, dtype=torch.float32, device=x.device)
             return xla_ftz(x86_nan(_floor_mod(x, y), x, y))
+        if op == "*":
+            return x86_nan(xla_mulf(_f32_operand(x), _f32_operand(y)), x, y)
+        if op == "/":
+            return x86_nan(xla_divf(_f32_operand(x), _f32_operand(y)), x, y)
         return xla_ftz(x86_nan(_ARITH[op](x, y), x, y))
     a, b = _weak_of(a), _weak_of(b)
     x, y = _weak_pair(a, b, want_float=op == "/")
@@ -879,11 +894,22 @@ def _integer_pow(x, n: int):
     acc = None
     while n > 0:
         if n & 1:
-            acc = x if acc is None else xla_ftz(x86_nan(acc * x, acc, x))
+            acc = x if acc is None else x86_nan(_pow_mul(acc, x), acc, x)
         n >>= 1
         if n > 0:
-            x = xla_ftz(x86_nan(x * x, x))
-    return xla_ftz(x86_nan(1.0 / acc, acc)) if recip else acc
+            x = x86_nan(_pow_mul(x, x), x)
+    if not recip:
+        return acc
+    q = xla_divf(1.0, acc) if acc.dtype == torch.float32 else 1.0 / acc
+    return xla_ftz(x86_nan(q, acc))
+
+
+def _pow_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One product of integer_pow: float32 as XLA:CPU rounds and flushes
+    it (``xla_mulf``), another dtype as before."""
+    if a.dtype == torch.float32:
+        return xla_mulf(a, b)
+    return xla_ftz(a * b)
 
 
 def _vec_pow(x, y, device):
@@ -1124,16 +1150,16 @@ class _VectorEval:
         q = xla_ftz(q)
         if name == "l2norm":
             d = xla_ftz(safe - q[None, :])
-            return torch.sqrt(xla_row_sum(xla_ftz(d * d))
+            return torch.sqrt(xla_row_sum(xla_mulf(d, d))
                               .to(torch.float64)).to(torch.float32)
         dot = xla_gemv(safe, q)
         if name == "dotProduct":
             return dot
-        norms = torch.sqrt(xla_row_sum(xla_ftz(safe * safe))
+        norms = torch.sqrt(xla_row_sum(xla_mulf(safe, safe))
                            .to(torch.float64)).to(torch.float32)
-        qn = torch.sqrt(xla_row_sum(xla_ftz(q * q))
+        qn = torch.sqrt(xla_row_sum(xla_mulf(q, q))
                         .to(torch.float64)).to(torch.float32)
-        return xla_ftz(dot / torch.clamp(xla_ftz(norms * qn), min=1e-12))
+        return xla_divf(dot, torch.clamp(xla_mulf(norms, qn), min=1e-12))
 
 
 def _where(c, a, b, device):

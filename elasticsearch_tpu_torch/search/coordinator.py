@@ -47,10 +47,17 @@ or acquired here), then the planner path, each shard's query the union
 of the text query and its winners; the internal ``_knn_docs`` key (the
 winners resolved elsewhere) takes the same path.
 
-Refused typed (``NotLowerable``): aggregations, not ported yet, and what the reference serves on its kernel path
-but the port's does not take (``planner=False``: rows of more than
-T_LIMIT, 16,384, slots). Unlike the reference, a fault of the kernel
-path is not retried on the planner: it reaches the client as a 5xx.
+Aggregations (``aggs`` / ``aggregations``, ``search/aggregations``) run
+on the planner path, as in the reference: each shard's query phase
+collects them under its final match mask (``min_score`` included; under
+``collapse`` a size-0 query phase of their own), and the shards' parts
+are reduced and rendered by ``build_response``.
+
+Refused typed (``NotLowerable``): what the reference serves on its
+kernel path but the port's does not take (``planner=False``: rows of
+more than T_LIMIT, 16,384, slots). Unlike the reference, a fault of the
+kernel path is not retried on the planner: it reaches the client as a
+5xx.
 """
 
 from __future__ import annotations
@@ -71,6 +78,9 @@ from elasticsearch_tpu_torch.common.units import parse_seconds
 from elasticsearch_tpu_torch.index.segment import MISSING_I64
 from elasticsearch_tpu_torch.search import dsl
 from elasticsearch_tpu_torch.search import sort as sort_mod
+from elasticsearch_tpu_torch.search.aggregations import (AggregatorFactories,
+                                                         build_response,
+                                                         parse_aggregations)
 from elasticsearch_tpu_torch.search.can_match import can_match
 from elasticsearch_tpu_torch.search.collapse import collapse_top_groups
 from elasticsearch_tpu_torch.search.gpu_service import MAX_K
@@ -241,10 +251,9 @@ def with_alias_filters(query: dsl.QueryNode,
 
 
 def parse_search_body(body: Optional[Dict[str, Any]]):
-    """→ (query node, body). Unknown keys are a 400, as in the
-    reference, and so are a malformed knn, rescore or collapse and knn
-    with sort or collapse; aggregations, which the port does not serve
-    yet, raise NotLowerable."""
+    """→ (query node, parsed aggregations or None, body). Unknown keys
+    are a 400, as in the reference, and so are a malformed knn, rescore,
+    collapse or aggregation tree and knn with sort or collapse."""
     body = body or {}
     if "script_fields" in body:
         raise IllegalArgumentException(
@@ -254,9 +263,6 @@ def parse_search_body(body: Optional[Dict[str, Any]]):
     if unknown:
         raise IllegalArgumentException(
             f"unknown search body keys {sorted(unknown)}")
-    planner = [k for k in ("aggs", "aggregations") if body.get(k)]
-    if planner:
-        raise NotLowerable(f"search options {planner}")
     if body.get("knn") is not None:
         parse_knn(body["knn"])  # a malformed knn section is a 400
         if body.get("sort") is not None or body.get("collapse"):
@@ -264,6 +270,8 @@ def parse_search_body(body: Optional[Dict[str, Any]]):
                 "[knn] cannot be combined with [sort]/[collapse]: knn "
                 "results are relevance-ranked")
     query = dsl.parse_query(body.get("query") or {"match_all": {}})
+    aggs_spec = body.get("aggs") or body.get("aggregations")
+    aggs = parse_aggregations(aggs_spec) if aggs_spec else None
     if body.get("rescore") is not None:
         parse_rescore(body["rescore"])  # a malformed rescore is a 400
     if body.get("collapse") is not None:
@@ -276,7 +284,7 @@ def parse_search_body(body: Optional[Dict[str, Any]]):
         if body.get("sort") is not None or body.get("rescore") is not None:
             raise IllegalArgumentException(
                 "[collapse] cannot be combined with [sort]/[rescore] yet")
-    return query, body
+    return query, aggs, body
 
 
 def encode_knn_docs(knn_wrap: Dict[Tuple[str, int], List[Tuple[Any, float]]]
@@ -397,7 +405,7 @@ def search(indices, index_expr: Optional[str],
         names, alias_filters = list(names_override), {}
     else:
         names, alias_filters = resolve_targets(indices, index_expr)
-    query, body = parse_search_body(body)
+    query, aggs, body = parse_search_body(body)
     size = int(params.get("size", body.get("size", 10)))
     from_ = int(params.get("from", body.get("from", 0)))
     source = body.get("_source", True)
@@ -423,10 +431,11 @@ def search(indices, index_expr: Optional[str],
         knn_wrap = knn_candidate_phase(indices, names, alias_filters,
                                        parse_knn(body["knn"]), pinned,
                                        device)
-    if (pinned is None and not alias_filters and knn_wrap is None
+    if (aggs is None and pinned is None and not alias_filters
+            and knn_wrap is None
             and not any(k in body for k in PLANNER_KEYS)):
-        # filtered aliases, contexts, knn and the planner features run the
-        # planner, as in the reference
+        # aggregations, filtered aliases, contexts, knn and the planner
+        # features run the planner, as in the reference
         try:
             return _search_fast(indices, names, query, gpu_search,
                                 size=size, from_=from_,
@@ -444,31 +453,37 @@ def search(indices, index_expr: Optional[str],
                           seq_no_primary_term=seq_no_primary_term,
                           device=device, pinned=pinned, ctx=ctx,
                           profile=profile, body=body, knn_wrap=knn_wrap,
-                          knn_only=knn_only)
+                          knn_only=knn_only, aggs=aggs)
     if body.get("suggest") is not None:
         out["suggest"] = run_suggest(indices, names, body["suggest"])
     return out
 
 
 def query_shard(reader, shard_query: dsl.QueryNode, features: Features,
-                 *, size: int, from_: int, min_score, device, ctx=None):
+                 *, size: int, from_: int, min_score, device, ctx=None,
+                 aggs: Optional[AggregatorFactories] = None):
     """One shard's query phase under the request's features: the
     collapsed groups, or the (sorted) query phase with the rescore
-    window and chain."""
+    window and chain; `aggs` collected under its match mask."""
     if features.collapse_field:
         # the exact grouped top-N (no candidate cap: a dominating key
         # cannot starve later groups)
         pairs, total_sh = collapse_top_groups(
             reader, shard_query, features.collapse_field, size + from_,
             device=device)
-        return QuerySearchResult([h for h, _ in pairs], total_sh,
-                                 pairs[0][0].score if pairs else None)
+        res = QuerySearchResult([h for h, _ in pairs], total_sh,
+                                pairs[0][0].score if pairs else None)
+        if aggs is not None:
+            res.aggregations = execute_query(
+                reader, shard_query, size=0, aggs=aggs, device=device,
+                ctx=ctx).aggregations
+        return res
     k_shard = size + from_
     if features.rescore:
         # the rescore window may exceed the response window
         k_shard = max(k_shard, max(s.window_size for s in features.rescore))
     res = execute_query(reader, shard_query, size=k_shard, from_=0,
-                        min_score=min_score,
+                        min_score=min_score, aggs=aggs,
                         sort_specs=features.sort_specs or None,
                         search_after=features.search_after, device=device,
                         ctx=ctx)
@@ -489,13 +504,16 @@ def _search_planner(indices, names: List[str],
                     body: Optional[Dict[str, Any]] = None,
                     knn_wrap: Optional[Dict[Tuple[str, int],
                                             List[Tuple[Any, float]]]] = None,
-                    knn_only: bool = False) -> Dict[str, Any]:
+                    knn_only: bool = False,
+                    aggs: Optional[AggregatorFactories] = None
+                    ) -> Dict[str, Any]:
     """The planner path: per-shard query phase under failure capture
     (stopped at the request's deadline: partial results, ``timed_out``;
     with knn winners each shard's query unions them, and a knn-only
     request skips a shard that has none),
     the merge (by sort key, or score; collapsed by key), the fetch phase
-    with highlighting, the response (with the shards' profile)."""
+    with highlighting, the response (with the shards' aggregations,
+    reduced, and their profile)."""
     shard_results = []   # (index name, shard num, reader, result)
     failures: List[Dict[str, Any]] = []
     allow_partial = allow_partial_results(params)
@@ -538,7 +556,7 @@ def _search_planner(indices, names: List[str],
                 q0 = time.perf_counter()
                 res = query_shard(reader, shard_query, features, size=size,
                                    from_=from_, min_score=min_score,
-                                   device=device, ctx=ctx)
+                                   device=device, ctx=ctx, aggs=aggs)
             except _NON_DEGRADABLE:
                 raise
             except Exception as e:  # noqa: BLE001 — per-shard capture
@@ -675,6 +693,12 @@ def _search_planner(indices, names: List[str],
                  "max_score": max_score,
                  "hits": hits_json},
     }
+    if aggs:
+        # the shards' parts reduced, the pipelines run on the result
+        parts = [res.aggregations for _, _, _, res in shard_results
+                 if res.aggregations is not None]
+        reduced = AggregatorFactories.reduce(parts) if parts else aggs.empty()
+        out["aggregations"] = build_response(aggs, reduced)
     if profile:
         out["profile"] = {"shards": build_profile(
             query, shard_results, query_nanos, fetch_nanos)}

@@ -58,9 +58,9 @@ from elasticsearch_tpu_torch.mapping.types import (FieldType,
                                                    TextFieldType)
 from elasticsearch_tpu_torch.ops import bm25, geo, sparse
 from elasticsearch_tpu_torch.ops.xla_math import (x86_nan, x86_nan_like,
-                                                  xla_ftz,
+                                                  xla_divf, xla_ftz,
                                                   xla_log10f, xla_logf,
-                                                  xla_powf)
+                                                  xla_mulf, xla_powf)
 from elasticsearch_tpu_torch.ops.smallfloat import (LENGTH_TABLE,
                                                     bm25_norm_cache)
 from elasticsearch_tpu_torch.parallel.device import resolve_device
@@ -606,9 +606,9 @@ class SegmentQueryExecutor:
         if isinstance(ft, RankFeatureFieldType) \
                 and not ft.positive_score_impact:
             # negative impact: smaller values score higher
-            vals = torch.where(present, xla_ftz(torch.div(
+            vals = torch.where(present, xla_divf(
                 torch.ones_like(vals),
-                torch.maximum(vals, self._f32(1e-9)))), zero)
+                torch.maximum(vals, self._f32(1e-9))), zero)
         x = torch.where(present, vals, zero)
         # an arithmetic op reads a denormal x as zero; powf is handed
         # its bits
@@ -620,14 +620,14 @@ class SegmentQueryExecutor:
                 self._f32(node.scaling_factor) + xa, self._f32(1e-9)))
         elif node.function == "sigmoid":
             xp = xla_powf(x, node.exponent)
-            score = xp / xla_ftz(xp + self._f32(
-                _pow64(node.pivot, node.exponent)))
+            score = xla_divf(xp, xla_ftz(xp + self._f32(
+                _pow64(node.pivot, node.exponent))))
         else:  # saturation
             pivot = node.pivot
             if pivot is None:
                 pivot = self._rank_feature_default_pivot(node.field)
-            score = xa / xla_ftz(xa + self._f32(pivot))
-        score = xla_ftz(xla_ftz(score) * self._f32(node.boost))
+            score = xla_divf(xa, xla_ftz(xa + self._f32(pivot)))
+        score = xla_mulf(score, self._f32(node.boost))
         # a NaN here (a negative base's power, inf / inf) is the x86
         # default NaN in the reference; a card's arithmetic makes the
         # positive one, which top-k ranks at the other end

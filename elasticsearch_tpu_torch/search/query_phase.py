@@ -8,7 +8,10 @@ desc, segment, doc); it returns doc refs and scores only. Under a
 ``sort`` it is the reference's sorted query phase: the query's mask and
 scores come to the host once per segment, and the doc-value keys are
 ordered there by the reference's numpy ``lexsort`` (``search/sort.py``),
-``search_after`` a mask over the same keys. The fetch
+``search_after`` a mask over the same keys. Aggregations (an
+``AggregatorFactories``) collect per segment under the final match mask
+(``min_score`` included), kept on the device, and the segments' parts
+reduce to one shard part. The fetch
 phase resolves the winners' ``_source`` (``filter_source`` for a list),
 ``_version`` and ``_seq_no``/``_primary_term``. A ``SearchContext``
 carries a request's deadline: the query phase checks it between
@@ -30,6 +33,8 @@ from elasticsearch_tpu_torch.ops import bm25
 from elasticsearch_tpu_torch.parallel.device import resolve_device
 from elasticsearch_tpu_torch.search import dsl
 from elasticsearch_tpu_torch.search import sort as sort_mod
+from elasticsearch_tpu_torch.search.aggregations import (AggregatorFactories,
+                                                         SegmentAggContext)
 from elasticsearch_tpu_torch.search.planner import SegmentQueryExecutor
 
 
@@ -56,6 +61,7 @@ class QuerySearchResult:
     total_hits: int
     max_score: Optional[float]
     timed_out: bool = False
+    aggregations: Optional[Dict[str, Any]] = None  # name → partial
 
 
 class SearchContext:
@@ -89,25 +95,28 @@ class SearchContext:
 def execute_query(reader: ShardReader, query: dsl.QueryNode, *,
                   size: int = 10, from_: int = 0,
                   min_score: Optional[float] = None,
+                  aggs: Optional[Any] = None,
                   sort_specs: Optional[List] = None,
                   search_after: Optional[List] = None,
                   device=None,
                   ctx: Optional[SearchContext] = None) -> QuerySearchResult:
     """The query phase over every segment of `reader` on `device`
     (default: cuda:0; "cpu" for the plain path). min_score filters the
-    match set, totals included; `sort_specs` (parsed ``sort.SortSpec``)
-    sorts by fields, with per-hit sort values, after the `search_after`
-    cursor; `ctx`'s deadline, checked between segments, stops it with
-    the partial result (timed_out)."""
+    match set, totals included, and `aggs` (an ``AggregatorFactories``)
+    collect under it into one shard part; `sort_specs` (parsed
+    ``sort.SortSpec``) sorts by fields, with per-hit sort values, after
+    the `search_after` cursor; `ctx`'s deadline, checked between
+    segments, stops it with the partial result (timed_out)."""
     dev = resolve_device(device)
     if sort_specs:
         return _execute_sorted_query(reader, query, size=size, from_=from_,
-                                     min_score=min_score,
+                                     min_score=min_score, aggs=aggs,
                                      sort_specs=sort_specs,
                                      search_after=search_after, device=dev,
                                      ctx=ctx)
     k = size + from_
     per_segment: List[Tuple[int, np.ndarray, np.ndarray]] = []
+    agg_parts: List[Dict[str, Any]] = []
     total = 0
     timed_out = False
     for idx, view in enumerate(reader.views):
@@ -123,6 +132,9 @@ def execute_query(reader: ShardReader, query: dsl.QueryNode, *,
             # min_score filters the match set: totals agree with it
             match = match & (final >= min_score)
         total += int(match.sum())
+        if aggs:
+            agg_parts.append(aggs.collect(
+                SegmentAggContext(reader, idx, dev), match))
         if k > 0:
             vals, idxs = bm25.topk(final[None, :], k=min(k, view.d_pad))
             per_segment.append((idx, vals[0].cpu().numpy(),
@@ -144,11 +156,21 @@ def execute_query(reader: ShardReader, query: dsl.QueryNode, *,
         hits.append(ShardHit(seg.doc_ids[ord_], score,
                              ShardDocRef(seg.name, ord_)))
     max_score = merged[0][0] if merged else None
-    return QuerySearchResult(hits, total, max_score, timed_out=timed_out)
+    return QuerySearchResult(hits, total, max_score, timed_out=timed_out,
+                             aggregations=_shard_aggs(aggs, agg_parts))
+
+
+def _shard_aggs(aggs, agg_parts: List[Dict[str, Any]]):
+    """The segments' agg parts reduced to the shard's (None without
+    aggs; the empty tree when no segment collected)."""
+    if not aggs:
+        return None
+    return AggregatorFactories.reduce(agg_parts) if agg_parts \
+        else aggs.empty()
 
 
 def _execute_sorted_query(reader: ShardReader, query: dsl.QueryNode, *,
-                          size: int, from_: int, min_score,
+                          size: int, from_: int, min_score, aggs,
                           sort_specs: List, search_after,
                           device, ctx: Optional[SearchContext] = None
                           ) -> QuerySearchResult:
@@ -157,6 +179,7 @@ def _execute_sorted_query(reader: ShardReader, query: dsl.QueryNode, *,
     matching docs' sort keys (numeric values, keyword ordinals); then a
     merge across segments on value tuples."""
     k = size + from_
+    agg_parts: List[Dict[str, Any]] = []
     total = 0
     timed_out = False
     merged: List[Tuple[Tuple, int, int, float, List]] = []
@@ -174,6 +197,12 @@ def _execute_sorted_query(reader: ShardReader, query: dsl.QueryNode, *,
         if min_score is not None:
             final_mask = final_mask & (scores_np >= min_score)
         total += int(final_mask.sum())
+        if aggs:
+            pad = np.zeros(view.d_pad, dtype=bool)
+            pad[: len(final_mask)] = final_mask
+            agg_parts.append(aggs.collect(
+                SegmentAggContext(reader, idx, device),
+                torch.from_numpy(pad).to(device)))
         columns = sort_mod.segment_sort_values(reader, idx, sort_specs,
                                                scores_np)
         # one rank/adjust pass per column, shared by the cursor mask and
@@ -210,7 +239,8 @@ def _execute_sorted_query(reader: ShardReader, query: dsl.QueryNode, *,
     only_score = all(s.field == "_score" for s in sort_specs)
     max_score = (max((h.score for h in hits), default=None)
                  if only_score else None)
-    return QuerySearchResult(hits, total, max_score, timed_out=timed_out)
+    return QuerySearchResult(hits, total, max_score, timed_out=timed_out,
+                             aggregations=_shard_aggs(aggs, agg_parts))
 
 
 def execute_fetch(reader: ShardReader, hits: List[ShardHit],

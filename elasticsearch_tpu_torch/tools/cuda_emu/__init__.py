@@ -5,13 +5,17 @@ every merge kernel: the five of the fused merge, shard_topk, exact_merge
 through ``merge_kernel._launch_topk``, ``_launch_exact``,
 ``_launch_candidates`` and ``_launch_rescore``); ``csrc/knn.cu`` the kNN
 similarity kernel (``emulated(build_dir, "knn")``:
-``knn_kernel._launch``).
+``knn_kernel._launch``); ``csrc/aggs.cu`` the three aggregation kernels,
+agg_bucket_counts, agg_masked_stats and agg_ord_stats
+(``emulated(build_dir, "aggs")``: ``agg_kernel._launch_counts``,
+``_launch_stats`` and ``_launch_ord_stats``).
 
 A source is rewritten into plain C++ against ``emu.h`` (a host shim of
 the CUDA subset the kernels use: each CUDA thread a fiber of one OS
 thread, switched at every block or warp barrier, blocks one after
 another; cp.async a copy that lands at once; knn.cu's ``.ftz`` PTX
-operations by x86's flush rule, the card's), compiled with g++ into a
+operations by x86's flush rule, the card's; atomics, aggs.cu's 64-bit
+ones too, as plain read-modify-writes), compiled with g++ into a
 shared library with the same C entry points, and put in place of the
 nvcc-built library::
 
@@ -72,14 +76,17 @@ def build(build_dir: Path, name: str = "merge_topk") -> Path:
 @contextlib.contextmanager
 def emulated(build_dir: Path, name: str = "merge_topk"):
     """The wrapper module's launches (merge_kernel's for csrc/merge_topk.cu,
-    knn_kernel's for csrc/knn.cu) go to the emulated library for the
-    block; CPU tensors then reach merge_kernel._launch or
-    knn_kernel._launch (not fused_merge_topk or knn_scores, which send
-    them to the plain version)."""
+    knn_kernel's for csrc/knn.cu, agg_kernel's for csrc/aggs.cu) go to
+    the emulated library for the block; CPU tensors then reach
+    merge_kernel._launch, knn_kernel._launch or agg_kernel's _launch_*
+    (not fused_merge_topk, knn_scores or agg_kernel's wrappers, which
+    send them to the plain version)."""
     import torch
 
-    from elasticsearch_tpu_torch.ops import knn_kernel, merge_kernel
-    module = {"merge_topk": merge_kernel, "knn": knn_kernel}[name]
+    from elasticsearch_tpu_torch.ops import (agg_kernel, knn_kernel,
+                                             merge_kernel)
+    module = {"merge_topk": merge_kernel, "knn": knn_kernel,
+              "aggs": agg_kernel}[name]
     lib = ctypes.CDLL(str(build(build_dir, name)))
     for fn, args in module._SIGNATURES.items():
         getattr(lib, fn).argtypes = args

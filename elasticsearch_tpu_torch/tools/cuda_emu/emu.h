@@ -1,7 +1,8 @@
-// Host emulation of the CUDA subset used by csrc/merge_topk.cu and
-// csrc/knn.cu (see __init__.py): each CUDA thread is a fiber (ucontext) of
-// one OS thread, switched at every barrier, blocks one after another. One
-// core, no spinning: the emulation does not slow what runs beside it.
+// Host emulation of the CUDA subset used by csrc/merge_topk.cu,
+// csrc/knn.cu and csrc/aggs.cu (see __init__.py): each CUDA thread is a
+// fiber (ucontext) of one OS thread, switched at every barrier, blocks one
+// after another. One core, no spinning: the emulation does not slow what
+// runs beside it.
 #include <float.h>
 #include <ucontext.h>
 
@@ -115,6 +116,12 @@ inline int __clz(unsigned v) { return v ? __builtin_clz(v) : 32; }
 inline void __nanosleep(unsigned) {}  // blocks run in order: no wait
 inline int atomicAdd(int* a, int v) { const int old = *a; *a = old + v; return old; }
 inline int atomicMin(int* a, int v) { const int old = *a; *a = std::min(old, v); return old; }
+// csrc/aggs.cu's 64-bit and unsigned atomics: fibers switch only at
+// barriers, so each is a plain read-modify-write
+inline unsigned atomicAdd(unsigned* a, unsigned v) { const unsigned old = *a; *a = old + v; return old; }
+inline unsigned long long atomicAdd(unsigned long long* a, unsigned long long v) { const unsigned long long old = *a; *a = old + v; return old; }
+inline long long atomicMin(long long* a, long long v) { const long long old = *a; *a = std::min(old, v); return old; }
+inline long long atomicMax(long long* a, long long v) { const long long old = *a; *a = std::max(old, v); return old; }
 inline void __threadfence() {}  // one block at a time: every write is seen
 template <class T> inline T __ldcg(const T* p) { return *p; }
 inline float __uint_as_float(uint32_t u) { float f; std::memcpy(&f, &u, 4); return f; }

@@ -2,7 +2,7 @@
 them for the package's build flags.
 
     python3 elasticsearch_tpu_torch/tools/ptxas_report.py [--root DIR]
-        [--source merge_topk|knn]
+        [--source merge_topk|knn|aggs]
 
 compiles DIR's ``elasticsearch_tpu_torch/csrc/<source>.cu`` (the default
 is this checkout's merge_topk.cu) with ``_build.NVCC_FLAGS`` plus
@@ -26,7 +26,10 @@ HERE_ROOT = Path(__file__).resolve().parents[2]
 KERNELS = ("slot_decode", "row_pack", "row_sort", "run_sum",
            "select_rescore", "shard_topk", "topk_pass", "topk_runs",
            "topk_merge", "exact_merge", "exact_finish", "knn_tile",
-           "knn_row", "knn_qss", "knn_scores")
+           "knn_row", "knn_qss", "knn_scores", "bucket_counts",
+           "set_keys", "stats_first_level", "stats_level", "stats_finish",
+           "ord_chunk_count", "ord_column_scan", "ord_starts", "ord_place",
+           "ord_chain")
 
 
 def parse(text: str) -> dict:
@@ -67,7 +70,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(HERE_ROOT))
     ap.add_argument("--source", default="merge_topk",
-                    choices=("merge_topk", "knn"))
+                    choices=("merge_topk", "knn", "aggs"))
     args = ap.parse_args()
     sys.path.insert(0, str(HERE_ROOT))
     from elasticsearch_tpu_torch.ops import _build

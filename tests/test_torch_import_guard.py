@@ -36,6 +36,13 @@ NODE_MODULES = [
     "elasticsearch_tpu_torch.ops.geo",
     "elasticsearch_tpu_torch.ops.xla_math",
     "elasticsearch_tpu_torch.ops.knn_kernel",
+    "elasticsearch_tpu_torch.ops.agg_kernel",
+    "elasticsearch_tpu_torch.search.aggregations",
+    "elasticsearch_tpu_torch.search.aggregations.base",
+    "elasticsearch_tpu_torch.search.aggregations.bucket",
+    "elasticsearch_tpu_torch.search.aggregations.metrics",
+    "elasticsearch_tpu_torch.search.aggregations.pipeline",
+    "elasticsearch_tpu_torch.search.aggregations.device",
     "elasticsearch_tpu_torch.search.coordinator",
     "elasticsearch_tpu_torch.search.can_match",
     "elasticsearch_tpu_torch.search.planner",

@@ -443,19 +443,23 @@ PLANNER_SERVED = {
     "sort": {"query": {"match": {"body": "alpha"}}, "sort": ["_score"]},
     "pit": {"query": {"match": {"body": "alpha"}},
             "pit": {"id": "abc"}},
+    # served since the aggregations came (Queue A8)
+    "aggs": {"query": {"match": {"body": "alpha"}},
+             "aggs": {"n": {"value_count": {"field": "body"}}}},
 }
 
 #: bodies answered with a typed 400: a planner feature the port does not
-#: serve yet (not_lowerable), or (since Queue A7 served kNN) a knn body
-#: on a field that is not a dense_vector, the reference's own 400
+#: serve yet (not_lowerable), or the reference's own 400: (since Queue A7
+#: served kNN) a knn body on a field that is not a dense_vector, and
+#: (since Queue A8 served aggregations) an unknown aggregation type
 PLANNER_BOUND = {
     "aggs": {"query": {"match": {"body": "alpha"}},
-             "aggs": {"n": {"value_count": {"field": "body"}}}},
+             "aggs": {"n": {"value_counts": {"field": "body"}}}},
     "knn": {"knn": {"field": "v", "query_vector": [1.0], "k": 1,
                     "num_candidates": 1}},
 }
 #: of PLANNER_BOUND, the bodies whose 400 is the reference node's bytes
-REFERENCE_400 = {"knn"}
+REFERENCE_400 = {"aggs", "knn"}
 
 
 @pytest.mark.parametrize("name", sorted(PLANNER_SERVED))
@@ -662,3 +666,41 @@ def test_typed_planner_searches_match_reference(pair, typed, name):
     assert want[0] == 200, want
     assert got == want
     assert pair.mesh_log[-1][2] == want
+
+
+def test_aggs_through_rest(tmp_path):
+    """``test_rest.py::TestSearch::test_aggs_through_rest``: a terms
+    aggregation with an avg under it over three shards, the reference
+    node's status and bytes, and the reference's expectations."""
+    import torch_rest_pair
+
+    agg_pair = torch_rest_pair.Pair(tmp_path)
+    try:
+        agg_pair.same("PUT", "/prod", {
+            "settings": {"index": {"number_of_shards": 3}},
+            "mappings": {"properties": {
+                "name": {"type": "text"}, "brand": {"type": "keyword"},
+                "price": {"type": "double"}}}})
+        for pid, name, brand, price in (
+                ("1", "red running shoes", "nike", 90.0),
+                ("2", "blue running shorts", "nike", 30.0),
+                ("3", "red casual shoes", "adidas", 70.0),
+                ("4", "green tennis racket", "wilson", 120.0),
+                ("5", "red tennis balls", "wilson", 8.0)):
+            agg_pair.same("PUT", f"/prod/_doc/{pid}",
+                          {"name": name, "brand": brand, "price": price})
+        agg_pair.same("POST", "/prod/_refresh")
+        status, body = agg_pair.same("POST", "/prod/_search", {
+            "size": 0,
+            "aggs": {"brands": {"terms": {"field": "brand"},
+                                "aggs": {"avg_price": {
+                                    "avg": {"field": "price"}}}}}})
+        assert status == 200
+        buckets = {b["key"]: b for b in
+                   body["aggregations"]["brands"]["buckets"]}
+        assert buckets["nike"]["doc_count"] == 2
+        assert buckets["nike"]["avg_price"]["value"] == pytest.approx(60.0)
+        assert buckets["wilson"]["avg_price"]["value"] == \
+            pytest.approx(64.0)
+    finally:
+        agg_pair.close()

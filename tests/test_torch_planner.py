@@ -31,7 +31,8 @@ from elasticsearch_tpu.search.planner import \
     SegmentQueryExecutor as RefExecutor
 from elasticsearch_tpu.search.serializer import dumps_response as ref_dumps
 
-from elasticsearch_tpu_torch.common.errors import (NotLowerable,
+from elasticsearch_tpu_torch.common.errors import (IllegalArgumentException,
+                                                   NotLowerable,
                                                    QueryShardException)
 from elasticsearch_tpu_torch.index.reader import ShardReader
 from elasticsearch_tpu_torch.index.segment import SegmentWriter
@@ -492,19 +493,23 @@ def test_query_phase_runs_on_the_card_unless_asked_for_the_cpu(
 
 
 def test_sort_and_aggs_are_refused():
-    """The coordinator refuses aggs before any shard runs the query
-    phase (Queue A8): typed, with "planner path" in the reason. A sort,
-    refused until the sorted query phase came (Queue A5c), now parses."""
-    query, body = coordinator.parse_search_body({"sort": [{"views": "desc"}]})
+    """Nothing of these is refused any more: a sort parses (since the
+    sorted query phase, Queue A5c) and so do aggregations (since Queue
+    A8: parse_search_body returns the parsed tree); a malformed
+    aggregation tree is the reference's 400 (IllegalArgumentException),
+    not a typed not_lowerable."""
+    query, aggs, body = coordinator.parse_search_body(
+        {"sort": [{"views": "desc"}]})
     assert isinstance(query, dsl.MatchAllQuery)
+    assert aggs is None
     assert body["sort"] == [{"views": "desc"}]
-    for body, key in (({"aggs": {"n": {"max": {"field": "views"}}}},
-                       "aggs"),):
-        with pytest.raises(NotLowerable) as err:
-            coordinator.parse_search_body(body)
-        assert key in str(err.value)
-        assert "planner path" in str(err.value)
-        assert err.value.planner is True
+    _, aggs, _ = coordinator.parse_search_body(
+        {"aggs": {"n": {"max": {"field": "views"}}}})
+    assert list(aggs.aggregators) == ["n"]
+    with pytest.raises(IllegalArgumentException) as err:
+        coordinator.parse_search_body({"aggs": {"n": {"wibble": {}}}})
+    assert not isinstance(err.value, NotLowerable)
+    assert "unknown aggregation type [wibble]" in str(err.value)
 
 
 # ---- test_query_dsl.py's execution cases, with their expectations ----

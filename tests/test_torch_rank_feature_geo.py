@@ -5,8 +5,8 @@ geo_distance / geo_bounding_box queries.
 The geohash codec is held against the reference's functions directly;
 every REST case goes to the reference node and the port node
 (``torch_rest_pair``) and must give the same status and bytes, scores
-included, as well as the reference file's expectations. Left out:
-``TestGeohashGridAgg`` (the geohash_grid aggregation, Queue A8).
+included, as well as the reference file's expectations, the
+geohash_grid aggregation (``TestGeohashGridAgg``) among them.
 """
 
 import math
@@ -218,6 +218,52 @@ class TestGeoQueries:
             "size": 10})
         assert s == 200, res
         assert [h["_id"] for h in res["hits"]["hits"]] == ["paris"]
+
+
+class TestGeohashGridAgg:
+    def test_cells(self, geo):
+        status, res = geo.same("POST", "/places/_search", {
+            "size": 0, "aggs": {"cells": {"geohash_grid": {
+                "field": "location", "precision": 3}}}})
+        assert status == 200, res
+        buckets = res["aggregations"]["cells"]["buckets"]
+        keys = {b["key"] for b in buckets}
+        # london's gcpv..., paris u09..., known prefixes
+        assert GeoPointFieldType.geohash_encode(51.5074, -0.1278,
+                                                3) in keys
+        assert len(buckets) == 5
+        assert all(b["doc_count"] == 1 for b in buckets)
+
+    def test_precision_groups(self, pair):
+        pair.same("PUT", "/pts", {"mappings": {"properties": {
+            "p": {"type": "geo_point"}}}})
+        # two points very close together + one far away
+        for i, loc in enumerate([(48.8566, 2.3522), (48.8570, 2.3530),
+                                 (-33.8, 151.2)]):
+            pair.same("PUT", f"/pts/_doc/{i}",
+                      {"p": {"lat": loc[0], "lon": loc[1]}},
+                      params={"refresh": "true"})
+        _, res = pair.same("POST", "/pts/_search", {
+            "size": 0, "aggs": {"g": {"geohash_grid": {
+                "field": "p", "precision": 4}}}})
+        buckets = res["aggregations"]["g"]["buckets"]
+        assert len(buckets) == 2
+        assert buckets[0]["doc_count"] == 2  # count-ordered
+
+    def test_sub_aggs(self, geo):
+        status, res = geo.same("POST", "/places/_search", {
+            "size": 0, "aggs": {"cells": {
+                "geohash_grid": {"field": "location", "precision": 1},
+                "aggs": {"names": {"terms": {"field": "name"}}}}}})
+        assert status == 200, res
+        for b in res["aggregations"]["cells"]["buckets"]:
+            assert b["names"]["buckets"], b
+
+    def test_bad_precision_400(self, geo):
+        status, _ = geo.same("POST", "/places/_search", {
+            "size": 0, "aggs": {"g": {"geohash_grid": {
+                "field": "location", "precision": 13}}}})
+        assert status == 400
 
 
 FEATURES = [0.5, 2.0, 8.0, 32.0]

@@ -6,8 +6,8 @@ Every request goes to the reference node and the port node
 (``torch_rest_pair``); status and response bytes must be equal, with
 ``took`` at 0 and only the fields of ``torch_rest_pair.MASKED`` masked.
 The reference runs its fused kernel in interpret mode on the CPU, the
-port its plain torch path. Left out, for its queue:
-``test_aggs_through_rest`` (aggregations, Queue A8). ``GET /`` names
+port its plain torch path. ``test_aggs_through_rest`` (aggregations,
+Queue A8) is in ``test_torch_node.py``. ``GET /`` names
 each node's own build, so the root case checks the port's fields only.
 """
 
@@ -354,19 +354,26 @@ def test_msearch_items_match_reference(seeded):
 
 
 def test_msearch_item_of_an_unported_feature_fails_alone(seeded):
-    """An aggregation (a planner feature not ported yet) is that item's
-    typed 400; its sibling answers."""
+    """An item the port refuses is that item's 400 and its sibling
+    answers. Since aggregations are served (Queue A8) the refused item is
+    an unknown aggregation type, the reference's own 400, and the
+    answer is the reference's bytes; an aggregation item answers."""
     raw = ndjson({"index": "prod"}, {"query": {"match": {"name": "red"}},
-                                     "aggs": {"n": {"max": {
+                                     "aggs": {"n": {"maximum": {
                                          "field": "price"}}}},
-                 {"index": "prod"}, {"query": {"match": {"name": "red"}}})
-    status, body = seeded.port.handle("POST", "/_msearch", {}, None, raw)
+                 {"index": "prod"}, {"query": {"match": {"name": "red"}}},
+                 {"index": "prod"}, {"query": {"match": {"name": "red"}},
+                                     "aggs": {"n": {"max": {
+                                         "field": "price"}}}})
+    status, body = seeded.same("POST", "/_msearch", raw=raw)
     assert status == 200
-    first, second = body["responses"]
+    first, second, third = body["responses"]
     assert first["status"] == 400
-    assert first["error"]["type"] == "not_lowerable"
+    assert first["error"]["type"] == "illegal_argument_exception"
     assert second["status"] == 200
     assert second["hits"]["total"]["value"] == 3
+    assert third["status"] == 200
+    assert third["aggregations"]["n"]["value"] is not None
 
 
 def test_msearch_item_equals_its_search(seeded):

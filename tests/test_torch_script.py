@@ -14,9 +14,10 @@ module's vector interpreter.
   the transcendentals, the weak-typed scalars, the floored remainder and
   the three vector functions in XLA:CPU's summation order.
 
-Left out, each for its queue: ``bucket_script`` / ``bucket_selector``
-(aggregations, Queue A8), the ingest script processor, and
-``_update_by_query`` / ``_reindex`` with a script (Queue A4b).
+``bucket_script`` / ``bucket_selector`` (the aggregations' script
+pipelines) go through the pair like the REST cases. Left out, each for
+its queue: the ingest script processor, and ``_update_by_query`` /
+``_reindex`` with a script (Queue A4b).
 """
 
 from __future__ import annotations
@@ -315,6 +316,71 @@ class TestScriptScore:
         assert status == 200, res
         for h in res["hits"]["hits"]:
             assert h["_score"] >= 0.0
+
+
+@pytest.fixture
+def sales(pair):
+    rows = [("2021-01-01", 10, 1), ("2021-01-05", 30, 3),
+            ("2021-02-02", 100, 2), ("2021-02-20", 50, 5),
+            ("2021-03-03", 8, 2)]
+    for i, (d, revenue, units) in enumerate(rows):
+        pair.same("PUT", f"/sales/_doc/{i}",
+                  {"date": d, "revenue": revenue, "units": units},
+                  params={"refresh": "true"})
+    return pair
+
+
+class TestBucketScriptSelector:
+    def _monthly(self, node, extra_aggs):
+        body = {"size": 0, "aggs": {"by_month": {
+            "date_histogram": {"field": "date",
+                               "calendar_interval": "month"},
+            "aggs": {
+                "revenue": {"sum": {"field": "revenue"}},
+                "units": {"sum": {"field": "units"}},
+                **extra_aggs}}}}
+        status, res = node.same("POST", "/sales/_search", body)
+        assert status == 200, res
+        return res["aggregations"]["by_month"]["buckets"]
+
+    def test_bucket_script_per_unit_price(self, sales):
+        buckets = self._monthly(sales, {
+            "per_unit": {"bucket_script": {
+                "buckets_path": {"r": "revenue", "u": "units"},
+                "script": "params.r / params.u"}}})
+        assert buckets[0]["per_unit"]["value"] == pytest.approx(10.0)
+        assert buckets[1]["per_unit"]["value"] == pytest.approx(150 / 7)
+        assert buckets[2]["per_unit"]["value"] == pytest.approx(4.0)
+
+    def test_bucket_selector_drops_buckets(self, sales):
+        buckets = self._monthly(sales, {
+            "keep_big": {"bucket_selector": {
+                "buckets_path": {"r": "revenue"},
+                "script": "params.r >= 40"}}})
+        # Jan=40, Feb=150, Mar=8 → Mar dropped
+        assert len(buckets) == 2
+        assert [b["revenue"]["value"] for b in buckets] == [40.0, 150.0]
+
+    def test_count_path_and_compose(self, sales):
+        buckets = self._monthly(sales, {
+            "dense": {"bucket_selector": {
+                "buckets_path": {"c": "_count"},
+                "script": "params.c >= 2"}}})
+        assert all(b["doc_count"] >= 2 for b in buckets)
+
+    def test_bad_script_and_paths_400(self, sales):
+        body = {"size": 0, "aggs": {"m": {
+            "date_histogram": {"field": "date",
+                               "calendar_interval": "month"},
+            "aggs": {"x": {"bucket_script": {
+                "buckets_path": {"r": "revenue"},
+                "script": "params.r +"}}}}}}
+        status, _ = sales.same("POST", "/sales/_search", body)
+        assert status == 400
+        body["aggs"]["m"]["aggs"]["x"]["bucket_script"] = {
+            "buckets_path": "notamap", "script": "1"}
+        status, _ = sales.same("POST", "/sales/_search", body)
+        assert status == 400
 
 
 # ----------------------------------------------------------------------

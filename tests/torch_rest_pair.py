@@ -7,7 +7,13 @@ the text of a ``_cat`` table), with ``took`` set to 0 and the fields of
 mode on the CPU; the port node runs on the CPU (its plain path). Both
 nodes get the same node id (written into each data path before the
 node starts), so that the ids in ``_nodes/stats``, ``_cluster/state``
-and ``_cat/master`` compare as they are."""
+and ``_cat/master`` compare as they are.
+
+``random_agg_docs`` and ``random_agg_body`` make a seeded random mix of
+aggregation requests (terms with metrics under it, fixed and calendar
+histograms, stats, cardinality, range, filters, percentiles and
+pipelines, under random queries, sizes and sorts) over
+``AGG_MIX_MAPPING``, for the pair to compare."""
 
 import json
 import os
@@ -193,3 +199,81 @@ class Pair:
     def close(self):
         self.port.close()
         self.ref.close()
+
+
+#: the mapping random_agg_body's aggregations read: a keyword, a long,
+#: a double and a date (random_agg_docs fills it)
+AGG_MIX_MAPPING = {"properties": {
+    "tag": {"type": "keyword"}, "n": {"type": "long"},
+    "x": {"type": "double"}, "when": {"type": "date"},
+    "body": {"type": "text"}}}
+
+
+def random_agg_docs(rng, count):
+    """`count` seeded docs over AGG_MIX_MAPPING: Zipf tags, missing
+    values, ±0 and subnormal doubles among normal ones."""
+    docs = []
+    for _ in range(count):
+        doc = {"tag": f"t{int(rng.zipf(1.6)) % 12}",
+               "body": " ".join(rng.choice(["red", "blue", "green"], 2))}
+        if rng.random() < 0.9:
+            doc["n"] = int(rng.integers(-500, 5000))
+        if rng.random() < 0.9:
+            doc["x"] = float(rng.choice([rng.normal(0, 100), -0.0, 0.0,
+                                         1e-310, rng.normal(0, 1e-3)]))
+        if rng.random() < 0.9:
+            doc["when"] = int(1_600_000_000_000
+                              + rng.integers(0, 400) * 86_400_000)
+        docs.append(doc)
+    return docs
+
+
+def random_agg_body(rng):
+    """One seeded search body from the aggregation mix: terms (with
+    numeric metrics under it), histograms (fixed and calendar), stats,
+    cardinality, range, filters and pipelines, under a random query,
+    size and sort."""
+    metric = lambda: {str(rng.choice(["avg", "sum", "min", "max",  # noqa
+                                      "stats", "value_count"])): {
+        "field": str(rng.choice(["n", "x"]))}}
+    kinds = [
+        lambda: {"terms": {"field": "tag", "size": int(rng.integers(1, 15))},
+                 "aggs": {"m": metric(), "k": metric()}},
+        lambda: {"terms": {"field": "tag", "order": {"_key": "asc"}}},
+        lambda: {"histogram": {"field": str(rng.choice(["n", "x"])),
+                               "interval": float(rng.choice([7, 250, 0.5]))}},
+        lambda: {"date_histogram": {"field": "when", "calendar_interval":
+                                    str(rng.choice(["month", "week"]))},
+                 "aggs": {"s": {"sum": {"field": "n"}},
+                          "cs": {"cumulative_sum": {"buckets_path": "s"}},
+                          "d": {"derivative": {"buckets_path": "s"}}}},
+        lambda: {"date_histogram": {"field": "when",
+                                    "fixed_interval": "10d"}},
+        lambda: metric(),
+        lambda: {"cardinality": {"field": "tag"}},
+        lambda: {"range": {"field": "n", "ranges": [
+            {"to": 100}, {"from": 100, "to": 2000}, {"from": 2000}]}},
+        lambda: {"filters": {"filters": {
+            "r": {"match": {"body": "red"}},
+            "b": {"range": {"n": {"gte": 1000}}}}}},
+        lambda: {"percentiles": {"field": "x"}},
+    ]
+    aggs = {f"a{j}": kinds[int(rng.integers(0, len(kinds)))]()
+            for j in range(int(rng.integers(1, 4)))}
+    for name, agg in list(aggs.items()):
+        if "date_histogram" in agg and "aggs" in agg:
+            aggs["avg_s"] = {"avg_bucket": {"buckets_path": f"{name}>s"}}
+            break
+    body = {"size": int(rng.choice([0, 0, 3])), "aggs": aggs}
+    q = int(rng.integers(0, 4))
+    if q == 1:
+        body["query"] = {"match": {"body": str(rng.choice(
+            ["red", "blue"]))}}
+    elif q == 2:
+        body["query"] = {"range": {"n": {"gte": int(rng.integers(0, 3000))}}}
+    elif q == 3:
+        body["query"] = {"match": {"body": "green"}}
+        body["min_score"] = 0.1
+    if body["size"] and rng.random() < 0.5:
+        body["sort"] = [{"n": "desc"}]
+    return body
